@@ -1,0 +1,25 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of `paddle_tpu`.
+
+The JAX package `paddle_tpu` is the reference this port is held
+against, on the same weights and inputs; this package imports torch and
+numpy only, never jax and nothing of `paddle_tpu`. Its layout mirrors
+the JAX package so each counterpart is easy to find.
+
+Ported so far — the serving path:
+
+* `serving.ServingEngine` — continuous batching over a paged KV cache
+  (`serving.kv_cache`, `serving.scheduler`, `serving.batcher`), one
+  fixed-shape mixed step per iteration;
+* `models.GPTForGeneration` over the stacked decoder of
+  `incubate.nn.fused_transformer`;
+* `ops.paged_attention` — block-table paged attention, a CUDA kernel
+  written for Hopper (`ops/csrc/paged_attention.cu`) with its plain
+  PyTorch version beside it;
+* `convert.load_jax_gpt` — carries a JAX model's parameters across.
+
+Every entry point takes `device=`, defaulting to "cuda"; without a card
+that default raises instead of falling back to the CPU.
+"""
+from ._device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -34,6 +34,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy compile/e2e tests excluded from tier-1")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")
 
 
 @pytest.fixture(autouse=True)
