@@ -3,24 +3,39 @@ NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root
 
-Drives the port's serving path end to end and holds every CUDA kernel
-on it against its plain PyTorch version. Phases, one line each:
+Drives the port's two paths end to end — serving and the train step —
+and holds every CUDA kernel on them against its plain PyTorch version.
+Phases, one line each (or a few):
 
 1. device — the card's name, count, and `nvidia-smi` name/power limit;
 2. build — every kernel source compiled with nvcc (one process per
    source, all started together);
-3. kernel check — each kernel against its plain version at the serving
-   shapes, with times (CUDA events, L2 flushed between launches) and
-   the card's bound for the same work;
+3. kernel check — each kernel against its plain version at the shapes
+   its path gives it (paged attention at the serving step's; flash
+   attention forward/backward and add+LayerNorm forward/backward at the
+   train step's), with times (CUDA events, L2 flushed between
+   launches), the card's bound for the same work and, where one
+   PyTorch call computes the same function, that call's time as a
+   yardstick the port never calls;
 4. serve — a full-width GPT-350M (random weights from a numpy seed,
    carried in through `convert.load_jax_gpt`) served by the port's
-   `ServingEngine`: 16 requests to completion; every kernel of the path
-   must have launched, paged attention once per layer per step;
+   `ServingEngine`: 16 requests to completion; paged attention must
+   have launched once per layer per step;
 5. on-card correctness — two served requests re-scored by the plain
    dense causal forward in fp32, teacher-forced on the engine's output;
    then a short profiled window of decode steps (host vs device time);
-6. a JSON line listing every kernel with its launches, error and times;
-7. the last line, `{"ok": true, "device": {...}}`.
+6. train — GPT-350M at full width in `bench_gpt`'s config (bf16,
+   bf16 grads, remat, fused CE in 4 chunks) trained by the port's
+   `HybridGPT` at batch 8 for warm-up and timed steps on one fixed
+   batch (random weights from a numpy seed through
+   `convert.load_jax_hybrid_gpt`): finite, falling loss, and every
+   train kernel launched exactly as remat predicts per step; then one
+   profiled step, and the same steps timed at bench_gpt's batch 32;
+7. on-card train check — one fp32 step of the same widths at 2 layers
+   on the card (kernels) and on a CPU copy (plain versions): loss and
+   every parameter after the step must agree;
+8. a JSON line listing every kernel with its launches, error and times;
+9. the last line, `{"ok": true, "device": {...}}`.
 
 Any failed phase raises and exits non-zero; without a card the script
 exits non-zero before printing any result.
@@ -39,6 +54,11 @@ SLOTS, BLOCK, MAX_SEQ, BUDGET = 8, 16, 1024, 256
 N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, (64, 512), 64
 SEED = 0
 
+# GPT-350M train step: bench.py's bench_gpt TPU config at batch 8 (its
+# own batch, 32, is timed after it)
+TRAIN_BATCH, BENCH_BATCH, TRAIN_SEQ = 8, 32, 1024
+WARMUP_STEPS, TIMED_STEPS = 3, 5
+
 # NVIDIA H100 SXM data-sheet peaks (dense): device memory bytes/s, and
 # flop/s by operand type (fp32 outside the tensor cores)
 PEAK_BYTES = 3.35e12
@@ -50,6 +70,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # significant bits) before its products, the kernel keeps them fp32,
 # and both round the output — a bf16 spacing or two (2^-6 at |x| ~ 2).
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the train kernels, same form. fp32: sums in another order; the flash
+# backward subtracts two nearly equal D-term dot products (ds = p * (dp
+# - delta)), so its fp32 error scales with their size. bf16: kernels
+# and plain versions multiply bf16 operands in fp32, round p and ds to
+# bf16 before the products they feed (as splash does) and round the
+# outputs once: a bf16 spacing or two of values up to ~4.
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def fail(msg):
@@ -389,6 +416,431 @@ def profile_decode(eng, window=16):
               f" ms x{e.count // window}" for e in top), flush=True)
 
 
+# ------------------------------------------------ phase 3, train kernels
+
+
+def flash_bound(q, backward):
+    """(bound_ms, bound_by) of causal flash attention over q's shape:
+    q, k, v and out (and, backward, dout, dq, dk, dv) moved once, the
+    fp32 lse once; 4*D flops per visible (query, key) pair forward
+    (two products), 2.5 times that backward (five products)."""
+    B, H, S, D = q.shape
+    tensors = 8 if backward else 4
+    nbytes = tensors * q.numel() * q.element_size() + B * H * S * 4
+    flops = 4 * B * H * D * S * (S + 1) // 2 * (2.5 if backward else 1)
+    t_bytes = nbytes / PEAK_BYTES
+    t_flops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]]
+    return (max(t_bytes, t_flops) * 1e3,
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
+def add_ln_bound(x2):
+    """(bound_ms, bound_by) of add+LN forward or backward over [N, d]:
+    four [N, d] tensors moved once (x, r, out, z; or z, g, g_z, dz),
+    w/b and the fp32 row statistics once; ~10 flops per element."""
+    N, d = x2.shape
+    nbytes = 4 * x2.numel() * x2.element_size() + 2 * d * 4 + 2 * N * 4
+    t_bytes = nbytes / PEAK_BYTES
+    t_flops = 10 * x2.numel() / PEAK_FLOPS["float32"]
+    return (max(t_bytes, t_flops) * 1e3,
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
+def close_or_fail(name, got, want, tol):
+    """Max abs error of `got` against `want`; fails past tol (1 + |want|)."""
+    import torch
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite output")
+    diff = (got - want).abs()
+    err = float(diff.max())
+    if not bool((diff <= tol * (1 + want.abs())).all()):
+        fail(f"{name}: max abs err {err} past {tol} (1 + |plain|)")
+    return err
+
+
+def check_flash(fa, device, flush):
+    """Phase 3 for flash attention at the train step's [8, 16, 1024, 64]:
+    forward kernel (out, lse) against its plain version, backward through
+    torch.autograd.grad (dq, dk, dv) against the plain backward; returns
+    the bf16 {"flash_fwd": ..., "flash_bwd": ...}."""
+    import torch
+    import torch.nn.functional as F
+    B, H, S, D = TRAIN_BATCH, HEADS, TRAIN_SEQ, HIDDEN // HEADS
+    scale = 1.0 / D ** 0.5
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol = TRAIN_TOL[name]
+        g = torch.Generator(device=device).manual_seed(SEED)
+        q, k, v, dout = (torch.randn(B, H, S, D, generator=g, device=device,
+                                     dtype=dtype) for _ in range(4))
+        qs = (q * scale).to(dtype)
+        out, lse = fa._launch_fwd(qs, k, v, True)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_fwd_reference(qs, k, v, True)
+        err_f = max(close_or_fail(f"flash_fwd {name} out", out, ref_out, tol),
+                    close_or_fail(f"flash_fwd {name} lse", lse, ref_lse,
+                                  TOL["float32"]))
+        # the backward through autograd (splash_mha scales q, the
+        # kernels see the scaled q) against the plain backward, with
+        # the scale carried into dq as autograd carries it
+        args = [t.detach().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(fa.splash_mha(*args, causal=True), args,
+                                  dout)
+        torch.cuda.synchronize()
+        dqs, dk, dv = fa.flash_bwd_reference(qs, k, v, ref_out, ref_lse,
+                                             dout, True)
+        want = ((dqs * scale).to(dtype), dk, dv)
+        err_b = max(close_or_fail(f"flash_bwd {name} {n}", a, e, tol)
+                    for n, a, e in zip(("dq", "dk", "dv"), got, want))
+        del got, want, dqs, dk, dv, ref_out, ref_lse
+        fwd_ms = cuda_ms(lambda: fa._launch_fwd(qs, k, v, True), flush=flush)
+        bwd_ms = cuda_ms(lambda: fa._launch_bwd(qs, k, v, out, lse, dout,
+                                                True), flush=flush)
+        fwd_plain = cuda_ms(lambda: fa.flash_fwd_reference(qs, k, v, True),
+                            iters=3, flush=flush)
+        bwd_plain = cuda_ms(lambda: fa.flash_bwd_reference(
+            qs, k, v, out, lse, dout, True), iters=3, flush=flush)
+        # yardsticks: one library call for the same function (scale 1
+        # on the pre-scaled q), backward through autograd
+        fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, k, v, is_causal=True, scale=1.0), flush=flush)
+        sq = [t.detach().requires_grad_() for t in (qs, k, v)]
+        so = F.scaled_dot_product_attention(*sq, is_causal=True, scale=1.0)
+        bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+            so, sq, dout, retain_graph=True), flush=flush)
+        del so, sq
+        for kname, err, ms, plain, lib, bwd in (
+                ("flash_fwd", err_f, fwd_ms, fwd_plain, fwd_lib, False),
+                ("flash_bwd", err_b, bwd_ms, bwd_plain, bwd_lib, True)):
+            bound_ms, bound_by = flash_bound(q, bwd)
+            records.setdefault(name, {})[kname] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib)
+            print(f"kernel check: {kname} {name} [{B}, {H}, {S}, {D}] causal"
+                  f" max_abs_err={err:.3g} (tol {tol} (1 + |plain|)) "
+                  f"kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}) yardstick: "
+                  f"scaled_dot_product_attention"
+                  f"{' backward' if bwd else ''} {lib:.4f} ms", flush=True)
+        del q, k, v, dout, qs, out, lse, args
+    return records["bfloat16"]
+
+
+def check_add_ln(ln, device, flush):
+    """Phase 3 for add+LayerNorm at the train step's 8192 rows x 1024:
+    forward (out, z, mu, rstd) and backward (dz) kernels against their
+    plain versions; returns the bf16 {"add_ln_fwd": ..., "add_ln_bwd":
+    ...}."""
+    import torch
+    import torch.nn.functional as F
+    N, d = TRAIN_BATCH * TRAIN_SEQ, HIDDEN
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol = TRAIN_TOL[name]
+        g = torch.Generator(device=device).manual_seed(SEED)
+        x, r, gout, gz = (torch.randn(N, d, generator=g, device=device,
+                                      dtype=dtype) for _ in range(4))
+        w = torch.rand(d, generator=g, device=device)
+        b = torch.randn(d, generator=g, device=device)
+        got = ln._launch_fwd(x, r, w, b, 1e-5)
+        torch.cuda.synchronize()
+        want = ln.add_ln_fwd_reference(x, r, w, b, 1e-5)
+        err_f = max(close_or_fail(f"add_ln_fwd {name} {n}", a, e, tol)
+                    for n, a, e in zip(("out", "z", "mu", "rstd"), got,
+                                       want))
+        z, mu, rs = want[1], want[2], want[3]
+        dz = ln._launch_bwd(z, w, mu, rs, gout, gz)
+        torch.cuda.synchronize()
+        err_b = close_or_fail(f"add_ln_bwd {name} dz", dz,
+                              ln.add_ln_bwd_reference(z, w, mu, rs, gout,
+                                                      gz), tol)
+        fwd_ms = cuda_ms(lambda: ln._launch_fwd(x, r, w, b, 1e-5),
+                         flush=flush)
+        bwd_ms = cuda_ms(lambda: ln._launch_bwd(z, w, mu, rs, gout, gz),
+                         flush=flush)
+        fwd_plain = cuda_ms(lambda: ln.add_ln_fwd_reference(x, r, w, b,
+                                                            1e-5),
+                            flush=flush)
+        bwd_plain = cuda_ms(lambda: ln.add_ln_bwd_reference(
+            z, w, mu, rs, gout, gz), flush=flush)
+        # yardsticks: F.layer_norm over the pre-added z (no single call
+        # adds and normalises), and its backward through autograd
+        wd, bd = w.to(dtype), b.to(dtype)      # F.layer_norm's types
+        fwd_lib = cuda_ms(lambda: F.layer_norm(z, (d,), wd, bd, 1e-5),
+                          flush=flush)
+        zl = z.detach().requires_grad_()
+        lo = F.layer_norm(zl, (d,), wd, bd, 1e-5)
+        bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+            lo, zl, gout, retain_graph=True), flush=flush)
+        del lo, zl
+        bound_ms, bound_by = add_ln_bound(x)
+        for kname, err, ms, plain, lib in (
+                ("add_ln_fwd", err_f, fwd_ms, fwd_plain, fwd_lib),
+                ("add_ln_bwd", err_b, bwd_ms, bwd_plain, bwd_lib)):
+            records.setdefault(name, {})[kname] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib)
+            print(f"kernel check: {kname} {name} [{N}, {d}] "
+                  f"max_abs_err={err:.3g} (tol {tol} (1 + |plain|)) "
+                  f"kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}) yardstick: "
+                  f"F.layer_norm{' backward' if kname.endswith('bwd') else ''}"
+                  f" over the pre-added z {lib:.4f} ms", flush=True)
+    return records["bfloat16"]
+
+
+# ------------------------------------------------------------- phase 6
+
+
+def random_hybrid_params(layers, seed=SEED):
+    """GPT-350M trainer parameters in the JAX `HybridGPT` layout (nested,
+    blocks stacked on [L]), drawn from a numpy seed with the JAX
+    trainer's init scales: N(0, 0.02), output projections N(0, 0.02 /
+    sqrt(2L)), unit LayerNorm scales, zero biases."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    L, D, FF, V = layers, HIDDEN, 4 * HIDDEN, VOCAB
+    proj = 0.02 / (2 * L) ** 0.5
+
+    def normal(shape, std=0.02):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    def zeros(*shape):
+        return np.zeros(shape, np.float32)
+
+    return {"tok_emb": normal((V, D)), "pos_emb": normal((TRAIN_SEQ, D)),
+            "ln_f_w": np.ones(D, np.float32), "ln_f_b": zeros(D),
+            "head": normal((D, V)),
+            "blocks": {"ln1_w": np.ones((L, D), np.float32),
+                       "ln1_b": zeros(L, D),
+                       "w_qkv": normal((L, D, 3 * D)),
+                       "b_qkv": zeros(L, 3 * D),
+                       "w_o": normal((L, D, D), proj), "b_o": zeros(L, D),
+                       "ln2_w": np.ones((L, D), np.float32),
+                       "ln2_b": zeros(L, D),
+                       "w_fc1": normal((L, D, FF)), "b_fc1": zeros(L, FF),
+                       "w_fc2": normal((L, FF, D), proj),
+                       "b_fc2": zeros(L, D)}}
+
+
+def train_config(**kw):
+    """bench_gpt's TPU config (bench.py:45-54) but remat_policy None."""
+    import torch
+    from paddle_tpu_torch.parallel.hybrid_gpt import GPTConfig
+    base = dict(vocab_size=VOCAB, seq_len=TRAIN_SEQ, d_model=HIDDEN,
+                n_heads=HEADS, n_layers=LAYERS, remat=True, fused_ce=True,
+                ce_seq_chunks=4, bf16_grads=True,
+                compute_dtype=torch.bfloat16)
+    base.update(kw)
+    return GPTConfig(**base)
+
+
+def timed_steps(trainer, params, opt, batch, first_step, seed):
+    """WARMUP_STEPS then TIMED_STEPS train steps on one fixed random
+    batch; returns (params, opt, losses, seconds of the timed steps,
+    peak bytes)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, VOCAB, (batch, TRAIN_SEQ))
+    lab = rng.integers(0, VOCAB, (batch, TRAIN_SEQ))
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    step = first_step
+    for _ in range(WARMUP_STEPS):
+        params, opt, loss = trainer.train_step(params, opt, tok, lab,
+                                               step_num=step)
+        losses.append(float(loss))
+        step += 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = []
+    for _ in range(TIMED_STEPS):
+        params, opt, loss = trainer.train_step(params, opt, tok, lab,
+                                               step_num=step)
+        timed.append(loss)
+        step += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (params, opt, losses + [float(x) for x in timed], wall,
+            torch.cuda.max_memory_allocated())
+
+
+def train_line(batch, wall, peak, losses):
+    # bench.py's train flops per token: 6 N + 6 L S d
+    n_flop = 12 * LAYERS * HIDDEN ** 2 + VOCAB * HIDDEN + TRAIN_SEQ * HIDDEN
+    flops_tok = 6 * n_flop + 6 * LAYERS * TRAIN_SEQ * HIDDEN
+    tps = batch * TRAIN_SEQ * TIMED_STEPS / wall
+    print(f"train: batch {batch}, {TIMED_STEPS} timed steps after "
+          f"{WARMUP_STEPS} warm-up: {wall * 1e3 / TIMED_STEPS:.1f} ms/step, "
+          f"{tps:.0f} tokens/s, "
+          f"{tps * flops_tok / PEAK_FLOPS['bfloat16']:.1%} of the bf16 peak "
+          f"({flops_tok} flops/token), max_memory_allocated {peak} B; "
+          "losses " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+
+
+def train(device, counters):
+    """Phase 6: returns launches per kernel over every step of the
+    batch-8 run. `counters` lists every kernel's (module, attribute,
+    name); all are zeroed just before its first step and read after its
+    last. Then one step is profiled, and bench_gpt's own batch
+    (BENCH_BATCH) is timed as well."""
+    import numpy as np
+    from paddle_tpu_torch.convert import load_jax_hybrid_gpt
+    from paddle_tpu_torch.parallel.hybrid_gpt import (HybridGPT,
+                                                      init_opt_state)
+
+    t0 = time.perf_counter()
+    cfg = train_config()
+    trainer = HybridGPT(cfg, device=device)
+    params = load_jax_hybrid_gpt(random_hybrid_params(LAYERS),
+                                 device=device)
+    opt = init_opt_state(cfg, params)
+    n_params = sum(p.numel() for p in params["blocks"].values()) + sum(
+        params[k].numel() for k in params if k != "blocks")
+    print(f"train: GPT-350M ({n_params} parameters) built in "
+          f"{time.perf_counter() - t0:.1f} s: vocab {VOCAB}, seq "
+          f"{TRAIN_SEQ}, d_model {HIDDEN}, {HEADS} heads, {LAYERS} layers,"
+          f" bf16 compute, bf16_grads, remat (remat_policy=None: bench_gpt "
+          f"uses 'save_splash_residuals', not ported), fused_ce, "
+          f"ce_seq_chunks=4", flush=True)
+    for mod, attr, _ in counters:
+        setattr(mod, attr, 0)
+    params, opt, losses, wall, peak = timed_steps(
+        trainer, params, opt, TRAIN_BATCH, 1, SEED + 3)
+    launches = {name: getattr(mod, attr) for mod, attr, name in counters}
+    train_line(TRAIN_BATCH, wall, peak, losses)
+    if not all(np.isfinite(losses)):
+        fail(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    steps = WARMUP_STEPS + TIMED_STEPS
+    want = {"flash_fwd": 2 * LAYERS, "flash_bwd": LAYERS,
+            "add_ln_fwd": 2 * LAYERS, "add_ln_bwd": LAYERS}
+    for name, per_step in want.items():
+        if launches[name] != steps * per_step:
+            fail(f"train: {name} launched {launches[name]} times, expected "
+                 f"{steps} steps x {per_step}")
+    for name, n in launches.items():
+        if name not in want and n:
+            fail(f"train: {name} launched {n} times on the train path")
+    print("train: launches " + ", ".join(
+        f"{n} {launches[n]} ({launches[n] // steps}/step)" for n in want)
+        + "; other kernels 0", flush=True)
+    rng = np.random.default_rng(SEED + 3)
+    tok = rng.integers(0, VOCAB, (TRAIN_BATCH, TRAIN_SEQ))
+    lab = rng.integers(0, VOCAB, (TRAIN_BATCH, TRAIN_SEQ))
+    profile_train(trainer, params, opt, tok, lab, steps + 1)
+    params, opt, losses, wall, peak = timed_steps(
+        trainer, params, opt, BENCH_BATCH, steps + 2, SEED + 6)
+    train_line(BENCH_BATCH, wall, peak, losses)
+    if not all(np.isfinite(losses)):
+        fail(f"train: non-finite loss at batch {BENCH_BATCH} {losses}")
+    del params, opt, trainer
+    return launches
+
+
+def check_train_step(device):
+    """Phase 7: one fp32 train step at the full widths, 2 layers, batch
+    1, remat off, on the card (kernels) and on a CPU copy (plain
+    versions). The loss within 1e-4 relative. Adam's first moment after
+    the step is 0.1 x the clipped gradient: each within 1e-4 of its
+    tensor's largest |m| (fp32 sums in another order leave ~1e-6 of
+    it). Each parameter within 0.25 lr: Adam's first step moves an
+    element by lr * g / (|g| + eps), so an element whose |g| is near eps
+    moves by Δg / (4 eps) lr for gradient noise Δg (cancellation noise
+    of 1e-9 shows as 0.025 lr), while a wrong sign is 2 lr apart."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_hybrid_gpt
+    from paddle_tpu_torch.parallel.hybrid_gpt import (HybridGPT,
+                                                      init_opt_state)
+    layers = 2
+    cfg = train_config(n_layers=layers, remat=False, bf16_grads=False,
+                       compute_dtype=torch.float32)
+    arrays = random_hybrid_params(layers, seed=SEED + 4)
+    rng = np.random.default_rng(SEED + 5)
+    tok = rng.integers(0, VOCAB, (1, TRAIN_SEQ))
+    lab = rng.integers(0, VOCAB, (1, TRAIN_SEQ))
+    out = {}
+    for dev in (device, "cpu"):
+        params = load_jax_hybrid_gpt(arrays, device=dev)
+        opt = init_opt_state(cfg, params)
+        params, opt, loss = HybridGPT(cfg, device=dev).train_step(
+            params, opt, tok, lab)
+        out[str(dev)] = (float(loss), params, opt)
+    (lg, pg, og), (lc, pc, oc) = out[str(device)], out["cpu"]
+    if not abs(lg - lc) <= 1e-4 * abs(lc):
+        fail(f"train check: loss on the card {lg} vs the CPU {lc}")
+    p_tol = 0.25 * cfg.learning_rate
+    worst = {"param": 0.0, "moment": 0.0}
+
+    def walk(a, b, oa, ob, path=""):
+        for k in a:
+            if isinstance(a[k], dict):
+                walk(a[k], b[k], oa[k], ob[k], path + k + ".")
+                continue
+            err = float((a[k].cpu() - b[k]).abs().max())
+            worst["param"] = max(worst["param"], err)
+            if err > p_tol:
+                fail(f"train check: {path}{k} differs by {err} past {p_tol}")
+            m_ref = ob[k]["m"]
+            m_err = float((oa[k]["m"].cpu() - m_ref).abs().max()) / max(
+                float(m_ref.abs().max()), 1e-30)
+            worst["moment"] = max(worst["moment"], m_err)
+            if m_err > 1e-4:
+                fail(f"train check: {path}{k} first moment differs by "
+                     f"{m_err:.3g} of its largest value, past 1e-4")
+    walk(pg, pc, og, oc)
+    print(f"check: one fp32 train step, {layers} layers at full width, "
+          f"batch 1: loss {lg:.6f} on the card vs {lc:.6f} on the CPU "
+          f"(rel {abs(lg - lc) / abs(lc):.2e}, tol 1e-4); Adam first "
+          f"moments within {worst['moment']:.3g} of their largest value "
+          f"(tol 1e-4); parameters within {worst['param']:.3g} (tol "
+          f"{p_tol:.3g} = 0.25 lr)", flush=True)
+
+
+def profile_train(trainer, params, opt, tok, lab, step_num):
+    """Where a train step's device time goes: one step under
+    torch.profiler after the timed window, its host time against the
+    device time of the kernels it launched. Informational: prints "not
+    measured" when the profiler records no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(params, opt, tok, lab, step_num=step_num)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    if not dev:
+        print(f"profile: train step {host_ms:.1f} ms on the host clock "
+              "(profiled); device time not measured (no device events)",
+              flush=True)
+        return
+    device_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    ours = {}
+    for e in dev:
+        for fam in ("flash", "add_ln"):
+            if f"{fam}_" in e.key:
+                ours[fam] = ours.get(fam, 0.0) + e.self_device_time_total
+    print(f"profile: one train step, {host_ms:.1f} ms on the host clock "
+          f"(profiled), {device_ms:.1f} ms of device time in "
+          f"{sum(e.count for e in dev)} device launches, device busy "
+          f"{device_ms / host_ms:.1%}; the port's kernels: " + ", ".join(
+              f"{fam}* {t / 1e3:.2f} ms" for fam, t in sorted(ours.items()))
+          + "; most device time: " + "; ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms "
+              f"x{e.count}" for e in top), flush=True)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -397,6 +849,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import layer_norm as ln
     from paddle_tpu_torch.ops import paged_attention as pa
 
     device = torch.device("cuda:0")
@@ -412,29 +866,52 @@ def main():
           f"CUDA {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
-    # (name, builder, module, counter attribute, TPU kernel replaced)
-    kernels = [("paged_attention", pa.build, pa, "launch_count",
-                "paddle_tpu/ops/pallas/paged_attention.py:101",
-                "paddle_tpu_torch/ops/csrc/paged_attention.cu")]
+    # (name, module, counter attribute, TPU kernel replaced, source)
+    csrc = "paddle_tpu_torch/ops/csrc/"
+    pallas = "paddle_tpu/ops/pallas/"
+    kernels = [
+        ("paged_attention", pa, "launch_count",
+         pallas + "paged_attention.py:101", csrc + "paged_attention.cu"),
+        ("flash_fwd", fa, "fwd_launch_count",
+         pallas + "flash_attention.py:99", csrc + "flash_attention.cu"),
+        ("flash_bwd", fa, "bwd_launch_count",
+         pallas + "flash_attention.py:99", csrc + "flash_attention.cu"),
+        ("add_ln_fwd", ln, "fwd_launch_count",
+         pallas + "layer_norm.py:34", csrc + "layer_norm.cu"),
+        ("add_ln_bwd", ln, "bwd_launch_count",
+         pallas + "layer_norm.py:49", csrc + "layer_norm.cu")]
+    build_fns = (pa.build, fa.build, ln.build)     # one per source
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as ex:
-        libs = list(ex.map(lambda k: k[1](), kernels))
-    print(f"build: {len(libs)} kernel source(s) in "
+    with ThreadPoolExecutor(len(build_fns)) as ex:
+        libs = list(ex.map(lambda b: b(), build_fns))
+    print(f"build: {len(libs)} kernel sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    counters = [(m, attr, name) for name, m, attr, _r, _s in kernels]
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=device)
     checks = {"paged_attention": check_paged_attention(pa, device, flush)}
+    checks.update(check_flash(fa, device, flush))
+    checks.update(check_add_ln(ln, device, flush))
     del flush
+    torch.cuda.empty_cache()
 
-    eng, reqs, launches = serve(
-        device, [(k[2], k[3], k[0]) for k in kernels])
+    eng, reqs, serve_launches = serve(device, counters[:1])
     check_outputs(eng.model, reqs, device)
     profile_decode(eng)
+    del eng, reqs
+    torch.cuda.empty_cache()
+
+    launches = train(device, counters)
+    launches.update(serve_launches)
+    check_train_step(device)
 
     line = {"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=launches[name], library_ms=None, **checks[name])
-        for name, _b, _m, _c, replaces, source in kernels]}
+        launches=launches[name],
+        **{k: checks[name][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        library_ms=checks[name].get("library_ms"))
+        for name, _m, _c, replaces, source in kernels]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": kind,

@@ -5,17 +5,21 @@ against, on the same weights and inputs; this package imports torch and
 numpy only, never jax and nothing of `paddle_tpu`. Its layout mirrors
 the JAX package so each counterpart is easy to find.
 
-Ported so far — the serving path:
+Ported so far:
 
-* `serving.ServingEngine` — continuous batching over a paged KV cache
-  (`serving.kv_cache`, `serving.scheduler`, `serving.batcher`), one
-  fixed-shape mixed step per iteration;
-* `models.GPTForGeneration` over the stacked decoder of
+* the serving path — `serving.ServingEngine`: continuous batching over
+  a paged KV cache (`serving.kv_cache`, `serving.scheduler`,
+  `serving.batcher`), one fixed-shape mixed step per iteration, over
+  `models.GPTForGeneration` and the stacked decoder of
   `incubate.nn.fused_transformer`;
-* `ops.paged_attention` — block-table paged attention, a CUDA kernel
-  written for Hopper (`ops/csrc/paged_attention.cu`) with its plain
-  PyTorch version beside it;
-* `convert.load_jax_gpt` — carries a JAX model's parameters across.
+* the single-device train step — `parallel.hybrid_gpt.HybridGPT`;
+* the kernels, each a CUDA source written for Hopper under `ops/csrc/`
+  with its plain PyTorch version beside it: `ops.paged_attention`
+  (block-table paged attention), `ops.flash_attention` (causal flash
+  attention, forward and backward) and `ops.layer_norm` (fused
+  residual-add + LayerNorm, forward and backward);
+* `convert.load_jax_gpt` and `convert.load_jax_hybrid_gpt` — carry a
+  JAX model's or trainer's parameters across.
 
 Every entry point takes `device=`, defaulting to "cuda"; without a card
 that default raises instead of falling back to the CPU.

@@ -1,19 +1,26 @@
-"""Carry a JAX `GPTForGeneration`'s parameters into the port.
+"""Carry JAX models' parameters into the port.
 
-The input is a `{name: np.ndarray}` dict in the order of the JAX
-model's `_gen_tensors()`: `word_embeddings`, `position_embeddings`,
-each decoder parameter under its `_PARAM_ORDER` name, `ln_f.weight`,
-`ln_f.bias` and `lm_head.weight`. The caller builds it from the JAX
-model (only code that imports both packages does); this module never
-touches jax.
+* `load_jax_gpt`: a JAX `GPTForGeneration`, given as a
+  `{name: np.ndarray}` dict in the order of the JAX model's
+  `_gen_tensors()`: `word_embeddings`, `position_embeddings`, each
+  decoder parameter under its `_PARAM_ORDER` name, `ln_f.weight`,
+  `ln_f.bias` and `lm_head.weight`.
+* `load_jax_hybrid_gpt`: the JAX `HybridGPT` trainer's nested `params`
+  (and optionally its zero_stage-0 `opt_state`), as `jax.device_get`
+  returns them.
+
+The caller builds the numpy inputs from the JAX side (only code that
+imports both packages does); this module never touches jax.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .incubate.nn.fused_transformer import _PARAM_ORDER
 from .models.gpt import GPTForGeneration
+from .parallel.hybrid_gpt import param_shapes
 
 #: input name -> the port's state_dict key
 JAX_GPT_NAMES = {"word_embeddings": "word_embeddings.weight",
@@ -49,3 +56,55 @@ def load_jax_gpt(arrays, num_attention_heads, *, compute_dtype="float32",
              for n, a in arrays.items()}
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _as_tensor(a, device):
+    # bf16 arrays arrive as ml_dtypes' bfloat16, which torch cannot wrap:
+    # widen to fp32 (exact)
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def _load_tree(tree, shapes, what, device):
+    missing = sorted(set(shapes) - set(tree))
+    unknown = sorted(set(tree) - set(shapes))
+    if missing or unknown:
+        raise ValueError(f"{what}: missing {missing}, unknown {unknown}")
+    out = {}
+    for name, want in shapes.items():
+        if isinstance(want, dict):
+            out[name] = _load_tree(tree[name], want, f"{what}[{name}]",
+                                   device)
+            continue
+        a = tree[name]
+        if tuple(np.shape(a)) != want:
+            raise ValueError(f"{what}[{name}]: shape {tuple(np.shape(a))},"
+                             f" expected {want}")
+        out[name] = _as_tensor(a, device)
+    return out
+
+
+def load_jax_hybrid_gpt(params, opt_state=None, *, device="cuda"):
+    """The JAX trainer's `params` as the port's fp32 parameter dict on
+    `device` (`paddle_tpu_torch.parallel.hybrid_gpt`), and with
+    `opt_state` given, `(params, opt_state)` with fp32 Adam moments.
+    Widths follow from the arrays; raises on a missing or unknown name
+    or a shape that does not fit them (MoE and ZeRO-flat layouts
+    included)."""
+    dev = resolve_device(device)
+    try:
+        V, d = np.shape(params["tok_emb"])
+        S = np.shape(params["pos_emb"])[0]
+        L, _, ff = np.shape(params["blocks"]["w_fc1"])
+    except (KeyError, TypeError, ValueError) as e:
+        raise ValueError(f"JAX HybridGPT parameters: cannot read the "
+                         f"widths ({e!r})") from None
+    shapes = param_shapes(V, S, d, ff, L)
+    out = _load_tree(params, shapes, "JAX HybridGPT params", dev)
+    if opt_state is None:
+        return out
+
+    def moments(sh):
+        return {k: moments(v) if isinstance(v, dict) else
+                {"m": v, "v": v} for k, v in sh.items()}
+    return out, _load_tree(opt_state, moments(shapes),
+                           "JAX HybridGPT opt_state", dev)

@@ -1,0 +1,933 @@
+// Flash attention for Hopper (sm_90a): causal or full multi-head
+// self-attention over [B, H, S, D], forward and backward.
+//
+// Replaces the TPU's splash attention kernel as the JAX package builds it
+// (paddle_tpu/ops/pallas/flash_attention.py:_splash_kernel, entered
+// through splash_mha): the forward and its fused dq/dkv backward. The
+// query arrives already scaled (and rounded to its dtype) by the
+// wrapper, so every kernel here runs with scale 1:
+//   forward   s = q k^T (keys j <= i when causal), p = exp(s - lse),
+//             out = p v, lse = m + log(sum exp(s - m)) kept in fp32;
+//   backward  delta_i = sum_d dout_i * out_i (a pre-pass), then
+//             p = exp(q k^T - lse), dp = dout v^T, ds = p (dp - delta),
+//             dv = p^T dout, dk = ds^T q (one pass over query tiles per
+//             key tile) and dq = ds k (one pass over key tiles per query
+//             tile): no atomics, so the result is deterministic.
+// Operands are fp32, bf16 or fp16; accumulation and the softmax are
+// fp32; outputs take the operands' dtype. D is 64 or 128; any S >= 1.
+//
+// What bounds it: at the train step's shapes ([8, 16, 1024, 64] bf16)
+// the forward moves ~67 MB and does ~1.7e10 flops, the backward ~2.5x
+// those flops: the card's bound is set by bytes for the forward and by
+// tensor-core flops for the backward. So the work is kept on chip:
+//   * a block of 128 threads owns a 64-row tile (queries, or keys in the
+//     dk/dv pass) and walks the other operand's 64-row tiles, staged
+//     through shared memory, so each q/k/v/dout row is read from device
+//     memory once per tile pair and S x S scores never reach device
+//     memory;
+//   * causal tiles above the diagonal are never visited, and only the
+//     diagonal tile (and the ragged last tile) is masked; query tiles are
+//     issued heaviest first.
+// 16-bit operands take the tensor cores (mma.sync m16n8k16, the path the
+// train step runs; described at its kernels below). fp32 operands keep
+// fp32 products on the CUDA cores: each thread owns a 4 x 8 block of the
+// 64 x 64 score tile (rows rg + 16i, columns cg + 8j) and a 4 x D/8 block
+// of the output tile; rows of a tile live in 8 neighbouring lanes, so
+// row max and row sum are three shuffles; shared rows, staged as fp32,
+// are padded by 4 floats so the 16-byte shared-memory loads are free of
+// bank conflicts. Next for speed: wgmma with TMA-fed, double-buffered
+// tiles.
+//
+// Built with nvcc into a shared library with a plain C interface
+// (paddle_tpu_torch/ops/flash_attention.py), launched on the caller's
+// stream, allocating nothing (the wrapper passes delta's scratch).
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kTile = 64;      // rows of a query or key tile
+constexpr int kThreads = 128;  // 16 row groups x 8 column groups
+constexpr int kLP = kTile + 4;  // padded row of a 64-wide score tile
+
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+
+__device__ __forceinline__ float group_max(float x) {  // over 8 lanes
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+}
+
+__device__ __forceinline__ float group_sum(float x) {  // over 8 lanes
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+// ------------------------------------------------------------------------
+// CUDA-core path for fp32 operands.
+
+// Rows [row0, row0 + 64) of a contiguous [S, D] slice into shared memory
+// as fp32 with row stride D + 4; rows at or past S are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
+                                          int S) {
+  constexpr int LD = D + 4;
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int PER_ROW = D / VEC;
+  for (int idx = threadIdx.x; idx < kTile * PER_ROW; idx += kThreads) {
+    const int r = idx / PER_ROW, c = (idx % PER_ROW) * VEC;
+    float f[VEC];
+    if (row0 + r < S) {
+      const Vec<T, VEC> x = *reinterpret_cast<const Vec<T, VEC>*>(
+          src + (long long)(row0 + r) * D + c);
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) f[t] = to_float(x.v[t]);
+    } else {
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) f[t] = 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < VEC; t += 4)
+      *reinterpret_cast<float4*>(dst + r * LD + c + t) =
+          make_float4(f[t], f[t + 1], f[t + 2], f[t + 3]);
+  }
+}
+
+// s[i][j] = sum_d A[rg + 16i][d] * B[cg + 8j][d] over two staged tiles.
+template <int D>
+__device__ __forceinline__ void dot_tile(const float* A, const float* B,
+                                         int rg, int cg, float s[4][8]) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 a[4], b[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (rg + 16 * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      b[j] = *reinterpret_cast<const float4*>(B + (cg + 8 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float x = s[i][j];
+        x = fmaf(a[i].x, b[j].x, x);
+        x = fmaf(a[i].y, b[j].y, x);
+        x = fmaf(a[i].z, b[j].z, x);
+        s[i][j] = fmaf(a[i].w, b[j].w, x);
+      }
+  }
+}
+
+// acc[i][4jj + t] += sum_k P[rg + 16i][k] * V[k][32jj + 4cg + t], with P
+// a staged 64 x 64 tile (stride kLP) and V a staged 64 x D tile.
+template <int D>
+__device__ __forceinline__ void mul_tile(const float* P, const float* V,
+                                         int rg, int cg,
+                                         float acc[4][D / 8]) {
+  constexpr int LD = D + 4;
+#pragma unroll 2
+  for (int k = 0; k < kTile; k += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[i] = *reinterpret_cast<const float4*>(P + (rg + 16 * i) * kLP + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int jj = 0; jj < D / 32; ++jj) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            V + (k + kk) * LD + 32 * jj + 4 * cg);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pk = kk == 0 ? p[i].x
+                           : kk == 1 ? p[i].y
+                           : kk == 2 ? p[i].z
+                                     : p[i].w;
+          acc[i][4 * jj + 0] = fmaf(pk, v.x, acc[i][4 * jj + 0]);
+          acc[i][4 * jj + 1] = fmaf(pk, v.y, acc[i][4 * jj + 1]);
+          acc[i][4 * jj + 2] = fmaf(pk, v.z, acc[i][4 * jj + 2]);
+          acc[i][4 * jj + 3] = fmaf(pk, v.w, acc[i][4 * jj + 3]);
+        }
+      }
+    }
+  }
+}
+
+// Row `row` of a [S, D] output: this thread's 4 x D/8 values, scaled.
+template <typename T, int D>
+__device__ __forceinline__ void store_row(T* dst, int row, int cg,
+                                          const float* acc, float mul) {
+#pragma unroll
+  for (int jj = 0; jj < D / 32; ++jj) {
+    Vec<T, 4> o;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) o.v[t] = acc[4 * jj + t] * mul;
+    *reinterpret_cast<Vec<T, 4>*>(dst + (long long)row * D + 32 * jj +
+                                  4 * cg) = o;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int causal) {
+  constexpr int LD = D + 4;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Ks = Qs + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* Ps = Vs + kTile * LD;
+  const int ntiles = (S + kTile - 1) / kTile;
+  const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kTile;
+  const long long off = (long long)blockIdx.x * S * D;
+  const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
+
+  load_tile<T, D>(Qs, q + off, q0, S);
+  float m[4], l[4], acc[4][D / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+  }
+  const int nkt = causal ? qt + 1 : ntiles;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, D>(Ks, k + off, k0, S);
+    load_tile<T, D>(Vs, v + off, k0, S);
+    __syncthreads();
+    float s[4][8];
+    dot_tile<D>(Qs, Ks, rg, cg, s);
+    if (k0 + kTile > S || (causal && k0 + kTile - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int key = k0 + cg + 8 * j, qi = q0 + rg + 16 * i;
+          if (key >= S || (causal && key > qi)) s[i][j] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[i][j]);
+      // every visited tile holds a visible key for every row (key k0 is
+      // never past S nor past a row of a tile on or below the diagonal),
+      // so m_new is finite
+      const float m_new = fmaxf(m[i], group_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        psum += p;
+        Ps[(rg + 16 * i) * kLP + cg + 8 * j] = p;
+      }
+      l[i] = l[i] * alpha + psum;  // this lane's columns only
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+    mul_tile<D>(Ps, Vs, rg, cg, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lsum = group_sum(l[i]);
+    const int qi = q0 + rg + 16 * i;
+    if (qi < S) {
+      store_row<T, D>(out + off, qi, cg, acc[i], 1.f / lsum);
+      if (cg == 0) lse[(long long)blockIdx.x * S + qi] = m[i] + logf(lsum);
+    }
+  }
+}
+
+// delta[row] = sum_d dout[row][d] * out[row][d] in fp32, a warp per row.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                   float* __restrict__ delta, long long rows) {
+  const long long row = (long long)blockIdx.x * (kThreads / 32) +
+                        (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float s = 0.f;
+#pragma unroll
+  for (int c = lane; c < D; c += 32)
+    s += to_float(out[row * D + c]) * to_float(dout[row * D + c]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) delta[row] = s;
+}
+
+// dk and dv for one key tile, walking the query tiles that see it.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int S, int causal) {
+  constexpr int LD = D + 4;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kTile * LD;
+  float* Qs = Vs + kTile * LD;
+  float* dOs = Qs + kTile * LD;
+  float* Ts = dOs + kTile * LD;     // p^T, then ds^T
+  float* lse_s = Ts + kTile * kLP;  // the query tile's lse and delta
+  float* delta_s = lse_s + kTile;
+  const int ntiles = (S + kTile - 1) / kTile;
+  const int kt = blockIdx.y;  // low key tiles see the most query tiles
+  const int k0 = kt * kTile;
+  const long long off = (long long)blockIdx.x * S * D;
+  const long long roff = (long long)blockIdx.x * S;
+  const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
+
+  load_tile<T, D>(Ks, k + off, k0, S);
+  load_tile<T, D>(Vs, v + off, k0, S);
+  float adk[4][D / 8], adv[4][D / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) adk[i][c] = adv[i][c] = 0.f;
+
+  for (int qt = causal ? kt : 0; qt < ntiles; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, D>(Qs, q + off, q0, S);
+    load_tile<T, D>(dOs, dout + off, q0, S);
+    if (threadIdx.x < kTile) {
+      const bool ok = q0 + threadIdx.x < S;
+      lse_s[threadIdx.x] = ok ? lse[roff + q0 + threadIdx.x] : 0.f;
+      delta_s[threadIdx.x] = ok ? delta[roff + q0 + threadIdx.x] : 0.f;
+    }
+    __syncthreads();
+    // rows: keys k0 + rg + 16i; columns: queries q0 + cg + 8j
+    float p[4][8], ds[4][8];
+    dot_tile<D>(Ks, Qs, rg, cg, p);
+    dot_tile<D>(Vs, dOs, rg, cg, ds);
+    const bool edge = q0 + kTile > S || k0 + kTile > S ||
+                      (causal && k0 + kTile - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = k0 + rg + 16 * i, qi = q0 + cg + 8 * j;
+        const bool masked =
+            edge && (qi >= S || key >= S || (causal && key > qi));
+        const float pv = masked ? 0.f : expf(p[i][j] - lse_s[cg + 8 * j]);
+        p[i][j] = pv;
+        ds[i][j] = pv * (ds[i][j] - delta_s[cg + 8 * j]);
+        Ts[(rg + 16 * i) * kLP + cg + 8 * j] = pv;
+      }
+    __syncthreads();
+    mul_tile<D>(Ts, dOs, rg, cg, adv);  // dv += p^T dout
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        Ts[(rg + 16 * i) * kLP + cg + 8 * j] = ds[i][j];
+    __syncthreads();
+    mul_tile<D>(Ts, Qs, rg, cg, adk);   // dk += ds^T q
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + rg + 16 * i;
+    if (key < S) {
+      store_row<T, D>(dk + off, key, cg, adk[i], 1.f);
+      store_row<T, D>(dv + off, key, cg, adv[i], 1.f);
+    }
+  }
+}
+
+// dq for one query tile, walking the key tiles it sees.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int S, int causal) {
+  constexpr int LD = D + 4;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + kTile * LD;
+  float* Ks = dOs + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* dSs = Vs + kTile * LD;
+  const int ntiles = (S + kTile - 1) / kTile;
+  const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kTile;
+  const long long off = (long long)blockIdx.x * S * D;
+  const long long roff = (long long)blockIdx.x * S;
+  const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
+
+  load_tile<T, D>(Qs, q + off, q0, S);
+  load_tile<T, D>(dOs, dout + off, q0, S);
+  float row_lse[4], row_delta[4], acc[4][D / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + rg + 16 * i;
+    row_lse[i] = qi < S ? lse[roff + qi] : 0.f;
+    row_delta[i] = qi < S ? delta[roff + qi] : 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+  }
+  const int nkt = causal ? qt + 1 : ntiles;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, D>(Ks, k + off, k0, S);
+    load_tile<T, D>(Vs, v + off, k0, S);
+    __syncthreads();
+    float p[4][8], dp[4][8];
+    dot_tile<D>(Qs, Ks, rg, cg, p);
+    dot_tile<D>(dOs, Vs, rg, cg, dp);
+    const bool edge = k0 + kTile > S || (causal && k0 + kTile - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = k0 + cg + 8 * j, qi = q0 + rg + 16 * i;
+        const bool masked = edge && (key >= S || (causal && key > qi));
+        const float pv = masked ? 0.f : expf(p[i][j] - row_lse[i]);
+        dSs[(rg + 16 * i) * kLP + cg + 8 * j] =
+            pv * (dp[i][j] - row_delta[i]);
+      }
+    __syncthreads();
+    mul_tile<D>(dSs, Ks, rg, cg, acc);  // dq += ds k
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + rg + 16 * i;
+    if (qi < S) store_row<T, D>(dq + off, qi, cg, acc[i], 1.f);
+  }
+}
+
+// ------------------------------------------------------------------------
+// Tensor-core path for 16-bit operands (bf16, fp16): the same three
+// passes, each 64-row tile split over 4 warps of 16 rows, every product
+// an mma.sync m16n8k16 with fp32 accumulation. Tiles are staged in shared
+// memory in their own dtype (rows padded by 8 elements, so ldmatrix reads
+// them without bank conflicts); a score tile stays in registers in the
+// mma accumulator layout and is rounded to the operand dtype where it
+// feeds the next product (p before p v, ds before ds k and ds^T q), as the
+// splash kernel rounds p to v's dtype. Row max, row sum and the softmax
+// stay fp32.
+
+template <typename T>
+struct Mma;
+template <>
+struct Mma<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+template <>
+struct Mma<__half> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+template <int D>
+__host__ __device__ constexpr int ld16() { return D + 8; }  // padded row
+
+// Rows [row0, row0 + 64) of a contiguous [S, D] 16-bit slice into a
+// shared tile as they are; rows at or past S are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile16(T* dst, const T* src, int row0,
+                                            int S) {
+  constexpr int LDS = ld16<D>();
+  constexpr int PER_ROW = D / 8;  // 16-byte vectors
+  for (int idx = threadIdx.x; idx < kTile * PER_ROW; idx += kThreads) {
+    const int r = idx / PER_ROW, c = (idx % PER_ROW) * 8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < S)
+      x = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * D + c);
+    *reinterpret_cast<uint4*>(dst + r * LDS + c) = x;
+  }
+}
+
+// s[nt] (16 x 8 accumulator tiles, nt < 8) = this warp's 16 rows of
+// the tile As times the 64 rows of the tile Bs, transposed:
+// s[i][j] = a_i . b_j over D.
+template <typename T, int D>
+__device__ __forceinline__ void mma_rows(float s[8][4], const T* As,
+                                         const T* Bs, int warp, int lane) {
+  constexpr int LDS = ld16<D>();
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    uint32_t a[4];
+    ldsm_x4(a, As + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
+                   kc * 16 + 8 * (lane >> 4));
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, Bs + ((2 * np + (lane >> 4)) * 8 + (lane & 7)) * LDS +
+                     kc * 16 + 8 * ((lane >> 3) & 1));
+      Mma<T>::run(s[2 * np], a, b[0], b[1]);
+      Mma<T>::run(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x D) += P (16 x 64, accumulator layout, rounded to T) times the
+// 64 x D tile Vs.
+template <typename T, int D>
+__device__ __forceinline__ void mma_pv(float acc[D / 8][4],
+                                       const float p[8][4], const T* Vs,
+                                       int lane) {
+  constexpr int LDS = ld16<D>();
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    const uint32_t a[4] = {Mma<T>::pack(p[2 * kc][0], p[2 * kc][1]),
+                           Mma<T>::pack(p[2 * kc][2], p[2 * kc][3]),
+                           Mma<T>::pack(p[2 * kc + 1][0], p[2 * kc + 1][1]),
+                           Mma<T>::pack(p[2 * kc + 1][2], p[2 * kc + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_t(b, Vs + (kc * 16 + 8 * ((lane >> 3) & 1) + (lane & 7)) * LDS +
+                       (2 * dp + (lane >> 4)) * 8);
+      Mma<T>::run(acc[2 * dp], a, b[0], b[1]);
+      Mma<T>::run(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Row `row` (this lane's quad share: columns 8nt + 2t, +1) of a [S, D]
+// 16-bit output, from accumulator half h (0: row g, 1: row g + 8).
+template <typename T, int D>
+__device__ __forceinline__ void store_row16(T* dst, int row, int t,
+                                            const float acc[D / 8][4], int h,
+                                            float mul) {
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+    *reinterpret_cast<uint32_t*>(dst + (long long)row * D + nt * 8 + 2 * t) =
+        Mma<T>::pack(acc[nt][2 * h] * mul, acc[nt][2 * h + 1] * mul);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse, int S, int causal) {
+  constexpr int LDS = ld16<D>();
+  extern __shared__ float4 smem4[];
+  T* Qs = reinterpret_cast<T*>(smem4);
+  T* Ks = Qs + kTile * LDS;
+  T* Vs = Ks + kTile * LDS;
+  const int ntiles = (S + kTile - 1) / kTile;
+  const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kTile;
+  const long long off = (long long)blockIdx.x * S * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  load_tile16<T, D>(Qs, q + off, q0, S);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const int nkt = causal ? qt + 1 : ntiles;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile16<T, D>(Ks, k + off, k0, S);
+    load_tile16<T, D>(Vs, v + off, k0, S);
+    __syncthreads();
+    float s[8][4];
+    mma_rows<T, D>(s, Qs, Ks, warp, lane);
+    if (k0 + kTile > S || (causal && k0 + kTile - 1 > q0)) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + nt * 8 + 2 * t + (e & 1);
+          const int qi = q0 + warp * 16 + g + 8 * (e >> 1);
+          if (key >= S || (causal && key > qi)) s[nt][e] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // finite: every visited tile holds a visible key for every row
+      const float m_new = fmaxf(m[h], mx);
+      const float alpha = expf(m[h] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        s[nt][2 * h] = expf(s[nt][2 * h] - m_new);
+        s[nt][2 * h + 1] = expf(s[nt][2 * h + 1] - m_new);
+        psum += s[nt][2 * h] + s[nt][2 * h + 1];
+      }
+      l[h] = l[h] * alpha + psum;  // this lane's columns only
+      m[h] = m_new;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        acc[nt][2 * h] *= alpha;
+        acc[nt][2 * h + 1] *= alpha;
+      }
+    }
+    mma_pv<T, D>(acc, s, Vs, lane);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lsum = l[h];
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    const int qi = q0 + warp * 16 + g + 8 * h;
+    if (qi < S) {
+      store_row16<T, D>(out + off, qi, t, acc, h, 1.f / lsum);
+      if (t == 0) lse[(long long)blockIdx.x * S + qi] = m[h] + logf(lsum);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int S,
+                          int causal) {
+  constexpr int LDS = ld16<D>();
+  extern __shared__ float4 smem4[];
+  T* Ks = reinterpret_cast<T*>(smem4);
+  T* Vs = Ks + kTile * LDS;
+  T* Qs = Vs + kTile * LDS;
+  T* dOs = Qs + kTile * LDS;
+  float* lse_s = reinterpret_cast<float*>(dOs + kTile * LDS);
+  float* delta_s = lse_s + kTile;
+  const int ntiles = (S + kTile - 1) / kTile;
+  const int kt = blockIdx.y;  // low key tiles see the most query tiles
+  const int k0 = kt * kTile;
+  const long long off = (long long)blockIdx.x * S * D;
+  const long long roff = (long long)blockIdx.x * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  load_tile16<T, D>(Ks, k + off, k0, S);
+  load_tile16<T, D>(Vs, v + off, k0, S);
+  float adk[D / 8][4], adv[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[nt][e] = adv[nt][e] = 0.f;
+
+  for (int qt = causal ? kt : 0; qt < ntiles; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile16<T, D>(Qs, q + off, q0, S);
+    load_tile16<T, D>(dOs, dout + off, q0, S);
+    if (threadIdx.x < kTile) {
+      const bool ok = q0 + threadIdx.x < S;
+      lse_s[threadIdx.x] = ok ? lse[roff + q0 + threadIdx.x] : 0.f;
+      delta_s[threadIdx.x] = ok ? delta[roff + q0 + threadIdx.x] : 0.f;
+    }
+    __syncthreads();
+    // rows: this warp's 16 keys; columns: the tile's 64 queries
+    float p[8][4], ds[8][4];
+    mma_rows<T, D>(p, Ks, Qs, warp, lane);
+    mma_rows<T, D>(ds, Vs, dOs, warp, lane);
+    const bool edge = q0 + kTile > S || k0 + kTile > S ||
+                      (causal && k0 + kTile - 1 > q0);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + 2 * t + (e & 1);
+        const int key = k0 + warp * 16 + g + 8 * (e >> 1), qi = q0 + col;
+        const bool masked =
+            edge && (qi >= S || key >= S || (causal && key > qi));
+        const float pv = masked ? 0.f : expf(p[nt][e] - lse_s[col]);
+        p[nt][e] = pv;
+        ds[nt][e] = pv * (ds[nt][e] - delta_s[col]);
+      }
+    mma_pv<T, D>(adv, p, dOs, lane);   // dv += p^T dout
+    mma_pv<T, D>(adk, ds, Qs, lane);   // dk += ds^T q
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + warp * 16 + g + 8 * h;
+    if (key < S) {
+      store_row16<T, D>(dk + off, key, t, adk, h, 1.f);
+      store_row16<T, D>(dv + off, key, t, adv, h, 1.f);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int S, int causal) {
+  constexpr int LDS = ld16<D>();
+  extern __shared__ float4 smem4[];
+  T* Qs = reinterpret_cast<T*>(smem4);
+  T* dOs = Qs + kTile * LDS;
+  T* Ks = dOs + kTile * LDS;
+  T* Vs = Ks + kTile * LDS;
+  const int ntiles = (S + kTile - 1) / kTile;
+  const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kTile;
+  const long long off = (long long)blockIdx.x * S * D;
+  const long long roff = (long long)blockIdx.x * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  load_tile16<T, D>(Qs, q + off, q0, S);
+  load_tile16<T, D>(dOs, dout + off, q0, S);
+  float row_lse[2], row_delta[2], acc[D / 8][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + warp * 16 + g + 8 * h;
+    row_lse[h] = qi < S ? lse[roff + qi] : 0.f;
+    row_delta[h] = qi < S ? delta[roff + qi] : 0.f;
+  }
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const int nkt = causal ? qt + 1 : ntiles;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile16<T, D>(Ks, k + off, k0, S);
+    load_tile16<T, D>(Vs, v + off, k0, S);
+    __syncthreads();
+    float p[8][4], ds[8][4];
+    mma_rows<T, D>(p, Qs, Ks, warp, lane);
+    mma_rows<T, D>(ds, dOs, Vs, warp, lane);
+    const bool edge = k0 + kTile > S || (causal && k0 + kTile - 1 > q0);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + nt * 8 + 2 * t + (e & 1);
+        const int qi = q0 + warp * 16 + g + 8 * (e >> 1);
+        const bool masked = edge && (key >= S || (causal && key > qi));
+        const float pv =
+            masked ? 0.f : expf(p[nt][e] - row_lse[e >> 1]);
+        ds[nt][e] = pv * (ds[nt][e] - row_delta[e >> 1]);
+      }
+    mma_pv<T, D>(acc, ds, Ks, lane);  // dq += ds k
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + warp * 16 + g + 8 * h;
+    if (qi < S) store_row16<T, D>(dq + off, qi, t, acc, h, 1.f);
+  }
+}
+
+template <int D>
+constexpr int fwd_smem() { return (3 * kTile * (D + 4) + kTile * kLP) * 4; }
+template <int D>
+constexpr int dkdv_smem() {
+  return (4 * kTile * (D + 4) + kTile * kLP + 2 * kTile) * 4;
+}
+template <int D>
+constexpr int dq_smem() { return (4 * kTile * (D + 4) + kTile * kLP) * 4; }
+template <int D>
+constexpr int fwd_smem16() { return 3 * kTile * ld16<D>() * 2; }
+template <int D>
+constexpr int bwd_smem16() { return 4 * kTile * ld16<D>() * 2 + 2 * kTile * 4; }
+
+// Raises the kernel's dynamic shared memory limit to SMEM and launches
+// it on `grid`; returns from the caller on any error.
+#define PADDLE_FLASH_LAUNCH(KERN, SMEM, ...)                                \
+  do {                                                                     \
+    auto kern_ = KERN;                                                     \
+    cudaError_t e_ = cudaFuncSetAttribute(                                 \
+        kern_, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);         \
+    if (e_ != cudaSuccess) return e_;                                      \
+    kern_<<<grid, kThreads, SMEM, stream>>>(__VA_ARGS__);                  \
+    e_ = cudaGetLastError();                                               \
+    if (e_ != cudaSuccess) return e_;                                      \
+  } while (0)
+
+template <typename T, int D>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
+                float* lse, int BH, int S, int causal, cudaStream_t stream) {
+  const dim3 grid(BH, (S + kTile - 1) / kTile);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  T* op = static_cast<T*>(out);
+  if constexpr (sizeof(T) == 4) {
+    PADDLE_FLASH_LAUNCH((flash_fwd_kernel<T, D>), fwd_smem<D>(), qp, kp, vp,
+                        op, lse, S, causal);
+  } else {
+    PADDLE_FLASH_LAUNCH((flash_fwd_mma_kernel<T, D>), fwd_smem16<D>(), qp,
+                        kp, vp, op, lse, S, causal);
+  }
+  return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
+                const void* dout, const float* lse, float* delta, void* dq,
+                void* dk, void* dv, int BH, int S, int causal,
+                cudaStream_t stream) {
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* dop = static_cast<const T*>(dout);
+  const long long rows = (long long)BH * S;
+  flash_delta_kernel<T, D>
+      <<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads,
+         0, stream>>>(static_cast<const T*>(out), dop, delta, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (S + kTile - 1) / kTile);
+  T* dqp = static_cast<T*>(dq);
+  T* dkp = static_cast<T*>(dk);
+  T* dvp = static_cast<T*>(dv);
+  if constexpr (sizeof(T) == 4) {
+    PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_kernel<T, D>), dkdv_smem<D>(), qp,
+                        kp, vp, dop, lse, delta, dkp, dvp, S, causal);
+    PADDLE_FLASH_LAUNCH((flash_bwd_dq_kernel<T, D>), dq_smem<D>(), qp, kp,
+                        vp, dop, lse, delta, dqp, S, causal);
+  } else {
+    PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_mma_kernel<T, D>), bwd_smem16<D>(),
+                        qp, kp, vp, dop, lse, delta, dkp, dvp, S, causal);
+    PADDLE_FLASH_LAUNCH((flash_bwd_dq_mma_kernel<T, D>), bwd_smem16<D>(), qp,
+                        kp, vp, dop, lse, delta, dqp, S, causal);
+  }
+  return cudaSuccess;
+}
+
+#undef PADDLE_FLASH_LAUNCH
+
+bool valid(int BH, int S) {
+  return BH > 0 && S > 0 && (S + kTile - 1) / kTile <= 65535;
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16; head_dim 64 or
+// 128; all operands contiguous [BH, S, head_dim], lse and delta fp32
+// [BH, S]. Each returns a cudaError_t; 0 when every kernel launched.
+extern "C" int paddle_tpu_torch_flash_fwd(const void* q, const void* k,
+                                          const void* v, void* out,
+                                          void* lse, int BH, int S,
+                                          int head_dim, int dtype,
+                                          int causal, void* stream) {
+  if (!valid(BH, S)) return (int)cudaErrorInvalidValue;
+  float* l = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PADDLE_FLASH_FWD(T, D) \
+  return (int)fwd<T, D>(q, k, v, out, l, BH, S, causal, st)
+  if (head_dim == 64) {
+    if (dtype == 0) PADDLE_FLASH_FWD(float, 64);
+    if (dtype == 1) PADDLE_FLASH_FWD(__nv_bfloat16, 64);
+    if (dtype == 2) PADDLE_FLASH_FWD(__half, 64);
+  } else if (head_dim == 128) {
+    if (dtype == 0) PADDLE_FLASH_FWD(float, 128);
+    if (dtype == 1) PADDLE_FLASH_FWD(__nv_bfloat16, 128);
+    if (dtype == 2) PADDLE_FLASH_FWD(__half, 128);
+  }
+#undef PADDLE_FLASH_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int paddle_tpu_torch_flash_bwd(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int BH, int S, int head_dim, int dtype, int causal,
+    void* stream) {
+  if (!valid(BH, S)) return (int)cudaErrorInvalidValue;
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PADDLE_FLASH_BWD(T, D)                                             \
+  return (int)bwd<T, D>(q, k, v, out, dout, l, dl, dq, dk, dv, BH, S,    \
+                        causal, st)
+  if (head_dim == 64) {
+    if (dtype == 0) PADDLE_FLASH_BWD(float, 64);
+    if (dtype == 1) PADDLE_FLASH_BWD(__nv_bfloat16, 64);
+    if (dtype == 2) PADDLE_FLASH_BWD(__half, 64);
+  } else if (head_dim == 128) {
+    if (dtype == 0) PADDLE_FLASH_BWD(float, 128);
+    if (dtype == 1) PADDLE_FLASH_BWD(__nv_bfloat16, 128);
+    if (dtype == 2) PADDLE_FLASH_BWD(__half, 128);
+  }
+#undef PADDLE_FLASH_BWD
+  return (int)cudaErrorInvalidValue;
+}

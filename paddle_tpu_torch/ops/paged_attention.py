@@ -26,23 +26,16 @@ hold the kernel against.
 
 The kernel is compiled at first use with nvcc, from this package's own
 source, into `build/paddle_tpu_torch/` at the repository root, and
-bound through ctypes (a plain C interface).
+bound through ctypes (a plain C interface) by `_build`.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import subprocess
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from . import _build
 
 #: kernel launches so far (the wrapper adds one per launch, nowhere else)
 launch_count = 0
@@ -52,7 +45,6 @@ _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.float16, torch.float16), (torch.float32, torch.bfloat16),
           (torch.float32, torch.float16)}
 _HEAD_DIMS = (64, 128)
-_lib = None
 
 
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, slot_ids,
@@ -103,40 +95,15 @@ def ragged_gather_reference(q, k_pool, v_pool, block_tables, slot_ids,
 # ----------------------------------------------------------- the kernel
 
 
+_SIGNATURES = {"paddle_tpu_torch_paged_attention":
+               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+               + [ctypes.c_float, ctypes.c_void_p]}
+
+
 def build():
-    """Compile the kernel's shared library if this source has not been
-    built yet; returns its path. The file name carries a hash of the
-    source, so an edited kernel is never served from a stale build."""
-    tag = hashlib.sha1(_SRC.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libpaged_attention_{tag}.so"
-    if lib.exists():
-        return lib
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("paged_attention: no CUDA toolkit (nvcc) found "
-                           "to build the kernel; set CUDA_HOME")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
-           "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"paged_attention: nvcc failed "
-                           f"({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)      # atomic: a concurrent builder sees all or none
-    return lib
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.paddle_tpu_torch_paged_attention
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    """Compile the kernel's shared library (see `_build.build`);
+    returns its path."""
+    return _build.build("paged_attention")
 
 
 def _launch(q, k_pool, v_pool, block_tables, slot_ids, positions, scale):
@@ -172,11 +139,12 @@ def _launch(q, k_pool, v_pool, block_tables, slot_ids, positions, scale):
     out = torch.empty_like(q)
     if T == 0:
         return out
-    fn = _library().paddle_tpu_torch_paged_attention
+    lib = _build.load("paged_attention", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(),
-             T, H, Dh, BS, S, MB, _DTYPE_CODES[q.dtype],
-             _DTYPE_CODES[k_pool.dtype], float(scale), stream)
+    err = lib.paddle_tpu_torch_paged_attention(
+        *(t.data_ptr() for t in tensors), out.data_ptr(),
+        T, H, Dh, BS, S, MB, _DTYPE_CODES[q.dtype],
+        _DTYPE_CODES[k_pool.dtype], float(scale), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")

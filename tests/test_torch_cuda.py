@@ -7,12 +7,17 @@ Without a card every test here skips; the CPU parity tests live in the
 other tests/test_torch_*.py files. This file imports torch and the port
 only, no jax.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.models.gpt import GPTForGeneration
+from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.ops import layer_norm as tln
 from paddle_tpu_torch.ops import paged_attention as tpa
+from paddle_tpu_torch.parallel import hybrid_gpt as th
 from paddle_tpu_torch.serving.engine import ServingEngine
 
 
@@ -107,3 +112,157 @@ def test_engine_on_card_matches_cpu(cuda_device):
     got = eng.generate_batch(prompts, max_new_tokens=8)
     assert got == want
     assert tpa.launch_count - before == eng.steps_run * 2
+
+
+# ------------------------------------------------- add_ln (K2) kernels
+
+
+def _ln_case(shape, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    d = shape[-1]
+    x, r, gout, gz = (torch.randn(shape, generator=g).to(dtype)
+                      for _ in range(4))
+    w, b = torch.rand(d, generator=g), torch.randn(d, generator=g)
+    return [t.to(device) for t in (x, r, w, b, gout, gz)]
+
+
+# fp32: the same fp32 arithmetic in another summation order -> 1e-5.
+# bf16: both round out, z and dz to bf16 from fp32 math, whose sums
+# differ in order: one bf16 spacing (2^-7 relative) at worst.
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 200, 1024), (5, 100), (2, 4096),
+                                   (7, 33)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_add_ln_kernels_match_plain(shape, dtype, tol, cuda_device):
+    x, r, w, b, gout, gz = _ln_case(shape, dtype, cuda_device)
+    d = shape[-1]
+    x2, r2 = x.reshape(-1, d), r.reshape(-1, d)
+    before = tln.fwd_launch_count
+    got = tln._launch_fwd(x2, r2, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert tln.fwd_launch_count == before + 1
+    want = tln.add_ln_fwd_reference(x2, r2, w, b, 1e-5)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a.float(), e.float(), rtol=tol, atol=tol)
+    z, mu, rs = want[1], want[2], want[3]
+    g2, gz2 = gout.reshape(-1, d), gz.reshape(-1, d)
+    before = tln.bwd_launch_count
+    dz = tln._launch_bwd(z, w, mu, rs, g2, gz2)
+    torch.cuda.synchronize()
+    assert tln.bwd_launch_count == before + 1
+    torch.testing.assert_close(
+        dz.float(), tln.add_ln_bwd_reference(z, w, mu, rs, g2, gz2).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_add_ln_kernel_refuses_unsupported_operands(cuda_device):
+    x, r, w, b, _, _ = _ln_case((4, 64), torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        tln.add_ln(x.double(), r.double(), w, b)
+    with pytest.raises(ValueError):
+        tln.add_ln(*_ln_case((2, 4097), torch.float32, cuda_device)[:4])
+
+
+# ------------------------------------------- flash attention (K1a)
+
+
+def _fa_case(B, H, S, D, dtype, device, seed=0):
+    """q, k, v, dout; q scaled by 1/sqrt(D) as `splash_mha` hands it to
+    the kernels, so the logits are O(1) as in a model."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, dout = (torch.randn(B, H, S, D, generator=g) for _ in range(4))
+    return [t.to(dtype).to(device) for t in (q * D ** -0.5, k, v, dout)]
+
+
+# fp32: fp32 products and softmax on both sides, sums in another order
+# -> rtol 2e-5; atol 1e-4 because ds = p * (dp - delta) subtracts two
+# D-term dot products of size ~sqrt(D) that nearly cancel (exactly so
+# at S = 1, where dq and dk are pure rounding: 2.3e-5 seen at D=128).
+# bf16/fp16: the kernel and the plain version both multiply the same
+# 16-bit operands in fp32, round p and ds to that dtype before the
+# products they feed and round the outputs once: one or two spacings of
+# values up to ~4 (bf16 2^-6, fp16 2^-9).
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 64, 200, 256])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 1e-4),
+                                             (torch.bfloat16, 3e-2, 3e-2),
+                                             (torch.float16, 4e-3, 4e-3)])
+def test_flash_kernels_match_plain(S, D, causal, dtype, rtol, atol,
+                                   cuda_device):
+    q, k, v, dout = _fa_case(2, 3, S, D, dtype, cuda_device, seed=S + D)
+    before = tfa.fwd_launch_count
+    out, lse = tfa._launch_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert tfa.fwd_launch_count == before + 1
+    ref_out, ref_lse = tfa.flash_fwd_reference(q, k, v, causal)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-5, atol=2e-5)
+    before = tfa.bwd_launch_count
+    got = tfa._launch_bwd(q, k, v, ref_out, ref_lse, dout, causal)
+    torch.cuda.synchronize()
+    assert tfa.bwd_launch_count == before + 1
+    want = tfa.flash_bwd_reference(q, k, v, ref_out, ref_lse, dout, causal)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a.float(), e.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.cuda
+def test_splash_mha_on_card_matches_autograd_reference(cuda_device):
+    q, k, v, dout = _fa_case(2, 4, 200, 64, torch.float32, cuda_device)
+    args = [t.requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(tfa.splash_mha(*args), args, dout)
+    want = torch.autograd.grad(
+        tfa.attention_reference(*args, 1 / 8, True), args, dout)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_unsupported_operands(cuda_device):
+    q, k, v, _ = _fa_case(1, 2, 64, 64, torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        tfa.splash_mha(q.double(), k.double(), v.double())
+    q, k, v, _ = _fa_case(1, 2, 64, 32, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.splash_mha(q, k, v)
+
+
+# ---------------------------------------------- the train step (K1a+K2)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """Three fp32 steps of a small model on the card (kernels) and on
+    the CPU (plain versions) from the same parameters: losses within
+    1e-4 relative, every kernel launched as remat predicts."""
+    cfg = th.GPTConfig(vocab_size=193, seq_len=200, d_model=128,
+                       n_heads=2, n_layers=2, remat=True, ce_seq_chunks=2,
+                       compute_dtype=torch.float32, learning_rate=1e-3)
+    cpu = th.HybridGPT(cfg, device="cpu")
+    card = th.HybridGPT(cfg, device=cuda_device)
+    pc, oc = cpu.init(seed=0)
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(cuda_device)
+                for k, v in tree.items()}
+    pg, og = to_card(pc), to_card(oc)
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, 193, (2, 200))
+    lab = rng.randint(0, 193, (2, 200))
+    counts = (tfa.fwd_launch_count, tfa.bwd_launch_count,
+              tln.fwd_launch_count, tln.bwd_launch_count)
+    for step in range(1, 4):
+        pc, oc, lc = cpu.train_step(pc, oc, tok, lab, step_num=step)
+        pg, og, lg = card.train_step(pg, og, tok, lab, step_num=step)
+        assert math.isclose(float(lg), float(lc), rel_tol=1e-4)
+    L = cfg.n_layers
+    assert (tfa.fwd_launch_count - counts[0], tfa.bwd_launch_count
+            - counts[1], tln.fwd_launch_count - counts[2],
+            tln.bwd_launch_count - counts[3]) == (6 * L, 3 * L, 6 * L,
+                                                  3 * L)

@@ -151,6 +151,9 @@ def test_port_imports_no_jax():
             "import paddle_tpu_torch, paddle_tpu_torch.convert\n"
             "import paddle_tpu_torch.serving.engine\n"
             "import paddle_tpu_torch.ops.paged_attention\n"
+            "import paddle_tpu_torch.ops.flash_attention\n"
+            "import paddle_tpu_torch.ops.layer_norm\n"
+            "import paddle_tpu_torch.parallel.hybrid_gpt\n"
             "bad = [m for m in sys.modules if m == 'jax'"
             " or m.startswith(('jax.', 'paddle_tpu.'))"
             " or m == 'paddle_tpu']\n"
@@ -172,3 +175,10 @@ def test_default_device_is_the_card(models):
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedKVCache(1, 1, 8, num_blocks=3, block_size=4, max_slots=1,
                      max_blocks_per_slot=2)
+    from paddle_tpu_torch.convert import load_jax_hybrid_gpt
+    from paddle_tpu_torch.parallel.hybrid_gpt import GPTConfig, HybridGPT
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HybridGPT(GPTConfig(vocab_size=17, seq_len=8, d_model=8, n_heads=2,
+                            n_layers=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_jax_hybrid_gpt({})
