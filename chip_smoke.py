@@ -3,17 +3,19 @@ NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root
 
-Drives the port's two paths end to end — serving and the train step —
-and holds every CUDA kernel on them against its plain PyTorch version.
-Phases, one line each (or a few):
+Drives the port's paths end to end — serving a dense GPT-350M, serving
+the 8-expert MoE-350M with float, int8 and int4 experts, and the train
+step — and holds every CUDA kernel on them against its plain PyTorch
+version. Phases, one line each (or a few):
 
 1. device — the card's name, count, and `nvidia-smi` name/power limit;
 2. build — every kernel source compiled with nvcc (one process per
    source, all started together);
 3. kernel check — each kernel against its plain version at the shapes
-   its path gives it (paged attention at the serving step's; flash
-   attention forward/backward and add+LayerNorm forward/backward at the
-   train step's), with times (CUDA events, L2 flushed between
+   its path gives it (paged attention at the serving step's; the three
+   grouped expert matmuls — float, int8 and int4 experts — at the MoE
+   step's two expert products; flash attention forward/backward and
+   add+LayerNorm forward/backward at the train step's), with times (CUDA events, L2 flushed between
    launches), the card's bound for the same work and, where one
    PyTorch call computes the same function, that call's time as a
    yardstick the port never calls;
@@ -24,6 +26,20 @@ Phases, one line each (or a few):
 5. on-card correctness — two served requests re-scored by the plain
    dense causal forward in fp32, teacher-forced on the engine's output;
    then a short profiled window of decode steps (host vs device time);
+5b. serve MoE — MoE-350M (bench_gpt_moe's widths: GPT-350M with every
+   FFN 8 experts, top-2, capacity factor 1.25; random weights from a
+   numpy seed through `convert.load_jax_gpt(moe=...)`) served by three
+   engines in turn, `moe_weight_dtype` None, "int8" and "int4", each
+   taking the dense phase's 16 requests: every request finishes, paged
+   attention launched once and the engine's grouped-matmul variant twice
+   per layer per step (the other two never), and every valid token's
+   two choices are counted or dropped; then a profiled decode window of
+   the float engine;
+5c. on-card MoE check — fp32, 2 layers at full width, float and int8
+   experts: 4 requests served on the card (kernels) and on a CPU copy
+   (plain versions) give the same greedy tokens, unless the first
+   expert choice that differs, at or before the first differing token,
+   sat at a near-tie of the top-k gate boundary (reported as the cause);
 6. train — GPT-350M at full width in `bench_gpt`'s config (bf16,
    bf16 grads, remat, fused CE in 4 chunks) trained by the port's
    `HybridGPT` at batch 8 for warm-up and timed steps on one fixed
@@ -54,6 +70,10 @@ SLOTS, BLOCK, MAX_SEQ, BUDGET = 8, 16, 1024, 256
 N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, (64, 512), 64
 SEED = 0
 
+# MoE-350M: bench.py's bench_gpt_moe (GPT-350M widths, every FFN 8
+# experts, top-2, capacity factor 1.25)
+MOE = dict(num_expert=8, top_k=2, capacity_factor=1.25)
+
 # GPT-350M train step: bench.py's bench_gpt TPU config at batch 8 (its
 # own batch, 32, is timed after it)
 TRAIN_BATCH, BENCH_BATCH, TRAIN_SEQ = 8, 32, 1024
@@ -77,6 +97,11 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # bf16 before the products they feed (as splash does) and round the
 # outputs once: a bf16 spacing or two of values up to ~4.
 TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the grouped expert matmuls, same form. fp32: sums of 1024-4096 terms
+# in another order. bf16: both sides multiply the same bf16 operands
+# (the quantized kernels round the dequantized weights where the plain
+# version does) in fp32 and round the output once — a bf16 spacing.
+GMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def fail(msg):
@@ -247,19 +272,20 @@ def check_paged_attention(pa, device, flush):
 # ------------------------------------------------------------- phase 4
 
 
-def random_gpt_arrays(seed=SEED):
+def random_gpt_arrays(seed=SEED, layers=None, experts=0):
     """GPT-350M parameters in the JAX model's `_gen_tensors()` layout,
     drawn from a numpy seed as the JAX stack initialises: N(0, 0.02)
     embeddings, N(0, 1/fan_in) weights, unit LayerNorm scales, zero
-    biases."""
+    biases. `experts` > 0: the MoE stack's `gate_w` and expert-stacked
+    FFN weights in place of the dense FFN."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    L, D, F = LAYERS, HIDDEN, 4 * HIDDEN
+    L, D, F, E = layers or LAYERS, HIDDEN, 4 * HIDDEN, experts
 
     def normal(shape, std):
         return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
 
-    return {
+    arrays = {
         "word_embeddings": normal((VOCAB, D), 0.02),
         "position_embeddings": normal((MAXPOS, D), 0.02),
         "ln_s": np.ones((L, D), np.float32),
@@ -269,20 +295,36 @@ def random_gpt_arrays(seed=SEED):
         "out_w": normal((L, D, D), D ** -0.5),
         "out_b": np.zeros((L, D), np.float32),
         "ffn_ln_s": np.ones((L, D), np.float32),
-        "ffn_ln_b": np.zeros((L, D), np.float32),
-        "ffn1_w": normal((L, D, F), D ** -0.5),
-        "ffn1_b": np.zeros((L, F), np.float32),
-        "ffn2_w": normal((L, F, D), F ** -0.5),
-        "ffn2_b": np.zeros((L, D), np.float32),
-        "ln_f.weight": np.ones((D,), np.float32),
-        "ln_f.bias": np.zeros((D,), np.float32),
-        "lm_head.weight": normal((D, VOCAB), D ** -0.5),
-    }
+        "ffn_ln_b": np.zeros((L, D), np.float32)}
+    if E:
+        arrays.update(gate_w=normal((L, D, E), D ** -0.5),
+                      ffn1_w=normal((L, E, D, F), D ** -0.5),
+                      ffn1_b=np.zeros((L, E, F), np.float32),
+                      ffn2_w=normal((L, E, F, D), F ** -0.5),
+                      ffn2_b=np.zeros((L, E, D), np.float32))
+    else:
+        arrays.update(ffn1_w=normal((L, D, F), D ** -0.5),
+                      ffn1_b=np.zeros((L, F), np.float32),
+                      ffn2_w=normal((L, F, D), F ** -0.5),
+                      ffn2_b=np.zeros((L, D), np.float32))
+    arrays.update({"ln_f.weight": np.ones((D,), np.float32),
+                   "ln_f.bias": np.zeros((D,), np.float32),
+                   "lm_head.weight": normal((D, VOCAB), D ** -0.5)})
+    return arrays
+
+
+def serve_prompts():
+    """The serve phases' N_REQUESTS random prompts, 64-512 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 1)
+    return [rng.integers(0, VOCAB, int(n)).tolist() for n in
+            rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, N_REQUESTS)]
 
 
 def serve(device, counters):
-    """Phase 4: returns (engine, requests, launches per kernel)."""
-    import numpy as np
+    """Phase 4: returns (engine, requests, launches per kernel). `counters`
+    lists every kernel's (module, attribute, name); all are zeroed just
+    before the 16 requests and read just after."""
     import torch
     from paddle_tpu_torch.convert import load_jax_gpt
     from paddle_tpu_torch.serving.engine import ServingEngine
@@ -300,10 +342,7 @@ def serve(device, counters):
           f"heads, bf16; max_slots={SLOTS} block_size={BLOCK} "
           f"max_seq_len={MAX_SEQ} token_budget={eng.token_budget})",
           flush=True)
-    rng = np.random.default_rng(SEED + 1)
-    prompts = [rng.integers(0, VOCAB, int(n)).tolist() for n in
-               rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
-                            N_REQUESTS)]
+    prompts = serve_prompts()
     torch.cuda.reset_peak_memory_stats(device)
     for c in counters:
         setattr(c[0], c[1], 0)
@@ -324,12 +363,13 @@ def serve(device, counters):
     if any(r.state != "finished" or len(r.output) != NEW_TOKENS
            for r in reqs):
         fail("not every request finished with its full horizon")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"kernel {name} never launched on the serving path")
     if launches["paged_attention"] != steps * LAYERS:
         fail(f"paged_attention launched {launches['paged_attention']} "
              f"times, expected steps x layers = {steps * LAYERS}")
+    for name, n in launches.items():
+        if name != "paged_attention" and n:
+            fail(f"kernel {name} launched {n} times on the dense serving "
+                 "path")
     return eng, reqs, launches
 
 
@@ -369,7 +409,7 @@ def check_outputs(model, reqs, device):
           f"near-tie gap {worst:.4f}", flush=True)
 
 
-def profile_decode(eng, window=16):
+def profile_decode(eng, label, window=16):
     """Where a decode step's time goes: 8 requests with 256-token
     prompts are prefilled, then `window` pure-decode steps are timed on
     the host clock and the next `window` run under torch.profiler for
@@ -402,18 +442,316 @@ def profile_decode(eng, window=16):
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     if not dev:
-        print(f"profile: decode step {host_ms:.3f} ms on the host clock; "
+        print(f"profile: {label} decode step {host_ms:.3f} ms on the host "
+              "clock; "
               "device time not measured (no device events)", flush=True)
         return
     device_ms = sum(e.self_device_time_total for e in dev) / 1e3 / window
     launches = sum(e.count for e in dev) / window
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
-    print(f"profile: decode step, 8 slots at contexts 256-{256 + 3 * window}"
+    print(f"profile: {label} decode step, 8 slots at contexts 256-"
+          f"{256 + 3 * window}"
           f": {host_ms:.3f} ms per step on the host clock, {device_ms:.3f} "
           f"ms of device time in {launches:.0f} device launches, device "
           f"busy {device_ms / host_ms:.1%}; most device time: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3 / window:.3f}"
               f" ms x{e.count // window}" for e in top), flush=True)
+
+
+# ---------------------------------------- phase 3, grouped expert matmuls
+
+
+def gmm_case(gm, variant, xdt, d_in, d_out, device):
+    """(x, w, scale) of one expert product at the MoE step's shapes: x
+    [E, C, d_in] with C = the capacity of a 256-token step, float
+    experts in x's dtype, or random float experts quantized as the
+    engine quantizes them (int8 with fp32 scales, packed int4 with fp16
+    scales)."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.fused_transformer import \
+        _quantize_expert_stack
+    from paddle_tpu_torch.parallel.moe_utils import expert_capacity
+    E = MOE["num_expert"]
+    C = expert_capacity(BUDGET, E, MOE["top_k"], MOE["capacity_factor"])
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn(E, C, d_in, generator=g, device=device).to(xdt)
+    wf = torch.randn(E, d_in, d_out, generator=g, device=device) \
+        / d_in ** 0.5
+    if variant == "fp":
+        return x, wf.to(xdt), None
+    if variant == "int8":
+        q, scale = _quantize_expert_stack(wf[None], 8)
+        return x, q[0], scale[0]
+    return (x,) + gm.quantize_int4_experts(wf)
+
+
+def gmm_bound(x, w, scale, d_out):
+    """(bound_ms, bound_by) of one grouped product: x, w, the scales and
+    the [E, C, d_out] output moved once, against 2 E C d_in d_out flops
+    at the operand type's peak (the quantized kernels multiply in x's
+    type)."""
+    E, C, d_in = x.shape
+    nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+              + E * C * d_out * x.element_size()
+              + (0 if scale is None else
+                 scale.numel() * scale.element_size()))
+    t_bytes = nbytes / PEAK_BYTES
+    t_flops = 2 * E * C * d_in * d_out / PEAK_FLOPS[
+        str(x.dtype).split(".")[-1]]
+    return (max(t_bytes, t_flops) * 1e3,
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
+def check_gmm(gm, device, flush):
+    """Phase 3 for the grouped expert matmuls at the MoE step's two
+    products, ffn1 [8, 80, 1024] x [8, 1024, 4096] and ffn2 [8, 80, 4096]
+    x [8, 4096, 1024]: fp in bf16 and fp32, int8 and int4 with bf16
+    activations, each against its plain version. Returns the serving
+    (bf16) records of gmm_fp, gmm_int8 and gmm_int4, each the mean per
+    call over the two products. Yardstick: `torch.bmm` (for int8/int4 on
+    a pre-dequantized bf16 copy, the dequant left out of its time)."""
+    import torch
+    D, F = HIDDEN, 4 * HIDDEN
+    records = {}
+    for variant, xdt in (("fp", torch.bfloat16), ("fp", torch.float32),
+                         ("int8", torch.bfloat16),
+                         ("int4", torch.bfloat16)):
+        dname = str(xdt).split(".")[-1]
+        tol = GMM_TOL[dname]
+        calls = []
+        for prod, (d_in, d_out) in (("ffn1", (D, F)), ("ffn2", (F, D))):
+            x, w, scale = gmm_case(gm, variant, xdt, d_in, d_out, device)
+            got = gm.grouped_expert_matmul(x, w, scale)
+            torch.cuda.synchronize()
+            err = close_or_fail(f"gmm_{variant} {dname} {prod}", got,
+                                gm.grouped_matmul_reference(x, w, scale),
+                                tol)
+            ms = cuda_ms(lambda: gm.grouped_expert_matmul(x, w, scale),
+                         flush=flush)
+            plain = cuda_ms(lambda: gm.grouped_matmul_reference(
+                x, w, scale), iters=5, flush=flush)
+            w_lib = gm.dequantize(w, scale, d_in, xdt)
+            lib = cuda_ms(lambda: torch.bmm(x, w_lib), flush=flush)
+            bound_ms, bound_by = gmm_bound(x, w, scale, d_out)
+            calls.append((err, ms, plain, lib, bound_ms, bound_by))
+            print(f"kernel check: gmm_{variant} {dname} {prod} "
+                  f"[{x.shape[0]}, {x.shape[1]}, {d_in}] x [{d_in}, "
+                  f"{d_out}] {str(w.dtype).split('.')[-1]} weights "
+                  f"{tuple(w.shape)} max_abs_err={err:.3g} (tol {tol} "
+                  f"(1 + |plain|)) kernel_ms={ms:.4f} plain_ms={plain:.4f}"
+                  f" bound_ms={bound_ms:.4f} ({bound_by}) yardstick: "
+                  f"torch.bmm{'' if scale is None else ' on a pre-dequantized copy'}"
+                  f" {lib:.4f} ms", flush=True)
+            del x, w, scale, got, w_lib
+        if dname == "bfloat16":
+            records[f"gmm_{variant}"] = dict(
+                max_abs_err=max(c[0] for c in calls),
+                ms=sum(c[1] for c in calls) / 2,
+                plain_ms=sum(c[2] for c in calls) / 2,
+                library_ms=sum(c[3] for c in calls) / 2,
+                bound_ms=sum(c[4] for c in calls) / 2,
+                bound_by=calls[0][5])
+    return records
+
+
+# ----------------------------------------------------- phases 5b and 5c
+
+
+def serve_moe(device, counters):
+    """Phase 5b: MoE-350M served by three engines (float, int8, int4
+    experts), each zeroing every kernel counter just before its 16
+    requests and reading them just after; returns each grouped-matmul
+    variant's launches in its own engine's run."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.ops.grouped_matmul import expert_weight_bytes
+    from paddle_tpu_torch.serving.engine import (ServingEngine,
+                                                 moe_utilization_entropy)
+    E, k = MOE["num_expert"], MOE["top_k"]
+    D, F = HIDDEN, 4 * HIDDEN
+    t0 = time.perf_counter()
+    model = load_jax_gpt(random_gpt_arrays(SEED + 8, experts=E), HEADS,
+                         moe=MOE, compute_dtype="bfloat16", device=device,
+                         dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_expert = model.decoder.ffn1_w.numel() + model.decoder.ffn2_w.numel()
+    print(f"serve MoE: MoE-350M built in {time.perf_counter() - t0:.1f} s: "
+          f"{n_params} resident parameters, {n_expert} of them experts "
+          f"({E} experts, top-{k}, capacity factor "
+          f"{MOE['capacity_factor']}; vocab {VOCAB}, hidden {HIDDEN}, "
+          f"{LAYERS} layers, {HEADS} heads, bf16)", flush=True)
+    prompts = serve_prompts()
+    variant = {None: "gmm_fp", "int8": "gmm_int8", "int4": "gmm_int4"}
+    launches, float_out = {}, None
+    for fmt in (None, "int8", "int4"):
+        t0 = time.perf_counter()
+        eng = ServingEngine(model, max_slots=SLOTS, block_size=BLOCK,
+                            max_seq_len=MAX_SEQ, token_budget=BUDGET,
+                            cache_dtype="bfloat16", moe_weight_dtype=fmt,
+                            device=device)
+        eng.generate_batch([[1, 2, 3]], max_new_tokens=2)   # warm-up
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        counts0 = eng.moe_expert_counts.copy()
+        dropped0, fed0 = eng.moe_dropped_total, eng.tokens_fed
+        torch.cuda.reset_peak_memory_stats(device)
+        for mod, attr, _ in counters:
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, NEW_TOKENS) for p in prompts]
+        steps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: getattr(mod, attr) for mod, attr, name in counters}
+        counts = eng.moe_expert_counts - counts0
+        dropped = eng.moe_dropped_total - dropped0
+        fed = eng.tokens_fed - fed0
+        outputs = [list(r.output) for r in reqs]
+        generated = sum(map(len, outputs))
+        if fmt is None:
+            float_out = outputs
+        same = sum(a == b for o, f in zip(outputs, float_out)
+                   for a, b in zip(o, f))
+        ttft = sum(r.first_token_time - r.submit_time for r in reqs) \
+            / len(reqs)
+        wdt = fmt or "bfloat16"
+        wbytes = (expert_weight_bytes(E, D, F, wdt, LAYERS)
+                  + expert_weight_bytes(E, F, D, wdt, LAYERS))
+        print(f"serve MoE {wdt} experts: expert_weight_bytes {wbytes} "
+              f"({n_params} resident parameters); built in {build_s:.1f} s;"
+              f" {steps} steps, {generated} generated tokens in {wall:.3f} "
+              f"s = {generated / wall:.1f} tokens/s, mean TTFT "
+              f"{ttft * 1e3:.1f} ms, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(device)} B, preemptions "
+              f"{eng.scheduler.preemption_count}; {fed} valid tokens fed, "
+              f"expert utilization entropy "
+              f"{moe_utilization_entropy(counts):.4f}, dropped {dropped:.0f}"
+              f" of {k * LAYERS * fed} choices, last aux "
+              f"{eng.moe_last_aux:.4f}; tokens equal to the float "
+              f"engine's {same}/{generated}; launches " + ", ".join(
+                  f"{n} {got[n]}" for n in ("paged_attention", "gmm_fp",
+                                            "gmm_int8", "gmm_int4")),
+              flush=True)
+        if any(r.state != "finished" or len(r.output) != NEW_TOKENS
+               for r in reqs):
+            fail(f"serve MoE {wdt}: not every request finished with its "
+                 "full horizon")
+        want = {"paged_attention": steps * LAYERS,
+                variant[fmt]: steps * 2 * LAYERS}
+        for name, n in got.items():
+            if n != want.get(name, 0):
+                fail(f"serve MoE {wdt}: {name} launched {n} times, "
+                     f"expected {want.get(name, 0)} ({steps} steps)")
+        if not np.all(np.isfinite(counts)) or \
+                counts.sum() + dropped != k * LAYERS * fed:
+            fail(f"serve MoE {wdt}: {counts.sum()} routed + {dropped} "
+                 f"dropped choices != {k} x {LAYERS} layers x {fed} tokens")
+        launches[variant[fmt]] = got[variant[fmt]]
+        if fmt is None:
+            profile_decode(eng, "MoE-350M float experts")
+        del eng, reqs
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_moe_on_card(device):
+    """Phase 5c: fp32, 2 layers at full width, float and int8 experts: 4
+    requests of 16 new tokens served on the card (kernels) and on a CPU
+    copy (plain versions) must give the same greedy tokens. A near-tie
+    at the top-k gate boundary turns an ulp into an expert flip
+    (docs/MOE.md), so both runs record, per routed call, its engine
+    step and each valid token's chosen experts, and the CPU run the
+    token's gap between its k-th and (k+1)-th gate probability. Tokens
+    that differ are forgiven only when the first routed call whose
+    experts differ comes no later than the step where the tokens first
+    differ, and every token whose experts differ there has a gap under
+    1e-5; any other difference fails."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.parallel import moe_utils
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    E, k, layers = MOE["num_expert"], MOE["top_k"], 2
+    arrays = random_gpt_arrays(SEED + 9, layers=layers, experts=E)
+    rng = np.random.default_rng(SEED + 10)
+    prompts = [rng.integers(0, VOCAB, int(n)).tolist()
+               for n in (17, 40, 64, 9)]
+    routing = moe_utils.top_k_routing
+
+    def recording(eng, log):
+        def route(logits, top_k, capacity, valid=None, dtype=None):
+            r = routing(logits, top_k, capacity, valid=valid, dtype=dtype)
+            p = torch.softmax(logits.float(), -1).sort(-1, descending=True)[0]
+            rows = slice(None) if valid is None else valid
+            log.append((eng.steps_run,
+                        r.plan.gate_idx[rows].sort(-1)[0].cpu(),
+                        (p[:, top_k - 1] - p[:, top_k])[rows].cpu()))
+            return r
+        return route
+
+    def serve(eng, log):
+        """Serve the prompts; returns (outputs, the step of each token)."""
+        reqs = [eng.submit(pr, 16) for pr in prompts]
+        at = [[] for _ in reqs]
+        moe_utils.top_k_routing = recording(eng, log)
+        while eng.scheduler.has_work:
+            n = [len(r.output) for r in reqs]
+            if not eng.step():
+                fail("check MoE: the engine stalled")
+            for a, r, n0 in zip(at, reqs, n):
+                a += [eng.steps_run - 1] * (len(r.output) - n0)
+        moe_utils.top_k_routing = routing
+        return [list(r.output) for r in reqs], at
+
+    for fmt in (None, "int8"):
+        out, logs = {}, {}
+        for dev in (device, "cpu"):
+            model = load_jax_gpt(arrays, HEADS, moe=MOE, device=dev)
+            eng = ServingEngine(model, max_slots=4, block_size=BLOCK,
+                                max_seq_len=128, token_budget=BUDGET,
+                                cache_dtype="float32", moe_weight_dtype=fmt,
+                                device=dev)
+            logs[str(dev)] = []
+            out[str(dev)] = serve(eng, logs[str(dev)])
+            del eng, model
+        (got, _), (want, want_at) = out[str(device)], out["cpu"]
+        card_log, cpu_log = logs[str(device)], logs["cpu"]
+        min_gap = min(float(g.min()) for _, _, g in cpu_log if g.numel())
+        same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+        total = sum(map(len, want))
+        line = (f"check MoE: fp32, {layers} layers at full width, "
+                f"{fmt or 'float'} experts: {same}/{total} greedy tokens "
+                f"equal on the card and the CPU; smallest top-{k} gate gap "
+                f"on the CPU side {min_gap:.3g}")
+        if got != want:
+            # the step at which the first differing token was sampled
+            step = min(a[next(i for i, (x, y) in enumerate(zip(g, w))
+                              if x != y)]
+                       for g, w, a in zip(got, want, want_at) if g != w)
+            flip = next((i for i, (c, h) in enumerate(zip(card_log,
+                                                           cpu_log))
+                         if c[0] != h[0] or not torch.equal(c[1], h[1])),
+                        None)
+            if flip is None or cpu_log[flip][0] > step:
+                fail(line + f" — tokens differ from step {step} with the "
+                     "same experts chosen up to it")
+            _, c_idx, _ = card_log[flip]
+            _, h_idx, h_gap = cpu_log[flip]
+            if c_idx.shape != h_idx.shape:
+                fail(line + f" — routed call {flip} saw another token set")
+            flip_gap = float(h_gap[(c_idx != h_idx).any(-1)].max())
+            if flip_gap >= 1e-5:
+                fail(line + f" — the first expert difference (routed call "
+                     f"{flip}, step {cpu_log[flip][0]}) is at a gate gap of "
+                     f"{flip_gap:.3g}, not a near-tie")
+            line += (f" (tokens differ from step {step}; the first expert "
+                     f"difference, at step {cpu_log[flip][0]}, has gate gap "
+                     f"{flip_gap:.3g} < 1e-5: a near-tie expert flip)")
+        print(line, flush=True)
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------ phase 3, train kernels
@@ -850,6 +1188,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import grouped_matmul as gm
     from paddle_tpu_torch.ops import layer_norm as ln
     from paddle_tpu_torch.ops import paged_attention as pa
 
@@ -879,8 +1218,14 @@ def main():
         ("add_ln_fwd", ln, "fwd_launch_count",
          pallas + "layer_norm.py:34", csrc + "layer_norm.cu"),
         ("add_ln_bwd", ln, "bwd_launch_count",
-         pallas + "layer_norm.py:49", csrc + "layer_norm.cu")]
-    build_fns = (pa.build, fa.build, ln.build)     # one per source
+         pallas + "layer_norm.py:49", csrc + "layer_norm.cu"),
+        ("gmm_fp", gm, "fp_launch_count",
+         pallas + "grouped_matmul.py:159", csrc + "grouped_matmul.cu"),
+        ("gmm_int8", gm, "int8_launch_count",
+         pallas + "grouped_matmul.py:181", csrc + "grouped_matmul.cu"),
+        ("gmm_int4", gm, "int4_launch_count",
+         pallas + "grouped_matmul.py:201", csrc + "grouped_matmul.cu")]
+    build_fns = (pa.build, fa.build, ln.build, gm.build)  # one per source
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(build_fns)) as ex:
         libs = list(ex.map(lambda b: b(), build_fns))
@@ -890,19 +1235,23 @@ def main():
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=device)
     checks = {"paged_attention": check_paged_attention(pa, device, flush)}
+    checks.update(check_gmm(gm, device, flush))
     checks.update(check_flash(fa, device, flush))
     checks.update(check_add_ln(ln, device, flush))
     del flush
     torch.cuda.empty_cache()
 
-    eng, reqs, serve_launches = serve(device, counters[:1])
+    eng, reqs, serve_launches = serve(device, counters)
     check_outputs(eng.model, reqs, device)
-    profile_decode(eng)
+    profile_decode(eng, "GPT-350M")
     del eng, reqs
     torch.cuda.empty_cache()
+    serve_launches.update(serve_moe(device, counters))
+    check_moe_on_card(device)
 
     launches = train(device, counters)
-    launches.update(serve_launches)
+    launches.update({n: serve_launches[n] for n in (
+        "paged_attention", "gmm_fp", "gmm_int8", "gmm_int4")})
     check_train_step(device)
 
     line = {"kernels": [dict(

@@ -11,13 +11,16 @@ Ported so far:
   a paged KV cache (`serving.kv_cache`, `serving.scheduler`,
   `serving.batcher`), one fixed-shape mixed step per iteration, over
   `models.GPTForGeneration` and the stacked decoder of
-  `incubate.nn.fused_transformer`;
+  `incubate.nn.fused_transformer`; MoE models
+  (`GPTForGeneration(moe=...)`, the routing of `parallel.moe_utils`)
+  with float, int8 or packed-int4 experts (`moe_weight_dtype=`);
 * the single-device train step — `parallel.hybrid_gpt.HybridGPT`;
 * the kernels, each a CUDA source written for Hopper under `ops/csrc/`
   with its plain PyTorch version beside it: `ops.paged_attention`
-  (block-table paged attention), `ops.flash_attention` (causal flash
-  attention, forward and backward) and `ops.layer_norm` (fused
-  residual-add + LayerNorm, forward and backward);
+  (block-table paged attention), `ops.grouped_matmul` (the grouped
+  expert matmul, float/int8/int4 weights), `ops.flash_attention`
+  (causal flash attention, forward and backward) and `ops.layer_norm`
+  (fused residual-add + LayerNorm, forward and backward);
 * `convert.load_jax_gpt` and `convert.load_jax_hybrid_gpt` — carry a
   JAX model's or trainer's parameters across.
 

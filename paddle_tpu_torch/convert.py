@@ -1,10 +1,10 @@
 """Carry JAX models' parameters into the port.
 
-* `load_jax_gpt`: a JAX `GPTForGeneration`, given as a
-  `{name: np.ndarray}` dict in the order of the JAX model's
-  `_gen_tensors()`: `word_embeddings`, `position_embeddings`, each
-  decoder parameter under its `_PARAM_ORDER` name, `ln_f.weight`,
-  `ln_f.bias` and `lm_head.weight`.
+* `load_jax_gpt`: a JAX `GPTForGeneration` (dense or MoE, float
+  weights), given as a `{name: np.ndarray}` dict in the order of the
+  JAX model's `_gen_tensors()`: `word_embeddings`,
+  `position_embeddings`, each decoder parameter under its `_PARAM_ORDER`
+  name, `ln_f.weight`, `ln_f.bias` and `lm_head.weight`.
 * `load_jax_hybrid_gpt`: the JAX `HybridGPT` trainer's nested `params`
   (and optionally its zero_stage-0 `opt_state`), as `jax.device_get`
   returns them.
@@ -22,23 +22,47 @@ from .incubate.nn.fused_transformer import _PARAM_ORDER
 from .models.gpt import GPTForGeneration
 from .parallel.hybrid_gpt import param_shapes
 
-#: input name -> the port's state_dict key
-JAX_GPT_NAMES = {"word_embeddings": "word_embeddings.weight",
-                 "position_embeddings": "position_embeddings.weight",
-                 **{n: f"decoder.{n}" for n in _PARAM_ORDER},
-                 "ln_f.weight": "ln_f.weight",
-                 "ln_f.bias": "ln_f.bias",
-                 "lm_head.weight": "lm_head.weight"}
+_SCALE_NAMES = ("qkv_s", "out_s", "ffn1_s", "ffn2_s")
+_HEAD_NAMES = {"word_embeddings": "word_embeddings.weight",
+               "position_embeddings": "position_embeddings.weight",
+               "ln_f.weight": "ln_f.weight", "ln_f.bias": "ln_f.bias",
+               "lm_head.weight": "lm_head.weight"}
 
 
-def load_jax_gpt(arrays, num_attention_heads, *, compute_dtype="float32",
-                 device="cuda", dtype=torch.float32) -> GPTForGeneration:
+def jax_gpt_names(moe=False):
+    """{input name: the port's state_dict key} of a float JAX
+    `GPTForGeneration`, dense or (`moe`) MoE."""
+    dec = [n for n in _PARAM_ORDER
+           if n not in _SCALE_NAMES and (moe or n != "gate_w")]
+    return {**_HEAD_NAMES, **{n: f"decoder.{n}" for n in dec}}
+
+
+def load_jax_gpt(arrays, num_attention_heads, *, moe=None,
+                 compute_dtype="float32", device="cuda",
+                 dtype=torch.float32) -> GPTForGeneration:
     """A `GPTForGeneration` on `device`, its parameters stored as
     `dtype`, holding exactly `arrays`. Shapes follow from the arrays;
-    the head count cannot, so it is given. Raises on a missing or
-    unknown name or a shape that does not fit."""
-    missing = sorted(set(JAX_GPT_NAMES) - set(arrays))
-    unknown = sorted(set(arrays) - set(JAX_GPT_NAMES))
+    the head count cannot, so it is given, and neither can a MoE stack's
+    routing: pass the JAX model's `moe=dict(num_expert, top_k,
+    capacity_factor)` for one. Raises on a missing or unknown name, a
+    shape that does not fit, `gate_w` without `moe=` or `moe=` without
+    `gate_w`, and any weight-only scale (`*_s`): pre-quantized stacks
+    are not carried across yet."""
+    scales = sorted(n for n in arrays if n in _SCALE_NAMES)
+    if scales:
+        raise ValueError(f"JAX GPT parameters: weight-only scales {scales}"
+                         " are not supported; carry the float model "
+                         "across and quantize the experts in the engine "
+                         "(ServingEngine(moe_weight_dtype=...))")
+    if ("gate_w" in arrays) != bool(moe):
+        raise ValueError("JAX GPT parameters: a MoE stack needs both "
+                         "`gate_w` and moe=dict(num_expert, top_k, "
+                         f"capacity_factor); got gate_w "
+                         f"{'present' if 'gate_w' in arrays else 'absent'}"
+                         f" and moe={moe!r}")
+    names = jax_gpt_names(bool(moe))
+    missing = sorted(set(names) - set(arrays))
+    unknown = sorted(set(arrays) - set(names))
     if missing or unknown:
         raise ValueError(f"JAX GPT parameters: missing {missing}, "
                          f"unknown {unknown}")
@@ -49,10 +73,10 @@ def load_jax_gpt(arrays, num_attention_heads, *, compute_dtype="float32",
         num_attention_heads=num_attention_heads,
         intermediate_size=arrays["ffn1_w"].shape[-1],
         max_position_embeddings=arrays["position_embeddings"].shape[0],
-        compute_dtype=compute_dtype, device=device, dtype=dtype)
+        moe=moe, compute_dtype=compute_dtype, device=device, dtype=dtype)
     # bf16 arrays arrive as ml_dtypes' bfloat16, which torch cannot
     # wrap: widen to fp32 first (exact), then copy_ casts to `dtype`
-    state = {JAX_GPT_NAMES[n]: torch.tensor(np.asarray(a, np.float32))
+    state = {names[n]: torch.tensor(np.asarray(a, np.float32))
              for n, a in arrays.items()}
     model.load_state_dict(state, strict=True)
     return model

@@ -1,9 +1,10 @@
 """GPT for generation — the serving model.
 
-Port of `paddle_tpu/models/gpt.py:GPTForGeneration`, dense stack only:
+Port of `paddle_tpu/models/gpt.py:GPTForGeneration`, float weights:
 word and position embeddings, the stacked `FusedMultiTransformer`
-decoder, a final LayerNorm `ln_f` and a bias-free `lm_head` whose
-weight keeps Paddle's `[in, out]` = `[D, V]` layout.
+decoder (`FusedMultiTransformerMoe` with `moe=dict(num_expert, top_k,
+capacity_factor)`), a final LayerNorm `ln_f` and a bias-free `lm_head`
+whose weight keeps Paddle's `[in, out]` = `[D, V]` layout.
 
 `forward` is the plain dense causal pass over whole sequences — the
 scoring oracle the serving engine's paged path is checked against.
@@ -16,8 +17,10 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
-from ..incubate.nn.fused_transformer import (FusedMultiTransformer, _ffn_dense,
-                                             _ln, _mm, _qkv)
+from ..incubate.nn.fused_transformer import (FusedMultiTransformer,
+                                             FusedMultiTransformerMoe,
+                                             _ffn_dense, _ffn_moe, _ln, _mm,
+                                             _qkv)
 
 
 class _Head(nn.Module):
@@ -45,9 +48,16 @@ def _causal_attention(q, k, v):
 class GPTForGeneration(nn.Module):
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_attention_heads=12, intermediate_size=None,
-                 max_position_embeddings=1024, compute_dtype="float32",
-                 device="cuda", dtype=torch.float32):
+                 max_position_embeddings=1024, weight_only=False, moe=None,
+                 compute_dtype="float32", device="cuda",
+                 dtype=torch.float32):
         super().__init__()
+        if weight_only:
+            raise NotImplementedError(
+                "weight_only=True (int8 attention and dense weights) is "
+                "not ported yet (ROADMAP Queue 1, item 1: weight-only "
+                "stacks); serve float weights, with int8/int4 experts "
+                "through ServingEngine(moe_weight_dtype=...)")
         dev = resolve_device(device)
         d_ff = intermediate_size or 4 * hidden_size
         self.vocab_size = vocab_size
@@ -58,9 +68,14 @@ class GPTForGeneration(nn.Module):
         self.word_embeddings = nn.Embedding(vocab_size, hidden_size, **fac)
         self.position_embeddings = nn.Embedding(max_position_embeddings,
                                                 hidden_size, **fac)
-        self.decoder = FusedMultiTransformer(
-            hidden_size, num_attention_heads, d_ff,
-            num_layers=num_layers, activation="gelu", **fac)
+        if moe:
+            self.decoder = FusedMultiTransformerMoe(
+                hidden_size, num_attention_heads, d_ff,
+                num_layers=num_layers, activation="gelu", **moe, **fac)
+        else:
+            self.decoder = FusedMultiTransformer(
+                hidden_size, num_attention_heads, d_ff,
+                num_layers=num_layers, activation="gelu", **fac)
         self.ln_f = nn.LayerNorm(hidden_size, eps=1e-5, **fac)
         self.lm_head = _Head(hidden_size, vocab_size, **fac)
         self.requires_grad_(False)
@@ -79,9 +94,10 @@ class GPTForGeneration(nn.Module):
     @torch.no_grad()
     def forward(self, input_ids, dtype=None):
         """input_ids [B, S] -> logits [B, S, V], dense causal attention
-        over the whole sequence. Computes in `dtype` (default: the
-        parameters' own dtype), independent of the compute dtype the
-        serving engine uses."""
+        over the whole sequence (a MoE stack routes all B * S tokens at
+        once, under that token count's capacity). Computes in `dtype`
+        (default: the parameters' own dtype), independent of the compute
+        dtype the serving engine uses."""
         dt = dtype or self.word_embeddings.weight.dtype
         B, S = input_ids.shape
         pos = torch.arange(S, device=input_ids.device)[None, :]
@@ -97,6 +113,9 @@ class GPTForGeneration(nn.Module):
             attn = _causal_attention(q, k, v).reshape(B, S, cfg.embed_dim)
             x = x + _mm(attn, pl["out_w"]) + pl["out_b"]
             hn = _ln(x, pl["ffn_ln_s"], pl["ffn_ln_b"], cfg.epsilon)
-            x = x + _ffn_dense(cfg, pl, hn)
+            if cfg.num_experts:
+                x = x + _ffn_moe(cfg, pl, hn)[0]
+            else:
+                x = x + _ffn_dense(cfg, pl, hn)
         x = _ln(x, self.ln_f.weight, self.ln_f.bias, 1e-5)
         return _mm(x, self.lm_head.weight)

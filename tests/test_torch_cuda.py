@@ -15,6 +15,7 @@ import torch
 
 from paddle_tpu_torch.models.gpt import GPTForGeneration
 from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.ops import grouped_matmul as tgmm
 from paddle_tpu_torch.ops import layer_norm as tln
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.parallel import hybrid_gpt as th
@@ -266,3 +267,111 @@ def test_train_step_on_card_matches_cpu(cuda_device):
             - counts[1], tln.fwd_launch_count - counts[2],
             tln.bwd_launch_count - counts[3]) == (6 * L, 3 * L, 6 * L,
                                                   3 * L)
+
+
+# --------------------------------------------- grouped matmul (K4) kernels
+
+
+def _gmm_case(E, C, D, F, variant, device, seed=0):
+    """(x, w, scale) of one variant: "fp32" / "bf16" float experts,
+    "int8" / "int4" quantized experts under bf16 activations."""
+    g = torch.Generator().manual_seed(seed)
+    xdt = torch.float32 if variant == "fp32" else torch.bfloat16
+    x = torch.randn(E, C, D, generator=g).to(xdt)
+    w = torch.randn(E, D, F, generator=g) / math.sqrt(D)
+    scale = None
+    if variant in ("fp32", "bf16"):
+        w = w.to(xdt)
+    elif variant == "int8":
+        w = torch.randint(-127, 128, (E, D, F), generator=g,
+                          dtype=torch.int8)
+        scale = torch.rand(E, F, generator=g) * 0.05 + 0.01
+    else:
+        q = torch.randint(-7, 8, (E, D, F), generator=g, dtype=torch.int8)
+        w = tgmm.pack_int4(q)
+        scale = (torch.rand(E, F, generator=g) * 0.3 + 0.05).half()
+    return [None if t is None else t.to(device) for t in (x, w, scale)]
+
+
+_GMM_COUNTERS = {"fp32": "fp_launch_count", "bf16": "fp_launch_count",
+                 "int8": "int8_launch_count", "int4": "int4_launch_count"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 5, 80, 200])
+@pytest.mark.parametrize("E,D,F", [(2, 64, 72), (3, 38, 50), (1, 96, 8)])
+@pytest.mark.parametrize("variant", ["fp32", "bf16", "int8", "int4"])
+def test_gmm_kernels_match_plain(C, E, D, F, variant, cuda_device):
+    """Each K4 kernel against the plain version on the card, at ragged
+    shapes (C across one and two 128-row passes; D and F off the 16 and
+    64 tiles; F = 50 takes the element-wise loads). fp32: sums in
+    another order, 1e-4. bf16 outputs: the same bf16 operands (the
+    quantized kernels round the dequantized weights where the plain
+    version does), multiplied in fp32, one output rounding — 1e-2."""
+    x, w, scale = _gmm_case(E, C, D, F, variant, cuda_device)
+    counts = {n: getattr(tgmm, n) for n in set(_GMM_COUNTERS.values())}
+    got = tgmm.grouped_expert_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    for name, before in counts.items():
+        assert getattr(tgmm, name) == before + (
+            name == _GMM_COUNTERS[variant])
+    want = tgmm.grouped_matmul_reference(x, w, scale)
+    assert got.dtype == x.dtype and got.shape == (E, C, F)
+    assert torch.isfinite(got.float()).all()
+    tol = 1e-4 if variant == "fp32" else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_refuses_without_running_plain(cuda_device,
+                                                  monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(tgmm, "grouped_matmul_reference", plain)
+    x, w, _ = _gmm_case(2, 5, 16, 24, "bf16", cuda_device)
+    with pytest.raises(TypeError):                 # float64 activations
+        tgmm.grouped_expert_matmul(x.double(), w.double())
+    with pytest.raises(TypeError):                 # w of another dtype
+        tgmm.grouped_expert_matmul(x, w.half())
+    with pytest.raises(TypeError):                 # out_dtype not x's
+        tgmm.grouped_expert_matmul(x, w, out_dtype=torch.float32)
+    x4, w4, s4 = _gmm_case(2, 5, 16, 24, "int4", cuda_device)
+    with pytest.raises(ValueError, match="even D"):  # odd D for int4
+        tgmm.grouped_expert_matmul(x4[..., :15].contiguous(), w4, s4)
+    with pytest.raises(TypeError):                 # scale of a wrong shape
+        tgmm.grouped_expert_matmul(x4, w4, s4[:, :5].contiguous())
+    with pytest.raises(RuntimeError, match="grad"):
+        tgmm.grouped_expert_matmul(x.requires_grad_(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", [None, "int8", "int4"])
+def test_moe_engine_on_card_matches_cpu(fmt, cuda_device):
+    """A small fp32 MoE model served on the card (kernels) and on the CPU
+    (plain versions) from the same weights: the same greedy tokens and
+    routing counts; the engine's K4 variant launched twice per layer per
+    step and the other two not at all."""
+    torch.manual_seed(0)
+    moe = dict(num_expert=4, top_k=2, capacity_factor=1.25)
+    kw = dict(vocab_size=193, hidden_size=128, num_layers=2,
+              num_attention_heads=2, max_position_embeddings=128, moe=moe)
+    cpu = GPTForGeneration(device="cpu", **kw)
+    card = GPTForGeneration(device=cuda_device, **kw)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 193, n).tolist() for n in (9, 5, 30, 3)]
+    ekw = dict(max_slots=4, block_size=16, max_seq_len=64,
+               cache_dtype="float32", moe_weight_dtype=fmt)
+    ref = ServingEngine(cpu, device="cpu", **ekw)
+    want = ref.generate_batch(prompts, max_new_tokens=8)
+    eng = ServingEngine(card, device=cuda_device, **ekw)
+    counts = {n: getattr(tgmm, n) for n in set(_GMM_COUNTERS.values())}
+    got = eng.generate_batch(prompts, max_new_tokens=8)
+    assert got == want
+    assert np.array_equal(eng.moe_expert_counts, ref.moe_expert_counts)
+    active = {None: "fp_launch_count", "int8": "int8_launch_count",
+              "int4": "int4_launch_count"}[fmt]
+    for name, before in counts.items():
+        assert getattr(tgmm, name) - before == (
+            eng.steps_run * 2 * 2 if name == active else 0)

@@ -119,10 +119,11 @@ def test_mixed_layer_matches():
         jnp.asarray(wb), jnp.asarray(wo), jnp.asarray(bt),
         jnp.asarray(slots), jnp.asarray(pos))
     tk, tv = torch.tensor(kp), torch.tensor(vp)
-    got = _mixed_layer(tcfg, tp, torch.tensor(h), tk, tv,
-                       torch.tensor(wb), torch.tensor(wo),
-                       torch.tensor(bt), torch.tensor(slots),
-                       torch.tensor(pos))
+    got, moe_stats = _mixed_layer(tcfg, tp, torch.tensor(h), tk, tv,
+                                  torch.tensor(wb), torch.tensor(wo),
+                                  torch.tensor(bt), torch.tensor(slots),
+                                  torch.tensor(pos))
+    assert moe_stats is None                 # a dense layer routes nothing
     np.testing.assert_allclose(got.numpy()[valid],
                                np.asarray(want)[valid], **TOL)
     # block 0 is the NULL block: padding writes there race by design

@@ -154,6 +154,10 @@ def test_port_imports_no_jax():
             "import paddle_tpu_torch.ops.flash_attention\n"
             "import paddle_tpu_torch.ops.layer_norm\n"
             "import paddle_tpu_torch.parallel.hybrid_gpt\n"
+            "import paddle_tpu_torch.parallel.moe_utils\n"
+            "import paddle_tpu_torch.ops.grouped_matmul\n"
+            "import paddle_tpu_torch.incubate.nn.fused_transformer\n"
+            "import paddle_tpu_torch.models.gpt\n"
             "bad = [m for m in sys.modules if m == 'jax'"
             " or m.startswith(('jax.', 'paddle_tpu.'))"
             " or m == 'paddle_tpu']\n"
@@ -182,3 +186,13 @@ def test_default_device_is_the_card(models):
                             n_layers=1))
     with pytest.raises(RuntimeError, match="CUDA"):
         load_jax_hybrid_gpt({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPTForGeneration(vocab_size=17, hidden_size=8, num_layers=1,
+                         num_attention_heads=2,
+                         moe=dict(num_expert=2, top_k=1))
+    # the grouped matmul follows its tensors: only a CPU tensor takes the
+    # plain version, any other device launches a kernel or raises
+    from paddle_tpu_torch.ops.grouped_matmul import grouped_expert_matmul
+    with pytest.raises(ValueError, match="no kernel"):
+        grouped_expert_matmul(torch.zeros(1, 2, 4, device="meta"),
+                              torch.zeros(1, 4, 3, device="meta"))
