@@ -4,7 +4,8 @@ NVIDIA card.
     python3 chip_smoke.py          # from the repository root
 
 Drives the port's paths end to end — serving a dense GPT-350M, serving
-the 8-expert MoE-350M with float, int8 and int4 experts, and the train
+it speculatively over bf16, int8 and fp8 KV pools, serving the
+8-expert MoE-350M with float, int8 and int4 experts, and the train
 step — and holds every CUDA kernel on them against its plain PyTorch
 version. Phases, one line each (or a few):
 
@@ -12,7 +13,10 @@ version. Phases, one line each (or a few):
 2. build — every kernel source compiled with nvcc (one process per
    source, all started together);
 3. kernel check — each kernel against its plain version at the shapes
-   its path gives it (paged attention at the serving step's; the three
+   its path gives it (paged attention at the serving step's: the ragged
+   entry over float, int8 and fp8 pools, the verify entry (4 queries a
+   group, a short group padded with position 0, a group of slot -1)
+   over the same three; the three
    grouped expert matmuls — float, int8 and int4 experts — at the MoE
    step's two expert products; flash attention forward/backward and
    add+LayerNorm forward/backward at the train step's), with times (CUDA events, L2 flushed between
@@ -26,6 +30,20 @@ version. Phases, one line each (or a few):
 5. on-card correctness — two served requests re-scored by the plain
    dense causal forward in fp32, teacher-forced on the engine's output;
    then a short profiled window of decode steps (host vs device time);
+5a. serve spec — the same model served by three speculative engines
+   (draft_k=3, n-gram drafting) over bf16, int8 and fp8_e4m3 KV pools,
+   each taking the 16 requests: every request finishes, the engine's
+   verify variant and its ragged variant launched once per layer per
+   step (no other paged variant), the bf16 engine's every token is the
+   fp32 argmax of the plain dense forward or within its near-tie
+   margin, and the int8/fp8 engines' share of tokens equal to the bf16
+   engine's is reported; then a profiled window of speculative decode
+   steps;
+5d. on-card spec check — fp32, 2 layers at full width: the draft_k=3
+   float-pool engine on the card (kernels) gives the same greedy tokens
+   and draft counts as on a CPU copy (plain versions) and as the card's
+   draft_k=0 engine, unless the first differing token sat at an fp32
+   top-2 logit gap under 1e-5; int8 and fp8 pools reported, not held;
 5b. serve MoE — MoE-350M (bench_gpt_moe's widths: GPT-350M with every
    FFN 8 experts, top-2, capacity factor 1.25; random weights from a
    numpy seed through `convert.load_jax_gpt(moe=...)`) served by three
@@ -90,6 +108,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # significant bits) before its products, the kernel keeps them fp32,
 # and both round the output — a bf16 spacing or two (2^-6 at |x| ~ 2).
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# paged attention over int8/fp8 pools, same form: the plain version also
+# dequantizes in q's dtype (the scale and the product each rounded to
+# bf16) where the kernel dequantizes in fp32, about one more bf16 spacing
+# of every key and value; in fp32 both dequantize alike.
+QTOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# speculative serving: draft_k (bench.py's engine speculation lane) and
+# the JAX engine's default n-gram order and drafting window
+DRAFT_K, DRAFT_NGRAM, DRAFT_RING = 3, 3, 128
 # the train kernels, same form. fp32: sums in another order; the flash
 # backward subtracts two nearly equal D-term dot products (ds = p * (dp
 # - delta)), so its fp32 error scales with their size. bf16: kernels
@@ -112,7 +138,9 @@ def cuda_ms(fn, iters=20, warmup=3, flush=None):
     """Mean device ms of `fn` over `iters` launches timed by CUDA
     events, with `flush` (a large buffer) rewritten before each launch
     so every launch finds L2 cold, as it does inside the 24-layer
-    step."""
+    step. A ~2 ms spin of the card is queued before the start event, so
+    the wrapper's host work has enqueued the launch by the time the
+    card reaches the event: the time is the card's, not the host's."""
     import torch
     for _ in range(warmup):
         fn()
@@ -121,6 +149,7 @@ def cuda_ms(fn, iters=20, warmup=3, flush=None):
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(4_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -168,29 +197,88 @@ def paged_case(dtype, device, seed=SEED):
     return [a.to(device) for a in args]
 
 
+def verify_case(dtype, device, kind="float", seed=SEED):
+    """The verify region's paged-attention inputs at full width: 8
+    groups of K = DRAFT_K + 1 queries (H=16, Dh=64, BS=16) over the
+    `paged_case` contexts — six full groups ending at their slot's
+    newest position, one short group [p, p+1, 0, 0] padded with position
+    0 (as `pack_step` pads it), one group of slot -1 at positions 0 —
+    over float pools in `dtype`, or "int8" / "fp8" pools quantized as
+    the engine quantizes on append. Returns [q, k, v, tables, slots,
+    positions, k_scale, v_scale]."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    H, Dh, K = HEADS, HIDDEN // HEADS, DRAFT_K + 1
+    MB = MAX_SEQ // BLOCK
+    NB = SLOTS * MB + 1
+    ctx = [1024, 960, 777, 512, 300, 129, 64, 17]
+    bt = torch.zeros(SLOTS, MB, dtype=torch.int32)
+    perm = torch.randperm(NB - 1, generator=g) + 1
+    for s, n in enumerate(ctx):
+        nb = -(-n // BLOCK)
+        bt[s, :nb] = perm[s * MB:s * MB + nb].int()
+    slots = list(range(6)) + [6, -1]
+    pos = [[ctx[s] - K + j for j in range(K)] for s in range(6)]
+    pos += [[ctx[6] - 2, ctx[6] - 1] + [0] * (K - 2), [0] * K]
+    q = torch.randn(SLOTS, K, H, Dh, generator=g).to(dtype)
+    kp, vp, ks, vs = quantized_pools(NB, dtype, kind, g)
+    args = [q, kp, vp, bt, torch.tensor(slots, dtype=torch.int32),
+            torch.tensor(pos, dtype=torch.int32), ks, vs]
+    return [None if a is None else a.to(device) for a in args]
+
+
+def quantized_pools(NB, dtype, kind, g):
+    """(k_pool, v_pool, k_scale, v_scale) of random K/V rows: float pools
+    in `dtype` without scales, or "int8" / "fp8" pools quantized per
+    entry and head by the engine's `quantize_kv`."""
+    import torch
+    from paddle_tpu_torch.serving.engine import quantize_kv
+    H, Dh = HEADS, HIDDEN // HEADS
+    kf = torch.randn(NB, BLOCK, H, Dh, generator=g)
+    vf = torch.randn(NB, BLOCK, H, Dh, generator=g)
+    if kind == "float":
+        return kf.to(dtype), vf.to(dtype), None, None
+    kv_dtype = "int8" if kind == "int8" else "fp8_e4m3"
+    (kp, ks), (vp, vs) = quantize_kv(kf, kv_dtype), quantize_kv(vf, kv_dtype)
+    return kp, vp, ks, vs
+
+
+def as_ragged(args):
+    """A verify call's inputs as the ragged entry's: one query per
+    token, each group's slot repeated."""
+    q, kp, vp, bt, slots, pos, ks, vs = args
+    N, G = pos.shape
+    return [q.reshape(N * G, *q.shape[2:]), kp, vp, bt,
+            slots.repeat_interleave(G), pos.reshape(-1), ks, vs]
+
+
 def paged_bound(args):
     """(bound_ms, bound_by, per_token_bound_ms) for one paged-attention
-    call: the bytes it must move — each needed K/V row read once (a
-    slot's rows up to the furthest position any of its tokens sees), q,
-    tables, slots and positions read once, the output written once —
-    over device bandwidth, against 4*Dh flops per attended (token, key)
-    over the operand type's peak. The third number counts K/V bytes
-    once per attended (token, key): what a kernel moves that re-walks a
-    slot's pages for every token, as this one does."""
-    q, kp, _vp, bt, slots, pos = args
-    T, H, Dh = q.shape
+    call, ragged or verify (q [N, G, H, Dh], positions [N, G]): the
+    bytes it must move — each needed K/V row, and with quantized pools
+    its two fp32 scales, read once (a slot's rows up to the furthest
+    position any of its queries sees), q, tables, slots and positions
+    read once, the output written once — over device bandwidth, against
+    4*Dh flops per attended (query, key) over the query type's peak.
+    The third number counts K/V bytes once per attended (query, key):
+    what a kernel moves that re-walks a slot's pages for every query,
+    as the ragged entry does."""
+    q, kp, _vp, bt, slots, pos, ks, _vs = (list(args) + [None, None])[:8]
+    H, Dh = q.shape[-2:]
     S, MB = bt.shape
-    last = pos.clamp(max=MB * BLOCK - 1).long()
+    G = pos.shape[1] if pos.dim() == 2 else 1
+    last = pos.reshape(-1).clamp(max=MB * BLOCK - 1).long()
     keys = int((last + 1).sum())
     furthest = {}
-    for s, p in zip(slots.clamp(min=0).tolist(), last.tolist()):
+    for s, p in zip(slots.clamp(min=0).repeat_interleave(G).tolist(),
+                    last.tolist()):
         furthest[s] = max(furthest.get(s, -1), p)
     rows = sum(p + 1 for p in furthest.values())
-    kv_row = 2 * H * Dh * kp.element_size()          # one K and one V row
+    kv_row = 2 * H * Dh * kp.element_size() + (0 if ks is None else 2 * H * 4)
     other = (2 * q.numel() * q.element_size() + bt.numel() * 4
-             + 2 * T * 4)
+             + slots.numel() * 4 + pos.numel() * 4)
     flops = 4 * keys * H * Dh
-    t_flops = flops / PEAK_FLOPS[str(kp.dtype).split(".")[-1]]
+    t_flops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]]
     t_bytes = (rows * kv_row + other) / PEAK_BYTES
     t_token = (keys * kv_row + other) / PEAK_BYTES
     by = "bytes" if t_bytes >= t_flops else "operations"
@@ -200,27 +288,35 @@ def paged_bound(args):
 
 def sdpa_yardstick(args):
     """A closure timing `scaled_dot_product_attention` over a
-    pre-gathered contiguous copy of every slot's context with a
-    position mask: a yardstick only — no single PyTorch call computes
-    the paged function, and the gather is left out of the time."""
+    pre-gathered contiguous copy of every slot's context (dequantized
+    beforehand for quantized pools) with a position mask: a yardstick
+    only — no single PyTorch call computes the paged function, and the
+    gather and the dequantization are left out of the time. Takes the
+    ragged entry's inputs (`as_ragged` for a verify call)."""
     import torch
     import torch.nn.functional as F
-    q, kp, vp, bt, slots, pos = args
+    q, kp, vp, bt, slots, pos, ks, vs = (list(args) + [None, None])[:8]
+    if ks is not None:
+        kp = (kp.float() * ks[..., None]).to(q.dtype)
+        vp = (vp.float() * vs[..., None]).to(q.dtype)
     T, H, Dh = q.shape
     S, MB = bt.shape
     safe = slots.clamp(min=0).long()
     lens = torch.zeros(S, dtype=torch.long, device=q.device)
     lens.scatter_reduce_(0, safe, pos.long() + 1, "amax")
-    ks, vs, offsets, off = [], [], [], 0
+    ks_, vs_, offsets, off = [], [], [], 0
     for s in range(S):
         n = int(lens[s])
+        if n == 0:
+            offsets.append(off)
+            continue
         blocks = bt[s, :-(-n // BLOCK)].long()
-        ks.append(kp[blocks].reshape(-1, H, Dh)[:n])
-        vs.append(vp[blocks].reshape(-1, H, Dh)[:n])
+        ks_.append(kp[blocks].reshape(-1, H, Dh)[:n])
+        vs_.append(vp[blocks].reshape(-1, H, Dh)[:n])
         offsets.append(off)
         off += n
-    k = torch.cat(ks).transpose(0, 1)[None]          # [1, H, N, Dh]
-    v = torch.cat(vs).transpose(0, 1)[None]
+    k = torch.cat(ks_).transpose(0, 1)[None]         # [1, H, N, Dh]
+    v = torch.cat(vs_).transpose(0, 1)[None]
     col = torch.arange(off, device=q.device)[None, :]
     start = torch.tensor(offsets, device=q.device)[safe][:, None]
     mask = (col >= start) & (col <= start + pos.long()[:, None])
@@ -267,6 +363,65 @@ def check_paged_attention(pa, device, flush):
               f"attended token and key) yardstick: SDPA on a "
               f"pre-gathered copy {sdpa_ms:.4f} ms", flush=True)
     return records["bfloat16"]
+
+
+def check_paged_variants(pa, device, flush):
+    """Phase 3 for the paged kernel's verify entry (K3b) and its
+    quantized pools (K3c): the verify entry over float, int8 and fp8
+    pools, the ragged entry over int8 and fp8 pools, each in fp32 and
+    bf16 queries against its plain version, timed beside its bound and
+    the SDPA yardstick. Returns the bf16 (serving dtype) records."""
+    import torch
+    variants = (("paged_verify", "verify", "float"),
+                ("paged_int8", "ragged", "int8"),
+                ("paged_fp8", "ragged", "fp8"),
+                ("paged_verify_int8", "verify", "int8"),
+                ("paged_verify_fp8", "verify", "fp8"))
+    records = {}
+    for label, entry, kind in variants:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            if entry == "verify":
+                args = verify_case(dtype, device, kind)
+                fn, plain = pa.verify_paged_attention, \
+                    pa.verify_gather_reference
+                valid = args[4] >= 0
+            else:
+                q, kp, vp, bt, slots, pos = paged_case(dtype, device)
+                kp, vp, ks, vs = quantized_pools(
+                    kp.shape[0], dtype, kind,
+                    torch.Generator().manual_seed(SEED + 12))
+                args = [q, kp.to(device), vp.to(device), bt, slots, pos,
+                        ks.to(device), vs.to(device)]
+                fn, plain = pa.ragged_paged_attention, \
+                    pa.ragged_gather_reference
+                valid = slots >= 0
+            tol = (TOL if kind == "float" else QTOL)[name]
+            got = fn(*args)
+            torch.cuda.synchronize()
+            err = close_or_fail(f"{label} {name}", got[valid],
+                                plain(*args)[valid], tol)
+            ms = cuda_ms(lambda: fn(*args), flush=flush)
+            plain_ms = cuda_ms(lambda: plain(*args), iters=5, flush=flush)
+            sdpa_ms = cuda_ms(sdpa_yardstick(
+                as_ragged(args) if entry == "verify" else args),
+                flush=flush)
+            bound_ms, bound_by, token_bound_ms = paged_bound(args)
+            records.setdefault(label, {})[name] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                per_token_bound_ms=token_bound_ms, sdpa_gathered_ms=sdpa_ms)
+            shape = "x".join(str(d) for d in args[0].shape)
+            print(f"kernel check: {label} {name} q [{shape}] over "
+                  f"{str(args[1].dtype).split('.')[-1]} pools, H={HEADS} "
+                  f"Dh={HIDDEN // HEADS} BS={BLOCK} max_abs_err={err:.3g} "
+                  f"(tol {tol} (1 + |plain|)) kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({bound_by}; {token_bound_ms:.4f} counting K/V once per "
+                  f"attended query and key) yardstick: SDPA on a "
+                  f"pre-gathered{'' if kind == 'float' else ', dequantized'}"
+                  f" copy {sdpa_ms:.4f} ms", flush=True)
+    return {label: r["bfloat16"] for label, r in records.items()}
 
 
 # ------------------------------------------------------------- phase 4
@@ -373,17 +528,17 @@ def serve(device, counters):
     return eng, reqs, launches
 
 
-def check_outputs(model, reqs, device):
-    """Phase 5: teacher-force two served requests through the plain
-    dense causal forward in fp32. Each emitted token must be the fp32
-    argmax or within the near-tie margin of it: twice the largest
-    |bf16 - fp32| logit difference of the same dense forward on the
-    same rows (a bf16 computation can swap two tokens whose fp32 logits
-    differ by up to twice its error)."""
+def check_outputs(model, reqs, device, label="check"):
+    """Phase 5: teacher-force served requests through the plain dense
+    causal forward in fp32. Each emitted token must be the fp32 argmax
+    or within the near-tie margin of it: twice the largest |bf16 - fp32|
+    logit difference of the same dense forward on the same rows (a bf16
+    computation can swap two tokens whose fp32 logits differ by up to
+    twice its error)."""
     import torch
     exact = total = 0
     worst = 0.0
-    for req in reqs[:2]:
+    for req in reqs:
         seq = req.prompt + req.output[:-1]
         ids = torch.tensor([seq], device=device)
         rows = slice(len(req.prompt) - 1, len(seq))
@@ -398,14 +553,14 @@ def check_outputs(model, reqs, device):
         total += len(req.output)
         worst = max(worst, float(gap.max()))
         if float(gap.max()) > margin:
-            fail(f"request {req.req_id}: an emitted token's fp32 logit "
-                 f"is {float(gap.max()):.4f} below the argmax, past the "
-                 f"margin {margin:.4f}")
-        print(f"check: request {req.req_id} ({len(req.prompt)} prompt "
+            fail(f"{label}: request {req.req_id}: an emitted token's fp32 "
+                 f"logit is {float(gap.max()):.4f} below the argmax, past "
+                 f"the margin {margin:.4f}")
+        print(f"{label}: request {req.req_id} ({len(req.prompt)} prompt "
               f"tokens): {int((gap == 0).sum())}/{len(req.output)} tokens "
               f"are the fp32 argmax, largest gap {float(gap.max()):.4f} "
               f"within margin {margin:.4f}", flush=True)
-    print(f"check: agreement {exact}/{total} exact fp32 argmax, worst "
+    print(f"{label}: agreement {exact}/{total} exact fp32 argmax, worst "
           f"near-tie gap {worst:.4f}", flush=True)
 
 
@@ -415,18 +570,21 @@ def profile_decode(eng, label, window=16):
     the host clock and the next `window` run under torch.profiler for
     their device time. Device busy share = device time / host time of
     the same kind of step (the profiler's own host overhead is kept out
-    of the host time). Informational: prints "not measured" when the
-    profiler records no device events."""
+    of the host time). A speculative engine's step may emit up to
+    draft_k + 1 tokens, so the horizon leaves room for that. Informational:
+    prints "not measured" when the profiler records no device events."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(SEED + 2)
-    reqs = [eng.submit(rng.integers(0, VOCAB, 256).tolist(),
-                       2 * window + 4) for _ in range(SLOTS)]
+    horizon = (eng.draft_k + 1) * 2 * window + 4
+    reqs = [eng.submit(rng.integers(0, VOCAB, 256).tolist(), horizon)
+            for _ in range(SLOTS)]
     while any(r.state != "decode" for r in reqs):
         eng.step()
     torch.cuda.synchronize()
+    emitted0 = sum(len(r.output) for r in reqs)
     t0 = time.perf_counter()
     for _ in range(window):
         eng.step()
@@ -437,20 +595,22 @@ def profile_decode(eng, label, window=16):
         for _ in range(window):
             eng.step()
         torch.cuda.synchronize()
+    per_step = (sum(len(r.output) for r in reqs) - emitted0) / (2 * window)
     for r in reqs:
         eng.scheduler.cancel(r)
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     if not dev:
         print(f"profile: {label} decode step {host_ms:.3f} ms on the host "
-              "clock; "
+              f"clock, {per_step:.2f} tokens a step; "
               "device time not measured (no device events)", flush=True)
         return
     device_ms = sum(e.self_device_time_total for e in dev) / 1e3 / window
     launches = sum(e.count for e in dev) / window
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     print(f"profile: {label} decode step, 8 slots at contexts 256-"
-          f"{256 + 3 * window}"
+          f"{max(256 + len(r.output) for r in reqs)}"
+          f", {per_step:.2f} tokens a step"
           f": {host_ms:.3f} ms per step on the host clock, {device_ms:.3f} "
           f"ms of device time in {launches:.0f} device launches, device "
           f"busy {device_ms / host_ms:.1%}; most device time: " + "; ".join(
@@ -552,6 +712,171 @@ def check_gmm(gm, device, flush):
                 bound_ms=sum(c[4] for c in calls) / 2,
                 bound_by=calls[0][5])
     return records
+
+
+# ----------------------------------------------------- phases 5a and 5d
+
+SPEC_POOLS = {None: ("paged_verify", "paged_attention"),
+              "int8": ("paged_verify_int8", "paged_int8"),
+              "fp8_e4m3": ("paged_verify_fp8", "paged_fp8")}
+
+
+def serve_spec(device, counters):
+    """Phase 5a: GPT-350M served by three speculative engines (draft_k=3)
+    over bf16, int8 and fp8_e4m3 KV pools, each zeroing every kernel
+    counter just before the 16 requests and reading them just after.
+    Returns each engine's verify and ragged variant launches (the float
+    ragged entry's, paged_attention, stays the dense serve's)."""
+    import torch
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    model = load_jax_gpt(random_gpt_arrays(), HEADS,
+                         compute_dtype="bfloat16", device=device)
+    prompts = serve_prompts()
+    launches, bf16_out = {}, None
+    for kv_dtype in (None, "int8", "fp8_e4m3"):
+        t0 = time.perf_counter()
+        eng = ServingEngine(model, max_slots=SLOTS, block_size=BLOCK,
+                            max_seq_len=MAX_SEQ, token_budget=BUDGET,
+                            cache_dtype="bfloat16", kv_dtype=kv_dtype,
+                            draft_k=DRAFT_K, draft_ngram=DRAFT_NGRAM,
+                            draft_ring=DRAFT_RING, device=device)
+        eng.generate_batch([[1, 2, 3]], max_new_tokens=2)   # warm-up
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        prop0, acc0 = eng.spec_proposed_total, eng.spec_accepted_total
+        torch.cuda.reset_peak_memory_stats(device)
+        for mod, attr, _ in counters:
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, NEW_TOKENS) for p in prompts]
+        steps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: getattr(mod, attr) for mod, attr, name in counters}
+        outputs = [list(r.output) for r in reqs]
+        generated = sum(map(len, outputs))
+        if kv_dtype is None:
+            bf16_out = outputs
+        same = sum(a == b for o, f in zip(outputs, bf16_out)
+                   for a, b in zip(o, f))
+        ttft = sum(r.first_token_time - r.submit_time for r in reqs) \
+            / len(reqs)
+        proposed = eng.spec_proposed_total - prop0
+        accepted = eng.spec_accepted_total - acc0
+        pools = kv_dtype or "bfloat16"
+        verify, ragged = SPEC_POOLS[kv_dtype]
+        print(f"serve spec {pools} pools: draft_k={DRAFT_K} "
+              f"(ngram {DRAFT_NGRAM}, window {DRAFT_RING}), token_budget "
+              f"{eng.token_budget}, kv_bytes_per_token "
+              f"{eng.kv.kv_bytes_per_token}; built in {build_s:.1f} s; "
+              f"{steps} steps, {generated} generated tokens in {wall:.3f} s"
+              f" = {generated / wall:.1f} tokens/s, mean TTFT "
+              f"{ttft * 1e3:.1f} ms, drafts proposed {proposed} accepted "
+              f"{accepted} ({accepted / max(proposed, 1):.1%}), "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(device)} B, preemptions "
+              f"{eng.scheduler.preemption_count}; tokens equal to the bf16"
+              f"-pool engine's {same}/{generated}; launches {verify} "
+              f"{got[verify]}, {ragged} {got[ragged]}", flush=True)
+        if any(r.state != "finished" or len(r.output) != NEW_TOKENS
+               for r in reqs):
+            fail(f"serve spec {pools}: not every request finished with its "
+                 "full horizon")
+        if eng.kv.blocks_in_use:
+            fail(f"serve spec {pools}: {eng.kv.blocks_in_use} KV blocks "
+                 "still held after every request finished")
+        want = {verify: steps * LAYERS, ragged: steps * LAYERS}
+        for name, n in got.items():
+            if n != want.get(name, 0):
+                fail(f"serve spec {pools}: {name} launched {n} times, "
+                     f"expected {want.get(name, 0)} ({steps} steps)")
+        launches[verify] = got[verify]
+        if kv_dtype is not None:
+            launches[ragged] = got[ragged]
+        else:
+            check_outputs(model, reqs, device, label="check spec")
+            profile_decode(eng, f"GPT-350M draft_k={DRAFT_K} bf16 pools")
+        del eng, reqs
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_spec_on_card(device):
+    """Phase 5d: fp32, 2 layers at full width: 4 requests of 16 new tokens
+    (one prompt a repeated pattern, so drafts get accepted) served with
+    draft_k=3 on the card (kernels) and on a CPU copy (plain versions),
+    and by the card's draft_k=0 engine. Float pools: the tokens must be
+    identical and the proposed/accepted counts equal, unless the first
+    differing token sat at an fp32 top-2 logit gap under 1e-5 (of the
+    plain dense forward, on the CPU, teacher-forced on the CPU run's
+    tokens) — printed either way. int8 and fp8 pools: card against CPU
+    reported, not held (the card's and the CPU's K/V can differ by an
+    ulp that crosses an int8 or fp8 rounding step)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    layers = 2
+    arrays = random_gpt_arrays(SEED + 11, layers=layers)
+    rng = np.random.default_rng(SEED + 12)
+    prompts = [rng.integers(0, VOCAB, int(n)).tolist()
+               for n in (17, 40, 64, 9)]
+    prompts[3] = prompts[3] * 5
+    models = {str(d): load_jax_gpt(arrays, HEADS, device=d)
+              for d in (device, "cpu")}
+
+    def serve(dev, kv_dtype, draft_k):
+        eng = ServingEngine(models[str(dev)], max_slots=4, block_size=BLOCK,
+                            max_seq_len=128, token_budget=BUDGET,
+                            cache_dtype="float32", kv_dtype=kv_dtype,
+                            draft_k=draft_k, device=dev)
+        out = eng.generate_batch(prompts, max_new_tokens=16)
+        return out, (eng.spec_proposed_total, eng.spec_accepted_total)
+
+    def first_gap(got, want):
+        """(same tokens, total, the fp32 top-2 gap at the first
+        differing token or None)."""
+        same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+        total = sum(map(len, want))
+        for p, g, w in zip(prompts, got, want):
+            i = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                     None)
+            if i is None:
+                continue
+            ids = torch.tensor([p + w[:i]])
+            top = models["cpu"](ids, dtype=torch.float32)[0, -1].topk(2)
+            return same, total, float(top.values[0] - top.values[1])
+        return same, total, None
+
+    for kv_dtype in (None, "int8", "fp8_e4m3"):
+        got, card_counts = serve(device, kv_dtype, DRAFT_K)
+        want, cpu_counts = serve("cpu", kv_dtype, DRAFT_K)
+        same, total, gap = first_gap(got, want)
+        line = (f"check spec: fp32, {layers} layers at full width, "
+                f"{kv_dtype or 'float32'} pools, draft_k={DRAFT_K}: "
+                f"{same}/{total} greedy tokens equal on the card and the "
+                f"CPU; drafts proposed/accepted {card_counts} on the card, "
+                f"{cpu_counts} on the CPU; first differing token's fp32 "
+                f"top-2 gap {'none' if gap is None else f'{gap:.3g}'}")
+        if kv_dtype is None:
+            plain, _ = serve(device, None, 0)
+            p_same, _, p_gap = first_gap(got, plain)
+            line += (f"; {p_same}/{total} equal to the card's draft_k=0 "
+                     f"engine (first gap "
+                     f"{'none' if p_gap is None else f'{p_gap:.3g}'})")
+            for g in (gap, p_gap):
+                if g is not None and g >= 1e-5:
+                    fail(line + " — tokens differ past a near-tie")
+            if gap is None and card_counts != cpu_counts:
+                fail(line + " — equal tokens but different draft counts")
+        else:
+            line += " (reported, not held)"
+        print(line, flush=True)
+    del models
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------- phases 5b and 5c
@@ -1211,6 +1536,16 @@ def main():
     kernels = [
         ("paged_attention", pa, "launch_count",
          pallas + "paged_attention.py:101", csrc + "paged_attention.cu"),
+        ("paged_verify", pa, "verify_launch_count",
+         pallas + "paged_attention.py:276", csrc + "paged_attention.cu"),
+        ("paged_int8", pa, "int8_launch_count",
+         pallas + "paged_attention.py:110", csrc + "paged_attention.cu"),
+        ("paged_fp8", pa, "fp8_launch_count",
+         pallas + "paged_attention.py:110", csrc + "paged_attention.cu"),
+        ("paged_verify_int8", pa, "verify_int8_launch_count",
+         pallas + "paged_attention.py:110", csrc + "paged_attention.cu"),
+        ("paged_verify_fp8", pa, "verify_fp8_launch_count",
+         pallas + "paged_attention.py:110", csrc + "paged_attention.cu"),
         ("flash_fwd", fa, "fwd_launch_count",
          pallas + "flash_attention.py:99", csrc + "flash_attention.cu"),
         ("flash_bwd", fa, "bwd_launch_count",
@@ -1235,6 +1570,7 @@ def main():
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=device)
     checks = {"paged_attention": check_paged_attention(pa, device, flush)}
+    checks.update(check_paged_variants(pa, device, flush))
     checks.update(check_gmm(gm, device, flush))
     checks.update(check_flash(fa, device, flush))
     checks.update(check_add_ln(ln, device, flush))
@@ -1246,12 +1582,16 @@ def main():
     profile_decode(eng, "GPT-350M")
     del eng, reqs
     torch.cuda.empty_cache()
+    serve_launches.update(serve_spec(device, counters))
+    check_spec_on_card(device)
     serve_launches.update(serve_moe(device, counters))
     check_moe_on_card(device)
 
     launches = train(device, counters)
     launches.update({n: serve_launches[n] for n in (
-        "paged_attention", "gmm_fp", "gmm_int8", "gmm_int4")})
+        "paged_attention", "paged_verify", "paged_int8", "paged_fp8",
+        "paged_verify_int8", "paged_verify_fp8", "gmm_fp", "gmm_int8",
+        "gmm_int4")})
     check_train_step(device)
 
     line = {"kernels": [dict(
@@ -1259,7 +1599,8 @@ def main():
         launches=launches[name],
         **{k: checks[name][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-        library_ms=checks[name].get("library_ms"))
+        library_ms=checks[name].get("library_ms"),
+        sdpa_gathered_ms=checks[name].get("sdpa_gathered_ms"))
         for name, _m, _c, replaces, source in kernels]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,16 +8,20 @@ the JAX package so each counterpart is easy to find.
 Ported so far:
 
 * the serving path — `serving.ServingEngine`: continuous batching over
-  a paged KV cache (`serving.kv_cache`, `serving.scheduler`,
-  `serving.batcher`), one fixed-shape mixed step per iteration, over
-  `models.GPTForGeneration` and the stacked decoder of
-  `incubate.nn.fused_transformer`; MoE models
-  (`GPTForGeneration(moe=...)`, the routing of `parallel.moe_utils`)
-  with float, int8 or packed-int4 experts (`moe_weight_dtype=`);
+  a paged KV cache (`serving.kv_cache`; float, int8 or fp8 pools,
+  `kv_dtype=`), `serving.scheduler`, `serving.batcher`, one
+  fixed-shape mixed step per iteration, over `models.GPTForGeneration`
+  and the stacked decoder of `incubate.nn.fused_transformer`;
+  speculative decoding (`draft_k=`: the n-gram drafter of
+  `serving.draft`, a fixed verify region, greedy or rejection-sampling
+  acceptance, KV rollback); MoE models (`GPTForGeneration(moe=...)`,
+  the routing of `parallel.moe_utils`) with float, int8 or packed-int4
+  experts (`moe_weight_dtype=`);
 * the single-device train step — `parallel.hybrid_gpt.HybridGPT`;
 * the kernels, each a CUDA source written for Hopper under `ops/csrc/`
   with its plain PyTorch version beside it: `ops.paged_attention`
-  (block-table paged attention), `ops.grouped_matmul` (the grouped
+  (block-table paged attention: ragged and verify entries, float or
+  quantized pools), `ops.grouped_matmul` (the grouped
   expert matmul, float/int8/int4 weights), `ops.flash_attention`
   (causal flash attention, forward and backward) and `ops.layer_norm`
   (fused residual-add + LayerNorm, forward and backward);

@@ -1,28 +1,36 @@
 """Block-table paged attention — the serving mixed step's kernel.
 
-`ragged_paged_attention` is the port of
-`paddle_tpu/ops/pallas/flash_attention.py:ragged_paged_attention`:
+Two entries, ports of `paddle_tpu/ops/pallas/flash_attention.py`'s
+`ragged_paged_attention` and `verify_paged_attention`:
 
-    q             [T, H, Dh]      — one query per flat token
+    ragged: q [T, H, Dh], slot_ids [T], positions [T]
+            — one query per flat token (prefill chunks, plain decodes)
+    verify: q [B, K, H, Dh], slot_ids [B], positions [B, K]
+            — K consecutive queries per slot (a speculative verify
+              window), one block-table walk per group
+
     k_pool/v_pool [NB, BS, H, Dh] — one layer's paged pools
     block_tables  [S, MB] int32   — per-slot block lists, NULL-padded
-    slot_ids      [T] int32       — owning slot per token (-1 = padding)
-    positions     [T] int32       — token's position in its sequence
+    k_scale/v_scale [NB, BS, H] fp32, optional — the pools are int8 or
+                  float8_e4m3fn and dequantize per entry per head
 
-Token t attends the keys of its slot at positions <= positions[t].
+A query attends the keys of its slot (slot -1 = padding, clamped to
+slot 0) at positions <= its own.
 
-On a CUDA tensor it launches `csrc/paged_attention.cu`, the Hopper
-kernel that replaces the TPU kernel
-`paddle_tpu/ops/pallas/paged_attention.py:_paged_attend_kernel` (G=1
-ragged entry, float pools), or raises: there is no fallback. The work
-is bound by device memory — one flop per byte in bf16 — so the kernel
-reads each needed K/V row once, one coalesced warp load per row, stops
-at the query's own position instead of masking whole blocks, and keeps
-q, the running softmax state and the accumulator in registers (the
-source explains the design). On a CPU tensor it runs
-`ragged_gather_reference`, the plain PyTorch version of the JAX
-package's gather reference, which the tests and `chip_smoke.py` also
-hold the kernel against.
+On a CUDA tensor each entry launches `csrc/paged_attention.cu`, the
+Hopper kernel that replaces the TPU kernel
+`paddle_tpu/ops/pallas/paged_attention.py:_paged_attend_kernel` (its
+G=1 ragged entry, its G=K verify entry, and its quantized branch), or
+raises: there is no fallback. The work is bound by device memory, so
+the kernel reads each needed K/V row once per group, one coalesced warp
+load per row, stops at the group's newest position instead of masking
+whole blocks, and keeps the queries, the running softmax state and the
+accumulators in registers (the source explains the design). On a CPU
+tensor it runs `ragged_gather_reference` / `verify_gather_reference`,
+the plain PyTorch versions of the JAX package's gather references,
+which the tests and `chip_smoke.py` also hold the kernel against. The
+plain versions dequantize in q's dtype, as the JAX references do; the
+kernel dequantizes in fp32, as the TPU kernel does.
 
 The kernel is compiled at first use with nvcc, from this package's own
 source, into `build/paddle_tpu_torch/` at the repository root, and
@@ -37,44 +45,115 @@ import torch
 
 from . import _build
 
-#: kernel launches so far (the wrapper adds one per launch, nowhere else)
+# kernel launches so far, one counter per variant (the wrapper adds one
+# per launch, nowhere else)
+#: ragged entry over float pools (K3a)
 launch_count = 0
+#: ragged entry over int8 / fp8 pools (K3c)
+int8_launch_count = 0
+fp8_launch_count = 0
+#: verify entry over float pools (K3b)
+verify_launch_count = 0
+#: verify entry over int8 / fp8 pools (K3b + K3c)
+verify_int8_launch_count = 0
+verify_fp8_launch_count = 0
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-          (torch.float16, torch.float16), (torch.float32, torch.bfloat16),
-          (torch.float32, torch.float16)}
+_COUNTERS = {
+    ("ragged", None): "launch_count",
+    ("ragged", torch.int8): "int8_launch_count",
+    ("ragged", torch.float8_e4m3fn): "fp8_launch_count",
+    ("verify", None): "verify_launch_count",
+    ("verify", torch.int8): "verify_int8_launch_count",
+    ("verify", torch.float8_e4m3fn): "verify_fp8_launch_count"}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                torch.int8: 3, torch.float8_e4m3fn: 4}
+_FLOAT_PAIRS = {(torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16),
+                (torch.float16, torch.float16),
+                (torch.float32, torch.bfloat16),
+                (torch.float32, torch.float16)}
+_QUANT_POOLS = (torch.int8, torch.float8_e4m3fn)
+_FLOAT_QUERIES = (torch.float32, torch.bfloat16, torch.float16)
 _HEAD_DIMS = (64, 128)
+#: the most queries one verify group may hold on the card
+MAX_GROUP = 8
+
+
+def _check_heads(name, h, k_pool, v_pool):
+    if k_pool.shape[-2] != h or v_pool.shape[-2] != h:
+        raise ValueError(
+            f"{name}: q has {h} heads but k_pool/v_pool have "
+            f"{k_pool.shape[-2]}/{v_pool.shape[-2]}")
 
 
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, slot_ids,
-                           positions, *, scale=None):
+                           positions, k_scale=None, v_scale=None, *,
+                           scale=None):
     """Flat-token attention over a block-paged KV cache (see the module
     docstring). Returns [T, H, Dh] in q's dtype; rows of padding tokens
     are finite but meaningless."""
     T, H, Dh = q.shape
-    if k_pool.shape[-2] != H or v_pool.shape[-2] != H:
-        raise ValueError(
-            f"ragged_paged_attention: q has {H} heads but "
-            f"k_pool/v_pool have {k_pool.shape[-2]}/{v_pool.shape[-2]}")
+    _check_heads("ragged_paged_attention", H, k_pool, v_pool)
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
     if q.device.type == "cpu":
         return ragged_gather_reference(q, k_pool, v_pool, block_tables,
-                                       slot_ids, positions, scale=scale)
+                                       slot_ids, positions, k_scale,
+                                       v_scale, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention: no kernel for device "
                          f"{q.device}")
-    return _launch(q, k_pool, v_pool, block_tables, slot_ids, positions,
-                   scale)
+    return _launch("ragged", q[:, None], k_pool, v_pool, block_tables,
+                   slot_ids, positions.reshape(T, 1), k_scale, v_scale,
+                   scale)[:, 0]
+
+
+def verify_paged_attention(q, k_pool, v_pool, block_tables, slot_ids,
+                           positions, k_scale=None, v_scale=None, *,
+                           scale=None):
+    """Verify-shaped paged attention (see the module docstring): q
+    [B, K, H, Dh], slot_ids [B], positions [B, K]. Query j of a group
+    sees its slot's keys at positions <= positions[b, j], so draft j
+    sees drafts 0..j-1 and nothing later. Returns [B, K, H, Dh] in q's
+    dtype; groups of padding slots are finite but meaningless."""
+    B, K, H, Dh = q.shape
+    _check_heads("verify_paged_attention", H, k_pool, v_pool)
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    if q.device.type == "cpu":
+        return verify_gather_reference(q, k_pool, v_pool, block_tables,
+                                       slot_ids, positions, k_scale,
+                                       v_scale, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"verify_paged_attention: no kernel for device "
+                         f"{q.device}")
+    return _launch("verify", q, k_pool, v_pool, block_tables, slot_ids,
+                   positions, k_scale, v_scale, scale)
+
+
+def _gather_dequant(pool, scale_pool, bt, q_dtype):
+    """pool[bt] in q's dtype, times the per-entry-per-head scales when
+    the pool is quantized — the JAX package's `_gather_dequant`. fp8
+    rows are gathered as their bytes."""
+    if pool.dtype == torch.float8_e4m3fn:
+        g = pool.view(torch.uint8)[bt].view(pool.dtype)
+    else:
+        g = pool[bt]
+    g = g.to(q_dtype)
+    if scale_pool is not None:
+        g = g * scale_pool[bt].to(q_dtype)[..., None]
+    return g
 
 
 def ragged_gather_reference(q, k_pool, v_pool, block_tables, slot_ids,
-                            positions, *, scale=None):
-    """The plain PyTorch version: gather every token's whole block list
-    into a contiguous copy, mask keys past the token's position with
-    -1e9, softmax in fp32, and take the products in q's dtype — the
-    JAX package's `ragged_gather_reference`, line for line."""
+                            positions, k_scale=None, v_scale=None, *,
+                            scale=None):
+    """The plain PyTorch version of the ragged entry: gather every
+    token's whole block list into a contiguous copy (dequantized in q's
+    dtype), mask keys past the token's position with -1e9, softmax in
+    fp32, and take the products in q's dtype — the JAX package's
+    `ragged_gather_reference`, line for line."""
     T, H, Dh = q.shape
     BS = k_pool.shape[1]
     if scale is None:
@@ -82,8 +161,8 @@ def ragged_gather_reference(q, k_pool, v_pool, block_tables, slot_ids,
     safe_slot = slot_ids.long().clamp(0, block_tables.shape[0] - 1)
     bt = block_tables.long()[safe_slot]                # [T, MB]
     S = bt.shape[1] * BS
-    k = k_pool[bt].to(q.dtype).reshape(T, S, H, Dh)
-    v = v_pool[bt].to(q.dtype).reshape(T, S, H, Dh)
+    k = _gather_dequant(k_pool, k_scale, bt, q.dtype).reshape(T, S, H, Dh)
+    v = _gather_dequant(v_pool, v_scale, bt, q.dtype).reshape(T, S, H, Dh)
     logits = torch.einsum("thd,tshd->ths", q, k).float() * scale
     keep = torch.arange(S, device=q.device)[None, :] \
         <= positions.long()[:, None]                   # [T, S]
@@ -92,11 +171,34 @@ def ragged_gather_reference(q, k_pool, v_pool, block_tables, slot_ids,
     return torch.einsum("ths,tshd->thd", p, v)
 
 
+def verify_gather_reference(q, k_pool, v_pool, block_tables, slot_ids,
+                            positions, k_scale=None, v_scale=None, *,
+                            scale=None):
+    """The plain PyTorch version of the verify entry: one gather of the
+    block list per group — the JAX package's `verify_gather_reference`,
+    line for line."""
+    B, K, H, Dh = q.shape
+    BS = k_pool.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    safe_slot = slot_ids.long().clamp(0, block_tables.shape[0] - 1)
+    bt = block_tables.long()[safe_slot]                # [B, MB]
+    S = bt.shape[1] * BS
+    k = _gather_dequant(k_pool, k_scale, bt, q.dtype).reshape(B, S, H, Dh)
+    v = _gather_dequant(v_pool, v_scale, bt, q.dtype).reshape(B, S, H, Dh)
+    logits = torch.einsum("bkhd,bshd->bhks", q, k).float() * scale
+    keep = torch.arange(S, device=q.device)[None, None, :] \
+        <= positions.long()[:, :, None]                # [B, K, S]
+    logits = logits.masked_fill(~keep[:, None], -1e9)  # [B, H, K, S]
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhks,bshd->bkhd", p, v)
+
+
 # ----------------------------------------------------------- the kernel
 
 
 _SIGNATURES = {"paddle_tpu_torch_paged_attention":
-               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+               [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                + [ctypes.c_float, ctypes.c_void_p]}
 
 
@@ -106,29 +208,49 @@ def build():
     return _build.build("paged_attention")
 
 
-def _launch(q, k_pool, v_pool, block_tables, slot_ids, positions, scale):
-    global launch_count
-    T, H, Dh = q.shape
+def _launch(entry, q, k_pool, v_pool, block_tables, slot_ids, positions,
+            k_scale, v_scale, scale):
+    """Launch the kernel over q [N, G, H, Dh] and positions [N, G]; adds
+    one to the (entry, pool type) variant's counter."""
+    N, G, H, Dh = q.shape
     NB, BS = k_pool.shape[:2]
     S, MB = block_tables.shape
-    if (q.dtype, k_pool.dtype) not in _PAIRS or v_pool.dtype != k_pool.dtype:
+    quant = k_pool.dtype in _QUANT_POOLS
+    if v_pool.dtype != k_pool.dtype or not (
+            (q.dtype, k_pool.dtype) in _FLOAT_PAIRS
+            or (quant and q.dtype in _FLOAT_QUERIES)):
         raise TypeError(f"paged_attention kernel: unsupported dtypes q="
                         f"{q.dtype}, pools={k_pool.dtype}/{v_pool.dtype}")
     if Dh not in _HEAD_DIMS:
         raise ValueError(f"paged_attention kernel: head_dim {Dh} not in "
                          f"{_HEAD_DIMS}")
+    if not 1 <= G <= MAX_GROUP:
+        raise ValueError(f"paged_attention kernel: a group of {G} "
+                         f"queries; the kernel holds 1 to {MAX_GROUP}")
     if k_pool.shape != (NB, BS, H, Dh) or v_pool.shape != k_pool.shape:
         raise ValueError(f"paged_attention kernel: pools "
                          f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} do "
                          f"not match q {tuple(q.shape)}")
-    for name, t, shape in (("block_tables", block_tables, (S, MB)),
-                           ("slot_ids", slot_ids, (T,)),
-                           ("positions", positions, (T,))):
+    scales = (k_scale, v_scale)
+    if quant != (k_scale is not None) or quant != (v_scale is not None):
+        raise TypeError(f"paged_attention kernel: {k_pool.dtype} pools "
+                        f"{'need' if quant else 'take no'} k_scale and "
+                        "v_scale")
+    ints = [("block_tables", block_tables, (S, MB)),
+            ("slot_ids", slot_ids, (N,)), ("positions", positions, (N, G))]
+    for name, t, shape in ints:
         if t.dtype != torch.int32 or tuple(t.shape) != shape:
             raise TypeError(f"paged_attention kernel: {name} must be "
                             f"int32 {shape}, got {t.dtype} "
                             f"{tuple(t.shape)}")
-    tensors = (q, k_pool, v_pool, block_tables, slot_ids, positions)
+    if quant:
+        for t in scales:
+            if t.dtype != torch.float32 or tuple(t.shape) != (NB, BS, H):
+                raise TypeError(
+                    "paged_attention kernel: scales must be float32 "
+                    f"{(NB, BS, H)}, got {t.dtype} {tuple(t.shape)}")
+    tensors = (q, k_pool, v_pool, *(scales if quant else ()),
+               block_tables, slot_ids, positions)
     for t in tensors:
         if t.device != q.device:
             raise ValueError("paged_attention kernel: all operands must "
@@ -137,16 +259,20 @@ def _launch(q, k_pool, v_pool, block_tables, slot_ids, positions, scale):
             raise ValueError("paged_attention kernel: operands must be "
                              "contiguous")
     out = torch.empty_like(q)
-    if T == 0:
+    if N == 0:
         return out
     lib = _build.load("paged_attention", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paddle_tpu_torch_paged_attention(
-        *(t.data_ptr() for t in tensors), out.data_ptr(),
-        T, H, Dh, BS, S, MB, _DTYPE_CODES[q.dtype],
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None,
+        block_tables.data_ptr(), slot_ids.data_ptr(), positions.data_ptr(),
+        out.data_ptr(), N, G, H, Dh, BS, S, MB, _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k_pool.dtype], float(scale), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    launch_count += 1
+    counter = _COUNTERS[(entry, k_pool.dtype if quant else None)]
+    globals()[counter] += 1
     return out

@@ -1,5 +1,9 @@
-"""Serving: paged KV cache, scheduler, batcher and the engine."""
+"""Serving: paged KV cache (float, int8 or fp8 pools), scheduler,
+batcher, the n-gram drafter and the engine."""
 from .batcher import SamplingConfig
+from .draft import accept_length, accept_length_sampled, ngram_propose
 from .engine import ServingEngine
+from .kv_cache import KV_DTYPES, PagedKVCache
 
-__all__ = ["SamplingConfig", "ServingEngine"]
+__all__ = ["KV_DTYPES", "PagedKVCache", "SamplingConfig", "ServingEngine",
+           "accept_length", "accept_length_sampled", "ngram_propose"]

@@ -6,8 +6,9 @@ Port of `paddle_tpu/serving/batcher.py`:
   top-p sampling from an explicit `torch.Generator`;
 * `next_pow2` / `round_up` / `choose_token_budget` / `prefill_chunk` —
   the power-of-two shape discipline of the flat step axis;
-* `pack_step` — one engine iteration (decode tokens + prefill chunks)
-  packed into the FIXED `[token_budget]` flat-token layout:
+* `pack_step` — one engine iteration (decode tokens or speculative
+  verify groups + prefill chunks) packed into the FIXED
+  `[token_budget]` flat-token layout:
 
     token_ids    [T] int32  — decode tokens, then prefill-chunk tokens;
                               0 past num_tokens
@@ -17,8 +18,11 @@ Port of `paddle_tpu/serving/batcher.py`:
                               state samples that slot's next token;
                               -1 = no sample this step (mid-prefill)
 
-Only the dense layout is ported (`verify_width=1`, no reserved decode
-region); the logit penalties wait for a later slice.
+With speculation (`verify_width` = draft_k + 1 > 1) the first
+`max_slots * verify_width` flat tokens are a fixed verify region. The
+logit penalties are fields of `SamplingConfig` so that a caller can ask
+for them, but no engine of this package applies them yet (ROADMAP
+Queue 1), and the sparse decode region waits too.
 """
 from __future__ import annotations
 
@@ -34,6 +38,16 @@ class SamplingConfig:
     temperature: float = 1.0
     top_k: int = 0                 # 0 = off
     top_p: float = 1.0             # 1.0 = off
+    repetition_penalty: float = 1.0   # 1.0 = off (not ported yet)
+    presence_penalty: float = 0.0     # 0.0 = off (not ported yet)
+    frequency_penalty: float = 0.0    # 0.0 = off (not ported yet)
+
+
+def needs_history(sc: SamplingConfig) -> bool:
+    """True when a logit penalty is on (it needs each slot's token
+    history)."""
+    return (sc.repetition_penalty != 1.0 or sc.presence_penalty != 0.0
+            or sc.frequency_penalty != 0.0)
 
 
 def filter_logits(logits, sc: SamplingConfig):
@@ -82,16 +96,28 @@ def round_up(n, m):
     return ((n + m - 1) // m) * m
 
 
-def choose_token_budget(max_slots, block_size, requested=None):
+def choose_token_budget(max_slots, block_size, requested=None,
+                        verify_width=1):
     """Per-step token budget: a power of two >= max(max_slots,
     2*block_size), so a full decode round always fits and prefill
     chunks cover at least two KV blocks per step. An explicit
     `requested` budget is rounded up to a power of two and floored at
     `max_slots` (a smaller budget would stall resident requests while
-    they hold KV blocks)."""
+    they hold KV blocks).
+
+    With speculation (`verify_width` = draft_k + 1 > 1) the first
+    `max_slots * verify_width` flat tokens are the reserved verify
+    region (see `pack_step`), so the floor rises to that region plus
+    prefill room — a budget that left prefill no token would starve
+    admission forever."""
+    vw = int(verify_width)
+    region = max_slots * vw
     if requested is not None:
-        return next_pow2(max(int(requested), max_slots), lo=1)
-    return next_pow2(max(max_slots, 2 * block_size))
+        floor = max_slots if vw == 1 else region + 1
+        return next_pow2(max(int(requested), floor), lo=1)
+    if vw == 1:
+        return next_pow2(max(max_slots, 2 * block_size))
+    return next_pow2(region + 2 * block_size)
 
 
 def prefill_chunk(remaining, budget_left):
@@ -118,38 +144,69 @@ class StepPlan:
     positions: np.ndarray       # [T] int32
     sample_index: np.ndarray    # [max_slots] int32, -1 = no sample
     num_tokens: int             # real tokens this step
-    decode_slots: list          # slots that fed a decode token
+    decode_slots: list          # slots that fed decode/verify tokens
     prefill_done: list          # slots whose prompt completed this step
     prefill_tokens: int
     decode_tokens: int
+    verify_width: int = 1       # 1 + draft_k (1 = no speculation)
+    #: [(slot, [tokens], position)] as planned — the engine replays
+    #: these against the verify scores to compute accept lengths
+    decode_entries: list = dataclasses.field(default_factory=list)
 
 
-def pack_step(token_budget, max_slots, decode, prefills) -> StepPlan:
+def pack_step(token_budget, max_slots, decode, prefills,
+              verify_width=1) -> StepPlan:
     """Pack decode entries + prefill chunks into the flat-token layout.
 
-    decode: [(slot, token, position)] — one token per running decode,
-        packed densely from index 0.
-    prefills: [(slot, chunk_tokens: ndarray, start_pos, completes)],
-        packed after the decodes; `completes` marks the chunk reaching
-        the end of the prompt (its last token samples the slot's first
-        output)."""
+    decode: [(slot, token_or_tokens, position)] — one entry per running
+        decode. A scalar token is the plain one-token decode; a list
+        [last, d_1..d_k] is a speculative verify group (k <= draft_k
+        proposed tokens after the last accepted one).
+    prefills: [(slot, chunk_tokens: ndarray, start_pos, completes)];
+        `completes` marks the chunk reaching the end of the prompt (its
+        last token samples the slot's first output).
+
+    With `verify_width == 1` decode tokens pack densely from index 0
+    and prefill chunks follow. With speculation (`verify_width` =
+    draft_k + 1 > 1) the first `max_slots * verify_width` flat tokens
+    are a fixed verify region — slot s owns indices [s*vw, (s+1)*vw),
+    padded with slot -1 at position 0 — so the step can reshape it to
+    `[max_slots, vw]`; its decode slots get no `sample_index` (the
+    verify scores stand in), and prefill packs after the region."""
+    vw = int(verify_width)
+    region = max_slots * vw if vw > 1 else 0
     token_ids = np.zeros(token_budget, np.int32)
     slot_ids = np.full(token_budget, -1, np.int32)
     positions = np.zeros(token_budget, np.int32)
     sample_index = np.full(max_slots, -1, np.int32)
-    n = len(decode) + sum(len(c[1]) for c in prefills)
+    i = 0
+    decode_slots = []
+    decode_entries = []
+    n_decode = 0
+    for slot, tok, pos in decode:
+        toks = [int(tok)] if np.isscalar(tok) or getattr(
+            tok, "ndim", None) == 0 else [int(t) for t in tok]
+        if len(toks) > vw:
+            raise ValueError(
+                f"decode group of {len(toks)} tokens exceeds the "
+                f"verify width {vw}")
+        base = slot * vw if vw > 1 else i
+        token_ids[base:base + len(toks)] = toks
+        slot_ids[base:base + len(toks)] = slot
+        positions[base:base + len(toks)] = np.arange(
+            pos, pos + len(toks), dtype=np.int32)
+        if vw == 1:
+            sample_index[slot] = base
+            i += 1
+        decode_slots.append(slot)
+        decode_entries.append((slot, toks, int(pos)))
+        n_decode += len(toks)
+    if vw > 1:
+        i = region
+    n = max(n_decode, region) + sum(len(c[1]) for c in prefills)
     if n > token_budget:
         raise ValueError(f"plan of {n} tokens exceeds token budget "
                          f"{token_budget}")
-    i = 0
-    decode_slots = []
-    for slot, tok, pos in decode:
-        token_ids[i] = int(tok)
-        slot_ids[i] = slot
-        positions[i] = pos
-        sample_index[slot] = i
-        decode_slots.append(slot)
-        i += 1
     prefill_done = []
     n_prefill = 0
     for slot, chunk, start, completes in prefills:
@@ -166,4 +223,5 @@ def pack_step(token_budget, max_slots, decode, prefills) -> StepPlan:
                     positions=positions, sample_index=sample_index,
                     num_tokens=i, decode_slots=decode_slots,
                     prefill_done=prefill_done, prefill_tokens=n_prefill,
-                    decode_tokens=len(decode))
+                    decode_tokens=n_decode, verify_width=vw,
+                    decode_entries=decode_entries)

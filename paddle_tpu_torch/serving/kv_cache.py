@@ -12,8 +12,12 @@ cache writes of padding tokens land there, and the attention mask
 through. The allocator hands out blocks `1..num_blocks-1` LIFO.
 
 The pools are torch tensors on the engine's device, written in place
-by the mixed step. Quantized pools, block summaries, copy-on-write and
-block transport wait for later slices.
+by the mixed step. `kv_dtype="int8"` or `"fp8_e4m3"` stores them
+quantized, with fp32 scale pools `k_scale`/`v_scale` `[L, NB, BS, H]`:
+one scale per pool entry per head, at the same (block, offset)
+coordinates as the K/V bytes, so truncation and release carry the
+scales by construction. Block summaries, copy-on-write and block
+transport wait for later slices.
 """
 from __future__ import annotations
 
@@ -24,9 +28,15 @@ from .._device import resolve_device
 
 NULL_BLOCK = 0
 
-#: supported pool dtypes (quantized int8/fp8 pools wait)
+#: supported pool dtypes -> torch storage dtype; the one-byte ones
+#: store quantized payloads with per-entry-per-head fp32 scales
 KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-             "float16": torch.float16}
+             "float16": torch.float16, "int8": torch.int8,
+             "fp8_e4m3": torch.float8_e4m3fn}
+
+#: the largest finite float8_e4m3fn value; quantize-on-append clips to
+#: it (values past it would cast to NaN)
+FP8_MAX = 448.0
 
 
 class BlockAllocator:
@@ -107,11 +117,12 @@ class BlockAllocator:
 
 class PagedKVCache:
     """Paged pools on the device + per-slot block tables and the slot
-    length ledger on the host."""
+    length ledger on the host. `kv_dtype` (default: `dtype`) names the
+    pools' storage; "int8" and "fp8_e4m3" add the scale pools."""
 
     def __init__(self, num_layers, num_heads, head_dim, *, num_blocks,
                  block_size, max_slots, max_blocks_per_slot,
-                 dtype="float32", device="cuda"):
+                 dtype="float32", kv_dtype=None, device="cuda"):
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.head_dim = head_dim
@@ -120,16 +131,24 @@ class PagedKVCache:
         self.max_slots = int(max_slots)
         self.max_blocks_per_slot = int(max_blocks_per_slot)
         self.dtype = str(dtype)
-        if self.dtype not in KV_DTYPES:
+        self.kv_dtype = str(kv_dtype) if kv_dtype else self.dtype
+        if self.kv_dtype not in KV_DTYPES:
             raise ValueError(
-                f"kv dtype {self.dtype!r} not supported; pick one of "
-                f"{sorted(KV_DTYPES)}")
+                f"kv_dtype={self.kv_dtype!r} not supported; pick one of "
+                f"{sorted(KV_DTYPES)} ('int8'/'fp8_e4m3' store "
+                "per-entry-per-head scaled quantized pools)")
         self.device = resolve_device(device)
         shape = (num_layers, self.num_blocks, self.block_size,
                  num_heads, head_dim)
-        tdt = KV_DTYPES[self.dtype]
+        tdt = KV_DTYPES[self.kv_dtype]
         self.k_pool = torch.zeros(shape, dtype=tdt, device=self.device)
         self.v_pool = torch.zeros(shape, dtype=tdt, device=self.device)
+        self.k_scale = self.v_scale = None
+        if self.quantized:
+            self.k_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=self.device)
+            self.v_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=self.device)
         self.allocator = BlockAllocator(self.num_blocks)
         self.block_tables = np.zeros(
             (self.max_slots, self.max_blocks_per_slot), np.int32)
@@ -137,6 +156,26 @@ class PagedKVCache:
         self.slot_lens = np.zeros(self.max_slots, np.int32)
 
     # ------------------------------------------------------------ sizing
+    @property
+    def quantized(self):
+        return KV_DTYPES[self.kv_dtype].itemsize == 1
+
+    @property
+    def kv_bytes_per_token(self):
+        """Device bytes one cached token costs across K+V and all
+        layers, the quantization scales included."""
+        per = (self.num_heads * self.head_dim
+               * KV_DTYPES[self.kv_dtype].itemsize)
+        if self.quantized:
+            per += self.num_heads * 4            # fp32 scale per head
+        return self.num_layers * 2 * per
+
+    @property
+    def block_bytes(self):
+        """Device bytes one K+V block (all layers) occupies, scales
+        included."""
+        return self.kv_bytes_per_token * self.block_size
+
     @property
     def max_slot_tokens(self):
         return self.max_blocks_per_slot * self.block_size

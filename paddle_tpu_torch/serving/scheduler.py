@@ -14,9 +14,13 @@ block-pressure preemption against the paged KV cache:
   sequence exactly. Prefill never preempts; it only takes free blocks.
 * **Deadlines** — an optional absolute deadline per request; queued or
   resident requests past it expire and their blocks are reclaimed.
+* **Speculation** — with `draft_k > 0` each decode feeds a verify group
+  `[last token, d_1..d_k]` from `draft_fn`; the draft extends with FREE
+  blocks only, and the engine reports how far the group got
+  (`note_accept`), which rolls back the blocks rejected drafts claimed.
 
 Pure host-side bookkeeping. The prefix-cache, adapter, migration,
-speculative-draft and tracing hooks of the JAX scheduler wait for later
+device-drafting and tracing hooks of the JAX scheduler wait for later
 slices (ROADMAP.md).
 """
 from __future__ import annotations
@@ -73,11 +77,15 @@ class Plan:
 
 class Scheduler:
     def __init__(self, kv_cache, *, max_slots, token_budget,
-                 clock=time.monotonic):
+                 clock=time.monotonic, draft_k=0, draft_fn=None):
         self.kv = kv_cache
         self.max_slots = max_slots
         self.token_budget = token_budget
         self.clock = clock
+        # speculative decoding: each decode may carry up to draft_k
+        # proposed tokens (draft_fn(sequence) -> draft_k ints)
+        self.draft_k = int(draft_k)
+        self.draft_fn = draft_fn
         self.queue = collections.deque()
         self.slots = [None] * max_slots
         self._ids = itertools.count()
@@ -159,6 +167,30 @@ class Scheduler:
         self.queue.appendleft(victim)
         return victim
 
+    # ------------------------------------------------- speculative draft
+    def _draft_tokens(self, req, pos):
+        """[last_token, d_1..d_k] for one decode's verify group.
+
+        k starts at draft_k and shrinks to what is worth feeding: never
+        past the request's remaining horizon, never past the slot's
+        token capacity, and never past what FREE blocks can back — a
+        speculative burst can't preempt a neighbour's accepted work."""
+        k = min(self.draft_k,
+                req.max_new_tokens - len(req.output) - 1,
+                self.kv.max_slot_tokens - (pos + 1))
+        if k > 0:
+            # free-block extension only: shrink k to the free coverage
+            while k > 0 and not self.kv.ensure_capacity(
+                    req.slot, pos + 1 + k):
+                fit = (self.kv.slot_num_blocks(req.slot)
+                       + self.kv.allocator.num_free) \
+                    * self.kv.block_size - (pos + 1)
+                k = min(k - 1, fit) if fit > 0 else 0
+        if k <= 0:
+            return [req.output[-1]]
+        draft = self.draft_fn(req.prompt + req.output)
+        return [req.output[-1]] + [int(t) for t in draft[:k]]
+
     # ------------------------------------------------------------ plan
     def plan(self) -> Plan:
         """One engine iteration's work. Mutates scheduler/cache state
@@ -188,9 +220,17 @@ class Scheduler:
             if req.slot < 0:
                 continue
             protected.add(req)
-            decode.append((req.slot, req.output[-1], pos))
+            if self.draft_k > 0:
+                decode.append((req.slot, self._draft_tokens(req, pos),
+                               pos))
+            else:
+                decode.append((req.slot, req.output[-1], pos))
 
-        budget_left = self.token_budget - len(decode)
+        # with speculation the verify region is reserved up front (see
+        # batcher.pack_step): prefill budget never depends on the mix
+        reserved = len(decode) if self.draft_k == 0 \
+            else self.max_slots * (self.draft_k + 1)
+        budget_left = self.token_budget - reserved
         prefills = []
         prefillers = sorted(
             (r for r in self.slots
@@ -220,11 +260,23 @@ class Scheduler:
 
     # ------------------------------------------------- post-step hooks
     def note_fed(self, plan: Plan):
-        """Advance slot lengths for every token the step consumed."""
-        for slot, _tok, pos in plan.decode:
-            self.kv.slot_lens[slot] = pos + 1
+        """Advance slot lengths for every token the step consumed.
+
+        Speculative decodes are NOT advanced here: how far a verify
+        group got is known only once the engine reads the accept length
+        back, so `note_accept` owns that bookkeeping."""
+        if self.draft_k == 0:
+            for slot, _tok, pos in plan.decode:
+                self.kv.slot_lens[slot] = pos + 1
         for slot, chunk, start, _completes in plan.prefills:
             self.kv.slot_lens[slot] = start + len(chunk)
+
+    def note_accept(self, slot, new_len):
+        """Record a verify group's outcome: `new_len` tokens of the slot
+        are cached and valid; blocks allocated for rejected draft tokens
+        beyond it are rolled back. Returns the blocks freed."""
+        self.kv.slot_lens[slot] = new_len
+        return self.kv.truncate_slot(slot, new_len)
 
     def finish(self, req, now=None):
         req.state = "finished"

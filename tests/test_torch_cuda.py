@@ -115,6 +115,198 @@ def test_engine_on_card_matches_cpu(cuda_device):
     assert tpa.launch_count - before == eng.steps_run * 2
 
 
+# ------------------------------------- paged verify and quantized pools
+
+
+def _verify_case(G, Dh, qdtype, pool, device, seed=0):
+    """A verify-shaped call at H=4 heads, BS=16, over 6 groups: four
+    full groups of G consecutive queries ending at their slot's newest
+    position, one short group [p, p+1, 0, ...] padded with position 0,
+    and one group of slot -1 at positions 0. `pool`: "float" (pools in
+    q's dtype), "int8" or "fp8" (payloads quantized per entry and head
+    as the serving engine does, with fp32 scales)."""
+    from paddle_tpu_torch.serving.engine import quantize_kv
+    g = torch.Generator().manual_seed(seed)
+    H, BS, S, MB = 4, 16, 5, 20
+    NB = S * MB + 1
+    lens = [300, 17, 64, 129, 90]
+    bt = torch.zeros(S, MB, dtype=torch.int32)
+    perm = torch.randperm(NB - 1, generator=g) + 1
+    for s, n in enumerate(lens):
+        nb = -(-n // BS)
+        bt[s, :nb] = perm[s * MB:s * MB + nb].int()
+    slots, pos = [], []
+    for s in range(4):
+        slots.append(s)
+        pos.append([max(lens[s] - G + j, 0) for j in range(G)])
+    slots.append(4)
+    pos.append([70, 71][:G] + [0] * max(G - 2, 0))
+    slots.append(-1)
+    pos.append([0] * G)
+    q = torch.randn(len(slots), G, H, Dh, generator=g).to(qdtype)
+    kf = torch.randn(NB, BS, H, Dh, generator=g)
+    vf = torch.randn(NB, BS, H, Dh, generator=g)
+    if pool == "float":
+        kp, vp, ks, vs = kf.to(qdtype), vf.to(qdtype), None, None
+    else:
+        kv_dtype = "int8" if pool == "int8" else "fp8_e4m3"
+        kp, ks = quantize_kv(kf, kv_dtype)
+        vp, vs = quantize_kv(vf, kv_dtype)
+    args = [q, kp, vp, bt, torch.tensor(slots, dtype=torch.int32),
+            torch.tensor(pos, dtype=torch.int32), ks, vs]
+    return [None if a is None else a.to(device) for a in args]
+
+
+# kernel-vs-plain tolerance, |kernel - plain| <= tol (1 + |plain|), by
+# query dtype and pool kind. fp32: the same fp32 values summed in another
+# order. bf16/fp16 float pools: the plain version rounds logits and
+# probabilities to q's dtype before its products, the kernel keeps them
+# fp32 (a few spacings: 2^-8 bf16, 2^-11 fp16). Quantized pools add the
+# plain version's dequantization in q's dtype (the scale and the product
+# each rounded once) where the kernel dequantizes in fp32: about one more
+# spacing of every key and value.
+_VERIFY_TOL = {(torch.float32, "float"): 1e-5, (torch.float32, "int8"): 1e-5,
+               (torch.float32, "fp8"): 1e-5,
+               (torch.bfloat16, "float"): 2e-2, (torch.bfloat16, "int8"): 3e-2,
+               (torch.bfloat16, "fp8"): 3e-2,
+               (torch.float16, "float"): 3e-3, (torch.float16, "int8"): 5e-3,
+               (torch.float16, "fp8"): 5e-3}
+_VERIFY_COUNTER = {"float": "verify_launch_count",
+                   "int8": "verify_int8_launch_count",
+                   "fp8": "verify_fp8_launch_count"}
+_RAGGED_COUNTER = {"float": "launch_count", "int8": "int8_launch_count",
+                   "fp8": "fp8_launch_count"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["float", "int8", "fp8"])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_verify_kernel_matches_plain(Dh, G, qdtype, pool, cuda_device):
+    """The verify entry (K3b; over int8/fp8 pools K3c) against its plain
+    version, including the padded short group and the slot -1 group;
+    only its own variant's counter moves."""
+    args = _verify_case(G, Dh, qdtype, pool, cuda_device)
+    before = {c: getattr(tpa, c) for c in
+              list(_VERIFY_COUNTER.values()) + list(_RAGGED_COUNTER.values())}
+    got = tpa.verify_paged_attention(*args)
+    torch.cuda.synchronize()
+    after = {c: getattr(tpa, c) for c in before}
+    assert {c: after[c] - before[c] for c in before} == {
+        c: int(c == _VERIFY_COUNTER[pool]) for c in before}
+    ref = tpa.verify_gather_reference(*args)
+    valid = args[4] >= 0
+    assert torch.isfinite(got.float()).all()
+    tol = _VERIFY_TOL[(qdtype, pool)]
+    got, ref = got[valid].float(), ref[valid].float()
+    assert bool(((got - ref).abs() <= tol * (1 + ref.abs())).all()), \
+        float((got - ref).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["int8", "fp8"])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_ragged_quantized_kernel_matches_plain(Dh, qdtype, pool,
+                                               cuda_device):
+    """The ragged entry over int8/fp8 pools (K3c): the verify case's
+    queries flattened to one query per token."""
+    q, kp, vp, bt, slots, pos, ks, vs = _verify_case(4, Dh, qdtype, pool,
+                                                     cuda_device)
+    N, G = pos.shape
+    args = (q.reshape(N * G, *q.shape[2:]), kp, vp, bt,
+            slots.repeat_interleave(G), pos.reshape(-1), ks, vs)
+    before = getattr(tpa, _RAGGED_COUNTER[pool])
+    got = tpa.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert getattr(tpa, _RAGGED_COUNTER[pool]) == before + 1
+    ref = tpa.ragged_gather_reference(*args)
+    valid = args[4] >= 0
+    tol = _VERIFY_TOL[(qdtype, pool)]
+    got, ref = got[valid].float(), ref[valid].float()
+    assert bool(((got - ref).abs() <= tol * (1 + ref.abs())).all()), \
+        float((got - ref).abs().max())
+
+
+@pytest.mark.cuda
+def test_verify_kernel_refuses_unsupported_operands(cuda_device):
+    """A CUDA tensor the kernel does not take raises; it never runs the
+    plain version instead."""
+    q, kp, vp, bt, slots, pos, _, _ = _verify_case(4, 64, torch.float32,
+                                                   "float", cuda_device)
+    _, k8, v8, _, _, _, ks, vs = _verify_case(4, 64, torch.float32, "int8",
+                                              cuda_device)
+    counters = list(_VERIFY_COUNTER.values())
+    before = [getattr(tpa, c) for c in counters]
+    nine = q[:, :1].expand(-1, 9, -1, -1).contiguous()
+    with pytest.raises(ValueError):             # G > 8
+        tpa.verify_paged_attention(nine, kp, vp, bt, slots,
+                                   pos[:, :1].expand(-1, 9).contiguous())
+    with pytest.raises(ValueError):             # head_dim 96
+        tpa.verify_paged_attention(q[..., :48].contiguous(),
+                                   kp[..., :48].contiguous(),
+                                   vp[..., :48].contiguous(), bt, slots,
+                                   pos)
+    with pytest.raises(TypeError):              # float pools with scales
+        tpa.verify_paged_attention(q, kp, vp, bt, slots, pos, ks, vs)
+    with pytest.raises(TypeError):              # int8 pools, no scales
+        tpa.verify_paged_attention(q, k8, v8, bt, slots, pos)
+    with pytest.raises(TypeError):              # int8 queries
+        tpa.verify_paged_attention(q.to(torch.int8), k8, v8, bt, slots,
+                                   pos, ks, vs)
+    with pytest.raises(TypeError):              # fp16 scales
+        tpa.verify_paged_attention(q, k8, v8, bt, slots, pos, ks.half(),
+                                   vs.half())
+    with pytest.raises(TypeError):              # int64 positions
+        tpa.verify_paged_attention(q, kp, vp, bt, slots, pos.long())
+    assert [getattr(tpa, c) for c in counters] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8_e4m3"])
+def test_speculative_engine_on_card(kv_dtype, cuda_device):
+    """A small fp32 model served with draft_k=3 on the card: every step
+    launched the engine's verify variant and its ragged variant once per
+    layer, and no other paged variant. Float pools also give the CPU's
+    greedy tokens and draft counts, and the card's draft_k=0 tokens."""
+    torch.manual_seed(0)
+    cpu = GPTForGeneration(vocab_size=193, hidden_size=128, num_layers=2,
+                           num_attention_heads=2,
+                           max_position_embeddings=128, device="cpu")
+    card = GPTForGeneration(vocab_size=193, hidden_size=128, num_layers=2,
+                            num_attention_heads=2,
+                            max_position_embeddings=128,
+                            device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 193, n).tolist() for n in (9, 5, 30, 3)]
+    prompts[0] = [7, 8, 9] * 4                      # something to draft
+    kw = dict(max_slots=4, block_size=16, max_seq_len=64,
+              cache_dtype="float32", kv_dtype=kv_dtype, draft_k=3)
+    eng = ServingEngine(card, device=cuda_device, **kw)
+    pool = {None: "float", "int8": "int8", "fp8_e4m3": "fp8"}[kv_dtype]
+    counters = list(_VERIFY_COUNTER.values()) + list(_RAGGED_COUNTER.values())
+    before = {c: getattr(tpa, c) for c in counters}
+    got = eng.generate_batch(prompts, max_new_tokens=12)
+    moved = {c: getattr(tpa, c) - before[c] for c in counters}
+    assert moved == {c: eng.steps_run * 2 if c in (
+        _VERIFY_COUNTER[pool], _RAGGED_COUNTER[pool]) else 0
+        for c in counters}
+    assert all(len(o) == 12 for o in got)
+    assert eng.kv.blocks_in_use == 0
+    if kv_dtype is None:
+        ref = ServingEngine(cpu, device="cpu", **kw)
+        assert got == ref.generate_batch(prompts, max_new_tokens=12)
+        assert (eng.spec_proposed_total, eng.spec_accepted_total) == \
+            (ref.spec_proposed_total, ref.spec_accepted_total)
+        plain = ServingEngine(card, device=cuda_device,
+                              **dict(kw, draft_k=0))
+        assert got == plain.generate_batch(prompts, max_new_tokens=12)
+
+
 # ------------------------------------------------- add_ln (K2) kernels
 
 
