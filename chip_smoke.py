@@ -5,9 +5,11 @@ NVIDIA card.
 
 Drives the port's paths end to end — serving a dense GPT-350M, serving
 it speculatively over bf16, int8 and fp8 KV pools, serving the
-8-expert MoE-350M with float, int8 and int4 experts, and the train
-step — and holds every CUDA kernel on them against its plain PyTorch
-version. Phases, one line each (or a few):
+8-expert MoE-350M with float, int8 and int4 experts, the train step
+(with and without the fused QKV projection), the paddle-layout
+`flash_attention()` entry and the `wgrad_1x1` entry — and holds every
+CUDA kernel on them against its plain PyTorch version. Phases, one line
+each (or a few):
 
 1. device — the card's name, count, and `nvidia-smi` name/power limit;
 2. build — every kernel source compiled with nvcc (one process per
@@ -18,9 +20,14 @@ version. Phases, one line each (or a few):
    group, a short group padded with position 0, a group of slot -1)
    over the same three; the three
    grouped expert matmuls — float, int8 and int4 experts — at the MoE
-   step's two expert products; flash attention forward/backward and
-   add+LayerNorm forward/backward at the train step's), with times (CUDA events, L2 flushed between
-   launches), the card's bound for the same work and, where one
+   step's two expert products; flash attention forward/backward,
+   add+LayerNorm forward/backward and the fused QKV projection (forward,
+   and its gradients through autograd) at the train step's; the
+   paddle-layout flash forward at [8, 1024, 16, 128] causal and full,
+   [8, 1024, 8, 256] causal, and forward + backward through
+   `flash_attention()`; the split-K 1x1 weight gradient at ResNet-50's
+   [401408, 256] x [401408, 64]), with times (CUDA events, L2 flushed
+   between launches), the card's bound for the same work and, where one
    PyTorch call computes the same function, that call's time as a
    yardstick the port never calls;
 4. serve — a full-width GPT-350M (random weights from a numpy seed,
@@ -58,16 +65,26 @@ version. Phases, one line each (or a few):
    (plain versions) give the same greedy tokens, unless the first
    expert choice that differs, at or before the first differing token,
    sat at a near-tie of the top-k gate boundary (reported as the cause);
-6. train — GPT-350M at full width in `bench_gpt`'s config (bf16,
-   bf16 grads, remat, fused CE in 4 chunks) trained by the port's
-   `HybridGPT` at batch 8 for warm-up and timed steps on one fixed
-   batch (random weights from a numpy seed through
-   `convert.load_jax_hybrid_gpt`): finite, falling loss, and every
-   train kernel launched exactly as remat predicts per step; then one
-   profiled step, and the same steps timed at bench_gpt's batch 32;
+6. train — GPT-350M at full width in `bench_gpt`'s exact config (bf16,
+   bf16 grads, remat with remat_policy="save_splash_residuals", fused
+   CE in 4 chunks) trained by the port's `HybridGPT` at batch 8 for
+   warm-up and timed steps on one fixed batch (random weights from a
+   numpy seed through `convert.load_jax_hybrid_gpt`): finite, falling
+   loss, and every train kernel launched exactly as the policy predicts
+   per step (the flash forward once a layer); then one profiled step,
+   and the same steps timed at bench_gpt's batch 32; then batch 8 again
+   with remat_policy None (the flash forward twice a layer) and with
+   qkv_kernel=True (the fused projection twice a layer), side by side;
 7. on-card train check — one fp32 step of the same widths at 2 layers
-   on the card (kernels) and on a CPU copy (plain versions): loss and
-   every parameter after the step must agree;
+   on the card (kernels) and on a CPU copy (plain versions), remat off
+   and with the residuals kept and the fused projection: loss and every
+   parameter after the step must agree, and the card's step with the
+   residuals kept must agree with its full-remat step;
+7a. `flash_attention()` — three forward + backward calls at
+   [8, 1024, 16, 128] bf16 causal: its forward kernel launched once a
+   call, no other kernel;
+7b. `wgrad_1x1` — three calls at ResNet-50's shape: one launch a call,
+   the same bits each time;
 8. a JSON line listing every kernel with its launches, error and times;
 9. the last line, `{"ok": true, "device": {...}}`.
 
@@ -96,6 +113,12 @@ MOE = dict(num_expert=8, top_k=2, capacity_factor=1.25)
 # own batch, 32, is timed after it)
 TRAIN_BATCH, BENCH_BATCH, TRAIN_SEQ = 8, 32, 1024
 WARMUP_STEPS, TIMED_STEPS = 3, 5
+
+# the split-K 1x1 weight gradient at ResNet-50's largest 1x1 wgrad (the
+# JAX kernel's docstring: N = B*H*W = 401408 rows, 256 -> 64 channels),
+# and its tolerance relative to each sum's absolute mass (check_wgrad)
+WGRAD_N, WGRAD_CI, WGRAD_CO, WGRAD_CHUNK = 401408, 256, 64, 4096
+WGRAD_TOL = 1e-6
 
 # NVIDIA H100 SXM data-sheet peaks (dense): device memory bytes/s, and
 # flop/s by operand type (fp32 outside the tensor cores)
@@ -1082,15 +1105,18 @@ def check_moe_on_card(device):
 # ------------------------------------------------ phase 3, train kernels
 
 
-def flash_bound(q, backward):
-    """(bound_ms, bound_by) of causal flash attention over q's shape:
-    q, k, v and out (and, backward, dout, dq, dk, dv) moved once, the
-    fp32 lse once; 4*D flops per visible (query, key) pair forward
-    (two products), 2.5 times that backward (five products)."""
+def flash_bound(q, backward, causal=True, lse=True):
+    """(bound_ms, bound_by) of flash attention over q's [B, H, S, D]
+    shape: q, k, v and out (and, backward, dout, dq, dk, dv) moved once,
+    the fp32 lse once where the kernel keeps it; 4*D flops per visible
+    (query, key) pair forward (two products), 2.5 times that backward
+    (five products)."""
     B, H, S, D = q.shape
     tensors = 8 if backward else 4
-    nbytes = tensors * q.numel() * q.element_size() + B * H * S * 4
-    flops = 4 * B * H * D * S * (S + 1) // 2 * (2.5 if backward else 1)
+    nbytes = tensors * q.numel() * q.element_size() + (B * H * S * 4
+                                                       if lse else 0)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * H * D * pairs * (2.5 if backward else 1)
     t_bytes = nbytes / PEAK_BYTES
     t_flops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]]
     return (max(t_bytes, t_flops) * 1e3,
@@ -1255,6 +1281,265 @@ def check_add_ln(ln, device, flush):
     return records["bfloat16"]
 
 
+def check_qkv_proj(qp, device, flush):
+    """Phase 3 for the fused QKV projection (K5) at the train step's x
+    [8, 1024, 1024] x w_qkv [1024, 3072] into 3 x [8, 16, 1024, 64], fp32
+    and bf16: the forward kernel against its plain version, and the
+    gradients through the autograd function (the kernel's forward, the
+    plain-tensor backward) against the plain version differentiated by
+    autograd on fp32 copies and rounded once; returns the bf16
+    {"qkv_proj": ...}."""
+    import torch
+    B, S, d, H = TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol = TRAIN_TOL[name]
+        g = torch.Generator(device=device).manual_seed(SEED)
+        x = torch.randn(B, S, d, generator=g, device=device).to(dtype)
+        w = (torch.randn(d, 3 * d, generator=g, device=device)
+             * d ** -0.5).to(dtype)
+        b = (torch.randn(3 * d, generator=g, device=device) * 0.1).to(dtype)
+        got = qp.qkv_proj(x, w, b, H)
+        torch.cuda.synchronize()
+        want = qp.qkv_proj_reference(x, w, b, H)
+        err_f = max(close_or_fail(f"qkv_proj {name} {n}", a, e, tol)
+                    for n, a, e in zip("qkv", got, want))
+        del got, want
+        gq, gk, gv = (torch.randn(B, H, S, d // H, generator=g,
+                                  device=device).to(dtype) for _ in range(3))
+        args = [t.detach().requires_grad_() for t in (x, w, b)]
+        got = torch.autograd.grad(qp.qkv_proj(*args, H), args, (gq, gk, gv))
+        torch.cuda.synchronize()
+        # the plain version differentiated on fp32 copies, each gradient
+        # rounded once to the dtype: JAX's fp32 sums and single cast
+        # (autograd on the bf16 operands would add the three thirds' dx
+        # in bf16)
+        a32 = [t.detach().float().requires_grad_() for t in (x, w, b)]
+        want = [t.to(dtype) for t in torch.autograd.grad(
+            qp.qkv_proj_reference(*a32, H), a32,
+            (gq.float(), gk.float(), gv.float()))]
+        err_b = max(close_or_fail(f"qkv_proj {name} d{n}", a, e, tol)
+                    for n, a, e in zip("xwb", got, want))
+        del got, want, args, a32, gq, gk, gv
+        ms = cuda_ms(lambda: qp.qkv_proj(x, w, b, H), flush=flush)
+        plain = cuda_ms(lambda: qp.qkv_proj_reference(x, w, b, H), iters=5,
+                        flush=flush)
+        x2 = x.view(-1, d)
+        lib = cuda_ms(lambda: torch.addmm(b, x2, w), flush=flush)
+        nbytes = (x.numel() + w.numel() + b.numel() + 3 * x.numel()) \
+            * x.element_size()
+        t_bytes = nbytes / PEAK_BYTES
+        t_flops = 2 * B * S * d * 3 * d / PEAK_FLOPS[name]
+        bound_ms = max(t_bytes, t_flops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_flops else "operations"
+        err = max(err_f, err_b)
+        records[name] = {"qkv_proj": dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib)}
+        print(f"kernel check: qkv_proj {name} x [{B}, {S}, {d}] x w_qkv "
+              f"[{d}, {3 * d}] -> 3 x [{B}, {H}, {S}, {d // H}] max_abs_err="
+              f"{err_f:.3g} forward, {err_b:.3g} dx/dw/db (tol {tol} (1 + "
+              f"|plain|)) kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) yardstick: torch.addmm"
+              f" over [{B * S}, {d}] x [{d}, {3 * d}] (no head layout) "
+              f"{lib:.4f} ms", flush=True)
+        del x, w, b, x2
+    return records["bfloat16"]
+
+
+def check_flash_bshd(fa, device, flush):
+    """Phase 3 for the paddle-layout flash forward (K1b): the kernel
+    against its plain version at [8, 1024, 16, 128] bf16 causal and full,
+    [8, 1024, 8, 256] bf16 causal and [8, 1024, 16, 128] fp32 causal;
+    then forward + backward through `flash_attention()` (kernel forward,
+    plain recompute backward) against the plain function differentiated
+    by autograd. Returns the record of [8, 1024, 16, 128] bf16 causal,
+    the shape the phase of its own runs."""
+    import torch
+    import torch.nn.functional as F
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    cases = ((16, 128, torch.bfloat16, True), (16, 128, torch.bfloat16,
+                                                False),
+             (8, 256, torch.bfloat16, True), (16, 128, torch.float32, True))
+    records = {}
+    for H, D, dtype, causal in cases:
+        name = str(dtype).split(".")[-1]
+        tol = TRAIN_TOL[name]
+        scale = D ** -0.5
+        g = torch.Generator(device=device).manual_seed(SEED + D)
+        q, k, v = (torch.randn(B, S, H, D, generator=g, device=device,
+                               dtype=dtype) for _ in range(3))
+        got = fa._launch_fwd_bshd(q, k, v, scale, causal)
+        torch.cuda.synchronize()
+        err = close_or_fail(f"flash_bshd {name} D={D}", got,
+                            fa.flash_fwd_bshd_reference(q, k, v, scale,
+                                                        causal), tol)
+        ms = cuda_ms(lambda: fa._launch_fwd_bshd(q, k, v, scale, causal),
+                     flush=flush)
+        plain = cuda_ms(lambda: fa.flash_fwd_bshd_reference(
+            q, k, v, scale, causal), iters=3, flush=flush)
+        # yardstick: SDPA over pre-transposed [B, H, S, D] copies
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale), flush=flush)
+        bound_ms, bound_by = flash_bound(q.transpose(1, 2), False, causal,
+                                         lse=False)
+        key = (H, D, name, causal)
+        records[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=lib)
+        print(f"kernel check: flash_bshd {name} [{B}, {S}, {H}, {D}] "
+              f"{'causal' if causal else 'full'} max_abs_err={err:.3g} (tol "
+              f"{tol} (1 + |plain|)) kernel_ms={ms:.4f} plain_ms="
+              f"{plain:.4f} bound_ms={bound_ms:.4f} ({bound_by}) yardstick: "
+              f"scaled_dot_product_attention on transposed copies "
+              f"{lib:.4f} ms", flush=True)
+        del q, k, v, got, qt, kt, vt
+    # forward + backward through the entry
+    H, D, dtype = HEADS, 128, torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=g, device=device,
+                                 dtype=dtype) for _ in range(4))
+    args = [t.requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*args, causal=True)
+    got = torch.autograd.grad(out, args, dout)
+    torch.cuda.synchronize()
+    ref = fa.attention_bshd_reference(*args, D ** -0.5, True)
+    want = torch.autograd.grad(ref, args, dout)
+    tol = TRAIN_TOL["bfloat16"]
+    err = max([close_or_fail("flash_attention() bf16 out", out.detach(),
+                             ref.detach(), tol)]
+              + [close_or_fail(f"flash_attention() bf16 {n}", a, e, tol)
+                 for n, a, e in zip(("dq", "dk", "dv"), got, want)])
+    print(f"kernel check: flash_attention() bf16 [{B}, {S}, {H}, {D}] causal"
+          f" forward + backward against the plain function under autograd: "
+          f"max_abs_err={err:.3g} (tol {tol} (1 + |plain|))", flush=True)
+    rec = records[(HEADS, 128, "bfloat16", True)]
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    return {"flash_bshd": rec}
+
+
+def check_wgrad(cw, device, flush):
+    """Phase 3 for the split-K 1x1 weight gradient (K6): the kernel
+    against its plain version at ResNet-50's [401408, 256] x [401408,
+    64] bf16 (chunk 4096) and at a small fp32 shape; returns the bf16
+    {"wgrad_1x1": ...}. Both sides add exact fp32 products (16-bit
+    products are exact in fp32) in fp32, the chunks in the same order
+    and the terms inside a chunk in another: an element's error scales
+    with the absolute mass of its sum, not with its value (terms of
+    either sign cancel), so each element must lie within WGRAD_TOL x
+    sum_n |x[n, i] dy[n, j]| (~8 fp32 spacings of that mass) of the
+    plain version."""
+    import torch
+    record = None
+    for (N, Ci, Co, chunk), dtype in (((WGRAD_N, WGRAD_CI, WGRAD_CO,
+                                        WGRAD_CHUNK), torch.bfloat16),
+                                      ((8192, 72, 40, 1024), torch.float32)):
+        name = str(dtype).split(".")[-1]
+        g = torch.Generator(device=device).manual_seed(SEED + Ci)
+        x = torch.randn(N, Ci, generator=g, device=device).to(dtype)
+        dy = torch.randn(N, Co, generator=g, device=device).to(dtype)
+        got = cw.wgrad_1x1(x, dy, chunk=chunk)
+        torch.cuda.synchronize()
+        want = cw.wgrad_1x1_reference(x, dy, chunk=chunk)
+        mass = x.float().abs().t() @ dy.float().abs()
+        diff = (got - want).abs()
+        err = float(diff.max())
+        if not bool(torch.isfinite(got).all()) \
+                or not bool((diff <= WGRAD_TOL * mass).all()):
+            fail(f"wgrad_1x1 {name}: max abs err {err}, worst "
+                 f"{float((diff / mass).max()):.3g} of its sum's mass, past "
+                 f"{WGRAD_TOL}")
+        del want, mass, diff
+        if not torch.equal(cw.wgrad_1x1(x, dy, chunk=chunk), got):
+            fail(f"wgrad_1x1 {name}: two runs gave different bits")
+        ms = cuda_ms(lambda: cw.wgrad_1x1(x, dy, chunk=chunk), flush=flush)
+        plain = cuda_ms(lambda: cw.wgrad_1x1_reference(x, dy, chunk=chunk),
+                        iters=5, flush=flush)
+        xt = x.t()
+        lib = cuda_ms(lambda: torch.mm(xt, dy), flush=flush)
+        t_bytes = ((x.numel() + dy.numel()) * x.element_size()
+                   + Ci * Co * 4) / PEAK_BYTES
+        t_flops = 2 * N * Ci * Co / PEAK_FLOPS[name]
+        bound_ms = max(t_bytes, t_flops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_flops else "operations"
+        print(f"kernel check: wgrad_1x1 {name} x [{N}, {Ci}] dy [{N}, {Co}] "
+              f"chunk {chunk} max_abs_err={err:.3g} (tol {WGRAD_TOL} x "
+              f"sum |x dy|; two runs bit-identical) kernel_ms={ms:.4f} "
+              f"plain_ms={plain:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"yardstick: "
+              f"torch.mm(x.t(), dy) {lib:.4f} ms", flush=True)
+        if record is None:
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib)
+        del x, dy, got, xt
+    return {"wgrad_1x1": record}
+
+
+def flash_bshd_phase(fa, device, counters, calls=3):
+    """The `flash_attention()` entry's own path: `calls` forward +
+    backward calls at [8, 1024, 16, 128] bf16 causal, every count zeroed
+    just before and read just after; the K1b forward must have launched
+    once a call and no other kernel at all. Returns the launches."""
+    import torch
+    B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, HEADS, 128
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=g, device=device,
+                                 dtype=torch.bfloat16) for _ in range(4))
+    args = [t.requires_grad_() for t in (q, k, v)]
+    for mod, attr, _ in counters:
+        setattr(mod, attr, 0)
+    for _ in range(calls):
+        out = fa.flash_attention(*args, causal=True)
+        grads = torch.autograd.grad(out, args, dout)
+    torch.cuda.synchronize()
+    launches = {name: getattr(mod, attr) for mod, attr, name in counters}
+    if not all(bool(torch.isfinite(t.float()).all()) for t in (out, *grads)):
+        fail("flash_attention(): non-finite output or gradient")
+    hold_launches("flash_attention()", launches, {"flash_bshd": calls})
+    print(f"flash_attention(): {calls} forward + backward calls at [{B}, {S}"
+          f", {H}, {D}] bf16 causal; launches flash_bshd "
+          f"{launches['flash_bshd']}, other kernels 0", flush=True)
+    return {"flash_bshd": launches["flash_bshd"]}
+
+
+def wgrad_phase(cw, device, counters, calls=3):
+    """The `wgrad_1x1` entry's own path: `calls` calls at ResNet-50's
+    shape, counts zeroed just before and read just after; K6 must have
+    launched once a call and no other kernel. Returns the launches."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(SEED + 8)
+    x = torch.randn(WGRAD_N, WGRAD_CI, generator=g, device=device).to(
+        torch.bfloat16)
+    dy = torch.randn(WGRAD_N, WGRAD_CO, generator=g, device=device).to(
+        torch.bfloat16)
+    for mod, attr, _ in counters:
+        setattr(mod, attr, 0)
+    outs = [cw.wgrad_1x1(x, dy, chunk=WGRAD_CHUNK) for _ in range(calls)]
+    torch.cuda.synchronize()
+    launches = {name: getattr(mod, attr) for mod, attr, name in counters}
+    if not all(torch.equal(o, outs[0]) for o in outs) \
+            or not bool(torch.isfinite(outs[0]).all()):
+        fail("wgrad_1x1: non-finite or run-to-run different output")
+    hold_launches("wgrad_1x1", launches, {"wgrad_1x1": calls})
+    print(f"wgrad_1x1: {calls} calls at x [{WGRAD_N}, {WGRAD_CI}] dy "
+          f"[{WGRAD_N}, {WGRAD_CO}] bf16, chunk {WGRAD_CHUNK}, the same bits "
+          f"each; launches wgrad_1x1 {launches['wgrad_1x1']}, other kernels "
+          "0", flush=True)
+    return {"wgrad_1x1": launches["wgrad_1x1"]}
+
+
+def hold_launches(label, launches, want):
+    """Fails unless each kernel in `want` launched exactly that often and
+    every other kernel never."""
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)}")
+
+
 # ------------------------------------------------------------- phase 6
 
 
@@ -1290,11 +1575,12 @@ def random_hybrid_params(layers, seed=SEED):
 
 
 def train_config(**kw):
-    """bench_gpt's TPU config (bench.py:45-54) but remat_policy None."""
+    """bench_gpt's TPU config (bench.py:45-54), `kw` overriding."""
     import torch
     from paddle_tpu_torch.parallel.hybrid_gpt import GPTConfig
     base = dict(vocab_size=VOCAB, seq_len=TRAIN_SEQ, d_model=HIDDEN,
-                n_heads=HEADS, n_layers=LAYERS, remat=True, fused_ce=True,
+                n_heads=HEADS, n_layers=LAYERS, remat=True,
+                remat_policy="save_splash_residuals", fused_ce=True,
                 ce_seq_chunks=4, bf16_grads=True,
                 compute_dtype=torch.bfloat16)
     base.update(kw)
@@ -1332,138 +1618,195 @@ def timed_steps(trainer, params, opt, batch, first_step, seed):
             torch.cuda.max_memory_allocated())
 
 
-def train_line(batch, wall, peak, losses):
+def train_line(label, batch, wall, peak, losses):
+    """Prints one run's line; returns (ms/step, tokens/s, peak bytes)."""
     # bench.py's train flops per token: 6 N + 6 L S d
     n_flop = 12 * LAYERS * HIDDEN ** 2 + VOCAB * HIDDEN + TRAIN_SEQ * HIDDEN
     flops_tok = 6 * n_flop + 6 * LAYERS * TRAIN_SEQ * HIDDEN
     tps = batch * TRAIN_SEQ * TIMED_STEPS / wall
-    print(f"train: batch {batch}, {TIMED_STEPS} timed steps after "
+    print(f"train [{label}]: batch {batch}, {TIMED_STEPS} timed steps after "
           f"{WARMUP_STEPS} warm-up: {wall * 1e3 / TIMED_STEPS:.1f} ms/step, "
           f"{tps:.0f} tokens/s, "
           f"{tps * flops_tok / PEAK_FLOPS['bfloat16']:.1%} of the bf16 peak "
           f"({flops_tok} flops/token), max_memory_allocated {peak} B; "
           "losses " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    return wall * 1e3 / TIMED_STEPS, tps, peak
+
+
+# the train runs: (label, GPTConfig overrides, batch, launches per step
+# held exactly; every other kernel 0). bench_gpt's own config first (the
+# kernels line reads its launches), then full remat for comparison, then
+# the fused QKV projection.
+TRAIN_RUNS = (
+    ("bench_gpt", {}, TRAIN_BATCH,
+     {"flash_fwd": LAYERS, "flash_bwd": LAYERS, "add_ln_fwd": 2 * LAYERS,
+      "add_ln_bwd": LAYERS}),
+    ("remat_policy=None", {"remat_policy": None}, TRAIN_BATCH,
+     {"flash_fwd": 2 * LAYERS, "flash_bwd": LAYERS,
+      "add_ln_fwd": 2 * LAYERS, "add_ln_bwd": LAYERS}),
+    ("qkv_kernel", {"qkv_kernel": True}, TRAIN_BATCH,
+     {"flash_fwd": LAYERS, "flash_bwd": LAYERS, "add_ln_fwd": 2 * LAYERS,
+      "add_ln_bwd": LAYERS, "qkv_proj": 2 * LAYERS}),
+)
 
 
 def train(device, counters):
-    """Phase 6: returns launches per kernel over every step of the
-    batch-8 run. `counters` lists every kernel's (module, attribute,
-    name); all are zeroed just before its first step and read after its
-    last. Then one step is profiled, and bench_gpt's own batch
-    (BENCH_BATCH) is timed as well."""
+    """Phase 6: GPT-350M trained in each of TRAIN_RUNS from one set of
+    parameters (each run continues from the last), every count zeroed
+    just before a run's first step and read after its last, and held
+    exactly; bench_gpt's config then gets one profiled step and is timed
+    at its own batch (BENCH_BATCH) as well. Returns the launches of the
+    runs that carry each kernel (bench_gpt's, and the qkv_kernel run's
+    for qkv_proj)."""
     import numpy as np
     from paddle_tpu_torch.convert import load_jax_hybrid_gpt
     from paddle_tpu_torch.parallel.hybrid_gpt import (HybridGPT,
                                                       init_opt_state)
 
     t0 = time.perf_counter()
-    cfg = train_config()
-    trainer = HybridGPT(cfg, device=device)
     params = load_jax_hybrid_gpt(random_hybrid_params(LAYERS),
                                  device=device)
-    opt = init_opt_state(cfg, params)
+    opt = init_opt_state(train_config(), params)
     n_params = sum(p.numel() for p in params["blocks"].values()) + sum(
         params[k].numel() for k in params if k != "blocks")
     print(f"train: GPT-350M ({n_params} parameters) built in "
           f"{time.perf_counter() - t0:.1f} s: vocab {VOCAB}, seq "
           f"{TRAIN_SEQ}, d_model {HIDDEN}, {HEADS} heads, {LAYERS} layers,"
-          f" bf16 compute, bf16_grads, remat (remat_policy=None: bench_gpt "
-          f"uses 'save_splash_residuals', not ported), fused_ce, "
-          f"ce_seq_chunks=4", flush=True)
-    for mod, attr, _ in counters:
-        setattr(mod, attr, 0)
-    params, opt, losses, wall, peak = timed_steps(
-        trainer, params, opt, TRAIN_BATCH, 1, SEED + 3)
-    launches = {name: getattr(mod, attr) for mod, attr, name in counters}
-    train_line(TRAIN_BATCH, wall, peak, losses)
-    if not all(np.isfinite(losses)):
-        fail(f"train: non-finite loss {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"train: the loss did not fall ({losses[0]} -> {losses[-1]})")
+          f" bf16 compute, bf16_grads, remat, fused_ce, ce_seq_chunks=4; "
+          f"bench_gpt's remat_policy='save_splash_residuals' unless a run "
+          f"says otherwise", flush=True)
     steps = WARMUP_STEPS + TIMED_STEPS
-    want = {"flash_fwd": 2 * LAYERS, "flash_bwd": LAYERS,
-            "add_ln_fwd": 2 * LAYERS, "add_ln_bwd": LAYERS}
-    for name, per_step in want.items():
-        if launches[name] != steps * per_step:
-            fail(f"train: {name} launched {launches[name]} times, expected "
-                 f"{steps} steps x {per_step}")
-    for name, n in launches.items():
-        if name not in want and n:
-            fail(f"train: {name} launched {n} times on the train path")
-    print("train: launches " + ", ".join(
-        f"{n} {launches[n]} ({launches[n] // steps}/step)" for n in want)
-        + "; other kernels 0", flush=True)
-    rng = np.random.default_rng(SEED + 3)
-    tok = rng.integers(0, VOCAB, (TRAIN_BATCH, TRAIN_SEQ))
-    lab = rng.integers(0, VOCAB, (TRAIN_BATCH, TRAIN_SEQ))
-    profile_train(trainer, params, opt, tok, lab, steps + 1)
-    params, opt, losses, wall, peak = timed_steps(
-        trainer, params, opt, BENCH_BATCH, steps + 2, SEED + 6)
-    train_line(BENCH_BATCH, wall, peak, losses)
-    if not all(np.isfinite(losses)):
-        fail(f"train: non-finite loss at batch {BENCH_BATCH} {losses}")
-    del params, opt, trainer
+    step = 1
+    launches, table = {}, []
+    for label, overrides, batch, want in TRAIN_RUNS:
+        trainer = HybridGPT(train_config(**overrides), device=device)
+        for mod, attr, _ in counters:
+            setattr(mod, attr, 0)
+        params, opt, losses, wall, peak = timed_steps(
+            trainer, params, opt, batch, step, SEED + 3)
+        step += steps
+        got = {name: getattr(mod, attr) for mod, attr, name in counters}
+        table.append((label, batch) + train_line(label, batch, wall, peak,
+                                                 losses))
+        if not all(np.isfinite(losses)):
+            fail(f"train [{label}]: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"train [{label}]: the loss did not fall ({losses[0]} -> "
+                 f"{losses[-1]})")
+        hold_launches(f"train [{label}]", got,
+                      {n: steps * k for n, k in want.items()})
+        print(f"train [{label}]: launches " + ", ".join(
+            f"{n} {got[n]} ({got[n] // steps}/step)" for n in want)
+            + "; other kernels 0", flush=True)
+        for n in want:
+            launches.setdefault(n, got[n])
+        if label == "bench_gpt":
+            rng = np.random.default_rng(SEED + 3)
+            tok = rng.integers(0, VOCAB, (batch, TRAIN_SEQ))
+            lab = rng.integers(0, VOCAB, (batch, TRAIN_SEQ))
+            profile_train(trainer, params, opt, tok, lab, step)
+            step += 1
+            params, opt, losses, wall, peak = timed_steps(
+                trainer, params, opt, BENCH_BATCH, step, SEED + 6)
+            step += steps
+            table.append((label, BENCH_BATCH) + train_line(
+                label, BENCH_BATCH, wall, peak, losses))
+            if not all(np.isfinite(losses)):
+                fail(f"train: non-finite loss at batch {BENCH_BATCH} "
+                     f"{losses}")
+        del trainer
+    print("train: side by side (ms/step, tokens/s, max_memory_allocated B): "
+          + "; ".join(f"{label} batch {batch}: {ms:.1f}, {tps:.0f}, {peak}"
+                      for label, batch, ms, tps, peak in table), flush=True)
+    del params, opt
     return launches
 
 
 def check_train_step(device):
     """Phase 7: one fp32 train step at the full widths, 2 layers, batch
-    1, remat off, on the card (kernels) and on a CPU copy (plain
-    versions). The loss within 1e-4 relative. Adam's first moment after
-    the step is 0.1 x the clipped gradient: each within 1e-4 of its
-    tensor's largest |m| (fp32 sums in another order leave ~1e-6 of
-    it). Each parameter within 0.25 lr: Adam's first step moves an
-    element by lr * g / (|g| + eps), so an element whose |g| is near eps
-    moves by Δg / (4 eps) lr for gradient noise Δg (cancellation noise
-    of 1e-9 shows as 0.025 lr), while a wrong sign is 2 lr apart."""
+    1, on the card (kernels) and on a CPU copy (plain versions), twice:
+    remat off, and bench_gpt's remat policy with the fused QKV
+    projection. Each pair must agree: the loss within 1e-4 relative;
+    Adam's first moment after the step is 0.1 x the clipped gradient,
+    each within 1e-4 of its tensor's largest |m| (fp32 sums in another
+    order leave ~1e-6 of it); each parameter within 0.25 lr: Adam's first
+    step moves an element by lr * g / (|g| + eps), so an element whose
+    |g| is near eps moves by Δg / (4 eps) lr for gradient noise Δg
+    (cancellation noise of 1e-9 shows as 0.025 lr), while a wrong sign
+    is 2 lr apart. The card's step with the residuals kept must equal its
+    full-remat step (the kept (out, lse) are what the recompute gives):
+    the same loss, and parameters and moments within the same bounds
+    (the count of bit-identical tensors is printed)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.convert import load_jax_hybrid_gpt
     from paddle_tpu_torch.parallel.hybrid_gpt import (HybridGPT,
                                                       init_opt_state)
     layers = 2
-    cfg = train_config(n_layers=layers, remat=False, bf16_grads=False,
-                       compute_dtype=torch.float32)
     arrays = random_hybrid_params(layers, seed=SEED + 4)
     rng = np.random.default_rng(SEED + 5)
     tok = rng.integers(0, VOCAB, (1, TRAIN_SEQ))
     lab = rng.integers(0, VOCAB, (1, TRAIN_SEQ))
-    out = {}
-    for dev in (device, "cpu"):
+    base = dict(n_layers=layers, bf16_grads=False,
+                compute_dtype=torch.float32)
+
+    def step(dev, **kw):
+        cfg = train_config(**base, **kw)
         params = load_jax_hybrid_gpt(arrays, device=dev)
         opt = init_opt_state(cfg, params)
         params, opt, loss = HybridGPT(cfg, device=dev).train_step(
             params, opt, tok, lab)
-        out[str(dev)] = (float(loss), params, opt)
-    (lg, pg, og), (lc, pc, oc) = out[str(device)], out["cpu"]
-    if not abs(lg - lc) <= 1e-4 * abs(lc):
-        fail(f"train check: loss on the card {lg} vs the CPU {lc}")
-    p_tol = 0.25 * cfg.learning_rate
-    worst = {"param": 0.0, "moment": 0.0}
+        return float(loss), params, opt
 
-    def walk(a, b, oa, ob, path=""):
-        for k in a:
-            if isinstance(a[k], dict):
-                walk(a[k], b[k], oa[k], ob[k], path + k + ".")
-                continue
-            err = float((a[k].cpu() - b[k]).abs().max())
-            worst["param"] = max(worst["param"], err)
-            if err > p_tol:
-                fail(f"train check: {path}{k} differs by {err} past {p_tol}")
-            m_ref = ob[k]["m"]
-            m_err = float((oa[k]["m"].cpu() - m_ref).abs().max()) / max(
-                float(m_ref.abs().max()), 1e-30)
-            worst["moment"] = max(worst["moment"], m_err)
-            if m_err > 1e-4:
-                fail(f"train check: {path}{k} first moment differs by "
-                     f"{m_err:.3g} of its largest value, past 1e-4")
-    walk(pg, pc, og, oc)
+    def compare(label, a, b):
+        """Fails unless step results a and b agree as the docstring says;
+        prints how closely they do."""
+        (la, pa, oa), (lb, pb, ob) = a, b
+        if not abs(la - lb) <= 1e-4 * abs(lb):
+            fail(f"train check [{label}]: loss {la} vs {lb}")
+        p_tol = 0.25 * train_config().learning_rate
+        worst = {"param": 0.0, "moment": 0.0, "same": 0, "n": 0}
+
+        def walk(a, b, oa, ob, path=""):
+            for k in a:
+                if isinstance(a[k], dict):
+                    walk(a[k], b[k], oa[k], ob[k], path + k + ".")
+                    continue
+                x, y = a[k].cpu(), b[k].cpu()
+                err = float((x - y).abs().max())
+                worst["param"] = max(worst["param"], err)
+                worst["same"] += int(torch.equal(x, y))
+                worst["n"] += 1
+                if err > p_tol:
+                    fail(f"train check [{label}]: {path}{k} differs by "
+                         f"{err} past {p_tol}")
+                m_ref = ob[k]["m"].cpu()
+                m_err = float((oa[k]["m"].cpu() - m_ref).abs().max()) / max(
+                    float(m_ref.abs().max()), 1e-30)
+                worst["moment"] = max(worst["moment"], m_err)
+                if m_err > 1e-4:
+                    fail(f"train check [{label}]: {path}{k} first moment "
+                         f"differs by {m_err:.3g} of its largest value, past"
+                         f" 1e-4")
+        walk(pa, pb, oa, ob)
+        print(f"check [{label}]: loss {la:.6f} vs {lb:.6f} (rel "
+              f"{abs(la - lb) / abs(lb):.2e}, tol 1e-4); Adam first moments "
+              f"within {worst['moment']:.3g} of their largest value (tol "
+              f"1e-4); parameters within {worst['param']:.3g} (tol "
+              f"{p_tol:.3g} = 0.25 lr); {worst['same']} of {worst['n']} "
+              f"parameters bit-identical", flush=True)
+
     print(f"check: one fp32 train step, {layers} layers at full width, "
-          f"batch 1: loss {lg:.6f} on the card vs {lc:.6f} on the CPU "
-          f"(rel {abs(lg - lc) / abs(lc):.2e}, tol 1e-4); Adam first "
-          f"moments within {worst['moment']:.3g} of their largest value "
-          f"(tol 1e-4); parameters within {worst['param']:.3g} (tol "
-          f"{p_tol:.3g} = 0.25 lr)", flush=True)
+          f"batch 1", flush=True)
+    compare("remat off: card vs CPU", step(device, remat=False),
+            step("cpu", remat=False))
+    kept = dict(remat=True, qkv_kernel=True)
+    card = step(device, **kept)
+    compare("save_splash_residuals + qkv_kernel: card vs CPU", card,
+            step("cpu", **kept))
+    compare("save_splash_residuals vs full remat, both qkv_kernel, card",
+            card, step(device, remat=True, qkv_kernel=True,
+                       remat_policy=None))
 
 
 def profile_train(trainer, params, opt, tok, lab, step_num):
@@ -1491,7 +1834,7 @@ def profile_train(trainer, params, opt, tok, lab, step_num):
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     ours = {}
     for e in dev:
-        for fam in ("flash", "add_ln"):
+        for fam in ("flash", "add_ln", "qkv_proj"):
             if f"{fam}_" in e.key:
                 ours[fam] = ours.get(fam, 0.0) + e.self_device_time_total
     print(f"profile: one train step, {host_ms:.1f} ms on the host clock "
@@ -1512,10 +1855,12 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from paddle_tpu_torch.ops import conv_wgrad as cw
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import grouped_matmul as gm
     from paddle_tpu_torch.ops import layer_norm as ln
     from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import qkv_proj as qp
 
     device = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
@@ -1559,8 +1904,15 @@ def main():
         ("gmm_int8", gm, "int8_launch_count",
          pallas + "grouped_matmul.py:181", csrc + "grouped_matmul.cu"),
         ("gmm_int4", gm, "int4_launch_count",
-         pallas + "grouped_matmul.py:201", csrc + "grouped_matmul.cu")]
-    build_fns = (pa.build, fa.build, ln.build, gm.build)  # one per source
+         pallas + "grouped_matmul.py:201", csrc + "grouped_matmul.cu"),
+        ("qkv_proj", qp, "launch_count",
+         pallas + "qkv_proj.py:31", csrc + "qkv_proj.cu"),
+        ("flash_bshd", fa, "bshd_launch_count",
+         pallas + "flash_attention.py:235", csrc + "flash_attention.cu"),
+        ("wgrad_1x1", cw, "launch_count",
+         pallas + "conv_wgrad.py:44", csrc + "conv_wgrad.cu")]
+    # one per source
+    build_fns = (pa.build, fa.build, ln.build, gm.build, qp.build, cw.build)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(build_fns)) as ex:
         libs = list(ex.map(lambda b: b(), build_fns))
@@ -1574,6 +1926,9 @@ def main():
     checks.update(check_gmm(gm, device, flush))
     checks.update(check_flash(fa, device, flush))
     checks.update(check_add_ln(ln, device, flush))
+    checks.update(check_qkv_proj(qp, device, flush))
+    checks.update(check_flash_bshd(fa, device, flush))
+    checks.update(check_wgrad(cw, device, flush))
     del flush
     torch.cuda.empty_cache()
 
@@ -1593,6 +1948,9 @@ def main():
         "paged_verify_int8", "paged_verify_fp8", "gmm_fp", "gmm_int8",
         "gmm_int4")})
     check_train_step(device)
+    torch.cuda.empty_cache()
+    launches.update(flash_bshd_phase(fa, device, counters))
+    launches.update(wgrad_phase(cw, device, counters))
 
     line = {"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,

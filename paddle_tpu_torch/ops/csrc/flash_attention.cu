@@ -16,6 +16,16 @@
 // Operands are fp32, bf16 or fp16; accumulation and the softmax are
 // fp32; outputs take the operands' dtype. D is 64 or 128; any S >= 1.
 //
+// The same forward also replaces the package's own hand-written forward
+// (paddle_tpu/ops/pallas/flash_attention.py:_fwd_kernel, entered through
+// flash_attention() over the paddle layout [B, S, H, D], D 128 or 256):
+// its entry reads q, k and v in place with rows H * D apart (no transpose
+// copies), scales the query tile by `scale` and rounds it to its dtype as
+// it is staged, divides by max(l, 1e-30) as that kernel does, and keeps
+// no logsumexp (its backward is plain tensor code). At D = 256 a 64-row
+// tile's output accumulator is 128 fp32 registers a thread; the tile and
+// the warp's 16 rows stay as at D = 128.
+//
 // What bounds it: at the train step's shapes ([8, 16, 1024, 64] bf16)
 // the forward moves ~67 MB and does ~1.7e10 flops, the backward ~2.5x
 // those flops: the card's bound is set by bytes for the forward and by
@@ -54,6 +64,18 @@ constexpr int kTile = 64;      // rows of a query or key tile
 constexpr int kThreads = 128;  // 16 row groups x 8 column groups
 constexpr int kLP = kTile + 4;  // padded row of a 64-wide score tile
 
+// Where head bh's [S, D] slice of the paddle-layout entry's [B, S, H, D]
+// operands starts (batch = S * H * D, head = D) and how far apart its
+// rows lie (ld = H * D).
+struct Layout {
+  int H;
+  long long batch, head;
+  int ld;
+  __device__ __forceinline__ long long offset(int bh) const {
+    return (long long)(bh / H) * batch + (long long)(bh % H) * head;
+  }
+};
+
 template <typename T, int N>
 struct alignas(sizeof(T) * N) Vec {
   T v[N];
@@ -64,6 +86,25 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// x rounded to T and back.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
 
 
 __device__ __forceinline__ float group_max(float x) {  // over 8 lanes
@@ -81,11 +122,12 @@ __device__ __forceinline__ float group_sum(float x) {  // over 8 lanes
 // ------------------------------------------------------------------------
 // CUDA-core path for fp32 operands.
 
-// Rows [row0, row0 + 64) of a contiguous [S, D] slice into shared memory
-// as fp32 with row stride D + 4; rows at or past S are zero.
+// Rows [row0, row0 + 64) of an [S, D] slice whose rows lie `ld` elements
+// apart into shared memory as fp32 with row stride D + 4, times `scale`
+// rounded to T (the query's scaling); rows at or past S are zero.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int S) {
+                                          int S, int ld, float scale = 1.f) {
   constexpr int LD = D + 4;
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PER_ROW = D / VEC;
@@ -94,9 +136,13 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
     float f[VEC];
     if (row0 + r < S) {
       const Vec<T, VEC> x = *reinterpret_cast<const Vec<T, VEC>*>(
-          src + (long long)(row0 + r) * D + c);
+          src + (long long)(row0 + r) * ld + c);
 #pragma unroll
       for (int t = 0; t < VEC; ++t) f[t] = to_float(x.v[t]);
+      if (scale != 1.f) {
+#pragma unroll
+        for (int t = 0; t < VEC; ++t) f[t] = round_to<T>(f[t] * scale);
+      }
     } else {
 #pragma unroll
       for (int t = 0; t < VEC; ++t) f[t] = 0.f;
@@ -174,25 +220,31 @@ __device__ __forceinline__ void mul_tile(const float* P, const float* V,
   }
 }
 
-// Row `row` of a [S, D] output: this thread's 4 x D/8 values, scaled.
-template <typename T, int D>
+// Row `row` of a [S, D] output whose rows lie `ld` elements apart: this
+// thread's 4 x D/8 values times `f` (divided by `f` with kDiv).
+template <typename T, int D, bool kDiv = false>
 __device__ __forceinline__ void store_row(T* dst, int row, int cg,
-                                          const float* acc, float mul) {
+                                          const float* acc, float f, int ld) {
 #pragma unroll
   for (int jj = 0; jj < D / 32; ++jj) {
     Vec<T, 4> o;
 #pragma unroll
-    for (int t = 0; t < 4; ++t) o.v[t] = acc[4 * jj + t] * mul;
-    *reinterpret_cast<Vec<T, 4>*>(dst + (long long)row * D + 32 * jj +
+    for (int t = 0; t < 4; ++t)
+      o.v[t] = from_float<T>(kDiv ? acc[4 * jj + t] / f : acc[4 * jj + t] * f);
+    *reinterpret_cast<Vec<T, 4>*>(dst + (long long)row * ld + 32 * jj +
                                   4 * cg) = o;
   }
 }
 
-template <typename T, int D>
+// kPaddle: the paddle-layout entry (rows `lay.ld` apart, q scaled as it
+// is staged, out = acc / max(l, 1e-30), no lse); else the splash entry
+// (contiguous [BH, S, D], scale 1, out = acc * (1 / l), lse kept).
+template <typename T, int D, bool kPaddle>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int S, int causal) {
+                 float* __restrict__ lse, int S, int causal, Layout lay,
+                 float scale) {
   constexpr int LD = D + 4;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -202,10 +254,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ntiles = (S + kTile - 1) / kTile;
   const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * kTile;
-  const long long off = (long long)blockIdx.x * S * D;
+  const long long off =
+      kPaddle ? lay.offset(blockIdx.x) : (long long)blockIdx.x * S * D;
+  const int ld = kPaddle ? lay.ld : D;
   const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
 
-  load_tile<T, D>(Qs, q + off, q0, S);
+  if constexpr (kPaddle)
+    load_tile<T, D>(Qs, q + off, q0, S, ld, scale);
+  else
+    load_tile<T, D>(Qs, q + off, q0, S, D);
   float m[4], l[4], acc[4][D / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -218,8 +275,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Ks, k + off, k0, S);
-    load_tile<T, D>(Vs, v + off, k0, S);
+    load_tile<T, D>(Ks, k + off, k0, S, ld);
+    load_tile<T, D>(Vs, v + off, k0, S, ld);
     __syncthreads();
     float s[4][8];
     dot_tile<D>(Qs, Ks, rg, cg, s);
@@ -262,8 +319,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float lsum = group_sum(l[i]);
     const int qi = q0 + rg + 16 * i;
     if (qi < S) {
-      store_row<T, D>(out + off, qi, cg, acc[i], 1.f / lsum);
-      if (cg == 0) lse[(long long)blockIdx.x * S + qi] = m[i] + logf(lsum);
+      if constexpr (kPaddle) {
+        store_row<T, D, true>(out + off, qi, cg, acc[i], fmaxf(lsum, 1e-30f),
+                              ld);
+      } else {
+        store_row<T, D>(out + off, qi, cg, acc[i], 1.f / lsum, D);
+        if (cg == 0) lse[(long long)blockIdx.x * S + qi] = m[i] + logf(lsum);
+      }
     }
   }
 }
@@ -310,8 +372,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long roff = (long long)blockIdx.x * S;
   const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
 
-  load_tile<T, D>(Ks, k + off, k0, S);
-  load_tile<T, D>(Vs, v + off, k0, S);
+  load_tile<T, D>(Ks, k + off, k0, S, D);
+  load_tile<T, D>(Vs, v + off, k0, S, D);
   float adk[4][D / 8], adv[4][D / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -321,8 +383,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = causal ? kt : 0; qt < ntiles; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Qs, q + off, q0, S);
-    load_tile<T, D>(dOs, dout + off, q0, S);
+    load_tile<T, D>(Qs, q + off, q0, S, D);
+    load_tile<T, D>(dOs, dout + off, q0, S, D);
     if (threadIdx.x < kTile) {
       const bool ok = q0 + threadIdx.x < S;
       lse_s[threadIdx.x] = ok ? lse[roff + q0 + threadIdx.x] : 0.f;
@@ -362,8 +424,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + rg + 16 * i;
     if (key < S) {
-      store_row<T, D>(dk + off, key, cg, adk[i], 1.f);
-      store_row<T, D>(dv + off, key, cg, adv[i], 1.f);
+      store_row<T, D>(dk + off, key, cg, adk[i], 1.f, D);
+      store_row<T, D>(dv + off, key, cg, adv[i], 1.f, D);
     }
   }
 }
@@ -390,8 +452,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long roff = (long long)blockIdx.x * S;
   const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
 
-  load_tile<T, D>(Qs, q + off, q0, S);
-  load_tile<T, D>(dOs, dout + off, q0, S);
+  load_tile<T, D>(Qs, q + off, q0, S, D);
+  load_tile<T, D>(dOs, dout + off, q0, S, D);
   float row_lse[4], row_delta[4], acc[4][D / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -405,8 +467,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Ks, k + off, k0, S);
-    load_tile<T, D>(Vs, v + off, k0, S);
+    load_tile<T, D>(Ks, k + off, k0, S, D);
+    load_tile<T, D>(Vs, v + off, k0, S, D);
     __syncthreads();
     float p[4][8], dp[4][8];
     dot_tile<D>(Qs, Ks, rg, cg, p);
@@ -428,7 +490,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + rg + 16 * i;
-    if (qi < S) store_row<T, D>(dq + off, qi, cg, acc[i], 1.f);
+    if (qi < S) store_row<T, D>(dq + off, qi, cg, acc[i], 1.f, D);
   }
 }
 
@@ -495,18 +557,25 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
 template <int D>
 __host__ __device__ constexpr int ld16() { return D + 8; }  // padded row
 
-// Rows [row0, row0 + 64) of a contiguous [S, D] 16-bit slice into a
-// shared tile as they are; rows at or past S are zero.
+// Rows [row0, row0 + 64) of an [S, D] 16-bit slice whose rows lie `ld`
+// elements apart into a shared tile, times `scale` rounded to T (the
+// query's scaling; as they are at scale 1); rows at or past S are zero.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile16(T* dst, const T* src, int row0,
-                                            int S) {
+                                            int S, int ld,
+                                            float scale = 1.f) {
   constexpr int LDS = ld16<D>();
   constexpr int PER_ROW = D / 8;  // 16-byte vectors
   for (int idx = threadIdx.x; idx < kTile * PER_ROW; idx += kThreads) {
     const int r = idx / PER_ROW, c = (idx % PER_ROW) * 8;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < S)
-      x = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * D + c);
+      x = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * ld + c);
+    if (scale != 1.f) {
+      T* e = reinterpret_cast<T*>(&x);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) e[t] = from_float<T>(to_float(e[t]) * scale);
+    }
     *reinterpret_cast<uint4*>(dst + r * LDS + c) = x;
   }
 }
@@ -563,22 +632,27 @@ __device__ __forceinline__ void mma_pv(float acc[D / 8][4],
 }
 
 // Row `row` (this lane's quad share: columns 8nt + 2t, +1) of a [S, D]
-// 16-bit output, from accumulator half h (0: row g, 1: row g + 8).
-template <typename T, int D>
+// 16-bit output whose rows lie `ld` elements apart, from accumulator half
+// h (0: row g, 1: row g + 8), times `f` (divided by `f` with kDiv).
+template <typename T, int D, bool kDiv = false>
 __device__ __forceinline__ void store_row16(T* dst, int row, int t,
                                             const float acc[D / 8][4], int h,
-                                            float mul) {
+                                            float f, int ld) {
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-    *reinterpret_cast<uint32_t*>(dst + (long long)row * D + nt * 8 + 2 * t) =
-        Mma<T>::pack(acc[nt][2 * h] * mul, acc[nt][2 * h + 1] * mul);
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const float lo = acc[nt][2 * h], hi = acc[nt][2 * h + 1];
+    *reinterpret_cast<uint32_t*>(dst + (long long)row * ld + nt * 8 + 2 * t) =
+        kDiv ? Mma<T>::pack(lo / f, hi / f) : Mma<T>::pack(lo * f, hi * f);
+  }
 }
 
-template <typename T, int D>
+// kPaddle as flash_fwd_kernel's.
+template <typename T, int D, bool kPaddle>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int S, int causal) {
+                     float* __restrict__ lse, int S, int causal, Layout lay,
+                     float scale) {
   constexpr int LDS = ld16<D>();
   extern __shared__ float4 smem4[];
   T* Qs = reinterpret_cast<T*>(smem4);
@@ -587,11 +661,16 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ntiles = (S + kTile - 1) / kTile;
   const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * kTile;
-  const long long off = (long long)blockIdx.x * S * D;
+  const long long off =
+      kPaddle ? lay.offset(blockIdx.x) : (long long)blockIdx.x * S * D;
+  const int ld = kPaddle ? lay.ld : D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  load_tile16<T, D>(Qs, q + off, q0, S);
+  if constexpr (kPaddle)
+    load_tile16<T, D>(Qs, q + off, q0, S, ld, scale);
+  else
+    load_tile16<T, D>(Qs, q + off, q0, S, D);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[D / 8][4];
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
@@ -601,8 +680,8 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile16<T, D>(Ks, k + off, k0, S);
-    load_tile16<T, D>(Vs, v + off, k0, S);
+    load_tile16<T, D>(Ks, k + off, k0, S, ld);
+    load_tile16<T, D>(Vs, v + off, k0, S, ld);
     __syncthreads();
     float s[8][4];
     mma_rows<T, D>(s, Qs, Ks, warp, lane);
@@ -651,8 +730,13 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
     const int qi = q0 + warp * 16 + g + 8 * h;
     if (qi < S) {
-      store_row16<T, D>(out + off, qi, t, acc, h, 1.f / lsum);
-      if (t == 0) lse[(long long)blockIdx.x * S + qi] = m[h] + logf(lsum);
+      if constexpr (kPaddle) {
+        store_row16<T, D, true>(out + off, qi, t, acc, h, fmaxf(lsum, 1e-30f),
+                                ld);
+      } else {
+        store_row16<T, D>(out + off, qi, t, acc, h, 1.f / lsum, D);
+        if (t == 0) lse[(long long)blockIdx.x * S + qi] = m[h] + logf(lsum);
+      }
     }
   }
 }
@@ -681,8 +765,8 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  load_tile16<T, D>(Ks, k + off, k0, S);
-  load_tile16<T, D>(Vs, v + off, k0, S);
+  load_tile16<T, D>(Ks, k + off, k0, S, D);
+  load_tile16<T, D>(Vs, v + off, k0, S, D);
   float adk[D / 8][4], adv[D / 8][4];
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
@@ -692,8 +776,8 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = causal ? kt : 0; qt < ntiles; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile16<T, D>(Qs, q + off, q0, S);
-    load_tile16<T, D>(dOs, dout + off, q0, S);
+    load_tile16<T, D>(Qs, q + off, q0, S, D);
+    load_tile16<T, D>(dOs, dout + off, q0, S, D);
     if (threadIdx.x < kTile) {
       const bool ok = q0 + threadIdx.x < S;
       lse_s[threadIdx.x] = ok ? lse[roff + q0 + threadIdx.x] : 0.f;
@@ -725,8 +809,8 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     const int key = k0 + warp * 16 + g + 8 * h;
     if (key < S) {
-      store_row16<T, D>(dk + off, key, t, adk, h, 1.f);
-      store_row16<T, D>(dv + off, key, t, adv, h, 1.f);
+      store_row16<T, D>(dk + off, key, t, adk, h, 1.f, D);
+      store_row16<T, D>(dv + off, key, t, adv, h, 1.f, D);
     }
   }
 }
@@ -752,8 +836,8 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  load_tile16<T, D>(Qs, q + off, q0, S);
-  load_tile16<T, D>(dOs, dout + off, q0, S);
+  load_tile16<T, D>(Qs, q + off, q0, S, D);
+  load_tile16<T, D>(dOs, dout + off, q0, S, D);
   float row_lse[2], row_delta[2], acc[D / 8][4];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -769,8 +853,8 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile16<T, D>(Ks, k + off, k0, S);
-    load_tile16<T, D>(Vs, v + off, k0, S);
+    load_tile16<T, D>(Ks, k + off, k0, S, D);
+    load_tile16<T, D>(Vs, v + off, k0, S, D);
     __syncthreads();
     float p[8][4], ds[8][4];
     mma_rows<T, D>(p, Qs, Ks, warp, lane);
@@ -792,7 +876,7 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qi = q0 + warp * 16 + g + 8 * h;
-    if (qi < S) store_row16<T, D>(dq + off, qi, t, acc, h, 1.f);
+    if (qi < S) store_row16<T, D>(dq + off, qi, t, acc, h, 1.f, D);
   }
 }
 
@@ -822,22 +906,48 @@ constexpr int bwd_smem16() { return 4 * kTile * ld16<D>() * 2 + 2 * kTile * 4; }
     if (e_ != cudaSuccess) return e_;                                      \
   } while (0)
 
-template <typename T, int D>
+template <typename T, int D, bool kPaddle>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
-                float* lse, int BH, int S, int causal, cudaStream_t stream) {
+                float* lse, int BH, int S, int causal, Layout lay,
+                float scale, cudaStream_t stream) {
   const dim3 grid(BH, (S + kTile - 1) / kTile);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(out);
   if constexpr (sizeof(T) == 4) {
-    PADDLE_FLASH_LAUNCH((flash_fwd_kernel<T, D>), fwd_smem<D>(), qp, kp, vp,
-                        op, lse, S, causal);
+    PADDLE_FLASH_LAUNCH((flash_fwd_kernel<T, D, kPaddle>), fwd_smem<D>(), qp,
+                        kp, vp, op, lse, S, causal, lay, scale);
   } else {
-    PADDLE_FLASH_LAUNCH((flash_fwd_mma_kernel<T, D>), fwd_smem16<D>(), qp,
-                        kp, vp, op, lse, S, causal);
+    PADDLE_FLASH_LAUNCH((flash_fwd_mma_kernel<T, D, kPaddle>), fwd_smem16<D>(),
+                        qp, kp, vp, op, lse, S, causal, lay, scale);
   }
   return cudaSuccess;
+}
+
+// One forward over dtype code `dtype`: the splash entry at head_dim 64 or
+// 128, the paddle-layout entry (`paddle`) at 128 or 256.
+cudaError_t fwd_any(const void* q, const void* k, const void* v, void* out,
+                    float* lse, int BH, int S, int D, int dtype, int causal,
+                    bool paddle, Layout lay, float scale, cudaStream_t st) {
+#define PADDLE_FLASH_FWD(T, HD, P) \
+  return fwd<T, HD, P>(q, k, v, out, lse, BH, S, causal, lay, scale, st)
+#define PADDLE_FLASH_FWD_DTYPES(HD, P)                    \
+  if (dtype == 0) PADDLE_FLASH_FWD(float, HD, P);         \
+  if (dtype == 1) PADDLE_FLASH_FWD(__nv_bfloat16, HD, P); \
+  if (dtype == 2) PADDLE_FLASH_FWD(__half, HD, P);
+  if (!paddle && D == 64) {
+    PADDLE_FLASH_FWD_DTYPES(64, false)
+  } else if (!paddle && D == 128) {
+    PADDLE_FLASH_FWD_DTYPES(128, false)
+  } else if (paddle && D == 128) {
+    PADDLE_FLASH_FWD_DTYPES(128, true)
+  } else if (paddle && D == 256) {
+    PADDLE_FLASH_FWD_DTYPES(256, true)
+  }
+#undef PADDLE_FLASH_FWD_DTYPES
+#undef PADDLE_FLASH_FWD
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
@@ -881,30 +991,39 @@ bool valid(int BH, int S) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16; head_dim 64 or
-// 128; all operands contiguous [BH, S, head_dim], lse and delta fp32
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16. The splash
+// entries take head_dim 64 or 128 and contiguous [BH, S, head_dim]
+// operands with scale 1 (the query arrives scaled), lse and delta fp32
 // [BH, S]. Each returns a cudaError_t; 0 when every kernel launched.
 extern "C" int paddle_tpu_torch_flash_fwd(const void* q, const void* k,
                                           const void* v, void* out,
                                           void* lse, int BH, int S,
                                           int head_dim, int dtype,
                                           int causal, void* stream) {
-  if (!valid(BH, S)) return (int)cudaErrorInvalidValue;
-  float* l = static_cast<float*>(lse);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PADDLE_FLASH_FWD(T, D) \
-  return (int)fwd<T, D>(q, k, v, out, l, BH, S, causal, st)
-  if (head_dim == 64) {
-    if (dtype == 0) PADDLE_FLASH_FWD(float, 64);
-    if (dtype == 1) PADDLE_FLASH_FWD(__nv_bfloat16, 64);
-    if (dtype == 2) PADDLE_FLASH_FWD(__half, 64);
-  } else if (head_dim == 128) {
-    if (dtype == 0) PADDLE_FLASH_FWD(float, 128);
-    if (dtype == 1) PADDLE_FLASH_FWD(__nv_bfloat16, 128);
-    if (dtype == 2) PADDLE_FLASH_FWD(__half, 128);
-  }
-#undef PADDLE_FLASH_FWD
-  return (int)cudaErrorInvalidValue;
+  if (!valid(BH, S) || (head_dim != 64 && head_dim != 128))
+    return (int)cudaErrorInvalidValue;
+  return (int)fwd_any(q, k, v, out, static_cast<float*>(lse), BH, S,
+                      head_dim, dtype, causal, false, Layout{}, 1.f,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The paddle-layout forward (flash_attention()'s K1b): contiguous
+// [B, S, H, head_dim] operands read in place (rows H * head_dim apart),
+// head_dim 128 or 256; the query is scaled by `scale` and rounded to its
+// dtype as its tile is staged; no logsumexp is kept.
+extern "C" int paddle_tpu_torch_flash_fwd_bshd(const void* q, const void* k,
+                                               const void* v, void* out,
+                                               int B, int S, int H,
+                                               int head_dim, int dtype,
+                                               int causal, float scale,
+                                               void* stream) {
+  if (B <= 0 || H <= 0 || !valid(B * H, S) ||
+      (head_dim != 128 && head_dim != 256))
+    return (int)cudaErrorInvalidValue;
+  const Layout lay{H, (long long)S * H * head_dim, head_dim, H * head_dim};
+  return (int)fwd_any(q, k, v, out, nullptr, B * H, S, head_dim, dtype,
+                      causal, true, lay, scale,
+                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int paddle_tpu_torch_flash_bwd(

@@ -12,28 +12,43 @@ carries a JAX trainer's state across.
 
 Attention runs through `ops.flash_attention.splash_mha` and the
 residual-add + LayerNorm between attention and FFN through
-`ops.layer_norm.add_ln`: on the card, hand-written kernels forward and
-backward. The rest is plain tensor code, as it was XLA's in JAX.
+`ops.layer_norm.add_ln`; with `qkv_kernel` (and a shape
+`ops.qkv_proj.qkv_proj_supported` takes) the Q/K/V projection runs
+through `ops.qkv_proj.qkv_proj`: on the card, hand-written kernels. The
+rest is plain tensor code, as it was XLA's in JAX.
+
+`remat_policy` is None (full per-block recompute) or
+"save_splash_residuals" (bench_gpt's: every block still recomputes in
+the backward, but the flash forward's (out, lse) are kept from the
+forward, so attention's forward runs once a step instead of twice).
 
 Only the single-device dense step is ported: dp = pp = mp = ep = 1,
 one micro-batch, no MoE, no sequence parallelism, no ZeRO, no bucketed
-reduction, no `qkv_kernel`, and `remat_policy` None (full per-block
-recompute). Other values raise `NotImplementedError` (ROADMAP, Queue 1).
+reduction and no other named remat policy. Other values raise
+`NotImplementedError` (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import resolve_device
-from ..ops.flash_attention import splash_mha
+from ..ops.flash_attention import (SPLASH_RESIDUAL_NAME,
+                                   save_only_these_names, splash_mha)
 from ..ops.layer_norm import add_ln
+from ..ops.qkv_proj import qkv_proj, qkv_proj_supported
+
+#: the named remat policies the port has (JAX also takes any name of
+#: `jax.checkpoint_policies`)
+REMAT_POLICIES = (None, "save_splash_residuals")
 
 def param_shapes(V, S, d, ff, L):
     """The dense parameters' shapes by name (nested as the parameters
@@ -67,7 +82,9 @@ class GPTConfig:
     # fused residual-add + LN kernel between attention and FFN
     fused_add_ln: bool = True
     remat: bool = True
-    remat_policy: Any = None  # None = full per-block recompute
+    # None = full per-block recompute; "save_splash_residuals" keeps the
+    # flash forward's (out, lse) across it
+    remat_policy: Any = None
     ce_seq_chunks: int = 1
     fused_ce: bool = True
     qkv_kernel: bool = False
@@ -92,15 +109,18 @@ class GPTConfig:
             raise ValueError(f"d_model {self.d_model} is not a multiple of "
                              f"n_heads {self.n_heads}")
         single = dict(dp=1, pp=1, mp=1, ep=1, micro_batches=1,
-                      sequence_parallel=False, moe_experts=0,
-                      qkv_kernel=False, zero_stage=0, grad_bucket_bytes=0,
-                      remat_policy=None)
+                      sequence_parallel=False, moe_experts=0, zero_stage=0,
+                      grad_bucket_bytes=0)
         for name, want in single.items():
             if getattr(self, name) != want:
                 raise NotImplementedError(
                     f"GPTConfig.{name}={getattr(self, name)!r}: only the "
                     f"single-device dense step ({name}={want!r}) is ported "
                     "(ROADMAP, Queue 1: what the train-step slice left)")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise NotImplementedError(
+                f"GPTConfig.remat_policy={self.remat_policy!r}: the port "
+                f"has {REMAT_POLICIES} (ROADMAP, Queue 1)")
         if not isinstance(self.compute_dtype, torch.dtype):
             raise TypeError(f"compute_dtype must be a torch dtype, got "
                             f"{self.compute_dtype!r}")
@@ -151,14 +171,21 @@ def _attention(x, w_qkv, b_qkv, w_o, b_o, cfg: GPTConfig):
     hd = d // h
     cd = cfg.compute_dtype
     xc = x.to(cd)
-    wq, wk, wv = w_qkv.to(cd).split(d, dim=-1)
-    bq, bk, bv = b_qkv.to(cd).split(d, dim=-1)
+    if cfg.qkv_kernel and qkv_proj_supported(h, S, h * hd, d):
+        # the fused projection: one rounding of product + bias, stored
+        # straight into [B, H, S, hd]
+        q, k, v = qkv_proj(xc, w_qkv.to(cd), b_qkv.to(cd), h)
+    else:
+        wq, wk, wv = w_qkv.to(cd).split(d, dim=-1)
+        bq, bk, bv = b_qkv.to(cd).split(d, dim=-1)
 
-    def proj(w, b):                                   # -> [B, H, S, hd]
-        out = torch.einsum("bsd,dhe->bhse", xc, w.reshape(d, h, hd))
-        return out + b.reshape(h, 1, hd)
-    q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
-    ctx = splash_mha(q, k, v, causal=True, scale=1.0 / math.sqrt(hd))
+        def proj(w, b):                               # -> [B, H, S, hd]
+            out = torch.einsum("bsd,dhe->bhse", xc, w.reshape(d, h, hd))
+            return out + b.reshape(h, 1, hd)
+        q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
+    ctx = splash_mha(q, k, v, causal=True, scale=1.0 / math.sqrt(hd),
+                     save_residuals_for_remat=(
+                         cfg.remat_policy == "save_splash_residuals"))
     out = torch.einsum("bhse,hed->bsd", ctx.to(cd),
                        w_o.to(cd).reshape(h, hd, d))
     return out, b_o
@@ -189,8 +216,16 @@ def _block(x, lp, cfg: GPTConfig):
 
 def _stage_forward(x, blocks, cfg: GPTConfig):
     """All layers, a Python loop over the stacked layer axis. With remat
-    every block is recomputed in the backward (`remat_policy` None)."""
+    every block is recomputed in the backward; under
+    "save_splash_residuals" a selective checkpoint keeps what
+    `splash_mha` named (the flash forward's out and lse) and recomputes
+    the rest."""
     names = list(blocks)
+    kw = {}
+    if cfg.remat_policy == "save_splash_residuals":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            save_only_these_names(SPLASH_RESIDUAL_NAME))
     # unbind (not indexing) so the backward stacks the per-layer grads
     # once instead of scattering each into a zero [L, ...] buffer
     per_layer = zip(*(blocks[n].unbind(0) for n in names))
@@ -200,7 +235,7 @@ def _stage_forward(x, blocks, cfg: GPTConfig):
 
     for leaves in per_layer:
         if cfg.remat:
-            x = checkpoint(block_fn, x, *leaves, use_reentrant=False)
+            x = checkpoint(block_fn, x, *leaves, use_reentrant=False, **kw)
         else:
             x = block_fn(x, *leaves)
     return x

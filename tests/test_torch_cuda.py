@@ -14,10 +14,12 @@ import pytest
 import torch
 
 from paddle_tpu_torch.models.gpt import GPTForGeneration
+from paddle_tpu_torch.ops import conv_wgrad as tcw
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import grouped_matmul as tgmm
 from paddle_tpu_torch.ops import layer_norm as tln
 from paddle_tpu_torch.ops import paged_attention as tpa
+from paddle_tpu_torch.ops import qkv_proj as tqp
 from paddle_tpu_torch.parallel import hybrid_gpt as th
 from paddle_tpu_torch.serving.engine import ServingEngine
 
@@ -459,6 +461,211 @@ def test_train_step_on_card_matches_cpu(cuda_device):
             - counts[1], tln.fwd_launch_count - counts[2],
             tln.bwd_launch_count - counts[3]) == (6 * L, 3 * L, 6 * L,
                                                   3 * L)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(remat_policy="save_splash_residuals"),
+                                dict(remat_policy="save_splash_residuals",
+                                     qkv_kernel=True),
+                                dict(qkv_kernel=True)])
+def test_train_step_variants_on_card_match_cpu(kw, cuda_device):
+    """One fp32 step with bench_gpt's remat policy and/or the fused QKV
+    projection on the card (kernels) and on the CPU (plain versions):
+    losses within 1e-4 relative; per step the flash forward runs once a
+    layer under the policy (twice without), the projection twice."""
+    cfg = th.GPTConfig(vocab_size=193, seq_len=200, d_model=128,
+                       n_heads=2, n_layers=2, remat=True, ce_seq_chunks=2,
+                       compute_dtype=torch.float32, learning_rate=1e-3,
+                       **kw)
+    cpu = th.HybridGPT(cfg, device="cpu")
+    card = th.HybridGPT(cfg, device=cuda_device)
+    pc, oc = cpu.init(seed=0)
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(cuda_device)
+                for k, v in tree.items()}
+    pg, og = to_card(pc), to_card(oc)
+    rng = np.random.RandomState(1)
+    tok = rng.randint(0, 193, (2, 200))
+    lab = rng.randint(0, 193, (2, 200))
+    counts = (tfa.fwd_launch_count, tfa.bwd_launch_count,
+              tqp.launch_count)
+    _, _, lc = cpu.train_step(pc, oc, tok, lab)
+    _, _, lg = card.train_step(pg, og, tok, lab)
+    assert math.isclose(float(lg), float(lc), rel_tol=1e-4)
+    L = cfg.n_layers
+    fwd = L if kw.get("remat_policy") else 2 * L
+    qkv = 2 * L if kw.get("qkv_kernel") else 0
+    assert (tfa.fwd_launch_count - counts[0], tfa.bwd_launch_count
+            - counts[1], tqp.launch_count - counts[2]) == (fwd, L, qkv)
+
+
+# ------------------------------------------------ fused QKV projection (K5)
+
+
+def _qkv_case(B, S, d, H, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, d, generator=g)
+    w = torch.randn(d, 3 * H * 64, generator=g) * d ** -0.5
+    b = torch.randn(3 * H * 64, generator=g) * 0.1
+    return [t.to(dtype).to(device) for t in (x, w, b)]
+
+
+# fp32: sums of d products in another order -> 1e-5 relative, atol 1e-4
+# on values ~1. bf16/fp16: kernel and plain version both round
+# fp32(product) + fp32(bias) once; summation order can flip that
+# rounding: one spacing (bf16 2^-7 relative, fp16 2^-10).
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,d,H", [(2, 64, 256, 4), (1, 200, 128, 2),
+                                     (3, 33, 72, 6), (1, 1, 1024, 16)])
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-5, 1e-4),
+                                             (torch.bfloat16, 1e-2, 1e-2),
+                                             (torch.float16, 2e-3, 2e-3)])
+def test_qkv_proj_kernel_matches_plain(B, S, d, H, dtype, rtol, atol,
+                                       cuda_device):
+    x, w, b = _qkv_case(B, S, d, H, dtype, cuda_device, seed=S + d)
+    before = tqp.launch_count
+    got = tqp.qkv_proj(x, w, b, H)
+    torch.cuda.synchronize()
+    assert tqp.launch_count == before + 1
+    want = tqp.qkv_proj_reference(x, w, b, H)
+    for a, e in zip(got, want):
+        assert a.shape == (B, H, S, 64) and a.dtype == dtype
+        torch.testing.assert_close(a.float(), e.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.cuda
+def test_qkv_proj_grads_on_card_match_cpu(cuda_device):
+    x, w, b = _qkv_case(2, 64, 128, 2, torch.float32, "cpu", seed=3)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        args = [t.to(dev).requires_grad_() for t in (x, w, b)]
+        q, k, v = tqp.qkv_proj(*args, 2)
+        loss = (torch.sin(q) + 2 * torch.cos(k) + v ** 2).sum()
+        grads.append(torch.autograd.grad(loss, args))
+    for a, e in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a.cpu(), e, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_qkv_proj_kernel_refuses_unsupported_operands(cuda_device):
+    x, w, b = _qkv_case(1, 8, 128, 2, torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        tqp.qkv_proj(x.double(), w.double(), b.double(), 2)
+    with pytest.raises(TypeError):
+        tqp.qkv_proj(x, w.half(), b, 2)
+    with pytest.raises(ValueError, match="even H"):
+        tqp.qkv_proj(x, w, b, 4)                  # head_dim 32
+    x3, w3, b3 = _qkv_case(1, 8, 128, 3, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="even H"):
+        tqp.qkv_proj(x3, w3, b3, 3)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tqp.qkv_proj(x[..., :66].contiguous(), w[:66].contiguous(), b, 2)
+    x2, _, _ = _qkv_case(2, 8, 128, 2, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        tqp.qkv_proj(x2.transpose(0, 1), w, b, 2)
+
+
+# ------------------------------------- paddle-layout flash forward (K1b)
+
+
+def _bshd_case(B, S, H, D, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(B, S, H, D, generator=g).to(dtype).to(device)
+            for _ in range(4)]
+
+
+# fp32: fp32 scores and softmax on both sides, sums in another order.
+# bf16/fp16: both scale and round q, round p to the operand dtype
+# before p @ v (the kernel relative to its running max, the plain
+# version to the row's) and round the output once: a spacing or two.
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 64, 200, 256])
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2),
+                                       (torch.float16, 4e-3)])
+def test_flash_bshd_kernel_matches_plain(S, D, causal, dtype, tol,
+                                         cuda_device):
+    q, k, v, _ = _bshd_case(2, S, 3, D, dtype, cuda_device, seed=S + D)
+    scale = D ** -0.5
+    before = tfa.bshd_launch_count
+    got = tfa._launch_fwd_bshd(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert tfa.bshd_launch_count == before + 1
+    want = tfa.flash_fwd_bshd_reference(q, k, v, scale, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_on_card_matches_autograd_reference(cuda_device):
+    q, k, v, dout = _bshd_case(2, 256, 4, 128, torch.float32, cuda_device)
+    args = [t.requires_grad_() for t in (q, k, v)]
+    out = tfa.flash_attention(*args, causal=True)
+    got = torch.autograd.grad(out, args, dout)
+    ref = tfa.attention_bshd_reference(*args, 128 ** -0.5, True)
+    want = torch.autograd.grad(ref, args, dout)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_bshd_kernel_refuses_unsupported_operands(cuda_device):
+    q, k, v, _ = _bshd_case(1, 64, 2, 128, torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q.double(), k.double(), v.double())
+    q, k, v, _ = _bshd_case(1, 64, 2, 384, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention(q, k, v)
+    q, k, v, _ = _bshd_case(2, 64, 2, 128, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(q.transpose(0, 1), k.transpose(0, 1),
+                            v.transpose(0, 1))
+
+
+# ----------------------------------------------- split-K 1x1 wgrad (K6)
+
+
+# fp32 sums on both sides (16-bit products are exact in fp32), the
+# chunks added in the same order, the sums inside a chunk in another:
+# 1e-5 relative on values ~sqrt(N), atol 1e-3.
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,Ci,Co,chunk", [(512, 128, 128, 128),
+                                           (4096, 256, 64, 4096),
+                                           (1000, 72, 40, 200),
+                                           (96, 8, 8, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_wgrad_kernel_matches_plain(N, Ci, Co, chunk, dtype, cuda_device):
+    g = torch.Generator().manual_seed(N + Ci)
+    x = torch.randn(N, Ci, generator=g).to(dtype).to(cuda_device)
+    dy = torch.randn(N, Co, generator=g).to(dtype).to(cuda_device)
+    before = tcw.launch_count
+    got = tcw.wgrad_1x1(x, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tcw.launch_count == before + 1
+    want = tcw.wgrad_1x1_reference(x, dy, chunk=chunk)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    assert torch.equal(tcw.wgrad_1x1(x, dy, chunk=chunk), got)  # same bits
+
+
+@pytest.mark.cuda
+def test_wgrad_kernel_refuses_unsupported_operands(cuda_device):
+    x = torch.randn(64, 16, device=cuda_device)
+    dy = torch.randn(64, 16, device=cuda_device)
+    with pytest.raises(TypeError):
+        tcw.wgrad_1x1(x.double(), dy.double(), chunk=32)
+    with pytest.raises(TypeError):
+        tcw.wgrad_1x1(x, dy.half(), chunk=32)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tcw.wgrad_1x1(x[:, :6].contiguous(), dy, chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        tcw.wgrad_1x1(x.t().contiguous().t(), dy, chunk=32)
+    with pytest.raises(ValueError, match="divisible"):
+        tcw.wgrad_1x1(x, dy, chunk=48)
 
 
 # --------------------------------------------- grouped matmul (K4) kernels

@@ -92,7 +92,39 @@ def test_splash_mha_refuses_what_is_not_ported():
     q = torch.zeros(1, 2, 8, 64)
     with pytest.raises(NotImplementedError):
         tfa.splash_mha(q, q, q, kv_keep=torch.ones(1, 8))
-    with pytest.raises(NotImplementedError):
-        tfa.splash_mha(q, q, q, save_residuals_for_remat=True)
     with pytest.raises(ValueError):
         tfa.splash_mha(q, q[:, :, :4], q)
+
+
+@pytest.mark.parametrize("tagged", [True, False])
+def test_residual_policy_keeps_only_tagged_forwards(monkeypatch, tagged):
+    """A checkpoint under `save_only_these_names(SPLASH_RESIDUAL_NAME)`
+    keeps the (out, lse) of a forward `splash_mha` tagged, so the
+    forward runs once for forward + backward; an untagged forward is
+    recomputed, as JAX recomputes an unnamed residual. The gradients
+    equal the plain checkpoint's either way."""
+    import functools
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts)
+    calls = []
+    fwd = tfa.flash_fwd_reference
+    monkeypatch.setattr(tfa, "flash_fwd_reference",
+                        lambda *a: calls.append(1) or fwd(*a))
+    q, k, v, g = _inputs(128, 64, seed=3)
+
+    def run(context_fn=None):
+        args = [torch.tensor(a).requires_grad_() for a in (q, k, v)]
+        kw = {} if context_fn is None else {"context_fn": context_fn}
+        out = checkpoint(lambda *t: tfa.splash_mha(
+            *(x * 1.5 for x in t), save_residuals_for_remat=tagged),
+            *args, use_reentrant=False, **kw)
+        return torch.autograd.grad(out, args, torch.tensor(g))
+    policy = tfa.save_only_these_names(tfa.SPLASH_RESIDUAL_NAME)
+    got = run(functools.partial(create_selective_checkpoint_contexts,
+                                policy))
+    assert len(calls) == (1 if tagged else 2)
+    calls.clear()
+    want = run()
+    assert len(calls) == 2
+    for a, e in zip(got, want):
+        assert torch.equal(a, e)

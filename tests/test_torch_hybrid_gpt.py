@@ -13,6 +13,7 @@ from paddle_tpu.parallel import hybrid_gpt as jh
 from paddle_tpu_torch.convert import load_jax_hybrid_gpt
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import layer_norm as tln
+from paddle_tpu_torch.ops import qkv_proj as tqp
 from paddle_tpu_torch.parallel import hybrid_gpt as th
 
 # vocab 256, seq 128, d_model 128, 2 heads of 64, 2 layers, batch 2:
@@ -61,11 +62,21 @@ def _flat(tree, prefix=""):
 # a different summation order changes the step by a sizeable part of
 # lr: atol 5e-2 * lr (observed 1.5e-2 * lr), while a wrong sign would
 # be 2 * lr.
+#
+# "splash-residuals" is bench_gpt's remat policy (JAX's CPU attention
+# has no residuals to keep, so its step is a full remat); "qkv-kernel"
+# runs the port's fused projection (its plain version here: one fp32
+# rounding of product + bias) against JAX's einsum branch, which JAX
+# takes off the TPU.
 @pytest.mark.parametrize("kw", [
     dict(remat=False, ce_seq_chunks=1),
     dict(remat=True, ce_seq_chunks=2),
     dict(remat=True, ce_seq_chunks=2, fused_ce=False, fused_add_ln=False),
-], ids=["plain", "remat-chunked", "unfused"])
+    dict(remat=True, ce_seq_chunks=2, remat_policy="save_splash_residuals"),
+    dict(remat=True, ce_seq_chunks=2, qkv_kernel=True,
+         remat_policy="save_splash_residuals"),
+], ids=["plain", "remat-chunked", "unfused", "splash-residuals",
+        "qkv-kernel"])
 def test_train_steps_match_jax(kw):
     jt, jp, jo, tt, tp, to = _pair(**kw)
     tok, lab = _batch()
@@ -146,11 +157,96 @@ def test_remat_runs_each_forward_twice(monkeypatch):
                      "add_ln_bwd_reference": L}
 
 
+def _count_calls(monkeypatch, targets):
+    """Wrap each (module, function) so its calls are counted by name."""
+    calls = {}
+    for mod, name in targets:
+        fn = getattr(mod, name)
+
+        def wrapper(*a, _fn=fn, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(mod, name, wrapper)
+    return calls
+
+
+def _one_step(monkeypatch, **kw):
+    """One fp32 step of the port from seed-0 parameters; returns (calls
+    of the plain versions, loss, params, opt)."""
+    calls = _count_calls(monkeypatch, (
+        (tfa, "flash_fwd_reference"), (tfa, "flash_bwd_reference"),
+        (tln, "add_ln_fwd_reference"), (tln, "add_ln_bwd_reference"),
+        (tqp, "qkv_proj_reference")))
+    cfg = th.GPTConfig(**WIDTHS, remat=True, compute_dtype=torch.float32,
+                       **kw)
+    tt = th.HybridGPT(cfg, device="cpu")
+    params, opt = tt.init(seed=0)
+    params, opt, loss = tt.train_step(params, opt, *_batch())
+    return dict(calls), loss, params, opt
+
+
+def test_residual_policy_runs_flash_forward_once(monkeypatch):
+    """Under "save_splash_residuals" the blocks still recompute in the
+    backward (add_ln's forward runs twice a layer) but the flash
+    forward runs once a layer: its (out, lse) are kept. The step equals
+    the full-remat step exactly, the kept outputs being the ones the
+    recompute would give — but for tok_emb, whose gradient is a CPU
+    scatter-add that sums in another order from run to run (two
+    full-remat runs differ by ~2e-6 lr there): atol 1e-4 lr, and 1e-6
+    of the largest value for its moments."""
+    L = WIDTHS["n_layers"]
+    calls, loss, params, opt = _one_step(
+        monkeypatch, remat_policy="save_splash_residuals")
+    assert calls == {"flash_fwd_reference": L, "flash_bwd_reference": L,
+                     "add_ln_fwd_reference": 2 * L,
+                     "add_ln_bwd_reference": L}
+    monkeypatch.undo()
+    _, loss_full, params_full, opt_full = _one_step(monkeypatch)
+    assert float(loss) == float(loss_full)
+    for (name, a), (_, b) in zip(_flat(params), _flat(params_full)):
+        atol = 1e-4 * WIDTHS["learning_rate"] if name == "tok_emb" else 0
+        torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=name)
+    for (name, a), (_, b) in zip(_flat(opt), _flat(opt_full)):
+        atol = (1e-6 * float(b.abs().max()) if name.startswith("tok_emb.")
+                else 0)
+        torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("policy", [None, "save_splash_residuals"])
+def test_qkv_kernel_runs_the_fused_projection(monkeypatch, policy):
+    """With `qkv_kernel` at hd = 64 every block's projection goes through
+    `qkv_proj` (its plain version on the CPU): once in the forward and
+    once in the recompute, whatever the policy keeps of attention."""
+    L = WIDTHS["n_layers"]
+    calls, *_ = _one_step(monkeypatch, qkv_kernel=True, remat_policy=policy)
+    assert calls["qkv_proj_reference"] == 2 * L
+    assert calls["flash_fwd_reference"] == (L if policy else 2 * L)
+
+
+def test_qkv_kernel_gate_keeps_the_einsum_branch(monkeypatch):
+    """Where JAX's shape gate refuses (head_dim 32 here) the step takes
+    the einsum branch, as JAX's does."""
+    calls = _count_calls(monkeypatch, ((tqp, "qkv_proj_reference"),))
+    cfg = th.GPTConfig(**{**WIDTHS, "n_heads": 4}, qkv_kernel=True,
+                       compute_dtype=torch.float32)
+    tt = th.HybridGPT(cfg, device="cpu")
+    params, opt = tt.init(seed=0)
+    tt.train_step(params, opt, *_batch())
+    assert calls == {}
+
+
+@pytest.mark.parametrize("kw", [dict(remat_policy="save_splash_residuals"),
+                                dict(qkv_kernel=True)])
+def test_config_takes_what_is_ported(kw):
+    cfg = th.GPTConfig(**WIDTHS, **kw)
+    assert all(getattr(cfg, k) == v for k, v in kw.items())
+
+
 @pytest.mark.parametrize("field,value", [
     ("dp", 2), ("pp", 2), ("mp", 2), ("micro_batches", 2),
-    ("sequence_parallel", True), ("moe_experts", 4), ("qkv_kernel", True),
+    ("sequence_parallel", True), ("moe_experts", 4),
     ("zero_stage", 1), ("grad_bucket_bytes", 1 << 20),
-    ("remat_policy", "save_splash_residuals")])
+    ("remat_policy", "dots_saveable")])
 def test_config_refuses_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError, match=field):
         th.GPTConfig(**{**WIDTHS, field: value})

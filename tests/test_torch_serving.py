@@ -156,6 +156,8 @@ def test_port_imports_no_jax():
             "import paddle_tpu_torch.parallel.hybrid_gpt\n"
             "import paddle_tpu_torch.parallel.moe_utils\n"
             "import paddle_tpu_torch.ops.grouped_matmul\n"
+            "import paddle_tpu_torch.ops.qkv_proj\n"
+            "import paddle_tpu_torch.ops.conv_wgrad\n"
             "import paddle_tpu_torch.incubate.nn.fused_transformer\n"
             "import paddle_tpu_torch.models.gpt\n"
             "bad = [m for m in sys.modules if m == 'jax'"
