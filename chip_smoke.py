@@ -7,7 +7,8 @@ Drives the port's paths end to end — serving a dense GPT-350M, serving
 it speculatively over bf16, int8 and fp8 KV pools, serving the
 8-expert MoE-350M with float, int8 and int4 experts, the train step
 (with and without the fused QKV projection), the paddle-layout
-`flash_attention()` entry and the `wgrad_1x1` entry — and holds every
+`flash_attention()` entry, the `wgrad_1x1` entry and BERT-base
+inference over padded batches — and holds every
 CUDA kernel on them against its plain PyTorch version. Phases, one line
 each (or a few):
 
@@ -26,7 +27,10 @@ each (or a few):
    paddle-layout flash forward at [8, 1024, 16, 128] causal and full,
    [8, 1024, 8, 256] causal, and forward + backward through
    `flash_attention()`; the split-K 1x1 weight gradient at ResNet-50's
-   [401408, 256] x [401408, 64]), with times (CUDA events, L2 flushed
+   [401408, 256] x [401408, 64]; the segmented flash forward at BERT's
+   [64, 12, 128, 64] and [16, 12, 512, 64] under trailing, left and
+   interleaved padding, fp32 and causal too), with times (CUDA events,
+   L2 flushed
    between launches), the card's bound for the same work and, where one
    PyTorch call computes the same function, that call's time as a
    yardstick the port never calls;
@@ -85,6 +89,19 @@ each (or a few):
    call, no other kernel;
 7b. `wgrad_1x1` — three calls at ResNet-50's shape: one launch a call,
    the same bits each time;
+7c. serve BERT — BERT-base (random weights from a numpy seed, carried
+   in through `convert.load_jax_bert`, bf16, eval) as a two-class
+   `BertForSequenceClassification` over padded batches: 64 sequences at
+   S = 128, then 16 at S = 512, each forward timed; the segmented flash
+   forward launched exactly once a layer a forward, no other kernel;
+   one profiled forward of each batch;
+7d. on-card BERT check — (a) the bf16 forward's logits, pooled output
+   and real rows of the sequence output against an fp32 forward of the
+   same weights written from plain tensor ops (the segmented kernel's
+   plain version for attention); (b) a 2-layer fp32 BERT at full width,
+   card (kernels) against a CPU copy (plain versions), every row;
+   (c) the same 8 sequences batched at S = 128 and S = 512 give the same
+   logits; (d) every output finite;
 8. a JSON line listing every kernel with its launches, error and times;
 9. the last line, `{"ok": true, "device": {...}}`.
 
@@ -119,6 +136,30 @@ WARMUP_STEPS, TIMED_STEPS = 3, 5
 # and its tolerance relative to each sum's absolute mass (check_wgrad)
 WGRAD_N, WGRAD_CI, WGRAD_CO, WGRAD_CHUNK = 401408, 256, 64, 4096
 WGRAD_TOL = 1e-6
+
+# BERT-base (bench.py's bench_bert: `bert_base()`, BertModel's
+# defaults) served in eval as a two-class sequence classifier: 64
+# sequences at S = 128 with lengths uniform in 16-128 (bench_bert's B and
+# S), then 16 at BERT's longest S = 512 with lengths 64-512; each batch
+# warmed up, then BERT_FORWARDS forwards timed
+BERT = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+            num_attention_heads=12, intermediate_size=3072,
+            max_position_embeddings=512, type_vocab_size=2)
+BERT_BATCHES = ((64, 128, 16), (16, 512, 64))   # (sequences, S, shortest)
+BERT_FORWARDS = 10
+# the bf16 card forward against an fp32 forward of the same (bf16-held)
+# weights, |bf16 - fp32| <= tol (1 + |fp32|): each of 12 layers rounds
+# the residual stream to bf16 twice where it reaches |x| ~ 5 (a bf16
+# spacing of 2^-5 there) and every product's output once, and each
+# LayerNorm carries those roundings onto its unit-scale output: a few
+# such spacings at the worst of ~10^7 elements (the same forward in bf16
+# on the CPU, 8 sequences at S = 128, reached 0.044).
+BERT_TOL = 2 ** -4
+# the same 8 sequences batched at S = 128 and at S = 512 (bf16): real
+# rows never see padding, so the two differ only where cuBLAS tiles the
+# two batch sizes' products differently and rounds them to bf16 at other
+# places: a few bf16 spacings of the O(1) logits.
+PAD_TOL = 2 ** -6
 
 # NVIDIA H100 SXM data-sheet peaks (dense): device memory bytes/s, and
 # flop/s by operand type (fp32 outside the tensor cores)
@@ -1847,6 +1888,345 @@ def profile_train(trainer, params, opt, tok, lab, step_num):
               f"x{e.count}" for e in top), flush=True)
 
 
+# --------------------------------------- phase 3, segmented flash (K1c)
+
+
+def seg_ids(pattern, B, S, rng):
+    """[B, S] 0/1 key-padding ids at random lengths (the first sequence
+    unpadded): padding after the tokens, before them, or strewn among
+    them."""
+    import numpy as np
+    if pattern == "interleaved":
+        keep = rng.random((B, S)) < 0.6
+        keep[0] = True
+    else:
+        lens = rng.integers(1, S + 1, B)
+        lens[0] = S
+        keep = np.arange(S)[None] < lens[:, None]
+        if pattern == "left":
+            keep = keep[:, ::-1]
+    return np.ascontiguousarray(keep, dtype=np.int32)
+
+
+def seg_bound(q, seg, causal=False):
+    """(bound_ms, bound_by) of the segmented forward: q, k, v, out, the
+    fp32 lse and the int32 ids moved once; 4*D flops per (query, key)
+    pair this run's ids make visible (the same segment, and not above
+    the diagonal when causal)."""
+    import torch
+    B, H, S, D = q.shape
+    nbytes = 4 * q.numel() * q.element_size() + B * H * S * 4 \
+        + seg.numel() * 4
+    same = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        same &= torch.ones(S, S, dtype=torch.bool, device=seg.device).tril()
+    flops = 4 * D * H * int(same.sum())
+    t_bytes = nbytes / PEAK_BYTES
+    t_flops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]]
+    return (max(t_bytes, t_flops) * 1e3,
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
+def check_flash_seg(fa, device, flush):
+    """Phase 3 for the segmented flash forward (K1c) at the BERT phase's
+    shapes, [64, 12, 128, 64] and [16, 12, 512, 64] bf16 full, under
+    trailing, left and interleaved padding, then fp32 and causal at the
+    first: out and lse against the plain version (the K1a forward's
+    tolerance), every row finite. Times at each shape under the serve
+    phase's trailing padding: kernel, plain version and, as the
+    yardstick, SDPA with the same segment mask. Returns the record of
+    [64, 12, 128, 64] bf16."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    H = BERT["num_attention_heads"]
+    D = BERT["hidden_size"] // H
+    rng = np.random.default_rng(SEED + 11)
+    cases = [(B, S, torch.bfloat16, False, pat)
+             for B, S, _ in BERT_BATCHES
+             for pat in ("trailing", "left", "interleaved")]
+    cases += [(64, 128, torch.float32, False, "interleaved"),
+              (64, 128, torch.bfloat16, True, "trailing")]
+    errs = {}
+    for B, S, dtype, causal, pat in cases:
+        name = str(dtype).split(".")[-1]
+        tol = TRAIN_TOL[name]
+        g = torch.Generator(device=device).manual_seed(SEED + S)
+        q, k, v = (torch.randn(B, H, S, D, generator=g, device=device,
+                               dtype=dtype) for _ in range(3))
+        q = (q * D ** -0.5).to(dtype)
+        seg = torch.tensor(seg_ids(pat, B, S, rng), device=device)
+        out, lse = fa._launch_fwd_seg(q, k, v, seg, causal)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, causal, seg)
+        label = f"flash_fwd_seg {name} [{B}, {H}, {S}, {D}] {pat}" + (
+            " causal" if causal else "")
+        err = max(close_or_fail(label + " out", out, ref_out, tol),
+                  close_or_fail(label + " lse", lse, ref_lse,
+                                TOL["float32"]))
+        errs[(S, name)] = max(errs.get((S, name), 0.0), err)
+        print(f"kernel check: {label}: every row finite, max_abs_err="
+              f"{err:.3g} (tol {tol} (1 + |plain|))", flush=True)
+        del q, k, v, out, lse, ref_out, ref_lse
+    records = {}
+    for B, S, shortest in BERT_BATCHES:
+        g = torch.Generator(device=device).manual_seed(SEED + S)
+        q, k, v = (torch.randn(B, H, S, D, generator=g, device=device,
+                               dtype=torch.bfloat16) for _ in range(3))
+        lens = rng.integers(shortest, S + 1, B)
+        seg = torch.tensor((np.arange(S)[None] < lens[:, None]).astype(
+            np.int32), device=device)
+        ms = cuda_ms(lambda: fa._launch_fwd_seg(q, k, v, seg, False),
+                     flush=flush)
+        plain = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, False, seg),
+                        iters=3, flush=flush)
+        same = seg[:, None, :, None] == seg[:, None, None, :]
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=same, scale=1.0), flush=flush)
+        bound_ms, bound_by = seg_bound(q, seg)
+        records[S] = dict(max_abs_err=errs[(S, "bfloat16")], ms=ms,
+                          plain_ms=plain, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib)
+        print(f"kernel check: flash_fwd_seg bfloat16 [{B}, {H}, {S}, {D}] "
+              f"full, lengths {shortest}-{S}: kernel_ms={ms:.4f} plain_ms="
+              f"{plain:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"yardstick: scaled_dot_product_attention with the segment "
+              f"mask {lib:.4f} ms", flush=True)
+        del q, k, v, seg, same
+    return {"flash_fwd_seg": records[BERT_BATCHES[0][1]]}
+
+
+# ----------------------------------------------- phases 7c and 7d, BERT
+
+
+def random_bert_arrays(layers=None, seed=SEED):
+    """(config, parameters) of a two-class
+    `BertForSequenceClassification` under the JAX names, drawn from a
+    numpy seed: N(0, 0.02) embeddings, weights and biases (BERT's
+    initializer_range), LayerNorm scales 1 + N(0, 0.02)."""
+    import numpy as np
+    from paddle_tpu_torch.models import bert
+    cfg = dict(BERT, num_hidden_layers=layers or BERT["num_hidden_layers"])
+    model = bert.BertForSequenceClassification(bert.BertModel(
+        **cfg, device="meta"))
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for n, p in model.named_parameters():
+        a = rng.standard_normal(tuple(p.shape), dtype=np.float32) \
+            * np.float32(0.02)
+        if "norm" in n and n.endswith("weight"):
+            a += np.float32(1)
+        arrays[n] = a
+    return cfg, arrays
+
+
+def bert_batch(n, S, shortest, seed):
+    """[n, S] padded ids (pad id 0 after each sequence, lengths uniform
+    in shortest..S) and the lengths."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(shortest, S + 1, n)
+    ids = rng.integers(1, BERT["vocab_size"], (n, S))
+    ids[np.arange(S)[None] >= lens[:, None]] = 0
+    return ids, lens
+
+
+def bert_reference(model, ids, fa):
+    """The classifier's forward in fp32 from plain tensor ops over the
+    model's weights (widened to fp32), with the segmented kernel's plain
+    version for attention: (sequence output, pooled output, logits)."""
+    import torch
+    import torch.nn.functional as F
+    p = {n: t.detach().float() for n, t in model.named_parameters()}
+    B, S = ids.shape
+    H = BERT["num_attention_heads"]
+    keep = (ids != 0).to(torch.int32)
+
+    def lin(x, name):
+        return x @ p[name + ".weight"] + p[name + ".bias"]
+
+    def ln(x, name):
+        return F.layer_norm(x, x.shape[-1:], p[name + ".weight"],
+                            p[name + ".bias"], 1e-5)
+    e = "bert.embeddings."
+    x = ln(p[e + "word_embeddings.weight"][ids]
+           + p[e + "position_embeddings.weight"][:S]
+           + p[e + "token_type_embeddings.weight"][0], e + "layer_norm")
+    for i in range(len(model.bert.encoder.layers)):
+        a = f"bert.encoder.layers.{i}."
+        q, k, v = (lin(x, a + f"self_attn.{n}_proj").reshape(
+            B, S, H, -1).transpose(1, 2) for n in "qkv")
+        out, _ = fa.flash_fwd_reference(q * q.shape[-1] ** -0.5, k, v,
+                                        False, keep)
+        x = ln(x + lin(out.transpose(1, 2).reshape(B, S, -1),
+                       a + "self_attn.out_proj"), a + "norm1")
+        x = ln(x + lin(F.gelu(lin(x, a + "linear1")), a + "linear2"),
+               a + "norm2")
+    pooled = torch.tanh(lin(x[:, 0], "bert.pooler.dense"))
+    return x, pooled, lin(pooled, "classifier")
+
+
+def bert_forward(model, ids):
+    """(sequence output, pooled output, logits) through the model's
+    entry points."""
+    seq, pooled = model.bert(ids)
+    return seq, pooled, model(ids)
+
+
+def serve_bert(fa, device, counters):
+    """Phase 7c, with checks (a), (c) and (d): BERT-base bf16 in eval
+    over the two padded batches. Every count is zeroed just before each
+    batch's timed forwards and read just after: the segmented flash
+    forward must have launched once a layer a forward and no other
+    kernel. Returns the launches."""
+    import torch
+    from paddle_tpu_torch.convert import load_jax_bert
+    L = BERT["num_hidden_layers"]
+    t0 = time.perf_counter()
+    cfg, arrays = random_bert_arrays()
+    model = load_jax_bert(arrays, cfg, head="sequence_classification",
+                          device=device, dtype=torch.bfloat16).eval()
+    del arrays
+    print(f"serve BERT: BERT-base built in {time.perf_counter() - t0:.1f} s"
+          f" (vocab {BERT['vocab_size']}, hidden {BERT['hidden_size']}, {L}"
+          f" layers, {BERT['num_attention_heads']} heads, bf16, eval, 2 "
+          f"classes)", flush=True)
+    total, first = 0, None
+    for n, S, shortest in BERT_BATCHES:
+        ids_np, lens = bert_batch(n, S, shortest, SEED + S)
+        ids = torch.tensor(ids_np, device=device)
+        first = first or (ids, lens)
+        with torch.inference_mode():
+            for _ in range(2):                             # warm-up
+                model(ids)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            for mod, attr, _ in counters:
+                setattr(mod, attr, 0)
+            t0 = time.perf_counter()
+            for _ in range(BERT_FORWARDS):
+                logits = model(ids)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {name: getattr(mod, attr) for mod, attr, name in counters}
+        hold_launches(f"serve BERT S={S}", launches,
+                      {"flash_fwd_seg": BERT_FORWARDS * L})
+        total += launches["flash_fwd_seg"]
+        if not bool(torch.isfinite(logits.float()).all()):
+            fail(f"serve BERT S={S}: non-finite logits")
+        ms = wall * 1e3 / BERT_FORWARDS
+        print(f"serve BERT: {n} sequences at S={S}, lengths {lens.min()}-"
+              f"{lens.max()} ({lens.sum()} real tokens of {n * S}): "
+              f"{ms:.3f} ms per batch on the host clock = "
+              f"{n * 1e3 / ms:.1f} sequences/s, {lens.sum() * 1e3 / ms:.0f}"
+              f" real tokens/s; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(device)} B; flash_fwd_seg "
+              f"{launches['flash_fwd_seg'] // BERT_FORWARDS} launches per "
+              f"forward, other kernels 0", flush=True)
+        profile_bert(model, ids, S)
+        # (a) and (d): against the fp32 forward of the same weights
+        with torch.inference_mode():
+            got = bert_forward(model, ids)
+            want = bert_reference(model, ids, fa)
+        real = torch.arange(S, device=device)[None] < torch.as_tensor(
+            lens, device=device)[:, None]
+        err = max(close_or_fail(f"serve BERT S={S} bf16 vs fp32 {name}", a,
+                                e, BERT_TOL)
+                  for name, a, e in zip(
+                      ("seq_out real rows", "pooled", "logits"),
+                      (got[0][real], got[1], got[2]),
+                      (want[0][real], want[1], want[2])))
+        if not all(bool(torch.isfinite(t.float()).all()) for t in got):
+            fail(f"serve BERT S={S}: a non-finite output")
+        print(f"serve BERT check (a) S={S}: bf16 card forward against an "
+              f"fp32 plain forward of the same weights: logits, pooled and"
+              f" real rows max_abs_err={err:.3g} (tol {BERT_TOL} (1 + "
+              f"|fp32|)); (d) every output finite, padded rows too",
+              flush=True)
+        del got, want
+    # (c) padding invariance: 8 sequences of the S=128 batch at S=512
+    ids128, lens = first[0][:8], first[1][:8]
+    ids512 = torch.zeros(8, 512, dtype=ids128.dtype, device=device)
+    ids512[:, :128] = ids128
+    with torch.inference_mode():
+        a, b = model(ids128), model(ids512)
+    err = close_or_fail("serve BERT check (c) logits at S=512 vs S=128", b,
+                        a, PAD_TOL)
+    print(f"serve BERT check (c): the same 8 sequences (lengths "
+          f"{lens.min()}-{lens.max()}) batched at S=128 and at S=512 give "
+          f"the same logits: max_abs_err={err:.3g} (tol {PAD_TOL} (1 + "
+          f"|logit|))", flush=True)
+    return {"flash_fwd_seg": total}
+
+
+def profile_bert(model, ids, S):
+    """One forward on the host clock, then one under torch.profiler for
+    its device time, launches and top kernels. Informational: prints
+    "not measured" when the profiler records no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(ids)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(ids)
+            torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    if not dev:
+        print(f"profile: BERT forward S={S} {host_ms:.3f} ms on the host "
+              "clock; device time not measured (no device events)",
+              flush=True)
+        return
+    device_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"profile: BERT forward S={S}: {host_ms:.3f} ms on the host "
+          f"clock, {device_ms:.3f} ms of device time in "
+          f"{sum(e.count for e in dev)} device launches, device busy "
+          f"{device_ms / host_ms:.1%}; most device time: " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
+              f"x{e.count}" for e in top), flush=True)
+
+
+def check_bert_on_card(device):
+    """Phase 7d (b): a 2-layer fp32 BERT at full width over 8 sequences
+    at S = 128, two each unpadded, with trailing, left and interleaved
+    padding, on the card (kernels) and on a CPU copy (plain versions):
+    sequence output (every row), pooled output and logits within the
+    fp32 train tolerance."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_bert
+    cfg, arrays = random_bert_arrays(layers=2)
+    rng = np.random.default_rng(SEED + 12)
+    ids = rng.integers(1, BERT["vocab_size"], (8, 128))
+    keep = np.concatenate([seg_ids(pat, 2, 128, rng) for pat in (
+        "trailing", "trailing", "left", "interleaved")])
+    ids[keep == 0] = 0
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        model = load_jax_bert(arrays, cfg, head="sequence_classification",
+                              device=dev).eval()
+        with torch.inference_mode():
+            out[dev.type] = [t.cpu() for t in bert_forward(
+                model, torch.tensor(ids, device=dev))]
+        del model
+    tol = TRAIN_TOL["float32"]
+    err = max(close_or_fail(f"BERT fp32 card vs CPU {n}", a, e, tol)
+              for n, a, e in zip(("seq_out", "pooled", "logits"),
+                                 out["cuda"], out["cpu"]))
+    print(f"BERT check (b): 2-layer fp32 BERT at full width, 8 sequences at"
+          f" S=128 (trailing, left and interleaved padding), card (kernels)"
+          f" against a CPU copy (plain versions): every row, pooled and "
+          f"logits max_abs_err={err:.3g} (tol {tol} (1 + |CPU|))",
+          flush=True)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1910,7 +2290,9 @@ def main():
         ("flash_bshd", fa, "bshd_launch_count",
          pallas + "flash_attention.py:235", csrc + "flash_attention.cu"),
         ("wgrad_1x1", cw, "launch_count",
-         pallas + "conv_wgrad.py:44", csrc + "conv_wgrad.cu")]
+         pallas + "conv_wgrad.py:44", csrc + "conv_wgrad.cu"),
+        ("flash_fwd_seg", fa, "seg_launch_count",
+         pallas + "flash_attention.py:159", csrc + "flash_attention.cu")]
     # one per source
     build_fns = (pa.build, fa.build, ln.build, gm.build, qp.build, cw.build)
     t0 = time.perf_counter()
@@ -1929,6 +2311,7 @@ def main():
     checks.update(check_qkv_proj(qp, device, flush))
     checks.update(check_flash_bshd(fa, device, flush))
     checks.update(check_wgrad(cw, device, flush))
+    checks.update(check_flash_seg(fa, device, flush))
     del flush
     torch.cuda.empty_cache()
 
@@ -1951,6 +2334,9 @@ def main():
     torch.cuda.empty_cache()
     launches.update(flash_bshd_phase(fa, device, counters))
     launches.update(wgrad_phase(cw, device, counters))
+    launches.update(serve_bert(fa, device, counters))
+    torch.cuda.empty_cache()
+    check_bert_on_card(device)
 
     line = {"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,

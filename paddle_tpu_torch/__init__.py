@@ -18,15 +18,27 @@ Ported so far:
   the routing of `parallel.moe_utils`) with float, int8 or packed-int4
   experts (`moe_weight_dtype=`);
 * the single-device train step — `parallel.hybrid_gpt.HybridGPT`;
+* BERT inference — `models.bert` (`BertModel`, `BertForPretraining`
+  with `BertPretrainingCriterion`, `BertForSequenceClassification`,
+  `bert_tiny`/`bert_base`/`bert_large`) over the port's first `nn`
+  surface: `nn.Linear`, `Embedding`, `Dropout`, `LayerNorm`, `GELU`,
+  `Tanh`, `LayerList`, `MultiHeadAttention`, the Transformer encoder,
+  and `nn.functional` (`scaled_dot_product_attention`, which routes a
+  key-padding mask to the segmented flash kernel, `linear`, `dropout`,
+  `embedding`, `gelu`, `tanh`, `relu`, `layer_norm`, `cross_entropy`);
 * the kernels, each a CUDA source written for Hopper under `ops/csrc/`
   with its plain PyTorch version beside it: `ops.paged_attention`
   (block-table paged attention: ragged and verify entries, float or
   quantized pools), `ops.grouped_matmul` (the grouped
   expert matmul, float/int8/int4 weights), `ops.flash_attention`
-  (causal flash attention, forward and backward) and `ops.layer_norm`
-  (fused residual-add + LayerNorm, forward and backward);
-* `convert.load_jax_gpt` and `convert.load_jax_hybrid_gpt` — carry a
-  JAX model's or trainer's parameters across.
+  (flash attention, causal or full, forward and backward; the segmented
+  forward over key-padding or packed segment ids; the paddle-layout
+  forward), `ops.layer_norm` (fused residual-add + LayerNorm, forward and
+  backward), `ops.qkv_proj` (the fused QKV projection) and
+  `ops.conv_wgrad` (the split-K 1x1 weight gradient);
+* `convert.load_jax_gpt`, `convert.load_jax_hybrid_gpt` and
+  `convert.load_jax_bert` — carry a JAX model's or trainer's parameters
+  across.
 
 Every entry point takes `device=`, defaulting to "cuda"; without a card
 that default raises instead of falling back to the CPU.

@@ -8,6 +8,9 @@
 * `load_jax_hybrid_gpt`: the JAX `HybridGPT` trainer's nested `params`
   (and optionally its zero_stage-0 `opt_state`), as `jax.device_get`
   returns them.
+* `load_jax_bert`: a JAX `BertModel`, `BertForPretraining` or
+  `BertForSequenceClassification`, given as its `state_dict()`
+  (`{name: np.ndarray}` under the JAX names).
 
 The caller builds the numpy inputs from the JAX side (only code that
 imports both packages does); this module never touches jax.
@@ -19,6 +22,7 @@ import torch
 
 from ._device import resolve_device
 from .incubate.nn.fused_transformer import _PARAM_ORDER
+from .models import bert as _bert
 from .models.gpt import GPTForGeneration
 from .parallel.hybrid_gpt import param_shapes
 
@@ -132,3 +136,47 @@ def load_jax_hybrid_gpt(params, opt_state=None, *, device="cuda"):
                 {"m": v, "v": v} for k, v in sh.items()}
     return out, _load_tree(opt_state, moments(shapes),
                            "JAX HybridGPT opt_state", dev)
+
+
+_BERT_HEADS = ("pretraining", "sequence_classification")
+
+
+def load_jax_bert(arrays, config, *, head=None, device="cuda",
+                  dtype=torch.float32):
+    """The port's BERT on `device` holding exactly `arrays`, the JAX
+    model's `state_dict()` as `{name: np.ndarray}`. `config` is the JAX
+    `BertModel`'s keyword arguments; `head` None gives a `BertModel`,
+    "pretraining" a `BertForPretraining` (its MLM decoder tied to the
+    word embeddings, which JAX names once, as
+    `bert.embeddings.word_embeddings.weight`) and
+    "sequence_classification" a `BertForSequenceClassification` with as
+    many classes as `classifier.weight` has columns. `dtype` casts
+    every floating parameter, as `amp.decorate(level="O2")` does at
+    bfloat16. Raises on a missing or unknown name, or a shape that does
+    not fit."""
+    if head is not None and head not in _BERT_HEADS:
+        raise ValueError(f"load_jax_bert: head must be None or one of "
+                         f"{_BERT_HEADS}, got {head!r}")
+    model = _bert.BertModel(**config, device=device)
+    if head == "pretraining":
+        model = _bert.BertForPretraining(model)
+    elif head == "sequence_classification":
+        if "classifier.weight" not in arrays:
+            raise ValueError("JAX BERT parameters: missing "
+                             "['classifier.weight']")
+        model = _bert.BertForSequenceClassification(
+            model, num_classes=np.shape(arrays["classifier.weight"])[-1])
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(arrays))
+    unknown = sorted(set(arrays) - set(params))
+    if missing or unknown:
+        raise ValueError(f"JAX BERT parameters: missing {missing}, "
+                         f"unknown {unknown}")
+    with torch.no_grad():
+        for name, p in params.items():
+            if tuple(np.shape(arrays[name])) != tuple(p.shape):
+                raise ValueError(f"JAX BERT parameters[{name}]: shape "
+                                 f"{tuple(np.shape(arrays[name]))}, "
+                                 f"expected {tuple(p.shape)}")
+            p.copy_(_as_tensor(arrays[name], p.device))
+    return model.to(dtype)

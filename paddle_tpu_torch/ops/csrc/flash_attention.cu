@@ -26,6 +26,25 @@
 // tile's output accumulator is 128 fp32 registers a thread; the tile and
 // the warp's 16 rows stay as at D = 128.
 //
+// The splash kernel's segmented variant (_splash_kernel(segmented=True),
+// entered through splash_mha(kv_keep=): segment ids q = kv = kv_keep)
+// is the same forward with a compile-time switch (kSeg): each key tile's
+// int32 segment ids are staged in shared memory beside K and V, each
+// thread keeps its query rows' ids in registers, and a score whose key
+// lies in another segment is masked like one above the diagonal. So a
+// padded query sees only padding and a real one only real tokens. The
+// instantiations without the switch compile as before. Masking breaks
+// the invariant the plain forward rests on (every visited tile holds a
+// visible key for every row): a row can meet a tile with no key of its
+// segment, before any that has one, and its running max is then -inf;
+// the kernel takes 0 as that row's reference, so the tile adds p = 0 and
+// alpha = 0 and no NaN. Every row has at least one key of its segment
+// (itself), so the final sum is positive. At BERT-base's shapes
+// ([64, 12, 128, 64] and [16, 12, 512, 64] bf16) the work is bound by
+// bytes (~50.7 MB, 0.0151 ms at 3.35 TB/s). Key tiles outside a query
+// tile's segments are visited all the same; skipping them is speed for
+// later.
+//
 // What bounds it: at the train step's shapes ([8, 16, 1024, 64] bf16)
 // the forward moves ~67 MB and does ~1.7e10 flops, the backward ~2.5x
 // those flops: the card's bound is set by bytes for the forward and by
@@ -239,18 +258,21 @@ __device__ __forceinline__ void store_row(T* dst, int row, int cg,
 // kPaddle: the paddle-layout entry (rows `lay.ld` apart, q scaled as it
 // is staged, out = acc / max(l, 1e-30), no lse); else the splash entry
 // (contiguous [BH, S, D], scale 1, out = acc * (1 / l), lse kept).
-template <typename T, int D, bool kPaddle>
+// kSeg (splash entry only): a query sees a key only where their segment
+// ids seg[b, i] and seg[b, j] are equal (lay.H heads a batch entry).
+template <typename T, int D, bool kPaddle, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int S, int causal, Layout lay,
-                 float scale) {
+                 float* __restrict__ lse, const int* __restrict__ seg, int S,
+                 int causal, Layout lay, float scale) {
   constexpr int LD = D + 4;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + kTile * LD;
   float* Vs = Ks + kTile * LD;
   float* Ps = Vs + kTile * LD;
+  int* Segs = reinterpret_cast<int*>(Ps + kTile * kLP);  // the key tile's
   const int ntiles = (S + kTile - 1) / kTile;
   const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * kTile;
@@ -258,18 +280,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       kPaddle ? lay.offset(blockIdx.x) : (long long)blockIdx.x * S * D;
   const int ld = kPaddle ? lay.ld : D;
   const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
+  const int* segb =
+      kSeg ? seg + (long long)(blockIdx.x / lay.H) * S : nullptr;
 
   if constexpr (kPaddle)
     load_tile<T, D>(Qs, q + off, q0, S, ld, scale);
   else
     load_tile<T, D>(Qs, q + off, q0, S, D);
   float m[4], l[4], acc[4][D / 8];
+  int qseg[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+    if constexpr (kSeg) {
+      const int qi = q0 + rg + 16 * i;
+      qseg[i] = qi < S ? segb[qi] : 0;
+    }
   }
   const int nkt = causal ? qt + 1 : ntiles;
   for (int kt = 0; kt < nkt; ++kt) {
@@ -277,16 +306,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, D>(Ks, k + off, k0, S, ld);
     load_tile<T, D>(Vs, v + off, k0, S, ld);
+    if (kSeg && threadIdx.x < kTile)
+      Segs[threadIdx.x] = k0 + threadIdx.x < S ? segb[k0 + threadIdx.x] : 0;
     __syncthreads();
     float s[4][8];
     dot_tile<D>(Qs, Ks, rg, cg, s);
-    if (k0 + kTile > S || (causal && k0 + kTile - 1 > q0)) {
+    if (kSeg || k0 + kTile > S || (causal && k0 + kTile - 1 > q0)) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int key = k0 + cg + 8 * j, qi = q0 + rg + 16 * i;
-          if (key >= S || (causal && key > qi)) s[i][j] = -INFINITY;
+          if (key >= S || (causal && key > qi) ||
+              (kSeg && Segs[cg + 8 * j] != qseg[i]))
+            s[i][j] = -INFINITY;
         }
     }
 #pragma unroll
@@ -294,15 +327,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mx = s[i][0];
 #pragma unroll
       for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[i][j]);
-      // every visited tile holds a visible key for every row (key k0 is
-      // never past S nor past a row of a tile on or below the diagonal),
-      // so m_new is finite
+      // without segments every visited tile holds a visible key for every
+      // row (key k0 is never past S nor past a row of a tile on or below
+      // the diagonal), so m_new is finite. With them a row may have seen
+      // no key of its segment yet: m_new is then -inf, and 0 stands in
+      // for it, so that alpha and p are 0 and not NaN.
       const float m_new = fmaxf(m[i], group_max(mx));
-      const float alpha = expf(m[i] - m_new);
+      const float m_ref = kSeg && m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m[i] - m_ref);
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = expf(s[i][j] - m_ref);
         psum += p;
         Ps[(rg + 16 * i) * kLP + cg + 8 * j] = p;
       }
@@ -646,18 +682,19 @@ __device__ __forceinline__ void store_row16(T* dst, int row, int t,
   }
 }
 
-// kPaddle as flash_fwd_kernel's.
-template <typename T, int D, bool kPaddle>
+// kPaddle and kSeg as flash_fwd_kernel's.
+template <typename T, int D, bool kPaddle, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int S, int causal, Layout lay,
-                     float scale) {
+                     float* __restrict__ lse, const int* __restrict__ seg,
+                     int S, int causal, Layout lay, float scale) {
   constexpr int LDS = ld16<D>();
   extern __shared__ float4 smem4[];
   T* Qs = reinterpret_cast<T*>(smem4);
   T* Ks = Qs + kTile * LDS;
   T* Vs = Ks + kTile * LDS;
+  int* Segs = reinterpret_cast<int*>(Vs + kTile * LDS);  // the key tile's
   const int ntiles = (S + kTile - 1) / kTile;
   const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * kTile;
@@ -666,33 +703,48 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ld = kPaddle ? lay.ld : D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int* segb =
+      kSeg ? seg + (long long)(blockIdx.x / lay.H) * S : nullptr;
 
   if constexpr (kPaddle)
     load_tile16<T, D>(Qs, q + off, q0, S, ld, scale);
   else
     load_tile16<T, D>(Qs, q + off, q0, S, D);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[D / 8][4];
+  int qseg[2];
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  if constexpr (kSeg) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + warp * 16 + g + 8 * h;
+      qseg[h] = qi < S ? segb[qi] : 0;
+    }
+  }
   const int nkt = causal ? qt + 1 : ntiles;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done
     load_tile16<T, D>(Ks, k + off, k0, S, ld);
     load_tile16<T, D>(Vs, v + off, k0, S, ld);
+    if (kSeg && threadIdx.x < kTile)
+      Segs[threadIdx.x] = k0 + threadIdx.x < S ? segb[k0 + threadIdx.x] : 0;
     __syncthreads();
     float s[8][4];
     mma_rows<T, D>(s, Qs, Ks, warp, lane);
-    if (k0 + kTile > S || (causal && k0 + kTile - 1 > q0)) {
+    if (kSeg || k0 + kTile > S || (causal && k0 + kTile - 1 > q0)) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = k0 + nt * 8 + 2 * t + (e & 1);
+          const int col = nt * 8 + 2 * t + (e & 1);
+          const int key = k0 + col;
           const int qi = q0 + warp * 16 + g + 8 * (e >> 1);
-          if (key >= S || (causal && key > qi)) s[nt][e] = -INFINITY;
+          if (key >= S || (causal && key > qi) ||
+              (kSeg && Segs[col] != qseg[e >> 1]))
+            s[nt][e] = -INFINITY;
         }
     }
 #pragma unroll
@@ -703,14 +755,17 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      // finite: every visited tile holds a visible key for every row
+      // finite without segments (every visited tile holds a visible key
+      // for every row); with them -inf stands for no key yet, as in
+      // flash_fwd_kernel
       const float m_new = fmaxf(m[h], mx);
-      const float alpha = expf(m[h] - m_new);
+      const float m_ref = kSeg && m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m[h] - m_ref);
       float psum = 0.f;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        s[nt][2 * h] = expf(s[nt][2 * h] - m_new);
-        s[nt][2 * h + 1] = expf(s[nt][2 * h + 1] - m_new);
+        s[nt][2 * h] = expf(s[nt][2 * h] - m_ref);
+        s[nt][2 * h + 1] = expf(s[nt][2 * h + 1] - m_ref);
         psum += s[nt][2 * h] + s[nt][2 * h + 1];
       }
       l[h] = l[h] * alpha + psum;  // this lane's columns only
@@ -880,16 +935,20 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D>
-constexpr int fwd_smem() { return (3 * kTile * (D + 4) + kTile * kLP) * 4; }
+template <int D, bool kSeg>
+constexpr int fwd_smem() {
+  return (3 * kTile * (D + 4) + kTile * kLP + (kSeg ? kTile : 0)) * 4;
+}
 template <int D>
 constexpr int dkdv_smem() {
   return (4 * kTile * (D + 4) + kTile * kLP + 2 * kTile) * 4;
 }
 template <int D>
 constexpr int dq_smem() { return (4 * kTile * (D + 4) + kTile * kLP) * 4; }
-template <int D>
-constexpr int fwd_smem16() { return 3 * kTile * ld16<D>() * 2; }
+template <int D, bool kSeg>
+constexpr int fwd_smem16() {
+  return 3 * kTile * ld16<D>() * 2 + (kSeg ? kTile * 4 : 0);
+}
 template <int D>
 constexpr int bwd_smem16() { return 4 * kTile * ld16<D>() * 2 + 2 * kTile * 4; }
 
@@ -906,44 +965,53 @@ constexpr int bwd_smem16() { return 4 * kTile * ld16<D>() * 2 + 2 * kTile * 4; }
     if (e_ != cudaSuccess) return e_;                                      \
   } while (0)
 
-template <typename T, int D, bool kPaddle>
+template <typename T, int D, bool kPaddle, bool kSeg>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
-                float* lse, int BH, int S, int causal, Layout lay,
-                float scale, cudaStream_t stream) {
+                float* lse, const int* seg, int BH, int S, int causal,
+                Layout lay, float scale, cudaStream_t stream) {
   const dim3 grid(BH, (S + kTile - 1) / kTile);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(out);
   if constexpr (sizeof(T) == 4) {
-    PADDLE_FLASH_LAUNCH((flash_fwd_kernel<T, D, kPaddle>), fwd_smem<D>(), qp,
-                        kp, vp, op, lse, S, causal, lay, scale);
+    PADDLE_FLASH_LAUNCH((flash_fwd_kernel<T, D, kPaddle, kSeg>),
+                        (fwd_smem<D, kSeg>()), qp, kp, vp, op, lse, seg, S,
+                        causal, lay, scale);
   } else {
-    PADDLE_FLASH_LAUNCH((flash_fwd_mma_kernel<T, D, kPaddle>), fwd_smem16<D>(),
-                        qp, kp, vp, op, lse, S, causal, lay, scale);
+    PADDLE_FLASH_LAUNCH((flash_fwd_mma_kernel<T, D, kPaddle, kSeg>),
+                        (fwd_smem16<D, kSeg>()), qp, kp, vp, op, lse, seg, S,
+                        causal, lay, scale);
   }
   return cudaSuccess;
 }
 
 // One forward over dtype code `dtype`: the splash entry at head_dim 64 or
-// 128, the paddle-layout entry (`paddle`) at 128 or 256.
+// 128, with segment ids where `seg` is given, the paddle-layout entry
+// (`paddle`) at 128 or 256.
 cudaError_t fwd_any(const void* q, const void* k, const void* v, void* out,
-                    float* lse, int BH, int S, int D, int dtype, int causal,
-                    bool paddle, Layout lay, float scale, cudaStream_t st) {
-#define PADDLE_FLASH_FWD(T, HD, P) \
-  return fwd<T, HD, P>(q, k, v, out, lse, BH, S, causal, lay, scale, st)
-#define PADDLE_FLASH_FWD_DTYPES(HD, P)                    \
-  if (dtype == 0) PADDLE_FLASH_FWD(float, HD, P);         \
-  if (dtype == 1) PADDLE_FLASH_FWD(__nv_bfloat16, HD, P); \
-  if (dtype == 2) PADDLE_FLASH_FWD(__half, HD, P);
-  if (!paddle && D == 64) {
-    PADDLE_FLASH_FWD_DTYPES(64, false)
+                    float* lse, const int* seg, int BH, int S, int D,
+                    int dtype, int causal, bool paddle, Layout lay,
+                    float scale, cudaStream_t st) {
+#define PADDLE_FLASH_FWD(T, HD, P, SG)                                    \
+  return fwd<T, HD, P, SG>(q, k, v, out, lse, seg, BH, S, causal, lay,   \
+                           scale, st)
+#define PADDLE_FLASH_FWD_DTYPES(HD, P, SG)                    \
+  if (dtype == 0) PADDLE_FLASH_FWD(float, HD, P, SG);         \
+  if (dtype == 1) PADDLE_FLASH_FWD(__nv_bfloat16, HD, P, SG); \
+  if (dtype == 2) PADDLE_FLASH_FWD(__half, HD, P, SG);
+  if (!paddle && D == 64 && seg) {
+    PADDLE_FLASH_FWD_DTYPES(64, false, true)
+  } else if (!paddle && D == 128 && seg) {
+    PADDLE_FLASH_FWD_DTYPES(128, false, true)
+  } else if (!paddle && D == 64) {
+    PADDLE_FLASH_FWD_DTYPES(64, false, false)
   } else if (!paddle && D == 128) {
-    PADDLE_FLASH_FWD_DTYPES(128, false)
+    PADDLE_FLASH_FWD_DTYPES(128, false, false)
   } else if (paddle && D == 128) {
-    PADDLE_FLASH_FWD_DTYPES(128, true)
+    PADDLE_FLASH_FWD_DTYPES(128, true, false)
   } else if (paddle && D == 256) {
-    PADDLE_FLASH_FWD_DTYPES(256, true)
+    PADDLE_FLASH_FWD_DTYPES(256, true, false)
   }
 #undef PADDLE_FLASH_FWD_DTYPES
 #undef PADDLE_FLASH_FWD
@@ -1002,8 +1070,27 @@ extern "C" int paddle_tpu_torch_flash_fwd(const void* q, const void* k,
                                           int causal, void* stream) {
   if (!valid(BH, S) || (head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
-  return (int)fwd_any(q, k, v, out, static_cast<float*>(lse), BH, S,
-                      head_dim, dtype, causal, false, Layout{}, 1.f,
+  return (int)fwd_any(q, k, v, out, static_cast<float*>(lse), nullptr, BH,
+                      S, head_dim, dtype, causal, false, Layout{}, 1.f,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The segmented forward (splash_mha(kv_keep=)'s K1c): the splash entry's
+// operands and lse over B * H heads, with int32 segment ids [B, S] of
+// queries and keys alike; a query sees a key only of its own segment.
+extern "C" int paddle_tpu_torch_flash_fwd_seg(const void* q, const void* k,
+                                              const void* v, const void* seg,
+                                              void* out, void* lse, int B,
+                                              int H, int S, int head_dim,
+                                              int dtype, int causal,
+                                              void* stream) {
+  if (B <= 0 || H <= 0 || !valid(B * H, S) || seg == nullptr ||
+      (head_dim != 64 && head_dim != 128))
+    return (int)cudaErrorInvalidValue;
+  const Layout lay{H, 0, 0, 0};
+  return (int)fwd_any(q, k, v, out, static_cast<float*>(lse),
+                      static_cast<const int*>(seg), B * H, S, head_dim,
+                      dtype, causal, false, lay, 1.f,
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -1021,8 +1108,8 @@ extern "C" int paddle_tpu_torch_flash_fwd_bshd(const void* q, const void* k,
       (head_dim != 128 && head_dim != 256))
     return (int)cudaErrorInvalidValue;
   const Layout lay{H, (long long)S * H * head_dim, head_dim, H * head_dim};
-  return (int)fwd_any(q, k, v, out, nullptr, B * H, S, head_dim, dtype,
-                      causal, true, lay, scale,
+  return (int)fwd_any(q, k, v, out, nullptr, nullptr, B * H, S, head_dim,
+                      dtype, causal, true, lay, scale,
                       static_cast<cudaStream_t>(stream));
 }
 

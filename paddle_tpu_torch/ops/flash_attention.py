@@ -1,9 +1,9 @@
 """Flash attention — the train step's K1a over [B, H, S, D], forward
 and backward, and the paddle-layout entry's K1b over [B, S, H, D].
 
-`splash_mha(q, k, v, causal=True, scale=None)` is the port of
-`paddle_tpu/ops/pallas/flash_attention.py:splash_mha`: multi-head
-self-attention, causal or full. As there, the query is scaled and
+`splash_mha(q, k, v, causal=True, scale=None, kv_keep=None)` is the
+port of `paddle_tpu/ops/pallas/flash_attention.py:splash_mha`:
+multi-head self-attention, causal or full. As there, the query is scaled and
 rounded to its own dtype first (`qs = (q * scale).to(q.dtype)`), and
 the attention itself runs with scale 1, so autograd carries the scale
 into dq exactly as JAX does. The attention is a pair of registered
@@ -14,6 +14,16 @@ operators, `paddle_tpu_torch::flash_fwd` and `::flash_bwd`, joined by
   kept for the backward;
 * flash_bwd: delta = rowsum(dout * out) in fp32, then dq, dk and dv.
 
+With `kv_keep` ([B, S] integers; a key-padding mask gives 0/1) the
+forward is `paddle_tpu_torch::flash_fwd_seg` (K1c), JAX's segmented
+splash kernel: `kv_keep.to(torch.int32)` are the segment ids of queries
+and keys alike, and a query attends a key only of its own segment (and
+not above the diagonal when causal). So a real token sees only real
+tokens and a padded one only padding, as in the TPU kernel. Its
+backward on a CUDA tensor raises NotImplementedError: the card's
+segmented backward kernel is not written yet (ROADMAP Queue 2); on a
+CPU tensor it is the plain segmented backward.
+
 Being a dispatched operator, the forward can be named by a selective
 checkpoint policy: `save_only_these_names(SPLASH_RESIDUAL_NAME)` keeps
 (out, lse) of every forward that `splash_mha(...,
@@ -23,10 +33,12 @@ JAX's `checkpoint_name` and `save_only_these_names`.
 
 On a CUDA tensor each operator launches `csrc/flash_attention.cu`, the
 Hopper kernels that replace the TPU's splash kernel (`_splash_kernel`:
-forward and fused dq/dkv backward), or raises: head_dim 64 or 128,
+forward and fused dq/dkv backward, and the segmented forward), or
+raises: head_dim 64 or 128,
 fp32/bf16/fp16, any S; there is no fallback. On a CPU tensor each runs
-its plain PyTorch version (`flash_fwd_reference`, `flash_bwd_reference`),
-the same arithmetic over whole S x S score matrices (p and ds rounded to
+its plain PyTorch version (`flash_fwd_reference`, `flash_bwd_reference`,
+given the segment ids for K1c), the same arithmetic over whole S x S
+score matrices (p and ds rounded to
 the operands' dtype before the products they feed, as the 16-bit
 kernels and splash round them). `attention_reference` is the whole
 function in plain PyTorch differentiated by autograd — the JAX
@@ -46,8 +58,6 @@ device code as K1a's forward, reading [B, S, H, D] in place, D 128 or
 Its backward is the vjp of `attention_reference` over the unscaled q in
 fp32, in plain tensor code, as JAX's `_flash_core_bwd` recomputes it in
 XLA.
-
-Not ported yet (it raises): `kv_keep` segment ids.
 """
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ from . import _build
 fwd_launch_count = 0
 bwd_launch_count = 0
 bshd_launch_count = 0
+seg_launch_count = 0
 
 #: K1b's blocks when the caller gives none (JAX's `DEFAULT_BLOCK_Q/K`)
 DEFAULT_BLOCK_Q = 256
@@ -82,13 +93,25 @@ _SIGNATURES = {
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "paddle_tpu_torch_flash_fwd_bshd": [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+    "paddle_tpu_torch_flash_fwd_seg": [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
+
+
+def splash_supported(seq_len, head_dim):
+    """The JAX package's static gate for the splash route
+    (`splash_supported`, at jax 0.9.0's head_dim quantum of 64): S a
+    multiple of 128, at least 128, and head_dim a multiple of 64. A
+    head_dim that passes it and that the kernel does not take raises on
+    the card."""
+    return seq_len % 128 == 0 and seq_len >= 128 and head_dim % 64 == 0
 
 
 def splash_mha(q, k, v, *, causal=True, scale=None, kv_keep=None,
                save_residuals_for_remat=False):
     """Multi-head self-attention on [B, H, S, D] tensors (q, k and v
-    share H and S); see the module docstring. With
+    share H and S), with `kv_keep` [B, S] as the segment ids of queries
+    and keys; see the module docstring. With
     `save_residuals_for_remat` the forward's (out, lse) carry
     `SPLASH_RESIDUAL_NAME` for a selective checkpoint policy."""
     b, h, s, d = q.shape
@@ -100,16 +123,19 @@ def splash_mha(q, k, v, *, causal=True, scale=None, kv_keep=None,
         raise ValueError(
             f"splash_mha requires equal q/kv head counts (no GQA/MQA), "
             f"got q H={h}, k H={k.shape[1]}, v H={v.shape[1]}")
-    if kv_keep is not None:
-        raise NotImplementedError(
-            "splash_mha: kv_keep (segment ids) is not ported yet "
-            "(ROADMAP, Queue 1)")
+    if kv_keep is not None and tuple(kv_keep.shape) != (b, s):
+        raise ValueError(f"splash_mha: kv_keep must be [B, S] = {(b, s)}, "
+                         f"got {tuple(kv_keep.shape)}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     qs = (q * scale).to(q.dtype)
     name = SPLASH_RESIDUAL_NAME if save_residuals_for_remat else ""
-    out, _ = flash_fwd(qs.contiguous(), k.contiguous(), v.contiguous(),
-                       bool(causal), name)
+    q, k, v = qs.contiguous(), k.contiguous(), v.contiguous()
+    if kv_keep is None:
+        out, _ = flash_fwd(q, k, v, bool(causal), name)
+    else:
+        seg = kv_keep.to(device=q.device, dtype=torch.int32).contiguous()
+        out, _ = flash_fwd_seg(q, k, v, seg, bool(causal), name)
     return out
 
 
@@ -121,10 +147,11 @@ def save_only_these_names(*names):
     `jax.checkpoint_policies.save_only_these_names` over the names
     `splash_mha` gives."""
     names = frozenset(names)
+    ops = torch.ops.paddle_tpu_torch
+    name_arg = {ops.flash_fwd.default: 4, ops.flash_fwd_seg.default: 5}
 
     def policy(ctx, op, *args, **kwargs):
-        if op is torch.ops.paddle_tpu_torch.flash_fwd.default \
-                and args[4] in names:
+        if op in name_arg and args[name_arg[op]] in names:
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
     return policy
@@ -143,32 +170,37 @@ def attention_reference(q, k, v, scale, causal):
     return torch.einsum("bhst,bhtd->bhsd", p, v.float()).to(q.dtype)
 
 
-def _scores(q, k, causal):
+def _scores(q, k, causal, seg=None):
     s = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float())
     if causal:
         n = s.shape[-1]
         keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~keep, float("-inf"))
+    if seg is not None:
+        other = seg[:, None, :, None] != seg[:, None, None, :]
+        s = s.masked_fill(other, float("-inf"))
     return s
 
 
-def flash_fwd_reference(q, k, v, causal):
+def flash_fwd_reference(q, k, v, causal, seg=None):
     """Plain version of the forward kernel (scale 1): returns (out in
-    q's dtype, fp32 logsumexp [B, H, S]). As the kernel (and splash)
+    q's dtype, fp32 logsumexp [B, H, S]); with `seg` [B, S], K1c's: a
+    query sees only keys of its own segment. As the kernel (and splash)
     does, p is rounded to v's dtype before p @ v; a no-op in fp32."""
-    s = _scores(q, k, causal)
+    s = _scores(q, k, causal, seg)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bhst,bhtd->bhsd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype), lse
 
 
-def flash_bwd_reference(q, k, v, out, lse, dout, causal):
+def flash_bwd_reference(q, k, v, out, lse, dout, causal, seg=None):
     """Plain version of the backward kernels (scale 1): returns
-    (dq, dk, dv) in the operands' dtype. As the kernels (and splash)
-    do, p and ds are rounded to the operands' dtype before the products
-    they feed; a no-op in fp32."""
-    p = torch.exp(_scores(q, k, causal) - lse[..., None])
+    (dq, dk, dv) in the operands' dtype; with `seg` [B, S], the
+    segmented forward's. As the kernels (and splash) do, p and ds are
+    rounded to the operands' dtype before the products they feed; a
+    no-op in fp32."""
+    p = torch.exp(_scores(q, k, causal, seg) - lse[..., None])
     do = dout.float()
     delta = (do * out.float()).sum(-1)
     dv = torch.einsum("bhst,bhsd->bhtd", p.to(v.dtype).float(), do)
@@ -231,6 +263,42 @@ def _flash_backward(ctx, dout, _dlse):
 
 flash_fwd.register_autograd(_flash_backward,
                             setup_context=_flash_setup_context)
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_fwd_seg", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor seg, bool causal, "
+           "str name) -> (Tensor, Tensor)")
+def flash_fwd_seg(q, k, v, seg, causal, name):
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, causal, seg)
+    return _launch_fwd_seg(q, k, v, seg, causal)
+
+
+@flash_fwd_seg.register_fake
+def _(q, k, v, seg, causal, name):
+    return torch.empty_like(q), q.new_empty(q.shape[:-1],
+                                            dtype=torch.float32)
+
+
+def _flash_seg_setup_context(ctx, inputs, output):
+    q, k, v, seg, causal, _name = inputs
+    out, lse = output
+    ctx.causal = causal
+    ctx.save_for_backward(q, k, v, out, lse, seg)
+
+
+def _flash_seg_backward(ctx, dout, _dlse):
+    q, k, v, out, lse, seg = ctx.saved_tensors
+    if q.device.type != "cpu":
+        raise NotImplementedError("K1c backward: ROADMAP Queue 2")
+    dq, dk, dv = flash_bwd_reference(q, k, v, out, lse, dout, ctx.causal,
+                                     seg)
+    return dq, dk, dv, None, None, None
+
+
+flash_fwd_seg.register_autograd(_flash_seg_backward,
+                                setup_context=_flash_seg_setup_context)
 
 
 # ------------------------------------------- flash_attention() (K1b)
@@ -358,6 +426,30 @@ def _launch_fwd(q, k, v, causal):
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
                            f"{err}")
     fwd_launch_count += 1
+    return out, lse
+
+
+def _launch_fwd_seg(q, k, v, seg, causal):
+    global seg_launch_count
+    _check("flash_fwd_seg", (q, k, v))
+    B, H, S, D = q.shape
+    if seg.dtype != torch.int32 or tuple(seg.shape) != (B, S) \
+            or seg.device != q.device or not seg.is_contiguous():
+        raise ValueError("flash_fwd_seg kernel: segment ids must be "
+                         f"contiguous int32 {(B, S)} on {q.device}")
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    lib = _build.load("flash_attention", _SIGNATURES)
+    err = lib.paddle_tpu_torch_flash_fwd_seg(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, H, S, D, _DTYPE_CODES[q.dtype],
+        int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_seg kernel launch failed: CUDA error "
+                           f"{err}")
+    seg_launch_count += 1
     return out, lse
 
 

@@ -314,7 +314,11 @@ def _loss_fn(params, tokens, labels, cfg: GPTConfig):
     S = tokens.shape[1]
     cd = cfg.compute_dtype
     pos = params["pos_emb"][:S].to(cd)
-    x = params["tok_emb"][tokens].to(cd) + pos[None]
+    # F.embedding, not indexing: its backward sums each id's rows in a
+    # fixed order on the CPU and the card, where indexing's backward (an
+    # accumulating index_put_) sums in another order from run to run on
+    # the CPU
+    x = F.embedding(tokens, params["tok_emb"]).to(cd) + pos[None]
     y = _stage_forward(x, params["blocks"], cfg)
     yl = _layer_norm(y, params["ln_f_w"], params["ln_f_b"])
     return _vocab_parallel_ce(yl, params["head"], labels, cfg)

@@ -127,9 +127,12 @@ def top_k_routing(logits, top_k, capacity, valid=None, dtype=None):
     the balance loss (the z-loss on demand). logits [T, E]."""
     lf = logits.float()
     probs = torch.softmax(lf, dim=-1)
-    # sorted, as jax.lax.top_k returns (ties: the order is the
-    # framework's; padding rows are masked out of everything)
-    topv, topi = torch.topk(probs, int(top_k), dim=-1, sorted=True)
+    # the k largest in descending order, ties to the lower expert, as
+    # jax.lax.top_k returns them: a stable descending sort (torch.topk
+    # leaves the order of ties open). Padding rows are masked out of
+    # everything.
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :int(top_k)], topi[:, :int(top_k)]
     gates = topv / topv.sum(dim=-1, keepdim=True).clamp_min(1e-12)
     plan = capacity_dispatch(gates, topi, logits.shape[-1], capacity,
                              valid=valid, dtype=dtype or logits.dtype)

@@ -774,3 +774,208 @@ def test_moe_engine_on_card_matches_cpu(fmt, cuda_device):
     for name, before in counts.items():
         assert getattr(tgmm, name) - before == (
             eng.steps_run * 2 * 2 if name == active else 0)
+
+
+# ------------------------------------ the segmented flash forward (K1c)
+
+
+def _seg(pattern, B, S, rng):
+    """[B, S] int32 segment ids: a key-padding mask at random lengths
+    (the first sequence unpadded) with the padding after the tokens,
+    before them or strewn among them, or a packed batch of ids 0-3."""
+    if pattern == "packed":
+        return np.sort(rng.randint(0, 4, (B, S)), axis=1).astype(np.int32)
+    if pattern == "interleaved":
+        keep = rng.rand(B, S) < 0.6
+        keep[0] = True
+    else:
+        lens = rng.randint(1, S + 1, B)
+        lens[0] = S
+        keep = np.arange(S)[None] < lens[:, None]
+        if pattern == "left":
+            keep = keep[:, ::-1]
+    return np.ascontiguousarray(keep, dtype=np.int32)
+
+
+SEG_PATTERNS = ("trailing", "left", "interleaved", "packed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,D", [(64, 12, 128, 64), (16, 12, 512, 64),
+                                     (3, 2, 200, 128), (2, 3, 1, 64),
+                                     (3, 2, 65, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("pattern", SEG_PATTERNS)
+def test_flash_seg_kernel_matches_plain(B, H, S, D, causal, dtype, tol,
+                                        pattern, cuda_device):
+    """K1c against its plain version, out and lse, every row finite (a
+    padded query meets tiles with no key of its segment): fp32 at 1e-5;
+    bf16 at 2e-2 (both round p to bf16 before p v and round the output,
+    a bf16 spacing or two)."""
+    rng = np.random.RandomState(B + S + D)
+    seg = torch.tensor(_seg(pattern, B, S, rng), device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device=cuda_device,
+                           dtype=dtype) for _ in range(3))
+    q = (q * D ** -0.5).to(dtype)
+    before = tfa.seg_launch_count
+    out, lse = tfa.flash_fwd_seg(q, k, v, seg, causal, "")
+    torch.cuda.synchronize()
+    assert tfa.seg_launch_count == before + 1
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    ref_out, ref_lse = tfa.flash_fwd_reference(q, k, v, causal, seg)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_seg_backward_raises_on_card(cuda_device):
+    q = torch.randn(2, 2, 128, 64, device=cuda_device, requires_grad=True)
+    keep = torch.ones(2, 128, dtype=torch.int32, device=cuda_device)
+    out = tfa.splash_mha(q, q, q, causal=False, kv_keep=keep)
+    with pytest.raises(NotImplementedError, match="K1c backward"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+def test_flash_seg_kernel_refuses_unsupported_operands(cuda_device):
+    q = torch.zeros(2, 2, 128, 64, device=cuda_device)
+    seg = torch.ones(2, 128, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):        # head_dim 192: no kernel
+        z = torch.zeros(2, 2, 128, 192, device=cuda_device)
+        tfa.flash_fwd_seg(z, z, z, seg, False, "")
+    with pytest.raises(ValueError):        # ids of another dtype
+        tfa.flash_fwd_seg(q, q, q, seg.long(), False, "")
+    with pytest.raises(ValueError):        # ids of another shape
+        tfa.flash_fwd_seg(q, q, q, seg[:, :64].contiguous(), False, "")
+
+
+# --------------------------------------------------- BERT on the card
+
+
+def _bert_pair(layers, device, dtype=torch.float32, seed=0):
+    """(config, a two-class BERT classifier on `device`) at hidden 256,
+    4 heads (head_dim 64: the kernel's route), from numpy parameters."""
+    from paddle_tpu_torch.convert import load_jax_bert
+    from paddle_tpu_torch.models import bert
+    cfg = dict(vocab_size=193, hidden_size=256, num_hidden_layers=layers,
+               num_attention_heads=4, intermediate_size=512,
+               max_position_embeddings=512)
+    rng = np.random.RandomState(seed)
+    arrays = {n: (rng.randn(*p.shape) * 0.05 + (
+        "norm" in n and n.endswith("weight"))).astype(np.float32)
+        for n, p in bert.BertForSequenceClassification(bert.BertModel(
+            **cfg, device="meta")).named_parameters()}
+    return cfg, arrays, load_jax_bert(arrays, cfg,
+                                      head="sequence_classification",
+                                      device=device, dtype=dtype).eval()
+
+
+def _bert_ids(B, S, seed=1):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, 193, (B, S))
+    keep = np.concatenate([_seg(p, 2, S, rng) for p in (
+        "trailing", "left", "interleaved")])[:B]
+    return np.where(keep > 0, ids, 0)
+
+
+@pytest.mark.cuda
+def test_bert_fp32_on_card_matches_cpu(cuda_device):
+    """A 2-layer fp32 BERT classifier on the card (kernels) against its
+    CPU copy (plain versions), every row of the sequence output, the
+    pooled output and the logits: fp32 sums in another order, 1e-4. The
+    kernel launches once a layer."""
+    from paddle_tpu_torch.convert import load_jax_bert
+    cfg, arrays, card = _bert_pair(2, cuda_device)
+    cpu = load_jax_bert(arrays, cfg, head="sequence_classification",
+                        device="cpu").eval()
+    ids = _bert_ids(6, 128)
+    before = tfa.seg_launch_count
+    with torch.no_grad():
+        got = (*card.bert(torch.tensor(ids, device=cuda_device)),
+               card(torch.tensor(ids, device=cuda_device)))
+        want = (*cpu.bert(torch.tensor(ids)), cpu(torch.tensor(ids)))
+    assert tfa.seg_launch_count == before + 2 * 2
+    for a, e in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.cpu(), e, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -6)])
+def test_bert_padding_invariance_on_card(dtype, tol, cuda_device):
+    """The same sequences batched at S = 128 and at S = 512 give the
+    same logits: real rows never see padding. fp32: sums in another
+    order, 1e-5; bf16: products tiled and rounded at other places for
+    the two batch sizes, a few bf16 spacings of O(1) logits."""
+    _, _, model = _bert_pair(2, cuda_device, dtype)
+    ids = torch.tensor(_bert_ids(4, 128), device=cuda_device)
+    ids = ids[[0, 1, 1, 0]]
+    ids[2:, 100:] = 0                  # trailing padding only
+    ids512 = torch.zeros(4, 512, dtype=ids.dtype, device=cuda_device)
+    ids512[:, :128] = ids
+    with torch.no_grad():
+        a, b = model(ids), model(ids512)
+    assert torch.isfinite(a.float()).all() and torch.isfinite(b.float()).all()
+    torch.testing.assert_close(b.float(), a.float(), rtol=tol, atol=tol)
+
+
+# ------------------------------------------------ the two repairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all", "partly"])
+def test_top_k_routing_ties_on_card(case, cuda_device):
+    """Tied router logits route on the card as on the CPU (and as
+    jax.lax.top_k: the lower expert first); ROADMAP Queue 3 item 1's
+    input, T=6, E=8, k=2, C=2."""
+    from paddle_tpu_torch.parallel import moe_utils as tmu
+    logits = np.zeros((6, 8), np.float32)
+    if case == "partly":
+        logits[0, [6, 3]] = 2.0
+        logits[1, [7, 1, 4]] = 1.5
+        logits[2, 5], logits[2, [2, 0]] = 3.0, 1.0
+        logits[3] = np.arange(8, dtype=np.float32)
+        logits[4, 2] = -1.0
+    cpu = tmu.top_k_routing(torch.tensor(logits), 2, 2)
+    card = tmu.top_k_routing(torch.tensor(logits, device=cuda_device), 2, 2)
+    if case == "all":
+        assert card.plan.gate_idx.tolist() == [[0, 1]] * 6
+        assert card.plan.counts.tolist() == [2, 2, 0, 0, 0, 0, 0, 0]
+    for f in ("gate_idx", "slot", "in_cap", "counts", "dropped"):
+        assert torch.equal(getattr(card.plan, f).cpu(),
+                           getattr(cpu.plan, f)), f
+
+
+@pytest.mark.cuda
+def test_train_step_embedding_grad_is_reproducible_on_card(cuda_device):
+    """Two identical fp32 steps on the card give the same bits in every
+    parameter and moment, tok_emb included (tokens repeat, so its
+    gradient sums several rows per id)."""
+    cfg = th.GPTConfig(vocab_size=31, seq_len=128, d_model=128, n_heads=2,
+                       n_layers=2, compute_dtype=torch.float32,
+                       learning_rate=1e-3)
+    trainer = th.HybridGPT(cfg, device=cuda_device)
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, 31, (4, 128))
+    lab = rng.randint(0, 31, (4, 128))
+    runs = []
+    for _ in range(2):
+        params, opt = trainer.init(seed=0)
+        params, opt, _ = trainer.train_step(params, opt, tok, lab)
+        runs.append((params, opt))
+
+    def leaves(tree, prefix=""):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from leaves(tree[k], prefix + k + ".")
+            else:
+                yield prefix + k, tree[k]
+    for (n, a), (_, b) in zip(leaves(runs[0][0]), leaves(runs[1][0])):
+        assert torch.equal(a, b), n
+    for (n, a), (_, b) in zip(leaves(runs[0][1]), leaves(runs[1][1])):
+        assert torch.equal(a, b), n

@@ -90,8 +90,6 @@ def test_plain_pair_matches_autograd_reference(S, D, causal):
 
 def test_splash_mha_refuses_what_is_not_ported():
     q = torch.zeros(1, 2, 8, 64)
-    with pytest.raises(NotImplementedError):
-        tfa.splash_mha(q, q, q, kv_keep=torch.ones(1, 8))
     with pytest.raises(ValueError):
         tfa.splash_mha(q, q[:, :, :4], q)
 

@@ -70,6 +70,36 @@ def test_top_k_routing_matches(cf):
                                    atol=1e-6)
 
 
+def _tied_logits(case):
+    """[6, 8] router logits that tie: all of them (a zero gate_w), or
+    some rows' top two and some lower entries (partly)."""
+    logits = np.zeros((6, 8), np.float32)
+    if case == "partly":
+        logits[0, [6, 3]] = 2.0          # a tie for the top
+        logits[1, [7, 1, 4]] = 1.5       # three-way tie for the top two
+        logits[2, 5], logits[2, [2, 0]] = 3.0, 1.0   # a tie for second
+        logits[3] = np.arange(8, dtype=np.float32)   # no tie
+        logits[4, 2] = -1.0              # the rest tied at the top
+    return logits
+
+
+# The input of ROADMAP Queue 3 item 1: T=6, E=8, k=2, C=2. On ties the
+# lower expert comes first, as in jax.lax.top_k: a zero gate_w sends
+# every token to (0, 1), and the capacity keeps two of each.
+@pytest.mark.parametrize("case", ["all", "partly"])
+def test_top_k_routing_matches_on_ties(case):
+    logits = _tied_logits(case)
+    j = jmu.top_k_routing(jnp.asarray(logits), 2, 2, build_masks=False)
+    t = tmu.top_k_routing(torch.tensor(logits), 2, 2)
+    if case == "all":
+        assert t.plan.gate_idx.tolist() == [[0, 1]] * 6
+        assert t.plan.counts.tolist() == [2, 2, 0, 0, 0, 0, 0, 0]
+    for f in ("gate_idx", "slot", "in_cap", "counts", "dropped"):
+        assert np.array_equal(getattr(t.plan, f).numpy(),
+                              _np(getattr(j.plan, f))), f
+    np.testing.assert_allclose(t.gates.numpy(), _np(j.gates), atol=1e-6)
+
+
 def test_dispatch_and_combine_indexed_match():
     logits, valid = _routing_case(1)
     T, d = logits.shape[0], 6

@@ -160,6 +160,18 @@ def test_port_imports_no_jax():
             "import paddle_tpu_torch.ops.conv_wgrad\n"
             "import paddle_tpu_torch.incubate.nn.fused_transformer\n"
             "import paddle_tpu_torch.models.gpt\n"
+            "import paddle_tpu_torch.models.bert\n"
+            "import paddle_tpu_torch.nn\n"
+            "import paddle_tpu_torch.nn.functional.attention\n"
+            "import paddle_tpu_torch.nn.functional.activation\n"
+            "import paddle_tpu_torch.nn.functional.common\n"
+            "import paddle_tpu_torch.nn.functional.loss\n"
+            "import paddle_tpu_torch.nn.functional.norm\n"
+            "import paddle_tpu_torch.nn.layers.activation\n"
+            "import paddle_tpu_torch.nn.layers.common\n"
+            "import paddle_tpu_torch.nn.layers.norm\n"
+            "import paddle_tpu_torch.nn.layers.transformer\n"
+            "import paddle_tpu_torch.nn.container\n"
             "bad = [m for m in sys.modules if m == 'jax'"
             " or m.startswith(('jax.', 'paddle_tpu.'))"
             " or m == 'paddle_tpu']\n"
