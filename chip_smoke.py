@@ -7,8 +7,9 @@ Drives the port's paths end to end — serving a dense GPT-350M, serving
 it speculatively over bf16, int8 and fp8 KV pools, serving the
 8-expert MoE-350M with float, int8 and int4 experts, the train step
 (with and without the fused QKV projection), the paddle-layout
-`flash_attention()` entry, the `wgrad_1x1` entry and BERT-base
-inference over padded batches — and holds every
+`flash_attention()` entry, the `wgrad_1x1` entry, BERT-base
+inference over padded batches and BERT-base pretraining through
+`hapi.Model` with LAMB and AMP O2 — and holds every
 CUDA kernel on them against its plain PyTorch version. Phases, one line
 each (or a few):
 
@@ -27,9 +28,10 @@ each (or a few):
    paddle-layout flash forward at [8, 1024, 16, 128] causal and full,
    [8, 1024, 8, 256] causal, and forward + backward through
    `flash_attention()`; the split-K 1x1 weight gradient at ResNet-50's
-   [401408, 256] x [401408, 64]; the segmented flash forward at BERT's
-   [64, 12, 128, 64] and [16, 12, 512, 64] under trailing, left and
-   interleaved padding, fp32 and causal too), with times (CUDA events,
+   [401408, 256] x [401408, 64]; the segmented flash forward and its
+   backward at BERT's [64, 12, 128, 64] and [16, 12, 512, 64] under
+   trailing, left and interleaved padding, fp32 and causal too), with
+   times (CUDA events,
    L2 flushed
    between launches), the card's bound for the same work and, where one
    PyTorch call computes the same function, that call's time as a
@@ -102,6 +104,21 @@ each (or a few):
    card (kernels) against a CPU copy (plain versions), every row;
    (c) the same 8 sequences batched at S = 128 and S = 512 give the same
    logits; (d) every output finite;
+7e. train BERT — BERT-base pretraining (random weights from a numpy
+   seed through `convert.load_jax_bert(head="pretraining")`,
+   `amp.decorate(level="O2")`, `Lamb(1e-3, lamb_weight_decay=0.01)`,
+   `Model.train_batch`, hidden dropout 0.1), 2 warm-up and 10 timed
+   steps on one fixed batch in two configurations: (A) attention
+   dropout 0, 16 sequences at S = 512 with lengths 64-512, every layer's
+   attention through the segmented flash forward and backward (each
+   exactly once a layer a step, no other kernel); (B) bench_bert's own
+   step, attention dropout 0.1, 64 unpadded sequences at S = 128 (the
+   additive path: no kernel); each a finite, falling loss; then one
+   profiled step of (A);
+7f. on-card train check — (a) one fp32 LAMB step of a 2-layer BERT at
+   full width on the card (kernels) and on a CPU copy (plain versions):
+   the loss and every parameter agree; (b) two bf16 (A) steps from the
+   same weights after the same `seed()`: every parameter bit-identical;
 8. a JSON line listing every kernel with its launches, error and times;
 9. the last line, `{"ok": true, "device": {...}}`.
 
@@ -147,6 +164,18 @@ BERT = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
             max_position_embeddings=512, type_vocab_size=2)
 BERT_BATCHES = ((64, 128, 16), (16, 512, 64))   # (sequences, S, shortest)
 BERT_FORWARDS = 10
+# BERT-base pretraining through `hapi.Model` (bench.py's bench_bert step:
+# AMP O2, LAMB(lr 1e-3, weight decay 0.01), BertPretrainingCriterion),
+# hidden dropout 0.1: (A) attention dropout 0 (every layer's attention
+# through K1c forward and backward), 16 sequences at S = 512 with lengths
+# 64-512 (bench_bert's 8192 token slots), 15% of real tokens MLM labels;
+# (B) bench_bert's own step, attention dropout 0.1 (the additive path),
+# 64 unpadded sequences at S = 128. (label, attention dropout,
+# sequences, S, shortest); BERT_WARMUP then BERT_STEPS steps on one
+# fixed batch.
+BERT_TRAIN = (("A", 0.0, 16, 512, 64), ("B", 0.1, 64, 128, 128))
+BERT_WARMUP, BERT_STEPS = 2, 10
+BERT_LR, BERT_WD = 1e-3, 0.01
 # the bf16 card forward against an fp32 forward of the same (bf16-held)
 # weights, |bf16 - fp32| <= tol (1 + |fp32|): each of 12 layers rounds
 # the residual stream to bf16 twice where it reaches |x| ~ 5 (a bf16
@@ -1908,19 +1937,21 @@ def seg_ids(pattern, B, S, rng):
     return np.ascontiguousarray(keep, dtype=np.int32)
 
 
-def seg_bound(q, seg, causal=False):
+def seg_bound(q, seg, causal=False, backward=False):
     """(bound_ms, bound_by) of the segmented forward: q, k, v, out, the
     fp32 lse and the int32 ids moved once; 4*D flops per (query, key)
     pair this run's ids make visible (the same segment, and not above
-    the diagonal when causal)."""
+    the diagonal when causal). Backward: q, k, v, out, dout, lse and the
+    ids read, dq, dk and dv written; 10*D flops a visible pair (five
+    products)."""
     import torch
     B, H, S, D = q.shape
-    nbytes = 4 * q.numel() * q.element_size() + B * H * S * 4 \
-        + seg.numel() * 4
+    nbytes = (8 if backward else 4) * q.numel() * q.element_size() \
+        + B * H * S * 4 + seg.numel() * 4
     same = seg[:, :, None] == seg[:, None, :]
     if causal:
         same &= torch.ones(S, S, dtype=torch.bool, device=seg.device).tril()
-    flops = 4 * D * H * int(same.sum())
+    flops = (10 if backward else 4) * D * H * int(same.sum())
     t_bytes = nbytes / PEAK_BYTES
     t_flops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]]
     return (max(t_bytes, t_flops) * 1e3,
@@ -1996,19 +2027,101 @@ def check_flash_seg(fa, device, flush):
     return {"flash_fwd_seg": records[BERT_BATCHES[0][1]]}
 
 
+def check_flash_seg_bwd(fa, device, flush):
+    """Phase 3 for K1c's backward at the BERT shapes, [64, 12, 128, 64]
+    and [16, 12, 512, 64] bf16 full, under trailing, left and
+    interleaved padding, then fp32 and causal at the first: dq, dk and
+    dv of every row against the plain backward on the kernel forward's
+    (out, lse) (K1a's backward tolerance), all finite. Times at each
+    shape under trailing padding of the train phase's lengths: kernel,
+    plain version and, as the yardstick, SDPA's backward with the same
+    segment mask. Returns the record of [16, 12, 512, 64] bf16, the
+    shape of train BERT (A)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    H = BERT["num_attention_heads"]
+    D = BERT["hidden_size"] // H
+    rng = np.random.default_rng(SEED + 13)
+    cases = [(B, S, torch.bfloat16, False, pat)
+             for B, S, _ in BERT_BATCHES
+             for pat in ("trailing", "left", "interleaved")]
+    cases += [(64, 128, torch.float32, False, "interleaved"),
+              (64, 128, torch.bfloat16, True, "trailing")]
+
+    def operands(B, S, dtype, seg, causal, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        q, k, v, dout = (torch.randn(B, H, S, D, generator=g, device=device,
+                                     dtype=dtype) for _ in range(4))
+        q = (q * D ** -0.5).to(dtype)
+        out, lse = fa._launch_fwd_seg(q, k, v, seg, causal)
+        return q, k, v, out, lse, dout
+
+    errs = {}
+    for B, S, dtype, causal, pat in cases:
+        name = str(dtype).split(".")[-1]
+        tol = TRAIN_TOL[name]
+        seg = torch.tensor(seg_ids(pat, B, S, rng), device=device)
+        args = operands(B, S, dtype, seg, causal, SEED + S + 1)
+        got = fa._launch_bwd(*args, causal, seg)
+        torch.cuda.synchronize()
+        want = fa.flash_bwd_reference(*args, causal, seg)
+        label = f"flash_bwd_seg {name} [{B}, {H}, {S}, {D}] {pat}" + (
+            " causal" if causal else "")
+        err = max(close_or_fail(f"{label} {n}", a, e, tol)
+                  for n, a, e in zip(("dq", "dk", "dv"), got, want))
+        errs[(S, name)] = max(errs.get((S, name), 0.0), err)
+        print(f"kernel check: {label}: dq, dk, dv every row finite, "
+              f"max_abs_err={err:.3g} (tol {tol} (1 + |plain|))", flush=True)
+        del args, got, want
+    records = {}
+    for B, S, shortest in BERT_BATCHES:
+        lens = rng.integers(shortest, S + 1, B)
+        seg = torch.tensor((np.arange(S)[None] < lens[:, None]).astype(
+            np.int32), device=device)
+        q, k, v, out, lse, dout = operands(B, S, torch.bfloat16, seg, False,
+                                           SEED + S + 2)
+        ms = cuda_ms(lambda: fa._launch_bwd(q, k, v, out, lse, dout, False,
+                                            seg), flush=flush)
+        plain = cuda_ms(lambda: fa.flash_bwd_reference(
+            q, k, v, out, lse, dout, False, seg), iters=3, flush=flush)
+        same = seg[:, None, :, None] == seg[:, None, None, :]
+        sq = [t.detach().requires_grad_() for t in (q, k, v)]
+        so = F.scaled_dot_product_attention(*sq, attn_mask=same, scale=1.0)
+        lib = cuda_ms(lambda: torch.autograd.grad(so, sq, dout,
+                                                  retain_graph=True),
+                      flush=flush)
+        bound_ms, bound_by = seg_bound(q, seg, backward=True)
+        records[S] = dict(max_abs_err=errs[(S, "bfloat16")], ms=ms,
+                          plain_ms=plain, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib)
+        print(f"kernel check: flash_bwd_seg bfloat16 [{B}, {H}, {S}, {D}] "
+              f"full, lengths {shortest}-{S}: kernel_ms={ms:.4f} plain_ms="
+              f"{plain:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"yardstick: scaled_dot_product_attention backward with the "
+              f"segment mask {lib:.4f} ms", flush=True)
+        del q, k, v, out, lse, dout, seg, same, sq, so
+    return {"flash_bwd_seg": records[BERT_TRAIN[0][3]]}
+
+
 # ----------------------------------------------- phases 7c and 7d, BERT
 
 
-def random_bert_arrays(layers=None, seed=SEED):
+def random_bert_arrays(layers=None, seed=SEED, head="sequence_classification",
+                       **overrides):
     """(config, parameters) of a two-class
-    `BertForSequenceClassification` under the JAX names, drawn from a
-    numpy seed: N(0, 0.02) embeddings, weights and biases (BERT's
-    initializer_range), LayerNorm scales 1 + N(0, 0.02)."""
+    `BertForSequenceClassification` (or, with head="pretraining", a
+    `BertForPretraining`) under the JAX names, drawn from a numpy seed:
+    N(0, 0.02) embeddings, weights and biases (BERT's
+    initializer_range), LayerNorm scales 1 + N(0, 0.02). `overrides`
+    join the config (the dropout probabilities)."""
     import numpy as np
     from paddle_tpu_torch.models import bert
-    cfg = dict(BERT, num_hidden_layers=layers or BERT["num_hidden_layers"])
-    model = bert.BertForSequenceClassification(bert.BertModel(
-        **cfg, device="meta"))
+    cfg = dict(BERT, num_hidden_layers=layers or BERT["num_hidden_layers"],
+               **overrides)
+    body = bert.BertModel(**cfg, device="meta")
+    model = bert.BertForPretraining(body) if head == "pretraining" \
+        else bert.BertForSequenceClassification(body)
     rng = np.random.default_rng(seed)
     arrays = {}
     for n, p in model.named_parameters():
@@ -2227,6 +2340,227 @@ def check_bert_on_card(device):
           flush=True)
 
 
+# ----------------------------------------- phases 7e and 7f, train BERT
+
+
+def bert_pretrainer(device, layers=None, dtype="bfloat16", **overrides):
+    """(config, `hapi.Model`) of a `BertForPretraining` on `device` from
+    random_bert_arrays, as bench_bert builds it: `amp.decorate(O2)` (for
+    bf16), LAMB (BERT_LR, BERT_WD) and the pretraining criterion."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import load_jax_bert
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models.bert import BertPretrainingCriterion
+    from paddle_tpu_torch.optimizer import Lamb
+    cfg, arrays = random_bert_arrays(layers, head="pretraining", **overrides)
+    net = load_jax_bert(arrays, cfg, head="pretraining", device=device)
+    del arrays
+    if dtype == "bfloat16":
+        amp.decorate(net, level="O2")
+    model = Model(net, device=device).prepare(
+        Lamb(BERT_LR, lamb_weight_decay=BERT_WD,
+             parameters=net.parameters()),
+        BertPretrainingCriterion(cfg["vocab_size"]))
+    return cfg, model
+
+
+def pretraining_batch(n, S, shortest, device, seed):
+    """Ids ([n, S], pad id 0 after lengths uniform in shortest..S), MLM
+    labels (15% of real tokens, a random id; -1 elsewhere), NSP labels,
+    and the lengths."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(shortest, S + 1, n)
+    real = np.arange(S)[None] < lens[:, None]
+    ids = np.where(real, rng.integers(1, BERT["vocab_size"], (n, S)), 0)
+    mlm = np.where(real & (rng.random((n, S)) < 0.15),
+                   rng.integers(0, BERT["vocab_size"], (n, S)), -1)
+    nsp = rng.integers(0, 2, n)
+    return [torch.tensor(a, device=device) for a in (ids, mlm, nsp)], lens
+
+
+def train_bert(device, counters):
+    """Phase 7e: BERT-base pretraining steps through `Model.train_batch`
+    in each configuration of BERT_TRAIN, every count zeroed just before
+    the timed steps and read after: (A) K1c forward and backward exactly
+    once a layer a step and no other kernel, (B) no kernel; a finite loss
+    that falls; then one profiled step of (A). Returns (A)'s launches."""
+    import torch
+    from paddle_tpu_torch import seed
+    L, d, V = (BERT["num_hidden_layers"], BERT["hidden_size"],
+               BERT["vocab_size"])
+    launches_a = None
+    for label, attn_p, n, S, shortest in BERT_TRAIN:
+        t0 = time.perf_counter()
+        _, model = bert_pretrainer(device, attention_probs_dropout_prob=attn_p,
+                                   hidden_dropout_prob=0.1)
+        (ids, mlm, nsp), lens = pretraining_batch(n, S, shortest, device,
+                                                  SEED + 20 + S)
+        built = time.perf_counter() - t0
+        seed(SEED)
+        losses = [float(model.train_batch([ids], [mlm, nsp])[0])
+                  for _ in range(BERT_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        for mod, attr, _ in counters:
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        for _ in range(BERT_STEPS):
+            losses.append(float(model.train_batch([ids], [mlm, nsp])[0]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: getattr(mod, attr) for mod, attr, name in counters}
+        want = {"flash_fwd_seg": L * BERT_STEPS,
+                "flash_bwd_seg": L * BERT_STEPS} if attn_p == 0.0 else {}
+        hold_launches(f"train BERT ({label})", launches, want)
+        if not all(x == x and abs(x) < float("inf") for x in losses):
+            fail(f"train BERT ({label}): a non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"train BERT ({label}): the loss did not fall {losses}")
+        ms = wall * 1e3 / BERT_STEPS
+        # bench_bert's flops a sequence (bench.py:256-258), over padded S
+        n_params = 12 * L * d * d + V * d
+        flops_seq = (6 * n_params + 12 * L * S * d) * S
+        sps = n * 1e3 / ms
+        print(f"train BERT ({label}): BERT-base, AMP O2, LAMB, attention "
+              f"dropout {attn_p}, hidden dropout 0.1, {n} sequences at S={S}"
+              f", lengths {lens.min()}-{lens.max()} ({lens.sum()} real "
+              f"tokens of {n * S}), built in {built:.1f} s; {BERT_STEPS} "
+              f"timed steps after {BERT_WARMUP} warm-up: {ms:.2f} ms/step "
+              f"on the host clock, {sps:.1f} sequences/s, "
+              f"{lens.sum() * 1e3 / ms:.0f} real tokens/s, "
+              f"{sps * flops_seq / PEAK_FLOPS['bfloat16']:.1%} of the bf16 "
+              f"peak ({flops_seq} flops a sequence, bench_bert's count); "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(device)} B; launches a "
+              f"step: flash_fwd_seg {launches['flash_fwd_seg'] // BERT_STEPS}"
+              f", flash_bwd_seg {launches['flash_bwd_seg'] // BERT_STEPS}, "
+              f"other kernels 0; loss first {losses[0]:.4f} last "
+              f"{losses[-1]:.4f} (" + " ".join(f"{x:.4f}" for x in losses)
+              + ")", flush=True)
+        if attn_p == 0.0:
+            launches_a = {k: launches[k] for k in want}
+            profile_bert_train(model, ids, mlm, nsp)
+        del model, ids, mlm, nsp
+        torch.cuda.empty_cache()
+    return launches_a
+
+
+def profile_bert_train(model, ids, mlm, nsp):
+    """One train step of `model` under torch.profiler: its host time
+    against the device time of what it launched, the launches and the
+    top device kernels. Informational: prints "not measured" when the
+    profiler records no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train_batch([ids], [mlm, nsp])
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    if not dev:
+        print(f"profile: BERT train step {host_ms:.1f} ms on the host clock "
+              "(profiled); device time not measured (no device events)",
+              flush=True)
+        return
+    device_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    flash = {k: sum(e.self_device_time_total for e in dev if k in e.key)
+             for k in ("flash_fwd", "flash_bwd", "flash_delta")}
+    print(f"profile: BERT train step (A), {host_ms:.1f} ms on the host "
+          f"clock (profiled), {device_ms:.2f} ms of device time in "
+          f"{sum(e.count for e in dev)} device launches, device busy "
+          f"{device_ms / host_ms:.1%}; K1c: " + ", ".join(
+              f"{k}* {t / 1e3:.3f} ms" for k, t in flash.items())
+          + "; most device time: " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
+              f"x{e.count}" for e in top), flush=True)
+
+
+# the fp32 card-against-CPU train step: the same update on both, summed
+# in another order; LAMB divides each gradient element by its own scale,
+# so rounding in the smallest gradients reaches the step at up to ~lr of
+# a parameter: 1e-5 relative and absolute. The key projections' biases
+# get a zero gradient up to rounding (the softmax cancels a constant on
+# every key), which LAMB scales to a step of norm lr * ||w|| in a
+# direction rounding picks: held by that norm on both devices instead.
+BERT_STEP_TOL = 1e-5
+
+
+def check_bert_train_on_card(device):
+    """Phase 7f: (a) one fp32 `Model.train_batch` of a 2-layer BERT at
+    full width (dropout 0; 4 sequences at S = 128, trailing padding) on
+    the card (K1c forward and backward) and on a CPU copy (plain
+    versions): the loss and every parameter after the step agree; (b)
+    two bf16 steps of config (A) from the same weights after the same
+    `seed()`: every parameter bit-identical."""
+    import torch
+    from paddle_tpu_torch import seed
+    rng_seed = SEED + 30
+    got = {}
+    for dev in (device, torch.device("cpu")):
+        _, model = bert_pretrainer(dev, layers=2, dtype="float32",
+                                   attention_probs_dropout_prob=0.0,
+                                   hidden_dropout_prob=0.0)
+        (ids, mlm, nsp), lens = pretraining_batch(4, 128, 32, dev, rng_seed)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in model.network.named_parameters()}
+        loss = float(model.train_batch([ids], [mlm, nsp])[0])
+        got[dev.type] = (loss, before, {
+            n: p.detach().cpu() for n, p in model.network.named_parameters()})
+        del model
+    (lc, _, card), (lh, b1, cpu) = got["cuda"], got["cpu"]
+    if not abs(lc - lh) <= BERT_STEP_TOL * abs(lh):
+        fail(f"BERT train check (a): loss card {lc} CPU {lh}")
+    err, worst = 0.0, None
+    for n in cpu:
+        if n.endswith("self_attn.k_proj.bias"):
+            for side in (card, cpu):
+                step = float((side[n] - b1[n]).norm())
+                want = BERT_LR * float(b1[n].norm())
+                if abs(step - want) > 1e-4 * want:
+                    fail(f"BERT train check (a) {n}: step norm {step}, "
+                         f"expected lr * ||w|| = {want}")
+            continue
+        e = close_or_fail(f"BERT train check (a) {n}", card[n], cpu[n],
+                          BERT_STEP_TOL)
+        if e >= err:
+            err, worst = e, n
+    print(f"BERT train check (a): one fp32 Model.train_batch (LAMB) of a "
+          f"2-layer BERT at full width, 4 sequences at S=128 (lengths "
+          f"{lens.min()}-{lens.max()}), card (K1c forward and backward) "
+          f"against a CPU copy (plain versions): loss {lc:.6f} vs {lh:.6f},"
+          f" every parameter max_abs_err={err:.3g} ({worst}; tol "
+          f"{BERT_STEP_TOL} (1 + |CPU|)); key biases: step norm lr * ||w|| "
+          f"on both", flush=True)
+    _, attn_p, n, S, shortest = BERT_TRAIN[0]
+    runs = []
+    for _ in range(2):
+        _, model = bert_pretrainer(device, attention_probs_dropout_prob=attn_p,
+                                   hidden_dropout_prob=0.1)
+        (ids, mlm, nsp), _ = pretraining_batch(n, S, shortest, device,
+                                               SEED + 20 + S)
+        seed(SEED)
+        model.train_batch([ids], [mlm, nsp])
+        runs.append([p.detach().clone() for p in model.parameters()])
+        del model
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(*runs))
+    if same != len(runs[0]):
+        fail(f"BERT train check (b): {len(runs[0]) - same} of "
+             f"{len(runs[0])} parameters differ between two identical "
+             "bf16 steps")
+    print(f"BERT train check (b): two bf16 (A) steps from the same weights "
+          f"after the same seed(): {same} of {len(runs[0])} parameters "
+          f"bit-identical", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2292,7 +2626,9 @@ def main():
         ("wgrad_1x1", cw, "launch_count",
          pallas + "conv_wgrad.py:44", csrc + "conv_wgrad.cu"),
         ("flash_fwd_seg", fa, "seg_launch_count",
-         pallas + "flash_attention.py:159", csrc + "flash_attention.cu")]
+         pallas + "flash_attention.py:159", csrc + "flash_attention.cu"),
+        ("flash_bwd_seg", fa, "seg_bwd_launch_count",
+         pallas + "flash_attention.py:161", csrc + "flash_attention.cu")]
     # one per source
     build_fns = (pa.build, fa.build, ln.build, gm.build, qp.build, cw.build)
     t0 = time.perf_counter()
@@ -2312,6 +2648,7 @@ def main():
     checks.update(check_flash_bshd(fa, device, flush))
     checks.update(check_wgrad(cw, device, flush))
     checks.update(check_flash_seg(fa, device, flush))
+    checks.update(check_flash_seg_bwd(fa, device, flush))
     del flush
     torch.cuda.empty_cache()
 
@@ -2337,6 +2674,10 @@ def main():
     launches.update(serve_bert(fa, device, counters))
     torch.cuda.empty_cache()
     check_bert_on_card(device)
+    # K1c's forward runs on both BERT paths: its count is the sum of both
+    for name, n in train_bert(device, counters).items():
+        launches[name] = launches.get(name, 0) + n
+    check_bert_train_on_card(device)
 
     line = {"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,

@@ -18,6 +18,12 @@ Ported so far:
   the routing of `parallel.moe_utils`) with float, int8 or packed-int4
   experts (`moe_weight_dtype=`);
 * the single-device train step — `parallel.hybrid_gpt.HybridGPT`;
+* BERT pretraining — `hapi.Model` over `models.bert`, prepared with
+  `optimizer.Lamb` (the optimizer base: parameter groups, the clips of
+  `nn.clip`, state dicts, the schedulers of `optimizer.lr`; one update
+  over the whole parameter set) and `BertPretrainingCriterion`, after
+  `amp.decorate(level="O2")`; dropout draws from the generators of
+  `seed` (`core.random`);
 * BERT inference — `models.bert` (`BertModel`, `BertForPretraining`
   with `BertPretrainingCriterion`, `BertForSequenceClassification`,
   `bert_tiny`/`bert_base`/`bert_large`) over the port's first `nn`
@@ -31,8 +37,8 @@ Ported so far:
   (block-table paged attention: ragged and verify entries, float or
   quantized pools), `ops.grouped_matmul` (the grouped
   expert matmul, float/int8/int4 weights), `ops.flash_attention`
-  (flash attention, causal or full, forward and backward; the segmented
-  forward over key-padding or packed segment ids; the paddle-layout
+  (flash attention, causal or full, forward and backward, unsegmented
+  or over key-padding or packed segment ids; the paddle-layout
   forward), `ops.layer_norm` (fused residual-add + LayerNorm, forward and
   backward), `ops.qkv_proj` (the fused QKV projection) and
   `ops.conv_wgrad` (the split-K 1x1 weight gradient);
@@ -44,5 +50,6 @@ Every entry point takes `device=`, defaulting to "cuda"; without a card
 that default raises instead of falling back to the CPU.
 """
 from ._device import resolve_device
+from .core.random import seed
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "seed"]

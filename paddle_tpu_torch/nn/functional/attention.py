@@ -26,6 +26,7 @@ import math
 import torch
 
 from ...ops.flash_attention import splash_mha, splash_supported
+from .common import dropout
 
 
 def _xla_attention(q, k, v, bias=None, causal=False, scale=None,
@@ -46,7 +47,7 @@ def _xla_attention(q, k, v, bias=None, causal=False, scale=None,
         logits = logits.masked_fill(~keep, -1e30)
     probs = torch.softmax(logits, dim=-1)
     if dropout_p > 0.0:
-        probs = torch.nn.functional.dropout(probs, dropout_p, training=True)
+        probs = dropout(probs, dropout_p)
     out = torch.einsum("bhst,bthd->bshd", probs, v.float())
     return out.to(q.dtype)
 

@@ -1,10 +1,13 @@
 """Common functionals BERT calls: linear over paddle's [in, out]
-weight, dropout in `upscale_in_train` mode, embedding with
-`padding_idx`. The port of `paddle_tpu/nn/functional/common.py` (those
-three only)."""
+weight, dropout in `upscale_in_train` mode (its masks from the port's
+generators), embedding with `padding_idx`. The port of
+`paddle_tpu/nn/functional/common.py` (those three only)."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as tF
+
+from ...core.random import generator
 
 
 def linear(x, weight, bias=None):
@@ -16,14 +19,18 @@ def linear(x, weight, bias=None):
 
 
 def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
-    """Inverted dropout: kept values scaled by 1 / (1 - p) in training,
+    """Inverted dropout: in training each element is kept with
+    probability 1 - p, drawn from the generator of x's device
+    (`core.random.generator`), and kept values are scaled by
+    1 / (1 - p) in x's dtype, as JAX's `jnp.where(keep, a / (1 - p), 0)`;
     the identity otherwise. Its random bits are torch's, not JAX's."""
     if mode != "upscale_in_train":
         raise NotImplementedError(f"dropout: mode {mode!r} is not ported "
                                   "(only 'upscale_in_train')")
     if not training or p == 0.0:
         return x
-    return tF.dropout(x, p, training=True)
+    u = torch.rand(x.shape, generator=generator(x.device), device=x.device)
+    return torch.where(u < 1.0 - p, x / (1.0 - p), 0.0)
 
 
 def embedding(x, weight, padding_idx=None):

@@ -43,5 +43,14 @@ class Embedding(torch.nn.Embedding):
         return F.embedding(x, self.weight, padding_idx=self.padding_idx)
 
 
-# paddle.nn.Dropout in its default `upscale_in_train` mode is torch's
-Dropout = torch.nn.Dropout
+class Dropout(torch.nn.Module):
+    """paddle.nn.Dropout: `F.dropout` with probability `p` while the
+    module trains, the identity in eval."""
+
+    def __init__(self, p=0.5, mode="upscale_in_train"):
+        super().__init__()
+        self.p = p
+        self.mode = mode
+
+    def forward(self, x):
+        return F.dropout(x, self.p, self.training, self.mode)

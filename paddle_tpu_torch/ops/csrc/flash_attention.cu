@@ -45,6 +45,17 @@
 // tile's segments are visited all the same; skipping them is speed for
 // later.
 //
+// Its backward is the backward below with the same switch: the fixed
+// tile's ids (keys in the dk/dv pass, queries in the dq pass) in
+// registers, the walked tile's 64 ids in shared memory beside its lse
+// and delta, and every tile taking the masked branch (an interior tile
+// may pair two segments). A pair of two segments gets p = 0 exactly,
+// never exp(-inf - lse): every row's lse is finite (each row sees its
+// own key), so nothing stands in for a missing score. The dq pass walks
+// every key tile, as the forward does. At BERT-base's shapes it moves
+// ~101 MB ([64, 12, 128, 64], bytes bound) or does ~32 GFLOP over
+// visible pairs at most ([16, 12, 512, 64]).
+//
 // What bounds it: at the train step's shapes ([8, 16, 1024, 64] bf16)
 // the forward moves ~67 MB and does ~1.7e10 flops, the backward ~2.5x
 // those flops: the card's bound is set by bytes for the forward and by
@@ -385,13 +396,16 @@ flash_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 }
 
 // dk and dv for one key tile, walking the query tiles that see it.
-template <typename T, int D>
+// kSeg: a key sees a query only where their segment ids seg[b, i] and
+// seg[b, j] are equal (H heads a batch entry).
+template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int S, int causal) {
+                      T* __restrict__ dv, const int* __restrict__ seg, int S,
+                      int H, int causal) {
   constexpr int LD = D + 4;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
@@ -399,22 +413,30 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Qs = Vs + kTile * LD;
   float* dOs = Qs + kTile * LD;
   float* Ts = dOs + kTile * LD;     // p^T, then ds^T
-  float* lse_s = Ts + kTile * kLP;  // the query tile's lse and delta
+  float* lse_s = Ts + kTile * kLP;  // the query tile's lse, delta, ids
   float* delta_s = lse_s + kTile;
+  int* Segs = reinterpret_cast<int*>(delta_s + kTile);
   const int ntiles = (S + kTile - 1) / kTile;
   const int kt = blockIdx.y;  // low key tiles see the most query tiles
   const int k0 = kt * kTile;
   const long long off = (long long)blockIdx.x * S * D;
   const long long roff = (long long)blockIdx.x * S;
   const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
+  const int* segb = kSeg ? seg + (long long)(blockIdx.x / H) * S : nullptr;
 
   load_tile<T, D>(Ks, k + off, k0, S, D);
   load_tile<T, D>(Vs, v + off, k0, S, D);
   float adk[4][D / 8], adv[4][D / 8];
+  int kseg[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) adk[i][c] = adv[i][c] = 0.f;
+    if constexpr (kSeg) {
+      const int key = k0 + rg + 16 * i;
+      kseg[i] = key < S ? segb[key] : 0;
+    }
+  }
 
   for (int qt = causal ? kt : 0; qt < ntiles; ++qt) {
     const int q0 = qt * kTile;
@@ -425,13 +447,15 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok = q0 + threadIdx.x < S;
       lse_s[threadIdx.x] = ok ? lse[roff + q0 + threadIdx.x] : 0.f;
       delta_s[threadIdx.x] = ok ? delta[roff + q0 + threadIdx.x] : 0.f;
+      if constexpr (kSeg) Segs[threadIdx.x] = ok ? segb[q0 + threadIdx.x] : 0;
     }
     __syncthreads();
     // rows: keys k0 + rg + 16i; columns: queries q0 + cg + 8j
     float p[4][8], ds[4][8];
     dot_tile<D>(Ks, Qs, rg, cg, p);
     dot_tile<D>(Vs, dOs, rg, cg, ds);
-    const bool edge = q0 + kTile > S || k0 + kTile > S ||
+    // with segments every tile may hold pairs of two segments
+    const bool edge = kSeg || q0 + kTile > S || k0 + kTile > S ||
                       (causal && k0 + kTile - 1 > q0);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -439,7 +463,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 8; ++j) {
         const int key = k0 + rg + 16 * i, qi = q0 + cg + 8 * j;
         const bool masked =
-            edge && (qi >= S || key >= S || (causal && key > qi));
+            edge && (qi >= S || key >= S || (causal && key > qi) ||
+                     (kSeg && Segs[cg + 8 * j] != kseg[i]));
         const float pv = masked ? 0.f : expf(p[i][j] - lse_s[cg + 8 * j]);
         p[i][j] = pv;
         ds[i][j] = pv * (ds[i][j] - delta_s[cg + 8 * j]);
@@ -466,14 +491,15 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// dq for one query tile, walking the key tiles it sees.
-template <typename T, int D>
+// dq for one query tile, walking the key tiles it sees (with kSeg,
+// every key tile, as the forward does).
+template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int S, int causal) {
+                    const int* __restrict__ seg, int S, int H, int causal) {
   constexpr int LD = D + 4;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -481,21 +507,25 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ks = dOs + kTile * LD;
   float* Vs = Ks + kTile * LD;
   float* dSs = Vs + kTile * LD;
+  int* Segs = reinterpret_cast<int*>(dSs + kTile * kLP);  // the key tile's
   const int ntiles = (S + kTile - 1) / kTile;
   const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * kTile;
   const long long off = (long long)blockIdx.x * S * D;
   const long long roff = (long long)blockIdx.x * S;
   const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
+  const int* segb = kSeg ? seg + (long long)(blockIdx.x / H) * S : nullptr;
 
   load_tile<T, D>(Qs, q + off, q0, S, D);
   load_tile<T, D>(dOs, dout + off, q0, S, D);
   float row_lse[4], row_delta[4], acc[4][D / 8];
+  int qseg[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + rg + 16 * i;
     row_lse[i] = qi < S ? lse[roff + qi] : 0.f;
     row_delta[i] = qi < S ? delta[roff + qi] : 0.f;
+    if constexpr (kSeg) qseg[i] = qi < S ? segb[qi] : 0;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
   }
@@ -505,17 +535,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, D>(Ks, k + off, k0, S, D);
     load_tile<T, D>(Vs, v + off, k0, S, D);
+    if (kSeg && threadIdx.x < kTile)
+      Segs[threadIdx.x] = k0 + threadIdx.x < S ? segb[k0 + threadIdx.x] : 0;
     __syncthreads();
     float p[4][8], dp[4][8];
     dot_tile<D>(Qs, Ks, rg, cg, p);
     dot_tile<D>(dOs, Vs, rg, cg, dp);
-    const bool edge = k0 + kTile > S || (causal && k0 + kTile - 1 > q0);
+    const bool edge =
+        kSeg || k0 + kTile > S || (causal && k0 + kTile - 1 > q0);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int key = k0 + cg + 8 * j, qi = q0 + rg + 16 * i;
-        const bool masked = edge && (key >= S || (causal && key > qi));
+        const bool masked = edge && (key >= S || (causal && key > qi) ||
+                                     (kSeg && Segs[cg + 8 * j] != qseg[i]));
         const float pv = masked ? 0.f : expf(p[i][j] - row_lse[i]);
         dSs[(rg + 16 * i) * kLP + cg + 8 * j] =
             pv * (dp[i][j] - row_delta[i]);
@@ -796,13 +830,15 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+// kSeg as flash_bwd_dkdv_kernel's.
+template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int S,
+                          T* __restrict__ dk, T* __restrict__ dv,
+                          const int* __restrict__ seg, int S, int H,
                           int causal) {
   constexpr int LDS = ld16<D>();
   extern __shared__ float4 smem4[];
@@ -812,6 +848,7 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* dOs = Qs + kTile * LDS;
   float* lse_s = reinterpret_cast<float*>(dOs + kTile * LDS);
   float* delta_s = lse_s + kTile;
+  int* Segs = reinterpret_cast<int*>(delta_s + kTile);  // the query tile's
   const int ntiles = (S + kTile - 1) / kTile;
   const int kt = blockIdx.y;  // low key tiles see the most query tiles
   const int k0 = kt * kTile;
@@ -819,14 +856,23 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long roff = (long long)blockIdx.x * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int* segb = kSeg ? seg + (long long)(blockIdx.x / H) * S : nullptr;
 
   load_tile16<T, D>(Ks, k + off, k0, S, D);
   load_tile16<T, D>(Vs, v + off, k0, S, D);
   float adk[D / 8][4], adv[D / 8][4];
+  int kseg[2];
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[nt][e] = adv[nt][e] = 0.f;
+  if constexpr (kSeg) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = k0 + warp * 16 + g + 8 * h;
+      kseg[h] = key < S ? segb[key] : 0;
+    }
+  }
 
   for (int qt = causal ? kt : 0; qt < ntiles; ++qt) {
     const int q0 = qt * kTile;
@@ -837,13 +883,15 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok = q0 + threadIdx.x < S;
       lse_s[threadIdx.x] = ok ? lse[roff + q0 + threadIdx.x] : 0.f;
       delta_s[threadIdx.x] = ok ? delta[roff + q0 + threadIdx.x] : 0.f;
+      if constexpr (kSeg) Segs[threadIdx.x] = ok ? segb[q0 + threadIdx.x] : 0;
     }
     __syncthreads();
     // rows: this warp's 16 keys; columns: the tile's 64 queries
     float p[8][4], ds[8][4];
     mma_rows<T, D>(p, Ks, Qs, warp, lane);
     mma_rows<T, D>(ds, Vs, dOs, warp, lane);
-    const bool edge = q0 + kTile > S || k0 + kTile > S ||
+    // with segments every tile may hold pairs of two segments
+    const bool edge = kSeg || q0 + kTile > S || k0 + kTile > S ||
                       (causal && k0 + kTile - 1 > q0);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -852,7 +900,8 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int col = nt * 8 + 2 * t + (e & 1);
         const int key = k0 + warp * 16 + g + 8 * (e >> 1), qi = q0 + col;
         const bool masked =
-            edge && (qi >= S || key >= S || (causal && key > qi));
+            edge && (qi >= S || key >= S || (causal && key > qi) ||
+                     (kSeg && Segs[col] != kseg[e >> 1]));
         const float pv = masked ? 0.f : expf(p[nt][e] - lse_s[col]);
         p[nt][e] = pv;
         ds[nt][e] = pv * (ds[nt][e] - delta_s[col]);
@@ -870,19 +919,22 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+// kSeg as flash_bwd_dq_kernel's.
+template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int S, int causal) {
+                        const int* __restrict__ seg, int S, int H,
+                        int causal) {
   constexpr int LDS = ld16<D>();
   extern __shared__ float4 smem4[];
   T* Qs = reinterpret_cast<T*>(smem4);
   T* dOs = Qs + kTile * LDS;
   T* Ks = dOs + kTile * LDS;
   T* Vs = Ks + kTile * LDS;
+  int* Segs = reinterpret_cast<int*>(Vs + kTile * LDS);  // the key tile's
   const int ntiles = (S + kTile - 1) / kTile;
   const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * kTile;
@@ -890,15 +942,18 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long roff = (long long)blockIdx.x * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int* segb = kSeg ? seg + (long long)(blockIdx.x / H) * S : nullptr;
 
   load_tile16<T, D>(Qs, q + off, q0, S, D);
   load_tile16<T, D>(dOs, dout + off, q0, S, D);
   float row_lse[2], row_delta[2], acc[D / 8][4];
+  int qseg[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qi = q0 + warp * 16 + g + 8 * h;
     row_lse[h] = qi < S ? lse[roff + qi] : 0.f;
     row_delta[h] = qi < S ? delta[roff + qi] : 0.f;
+    if constexpr (kSeg) qseg[h] = qi < S ? segb[qi] : 0;
   }
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
@@ -910,18 +965,23 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's readers are done
     load_tile16<T, D>(Ks, k + off, k0, S, D);
     load_tile16<T, D>(Vs, v + off, k0, S, D);
+    if (kSeg && threadIdx.x < kTile)
+      Segs[threadIdx.x] = k0 + threadIdx.x < S ? segb[k0 + threadIdx.x] : 0;
     __syncthreads();
     float p[8][4], ds[8][4];
     mma_rows<T, D>(p, Qs, Ks, warp, lane);
     mma_rows<T, D>(ds, dOs, Vs, warp, lane);
-    const bool edge = k0 + kTile > S || (causal && k0 + kTile - 1 > q0);
+    const bool edge =
+        kSeg || k0 + kTile > S || (causal && k0 + kTile - 1 > q0);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t + (e & 1);
+        const int col = nt * 8 + 2 * t + (e & 1);
+        const int key = k0 + col;
         const int qi = q0 + warp * 16 + g + 8 * (e >> 1);
-        const bool masked = edge && (key >= S || (causal && key > qi));
+        const bool masked = edge && (key >= S || (causal && key > qi) ||
+                                     (kSeg && Segs[col] != qseg[e >> 1]));
         const float pv =
             masked ? 0.f : expf(p[nt][e] - row_lse[e >> 1]);
         ds[nt][e] = pv * (ds[nt][e] - row_delta[e >> 1]);
@@ -939,18 +999,22 @@ template <int D, bool kSeg>
 constexpr int fwd_smem() {
   return (3 * kTile * (D + 4) + kTile * kLP + (kSeg ? kTile : 0)) * 4;
 }
-template <int D>
+template <int D, bool kSeg>
 constexpr int dkdv_smem() {
-  return (4 * kTile * (D + 4) + kTile * kLP + 2 * kTile) * 4;
+  return (4 * kTile * (D + 4) + kTile * kLP + (kSeg ? 3 : 2) * kTile) * 4;
 }
-template <int D>
-constexpr int dq_smem() { return (4 * kTile * (D + 4) + kTile * kLP) * 4; }
+template <int D, bool kSeg>
+constexpr int dq_smem() {
+  return (4 * kTile * (D + 4) + kTile * kLP + (kSeg ? kTile : 0)) * 4;
+}
 template <int D, bool kSeg>
 constexpr int fwd_smem16() {
   return 3 * kTile * ld16<D>() * 2 + (kSeg ? kTile * 4 : 0);
 }
-template <int D>
-constexpr int bwd_smem16() { return 4 * kTile * ld16<D>() * 2 + 2 * kTile * 4; }
+template <int D, bool kSeg>
+constexpr int bwd_smem16() {  // dk/dv's lse, delta (and ids); dq's ids
+  return 4 * kTile * ld16<D>() * 2 + (kSeg ? 3 : 2) * kTile * 4;
+}
 
 // Raises the kernel's dynamic shared memory limit to SMEM and launches
 // it on `grid`; returns from the caller on any error.
@@ -1018,11 +1082,12 @@ cudaError_t fwd_any(const void* q, const void* k, const void* v, void* out,
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int D>
+// kSeg: with segment ids `seg` [BH / H, S].
+template <typename T, int D, bool kSeg>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const float* lse, float* delta, void* dq,
-                void* dk, void* dv, int BH, int S, int causal,
-                cudaStream_t stream) {
+                void* dk, void* dv, const int* seg, int BH, int H, int S,
+                int causal, cudaStream_t stream) {
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -1038,15 +1103,19 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
   T* dkp = static_cast<T*>(dk);
   T* dvp = static_cast<T*>(dv);
   if constexpr (sizeof(T) == 4) {
-    PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_kernel<T, D>), dkdv_smem<D>(), qp,
-                        kp, vp, dop, lse, delta, dkp, dvp, S, causal);
-    PADDLE_FLASH_LAUNCH((flash_bwd_dq_kernel<T, D>), dq_smem<D>(), qp, kp,
-                        vp, dop, lse, delta, dqp, S, causal);
+    PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_kernel<T, D, kSeg>),
+                        (dkdv_smem<D, kSeg>()), qp, kp, vp, dop, lse, delta,
+                        dkp, dvp, seg, S, H, causal);
+    PADDLE_FLASH_LAUNCH((flash_bwd_dq_kernel<T, D, kSeg>),
+                        (dq_smem<D, kSeg>()), qp, kp, vp, dop, lse, delta,
+                        dqp, seg, S, H, causal);
   } else {
-    PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_mma_kernel<T, D>), bwd_smem16<D>(),
-                        qp, kp, vp, dop, lse, delta, dkp, dvp, S, causal);
-    PADDLE_FLASH_LAUNCH((flash_bwd_dq_mma_kernel<T, D>), bwd_smem16<D>(), qp,
-                        kp, vp, dop, lse, delta, dqp, S, causal);
+    PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_mma_kernel<T, D, kSeg>),
+                        (bwd_smem16<D, kSeg>()), qp, kp, vp, dop, lse, delta,
+                        dkp, dvp, seg, S, H, causal);
+    PADDLE_FLASH_LAUNCH((flash_bwd_dq_mma_kernel<T, D, kSeg>),
+                        (bwd_smem16<D, kSeg>()), qp, kp, vp, dop, lse, delta,
+                        dqp, seg, S, H, causal);
   }
   return cudaSuccess;
 }
@@ -1113,27 +1182,64 @@ extern "C" int paddle_tpu_torch_flash_fwd_bshd(const void* q, const void* k,
                       static_cast<cudaStream_t>(stream));
 }
 
+namespace {
+
+// One backward over dtype code `dtype` at head_dim 64 or 128, with
+// segment ids [BH / H, S] where `seg` is given.
+cudaError_t bwd_any(const void* q, const void* k, const void* v,
+                    const void* out, const void* dout, const void* lse,
+                    void* delta, const int* seg, void* dq, void* dk, void* dv,
+                    int BH, int H, int S, int D, int dtype, int causal,
+                    cudaStream_t st) {
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+#define PADDLE_FLASH_BWD(T, HD, SG)                                         \
+  return bwd<T, HD, SG>(q, k, v, out, dout, l, dl, dq, dk, dv, seg, BH, H, \
+                        S, causal, st)
+#define PADDLE_FLASH_BWD_DTYPES(HD, SG)                    \
+  if (dtype == 0) PADDLE_FLASH_BWD(float, HD, SG);         \
+  if (dtype == 1) PADDLE_FLASH_BWD(__nv_bfloat16, HD, SG); \
+  if (dtype == 2) PADDLE_FLASH_BWD(__half, HD, SG);
+  if (D == 64 && seg) {
+    PADDLE_FLASH_BWD_DTYPES(64, true)
+  } else if (D == 128 && seg) {
+    PADDLE_FLASH_BWD_DTYPES(128, true)
+  } else if (D == 64) {
+    PADDLE_FLASH_BWD_DTYPES(64, false)
+  } else if (D == 128) {
+    PADDLE_FLASH_BWD_DTYPES(128, false)
+  }
+#undef PADDLE_FLASH_BWD_DTYPES
+#undef PADDLE_FLASH_BWD
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 extern "C" int paddle_tpu_torch_flash_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int BH, int S, int head_dim, int dtype, int causal,
     void* stream) {
   if (!valid(BH, S)) return (int)cudaErrorInvalidValue;
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PADDLE_FLASH_BWD(T, D)                                             \
-  return (int)bwd<T, D>(q, k, v, out, dout, l, dl, dq, dk, dv, BH, S,    \
-                        causal, st)
-  if (head_dim == 64) {
-    if (dtype == 0) PADDLE_FLASH_BWD(float, 64);
-    if (dtype == 1) PADDLE_FLASH_BWD(__nv_bfloat16, 64);
-    if (dtype == 2) PADDLE_FLASH_BWD(__half, 64);
-  } else if (head_dim == 128) {
-    if (dtype == 0) PADDLE_FLASH_BWD(float, 128);
-    if (dtype == 1) PADDLE_FLASH_BWD(__nv_bfloat16, 128);
-    if (dtype == 2) PADDLE_FLASH_BWD(__half, 128);
-  }
-#undef PADDLE_FLASH_BWD
-  return (int)cudaErrorInvalidValue;
+  return (int)bwd_any(q, k, v, out, dout, lse, delta, nullptr, dq, dk, dv,
+                      BH, 1, S, head_dim, dtype, causal,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The segmented backward (splash_mha(kv_keep=)'s K1c): the splash
+// backward's operands over B * H heads, with the forward's int32 segment
+// ids [B, S]; a pair (i, j) adds to the gradients only where
+// seg[b, i] == seg[b, j].
+extern "C" int paddle_tpu_torch_flash_bwd_seg(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* delta, const void* seg,
+    void* dq, void* dk, void* dv, int B, int H, int S, int head_dim,
+    int dtype, int causal, void* stream) {
+  if (B <= 0 || H <= 0 || !valid(B * H, S) || seg == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)bwd_any(q, k, v, out, dout, lse, delta,
+                      static_cast<const int*>(seg), dq, dk, dv, B * H, H, S,
+                      head_dim, dtype, causal,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -20,9 +20,8 @@ splash kernel: `kv_keep.to(torch.int32)` are the segment ids of queries
 and keys alike, and a query attends a key only of its own segment (and
 not above the diagonal when causal). So a real token sees only real
 tokens and a padded one only padding, as in the TPU kernel. Its
-backward on a CUDA tensor raises NotImplementedError: the card's
-segmented backward kernel is not written yet (ROADMAP Queue 2); on a
-CPU tensor it is the plain segmented backward.
+backward is `paddle_tpu_torch::flash_bwd_seg`, the same backward with
+the same segment test.
 
 Being a dispatched operator, the forward can be named by a selective
 checkpoint policy: `save_only_these_names(SPLASH_RESIDUAL_NAME)` keeps
@@ -33,7 +32,7 @@ JAX's `checkpoint_name` and `save_only_these_names`.
 
 On a CUDA tensor each operator launches `csrc/flash_attention.cu`, the
 Hopper kernels that replace the TPU's splash kernel (`_splash_kernel`:
-forward and fused dq/dkv backward, and the segmented forward), or
+forward and fused dq/dkv backward, unsegmented or segmented), or
 raises: head_dim 64 or 128,
 fp32/bf16/fp16, any S; there is no fallback. On a CPU tensor each runs
 its plain PyTorch version (`flash_fwd_reference`, `flash_bwd_reference`,
@@ -74,6 +73,7 @@ fwd_launch_count = 0
 bwd_launch_count = 0
 bshd_launch_count = 0
 seg_launch_count = 0
+seg_bwd_launch_count = 0
 
 #: K1b's blocks when the caller gives none (JAX's `DEFAULT_BLOCK_Q/K`)
 DEFAULT_BLOCK_Q = 256
@@ -94,6 +94,8 @@ _SIGNATURES = {
     "paddle_tpu_torch_flash_fwd_bshd": [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
     "paddle_tpu_torch_flash_fwd_seg": [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "paddle_tpu_torch_flash_bwd_seg": [ctypes.c_void_p] * 11
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
@@ -290,11 +292,24 @@ def _flash_seg_setup_context(ctx, inputs, output):
 
 def _flash_seg_backward(ctx, dout, _dlse):
     q, k, v, out, lse, seg = ctx.saved_tensors
-    if q.device.type != "cpu":
-        raise NotImplementedError("K1c backward: ROADMAP Queue 2")
-    dq, dk, dv = flash_bwd_reference(q, k, v, out, lse, dout, ctx.causal,
-                                     seg)
+    dq, dk, dv = flash_bwd_seg(q, k, v, out, lse, dout, seg, ctx.causal)
     return dq, dk, dv, None, None, None
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_bwd_seg", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+           "Tensor dout, Tensor seg, bool causal) "
+           "-> (Tensor, Tensor, Tensor)")
+def flash_bwd_seg(q, k, v, out, lse, dout, seg, causal):
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, out, lse, dout, causal, seg)
+    return _launch_bwd(q, k, v, out, lse, dout.contiguous(), causal, seg)
+
+
+@flash_bwd_seg.register_fake
+def _(q, k, v, out, lse, dout, seg, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 flash_fwd_seg.register_autograd(_flash_seg_backward,
@@ -429,14 +444,19 @@ def _launch_fwd(q, k, v, causal):
     return out, lse
 
 
+def _check_seg(name, seg, q):
+    B, _, S, _ = q.shape
+    if seg.dtype != torch.int32 or tuple(seg.shape) != (B, S) \
+            or seg.device != q.device or not seg.is_contiguous():
+        raise ValueError(f"{name} kernel: segment ids must be contiguous "
+                         f"int32 {(B, S)} on {q.device}")
+
+
 def _launch_fwd_seg(q, k, v, seg, causal):
     global seg_launch_count
     _check("flash_fwd_seg", (q, k, v))
+    _check_seg("flash_fwd_seg", seg, q)
     B, H, S, D = q.shape
-    if seg.dtype != torch.int32 or tuple(seg.shape) != (B, S) \
-            or seg.device != q.device or not seg.is_contiguous():
-        raise ValueError("flash_fwd_seg kernel: segment ids must be "
-                         f"contiguous int32 {(B, S)} on {q.device}")
     out = torch.empty_like(q)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -453,29 +473,42 @@ def _launch_fwd_seg(q, k, v, seg, causal):
     return out, lse
 
 
-def _launch_bwd(q, k, v, out, lse, dout, causal):
-    global bwd_launch_count
-    _check("flash_bwd", (q, k, v, out, dout))
+def _launch_bwd(q, k, v, out, lse, dout, causal, seg=None):
+    """K1a's backward, or with `seg` K1c's (the segmented kernels)."""
+    global bwd_launch_count, seg_bwd_launch_count
+    name = "flash_bwd" if seg is None else "flash_bwd_seg"
+    _check(name, (q, k, v, out, dout))
     B, H, S, D = q.shape
     if lse.dtype != torch.float32 or lse.shape != (B, H, S) \
             or not lse.is_contiguous():
-        raise ValueError("flash_bwd kernel: lse must be contiguous fp32 "
+        raise ValueError(f"{name} kernel: lse must be contiguous fp32 "
                          f"{(B, H, S)}")
+    if seg is not None:
+        _check_seg(name, seg, q)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
     if q.numel() == 0:
         return dq, dk, dv
     delta = torch.empty_like(lse)
     lib = _build.load("flash_attention", _SIGNATURES)
-    err = lib.paddle_tpu_torch_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B * H, S, D, _DTYPE_CODES[q.dtype],
-        int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    if seg is None:
+        err = lib.paddle_tpu_torch_flash_bwd(
+            *ptrs, *grads, B * H, S, D, _DTYPE_CODES[q.dtype], int(causal),
+            stream)
+    else:
+        err = lib.paddle_tpu_torch_flash_bwd_seg(
+            *ptrs, seg.data_ptr(), *grads, B, H, S, D, _DTYPE_CODES[q.dtype],
+            int(causal), stream)
     if err != 0:
-        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error "
-                           f"{err}")
-    bwd_launch_count += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if seg is None:
+        bwd_launch_count += 1
+    else:
+        seg_bwd_launch_count += 1
     return dq, dk, dv
 
 

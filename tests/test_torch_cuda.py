@@ -832,12 +832,65 @@ def test_flash_seg_kernel_matches_plain(B, H, S, D, causal, dtype, tol,
 
 
 @pytest.mark.cuda
-def test_flash_seg_backward_raises_on_card(cuda_device):
-    q = torch.randn(2, 2, 128, 64, device=cuda_device, requires_grad=True)
-    keep = torch.ones(2, 128, dtype=torch.int32, device=cuda_device)
-    out = tfa.splash_mha(q, q, q, causal=False, kv_keep=keep)
-    with pytest.raises(NotImplementedError, match="K1c backward"):
-        out.sum().backward()
+@pytest.mark.parametrize("B,H,S,D", [(64, 12, 128, 64), (16, 12, 512, 64),
+                                     (3, 2, 200, 128), (2, 3, 1, 64),
+                                     (3, 2, 65, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("pattern", SEG_PATTERNS)
+def test_flash_seg_backward_matches_plain(B, H, S, D, causal, dtype, tol,
+                                          pattern, cuda_device):
+    """K1c's backward kernel against its plain version, dq, dk and dv on
+    every row, all finite (a tile may hold no key of a row's segment:
+    p is exactly 0 there). fp32 at 1e-4 (ds = p (dp - delta) subtracts
+    two nearly equal D-term sums, as K1a's backward); bf16 at 2e-2 (both
+    round p and ds to bf16 before the products they feed and round the
+    outputs)."""
+    rng = np.random.RandomState(B + S + D + 1)
+    seg = torch.tensor(_seg(pattern, B, S, rng), device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v, dout = (torch.randn(B, H, S, D, generator=g,
+                                 device=cuda_device, dtype=dtype)
+                     for _ in range(4))
+    q = (q * D ** -0.5).to(dtype)
+    out, lse = tfa.flash_fwd_reference(q, k, v, causal, seg)
+    before = (tfa.bwd_launch_count, tfa.seg_bwd_launch_count)
+    got = tfa.flash_bwd_seg(q, k, v, out, lse, dout, seg, causal)
+    torch.cuda.synchronize()
+    assert (tfa.bwd_launch_count, tfa.seg_bwd_launch_count) == \
+        (before[0], before[1] + 1)
+    want = tfa.flash_bwd_reference(q, k, v, out, lse, dout, causal, seg)
+    for a, e in zip(got, want):
+        assert torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), e.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_seg_backward_through_autograd(cuda_device):
+    """`splash_mha(kv_keep=)` differentiated on the card launches K1c's
+    forward and backward once each (never K1a's), and its gradients
+    equal the plain backward's on the same forward residuals."""
+    rng = np.random.RandomState(5)
+    keep = torch.tensor(_seg("trailing", 4, 128, rng), device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v, dout = (torch.randn(4, 2, 128, 64, generator=g,
+                                 device=cuda_device) for _ in range(4))
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (tfa.fwd_launch_count, tfa.bwd_launch_count,
+              tfa.seg_launch_count, tfa.seg_bwd_launch_count)
+    out = tfa.splash_mha(*args, causal=False, kv_keep=keep)
+    got = torch.autograd.grad(out, args, dout)
+    torch.cuda.synchronize()
+    assert (tfa.fwd_launch_count, tfa.bwd_launch_count,
+            tfa.seg_launch_count, tfa.seg_bwd_launch_count) == \
+        (before[0], before[1], before[2] + 1, before[3] + 1)
+    qs = q * 64 ** -0.5
+    ref_out, ref_lse = tfa.flash_fwd_reference(qs, k, v, False, keep)
+    dqs, dk, dv = tfa.flash_bwd_reference(qs, k, v, ref_out, ref_lse, dout,
+                                          False, keep)
+    for a, e in zip(got, (dqs * 64 ** -0.5, dk, dv)):
+        torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -851,6 +904,11 @@ def test_flash_seg_kernel_refuses_unsupported_operands(cuda_device):
         tfa.flash_fwd_seg(q, q, q, seg.long(), False, "")
     with pytest.raises(ValueError):        # ids of another shape
         tfa.flash_fwd_seg(q, q, q, seg[:, :64].contiguous(), False, "")
+    lse = torch.zeros(2, 2, 128, device=cuda_device)
+    with pytest.raises(ValueError):        # the backward: the same checks
+        tfa.flash_bwd_seg(q, q, q, q, lse, q, seg.long(), False)
+    with pytest.raises(ValueError):
+        tfa.flash_bwd_seg(q, q, q, q, lse.double(), q, seg, False)
 
 
 # --------------------------------------------------- BERT on the card
@@ -979,3 +1037,126 @@ def test_train_step_embedding_grad_is_reproducible_on_card(cuda_device):
         assert torch.equal(a, b), n
     for (n, a), (_, b) in zip(leaves(runs[0][1]), leaves(runs[1][1])):
         assert torch.equal(a, b), n
+
+
+# ------------------------------------------ BERT pretraining on the card
+
+
+def _pretrainer(device, layers, dtype=torch.float32, attn_p=0.0,
+                hidden_p=0.0, seed=0):
+    """A `hapi.Model` over a BERT pretraining model at hidden 256, 4
+    heads (head_dim 64), from numpy parameters, prepared as bench_bert
+    prepares BERT-base: `amp.decorate(O2)` for bf16, LAMB (lr 1e-3,
+    weight decay 0.01) and the pretraining criterion."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import load_jax_bert
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.optimizer import Lamb
+    cfg = dict(vocab_size=193, hidden_size=256, num_hidden_layers=layers,
+               num_attention_heads=4, intermediate_size=512,
+               max_position_embeddings=512,
+               attention_probs_dropout_prob=attn_p,
+               hidden_dropout_prob=hidden_p)
+    rng = np.random.RandomState(seed)
+    arrays = {n: (rng.randn(*p.shape) * 0.05 + (
+        "norm" in n and n.endswith("weight"))).astype(np.float32)
+        for n, p in bert.BertForPretraining(bert.BertModel(
+            **cfg, device="meta")).named_parameters()}
+    net = load_jax_bert(arrays, cfg, head="pretraining", device=device)
+    if dtype == torch.bfloat16:
+        amp.decorate(net, level="O2")
+    return Model(net, device=device).prepare(
+        Lamb(1e-3, lamb_weight_decay=0.01, parameters=net.parameters()),
+        bert.BertPretrainingCriterion(193))
+
+
+def _pretraining_batch(B, S, seed=1):
+    """Ids with trailing, left and interleaved padding (the first
+    sequence of each pair unpadded), MLM labels on 15% of real tokens,
+    NSP labels."""
+    rng = np.random.RandomState(seed)
+    keep = np.concatenate([_seg(p, 2, S, rng) for p in (
+        "trailing", "left", "interleaved")])[:B] > 0
+    ids = np.where(keep, rng.randint(1, 193, (B, S)), 0)
+    mlm = np.where(keep & (rng.rand(B, S) < 0.15),
+                   rng.randint(0, 193, (B, S)), -1)
+    return ids, mlm, rng.randint(0, 2, B)
+
+
+@pytest.mark.cuda
+def test_bert_train_step_fp32_on_card_matches_cpu(cuda_device):
+    """One fp32 LAMB step of a 2-layer BERT through `Model.train_batch`
+    on the card (K1c forward and backward) and on a CPU copy (plain
+    versions): the loss and every parameter at 1e-5 (the same update
+    summed in another order; LAMB divides each gradient element by its
+    own scale). The key biases, whose gradient is zero up to rounding,
+    move by a step of norm lr * ||w|| on both."""
+    batch = _pretraining_batch(6, 128)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = _pretrainer(dev, 2)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in model.network.named_parameters()}
+        loss = float(model.train_batch([batch[0]], list(batch[1:]))[0])
+        out[dev.type] = (loss, before, {
+            n: p.detach().cpu() for n, p in model.network.named_parameters()})
+    (lc, _, card), (lh, before, cpu) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    for n in cpu:
+        if n.endswith("self_attn.k_proj.bias"):
+            for side in (card, cpu):
+                torch.testing.assert_close(
+                    (side[n] - before[n]).norm(), 1e-3 * before[n].norm(),
+                    rtol=1e-4, atol=0)
+            continue
+        torch.testing.assert_close(card[n], cpu[n], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_bert_train_steps_bf16_bit_identical(cuda_device):
+    """Two bf16 (AMP O2) steps with hidden dropout 0.1 from the same
+    weights after the same `seed()`: every parameter the same bits."""
+    from paddle_tpu_torch import seed
+    ids, mlm, nsp = _pretraining_batch(4, 256)
+    runs = []
+    for _ in range(2):
+        model = _pretrainer(cuda_device, 2, torch.bfloat16, hidden_p=0.1)
+        seed(7)
+        model.train_batch([ids], [mlm, nsp])
+        runs.append([p.detach().clone() for p in model.parameters()])
+    for a, b in zip(*runs):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_p,per_step", [(0.0, 12), (0.1, 0)])
+def test_bert_train_launch_counts(attn_p, per_step, cuda_device):
+    """A 12-layer bf16 step launches K1c's forward and backward once a
+    layer with attention dropout 0 (config (A)), never with 0.1 (config
+    (B), the additive path); K1a never."""
+    model = _pretrainer(cuda_device, 12, torch.bfloat16, attn_p=attn_p,
+                        hidden_p=0.1)
+    ids, mlm, nsp = _pretraining_batch(4, 128)
+    counts = ("fwd_launch_count", "bwd_launch_count", "seg_launch_count",
+              "seg_bwd_launch_count")
+    before = [getattr(tfa, c) for c in counts]
+    loss = model.train_batch([ids], [mlm, nsp])[0]
+    torch.cuda.synchronize()
+    assert np.isfinite(loss)
+    assert [getattr(tfa, c) - b for c, b in zip(counts, before)] == \
+        [0, 0, per_step, per_step]
+
+
+@pytest.mark.cuda
+def test_seed_gives_the_same_dropout_masks(cuda_device):
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nn import functional as F
+    x = torch.ones(64, 1024, device=cuda_device)
+    seed(3)
+    a = F.dropout(x, 0.5)
+    b = F.dropout(x, 0.5)
+    seed(3)
+    assert torch.equal(F.dropout(x, 0.5), a)
+    assert not torch.equal(a, b)
+    assert set(a.unique().tolist()) == {0.0, 2.0}

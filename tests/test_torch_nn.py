@@ -287,3 +287,21 @@ def test_sdpa_additive_path(kernel_calls, case):
     want = jF.scaled_dot_product_attention(
         *map(paddle.to_tensor, (q, k, v)), attn_mask=paddle.to_tensor(mask))
     close(out, want)             # every row: both take the additive path
+
+
+def test_seed_gives_the_same_dropout_masks():
+    """`paddle_tpu_torch.seed` restarts the generator dropout draws from:
+    the same seed, the same masks; kept values scaled by 1 / (1 - p);
+    `Dropout` is the identity in eval."""
+    from paddle_tpu_torch import seed
+    x = torch.ones(16, 256)
+    seed(3)
+    a = tF.dropout(x, 0.5)
+    b = tF.dropout(x, 0.5)
+    seed(3)
+    assert torch.equal(tF.dropout(x, 0.5), a)
+    assert not torch.equal(a, b)
+    assert set(a.unique().tolist()) == {0.0, 2.0}
+    layer = tnn.Dropout(0.5)
+    assert not torch.equal(layer(x), x)
+    assert torch.equal(layer.eval()(x), x)

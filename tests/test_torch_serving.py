@@ -172,6 +172,16 @@ def test_port_imports_no_jax():
             "import paddle_tpu_torch.nn.layers.norm\n"
             "import paddle_tpu_torch.nn.layers.transformer\n"
             "import paddle_tpu_torch.nn.container\n"
+            "import paddle_tpu_torch.nn.clip\n"
+            "import paddle_tpu_torch.core.random\n"
+            "import paddle_tpu_torch.optimizer\n"
+            "import paddle_tpu_torch.optimizer.lr\n"
+            "import paddle_tpu_torch.optimizer.optimizer\n"
+            "import paddle_tpu_torch.optimizer.optimizers\n"
+            "import paddle_tpu_torch.amp\n"
+            "import paddle_tpu_torch.amp.auto_cast\n"
+            "import paddle_tpu_torch.hapi\n"
+            "import paddle_tpu_torch.hapi.model\n"
             "bad = [m for m in sys.modules if m == 'jax'"
             " or m.startswith(('jax.', 'paddle_tpu.'))"
             " or m == 'paddle_tpu']\n"
