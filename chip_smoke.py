@@ -22,7 +22,8 @@ each (or a few):
    group, a short group padded with position 0, a group of slot -1)
    over the same three; the three
    grouped expert matmuls — float, int8 and int4 experts — at the MoE
-   step's two expert products; flash attention forward/backward,
+   step's two expert products, each with its bytes/s and share of its
+   bound; flash attention forward/backward,
    add+LayerNorm forward/backward and the fused QKV projection (forward,
    and its gradients through autograd) at the train step's; the
    paddle-layout flash forward at [8, 1024, 16, 128] causal and full,
@@ -65,7 +66,7 @@ each (or a few):
    attention launched once and the engine's grouped-matmul variant twice
    per layer per step (the other two never), and every valid token's
    two choices are counted or dropped; then a profiled decode window of
-   the float engine;
+   each engine, with the grouped matmuls' share of its device time;
 5c. on-card MoE check — fp32, 2 layers at full width, float and int8
    experts: 4 requests served on the card (kernels) and on a CPU copy
    (plain versions) give the same greedy tokens, unless the first
@@ -657,15 +658,17 @@ def check_outputs(model, reqs, device, label="check"):
           f"near-tie gap {worst:.4f}", flush=True)
 
 
-def profile_decode(eng, label, window=16):
+def profile_decode(eng, label, window=16, kernel=None):
     """Where a decode step's time goes: 8 requests with 256-token
     prompts are prefilled, then `window` pure-decode steps are timed on
     the host clock and the next `window` run under torch.profiler for
     their device time. Device busy share = device time / host time of
     the same kind of step (the profiler's own host overhead is kept out
     of the host time). A speculative engine's step may emit up to
-    draft_k + 1 tokens, so the horizon leaves room for that. Informational:
-    prints "not measured" when the profiler records no device events."""
+    draft_k + 1 tokens, so the horizon leaves room for that. With
+    `kernel`, also the device time of the kernels whose names hold that
+    string and their share of the step's. Informational: prints "not
+    measured" when the profiler records no device events."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -701,6 +704,13 @@ def profile_decode(eng, label, window=16):
     device_ms = sum(e.self_device_time_total for e in dev) / 1e3 / window
     launches = sum(e.count for e in dev) / window
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    share = ""
+    if kernel is not None:
+        mine = [e for e in dev if kernel in e.key]
+        k_ms = sum(e.self_device_time_total for e in mine) / 1e3 / window
+        share = (f"; {kernel} kernels {k_ms:.3f} ms in "
+                 f"{sum(e.count for e in mine) / window:.0f} launches, "
+                 f"{k_ms / device_ms:.1%} of the device time")
     print(f"profile: {label} decode step, 8 slots at contexts 256-"
           f"{max(256 + len(r.output) for r in reqs)}"
           f", {per_step:.2f} tokens a step"
@@ -708,7 +718,7 @@ def profile_decode(eng, label, window=16):
           f"ms of device time in {launches:.0f} device launches, device "
           f"busy {device_ms / host_ms:.1%}; most device time: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3 / window:.3f}"
-              f" ms x{e.count // window}" for e in top), flush=True)
+              f" ms x{e.count // window}" for e in top) + share, flush=True)
 
 
 # ---------------------------------------- phase 3, grouped expert matmuls
@@ -787,13 +797,20 @@ def check_gmm(gm, device, flush):
             lib = cuda_ms(lambda: torch.bmm(x, w_lib), flush=flush)
             bound_ms, bound_by = gmm_bound(x, w, scale, d_out)
             calls.append((err, ms, plain, lib, bound_ms, bound_by))
+            moved = bound_ms * 1e-3 * PEAK_BYTES if bound_by == "bytes" \
+                else None
             print(f"kernel check: gmm_{variant} {dname} {prod} "
                   f"[{x.shape[0]}, {x.shape[1]}, {d_in}] x [{d_in}, "
                   f"{d_out}] {str(w.dtype).split('.')[-1]} weights "
                   f"{tuple(w.shape)} max_abs_err={err:.3g} (tol {tol} "
                   f"(1 + |plain|)) kernel_ms={ms:.4f} plain_ms={plain:.4f}"
-                  f" bound_ms={bound_ms:.4f} ({bound_by}) yardstick: "
-                  f"torch.bmm{'' if scale is None else ' on a pre-dequantized copy'}"
+                  f" bound_ms={bound_ms:.4f} ({bound_by}), the kernel at "
+                  f"{bound_ms / ms:.1%} of it"
+                  + ("" if moved is None else
+                     f", {moved / (ms * 1e-3) / 1e12:.3f} TB/s of "
+                     f"{PEAK_BYTES / 1e12:.2f}")
+                  + "; yardstick: torch.bmm"
+                  f"{'' if scale is None else ' on a pre-dequantized copy'}"
                   f" {lib:.4f} ms", flush=True)
             del x, w, scale, got, w_lib
         if dname == "bfloat16":
@@ -1066,8 +1083,8 @@ def serve_moe(device, counters):
             fail(f"serve MoE {wdt}: {counts.sum()} routed + {dropped} "
                  f"dropped choices != {k} x {LAYERS} layers x {fed} tokens")
         launches[variant[fmt]] = got[variant[fmt]]
-        if fmt is None:
-            profile_decode(eng, "MoE-350M float experts")
+        profile_decode(eng, f"MoE-350M {fmt or 'float'} experts",
+                       kernel="gmm")
         del eng, reqs
         torch.cuda.empty_cache()
     del model

@@ -12,35 +12,73 @@
 //
 // Rounding: the plain version (ops/grouped_matmul.py) dequantizes in
 // the compute dtype T = x's dtype: s_c = round_T(round_T(scale) / qmax)
-// and w = round_T(q * s_c), then multiplies in T with fp32 sums. The
-// kernel rounds at exactly those places, so kernel and plain differ only
+// and w = round_T(q * s_c), then multiplies in T with fp32 sums. Both
+// kernels round at exactly those places, so kernel and plain differ only
 // in summation order. (The TPU kernel dequantizes in fp32 instead; that
 // departure is below one bf16 spacing per weight.)
 //
 // What bounds it: at the serving shapes (E = 8, C = 80 capacity rows,
 // D x F = 1024 x 4096 or 4096 x 1024) the weights are 67 MB in bf16,
-// 34 MB in int8, 17 MB in int4, and the flops 1.3e10: ~5 flops per
-// weight byte, far below the card's ~295, so the weight bytes bound it.
-// So a block owns one (expert, 64-column tile) and ALL C rows (128 at a
-// time, looping beyond), and every weight byte is read from device
-// memory once. It walks D in 32-row tiles through a 4-stage ring in
-// shared memory filled by cp.async (16-byte copies that bypass the
-// registers), so three tiles of x and w stay in flight while one is
-// multiplied: the bytes in flight, not the math, set the pace here.
-// Quantized tiles arrive as raw int8 / packed-int4 bytes and are
+// 34 MB in int8, 17 MB in int4, and the flops 5.4e9: ~80-320 flops per
+// weight byte, below the card's ~295 for int8 and bf16, so the weight
+// bytes bound it; int4 meets the tensor cores' peak at about the same
+// time as its bytes.
+//
+// Two kernels.
+//
+// gmm_q16_kernel, int8 and int4 weights under bf16 / fp16 activations
+// (the quantized serving path). It computes the transposed product
+// out[e]^T = deq(w[e])^T . x[e]^T with wgmma: 128 weight columns are M
+// (two m64 tiles of one consumer warpgroup), 80 capacity rows are N
+// (m64n80k16; more rows take more blocks along grid z), D is K. The
+// weights are the register operand: each thread loads one 32-bit word
+// per stored row that holds every column its fragments need (the M rows
+// of a tile are ordered so that a thread's four columns are adjacent,
+// and each warp's loads fall on 32 banks), and dequantizes it in
+// registers: int8 bytes pair up row by row with byte permutes, a packed
+// int4 byte already is a row pair (d, d + 1); magic-exponent tricks turn
+// bytes and nibbles into exact 16-bit q, and one packed multiply by the
+// column's s_c rounds each weight once. There is no dequantized tile and
+// no barrier per k-tile. x is the shared-memory operand, stored
+// K-contiguous with the 128-byte swizzle by TMA. One producer warp keeps
+// a ring of stages in flight through TMA (64 int8 rows, or 128 rows as
+// 64 packed int4 rows: 8 KB of weights, with the x tiles of the same
+// depth; 5 / 3 stages), each stage's fill and release tracked by an
+// mbarrier pair; rows whose length is not a multiple of 16 bytes (TMA
+// cannot describe them) are copied by the producer lanes instead. Two
+// blocks share an SM. Where E x F / 128 x C / 80 tiles cannot give every
+// SM a block (ffn2: 64 tiles), D is split into the fewest parts that do
+// (3 at ffn2, at most 4); the parts of a tile form a thread-block
+// cluster, and each block adds the fp32 partials of its share of the
+// tile's rows through distributed shared memory in rank order, so two
+// launches give the same bits. The accumulator is staged through shared
+// memory and written in 16-byte stores along F. The wrapper's `plan`
+// chooses the split. Measured on an H100 (tools/torch_gmm_ab.py): the
+// kernel is bound by moving its tiles, not by the dequant or the wgmma
+// (a copy without either keeps ~90% of the time); two column tiles that
+// multicast one x tile, and 256-column blocks of two warpgroups that
+// share it, were both slower or no faster. setmaxnreg is not used: the
+// consumers fit in 168 registers with two blocks an SM, so the producer
+// warp's share would buy nothing.
+//
+// gmm_kernel, float weights (any x dtype) and the quantized formats
+// under fp32 activations: a block owns one (expert, 64-column tile) and
+// all C rows (128 at a time, looping beyond), and walks D in 32-row
+// tiles through a 4-stage cp.async ring. Quantized tiles are
 // dequantized into an operand tile in shared memory just before the
 // product. 16-bit operands multiply on the tensor cores (mma.sync
 // m16n8k16, ldmatrix fragments; 4 warps x 32 rows x 64 columns); fp32
 // operands on the CUDA cores (each thread an 8 x 8 block of the
-// 128 x 64 tile). Edges are masked: any E, C, D and F (int4 needs an even
-// D); rows of x and w whose length or alignment does not allow 16-byte
-// copies are loaded element by element instead. Next for speed: TMA and
-// wgmma, and split-K where E x F / 64 blocks cannot fill the card.
+// 128 x 64 tile). Next for speed: the gmm_q16_kernel design for float
+// weights.
+//
+// Both mask their edges: any E, C, D and F (int4 needs an even D).
 //
 // Built with nvcc into a shared library with a plain C interface
 // (paddle_tpu_torch/ops/grouped_matmul.py), launched on the caller's
 // stream, allocating nothing.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -416,26 +454,635 @@ cudaError_t dispatch(int x_dtype, const void* x, const void* w,
                      const void* scale, int scale_dtype, float qmax,
                      void* out, int E, int C, int D, int F, int vec_x,
                      int vec_w, cudaStream_t st) {
-  switch (x_dtype) {
-    case 0:
-      return launch<float, FMT>(x, w, scale, scale_dtype, qmax, out, E, C, D,
-                                F, vec_x, vec_w, st);
-    case 1:
+  if (x_dtype == 0)
+    return launch<float, FMT>(x, w, scale, scale_dtype, qmax, out, E, C, D,
+                              F, vec_x, vec_w, st);
+  if constexpr (FMT == 0) {  // 16-bit x, quantized w: gmm_q16_kernel
+    if (x_dtype == 1)
       return launch<__nv_bfloat16, FMT>(x, w, scale, scale_dtype, qmax, out,
                                         E, C, D, F, vec_x, vec_w, st);
-    case 2:
-      return launch<__half, FMT>(x, w, scale, scale_dtype, qmax, out, E, C, D,
-                                 F, vec_x, vec_w, st);
+    if (x_dtype == 2)
+      return launch<__half, FMT>(x, w, scale, scale_dtype, qmax, out, E, C,
+                                 D, F, vec_x, vec_w, st);
   }
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------- the quantized kernel, 16-bit x
+
+namespace q16 {
+
+constexpr int kM = 128;                    // weight columns a block (M)
+constexpr int kN = 80;                     // capacity rows a block (N)
+constexpr int kConsumers = 128;            // one warpgroup
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+constexpr int kWRows = 64;                 // stored weight rows a stage
+constexpr int kWBytes = kWRows * kM;       // 8 KB of 128-byte rows
+constexpr int kXBytes = kN * 128;          // 80 rows x 64 16-bit values
+constexpr int kOutLd = kM + 16;            // staged output row, elements
+
+template <int FMT>
+struct Cfg {
+  static constexpr int kDepth = FMT == 1 ? 64 : 128;  // contraction rows
+  static constexpr int kXBoxes = kDepth / 64;          // x tiles a stage
+  static constexpr int kSteps = kDepth / 16;           // k16 steps a stage
+  static constexpr int kStages = FMT == 1 ? 5 : 3;
+  static constexpr int kStageBytes = kWBytes + kXBoxes * kXBytes;
+  static constexpr int kRing = kStages * kStageBytes;
+  static constexpr int kSmem = 1024 + kRing + 2 * kStages * 8;
+};
+static_assert(Cfg<2>::kRing >= kN * kM * 4, "partials fit the ring");
+static_assert(Cfg<2>::kRing >= kN * kOutLd * 2, "staging fits the ring");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; its bytes complete the barrier's transaction count.
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// p's counterpart in the shared memory of the cluster's block `rank`,
+// as a generic pointer: plain loads through it batch.
+__device__ __forceinline__ const float* peer(const float* p, uint32_t rank) {
+  uint64_t a;
+  asm("mapa.u64 %0, %1, %2;\n"
+      : "=l"(a)
+      : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const float*>(a);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory descriptor of a K-major B tile in the 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t x_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+#define Q16_ACC                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),     \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+#define Q16_MMA(TY)                                                        \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"                             \
+  "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " "              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "               \
+  "{%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+
+// d (64 x 80, fp32) += a (64 x 16, registers) . B (16 x 80, shared).
+template <typename T>
+struct Wgmma;
+template <>
+struct Wgmma<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(Q16_MMA("bf16")
+                 : Q16_ACC
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+                   "r"(1));
+  }
+};
+template <>
+struct Wgmma<__half> {
+  static __device__ __forceinline__ void run(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(Q16_MMA("f16")
+                 : Q16_ACC
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+                   "r"(1));
+  }
+};
+#undef Q16_MMA
+#undef Q16_ACC
+
+template <typename T>
+__device__ __forceinline__ uint32_t bits(T v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Exact 16-bit q pairs from stored bytes: each returns the packed pair
+// (low half: row d, high half: row d + 1) of byte J's column.
+//
+// int8: `a` and `b` hold rows d and d + 1 of four columns, biased to
+// unsigned (^ 0x80). bf16: the byte becomes the low mantissa byte of
+// 2^23 (fp32); minus 2^23 + 128 that is q, whose upper 16 bits are its
+// bf16. fp16: the byte becomes the low byte of 1024.0; minus 1152 is q.
+template <typename T, int J>
+__device__ __forceinline__ uint32_t q8_pair(uint32_t a, uint32_t b) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const float fa =
+        __uint_as_float(__byte_perm(a, 0x4B000000u, 0x7650 | J)) -
+        8388736.f;
+    const float fb =
+        __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7650 | J)) -
+        8388736.f;
+    return __byte_perm(__float_as_uint(fa), __float_as_uint(fb), 0x7632);
+  } else {
+    const uint32_t t =
+        (__byte_perm(a, b, J | ((4 + J) << 8)) & 0x00FF00FFu) | 0x64006400u;
+    return bits(__hsub2(*reinterpret_cast<const __half2*>(&t),
+                        __halves2half2(__ushort_as_half(0x6480),
+                                       __ushort_as_half(0x6480))));
+  }
+}
+
+// int4: `a` holds one packed row (rows d, d + 1) of four columns, biased
+// (^ 0x88888888), and `s` is a >> 4. Byte J's low nibble goes to the low
+// half and its high nibble to the high half, each as the low mantissa
+// bits of 128.0 (bf16) or 1024.0 (fp16); minus 136 or 1032 is q.
+template <typename T, int J>
+__device__ __forceinline__ uint32_t q4_pair(uint32_t a, uint32_t s) {
+  const uint32_t t = __byte_perm(a, s, J | ((4 + J) << 8)) & 0x000F000Fu;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const uint32_t m = t | 0x43004300u;
+    return bits(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m),
+                        __halves2bfloat162(__ushort_as_bfloat16(0x4308),
+                                           __ushort_as_bfloat16(0x4308))));
+  } else {
+    const uint32_t m = t | 0x64006400u;
+    return bits(__hsub2(*reinterpret_cast<const __half2*>(&m),
+                        __halves2half2(__ushort_as_half(0x6408),
+                                       __ushort_as_half(0x6408))));
+  }
+}
+
+// round_T(q * s_c) of both halves: one rounding, the plain version's.
+template <typename T>
+__device__ __forceinline__ uint32_t scaled(uint32_t q, uint32_t s) {
+  using T2 = typename std::conditional<std::is_same<T, __half>::value,
+                                       __half2, __nv_bfloat162>::type;
+  return bits(__hmul2(*reinterpret_cast<const T2*>(&q),
+                      *reinterpret_cast<const T2*>(&s)));
+}
+
+// The offset of (row r, byte c) in a tile of 128-byte rows under the
+// 128-byte swizzle, as TMA writes it: 16-byte chunk (c / 16) ^ (r % 8).
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
+}
+
+// The thread's column group G: M row (tile mt, half h) of warp w, lane l
+// is the block's column 4 G(w, l / 4) + 2 mt + h, so one 32-bit load of
+// a stored row holds all four columns of a thread. The order keeps each
+// warp's loads on 32 distinct banks under the swizzle: int8 threads read
+// rows 2 (l % 4) + {0, 1} (+ 8) of a step, int4 threads packed rows
+// l % 4 (+ 4).
+template <int FMT>
+__device__ __forceinline__ int col_group(int warp, int g) {
+  return FMT == 1 ? 8 * warp + g : 4 * warp + 16 * (g >> 2) + (g & 3);
+}
+
+// The stored words of k16 step `st` of a stage that a thread's fragments
+// need: int8 rows 16 st + 2 q + {0, 1, 8, 9}, int4 packed rows
+// 8 st + q + {0, 4}, each the 32-bit word of its four columns from cb.
+template <int FMT>
+__device__ __forceinline__ void load_words(uint32_t (&r)[4],
+                                           const unsigned char* wt, int st,
+                                           int q, int cb) {
+  if constexpr (FMT == 1) {
+    const int k = 16 * st + 2 * q;
+    r[0] = *reinterpret_cast<const uint32_t*>(wt + swz(k, cb));
+    r[1] = *reinterpret_cast<const uint32_t*>(wt + swz(k + 1, cb));
+    r[2] = *reinterpret_cast<const uint32_t*>(wt + swz(k + 8, cb));
+    r[3] = *reinterpret_cast<const uint32_t*>(wt + swz(k + 9, cb));
+  } else {
+    const int p = 8 * st + q;
+    r[0] = *reinterpret_cast<const uint32_t*>(wt + swz(p, cb));
+    r[1] = *reinterpret_cast<const uint32_t*>(wt + swz(p + 4, cb));
+  }
+}
+
+// The A operands of a k16 step from its words, dequantized: a[mt] holds
+// the weights of columns cb + 2 mt + {0, 1} (the fragment's rows r and
+// r + 8), depths 2 q + {0, 1} and 2 q + 8 + {0, 1}.
+template <typename T, int FMT>
+__device__ __forceinline__ void dequant_frags(uint32_t (&a)[2][4],
+                                              const uint32_t (&r)[4],
+                                              const uint32_t (&s2)[4]) {
+  if constexpr (FMT == 1) {
+    const uint32_t xa = r[0] ^ 0x80808080u, xb = r[1] ^ 0x80808080u;
+    const uint32_t xc = r[2] ^ 0x80808080u, xd = r[3] ^ 0x80808080u;
+    a[0][0] = scaled<T>(q8_pair<T, 0>(xa, xb), s2[0]);
+    a[0][1] = scaled<T>(q8_pair<T, 1>(xa, xb), s2[1]);
+    a[0][2] = scaled<T>(q8_pair<T, 0>(xc, xd), s2[0]);
+    a[0][3] = scaled<T>(q8_pair<T, 1>(xc, xd), s2[1]);
+    a[1][0] = scaled<T>(q8_pair<T, 2>(xa, xb), s2[2]);
+    a[1][1] = scaled<T>(q8_pair<T, 3>(xa, xb), s2[3]);
+    a[1][2] = scaled<T>(q8_pair<T, 2>(xc, xd), s2[2]);
+    a[1][3] = scaled<T>(q8_pair<T, 3>(xc, xd), s2[3]);
+  } else {
+    const uint32_t xa = r[0] ^ 0x88888888u, xc = r[1] ^ 0x88888888u;
+    const uint32_t sa = xa >> 4, sc = xc >> 4;
+    a[0][0] = scaled<T>(q4_pair<T, 0>(xa, sa), s2[0]);
+    a[0][1] = scaled<T>(q4_pair<T, 1>(xa, sa), s2[1]);
+    a[0][2] = scaled<T>(q4_pair<T, 0>(xc, sc), s2[0]);
+    a[0][3] = scaled<T>(q4_pair<T, 1>(xc, sc), s2[1]);
+    a[1][0] = scaled<T>(q4_pair<T, 2>(xa, sa), s2[2]);
+    a[1][1] = scaled<T>(q4_pair<T, 3>(xa, sa), s2[3]);
+    a[1][2] = scaled<T>(q4_pair<T, 2>(xc, sc), s2[2]);
+    a[1][3] = scaled<T>(q4_pair<T, 3>(xc, sc), s2[3]);
+  }
+}
+
+// What TMA cannot describe (rows not a multiple of 16 bytes), copied by
+// producer lanes 1..31 in the layout TMA would have written: the raw
+// weight tile (stored rows from p0, columns from f0; zero past Dw, F)
+// and an x tile (capacity rows from c0, depths from k0; zero past C, D).
+__device__ __forceinline__ void copy_w(unsigned char* wt,
+                                       const int8_t* __restrict__ we,
+                                       int p0, int f0, int Dw, int F,
+                                       int lane) {
+  for (int i = lane - 1; i < kWRows * 32; i += 31) {
+    const int r = i >> 5, c = (i & 31) * 4, p = p0 + r;
+    uint32_t v = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int f = f0 + c + b;
+      if (p < Dw && f < F)
+        v |= (uint32_t)(uint8_t)we[(long long)p * F + f] << (8 * b);
+    }
+    *reinterpret_cast<uint32_t*>(wt + swz(r, c)) = v;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_x(unsigned char* xt,
+                                       const T* __restrict__ xe, int c0,
+                                       int k0, int C, int D, int lane) {
+  for (int i = lane - 1; i < kN * 32; i += 31) {
+    const int n = i >> 5, k = k0 + (i & 31) * 2, c = c0 + n;
+    T v[2] = {T{}, T{}};
+    if (c < C) {
+      if (k < D) v[0] = xe[(long long)c * D + k];
+      if (k + 1 < D) v[1] = xe[(long long)c * D + k + 1];
+    }
+    *reinterpret_cast<uint32_t*>(xt + swz(n, (i & 31) * 4)) =
+        *reinterpret_cast<const uint32_t*>(v);
+  }
+}
+
+// Grid (F / 128 tiles x split, E, C / 80 chunks). With split > 1 the
+// `split` blocks of one output tile form a cluster, rank = the part of D
+// each walks. Each writes its fp32 partial to its shared memory; then
+// block r adds, for its share of the tile's rows (8-row groups
+// [10 r / split, 10 (r + 1) / split)), the partials of ranks 0, 1, ... in
+// that order and stores those rows: the same sums in the same order on
+// every launch.
+template <typename T, int FMT>
+__global__ void __launch_bounds__(kThreads, 2)
+gmm_q16_kernel(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap wmap,
+               const T* __restrict__ x, const int8_t* __restrict__ w,
+               const void* __restrict__ scale, int scale_dtype, float qmax,
+               T* __restrict__ out, int C, int D, int F, int split,
+               int tma_x, int tma_w) {
+  using K = Cfg<FMT>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + K::kRing);
+  uint64_t* empty = full + K::kStages;
+  const int part = blockIdx.x % split, e = blockIdx.y;
+  const int f0 = (blockIdx.x / split) * kM, c0 = blockIdx.z * kN;
+  const int Dw = FMT == 2 ? D / 2 : D;        // stored weight rows
+  const int kt = (Dw + kWRows - 1) / kWRows;  // stages over all of D
+  const int t0 = part * kt / split, nt = (part + 1) * kt / split - t0;
+  const bool all_tma = tma_x && tma_w;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < K::kStages; ++i) {
+      mbar_init(&full[i], all_tma ? 1 : 32);
+      mbar_init(&empty[i], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------ producer warp
+    const int lane = threadIdx.x & 31;
+    const int8_t* we = w + (long long)e * Dw * F;
+    const T* xe = x + (long long)e * C * D;
+    const uint32_t tx =
+        (tma_w ? kWBytes : 0) + (tma_x ? K::kXBoxes * kXBytes : 0);
+    for (int i = 0; i < nt; ++i) {
+      const int stage = i % K::kStages, t = t0 + i;
+      mbar_wait(&empty[stage], ((i / K::kStages) & 1) ^ 1);
+      unsigned char* wt = ring + stage * K::kStageBytes;
+      if (lane == 0) {
+        mbar_arrive_tx(&full[stage], tx);
+        if (tma_w) tma_3d(wt, &wmap, f0, t * kWRows, e, &full[stage]);
+        if (tma_x)
+          for (int b = 0; b < K::kXBoxes; ++b)
+            tma_3d(wt + kWBytes + b * kXBytes, &xmap,
+                   t * K::kDepth + 64 * b, c0, e, &full[stage]);
+      } else if (!all_tma) {
+        if (!tma_w) copy_w(wt, we, t * kWRows, f0, Dw, F, lane);
+        if (!tma_x)
+          for (int b = 0; b < K::kXBoxes; ++b)
+            copy_x<T>(wt + kWBytes + b * kXBytes, xe, c0,
+                      t * K::kDepth + 64 * b, C, D, lane);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&full[stage]);
+      }
+    }
+    if (split > 1) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // ---------------------------------------------- consumer warpgroup
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane & 3;
+  const int cb = 4 * col_group<FMT>(warp, lane >> 2);  // first column
+  uint32_t s2[4];  // (s_c, s_c) of the thread's four columns, in T
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = f0 + cb + j;
+    float s = 0.f;
+    if (col < F) {
+      const long long i = (long long)e * F + col;
+      s = scale_dtype == 0
+              ? static_cast<const float*>(scale)[i]
+              : scale_dtype == 1
+                    ? to_float(static_cast<const __nv_bfloat16*>(scale)[i])
+                    : to_float(static_cast<const __half*>(scale)[i]);
+      s = round_to<T>(round_to<T>(s) / qmax);
+    }
+    const T h = from_float<T>(s);
+    const uint32_t b = *reinterpret_cast<const uint16_t*>(&h);
+    s2[j] = b | (b << 16);
+  }
+  float acc[2][40];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 40; ++i) acc[mt][i] = 0.f;
+  uint32_t frag[2][2][4];  // two steps' fragments: one fills, one is read
+  for (int i = 0; i < nt; ++i) {
+    const int stage = i % K::kStages;
+    mbar_wait(&full[stage], (i / K::kStages) & 1);
+    const unsigned char* wt = ring + stage * K::kStageBytes;
+    const uint32_t xs = smem_u32(wt + kWBytes);
+    uint32_t words[4];
+    load_words<FMT>(words, wt, 0, q, cb);
+#pragma unroll
+    for (int st = 0; st < K::kSteps; ++st) {
+      uint32_t(&a)[2][4] = frag[st & 1];
+      dequant_frags<T, FMT>(a, words, s2);
+      // The next step's loads go out now and land behind this wgmma.
+      if (st + 1 < K::kSteps) load_words<FMT>(words, wt, st + 1, q, cb);
+      wgmma_fence();
+      const uint64_t desc =
+          x_desc(xs + (st >> 2) * kXBytes + (st & 3) * 32);
+      Wgmma<T>::run(acc[0], a[0], desc);
+      Wgmma<T>::run(acc[1], a[1], desc);
+      wgmma_commit();
+      wgmma_wait<1>();  // step st - 1 is done: its fragments and x free
+      if (st == 0 && i > 0) mbar_arrive(&empty[(i - 1) % K::kStages]);
+    }
+  }
+  wgmma_wait<0>();
+  consumers_sync();  // every consumer is done with the ring
+
+  // This block stores rows 8 jn .. 8 jn + 7 for jn in [j0, j1).
+  const int j0 = part * (kN / 8) / split;
+  const int j1 = (part + 1) * (kN / 8) / split;
+  const int tid = threadIdx.x;
+  if (split > 1) {
+    float* part_s = reinterpret_cast<float*>(ring);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 40; ++i) {
+        part_s[(mt * 40 + i) * kConsumers + tid] = acc[mt][i];
+        acc[mt][i] = 0.f;
+      }
+    cluster_sync();  // every partial is written
+    for (int r = 0; r < split; ++r) {
+      const float* src = peer(part_s, r) + tid;
+#pragma unroll
+      for (int jn = 0; jn < kN / 8; ++jn) {
+        if (jn < j0 || jn >= j1) continue;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            acc[mt][4 * jn + u] += src[(mt * 40 + 4 * jn + u) * kConsumers];
+      }
+    }
+    cluster_sync();  // every block has read the partials it needs
+  }
+
+  // Epilogue: [80 rows][128 columns] staged in T, then 16-byte stores.
+  T* stg = reinterpret_cast<T*>(ring);
+#pragma unroll
+  for (int jn = 0; jn < kN / 8; ++jn)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int n = 8 * jn + 2 * q + b;
+      T v[4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          v[2 * mt + h] = from_float<T>(acc[mt][4 * jn + 2 * h + b]);
+      *reinterpret_cast<uint2*>(stg + n * kOutLd + cb) =
+          *reinterpret_cast<const uint2*>(v);
+    }
+  consumers_sync();
+  T* oe = out + (long long)e * C * F;
+  const bool vec = F % 8 == 0;
+  for (int i = 8 * j0 * (kM / 8) + tid; i < 8 * j1 * (kM / 8);
+       i += kConsumers) {
+    const int n = i / (kM / 8), cc = (i % (kM / 8)) * 8;
+    const int c = c0 + n, f = f0 + cc;
+    if (c >= C || f >= F) continue;
+    const T* src = stg + n * kOutLd + cc;
+    T* dst = oe + (long long)c * F + f;
+    if (vec)
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    else
+      for (int j = 0; j < 8 && f + j < F; ++j) dst[j] = src[j];
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &res);
+#endif
+    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A 3-D map over [d2][d1][d0] elements of `bytes` each: boxes of
+// (b0, b1, 1) in the 128-byte swizzle, zeros outside the tensor.
+cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType dt, int bytes,
+                     const void* base, long long d0, long long d1,
+                     long long d2, int b0, int b1) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
+                              (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * bytes),
+                                 (cuuint64_t)(d0 * d1 * bytes)};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r =
+      fn(map, dt, 3, const_cast<void*>(base), dims, strides, box, unit,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int FMT>
+cudaError_t launch(const void* x, const void* w, const void* scale,
+                   int scale_dtype, float qmax, void* out, int E, int C,
+                   int D, int F, int split, int tma_x, int tma_w,
+                   cudaStream_t st) {
+  using K = Cfg<FMT>;
+  CUtensorMap xmap = {}, wmap = {};
+  cudaError_t err;
+  if (tma_x) {
+    err = make_map(&xmap,
+                   std::is_same<T, __half>::value
+                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   2, x, D, C, E, 64, kN);
+    if (err != cudaSuccess) return err;
+  }
+  if (tma_w) {
+    err = make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, F,
+                   FMT == 2 ? D / 2 : D, E, kM, kWRows);
+    if (err != cudaSuccess) return err;
+  }
+  auto kern = gmm_q16_kernel<T, FMT>;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, K::kSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((F + kM - 1) / kM) * split, E, (C + kN - 1) / kN);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = K::kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, xmap, wmap, static_cast<const T*>(x),
+                           static_cast<const int8_t*>(w), scale, scale_dtype,
+                           qmax, static_cast<T*>(out), C, D, F, split,
+                           tma_x, tma_w);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace q16
+
 }  // namespace
 
-// x_dtype / scale_dtype: 0 fp32, 1 bf16, 2 fp16. w_format: 0 float of
-// x's dtype, 1 int8, 2 packed int4. vec_x / vec_w: the rows of x / w
-// allow 16-byte copies (row length a multiple of 16 bytes, pointers
-// 16-byte aligned).
+// gmm_kernel. x_dtype / scale_dtype: 0 fp32, 1 bf16, 2 fp16. w_format:
+// 0 float of x's dtype (any x_dtype), 1 int8 or 2 packed int4 (x_dtype
+// 0 only). vec_x / vec_w: the rows of x / w allow 16-byte copies (row
+// length a multiple of 16 bytes, pointers 16-byte aligned).
 extern "C" int paddle_tpu_torch_grouped_matmul(
     const void* x, const void* w, const void* scale, void* out, int E, int C,
     int D, int F, int x_dtype, int w_format, int scale_dtype, float qmax,
@@ -455,5 +1102,37 @@ extern "C" int paddle_tpu_torch_grouped_matmul(
       return (int)dispatch<2>(x_dtype, x, w, scale, scale_dtype, qmax, out, E,
                               C, D, F, vec_x, vec_w, st);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// gmm_q16_kernel: x_dtype 1 bf16 or 2 fp16, w_format 1 int8 or 2 packed
+// int4, scale_dtype as above; split: the parts of D (1-4), one cluster
+// of `split` blocks per output tile. tma_x / tma_w: the rows of x / w
+// can be described to TMA (row length a multiple of 16 bytes, pointers
+// 16-byte aligned); otherwise the producer copies them.
+extern "C" int paddle_tpu_torch_grouped_matmul_q16(
+    const void* x, const void* w, const void* scale, void* out, int E, int C,
+    int D, int F, int x_dtype, int w_format, int scale_dtype, float qmax,
+    int split, int tma_x, int tma_w, void* stream) {
+  if (E <= 0 || C <= 0 || D <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  if (w_format == 2 && D % 2) return (int)cudaErrorInvalidValue;
+  if (E > 65535 || (C + q16::kN - 1) / q16::kN > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (split < 1 || split > 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 1 && w_format == 1)
+    return (int)q16::launch<__nv_bfloat16, 1>(x, w, scale, scale_dtype, qmax,
+                                              out, E, C, D, F, split, tma_x,
+                                              tma_w, st);
+  if (x_dtype == 1 && w_format == 2)
+    return (int)q16::launch<__nv_bfloat16, 2>(x, w, scale, scale_dtype, qmax,
+                                              out, E, C, D, F, split, tma_x,
+                                              tma_w, st);
+  if (x_dtype == 2 && w_format == 1)
+    return (int)q16::launch<__half, 1>(x, w, scale, scale_dtype, qmax, out,
+                                       E, C, D, F, split, tma_x, tma_w, st);
+  if (x_dtype == 2 && w_format == 2)
+    return (int)q16::launch<__half, 2>(x, w, scale, scale_dtype, qmax, out,
+                                       E, C, D, F, split, tma_x, tma_w, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,15 +11,20 @@
 
 On a CUDA tensor it launches `csrc/grouped_matmul.cu`, the Hopper
 kernels that replace the TPU kernels `_gmm_kernel`, `_gmm_kernel_quant`
-and `_gmm_kernel_quant4`, one per weight format, or raises: there is no
-fallback. At the serving shapes the products are bound by the weight
-bytes, so a block owns one (expert, column tile) and every capacity
-row, reading each weight byte once through a ring of asynchronous
-copies and dequantizing it in shared memory just before the product
-(the source explains the design). On a CPU
-tensor it runs `grouped_matmul_reference`, the plain PyTorch version of
-the JAX package's einsum oracle, which the tests and `chip_smoke.py`
-also hold the kernels against.
+and `_gmm_kernel_quant4`, or raises: there is no fallback. At the
+serving shapes the products are bound by the weight bytes. int8 and
+int4 weights under bf16 or fp16 activations (the quantized serving
+path) take `gmm_q16_kernel`: a block owns 128 weight columns of one
+expert and 80 capacity rows, the weights stream in through TMA and are
+dequantized in registers as wgmma's register operand, x is its
+shared-memory operand, and where the output tiles cannot fill the card
+the blocks of one tile split D and add their partials in a fixed order
+(`plan` says which). Float weights and fp32 activations take
+`gmm_kernel`, a block per (expert, 64 columns) that dequantizes in
+shared memory. (The source explains both designs.) On a CPU tensor it
+runs `grouped_matmul_reference`, the plain PyTorch version of the JAX
+package's einsum oracle, which the tests and `chip_smoke.py` also hold
+the kernels against.
 
 The host helpers (`pack_int4`, `unpack_int4`, `is_packed_int4`,
 `quantize_int4_experts`, `expert_weight_bytes`) produce the JAX
@@ -165,13 +170,53 @@ def grouped_matmul_reference(x, w, scale=None, *, qmax=None,
 _SIGNATURES = {"paddle_tpu_torch_grouped_matmul":
                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_void_p]}
+                  ctypes.c_void_p],
+               "paddle_tpu_torch_grouped_matmul_q16":
+               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+               + [ctypes.c_float] + [ctypes.c_int] * 3
+               + [ctypes.c_void_p]}
+
+#: gmm_q16_kernel's tile: weight columns (wgmma M) and capacity rows
+#: (wgmma N) a block, and contraction rows a stage per weight format
+Q16_COLS, Q16_ROWS = 128, 80
+Q16_DEPTH = {1: 64, 2: 128}
+#: the card's SMs where no card is asked (an H100 SXM)
+H100_SMS = 132
+
+
+def plan(E, C, D, F, w_format, x_dtype, sms=H100_SMS):
+    """Which kernel a launch takes and how it is cut, from the shapes
+    alone: `w_format` 0 float, 1 int8, 2 packed int4 (D is the logical
+    depth). int8 and int4 weights under bf16 or fp16 activations take
+    "q16" (`gmm_q16_kernel`), everything else "mma" (`gmm_kernel`).
+    For "q16", `tiles` = E x ceil(F / 128) x ceil(C / 80) output tiles;
+    where they cannot give every one of `sms` SMs a block, D is split
+    into the fewest parts that do (at most 4, at least one stage each),
+    and each tile's `split` blocks form one cluster. (Fewer, longer
+    blocks run faster than more: the split's reduction costs more than
+    a full card gains; see `tools/torch_gmm_ab.py --sweep`.)"""
+    q16 = w_format in (1, 2) and x_dtype in (torch.bfloat16, torch.float16)
+    if not q16:
+        return {"kernel": "mma", "split": 1, "cluster": 1,
+                "blocks": E * -(-F // 64)}
+    tiles = E * -(-F // Q16_COLS) * -(-C // Q16_ROWS)
+    stages = -(-D // Q16_DEPTH[w_format])
+    split = 1
+    if tiles < sms:
+        split = max(1, min(4, stages, -(-sms // tiles)))
+    return {"kernel": "q16", "m_tile": Q16_COLS, "n_tile": Q16_ROWS,
+            "k_tile": Q16_DEPTH[w_format], "tiles": tiles, "split": split,
+            "cluster": split, "blocks": tiles * split}
 
 
 def build():
     """Compile the kernels' shared library (see `_build.build`); returns
     its path."""
     return _build.build("grouped_matmul")
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _vec_ok(t, row):
@@ -234,12 +279,17 @@ def _launch(x, w, scale, qmax, out_dtype):
         return out.zero_()
     lib = _build.load("grouped_matmul", _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.paddle_tpu_torch_grouped_matmul(
-        x.data_ptr(), w.data_ptr(),
-        None if scale is None else scale.data_ptr(), out.data_ptr(),
-        E, C, D, F, _DTYPE_CODES[x.dtype], fmt,
-        0 if scale is None else _DTYPE_CODES[scale.dtype], float(qmax),
-        _vec_ok(x, D), _vec_ok(w, F), stream)
+    args = (x.data_ptr(), w.data_ptr(),
+            None if scale is None else scale.data_ptr(), out.data_ptr(),
+            E, C, D, F, _DTYPE_CODES[x.dtype], fmt,
+            0 if scale is None else _DTYPE_CODES[scale.dtype], float(qmax))
+    how = plan(E, C, D, F, fmt, x.dtype, _sms(x.device))
+    if how["kernel"] == "q16":
+        err = lib.paddle_tpu_torch_grouped_matmul_q16(
+            *args, how["split"], _vec_ok(x, D), _vec_ok(w, F), stream)
+    else:
+        err = lib.paddle_tpu_torch_grouped_matmul(
+            *args, _vec_ok(x, D), _vec_ok(w, F), stream)
     if err != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA "
                            f"error {err}")

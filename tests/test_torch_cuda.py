@@ -671,15 +671,22 @@ def test_wgrad_kernel_refuses_unsupported_operands(cuda_device):
 # --------------------------------------------- grouped matmul (K4) kernels
 
 
+_GMM_XDT = {"fp32": torch.float32, "fp16": torch.float16,
+            "int8-fp16": torch.float16, "int4-fp16": torch.float16,
+            "int8-fp32": torch.float32, "int4-fp32": torch.float32}
+
+
 def _gmm_case(E, C, D, F, variant, device, seed=0):
-    """(x, w, scale) of one variant: "fp32" / "bf16" float experts,
-    "int8" / "int4" quantized experts under bf16 activations."""
+    """(x, w, scale) of one variant: "fp32" / "bf16" / "fp16" float
+    experts, "int8" / "int4" quantized experts under bf16 activations
+    ("-fp16" / "-fp32" suffixed: under those)."""
     g = torch.Generator().manual_seed(seed)
-    xdt = torch.float32 if variant == "fp32" else torch.bfloat16
+    xdt = _GMM_XDT.get(variant, torch.bfloat16)
+    variant = variant.split("-")[0]
     x = torch.randn(E, C, D, generator=g).to(xdt)
     w = torch.randn(E, D, F, generator=g) / math.sqrt(D)
     scale = None
-    if variant in ("fp32", "bf16"):
+    if variant in ("fp32", "bf16", "fp16"):
         w = w.to(xdt)
     elif variant == "int8":
         w = torch.randint(-127, 128, (E, D, F), generator=g,
@@ -693,33 +700,121 @@ def _gmm_case(E, C, D, F, variant, device, seed=0):
 
 
 _GMM_COUNTERS = {"fp32": "fp_launch_count", "bf16": "fp_launch_count",
-                 "int8": "int8_launch_count", "int4": "int4_launch_count"}
+                 "fp16": "fp_launch_count", "int8": "int8_launch_count",
+                 "int4": "int4_launch_count"}
+
+
+def _gmm_counter(variant):
+    return _GMM_COUNTERS[variant.split("-")[0]]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [1, 5, 80, 200])
 @pytest.mark.parametrize("E,D,F", [(2, 64, 72), (3, 38, 50), (1, 96, 8)])
-@pytest.mark.parametrize("variant", ["fp32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("variant", ["fp32", "bf16", "fp16", "int8",
+                                     "int4", "int8-fp16", "int4-fp16"])
 def test_gmm_kernels_match_plain(C, E, D, F, variant, cuda_device):
     """Each K4 kernel against the plain version on the card, at ragged
-    shapes (C across one and two 128-row passes; D and F off the 16 and
-    64 tiles; F = 50 takes the element-wise loads). fp32: sums in
-    another order, 1e-4. bf16 outputs: the same bf16 operands (the
-    quantized kernels round the dequantized weights where the plain
-    version does), multiplied in fp32, one output rounding — 1e-2."""
+    shapes (C across one and two 128-row passes of the mma kernel and
+    three 80-row chunks of the wgmma one; D and F off the tiles; F = 50
+    and D = 38 rows take the element-wise loads). fp32: sums in another
+    order, 1e-4. 16-bit outputs: the same 16-bit operands (the quantized
+    kernels round the dequantized weights where the plain version
+    does), multiplied in fp32, one output rounding — 1e-2."""
     x, w, scale = _gmm_case(E, C, D, F, variant, cuda_device)
     counts = {n: getattr(tgmm, n) for n in set(_GMM_COUNTERS.values())}
     got = tgmm.grouped_expert_matmul(x, w, scale)
     torch.cuda.synchronize()
     for name, before in counts.items():
         assert getattr(tgmm, name) == before + (
-            name == _GMM_COUNTERS[variant])
+            name == _gmm_counter(variant))
     want = tgmm.grouped_matmul_reference(x, w, scale)
     assert got.dtype == x.dtype and got.shape == (E, C, F)
     assert torch.isfinite(got.float()).all()
     tol = 1e-4 if variant == "fp32" else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol)
+
+
+# (E, C, D, F) and the split `plan` gives int8 and int4 there
+_Q16_SHAPES = [
+    ((4, 300, 64, 4096), 1, 1),    # enough tiles: unsplit
+    ((2, 256, 96, 200), 2, 1),     # F off the 128-column tile
+    ((1, 80, 200, 264), 4, 2),     # D and F off their tiles
+    ((1, 300, 1024, 72), 4, 4),    # 72-byte weight rows: no TMA
+    ((3, 256, 512, 50), 4, 4),     # 50-byte weight rows
+    ((2, 300, 38, 136), 1, 1),     # 76-byte x rows: no TMA for x
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,split8,split4", _Q16_SHAPES)
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("xname", ["bf16", "fp16"])
+def test_gmm_q16_kernel_across_its_tiles(shape, split8, split4, fmt, xname,
+                                         cuda_device):
+    """The wgmma kernel of the quantized formats against the plain
+    version where its cuts fall: C = 256 and 300 over 4 chunks of 80
+    rows, D in 1, 2 and 4 split parts, F off the 128-column tile, and
+    weight or x rows that TMA cannot describe (copied by the producer
+    warp). The same operands and roundings as the plain version, fp32
+    sums in another order: 1e-2."""
+    E, C, D, F = shape
+    variant = fmt if xname == "bf16" else f"{fmt}-{xname}"
+    x, w, scale = _gmm_case(E, C, D, F, variant, cuda_device)
+    p = tgmm.plan(E, C, D, F, 1 if fmt == "int8" else 2, x.dtype,
+                  tgmm._sms(cuda_device))
+    assert p["kernel"] == "q16"
+    assert p["split"] == (split8 if fmt == "int8" else split4)
+    got = tgmm.grouped_expert_matmul(x, w, scale)
+    want = tgmm.grouped_matmul_reference(x, w, scale)
+    assert got.dtype == x.dtype and got.shape == (E, C, F)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("D,F", [(1024, 4096), (4096, 1024)])
+def test_gmm_q16_kernel_bit_identical_across_launches(fmt, D, F,
+                                                      cuda_device):
+    """At the MoE step's two products (ffn2's split into parts added in
+    rank order), two launches on the same inputs give the same bits."""
+    x, w, scale = _gmm_case(8, 80, D, F, fmt, cuda_device)
+    a = tgmm.grouped_expert_matmul(x, w, scale)
+    b = tgmm.grouped_expert_matmul(x, w, scale)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(
+        a.float(), tgmm.grouped_matmul_reference(x, w, scale).float(),
+        rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["int8-fp32", "int4-fp32", "int8",
+                                     "int4"])
+def test_gmm_routes_by_activation_dtype(variant, cuda_device, monkeypatch):
+    """fp32 activations with int8 or int4 weights reach the mma kernel's
+    instantiations (the wgmma entry must not run), and 16-bit ones the
+    wgmma kernel (the mma entry must not run); either counts one launch
+    of its format."""
+    from paddle_tpu_torch.ops import _build
+    lib = _build.load("grouped_matmul", tgmm._SIGNATURES)
+    fp32 = variant.endswith("fp32")
+    banned = ("paddle_tpu_torch_grouped_matmul_q16" if fp32
+              else "paddle_tpu_torch_grouped_matmul")
+
+    def refuse(*a):
+        raise AssertionError(f"{banned} ran for {variant}")
+    monkeypatch.setattr(lib, banned, refuse)
+    x, w, scale = _gmm_case(3, 40, 96, 136, variant, cuda_device)
+    counter = _gmm_counter(variant)
+    before = getattr(tgmm, counter)
+    got = tgmm.grouped_expert_matmul(x, w, scale)
+    assert getattr(tgmm, counter) == before + 1
+    tol = 1e-4 if fp32 else 1e-2
+    torch.testing.assert_close(
+        got.float(), tgmm.grouped_matmul_reference(x, w, scale).float(),
+        rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

@@ -140,3 +140,68 @@ def test_expert_weight_bytes_and_format_detection():
     assert tgmm.is_packed_int4(packed, 8)
     assert not tgmm.is_packed_int4(packed, 4)
     assert not tgmm.is_packed_int4(packed.float(), 8)
+
+
+# ------------------------------------------- the kernel plan (no card)
+
+
+@pytest.mark.parametrize("fmt", [0, 1, 2])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16,
+                                 torch.float16])
+def test_plan_routes_each_dtype_and_format(fmt, xdt):
+    """int8 and int4 weights under 16-bit activations take the wgmma
+    kernel; float weights, and fp32 activations of every format, the
+    mma.sync kernel with its (expert, 64-column) blocks."""
+    p = tgmm.plan(8, 80, 1024, 4096, fmt, xdt)
+    q16 = fmt in (1, 2) and xdt != torch.float32
+    assert p["kernel"] == ("q16" if q16 else "mma")
+    if not q16:
+        assert (p["split"], p["cluster"], p["blocks"]) == (1, 1, 8 * 64)
+
+
+@pytest.mark.parametrize("fmt", [1, 2])
+def test_plan_at_the_serving_products(fmt):
+    """ffn1 [8, 80, 1024] x [1024, 4096]: 8 x 32 tiles of 128 columns
+    fill the card unsplit; ffn2 [8, 80, 4096] x [4096, 1024]: 8 x 8 = 64
+    tiles, so D splits in 3 and at least 132 SMs' worth of blocks run,
+    each tile's 3 blocks one cluster."""
+    f1 = tgmm.plan(8, 80, 1024, 4096, fmt, torch.bfloat16)
+    f2 = tgmm.plan(8, 80, 4096, 1024, fmt, torch.bfloat16)
+    for p in (f1, f2):
+        assert (p["m_tile"], p["n_tile"], p["k_tile"]) == (
+            128, 80, 64 if fmt == 1 else 128)
+    assert (f1["tiles"], f1["split"], f1["cluster"], f1["blocks"]) == (
+        256, 1, 1, 256)
+    assert (f2["tiles"], f2["split"], f2["cluster"], f2["blocks"]) == (
+        64, 3, 3, 192)
+    assert f2["blocks"] >= tgmm.H100_SMS
+
+
+@pytest.mark.parametrize("E,C,D,F,fmt,tiles,split", [
+    (1, 80, 128, 128, 1, 1, 2),       # two int8 stages: split 2
+    (1, 80, 128, 128, 2, 1, 1),       # one int4 stage: no split
+    (3, 38, 50, 50, 1, 3, 1),         # F off the tile, D one stage
+    (2, 5, 16, 24, 2, 2, 1),
+    (1, 300, 512, 136, 1, 8, 4),      # C over 4 row chunks
+    (3, 256, 520, 264, 2, 36, 4),
+    (8, 200, 4096, 1024, 1, 192, 1),  # enough tiles: no split
+    (4, 80, 4096, 1024, 2, 32, 4),    # split capped at 4
+    (2, 80, 4096, 4096, 1, 64, 3),
+])
+def test_plan_at_edge_shapes(E, C, D, F, fmt, tiles, split):
+    """Tiles and split at shapes off the serving ones: the split never
+    exceeds 4 or the stages D has, and is 1 once the tiles fill the
+    SMs."""
+    p = tgmm.plan(E, C, D, F, fmt, torch.float16)
+    assert (p["tiles"], p["split"]) == (tiles, split)
+    assert p["cluster"] == split and p["blocks"] == tiles * split
+    assert p["tiles"] == E * -(-F // 128) * -(-C // 80)
+
+
+def test_plan_follows_the_sm_count():
+    """The split is sized to a block on every SM of the card the wrapper
+    names: a card with fewer SMs splits less."""
+    assert tgmm.plan(8, 80, 4096, 1024, 1, torch.bfloat16,
+                     sms=66)["split"] == 2
+    assert tgmm.plan(8, 80, 4096, 1024, 1, torch.bfloat16,
+                     sms=32)["split"] == 1
