@@ -28,7 +28,8 @@ each (or a few):
    and its gradients through autograd) at the train step's; the
    paddle-layout flash forward at [8, 1024, 16, 128] causal and full,
    [8, 1024, 8, 256] causal, and forward + backward through
-   `flash_attention()`; the split-K 1x1 weight gradient at ResNet-50's
+   `flash_attention()`, these two with their TFLOP/s and share of the
+   bound; the split-K 1x1 weight gradient at ResNet-50's
    [401408, 256] x [401408, 64]; the segmented flash forward and its
    backward at BERT's [64, 12, 128, 64] and [16, 12, 512, 64] under
    trailing, left and interleaved padding, fp32 and causal too), with
@@ -81,7 +82,9 @@ each (or a few):
    per step (the flash forward once a layer); then one profiled step,
    and the same steps timed at bench_gpt's batch 32; then batch 8 again
    with remat_policy None (the flash forward twice a layer) and with
-   qkv_kernel=True (the fused projection twice a layer), side by side;
+   qkv_kernel=True (the fused projection twice a layer), side by side,
+   the last with one profiled step (the fused projection's device ms and
+   its share of the step's device time);
 7. on-card train check — one fp32 step of the same widths at 2 layers
    on the card (kernels) and on a CPU copy (plain versions), remat off
    and with the residuals kept and the fused projection: loss and every
@@ -1192,18 +1195,24 @@ def check_moe_on_card(device):
 # ------------------------------------------------ phase 3, train kernels
 
 
+def flash_flops(q, causal=True, backward=False):
+    """Flops of flash attention over q's [B, H, S, D] shape: 4*D per
+    visible (query, key) pair forward (two products), 2.5 times that
+    backward (five products)."""
+    B, H, S, D = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 4 * B * H * D * pairs * (2.5 if backward else 1)
+
+
 def flash_bound(q, backward, causal=True, lse=True):
     """(bound_ms, bound_by) of flash attention over q's [B, H, S, D]
     shape: q, k, v and out (and, backward, dout, dq, dk, dv) moved once,
-    the fp32 lse once where the kernel keeps it; 4*D flops per visible
-    (query, key) pair forward (two products), 2.5 times that backward
-    (five products)."""
+    the fp32 lse once where the kernel keeps it; `flash_flops`."""
     B, H, S, D = q.shape
     tensors = 8 if backward else 4
     nbytes = tensors * q.numel() * q.element_size() + (B * H * S * 4
                                                        if lse else 0)
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * B * H * D * pairs * (2.5 if backward else 1)
+    flops = flash_flops(q, causal, backward)
     t_bytes = nbytes / PEAK_BYTES
     t_flops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]]
     return (max(t_bytes, t_flops) * 1e3,
@@ -1428,7 +1437,9 @@ def check_qkv_proj(qp, device, flush):
               f"[{d}, {3 * d}] -> 3 x [{B}, {H}, {S}, {d // H}] max_abs_err="
               f"{err_f:.3g} forward, {err_b:.3g} dx/dw/db (tol {tol} (1 + "
               f"|plain|)) kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by}) yardstick: torch.addmm"
+              f"bound_ms={bound_ms:.4f} ({bound_by}), "
+              f"{2 * B * S * d * 3 * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+              f"{bound_ms / ms:.1%} of the bound; yardstick: torch.addmm"
               f" over [{B * S}, {d}] x [{d}, {3 * d}] (no head layout) "
               f"{lib:.4f} ms", flush=True)
         del x, w, b, x2
@@ -1476,10 +1487,13 @@ def check_flash_bshd(fa, device, flush):
         records[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=lib)
+        flops = flash_flops(q.transpose(1, 2), causal)
         print(f"kernel check: flash_bshd {name} [{B}, {S}, {H}, {D}] "
               f"{'causal' if causal else 'full'} max_abs_err={err:.3g} (tol "
               f"{tol} (1 + |plain|)) kernel_ms={ms:.4f} plain_ms="
-              f"{plain:.4f} bound_ms={bound_ms:.4f} ({bound_by}) yardstick: "
+              f"{plain:.4f} bound_ms={bound_ms:.4f} ({bound_by}), "
+              f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+              f"{bound_ms / ms:.1%} of the bound; yardstick: "
               f"scaled_dot_product_attention on transposed copies "
               f"{lib:.4f} ms", flush=True)
         del q, k, v, got, qt, kt, vt
@@ -1787,12 +1801,13 @@ def train(device, counters):
             + "; other kernels 0", flush=True)
         for n in want:
             launches.setdefault(n, got[n])
-        if label == "bench_gpt":
+        if label in ("bench_gpt", "qkv_kernel"):
             rng = np.random.default_rng(SEED + 3)
             tok = rng.integers(0, VOCAB, (batch, TRAIN_SEQ))
             lab = rng.integers(0, VOCAB, (batch, TRAIN_SEQ))
-            profile_train(trainer, params, opt, tok, lab, step)
+            profile_train(trainer, params, opt, tok, lab, step, label)
             step += 1
+        if label == "bench_gpt":
             params, opt, losses, wall, peak = timed_steps(
                 trainer, params, opt, BENCH_BATCH, step, SEED + 6)
             step += steps
@@ -1896,11 +1911,12 @@ def check_train_step(device):
                        remat_policy=None))
 
 
-def profile_train(trainer, params, opt, tok, lab, step_num):
+def profile_train(trainer, params, opt, tok, lab, step_num, label):
     """Where a train step's device time goes: one step under
     torch.profiler after the timed window, its host time against the
-    device time of the kernels it launched. Informational: prints "not
-    measured" when the profiler records no device events."""
+    device time of the kernels it launched, and each of the port's
+    kernel families' device ms and share of it. Informational: prints
+    "not measured" when the profiler records no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1913,9 +1929,9 @@ def profile_train(trainer, params, opt, tok, lab, step_num):
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     if not dev:
-        print(f"profile: train step {host_ms:.1f} ms on the host clock "
-              "(profiled); device time not measured (no device events)",
-              flush=True)
+        print(f"profile: train step [{label}] {host_ms:.1f} ms on the host "
+              "clock (profiled); device time not measured (no device "
+              "events)", flush=True)
         return
     device_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
@@ -1924,11 +1940,12 @@ def profile_train(trainer, params, opt, tok, lab, step_num):
         for fam in ("flash", "add_ln", "qkv_proj"):
             if f"{fam}_" in e.key:
                 ours[fam] = ours.get(fam, 0.0) + e.self_device_time_total
-    print(f"profile: one train step, {host_ms:.1f} ms on the host clock "
-          f"(profiled), {device_ms:.1f} ms of device time in "
+    print(f"profile: one train step [{label}], {host_ms:.1f} ms on the host "
+          f"clock (profiled), {device_ms:.1f} ms of device time in "
           f"{sum(e.count for e in dev)} device launches, device busy "
           f"{device_ms / host_ms:.1%}; the port's kernels: " + ", ".join(
-              f"{fam}* {t / 1e3:.2f} ms" for fam, t in sorted(ours.items()))
+              f"{fam}* {t / 1e3:.3f} ms ({t / 1e3 / device_ms:.1%} of the "
+              f"step's device time)" for fam, t in sorted(ours.items()))
           + "; most device time: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms "
               f"x{e.count}" for e in top), flush=True)

@@ -1,34 +1,58 @@
 """Build and load the port's CUDA kernels: nvcc -> shared library ->
 ctypes.
 
-Each kernel is one source under `csrc/` with a plain C interface. It is
-compiled at first use into `build/paddle_tpu_torch/lib<name>_<hash>.so`
-at the repository root; the hash is of the source, so an edited kernel
-is never served from a stale build, and the library is written under a
-temporary name and renamed into place, so a concurrent build sees all
-of it or none. A missing toolkit or a failed compile raises.
+Each kernel is one source under `csrc/` with a plain C interface (and
+the `csrc/*.cuh` headers it includes). It is compiled at first use into
+`build/paddle_tpu_torch/lib<name>_<tag>.so` at the repository root; the
+tag hashes the source and every header it includes (`source_tag`), so
+an edited kernel or header is never served from a stale build, and the
+library is written under a temporary name and renamed into place, so a
+concurrent build sees all of it or none. A missing toolkit or a failed
+compile raises.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC))
 
 _loaded = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_tag(src: Path) -> str:
+    """12 hex digits of a hash over `src` and, in order of first
+    inclusion, every header it includes with `#include "..."` (directly
+    or through another header), found beside the including file or in
+    `csrc/`."""
+    h = hashlib.sha1()
+    seen, todo = set(), [Path(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        for inc in _INCLUDE.findall(text.decode(errors="replace")):
+            near = path.parent / inc
+            todo.append(near if near.exists() else CSRC / inc)
+    return h.hexdigest()[:12]
 
 
 def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless this source has been built
-    already; returns the library's path."""
+    """Compile `csrc/<name>.cu` unless this source, with the headers it
+    includes, has been built already; returns the library's path."""
     src = CSRC / f"{name}.cu"
-    tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    tag = source_tag(src)
     lib = BUILD_DIR / f"lib{name}_{tag}.so"
     if lib.exists():
         return lib

@@ -16,15 +16,16 @@
 // Operands are fp32, bf16 or fp16; accumulation and the softmax are
 // fp32; outputs take the operands' dtype. D is 64 or 128; any S >= 1.
 //
-// The same forward also replaces the package's own hand-written forward
-// (paddle_tpu/ops/pallas/flash_attention.py:_fwd_kernel, entered through
-// flash_attention() over the paddle layout [B, S, H, D], D 128 or 256):
-// its entry reads q, k and v in place with rows H * D apart (no transpose
-// copies), scales the query tile by `scale` and rounds it to its dtype as
-// it is staged, divides by max(l, 1e-30) as that kernel does, and keeps
-// no logsumexp (its backward is plain tensor code). At D = 256 a 64-row
-// tile's output accumulator is 128 fp32 registers a thread; the tile and
-// the warp's 16 rows stay as at D = 128.
+// The package's own hand-written forward (paddle_tpu/ops/pallas/
+// flash_attention.py:_fwd_kernel, entered through flash_attention() over
+// the paddle layout [B, S, H, D], D 128 or 256) is replaced by the same
+// arithmetic: its entry reads q, k and v in place with rows H * D apart
+// (no transpose copies), scales the query tile by `scale` and rounds it
+// to its dtype before its products, divides by max(l, 1e-30) as that
+// kernel does, and keeps no logsumexp (its backward is plain tensor
+// code). bf16 and fp16 take flash_fwd_bshd_wgmma_kernel (TMA + wgmma,
+// described at it below); fp32 the CUDA-core forward with a layout
+// template argument (kPaddle).
 //
 // The splash kernel's segmented variant (_splash_kernel(segmented=True),
 // entered through splash_mha(kv_keep=): segment ids q = kv = kv_keep)
@@ -68,25 +69,24 @@
 //   * causal tiles above the diagonal are never visited, and only the
 //     diagonal tile (and the ragged last tile) is masked; query tiles are
 //     issued heaviest first.
-// 16-bit operands take the tensor cores (mma.sync m16n8k16, the path the
-// train step runs; described at its kernels below). fp32 operands keep
+// 16-bit operands of the splash entries take the tensor cores (mma.sync
+// m16n8k16, the path the train step runs; described at its kernels
+// below). fp32 operands keep
 // fp32 products on the CUDA cores: each thread owns a 4 x 8 block of the
 // 64 x 64 score tile (rows rg + 16i, columns cg + 8j) and a 4 x D/8 block
 // of the output tile; rows of a tile live in 8 neighbouring lanes, so
 // row max and row sum are three shuffles; shared rows, staged as fp32,
 // are padded by 4 floats so the 16-byte shared-memory loads are free of
-// bank conflicts. Next for speed: wgmma with TMA-fed, double-buffered
-// tiles.
+// bank conflicts. Next for speed in the splash kernels: the paddle-layout
+// forward's TMA + wgmma design.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (paddle_tpu_torch/ops/flash_attention.py), launched on the caller's
 // stream, allocating nothing (the wrapper passes delta's scratch).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include <algorithm>
 
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
@@ -627,25 +627,18 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
 template <int D>
 __host__ __device__ constexpr int ld16() { return D + 8; }  // padded row
 
-// Rows [row0, row0 + 64) of an [S, D] 16-bit slice whose rows lie `ld`
-// elements apart into a shared tile, times `scale` rounded to T (the
-// query's scaling; as they are at scale 1); rows at or past S are zero.
+// Rows [row0, row0 + 64) of a contiguous [S, D] 16-bit slice into a
+// shared tile; rows at or past S are zero.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile16(T* dst, const T* src, int row0,
-                                            int S, int ld,
-                                            float scale = 1.f) {
+                                            int S) {
   constexpr int LDS = ld16<D>();
   constexpr int PER_ROW = D / 8;  // 16-byte vectors
   for (int idx = threadIdx.x; idx < kTile * PER_ROW; idx += kThreads) {
     const int r = idx / PER_ROW, c = (idx % PER_ROW) * 8;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < S)
-      x = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * ld + c);
-    if (scale != 1.f) {
-      T* e = reinterpret_cast<T*>(&x);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) e[t] = from_float<T>(to_float(e[t]) * scale);
-    }
+      x = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * D + c);
     *reinterpret_cast<uint4*>(dst + r * LDS + c) = x;
   }
 }
@@ -701,28 +694,29 @@ __device__ __forceinline__ void mma_pv(float acc[D / 8][4],
   }
 }
 
-// Row `row` (this lane's quad share: columns 8nt + 2t, +1) of a [S, D]
-// 16-bit output whose rows lie `ld` elements apart, from accumulator half
-// h (0: row g, 1: row g + 8), times `f` (divided by `f` with kDiv).
-template <typename T, int D, bool kDiv = false>
+// Row `row` (this lane's quad share: columns 8nt + 2t, +1) of a
+// contiguous [S, D] 16-bit output, from accumulator half h (0: row g,
+// 1: row g + 8), times `f`.
+template <typename T, int D>
 __device__ __forceinline__ void store_row16(T* dst, int row, int t,
                                             const float acc[D / 8][4], int h,
-                                            float f, int ld) {
+                                            float f) {
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt) {
     const float lo = acc[nt][2 * h], hi = acc[nt][2 * h + 1];
-    *reinterpret_cast<uint32_t*>(dst + (long long)row * ld + nt * 8 + 2 * t) =
-        kDiv ? Mma<T>::pack(lo / f, hi / f) : Mma<T>::pack(lo * f, hi * f);
+    *reinterpret_cast<uint32_t*>(dst + (long long)row * D + nt * 8 + 2 * t) =
+        Mma<T>::pack(lo * f, hi * f);
   }
 }
 
-// kPaddle and kSeg as flash_fwd_kernel's.
-template <typename T, int D, bool kPaddle, bool kSeg>
+// The splash entry (contiguous [BH, S, D], scale 1, out = acc * (1 / l),
+// lse kept); kSeg as flash_fwd_kernel's.
+template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, const int* __restrict__ seg,
-                     int S, int causal, Layout lay, float scale) {
+                     int S, int causal, Layout lay) {
   constexpr int LDS = ld16<D>();
   extern __shared__ float4 smem4[];
   T* Qs = reinterpret_cast<T*>(smem4);
@@ -732,18 +726,13 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ntiles = (S + kTile - 1) / kTile;
   const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * kTile;
-  const long long off =
-      kPaddle ? lay.offset(blockIdx.x) : (long long)blockIdx.x * S * D;
-  const int ld = kPaddle ? lay.ld : D;
+  const long long off = (long long)blockIdx.x * S * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int* segb =
       kSeg ? seg + (long long)(blockIdx.x / lay.H) * S : nullptr;
 
-  if constexpr (kPaddle)
-    load_tile16<T, D>(Qs, q + off, q0, S, ld, scale);
-  else
-    load_tile16<T, D>(Qs, q + off, q0, S, D);
+  load_tile16<T, D>(Qs, q + off, q0, S);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[D / 8][4];
   int qseg[2];
 #pragma unroll
@@ -761,8 +750,8 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile16<T, D>(Ks, k + off, k0, S, ld);
-    load_tile16<T, D>(Vs, v + off, k0, S, ld);
+    load_tile16<T, D>(Ks, k + off, k0, S);
+    load_tile16<T, D>(Vs, v + off, k0, S);
     if (kSeg && threadIdx.x < kTile)
       Segs[threadIdx.x] = k0 + threadIdx.x < S ? segb[k0 + threadIdx.x] : 0;
     __syncthreads();
@@ -819,13 +808,8 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
     const int qi = q0 + warp * 16 + g + 8 * h;
     if (qi < S) {
-      if constexpr (kPaddle) {
-        store_row16<T, D, true>(out + off, qi, t, acc, h, fmaxf(lsum, 1e-30f),
-                                ld);
-      } else {
-        store_row16<T, D>(out + off, qi, t, acc, h, 1.f / lsum, D);
-        if (t == 0) lse[(long long)blockIdx.x * S + qi] = m[h] + logf(lsum);
-      }
+      store_row16<T, D>(out + off, qi, t, acc, h, 1.f / lsum);
+      if (t == 0) lse[(long long)blockIdx.x * S + qi] = m[h] + logf(lsum);
     }
   }
 }
@@ -858,8 +842,8 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int* segb = kSeg ? seg + (long long)(blockIdx.x / H) * S : nullptr;
 
-  load_tile16<T, D>(Ks, k + off, k0, S, D);
-  load_tile16<T, D>(Vs, v + off, k0, S, D);
+  load_tile16<T, D>(Ks, k + off, k0, S);
+  load_tile16<T, D>(Vs, v + off, k0, S);
   float adk[D / 8][4], adv[D / 8][4];
   int kseg[2];
 #pragma unroll
@@ -877,8 +861,8 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = causal ? kt : 0; qt < ntiles; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile16<T, D>(Qs, q + off, q0, S, D);
-    load_tile16<T, D>(dOs, dout + off, q0, S, D);
+    load_tile16<T, D>(Qs, q + off, q0, S);
+    load_tile16<T, D>(dOs, dout + off, q0, S);
     if (threadIdx.x < kTile) {
       const bool ok = q0 + threadIdx.x < S;
       lse_s[threadIdx.x] = ok ? lse[roff + q0 + threadIdx.x] : 0.f;
@@ -913,8 +897,8 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     const int key = k0 + warp * 16 + g + 8 * h;
     if (key < S) {
-      store_row16<T, D>(dk + off, key, t, adk, h, 1.f, D);
-      store_row16<T, D>(dv + off, key, t, adv, h, 1.f, D);
+      store_row16<T, D>(dk + off, key, t, adk, h, 1.f);
+      store_row16<T, D>(dv + off, key, t, adv, h, 1.f);
     }
   }
 }
@@ -944,8 +928,8 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int* segb = kSeg ? seg + (long long)(blockIdx.x / H) * S : nullptr;
 
-  load_tile16<T, D>(Qs, q + off, q0, S, D);
-  load_tile16<T, D>(dOs, dout + off, q0, S, D);
+  load_tile16<T, D>(Qs, q + off, q0, S);
+  load_tile16<T, D>(dOs, dout + off, q0, S);
   float row_lse[2], row_delta[2], acc[D / 8][4];
   int qseg[2];
 #pragma unroll
@@ -963,8 +947,8 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile16<T, D>(Ks, k + off, k0, S, D);
-    load_tile16<T, D>(Vs, v + off, k0, S, D);
+    load_tile16<T, D>(Ks, k + off, k0, S);
+    load_tile16<T, D>(Vs, v + off, k0, S);
     if (kSeg && threadIdx.x < kTile)
       Segs[threadIdx.x] = k0 + threadIdx.x < S ? segb[k0 + threadIdx.x] : 0;
     __syncthreads();
@@ -991,7 +975,7 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qi = q0 + warp * 16 + g + 8 * h;
-    if (qi < S) store_row16<T, D>(dq + off, qi, t, acc, h, 1.f, D);
+    if (qi < S) store_row16<T, D>(dq + off, qi, t, acc, h, 1.f);
   }
 }
 
@@ -1029,25 +1013,424 @@ constexpr int bwd_smem16() {  // dk/dv's lse, delta (and ids); dq's ids
     if (e_ != cudaSuccess) return e_;                                      \
   } while (0)
 
+// ------------------------------------------------------------------------
+// The paddle-layout forward for 16-bit operands (K1b): TMA + wgmma.
+//
+// q, k and v stay in place as [B, S, H, D]: one 4-D tensor map each over
+// (D, H, S, B), boxes of 64 columns (128 bytes) x rows, zeros past S. A
+// block owns a 128-row query tile of one (b, h): two consumer warpgroups
+// of 64 rows each, and a producer warpgroup whose one thread loads the
+// query tile once and the key and value tiles through two rings, one
+// for K and one for V, each slot with its mbarrier pair: a key tile is freed as
+// soon as its scores are in, a value tile once its P V is done, so the
+// loads ahead are not held up by the tile whose P V is still in flight.
+// S = Q K^T is a wgmma with both operands in shared memory (K K-major);
+// p = exp(s - running max) stays in registers, rounded to T, as the A
+// operand of the P V wgmma (V MN-major). A warpgroup issues the next
+// tile's S = Q K^T and this tile's P V together and runs the next tile's
+// softmax while P V is in flight; only then does it rescale the output
+// and pack the next p. The warpgroups take turns to issue, so one's
+// softmax overlaps the other's products. Before its first product a
+// warpgroup multiplies its query rows by `scale` and rounds them to T in
+// shared memory, as the TPU kernel scales q in its dtype. The output is
+// acc / max(l, 1e-30), staged through the query tile's shared memory and
+// stored in 16-byte rows; no logsumexp is kept. Causal blocks load only
+// key tiles at or below the diagonal and a warpgroup skips a tile wholly
+// above its rows; only tiles that hold keys past S or above a row take
+// the mask (`-Xptxas -v` shows no wgmma serialized by that branch, which
+// sits while P V is in flight). Blocks take heads in groups whose keys
+// and values fit L2 together (16 MB: 32 heads at S = 1024, D = 128), a
+// group's query tiles heaviest first: with every head's tile in flight
+// at once, each wave would read all keys and values again from memory.
+//
+// Key tiles: 128 rows and 3 slots a ring at D = 128 (Q 32 KB + 3 x 2 x
+// 32 KB), 64 rows and 2 slots at D = 256 (64 KB + 2 x 2 x 32 KB). The
+// producer warpgroup gives its registers to the consumers (setmaxnreg 40
+// / 232): the output accumulator is 64 (D = 128) or 128 (D = 256) fp32
+// registers a thread beside the scores and p, past the 168 a thread that
+// every thread of a block of 288 or 384 gets (with those 168, ptxas
+// spills and serializes the wgmmas, C7512).
+
+namespace bshd {
+
+using namespace hopper;
+
+constexpr float kLog2e = 1.4426950408889634f;
+// Bytes of keys and values the blocks in flight may share in L2 (of
+// its 50 MB): heads are grouped to fit.
+constexpr long long kL2Budget = 16LL << 20;
+
+template <int D>
+struct Cfg {
+  // consumer warpgroups, 64 query rows each, and a producer warpgroup
+  static constexpr int kWG = 2;
+  static constexpr int kBM = 64 * kWG;  // query rows a block
+  static constexpr int kConsumers = 128 * kWG;
+  static constexpr int kThreads = kConsumers + 128;
+  // registers a consumer thread: all the producer's but 40
+  static constexpr int kRegs = (65536 / 128 - 40) / kWG / 8 * 8;
+  static constexpr int kBN = D == 128 ? 128 : 64;  // keys a tile
+  static constexpr int kStages = D == 128 ? 3 : 2;  // slots of each ring
+  static constexpr int kChunks = D / 64;           // 128-byte column boxes
+  static constexpr int kQChunk = kBM * 128;
+  static constexpr int kKVChunk = kBN * 128;
+  static constexpr int kTileBytes = kChunks * kKVChunk;  // K or V
+  static constexpr int kQBytes = kChunks * kQChunk;
+  static constexpr int kSmem =
+      1024 + kQBytes + 2 * kStages * kTileBytes + (4 * kStages + 1) * 8;
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+// The softmax step of one key tile over this thread's scores s (rows
+// r + 8 hh, r = the thread's first row): with kMask, keys at or past
+// lim[hh] (S, or the row + 1 when causal; relative to the thread's first
+// column) get -inf; the running max m moves to cover the tile, s becomes
+// p = exp(s - m), and l = l alpha + sum p. Returns alpha = exp(m_old -
+// m_new) per row, the factor the output still has to take.
+template <int N, bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[N / 2], float (&m)[2],
+                                             float (&l)[2],
+                                             const int (&lim)[2],
+                                             float (&alpha)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float& x = s[4 * j + 2 * hh + u];
+        if (kMask) x = 8 * j + u < lim[hh] ? x : -INFINITY;
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // finite: key 0, in the first tile, is visible to every row
+    const float m_new = fmaxf(m[hh], mx);
+    const float ml = m_new * kLog2e;
+    alpha[hh] = exp2_approx(fmaf(m[hh], kLog2e, -ml));
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float& x = s[4 * j + 2 * hh + u];
+        x = exp2_approx(fmaf(x, kLog2e, -ml));
+        psum += x;
+      }
+    l[hh] = l[hh] * alpha[hh] + psum;  // this lane's columns only
+    m[hh] = m_new;
+  }
+}
+
+// p (the scores after softmax_tile), rounded to T, as the A operands of
+// the P V wgmma's k16 steps.
+template <typename T, int N>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 16][4],
+                                       const float (&s)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      pa[kk][u] = Mma<T>::pack(s[8 * kk + 2 * u], s[8 * kk + 2 * u + 1]);
+}
+
+// s = Q K^T over the warpgroup's query rows (at qs) and the key tile at
+// ks.
+template <typename T, int D>
+__device__ __forceinline__ void s_gemm(float (&s)[Cfg<D>::kBN / 2],
+                                       uint32_t qs, uint32_t ks) {
+#pragma unroll
+  for (int st = 0; st < D / 16; ++st)
+    wgmma_ss<T, Cfg<D>::kBN, 0>(
+        s, desc_k(qs + (st >> 2) * Cfg<D>::kQChunk + (st & 3) * 32),
+        desc_k(ks + (st >> 2) * Cfg<D>::kKVChunk + (st & 3) * 32), st > 0);
+}
+
+// o += p V over the value tile at vs.
+template <typename T, int D>
+__device__ __forceinline__ void pv_gemm(float (&o)[D / 2],
+                                        const uint32_t (&pa)[Cfg<D>::kBN / 16]
+                                                            [4],
+                                        uint32_t vs) {
+#pragma unroll
+  for (int kk = 0; kk < Cfg<D>::kBN / 16; ++kk)
+    wgmma_rs<T, D, 1>(o, pa[kk], desc_mn(vs + kk * 2048, Cfg<D>::kKVChunk),
+                      1);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+flash_fwd_bshd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            T* __restrict__ out, int S, int H, int BH,
+                            int group, int causal, float scale) {
+  using C = Cfg<D>;
+  constexpr int kBN = C::kBN, kStages = C::kStages, kBM = C::kBM;
+  constexpr int kWG = C::kWG, kConsumers = C::kConsumers;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* Qs =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Kr = Qs + C::kQBytes;            // the key ring
+  unsigned char* Vr = Kr + kStages * C::kTileBytes;  // the value ring
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(Vr + kStages * C::kTileBytes);
+  uint64_t* kempty = kfull + kStages;
+  uint64_t* vfull = kempty + kStages;
+  uint64_t* vempty = vfull + kStages;
+  uint64_t* qbar = vempty + kStages;
+  // Block -> (head, query tile): heads in groups of `group` whose keys
+  // and values fit L2 together, each group's query tiles heaviest first.
+  const int nq = (S + kBM - 1) / kBM;
+  const int g0 = blockIdx.x / (group * nq) * group;  // the group's first
+  const int in = blockIdx.x - g0 * nq, gh = min(group, BH - g0);
+  const int bh = g0 + in % gh, b = bh / H, h = bh % H;
+  const int q0 = (nq - 1 - in / gh) * kBM;  // heaviest causal tiles first
+  const int kend = causal ? min(q0 + kBM, S) : S;  // keys the block sees
+  const int nkt = (kend + kBN - 1) / kBN;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&kfull[i], 1);
+      mbar_init(&kempty[i], kConsumers);
+      mbar_init(&vfull[i], 1);
+      mbar_init(&vempty[i], kConsumers);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------- producer warpgroup
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != kConsumers) return;
+    mbar_arrive_tx(qbar, C::kQBytes);
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c)
+      tma_load_4d(Qs + c * C::kQChunk, &qmap, 64 * c, h, q0, b, qbar);
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int slot = kt % kStages, parity = ((kt / kStages) & 1) ^ 1;
+      mbar_wait(&kempty[slot], parity);
+      mbar_arrive_tx(&kfull[slot], C::kTileBytes);
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c)
+        tma_load_4d(Kr + slot * C::kTileBytes + c * C::kKVChunk, &kmap,
+                    64 * c, h, kt * kBN, b, &kfull[slot]);
+      mbar_wait(&vempty[slot], parity);
+      mbar_arrive_tx(&vfull[slot], C::kTileBytes);
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c)
+        tma_load_4d(Vr + slot * C::kTileBytes + c * C::kKVChunk, &vmap,
+                    64 * c, h, kt * kBN, b, &vfull[slot]);
+    }
+    return;
+  }
+
+  // -------------------------------------------- consumer warpgroups
+  setmaxnreg_inc<C::kRegs>();
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qd = lane & 3;
+  const int w0 = q0 + 64 * wg;  // the warpgroup's first query row
+  // The warpgroup's query rows: 8 KB of each column box.
+  unsigned char* Qw = Qs + wg * 64 * 128;
+  mbar_wait(qbar, 0);
+#pragma unroll
+  for (int c = 0; c < C::kChunks; ++c)
+    for (int i = tid; i < 64 * 8; i += 128) {
+      uint4* p = reinterpret_cast<uint4*>(Qw + c * C::kQChunk) + i;
+      uint4 x = *p;
+      T* e = reinterpret_cast<T*>(&x);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) e[t] = from_float<T>(to_float(e[t]) * scale);
+      *p = x;
+    }
+  fence_proxy_async();
+  named_sync(1 + wg, 128);
+
+  const int nkw = causal ? (min(w0 + 64, S) + kBN - 1) / kBN : nkt;
+  const uint32_t qs = smem_u32(Qw), ks = smem_u32(Kr), vs = smem_u32(Vr);
+  // Keys visible to the thread's rows: below lim_row, counted from
+  // column 2 qd of each tile.
+  const int row = w0 + 16 * warp + g;
+  const int lim_row[2] = {causal ? min(row + 1, S) : S,
+                          causal ? min(row + 9, S) : S};
+  // Only a tile that holds keys past S, or above the warpgroup's first
+  // row when causal, takes the mask.
+  const auto masked = [&](int kt) {
+    return (kt + 1) * kBN > S || (causal && (kt + 1) * kBN - 1 > w0);
+  };
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  float o[D / 2], s[kBN / 2];
+  uint32_t pa[kBN / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  // The warpgroups take turns to issue their products (barrier 4 + wg
+  // each, the first turn warpgroup 0's), so one's softmax runs beside
+  // another's products; each takes nkt + 1 turns, one a tile and one for
+  // the last P V, idle ones for tiles above its rows.
+  const int turn = 4 + wg, next = 4 + (wg + 1) % kWG;
+  if (wg == kWG - 1) named_arrive(4, 256);
+
+  // The first tile: its scores, softmax and p.
+  mbar_wait(&kfull[0], 0);
+  named_sync(turn, 256);
+  wgmma_fence();
+  s_gemm<T, D>(s, qs, ks);
+  wgmma_commit();
+  named_arrive(next, 256);
+  wgmma_wait<0>();
+  mbar_arrive(&kempty[0]);
+  {
+    const int lim[2] = {lim_row[0] - 2 * qd, lim_row[1] - 2 * qd};
+    if (masked(0))
+      softmax_tile<kBN, true>(s, m, l, lim, alpha);
+    else
+      softmax_tile<kBN, false>(s, m, l, lim, alpha);
+  }
+  pack_p<T, kBN>(pa, s);
+  // Tile kt's scores beside tile kt - 1's P V.
+  for (int kt = 1; kt < nkw; ++kt) {
+    const int slot = kt % kStages, prev = (kt - 1) % kStages;
+    const int lim[2] = {lim_row[0] - kt * kBN - 2 * qd,
+                        lim_row[1] - kt * kBN - 2 * qd};
+    mbar_wait(&kfull[slot], (kt / kStages) & 1);
+    mbar_wait(&vfull[prev], ((kt - 1) / kStages) & 1);
+    named_sync(turn, 256);
+    wgmma_fence();
+    s_gemm<T, D>(s, qs, ks + slot * C::kTileBytes);
+    wgmma_commit();
+    pv_gemm<T, D>(o, pa, vs + prev * C::kTileBytes);
+    wgmma_commit();
+    named_arrive(next, 256);
+    wgmma_wait<1>();  // the scores are in: the key tile is free
+    mbar_arrive(&kempty[slot]);
+    if (masked(kt))
+      softmax_tile<kBN, true>(s, m, l, lim, alpha);
+    else
+      softmax_tile<kBN, false>(s, m, l, lim, alpha);
+    wgmma_wait<0>();  // P V is done: its value tile and p are free
+    mbar_arrive(&vempty[prev]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        o[4 * j + 2 * hh] *= alpha[hh];
+        o[4 * j + 2 * hh + 1] *= alpha[hh];
+      }
+    pack_p<T, kBN>(pa, s);
+  }
+  const int last = (nkw - 1) % kStages;
+  mbar_wait(&vfull[last], ((nkw - 1) / kStages) & 1);
+  named_sync(turn, 256);
+  wgmma_fence();
+  pv_gemm<T, D>(o, pa, vs + last * C::kTileBytes);
+  wgmma_commit();
+  named_arrive(next, 256);
+  wgmma_wait<0>();
+  mbar_arrive(&vempty[last]);
+  // Tiles wholly above the warpgroup's rows (causal): released unread.
+  for (int kt = nkw; kt < nkt; ++kt) {
+    const int slot = kt % kStages, parity = (kt / kStages) & 1;
+    mbar_wait(&kfull[slot], parity);
+    mbar_arrive(&kempty[slot]);
+    mbar_wait(&vfull[slot], parity);
+    mbar_arrive(&vempty[slot]);
+    named_sync(turn, 256);
+    named_arrive(next, 256);
+  }
+  if (wg == 0) named_sync(turn, 256);  // the last warpgroup's last turn
+
+  // Epilogue: acc / max(l, 1e-30) into the warpgroup's query rows of
+  // shared memory (the 128-byte swizzle: conflict-free), then 16-byte
+  // rows of out.
+  float f[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lsum = l[hh];
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    f[hh] = fmaxf(lsum, 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * warp + g + 8 * hh;
+      *reinterpret_cast<uint32_t*>(Qw + (j >> 3) * C::kQChunk + r * 128 +
+                                   (((j & 7) ^ (r & 7)) << 4) + 4 * qd) =
+          Mma<T>::pack(o[4 * j + 2 * hh] / f[hh],
+                       o[4 * j + 2 * hh + 1] / f[hh]);
+    }
+  named_sync(1 + wg, 128);
+  for (int i = tid; i < 64 * (D / 8); i += 128) {
+    const int r = i / (D / 8), cc = i % (D / 8), qrow = w0 + r;
+    if (qrow < S)
+      *reinterpret_cast<uint4*>(out + (((long long)b * S + qrow) * H + h) * D +
+                                8 * cc) =
+          *reinterpret_cast<const uint4*>(Qw + (cc >> 3) * C::kQChunk +
+                                          r * 128 +
+                                          (((cc & 7) ^ (r & 7)) << 4));
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int S, int H, int causal, float scale,
+                   cudaStream_t stream) {
+  using C = Cfg<D>;
+  const long long dims[4] = {D, H, S, B};
+  const long long strides[3] = {D, (long long)H * D, (long long)S * H * D};
+  CUtensorMap qmap, kmap, vmap;
+  cudaError_t err = make_map<T, 4>(&qmap, q, dims, strides,
+                                   {64, 1, C::kBM, 1});
+  if (err != cudaSuccess) return err;
+  err = make_map<T, 4>(&kmap, k, dims, strides, {64, 1, C::kBN, 1});
+  if (err != cudaSuccess) return err;
+  err = make_map<T, 4>(&vmap, v, dims, strides, {64, 1, C::kBN, 1});
+  if (err != cudaSuccess) return err;
+  auto kern = flash_fwd_bshd_wgmma_kernel<T, D>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long kv_bytes = 4LL * S * D;  // a head's keys and values
+  const int group = (int)std::max(
+      1LL, std::min<long long>(B * H, kL2Budget / kv_bytes));
+  const long long blocks = (long long)B * H * ((S + C::kBM - 1) / C::kBM);
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
+      qmap, kmap, vmap, static_cast<T*>(out), S, H, B * H, group, causal,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace bshd
+
 template <typename T, int D, bool kPaddle, bool kSeg>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 float* lse, const int* seg, int BH, int S, int causal,
                 Layout lay, float scale, cudaStream_t stream) {
-  const dim3 grid(BH, (S + kTile - 1) / kTile);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(out);
-  if constexpr (sizeof(T) == 4) {
-    PADDLE_FLASH_LAUNCH((flash_fwd_kernel<T, D, kPaddle, kSeg>),
-                        (fwd_smem<D, kSeg>()), qp, kp, vp, op, lse, seg, S,
-                        causal, lay, scale);
+  if constexpr (sizeof(T) == 2 && kPaddle) {
+    return bshd::launch<T, D>(q, k, v, out, BH / lay.H, S, lay.H, causal,
+                              scale, stream);
   } else {
-    PADDLE_FLASH_LAUNCH((flash_fwd_mma_kernel<T, D, kPaddle, kSeg>),
-                        (fwd_smem16<D, kSeg>()), qp, kp, vp, op, lse, seg, S,
-                        causal, lay, scale);
+    const dim3 grid(BH, (S + kTile - 1) / kTile);
+    const T* qp = static_cast<const T*>(q);
+    const T* kp = static_cast<const T*>(k);
+    const T* vp = static_cast<const T*>(v);
+    T* op = static_cast<T*>(out);
+    if constexpr (sizeof(T) == 4) {
+      PADDLE_FLASH_LAUNCH((flash_fwd_kernel<T, D, kPaddle, kSeg>),
+                          (fwd_smem<D, kSeg>()), qp, kp, vp, op, lse, seg, S,
+                          causal, lay, scale);
+    } else {
+      PADDLE_FLASH_LAUNCH((flash_fwd_mma_kernel<T, D, kSeg>),
+                          (fwd_smem16<D, kSeg>()), qp, kp, vp, op, lse, seg,
+                          S, causal, lay);
+    }
+    return cudaSuccess;
   }
-  return cudaSuccess;
 }
 
 // One forward over dtype code `dtype`: the splash entry at head_dim 64 or
@@ -1166,7 +1549,9 @@ extern "C" int paddle_tpu_torch_flash_fwd_seg(const void* q, const void* k,
 // The paddle-layout forward (flash_attention()'s K1b): contiguous
 // [B, S, H, head_dim] operands read in place (rows H * head_dim apart),
 // head_dim 128 or 256; the query is scaled by `scale` and rounded to its
-// dtype as its tile is staged; no logsumexp is kept.
+// dtype before its products; no logsumexp is kept. fp32 runs
+// flash_fwd_kernel, bf16 and fp16 flash_fwd_bshd_wgmma_kernel (an error
+// where the driver refuses its tensor maps).
 extern "C" int paddle_tpu_torch_flash_fwd_bshd(const void* q, const void* k,
                                                const void* v, void* out,
                                                int B, int S, int H,

@@ -16,29 +16,43 @@
 // w_qkv [1024, 3072]) the product is 2 * 8192 * 1024 * 3072 = 5.2e10
 // flops against 7.3e7 bytes moved once: ~700 flops a byte, above the
 // card's ~295, so the tensor cores bound it (0.052 ms at 989 TFLOP/s).
-// So a block owns a 128-row tile of the B * S rows times one head pair
-// (128 columns) of one third, as the TPU kernel computes a head pair per
-// pass, and walks d in 32-deep tiles through a 4-stage cp.async ring in
-// shared memory (16-byte copies that bypass the registers). 16-bit
-// operands multiply on the tensor cores (mma.sync m16n8k16 from ldmatrix
-// fragments; 8 warps, each 32 rows x 64 columns = one head); fp32
-// operands on the CUDA cores (each of 256 threads an 8 x 8 block). The
-// epilogue adds the bias in fp32, rounds once and stores each head's 64
-// columns into its own [S, 64] plane, so no transpose copy follows. Head
-// pairs of a row tile are neighbouring blocks, so the x tile is re-read
-// from L2. Rows past B * S are masked; d must be a multiple of 16 bytes
-// of T. Next for speed: TMA and wgmma.
 //
-// Built with nvcc into a shared library with a plain C interface
+// Two kernels.
+//
+// qkv_proj_wgmma_kernel, bf16 and fp16: x [M = B S, d] is wgmma's K-major
+// A operand and w_qkv, N-contiguous, its MN-major B operand, both brought
+// into shared memory by TMA in the 128-byte swizzle (zeros past d and past
+// M). A block computes 128 x 256 tiles of [M, N = 3 H 64]: two consumer
+// warpgroups of 64 rows each issue wgmma m64n256k16 (128 fp32 sums a
+// thread) on the stages of a 4-deep ring (128 x 64 of x and 64 x 256 of
+// w, 48 KB a stage) that one producer warp keeps filled, each stage's fill
+// and release tracked by an mbarrier pair. The grid is persistent (the
+// wrapper's `plan`: a block on each SM walking tiles along N first, so
+// the blocks in flight share x's row tiles in L2), and a block's producer
+// fills the next tile's stages while its consumers store the last. The
+// epilogue walks the tile's 64-column slabs: each is one head of one third
+// (a tile may straddle the thirds), its bias added in fp32 before the one
+// rounding, staged in shared memory and written by a TMA store into its
+// [S, 64] plane, which runs on while the consumers go ahead (rows of a
+// slab that cross a batch, where S % 64 != 0, are stored row by row).
+// Measured on an H100 (tools/torch_qkv_ab.py --probe): the tile loads
+// from L2 take most of the time (48 KB a stage for 4 MFLOP); w tiles
+// multicast to clusters of two blocks would cut them by a third but ran
+// slower.
+//
+// qkv_proj_kernel, fp32: a block owns a 128-row tile of the B * S rows
+// times one head pair (128 columns) of one third, walks d in 32-deep
+// tiles through a 4-stage cp.async ring, and multiplies on the CUDA
+// cores (each of 256 threads an 8 x 8 block). Rows past B * S are masked.
+//
+// d must be a multiple of 16 bytes of T (TMA's row pitch, cp.async's
+// chunk). Built with nvcc into a shared library with a plain C interface
 // (paddle_tpu_torch/ops/qkv_proj.py), launched on the caller's stream,
 // allocating nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include <algorithm>
 
-#include <cstdint>
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
 
@@ -68,9 +82,9 @@ __device__ __forceinline__ __half from_float<__half>(float x) {
   return __float2half_rn(x);
 }
 
-// Shared-memory layout: kStages (x tile, w tile) stages, then the block's
-// 128 bias values in fp32. Rows are padded by 16 bytes, so ldmatrix rows
-// and the fp32 path's reads fall on distinct banks and every row stays
+// Shared-memory layout of the fp32 kernel: kStages (x tile, w tile)
+// stages, then the block's 128 bias values in fp32. Rows are padded by 16
+// bytes, so the column reads fall on distinct banks and every row stays
 // 16-byte aligned for cp.async.
 template <typename T>
 struct Layout {
@@ -124,80 +138,6 @@ __device__ __forceinline__ void load_stage(unsigned char* stage,
   }
 }
 
-template <typename T>
-struct Mma;
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// 16-bit operands, tensor cores: warp (wm, wn) = (warp % 4, warp / 4)
-// accumulates rows 32 wm + 16 mt and columns 64 wn + 8 nt as
-// acc[(8 mt + nt) * 4 + e] (the m16n8 accumulator layout).
-template <typename T>
-__device__ __forceinline__ void mma_tile(float acc[64], const T* xs,
-                                         const T* ws) {
-  using L = Layout<T>;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-#pragma unroll
-  for (int kc = 0; kc < kDepth / 16; ++kc) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      ldsm_x4(a[mt],
-              xs + (wm * 32 + mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
-                       L::kLdx +
-                  kc * 16 + 8 * (lane >> 4));
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(b, ws + (kc * 16 + 8 * ((lane >> 3) & 1) + (lane & 7)) *
-                            L::kLdw +
-                       wn * kHd + (2 * np + (lane >> 4)) * 8);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        Mma<T>::run(acc + (8 * mt + 2 * np) * 4, a[mt], b[0], b[1]);
-        Mma<T>::run(acc + (8 * mt + 2 * np + 1) * 4, a[mt], b[2], b[3]);
-      }
-    }
-  }
-}
-
 // fp32 operands, CUDA cores: thread (tr, tc) = (tid / 16, tid % 16) owns
 // rows tr + 16 i and columns tc + 16 j as acc[8 i + j].
 template <typename T>
@@ -226,7 +166,6 @@ qkv_proj_kernel(const T* __restrict__ x, const T* __restrict__ w,
                 T* __restrict__ k, T* __restrict__ v, int S, int M, int d,
                 int H) {
   using L = Layout<T>;
-  constexpr bool kMma = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   float* bs = reinterpret_cast<float*>(smem + kStages * L::kStageBytes);
   const int pairs = H / 2;
@@ -259,52 +198,23 @@ qkv_proj_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const unsigned char* stage = smem + (kt % kStages) * L::kStageBytes;
     const T* xs = reinterpret_cast<const T*>(stage);
     const T* ws = reinterpret_cast<const T*>(stage + L::kXBytes);
-    if constexpr (kMma)
-      mma_tile<T>(acc, xs, ws);
-    else
-      fma_tile<T>(acc, xs, ws);
+    fma_tile<T>(acc, xs, ws);
   }
   cp_async_wait<0>();
 
   // epilogue: + bias in fp32, one rounding, into [B, H, S, 64]
   const int h0 = 2 * hp;
-  if constexpr (kMma) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wm = warp & 3, wn = warp >> 2;
-    const int g = lane >> 2, t = lane & 3;
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < 8; ++i) {
+    const int m = r0 + tr + 16 * i;
+    if (m >= M) continue;
+    const int b = m / S, s = m % S;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int m = r0 + wm * 32 + mt * 16 + g + 8 * hh;
-        if (m >= M) continue;
-        const int b = m / S, s = m % S;
-        T* row = out + (((long long)b * H + h0 + wn) * S + s) * kHd;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int c = nt * 8 + 2 * t;  // column within the head
-          const float* a = acc + (8 * mt + nt) * 4 + 2 * hh;
-          const T lo = from_float<T>(a[0] + bs[wn * kHd + c]);
-          const T hi = from_float<T>(a[1] + bs[wn * kHd + c + 1]);
-          uint32_t packed = (uint32_t)(*reinterpret_cast<const uint16_t*>(&lo)) |
-                            ((uint32_t)(*reinterpret_cast<const uint16_t*>(&hi))
-                             << 16);
-          *reinterpret_cast<uint32_t*>(row + c) = packed;
-        }
-      }
-  } else {
-    const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = r0 + tr + 16 * i;
-      if (m >= M) continue;
-      const int b = m / S, s = m % S;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tc + 16 * j;  // column within the pair
-        out[(((long long)b * H + h0 + c / kHd) * S + s) * kHd + c % kHd] =
-            from_float<T>(acc[8 * i + j] + bs[c]);
-      }
+    for (int j = 0; j < 8; ++j) {
+      const int c = tc + 16 * j;  // column within the pair
+      out[(((long long)b * H + h0 + c / kHd) * S + s) * kHd + c % kHd] =
+          from_float<T>(acc[8 * i + j] + bs[c]);
     }
   }
 }
@@ -327,30 +237,244 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* q,
   return cudaGetLastError();
 }
 
+// ------------------------------------------- bf16 / fp16: TMA + wgmma
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kBM = 128;                   // rows of x (B * S) a tile
+constexpr int kBN = 256;                   // columns of w_qkv a tile
+constexpr int kBK = 64;                    // depth a stage: 128-byte rows
+constexpr int kStages = 4;                 // stages in the ring
+constexpr int kConsumers = 256;            // two warpgroups, 64 rows each
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+constexpr int kABytes = kBM * kBK * 2;     // the x tile
+constexpr int kBoxBytes = kBK * 128;       // 64 columns of the w tile
+constexpr int kBoxes = kBN / 64;
+constexpr int kStageBytes = kABytes + kBoxes * kBoxBytes;
+constexpr int kRing = kStages * kStageBytes;
+constexpr int kSlabBytes = 64 * 128;  // a staged 64 x 64 output slab
+constexpr int kStaging = 2 * 2 * kSlabBytes;  // two a warpgroup
+constexpr int kSmem = 1024 + kRing + kStaging + 2 * kStages * 8;
+static_assert(kBN % 64 == 0 && kBN <= 256, "a wgmma's N");
+static_assert(kSmem <= 232448, "shared memory of one block");
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const T a = from_float<T>(lo), b = from_float<T>(hi);
+  return (uint32_t)(*reinterpret_cast<const uint16_t*>(&a)) |
+         ((uint32_t)(*reinterpret_cast<const uint16_t*>(&b)) << 16);
+}
+
+// Tile t of the ceil(M / kBM) x ncol tiles, along N first.
+__device__ __forceinline__ void tile_origin(int t, int ncol, int& m0,
+                                            int& n0) {
+  m0 = (t / ncol) * kBM;
+  n0 = (t % ncol) * kBN;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+qkv_proj_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const T* __restrict__ bias, T* __restrict__ q,
+                      T* __restrict__ k, T* __restrict__ v, int S, int M,
+                      int d, int H) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kRing + kStaging);
+  uint64_t* empty = full + kStages;
+  const int slabs = 3 * H;  // 64-column slabs of w_qkv: (third, head)
+  const int ncol = (slabs * kHd + kBN - 1) / kBN;
+  const int tiles = ((M - 1) / kBM + 1) * ncol;
+  const int nk = (d + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------ producer warp
+    if (threadIdx.x == kConsumers) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int m0, n0;
+        tile_origin(t, ncol, m0, n0);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int stage = it % kStages;
+          mbar_wait(&empty[stage], ((it / kStages) & 1) ^ 1);
+          unsigned char* st = ring + stage * kStageBytes;
+          mbar_arrive_tx(&full[stage], kStageBytes);
+          tma_load_2d(st, &xmap, kt * kBK, m0, &full[stage]);
+#pragma unroll
+          for (int bx = 0; bx < kBoxes; ++bx)
+            tma_load_2d(st + kABytes + bx * kBoxBytes, &wmap, n0 + 64 * bx,
+                        kt * kBK, &full[stage]);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------ consumer warpgroups
+    const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, qd = lane & 3;
+    unsigned char* stg = ring + kRing + wg * 2 * kSlabBytes;
+    float acc[kBN / 2];
+    int it = 0, staged = 0;  // stages and slabs so far
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int m0, n0;
+      tile_origin(t, ncol, m0, n0);
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int stage = it % kStages;
+        mbar_wait(&full[stage], (it / kStages) & 1);
+        const uint32_t xs =
+            smem_u32(ring + stage * kStageBytes) + wg * 64 * 128;
+        const uint32_t ws = smem_u32(ring + stage * kStageBytes + kABytes);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kBK / 16; ++s)
+          wgmma_ss<T, kBN, 1>(acc, desc_k(xs + 32 * s),
+                              desc_mn(ws + 2048 * s, kBoxBytes), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        if (kt > 0) mbar_arrive(&empty[(it - 1) % kStages]);
+      }
+      wgmma_wait<0>();
+      mbar_arrive(&empty[(it - 1) % kStages]);
+
+      // Epilogue, one 64-column slab (one head of one third) at a time:
+      // the bias added in fp32, rounded once, staged in one of the
+      // warpgroup's two buffers (the 128-byte swizzle) and stored by TMA,
+      // whose writes run on while the next slab and tile go ahead.
+#pragma unroll
+      for (int sl = 0; sl < kBoxes; ++sl) {
+        const int slab = n0 / kHd + sl;
+        if (slab < slabs) {  // the same for the whole block
+          unsigned char* buf = stg + (staged++ & 1) * kSlabBytes;
+          if (tid == 0) bulk_wait_read<1>();  // its last store has read it
+          named_sync(1 + wg, 128);
+          const T* bs = bias + slab * kHd;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = 8 * j + 2 * qd, a = 4 * (8 * sl + j);
+            const float b0 = to_float(bs[c]), b1 = to_float(bs[c + 1]);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int r = 16 * warp + g + 8 * hh;
+              *reinterpret_cast<uint32_t*>(buf + r * 128 +
+                                           ((j ^ (r & 7)) << 4) + 4 * qd) =
+                  pack2<T>(acc[a + 2 * hh] + b0, acc[a + 2 * hh + 1] + b1);
+            }
+          }
+          fence_proxy_async();
+          named_sync(1 + wg, 128);
+          // Row m of x is row m % S of plane (m / S, head): one TMA store
+          // where the slab's rows lie in one batch, else (S not a multiple
+          // of 64) 16-byte stores row by row.
+          const int third = slab / H, head = slab % H;
+          const int mb = m0 + 64 * wg, me = min(mb + 64, M) - 1;
+          if (mb / S == me / S) {
+            if (tid == 0 && mb <= me)
+              tma_store_3d(third == 0 ? &qmap : third == 1 ? &kmap : &vmap,
+                           buf, 0, mb % S, mb / S * H + head);
+          } else {
+            T* out = third == 0 ? q : third == 1 ? k : v;
+            for (int i = tid; i < 64 * 8; i += 128) {
+              const int r = i >> 3, ch = i & 7, m = mb + r;
+              if (m <= me)
+                *reinterpret_cast<uint4*>(
+                    out + (((long long)(m / S) * H + head) * S + m % S) * kHd +
+                    8 * ch) = *reinterpret_cast<const uint4*>(
+                    buf + r * 128 + ((ch ^ (r & 7)) << 4));
+            }
+          }
+          if (tid == 0) bulk_commit();
+        }
+      }
+    }
+    if (tid == 0) bulk_wait<0>();  // the stores are done with the buffers
+  }
+}
+
+// `grid`: blocks (at most one a tile are launched).
+template <typename T>
+cudaError_t launch(const void* x, const void* w, const void* b, void* q,
+                   void* k, void* v, int B, int S, int d, int H, int grid,
+                   cudaStream_t st) {
+  if (grid <= 0) return cudaErrorInvalidValue;
+  const long long M = (long long)B * S, N = 3LL * H * kHd;
+  CUtensorMap xmap, wmap;
+  cudaError_t err = make_map<T, 2>(&xmap, x, {d, M}, {d}, {kBK, kBM});
+  if (err != cudaSuccess) return err;
+  err = make_map<T, 2>(&wmap, w, {N, d}, {N}, {64, kBK});
+  if (err != cudaSuccess) return err;
+  CUtensorMap omap[3];  // q, k and v as B * H planes of [S, 64]
+  void* const outs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    err = make_map<T, 3>(&omap[i], outs[i], {kHd, S, (long long)B * H},
+                         {kHd, (long long)S * kHd}, {64, 64, 1});
+    if (err != cudaSuccess) return err;
+  }
+  auto kern = qkv_proj_wgmma_kernel<T>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (M + kBM - 1) / kBM * ((N + kBN - 1) / kBN);
+  kern<<<(unsigned)std::min<long long>(grid, tiles), kThreads, kSmem, st>>>(
+      xmap, wmap, omap[0], omap[1], omap[2], static_cast<const T*>(b),
+      static_cast<T*>(q), static_cast<T*>(k), static_cast<T*>(v), S, (int)M,
+      d, H);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+bool valid(int B, int S, int d, int H, int vec) {
+  return B > 0 && S > 0 && d > 0 && H > 0 && H % 2 == 0 && d % vec == 0 &&
+         (long long)B * S <= 2147483647LL &&
+         ((long long)B * S + kRows - 1) / kRows <= 65535;
+}
+
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16, 2 fp16. x [B, S, d], w [d, 3 H 64], b [3 H 64],
-// q/k/v [B, H, S, 64], all contiguous and 16-byte aligned; H even; d a
-// multiple of 16 bytes of the dtype. Returns a cudaError_t; 0 when the
-// kernel launched.
+// x [B, S, d], w [d, 3 H 64], b [3 H 64], q/k/v [B, H, S, 64], all
+// contiguous and 16-byte aligned; H even; d a multiple of 16 bytes of the
+// dtype. Each entry returns a cudaError_t; 0 when the kernel launched.
+
+// qkv_proj_kernel: fp32 operands.
 extern "C" int paddle_tpu_torch_qkv_proj(const void* x, const void* w,
                                          const void* b, void* q, void* k,
                                          void* v, int B, int S, int d, int H,
-                                         int dtype, void* stream) {
-  const int vec = dtype == 0 ? 4 : 8;
-  if (B <= 0 || S <= 0 || d <= 0 || H <= 0 || H % 2 || d % vec)
-    return (int)cudaErrorInvalidValue;
-  if ((long long)B * S > 2147483647LL ||
-      ((long long)B * S + kRows - 1) / kRows > 65535)
-    return (int)cudaErrorInvalidValue;
+                                         void* stream) {
+  if (!valid(B, S, d, H, 4)) return (int)cudaErrorInvalidValue;
+  return (int)launch<float>(x, w, b, q, k, v, B, S, d, H,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// qkv_proj_wgmma_kernel: dtype 1 bf16, 2 fp16; `grid` blocks walk the
+// tiles (`plan` in ops/qkv_proj.py).
+extern "C" int paddle_tpu_torch_qkv_proj_wgmma(const void* x, const void* w,
+                                               const void* b, void* q,
+                                               void* k, void* v, int B, int S,
+                                               int d, int H, int dtype,
+                                               int grid, void* stream) {
+  if (!valid(B, S, d, H, 8)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return (int)launch<float>(x, w, b, q, k, v, B, S, d, H, st);
-    case 1:
-      return (int)launch<__nv_bfloat16>(x, w, b, q, k, v, B, S, d, H, st);
-    case 2:
-      return (int)launch<__half>(x, w, b, q, k, v, B, S, d, H, st);
-  }
+  if (dtype == 1)
+    return (int)wg::launch<__nv_bfloat16>(x, w, b, q, k, v, B, S, d, H, grid,
+                                          st);
+  if (dtype == 2)
+    return (int)wg::launch<__half>(x, w, b, q, k, v, B, S, d, H, grid, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -49,11 +49,12 @@ block_q=None, block_k=None)` is the port of the package's own
 of 128. It refuses (NotImplementedError) what JAX refuses: a bias, S
 not divisible by min(block, S), D % 128. The blocks default to
 256/256, JAX's choice when its autotune cache misses (the autotune
-cache is not ported); the Hopper kernel tiles by its own 64 rows and
-reads the blocks only for that refusal. Its forward on a CUDA tensor
-launches the kernel that replaces the TPU's `_fwd_kernel` (the same
-device code as K1a's forward, reading [B, S, H, D] in place, D 128 or
-256) or raises; on a CPU tensor the plain `flash_fwd_bshd_reference`.
+cache is not ported); the Hopper kernel tiles by its own 128 query rows
+and reads the blocks only for that refusal. Its forward on a CUDA tensor
+launches the kernel that replaces the TPU's `_fwd_kernel`, reading
+[B, S, H, D] in place, D 128 or 256, any S (bf16 and fp16: TMA tensor
+maps and wgmma; fp32: the CUDA-core forward K1a's fp32 path uses), or
+raises; on a CPU tensor the plain `flash_fwd_bshd_reference`.
 Its backward is the vjp of `attention_reference` over the unscaled q in
 fp32, in plain tensor code, as JAX's `_flash_core_bwd` recomputes it in
 XLA.

@@ -13,10 +13,11 @@ product and then the sum, so in bf16 the two differ by a rounding).
 It is a `torch.autograd.Function`:
 
 * forward: on a CUDA tensor it launches `csrc/qkv_proj.cu` (the Hopper
-  kernel that replaces the TPU's `_kernel`) or raises — fp32, bf16 or
-  fp16, head_dim 64, an even head count, d a multiple of 16 bytes; there
-  is no fallback. On a CPU tensor it runs the plain version
-  `qkv_proj_reference`.
+  kernels that replace the TPU's `_kernel`: bf16 and fp16 on
+  `qkv_proj_wgmma_kernel`, its grid from `plan`, fp32 on the
+  CUDA-core `qkv_proj_kernel`) or raises — head_dim 64, an even head
+  count, d a multiple of 16 bytes; there is no fallback. On a CPU
+  tensor it runs the plain version `qkv_proj_reference`.
 * backward: JAX's `_bwd` in plain tensor code (it is XLA einsums there,
   outside any kernel): dx and dw each one matrix product over the three
   thirds side by side, with fp32 sums and an fp32 result rounded once
@@ -39,8 +40,31 @@ launch_count = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIM = 64
-_SIGNATURES = {"paddle_tpu_torch_qkv_proj": [ctypes.c_void_p] * 6
-               + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+_SIGNATURES = {
+    "paddle_tpu_torch_qkv_proj": [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "paddle_tpu_torch_qkv_proj_wgmma": [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+}
+
+#: the wgmma kernel's block tile (rows of B * S, columns of w_qkv)
+TILE_M, TILE_N = 128, 256
+#: SMs of the H100 the kernel was tuned on (`plan`'s default)
+H100_SMS = 132
+
+
+def plan(B, S, n_heads, sms=H100_SMS):
+    """How the wgmma kernel cuts x [B, S, d] @ w_qkv [d, 3 H 64]: tiles
+    of TILE_M rows of B * S by TILE_N columns (a tile may straddle the
+    q / k / v thirds), walked along the columns first, so the blocks in
+    flight share x's row tiles, by a persistent grid of one block on
+    each of `sms` SMs (fewer where there are fewer tiles): measured
+    faster than a block a tile (tools/torch_qkv_ab.py --sweep)."""
+    rows = -(-B * S // TILE_M)
+    cols = -(-3 * n_heads * _HEAD_DIM // TILE_N)
+    tiles = rows * cols
+    return {"row_tiles": rows, "col_tiles": cols, "tiles": tiles,
+            "grid": min(tiles, sms)}
 
 
 def qkv_proj_supported(n_heads, seq_len, local_width, x_width=None) -> bool:
@@ -124,6 +148,10 @@ def build():
     return _build.build("qkv_proj")
 
 
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch(x, w_qkv, b_qkv, n_heads):
     global launch_count
     if x.device.type != "cuda":
@@ -160,10 +188,15 @@ def _launch(x, w_qkv, b_qkv, n_heads):
     if x.numel() == 0:
         return q, k, v
     lib = _build.load("qkv_proj", _SIGNATURES)
-    err = lib.paddle_tpu_torch_qkv_proj(
-        x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), B, S, d, n_heads, _DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), q.data_ptr(),
+            k.data_ptr(), v.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.float32:
+        err = lib.paddle_tpu_torch_qkv_proj(*ptrs, B, S, d, n_heads, stream)
+    else:
+        grid = plan(B, S, n_heads, _sms(x.device))["grid"]
+        err = lib.paddle_tpu_torch_qkv_proj_wgmma(
+            *ptrs, B, S, d, n_heads, _DTYPE_CODES[x.dtype], grid, stream)
     if err != 0:
         raise RuntimeError(f"qkv_proj kernel launch failed: CUDA error {err}")
     launch_count += 1

@@ -567,6 +567,67 @@ def test_qkv_proj_kernel_refuses_unsupported_operands(cuda_device):
         tqp.qkv_proj(x2.transpose(0, 1), w, b, 2)
 
 
+def _device_kernels(fn):
+    """Names of the device kernels `fn` launched, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+# The wgmma kernel where its cuts fall: B * S off the 128-row tile with
+# tiles whose rows cross a batch (S = 33, 100, 1: the row-by-row stores),
+# d off the 64-deep stage (72, 200: TMA zero-fills past d), H = 2 (a
+# third 128 columns wide, so 256-column tiles straddle q, k and v) and
+# H = 6. The same operands and single rounding as the plain version,
+# fp32 sums in another order: the tolerances of
+# test_qkv_proj_kernel_matches_plain.
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,d,H", [(3, 33, 72, 6), (2, 200, 200, 2),
+                                     (4, 100, 136, 6), (5, 1, 200, 2)])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float16, 2e-3)])
+def test_qkv_proj_wgmma_across_its_tiles(B, S, d, H, dtype, tol,
+                                         cuda_device):
+    x, w, b = _qkv_case(B, S, d, H, dtype, cuda_device, seed=B + S + d)
+    got = tqp.qkv_proj(x, w, b, H)
+    want = tqp.qkv_proj_reference(x, w, b, H)
+    for a, e in zip(got, want):
+        assert a.shape == (B, H, S, 64) and a.dtype == dtype
+        torch.testing.assert_close(a.float(), e.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_qkv_proj_wgmma_bit_identical_across_launches(dtype, cuda_device):
+    """At the train step's shape, two launches give the same bits (no
+    atomics; each output element is one block's fixed-order sum)."""
+    x, w, b = _qkv_case(8, 1024, 1024, 16, dtype, cuda_device)
+    first = tqp.qkv_proj(x, w, b, 16)
+    second = tqp.qkv_proj(x, w, b, 16)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_qkv_proj_routes_by_dtype(dtype, cuda_device):
+    """fp32 reaches the CUDA-core qkv_proj_kernel, bf16 and fp16 the
+    wgmma kernel, and the counter counts one launch."""
+    x, w, b = _qkv_case(2, 64, 128, 2, dtype, cuda_device)
+    before = tqp.launch_count
+    names = _device_kernels(lambda: tqp.qkv_proj(x, w, b, 2))
+    assert tqp.launch_count == before + 1
+    fp32 = dtype == torch.float32
+    assert any(("qkv_proj_kernel" if fp32 else "qkv_proj_wgmma_kernel") in n
+               for n in names), names
+    assert not any(("qkv_proj_wgmma_kernel" if fp32 else "qkv_proj_kernel")
+                   in n for n in names), names
+
+
 # ------------------------------------- paddle-layout flash forward (K1b)
 
 
@@ -597,6 +658,59 @@ def test_flash_bshd_kernel_matches_plain(S, D, causal, dtype, tol,
     assert tfa.bshd_launch_count == before + 1
     want = tfa.flash_fwd_bshd_reference(q, k, v, scale, causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# The wgmma kernel where its cuts fall: S off the 128-row query tile and
+# the key tiles (1, 127, 129, 200, 1000; TMA zero-fills past S and the
+# keys there get -inf), D = 128 and 256, causal and full, with a scale
+# that is not a power of two at both D (the query is scaled and rounded
+# in its dtype before the products). Tolerances of
+# test_flash_bshd_kernel_matches_plain.
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 127, 129, 200, 1000])
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
+                                       (torch.float16, 4e-3)])
+def test_flash_bshd_wgmma_across_its_tiles(S, D, causal, dtype, tol,
+                                           cuda_device):
+    q, k, v, _ = _bshd_case(2, S, 3, D, dtype, cuda_device, seed=S + D + 1)
+    scale = 0.0711 if D == 256 else D ** -0.5
+    before = tfa.bshd_launch_count
+    got = tfa._launch_fwd_bshd(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert tfa.bshd_launch_count == before + 1
+    assert bool(torch.isfinite(got).all())
+    want = tfa.flash_fwd_bshd_reference(q, k, v, scale, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,D", [(16, 128), (8, 256)])
+def test_flash_bshd_wgmma_bit_identical_across_launches(H, D, cuda_device):
+    """At the entry's shapes, causal, two launches give the same bits."""
+    q, k, v, _ = _bshd_case(8, 1024, H, D, torch.bfloat16, cuda_device)
+    first = tfa._launch_fwd_bshd(q, k, v, D ** -0.5, True)
+    second = tfa._launch_fwd_bshd(q, k, v, D ** -0.5, True)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_bshd_routes_by_dtype(dtype, cuda_device):
+    """fp32 reaches the CUDA-core flash_fwd_kernel, bf16 and fp16 the
+    wgmma kernel, and the counter counts one launch."""
+    q, k, v, _ = _bshd_case(2, 200, 3, 128, dtype, cuda_device)
+    before = tfa.bshd_launch_count
+    names = _device_kernels(
+        lambda: tfa._launch_fwd_bshd(q, k, v, 128 ** -0.5, True))
+    assert tfa.bshd_launch_count == before + 1
+    fp32 = dtype == torch.float32
+    assert any(("flash_fwd_kernel" if fp32 else "flash_fwd_bshd_wgmma_kernel")
+               in n for n in names), names
+    assert not any(("flash_fwd_bshd_wgmma_kernel" if fp32 else
+                    "flash_fwd_kernel") in n for n in names), names
 
 
 @pytest.mark.cuda

@@ -142,3 +142,43 @@ def test_bf16_grads_round_once():
         assert _within_one_bf16_spacing(
             a.float().numpy(), e.to(torch.bfloat16).float().numpy()), \
             f"d{name}"
+
+
+# ------------------------------ the wgmma kernel's plan (no card)
+
+
+def test_plan_at_the_train_step():
+    """x [8, 1024, 1024] @ w_qkv [1024, 3072]: 64 row tiles of 128 x 12
+    column tiles of 256, walked by a block on each of the H100's 132
+    SMs."""
+    p = tqp.plan(8, 1024, 16)
+    assert (p["row_tiles"], p["col_tiles"], p["tiles"]) == (64, 12, 768)
+    assert p["grid"] == 132
+
+
+@pytest.mark.parametrize("B,S,H,rows,cols", [
+    (1, 1, 2, 1, 2),          # one row; 384 columns: two tiles, the
+                              # second half empty
+    (3, 33, 6, 1, 5),         # 99 rows in one tile; 1152 columns
+    (2, 200, 2, 4, 2),        # 400 rows: the last tile 16 rows
+    (5, 1, 16, 1, 12),
+    (4, 1024, 32, 32, 24),
+])
+def test_plan_at_edge_shapes(B, S, H, rows, cols):
+    """Tiles cover B * S rows and 3 H 64 columns (a tile may straddle the
+    q / k / v thirds: at H = 2 a third is 128 columns); never more
+    blocks than tiles."""
+    p = tqp.plan(B, S, H)
+    assert (p["row_tiles"], p["col_tiles"]) == (rows, cols)
+    assert p["tiles"] == rows * cols
+    assert p["grid"] == min(rows * cols, tqp.H100_SMS)
+    assert rows * tqp.TILE_M >= B * S > (rows - 1) * tqp.TILE_M
+    assert cols * tqp.TILE_N >= 3 * H * 64 > (cols - 1) * tqp.TILE_N
+
+
+def test_plan_follows_the_sm_count():
+    """The grid is one block for each SM of the card the wrapper names,
+    never more than there are tiles."""
+    for sms in (132, 114, 66, 8):
+        assert tqp.plan(8, 1024, 16, sms=sms)["grid"] == sms
+    assert tqp.plan(1, 1, 2, sms=132)["grid"] == 2
