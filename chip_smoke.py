@@ -802,13 +802,15 @@ def check_gmm(gm, device, flush):
             calls.append((err, ms, plain, lib, bound_ms, bound_by))
             moved = bound_ms * 1e-3 * PEAK_BYTES if bound_by == "bytes" \
                 else None
+            flops = 2 * x.shape[0] * x.shape[1] * d_in * d_out
             print(f"kernel check: gmm_{variant} {dname} {prod} "
                   f"[{x.shape[0]}, {x.shape[1]}, {d_in}] x [{d_in}, "
                   f"{d_out}] {str(w.dtype).split('.')[-1]} weights "
                   f"{tuple(w.shape)} max_abs_err={err:.3g} (tol {tol} "
                   f"(1 + |plain|)) kernel_ms={ms:.4f} plain_ms={plain:.4f}"
                   f" bound_ms={bound_ms:.4f} ({bound_by}), the kernel at "
-                  f"{bound_ms / ms:.1%} of it"
+                  f"{bound_ms / ms:.1%} of it, "
+                  f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s"
                   + ("" if moved is None else
                      f", {moved / (ms * 1e-3) / 1e12:.3f} TB/s of "
                      f"{PEAK_BYTES / 1e12:.2f}")
@@ -2129,9 +2131,14 @@ def check_flash_seg_bwd(fa, device, flush):
         records[S] = dict(max_abs_err=errs[(S, "bfloat16")], ms=ms,
                           plain_ms=plain, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=lib)
+        flops = 10 * D * H * int(same.sum())
+        kept = fa.segment_tile_pairs(seg, False).float().mean().item()
         print(f"kernel check: flash_bwd_seg bfloat16 [{B}, {H}, {S}, {D}] "
               f"full, lengths {shortest}-{S}: kernel_ms={ms:.4f} plain_ms="
-              f"{plain:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"{plain:.4f} bound_ms={bound_ms:.4f} ({bound_by}), the "
+              f"kernel at {bound_ms / ms:.1%} of it, "
+              f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s over the visible "
+              f"pairs, {kept:.1%} of the 64-row tile pairs computed; "
               f"yardstick: scaled_dot_product_attention backward with the "
               f"segment mask {lib:.4f} ms", flush=True)
         del q, k, v, out, lse, dout, seg, same, sq, so
@@ -2514,6 +2521,12 @@ def profile_bert_train(model, ids, mlm, nsp):
           + "; most device time: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
               f"x{e.count}" for e in top), flush=True)
+    bwd = [e for e in dev if "flash_bwd" in e.key or "flash_delta" in e.key]
+    bwd_ms = sum(e.self_device_time_total for e in bwd) / 1e3
+    print(f"profile: BERT train step (A), K1c's backward: {bwd_ms:.3f} ms of "
+          f"device time, {bwd_ms / device_ms:.1%} of the step's, in " +
+          ", ".join(f"{e.key[:56]} {e.self_device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in bwd), flush=True)
 
 
 # the fp32 card-against-CPU train step: the same update on both, summed

@@ -46,16 +46,18 @@
 // tile's segments are visited all the same; skipping them is speed for
 // later.
 //
-// Its backward is the backward below with the same switch: the fixed
-// tile's ids (keys in the dk/dv pass, queries in the dq pass) in
-// registers, the walked tile's 64 ids in shared memory beside its lse
-// and delta, and every tile taking the masked branch (an interior tile
-// may pair two segments). A pair of two segments gets p = 0 exactly,
-// never exp(-inf - lse): every row's lse is finite (each row sees its
-// own key), so nothing stands in for a missing score. The dq pass walks
-// every key tile, as the forward does. At BERT-base's shapes it moves
-// ~101 MB ([64, 12, 128, 64], bytes bound) or does ~32 GFLOP over
-// visible pairs at most ([16, 12, 512, 64]).
+// Its backward in fp32 is the CUDA-core backward below with the same
+// switch: the fixed tile's ids (keys in the dk/dv pass, queries in the
+// dq pass) in registers, the walked tile's 64 ids in shared memory
+// beside its lse and delta, and every tile taking the masked branch (an
+// interior tile may pair two segments). A pair of two segments gets
+// p = 0 exactly, never exp(-inf - lse): every row's lse is finite (each
+// row sees its own key), so nothing stands in for a missing score. In
+// bf16 and fp16 it is bwd16::flash_bwd_wgmma_kernel (TMA + wgmma, two
+// passes, tile pairs whose segment ranges cannot meet skipped; described
+// at it below). At BERT-base's shapes it moves ~101 MB ([64, 12, 128,
+// 64], bytes bound) or does ~32 GFLOP over visible pairs at most
+// ([16, 12, 512, 64]).
 //
 // What bounds it: at the train step's shapes ([8, 16, 1024, 64] bf16)
 // the forward moves ~67 MB and does ~1.7e10 flops, the backward ~2.5x
@@ -77,8 +79,9 @@
 // of the output tile; rows of a tile live in 8 neighbouring lanes, so
 // row max and row sum are three shuffles; shared rows, staged as fp32,
 // are padded by 4 floats so the 16-byte shared-memory loads are free of
-// bank conflicts. Next for speed in the splash kernels: the paddle-layout
-// forward's TMA + wgmma design.
+// bank conflicts. Next for speed in the splash kernels: K1a's forward on
+// the paddle-layout forward's TMA + wgmma design, and K1a's backward on
+// bwd16's kernel (its kSeg = false instantiation).
 //
 // Built with nvcc into a shared library with a plain C interface
 // (paddle_tpu_torch/ops/flash_attention.py), launched on the caller's
@@ -814,15 +817,14 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// kSeg as flash_bwd_dkdv_kernel's.
-template <typename T, int D, bool kSeg>
+// K1a's backward in 16 bits (K1c's is bwd16's below).
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv,
-                          const int* __restrict__ seg, int S, int H,
+                          T* __restrict__ dk, T* __restrict__ dv, int S,
                           int causal) {
   constexpr int LDS = ld16<D>();
   extern __shared__ float4 smem4[];
@@ -832,7 +834,6 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* dOs = Qs + kTile * LDS;
   float* lse_s = reinterpret_cast<float*>(dOs + kTile * LDS);
   float* delta_s = lse_s + kTile;
-  int* Segs = reinterpret_cast<int*>(delta_s + kTile);  // the query tile's
   const int ntiles = (S + kTile - 1) / kTile;
   const int kt = blockIdx.y;  // low key tiles see the most query tiles
   const int k0 = kt * kTile;
@@ -840,23 +841,14 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long roff = (long long)blockIdx.x * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int* segb = kSeg ? seg + (long long)(blockIdx.x / H) * S : nullptr;
 
   load_tile16<T, D>(Ks, k + off, k0, S);
   load_tile16<T, D>(Vs, v + off, k0, S);
   float adk[D / 8][4], adv[D / 8][4];
-  int kseg[2];
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[nt][e] = adv[nt][e] = 0.f;
-  if constexpr (kSeg) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int key = k0 + warp * 16 + g + 8 * h;
-      kseg[h] = key < S ? segb[key] : 0;
-    }
-  }
 
   for (int qt = causal ? kt : 0; qt < ntiles; ++qt) {
     const int q0 = qt * kTile;
@@ -867,15 +859,13 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok = q0 + threadIdx.x < S;
       lse_s[threadIdx.x] = ok ? lse[roff + q0 + threadIdx.x] : 0.f;
       delta_s[threadIdx.x] = ok ? delta[roff + q0 + threadIdx.x] : 0.f;
-      if constexpr (kSeg) Segs[threadIdx.x] = ok ? segb[q0 + threadIdx.x] : 0;
     }
     __syncthreads();
     // rows: this warp's 16 keys; columns: the tile's 64 queries
     float p[8][4], ds[8][4];
     mma_rows<T, D>(p, Ks, Qs, warp, lane);
     mma_rows<T, D>(ds, Vs, dOs, warp, lane);
-    // with segments every tile may hold pairs of two segments
-    const bool edge = kSeg || q0 + kTile > S || k0 + kTile > S ||
+    const bool edge = q0 + kTile > S || k0 + kTile > S ||
                       (causal && k0 + kTile - 1 > q0);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -884,8 +874,7 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int col = nt * 8 + 2 * t + (e & 1);
         const int key = k0 + warp * 16 + g + 8 * (e >> 1), qi = q0 + col;
         const bool masked =
-            edge && (qi >= S || key >= S || (causal && key > qi) ||
-                     (kSeg && Segs[col] != kseg[e >> 1]));
+            edge && (qi >= S || key >= S || (causal && key > qi));
         const float pv = masked ? 0.f : expf(p[nt][e] - lse_s[col]);
         p[nt][e] = pv;
         ds[nt][e] = pv * (ds[nt][e] - delta_s[col]);
@@ -903,22 +892,19 @@ flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// kSeg as flash_bwd_dq_kernel's.
-template <typename T, int D, bool kSeg>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        const int* __restrict__ seg, int S, int H,
-                        int causal) {
+                        int S, int causal) {
   constexpr int LDS = ld16<D>();
   extern __shared__ float4 smem4[];
   T* Qs = reinterpret_cast<T*>(smem4);
   T* dOs = Qs + kTile * LDS;
   T* Ks = dOs + kTile * LDS;
   T* Vs = Ks + kTile * LDS;
-  int* Segs = reinterpret_cast<int*>(Vs + kTile * LDS);  // the key tile's
   const int ntiles = (S + kTile - 1) / kTile;
   const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * kTile;
@@ -926,18 +912,15 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long roff = (long long)blockIdx.x * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int* segb = kSeg ? seg + (long long)(blockIdx.x / H) * S : nullptr;
 
   load_tile16<T, D>(Qs, q + off, q0, S);
   load_tile16<T, D>(dOs, dout + off, q0, S);
   float row_lse[2], row_delta[2], acc[D / 8][4];
-  int qseg[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qi = q0 + warp * 16 + g + 8 * h;
     row_lse[h] = qi < S ? lse[roff + qi] : 0.f;
     row_delta[h] = qi < S ? delta[roff + qi] : 0.f;
-    if constexpr (kSeg) qseg[h] = qi < S ? segb[qi] : 0;
   }
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
@@ -949,14 +932,11 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's readers are done
     load_tile16<T, D>(Ks, k + off, k0, S);
     load_tile16<T, D>(Vs, v + off, k0, S);
-    if (kSeg && threadIdx.x < kTile)
-      Segs[threadIdx.x] = k0 + threadIdx.x < S ? segb[k0 + threadIdx.x] : 0;
     __syncthreads();
     float p[8][4], ds[8][4];
     mma_rows<T, D>(p, Qs, Ks, warp, lane);
     mma_rows<T, D>(ds, dOs, Vs, warp, lane);
-    const bool edge =
-        kSeg || k0 + kTile > S || (causal && k0 + kTile - 1 > q0);
+    const bool edge = k0 + kTile > S || (causal && k0 + kTile - 1 > q0);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -964,8 +944,7 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int col = nt * 8 + 2 * t + (e & 1);
         const int key = k0 + col;
         const int qi = q0 + warp * 16 + g + 8 * (e >> 1);
-        const bool masked = edge && (key >= S || (causal && key > qi) ||
-                                     (kSeg && Segs[col] != qseg[e >> 1]));
+        const bool masked = edge && (key >= S || (causal && key > qi));
         const float pv =
             masked ? 0.f : expf(p[nt][e] - row_lse[e >> 1]);
         ds[nt][e] = pv * (ds[nt][e] - row_delta[e >> 1]);
@@ -995,9 +974,9 @@ template <int D, bool kSeg>
 constexpr int fwd_smem16() {
   return 3 * kTile * ld16<D>() * 2 + (kSeg ? kTile * 4 : 0);
 }
-template <int D, bool kSeg>
-constexpr int bwd_smem16() {  // dk/dv's lse, delta (and ids); dq's ids
-  return 4 * kTile * ld16<D>() * 2 + (kSeg ? 3 : 2) * kTile * 4;
+template <int D>
+constexpr int bwd_smem16() {  // dk/dv's lse and delta
+  return 4 * kTile * ld16<D>() * 2 + 2 * kTile * 4;
 }
 
 // Raises the kernel's dynamic shared memory limit to SMEM and launches
@@ -1407,6 +1386,638 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace bshd
 
+// ------------------------------------------------------------------------
+// The segmented backward for 16-bit operands (K1c's backward): TMA +
+// wgmma, the deterministic two passes of the backward above, with the
+// tile pairs that segments keep apart skipped.
+//
+// A pre-pass (flash_delta_seg_kernel) writes delta and, for every
+// (batch, 64-row tile), the least and greatest segment id of its rows.
+// Two tiles whose [min, max] ranges do not overlap hold only pairs of
+// two segments: their p is exactly 0, so a pass skips them and no value
+// changes. A pair whose tiles each hold one id, the same, takes no mask;
+// others, and tiles that cross the diagonal (causal) or hold rows past
+// S, take the masked branch.
+//
+// Both passes run as one persistent launch (a block an SM, walking a
+// fixed list of items). An item is 128 fixed rows of one head, two
+// consumer warpgroups of 64 rows each, walking 64-row tiles of the
+// other operand: a dK/dV item fixes keys (X = K, Y = V, with their ids)
+// and walks queries (U = Q, W = dO, with their lse, delta and ids); a dQ
+// item fixes queries (X = Q, Y = dO, with their lse, delta and ids) and
+// walks keys (U = K, W = V, with their ids). A producer warp loads each
+// item's fixed tiles into one of two buffers (the next item's while the
+// consumers finish this one) and keeps a ring of walked tiles full
+// through TMA (3-D maps over [BH, S, D], 64-column boxes under the
+// 128-byte swizzle, zeros past S); the rows' scalars come by cp.async,
+// tracked by the same barriers. It decides which walked tiles each
+// warpgroup needs, from the ranges (the next item's loaded while it
+// issues this one's), causality and S, and writes that into the stage
+// beside the walked rows' scalars; a tile no warpgroup needs is never
+// loaded, and a stage without a tile ends the item. Per
+// walked tile a warpgroup issues S = X U^T and dP = Y W^T (wgmma
+// m64n64k16, both operands K-major in shared memory), turns S into p =
+// exp(s - lse) (fp32, masked where the stage says so) while dP is in
+// flight, then ds = p (dp - delta); p and ds, rounded to T, are the
+// register A operands of dV += P^T dO and dK += dS^T Q (or dQ += dS K),
+// whose B operands are the walked tiles read MN-major. No atomics: two
+// launches give the same bits. The producer warpgroup gives its
+// registers to the consumers (setmaxnreg 40 / 232): at D = 128 the dK
+// and dV accumulators are 128 fp32 registers a thread beside S and dP.
+//
+// The kernel takes the causal switch and compiles without segments
+// (kSeg false: no ranges, no ids), so K1a's backward, which today keeps
+// its mma.sync kernels above, can take it too.
+
+namespace bwd16 {
+
+using namespace hopper;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr int kPrepThreads = 128;
+
+// The pre-pass: delta[row] = sum_d dout[row][d] * out[row][d] in fp32,
+// D / 8 lanes a row reading 16 bytes each; with kSeg the blocks past
+// `dblocks` write each (batch, 64-row tile)'s least and greatest segment
+// id (rows at or past S left out), a warp a tile.
+template <typename T, int D, bool kSeg>
+__global__ void __launch_bounds__(kPrepThreads)
+flash_delta_seg_kernel(const T* __restrict__ out,
+                       const T* __restrict__ dout, float* __restrict__ delta,
+                       long long rows, long long dblocks,
+                       const int* __restrict__ seg, int2* __restrict__ ranges,
+                       int S, int tiles) {
+  if (kSeg && blockIdx.x >= dblocks) {
+    const int t = (int)(blockIdx.x - dblocks) * 4 + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (t >= tiles) return;
+    const int nt = (S + 63) / 64, b = t / nt, r0 = (t % nt) * 64;
+    int lo = 0x7fffffff, hi = -0x7fffffff - 1;
+    for (int r = r0 + lane; r < min(r0 + 64, S); r += 32) {
+      const int v = seg[(long long)b * S + r];
+      lo = min(lo, v);
+      hi = max(hi, v);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    if (lane == 0) ranges[t] = make_int2(lo, hi);
+    return;
+  }
+  constexpr int kLanes = D / 8;  // lanes a row
+  const long long row =
+      (long long)blockIdx.x * (kPrepThreads / kLanes) + threadIdx.x / kLanes;
+  const int c = (threadIdx.x % kLanes) * 8;
+  float s = 0.f;
+  if (row < rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(out + row * D + c);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + row * D + c);
+    const T* ea = reinterpret_cast<const T*>(&a);
+    const T* eb = reinterpret_cast<const T*>(&b);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s += to_float(ea[i]) * to_float(eb[i]);
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (row < rows && threadIdx.x % kLanes == 0) delta[row] = s;
+}
+
+template <int D>
+struct Cfg {
+  static constexpr int kBM = 128;  // fixed rows a block, 64 a warpgroup
+  static constexpr int kBN = 64;   // rows a walked tile
+  static constexpr int kConsumers = 256;
+  static constexpr int kThreads = kConsumers + 128;
+  // registers a consumer thread: all the producer's but 40
+  static constexpr int kRegs = (65536 / 128 - 40) / 2 / 8 * 8;
+  static constexpr int kChunks = D / 64;  // 128-byte column boxes
+  static constexpr int kFixChunk = kBM * 128;
+  static constexpr int kWalkChunk = kBN * 128;
+  static constexpr int kFixBytes = kChunks * kFixChunk;    // X or Y
+  static constexpr int kWalkBytes = kChunks * kWalkChunk;  // U or W
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  // buffers of the fixed tiles: the producer loads the next item's
+  // while the consumers finish this one
+  static constexpr int kFixBufs = 2;
+  // a stage: U, W, then its header (the walked tile's first row, or -1
+  // for the end; the warpgroups' flags) and the walked rows' lse, delta
+  // and ids, padded so the next stage stays 1024-byte aligned
+  static constexpr int kScalars = 1024;
+  static constexpr int kStageBytes = 2 * kWalkBytes + kScalars;
+  // a fixed buffer's rows' lse, delta and ids
+  static constexpr int kFixScalars = 3 * kBM * 4;
+  // the buffers of X and Y, the ring, the fixed rows' scalars, the
+  // ring's barriers and the buffers'
+  static constexpr int kSmem = 1024 + 2 * kFixBufs * kFixBytes +
+                               kStages * kStageBytes +
+                               kFixBufs * kFixScalars +
+                               (2 * kStages + 2 * kFixBufs) * 8;
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+// The segment ranges one walk decision reads: the item's two fixed
+// 64-row tiles' (a0, a1) and the walked tile's (c).
+struct Ranges {
+  int2 a0, a1, c;
+};
+
+template <bool kSeg>
+__device__ __forceinline__ Ranges load_ranges(const int2* __restrict__ rb,
+                                              int f0, int t, int nt) {
+  Ranges r{};
+  if constexpr (kSeg) {
+    r.a0 = rb[f0 / 64];
+    r.a1 = rb[min(f0 / 64 + 1, nt - 1)];
+    r.c = rb[min(t, nt - 1)];
+  }
+  return r;
+}
+
+// The walk's flags for warpgroup `wg` and the walked 64-row tile `t`: 1
+// it needs the tile, 3 it needs it masked, 0 it does not. `a`, `c`: the
+// warpgroup's and the walked tile's segment ranges.
+template <bool kSeg>
+__device__ __forceinline__ int wg_flags(bool dq, int wg, int t, int f0,
+                                        int S, int causal, int2 a, int2 c) {
+  const int r0 = f0 + 64 * wg, w0 = 64 * t;  // first fixed / walked row
+  if (r0 >= S) return 0;
+  // causal: a key is seen by the queries at or after it
+  bool visit = !causal || (dq ? w0 <= r0 + 63 : w0 + 63 >= r0);
+  bool mask = w0 + 64 > S || r0 + 64 > S ||
+              (causal && (dq ? w0 + 63 > r0 : r0 + 63 > w0));
+  if constexpr (kSeg) {
+    visit = visit && a.x <= c.y && c.x <= a.y;
+    mask = mask || !(a.x == a.y && c.x == c.y && a.x == c.x);
+  }
+  return visit ? (mask ? 3 : 1) : 0;
+}
+
+// Both warpgroups' flags for tile t (0 at or past te), from its ranges.
+template <bool kSeg>
+__device__ __forceinline__ int tile_flags(bool dq, int t, int te, int f0,
+                                          int S, int causal,
+                                          const Ranges& r) {
+  if (t >= te) return 0;
+  return wg_flags<kSeg>(dq, 0, t, f0, S, causal, r.a0, r.c) |
+         wg_flags<kSeg>(dq, 1, t, f0, S, causal, r.a1, r.c) << 2;
+}
+
+// p = exp(s - lse) over one tile's scores, in place: rows are the
+// thread's fixed rows fr + 8 hh, columns the walked rows w0 + 8 j +
+// 2 qd + u (the wgmma accumulator layout). The lse is the walked row's
+// (dK/dV: queries walk; `wl` in the stage) or the fixed row's (dQ;
+// `fl2`, times log2(e)). With kMask a pair that is not visible (a walked
+// row past S, a key after its query when causal, two segments) gets
+// p = 0 exactly.
+template <bool kMask, bool kSeg, bool kDQ>
+__device__ __forceinline__ void probs(float (&s)[32],
+                                      const float* __restrict__ wl,
+                                      const float (&fl2)[2],
+                                      const int* __restrict__ wseg,
+                                      const int (&fseg)[2], int fr, int w0,
+                                      int S, int causal, int qd) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = 8 * j + 2 * qd + u, wr = w0 + c;
+      const float lw = kDQ ? 0.f : wl[c] * kLog2e;
+      const int sw = kSeg && kMask ? wseg[c] : 0;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float& x = s[4 * j + 2 * hh + u];
+        const float p =
+            exp2_approx(fmaf(x, kLog2e, -(kDQ ? fl2[hh] : lw)));
+        if constexpr (kMask) {
+          const int f = fr + 8 * hh;
+          const bool vis = wr < S &&
+                           (!causal || (kDQ ? wr <= f : f <= wr)) &&
+                           (!kSeg || sw == fseg[hh]);
+          x = vis ? p : 0.f;
+        } else {
+          x = p;
+        }
+      }
+    }
+}
+
+// A 64 x 64 tile of fp32 values in the accumulator layout, rounded to T,
+// as the register A operands of four k16 steps.
+template <typename T>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      a[kk][u] = Mma<T>::pack(s[8 * kk + 2 * u], s[8 * kk + 2 * u + 1]);
+}
+
+// acc (64 x 64) = the warpgroup's 64 fixed rows at `fs` (in 128-row
+// boxes of 64 columns) times the walked tile at `ws`, transposed.
+template <typename T, int D>
+__device__ __forceinline__ void scores(float (&acc)[32], uint32_t fs,
+                                       uint32_t ws) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<T, 64, 0>(
+        acc, desc_k(fs + (kk >> 2) * Cfg<D>::kFixChunk + (kk & 3) * 32),
+        desc_k(ws + (kk >> 2) * Cfg<D>::kWalkChunk + (kk & 3) * 32), kk > 0);
+}
+
+// acc (64 x D) += a (64 x 64 in registers) times the walked tile at ws
+// read MN-major (its rows along K).
+template <typename T, int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t ws) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<T, D, 1>(acc, a[kk],
+                      desc_mn(ws + kk * 2048, Cfg<D>::kWalkChunk), 1);
+}
+
+// Rows fr + 8 hh (those below S) of a contiguous [S, D] gradient, from
+// the accumulator layout.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* __restrict__ g,
+                                           const float (&acc)[D / 2], int fr,
+                                           int S, int qd) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = fr + 8 * hh;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(g + (long long)row * D + 8 * j + 2 * qd) =
+          Mma<T>::pack(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  }
+}
+
+// One walked tile of one warpgroup's item: S and dP from shared memory,
+// p and ds in registers, then dV += P^T dO and dK += dS^T Q (acc1,
+// acc0), or dQ += dS K (acc0). `st`: the stage; fl & 2: masked.
+template <typename T, int D, bool kSeg, bool kDQ>
+__device__ __forceinline__ void walk_tile(float (&acc0)[D / 2],
+                                          float (&acc1)[D / 2], uint32_t xs,
+                                          uint32_t ys,
+                                          const unsigned char* st, int fl,
+                                          const float (&fl2)[2],
+                                          const float (&fdl)[2],
+                                          const int (&fseg)[2], int fr, int S,
+                                          int causal, int qd) {
+  using C = Cfg<D>;
+  const int* hdr = reinterpret_cast<const int*>(st + 2 * C::kWalkBytes);
+  const int w0 = hdr[0];
+  const float* sl = reinterpret_cast<const float*>(hdr + 16);
+  const float* sd = sl + 64;
+  const int* ss = reinterpret_cast<const int*>(sd + 64);
+  const uint32_t us = smem_u32(st), ws = us + C::kWalkBytes;
+  float s[32], dp[32];
+  wgmma_fence();
+  scores<T, D>(s, xs, us);   // S^T = K Q^T, or S = Q K^T
+  wgmma_commit();
+  scores<T, D>(dp, ys, ws);  // dP^T = V dO^T, or dP = dO V^T
+  wgmma_commit();
+  wgmma_wait<1>();
+  if (fl & 2)
+    probs<true, kSeg, kDQ>(s, sl, fl2, ss, fseg, fr, w0, S, causal, qd);
+  else
+    probs<false, kSeg, kDQ>(s, sl, fl2, ss, fseg, fr, w0, S, causal, qd);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float dw = kDQ ? 0.f : sd[8 * j + 2 * qd + u];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int x = 4 * j + 2 * hh + u;
+        dp[x] = s[x] * (dp[x] - (kDQ ? fdl[hh] : dw));  // ds
+      }
+    }
+  uint32_t da[4][4];
+  pack_a<T>(da, dp);
+  if constexpr (kDQ) {
+    wgmma_fence();
+    accumulate<T, D>(acc0, da, us);  // dQ += dS K
+  } else {
+    uint32_t pa[4][4];
+    pack_a<T>(pa, s);
+    wgmma_fence();
+    accumulate<T, D>(acc1, pa, ws);  // dV += P^T dO
+    accumulate<T, D>(acc0, da, us);  // dK += dS^T Q
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+}
+
+// Item `item` of the launch: the dK/dV pass's (bh, key tile) items
+// first, a head's tiles adjacent from key tile 0, then the dQ pass's
+// from the last query tile (the heaviest causal tiles first): whether it
+// is a dQ item, its head, its first fixed row, and the walked tiles
+// [tb, te) it can need (fewer when causal).
+struct Item {
+  bool dq;
+  int bh, f0, tb, te;
+};
+
+__device__ __forceinline__ Item decode_item(int item, int per, int nf,
+                                            int nt, int causal) {
+  Item it;
+  it.dq = item >= per;
+  const int k = it.dq ? item - per : item;
+  it.bh = k / nf;
+  it.f0 = (it.dq ? nf - 1 - k % nf : k % nf) * 128;
+  it.tb = !it.dq && causal ? it.f0 / 64 : 0;
+  it.te = it.dq && causal ? min(nt, it.f0 / 64 + 2) : nt;
+  return it;
+}
+
+// Both passes (see above) in one persistent launch: block b takes items
+// first + b, + gridDim.x, ... below `last` of the 2 x `per` (BH x
+// ceil(S / 128) a pass). Maps: q, dO, k, v in 128-row boxes (fixed)
+// and 64-row boxes (walked). dq, dk, dv: the gradients; ranges:
+// [BH / H, ceil(S / 64)] (min, max) ids. The fixed tiles are
+// double-buffered, so a block waits for them only at its first item.
+template <typename T, int D, bool kSeg>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qf,
+                       const __grid_constant__ CUtensorMap of,
+                       const __grid_constant__ CUtensorMap kf,
+                       const __grid_constant__ CUtensorMap vf,
+                       const __grid_constant__ CUtensorMap qw,
+                       const __grid_constant__ CUtensorMap ow,
+                       const __grid_constant__ CUtensorMap kw,
+                       const __grid_constant__ CUtensorMap vw,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const int* __restrict__ seg,
+                       const int2* __restrict__ ranges, T* __restrict__ dq,
+                       T* __restrict__ dk, T* __restrict__ dv, int S, int H,
+                       int causal, int per, int first, int last) {
+  using C = Cfg<D>;
+  constexpr int kStages = C::kStages, kBufs = C::kFixBufs;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the buffers of the fixed tiles (X then Y), the ring, the buffers of
+  // the fixed rows' scalars, the barriers
+  unsigned char* fix =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = fix + 2 * kBufs * C::kFixBytes;
+  unsigned char* fsc = ring + kStages * C::kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(fsc + kBufs * C::kFixScalars);
+  uint64_t* empty = full + kStages;
+  uint64_t* fixfull = empty + kStages;
+  uint64_t* fixempty = fixfull + kBufs;
+  const int nf = (S + C::kBM - 1) / C::kBM, nt = (S + 63) / 64;
+  if (threadIdx.x == 0) {
+    // full barriers: the producer lanes' copies, and lane 0
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 33);
+      mbar_init(&empty[i], C::kConsumers);
+    }
+    for (int i = 0; i < kBufs; ++i) {
+      mbar_init(&fixfull[i], 33);
+      mbar_init(&fixempty[i], C::kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= C::kConsumers) {
+    // ----------------------------------------------- producer warp
+    setmaxnreg_dec<40>();
+    if (threadIdx.x >= C::kConsumers + 32) return;
+    const int lane = threadIdx.x & 31;
+    // An item's walk takes its tiles tb .. te - 1, 32 at a time: lane l
+    // decides for tile base + l, and the warp issues the needed ones in
+    // order. The ranges of the next item's first 32 are loaded while
+    // this item's tiles are issued.
+    const auto ranges_of = [&](const Item& it, int t) {
+      return load_ranges<kSeg>(kSeg ? ranges + (long long)(it.bh / H) * nt
+                                    : nullptr,
+                               it.f0, t, nt);
+    };
+    Ranges next{};
+    if (first + (int)blockIdx.x < last) {
+      const Item it = decode_item(first + blockIdx.x, per, nf, nt, causal);
+      next = ranges_of(it, it.tb + lane);
+    }
+    int i = 0, n = 0;  // stages filled, items begun
+    for (int item = first + blockIdx.x; item < last;
+         item += gridDim.x, ++n) {
+      const Item it = decode_item(item, per, nf, nt, causal);
+      const long long roff = (long long)it.bh * S;
+      const int* segb = kSeg ? seg + (long long)(it.bh / H) * S : nullptr;
+      const Ranges first_ranges = next;
+      if (item + (int)gridDim.x < last) {
+        const Item nx =
+            decode_item(item + gridDim.x, per, nf, nt, causal);
+        next = ranges_of(nx, nx.tb + lane);
+      }
+      // the fixed tiles, with their rows' ids (and, for dQ, lse and
+      // delta), into buffer fb
+      const int fb = n % kBufs;
+      mbar_wait(&fixempty[fb], ((n / kBufs) & 1) ^ 1);
+      float* fl_s = reinterpret_cast<float*>(fsc + fb * C::kFixScalars);
+      float* fd_s = fl_s + C::kBM;
+      int* fs_s = reinterpret_cast<int*>(fd_s + C::kBM);
+      for (int r = lane; r < C::kBM; r += 32) {
+        const int row = it.f0 + r;
+        const bool ok = row < S;
+        const long long at = roff + (ok ? row : 0);
+        if (it.dq) {
+          cp_async_4(fl_s + r, lse + at, ok);
+          cp_async_4(fd_s + r, delta + at, ok);
+        }
+        if constexpr (kSeg) cp_async_4(fs_s + r, segb + (ok ? row : 0), ok);
+      }
+      mbar_arrive_cp_async(&fixfull[fb]);
+      if (lane == 0) {
+        unsigned char* xt = fix + 2 * fb * C::kFixBytes;
+        mbar_arrive_tx(&fixfull[fb], 2 * C::kFixBytes);
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c) {
+          tma_load_3d(xt + c * C::kFixChunk, it.dq ? &qf : &kf, 64 * c,
+                      it.f0, it.bh, &fixfull[fb]);
+          tma_load_3d(xt + C::kFixBytes + c * C::kFixChunk,
+                      it.dq ? &of : &vf, 64 * c, it.f0, it.bh, &fixfull[fb]);
+        }
+      }
+      for (int base = it.tb; base < it.te; base += 32) {
+        const Ranges rg =
+            base == it.tb ? first_ranges : ranges_of(it, base + lane);
+        const int fl = tile_flags<kSeg>(it.dq, base + lane, it.te, it.f0, S,
+                                        causal, rg);
+        for (unsigned need = __ballot_sync(0xffffffffu, fl & 5); need;
+             need &= need - 1) {
+          const int k = __ffs(need) - 1, w0 = 64 * (base + k);
+          const int flk = __shfl_sync(0xffffffffu, fl, k);
+          const int slot = i % kStages;
+          mbar_wait(&empty[slot], ((i / kStages) & 1) ^ 1);
+          unsigned char* st = ring + slot * C::kStageBytes;
+          int* hdr = reinterpret_cast<int*>(st + 2 * C::kWalkBytes);
+          float* sl = reinterpret_cast<float*>(hdr + 16);
+          float* sd = sl + 64;
+          int* ss = reinterpret_cast<int*>(sd + 64);
+          // the walked rows' lse, delta and ids (zeros past S)
+          for (int r = lane; r < 64; r += 32) {
+            const int row = w0 + r;
+            const bool ok = row < S;
+            const long long at = roff + (ok ? row : 0);
+            if (!it.dq) {
+              cp_async_4(sl + r, lse + at, ok);
+              cp_async_4(sd + r, delta + at, ok);
+            }
+            if constexpr (kSeg) cp_async_4(ss + r, segb + (ok ? row : 0), ok);
+          }
+          mbar_arrive_cp_async(&full[slot]);
+          if (lane == 0) {
+            hdr[0] = w0;
+            hdr[1] = flk;
+            mbar_arrive_tx(&full[slot], 2 * C::kWalkBytes);
+#pragma unroll
+            for (int c = 0; c < C::kChunks; ++c) {
+              tma_load_3d(st + c * C::kWalkChunk, it.dq ? &kw : &qw, 64 * c,
+                          w0, it.bh, &full[slot]);
+              tma_load_3d(st + C::kWalkBytes + c * C::kWalkChunk,
+                          it.dq ? &vw : &ow, 64 * c, w0, it.bh, &full[slot]);
+            }
+          }
+          ++i;
+        }
+      }
+      const int slot = i % kStages;  // the end of the item's walk
+      mbar_wait(&empty[slot], ((i / kStages) & 1) ^ 1);
+      mbar_arrive_cp_async(&full[slot]);
+      if (lane == 0) {
+        reinterpret_cast<int*>(ring + slot * C::kStageBytes +
+                               2 * C::kWalkBytes)[0] = -1;
+        mbar_arrive(&full[slot]);
+      }
+      ++i;
+    }
+    return;
+  }
+
+  // ------------------------------------------- consumer warpgroups
+  setmaxnreg_inc<C::kRegs>();
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int qd = lane & 3;
+  const int rr = 64 * wg + 16 * warp + (lane >> 2);  // first row in item
+  int i = 0, n = 0;  // stages used, items begun
+  for (int item = first + blockIdx.x; item < last;
+       item += gridDim.x, ++n) {
+    const Item it = decode_item(item, per, nf, nt, causal);
+    const long long roff = (long long)it.bh * S;
+    const int fr = it.f0 + rr;
+    float acc0[D / 2], acc1[D / 2];  // dK and dV, or dQ
+#pragma unroll
+    for (int c = 0; c < D / 2; ++c) acc0[c] = acc1[c] = 0.f;
+    const int fb = n % kBufs;
+    const uint32_t xs = smem_u32(fix + 2 * fb * C::kFixBytes) + wg * 8192;
+    const uint32_t ys = xs + C::kFixBytes;
+    mbar_wait(&fixfull[fb], (n / kBufs) & 1);
+    // the fixed rows' ids, and (dQ) their lse * log2(e) and delta
+    const float* fl_s = reinterpret_cast<const float*>(
+        fsc + fb * C::kFixScalars);
+    const float* fd_s = fl_s + C::kBM;
+    const int* fs_s = reinterpret_cast<const int*>(fd_s + C::kBM);
+    int fseg[2];
+    float fl2[2], fdl[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      fseg[hh] = kSeg ? fs_s[rr + 8 * hh] : 0;
+      fl2[hh] = it.dq ? fl_s[rr + 8 * hh] * kLog2e : 0.f;
+      fdl[hh] = it.dq ? fd_s[rr + 8 * hh] : 0.f;
+    }
+    for (;; ++i) {
+      const int slot = i % kStages;
+      mbar_wait(&full[slot], (i / kStages) & 1);
+      const unsigned char* st = ring + slot * C::kStageBytes;
+      const int* hdr = reinterpret_cast<const int*>(st + 2 * C::kWalkBytes);
+      const int w0 = hdr[0];
+      const int fl = (hdr[1] >> (2 * wg)) & 3;
+      if (w0 >= 0 && (fl & 1)) {
+        if (it.dq)
+          walk_tile<T, D, kSeg, true>(acc0, acc1, xs, ys, st, fl, fl2, fdl,
+                                      fseg, fr, S, causal, qd);
+        else
+          walk_tile<T, D, kSeg, false>(acc0, acc1, xs, ys, st, fl, fl2, fdl,
+                                       fseg, fr, S, causal, qd);
+      }
+      mbar_arrive(&empty[slot]);
+      if (w0 < 0) break;
+    }
+    ++i;
+    mbar_arrive(&fixempty[fb]);
+    store_rows<T, D>((it.dq ? dq : dk) + roff * D, acc0, fr, S, qd);
+    if (!it.dq) store_rows<T, D>(dv + roff * D, acc1, fr, S, qd);
+  }
+}
+
+template <typename T, int D, bool kSeg>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* out, const void* dout, const float* lse,
+                   float* delta, const int* seg, int* ranges, void* dq,
+                   void* dk, void* dv, int BH, int H, int S, int causal,
+                   cudaStream_t stream) {
+  using C = Cfg<D>;
+  const long long rows = (long long)BH * S;
+  constexpr int kRowsABlock = kPrepThreads / (D / 8);
+  const long long dblocks = (rows + kRowsABlock - 1) / kRowsABlock;
+  const int tiles = kSeg ? BH / H * ((S + 63) / 64) : 0;
+  const long long blocks = dblocks + (tiles + 3) / 4;
+  const long long per = (long long)BH * ((S + C::kBM - 1) / C::kBM);
+  if (blocks > 2147483647LL || 2 * per > 2147483647LL)
+    return cudaErrorInvalidValue;
+  flash_delta_seg_kernel<T, D, kSeg>
+      <<<(unsigned)blocks, kPrepThreads, 0, stream>>>(
+          static_cast<const T*>(out), static_cast<const T*>(dout), delta,
+          rows, dblocks, seg, reinterpret_cast<int2*>(ranges), S, tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // q, dout, k, v as [BH, S, D]: boxes of 128 rows where a pass fixes
+  // the operand, 64 where it walks it
+  const long long dims[3] = {D, S, BH};
+  const long long strides[2] = {D, (long long)S * D};
+  const void* base[4] = {q, dout, k, v};
+  CUtensorMap fixm[4], walkm[4];
+  for (int i = 0; i < 4; ++i) {
+    err = make_map<T, 3>(&fixm[i], base[i], dims, strides, {64, C::kBM, 1});
+    if (err != cudaSuccess) return err;
+    err = make_map<T, 3>(&walkm[i], base[i], dims, strides, {64, C::kBN, 1});
+    if (err != cudaSuccess) return err;
+  }
+  auto kern = flash_bwd_wgmma_kernel<T, D, kSeg>;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const int first = 0, last = (int)(2 * per);  // the items: both passes
+  const int grid = std::min(last - first, sms);
+  kern<<<grid, C::kThreads, C::kSmem, stream>>>(
+      fixm[0], fixm[1], fixm[2], fixm[3], walkm[0], walkm[1], walkm[2],
+      walkm[3], lse, delta, seg, reinterpret_cast<const int2*>(ranges),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), S, H,
+      causal, (int)per, first, last);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd16
+
 template <typename T, int D, bool kPaddle, bool kSeg>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 float* lse, const int* seg, int BH, int S, int causal,
@@ -1465,42 +2076,48 @@ cudaError_t fwd_any(const void* q, const void* k, const void* v, void* out,
   return cudaErrorInvalidValue;
 }
 
-// kSeg: with segment ids `seg` [BH / H, S].
+// kSeg: with segment ids `seg` [BH / H, S] (and `ranges`, the 16-bit
+// kernels' scratch of [BH / H, ceil(S / 64)] int2).
 template <typename T, int D, bool kSeg>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const float* lse, float* delta, void* dq,
-                void* dk, void* dv, const int* seg, int BH, int H, int S,
-                int causal, cudaStream_t stream) {
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
-  const long long rows = (long long)BH * S;
-  flash_delta_kernel<T, D>
-      <<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads,
-         0, stream>>>(static_cast<const T*>(out), dop, delta, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (S + kTile - 1) / kTile);
-  T* dqp = static_cast<T*>(dq);
-  T* dkp = static_cast<T*>(dk);
-  T* dvp = static_cast<T*>(dv);
-  if constexpr (sizeof(T) == 4) {
-    PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_kernel<T, D, kSeg>),
-                        (dkdv_smem<D, kSeg>()), qp, kp, vp, dop, lse, delta,
-                        dkp, dvp, seg, S, H, causal);
-    PADDLE_FLASH_LAUNCH((flash_bwd_dq_kernel<T, D, kSeg>),
-                        (dq_smem<D, kSeg>()), qp, kp, vp, dop, lse, delta,
-                        dqp, seg, S, H, causal);
+                void* dk, void* dv, const int* seg, int* ranges, int BH,
+                int H, int S, int causal, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2 && kSeg) {
+    return bwd16::launch<T, D, true>(q, k, v, out, dout, lse, delta, seg,
+                                     ranges, dq, dk, dv, BH, H, S, causal,
+                                     stream);
   } else {
-    PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_mma_kernel<T, D, kSeg>),
-                        (bwd_smem16<D, kSeg>()), qp, kp, vp, dop, lse, delta,
-                        dkp, dvp, seg, S, H, causal);
-    PADDLE_FLASH_LAUNCH((flash_bwd_dq_mma_kernel<T, D, kSeg>),
-                        (bwd_smem16<D, kSeg>()), qp, kp, vp, dop, lse, delta,
-                        dqp, seg, S, H, causal);
+    const T* qp = static_cast<const T*>(q);
+    const T* kp = static_cast<const T*>(k);
+    const T* vp = static_cast<const T*>(v);
+    const T* dop = static_cast<const T*>(dout);
+    const long long rows = (long long)BH * S;
+    flash_delta_kernel<T, D>
+        <<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads,
+           0, stream>>>(static_cast<const T*>(out), dop, delta, rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const dim3 grid(BH, (S + kTile - 1) / kTile);
+    T* dqp = static_cast<T*>(dq);
+    T* dkp = static_cast<T*>(dk);
+    T* dvp = static_cast<T*>(dv);
+    if constexpr (sizeof(T) == 4) {
+      PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_kernel<T, D, kSeg>),
+                          (dkdv_smem<D, kSeg>()), qp, kp, vp, dop, lse, delta,
+                          dkp, dvp, seg, S, H, causal);
+      PADDLE_FLASH_LAUNCH((flash_bwd_dq_kernel<T, D, kSeg>),
+                          (dq_smem<D, kSeg>()), qp, kp, vp, dop, lse, delta,
+                          dqp, seg, S, H, causal);
+    } else {
+      PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_mma_kernel<T, D>),
+                          (bwd_smem16<D>()), qp, kp, vp, dop, lse, delta, dkp,
+                          dvp, S, causal);
+      PADDLE_FLASH_LAUNCH((flash_bwd_dq_mma_kernel<T, D>), (bwd_smem16<D>()),
+                          qp, kp, vp, dop, lse, delta, dqp, S, causal);
+    }
+    return cudaSuccess;
   }
-  return cudaSuccess;
 }
 
 #undef PADDLE_FLASH_LAUNCH
@@ -1573,14 +2190,14 @@ namespace {
 // segment ids [BH / H, S] where `seg` is given.
 cudaError_t bwd_any(const void* q, const void* k, const void* v,
                     const void* out, const void* dout, const void* lse,
-                    void* delta, const int* seg, void* dq, void* dk, void* dv,
-                    int BH, int H, int S, int D, int dtype, int causal,
-                    cudaStream_t st) {
+                    void* delta, const int* seg, int* ranges, void* dq,
+                    void* dk, void* dv, int BH, int H, int S, int D,
+                    int dtype, int causal, cudaStream_t st) {
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
 #define PADDLE_FLASH_BWD(T, HD, SG)                                         \
-  return bwd<T, HD, SG>(q, k, v, out, dout, l, dl, dq, dk, dv, seg, BH, H, \
-                        S, causal, st)
+  return bwd<T, HD, SG>(q, k, v, out, dout, l, dl, dq, dk, dv, seg, ranges, \
+                        BH, H, S, causal, st)
 #define PADDLE_FLASH_BWD_DTYPES(HD, SG)                    \
   if (dtype == 0) PADDLE_FLASH_BWD(float, HD, SG);         \
   if (dtype == 1) PADDLE_FLASH_BWD(__nv_bfloat16, HD, SG); \
@@ -1607,24 +2224,28 @@ extern "C" int paddle_tpu_torch_flash_bwd(
     void* dv, int BH, int S, int head_dim, int dtype, int causal,
     void* stream) {
   if (!valid(BH, S)) return (int)cudaErrorInvalidValue;
-  return (int)bwd_any(q, k, v, out, dout, lse, delta, nullptr, dq, dk, dv,
-                      BH, 1, S, head_dim, dtype, causal,
+  return (int)bwd_any(q, k, v, out, dout, lse, delta, nullptr, nullptr, dq,
+                      dk, dv, BH, 1, S, head_dim, dtype, causal,
                       static_cast<cudaStream_t>(stream));
 }
 
 // The segmented backward (splash_mha(kv_keep=)'s K1c): the splash
 // backward's operands over B * H heads, with the forward's int32 segment
 // ids [B, S]; a pair (i, j) adds to the gradients only where
-// seg[b, i] == seg[b, j].
+// seg[b, i] == seg[b, j]. `ranges`: scratch of B * ceil(S / 64) int32
+// pairs (8-byte aligned), each 64-row tile's least and greatest id, which
+// bf16 and fp16 write and read (flash_bwd_wgmma_kernel); fp32 runs the
+// CUDA-core kernels and leaves it alone.
 extern "C" int paddle_tpu_torch_flash_bwd_seg(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* delta, const void* seg,
-    void* dq, void* dk, void* dv, int B, int H, int S, int head_dim,
-    int dtype, int causal, void* stream) {
-  if (B <= 0 || H <= 0 || !valid(B * H, S) || seg == nullptr)
+    void* ranges, void* dq, void* dk, void* dv, int B, int H, int S,
+    int head_dim, int dtype, int causal, void* stream) {
+  if (B <= 0 || H <= 0 || !valid(B * H, S) || seg == nullptr ||
+      ranges == nullptr)
     return (int)cudaErrorInvalidValue;
   return (int)bwd_any(q, k, v, out, dout, lse, delta,
-                      static_cast<const int*>(seg), dq, dk, dv, B * H, H, S,
-                      head_dim, dtype, causal,
+                      static_cast<const int*>(seg), static_cast<int*>(ranges),
+                      dq, dk, dv, B * H, H, S, head_dim, dtype, causal,
                       static_cast<cudaStream_t>(stream));
 }

@@ -26,51 +26,60 @@
 //
 // Two kernels.
 //
-// gmm_q16_kernel, int8 and int4 weights under bf16 / fp16 activations
-// (the quantized serving path). It computes the transposed product
-// out[e]^T = deq(w[e])^T . x[e]^T with wgmma: 128 weight columns are M
-// (two m64 tiles of one consumer warpgroup), 80 capacity rows are N
-// (m64n80k16; more rows take more blocks along grid z), D is K. The
-// weights are the register operand: each thread loads one 32-bit word
-// per stored row that holds every column its fragments need (the M rows
-// of a tile are ordered so that a thread's four columns are adjacent,
-// and each warp's loads fall on 32 banks), and dequantizes it in
-// registers: int8 bytes pair up row by row with byte permutes, a packed
-// int4 byte already is a row pair (d, d + 1); magic-exponent tricks turn
-// bytes and nibbles into exact 16-bit q, and one packed multiply by the
-// column's s_c rounds each weight once. There is no dequantized tile and
-// no barrier per k-tile. x is the shared-memory operand, stored
-// K-contiguous with the 128-byte swizzle by TMA. One producer warp keeps
-// a ring of stages in flight through TMA (64 int8 rows, or 128 rows as
-// 64 packed int4 rows: 8 KB of weights, with the x tiles of the same
-// depth; 5 / 3 stages), each stage's fill and release tracked by an
-// mbarrier pair; rows whose length is not a multiple of 16 bytes (TMA
-// cannot describe them) are copied by the producer lanes instead. Two
-// blocks share an SM. Where E x F / 128 x C / 80 tiles cannot give every
-// SM a block (ffn2: 64 tiles), D is split into the fewest parts that do
-// (3 at ffn2, at most 4); the parts of a tile form a thread-block
-// cluster, and each block adds the fp32 partials of its share of the
-// tile's rows through distributed shared memory in rank order, so two
-// launches give the same bits. The accumulator is staged through shared
-// memory and written in 16-byte stores along F. The wrapper's `plan`
-// chooses the split. Measured on an H100 (tools/torch_gmm_ab.py): the
-// kernel is bound by moving its tiles, not by the dequant or the wgmma
-// (a copy without either keeps ~90% of the time); two column tiles that
+// gmm_q16_kernel, every weight format under bf16 / fp16 activations
+// (the serving path). It computes the transposed product out[e]^T =
+// deq(w[e])^T . x[e]^T with wgmma: 128 weight columns are M (two m64
+// tiles of one consumer warpgroup), 80 capacity rows are N (m64n80k16;
+// more rows take more blocks along grid z), D is K. x is the
+// shared-memory B operand, stored K-contiguous with the 128-byte swizzle
+// by TMA. One producer warp keeps a ring of stages in flight through TMA,
+// each stage's fill and release tracked by an mbarrier pair; rows whose
+// length is not a multiple of 16 bytes (TMA cannot describe them) are
+// copied by the producer lanes instead. Two blocks share an SM.
+//   * Float weights (format 0): the weight tile is the shared-memory A
+//     operand as TMA stores it. w is [D, F] row-major, so a stage's 64
+//     rows of 128 columns arrive as two boxes of 64 columns (128-byte
+//     rows, 16 KB with the x tile's 10 KB), and wgmma reads them
+//     MN-major (`desc_mn`): nothing passes through the registers, and a
+//     stage is 8 wgmmas behind one barrier wait (4 stages). The weights
+//     are loaded with an L2 evict-first policy and x evict-last: each x
+//     tile is read again by every column tile of its expert, and
+//     without the hints the streaming weights pushed it out of L2
+//     (on an H100, ffn1 0.0376 -> 0.0330 ms; tools/torch_gmm_ab.py).
+//   * int8 and int4 weights (formats 1, 2): the weights are the register
+//     operand: each thread loads one 32-bit word per stored row that
+//     holds every column its fragments need (the M rows of a tile are
+//     ordered so that a thread's four columns are adjacent, and each
+//     warp's loads fall on 32 banks), and dequantizes it in registers:
+//     int8 bytes pair up row by row with byte permutes, a packed int4
+//     byte already is a row pair (d, d + 1); magic-exponent tricks turn
+//     bytes and nibbles into exact 16-bit q, and one packed multiply by
+//     the column's s_c rounds each weight once. There is no dequantized
+//     tile and no barrier per k-tile. A stage is 64 int8 rows, or 128
+//     rows as 64 packed int4 rows: 8 KB of weights, with the x tiles of
+//     the same depth; 5 / 3 stages.
+// Where E x F / 128 x C / 80 tiles cannot give every SM a block (ffn2:
+// 64 tiles), D is split, at most in 4 parts (`plan`: int8 and int4 into
+// the fewest parts that give every SM a block, 3 at ffn2; float weights
+// into the most that leave no SM two blocks, 2 at ffn2); the parts of a
+// tile form a thread-block cluster, and each block adds the fp32
+// partials of its share of the tile's rows through distributed shared
+// memory in rank order, so two launches give the same bits. The accumulator is staged through shared memory and written
+// in 16-byte stores along F. The wrapper's `plan` chooses the split.
+// Measured on an H100 (tools/torch_gmm_ab.py): the quantized kernel is
+// bound by moving its tiles, not by the dequant or the wgmma (a copy
+// without either keeps ~90% of the time); two column tiles that
 // multicast one x tile, and 256-column blocks of two warpgroups that
 // share it, were both slower or no faster. setmaxnreg is not used: the
 // consumers fit in 168 registers with two blocks an SM, so the producer
 // warp's share would buy nothing.
 //
-// gmm_kernel, float weights (any x dtype) and the quantized formats
-// under fp32 activations: a block owns one (expert, 64-column tile) and
-// all C rows (128 at a time, looping beyond), and walks D in 32-row
-// tiles through a 4-stage cp.async ring. Quantized tiles are
-// dequantized into an operand tile in shared memory just before the
-// product. 16-bit operands multiply on the tensor cores (mma.sync
-// m16n8k16, ldmatrix fragments; 4 warps x 32 rows x 64 columns); fp32
-// operands on the CUDA cores (each thread an 8 x 8 block of the
-// 128 x 64 tile). Next for speed: the gmm_q16_kernel design for float
-// weights.
+// gmm_kernel, every weight format under fp32 activations: a block owns
+// one (expert, 64-column tile) and all C rows (128 at a time, looping
+// beyond), and walks D in 32-row tiles through a 4-stage cp.async ring.
+// Quantized tiles are dequantized into an operand tile in shared memory
+// just before the product. fp32 operands multiply on the CUDA cores
+// (each thread an 8 x 8 block of the 128 x 64 tile).
 //
 // Both mask their edges: any E, C, D and F (int4 needs an even D).
 //
@@ -78,13 +87,7 @@
 // (paddle_tpu_torch/ops/grouped_matmul.py), launched on the caller's
 // stream, allocating nothing.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
 
@@ -122,9 +125,8 @@ __device__ __forceinline__ float round_to(float x) {
 // Shared-memory layout of one (T, format) instantiation: a ring of
 // kStages (x tile, raw w tile) stages, the dequantized operand w tile of
 // the quantized formats, and the block's column scales. Rows are padded
-// by 16 bytes: ldmatrix rows of a 16-bit tile (80 and 144 bytes apart)
-// and the fp32 path's column reads then fall on distinct banks, and
-// every row stays 16-byte aligned for cp.async.
+// by 16 bytes: the column reads then fall on distinct banks, and every
+// row stays 16-byte aligned for cp.async.
 template <typename T, int FMT>
 struct Layout {
   using W = typename std::conditional<FMT == 0, T, int8_t>::type;  // raw w
@@ -253,79 +255,6 @@ __device__ __forceinline__ void dequant(T* dq, const unsigned char* stage,
 
 // ------------------------------------------------------------ products
 
-template <typename T>
-struct Mma;
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// 16-bit operands, tensor cores: acc[mt][nt] (16 x 8 tiles: rows
-// 32 warp + 16 mt, columns 8 nt) += the x tile times the w tile (row
-// strides LDX, LDW). m-tiles starting at or past `live` rows hold no
-// capacity row and are skipped.
-template <typename T, int LDX, int LDW>
-__device__ __forceinline__ void mma_tile(float acc[2][8][4], const T* xs,
-                                         const T* ws, int live) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kc = 0; kc < kDepth / 16; ++kc) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      ldsm_x4(a[mt],
-              xs + (warp * 32 + mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
-                       LDX +
-                  kc * 16 + 8 * (lane >> 4));
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(b, ws + (kc * 16 + 8 * ((lane >> 3) & 1) + (lane & 7)) * LDW +
-                       (2 * np + (lane >> 4)) * 8);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        if (warp * 32 + mt * 16 >= live) continue;
-        Mma<T>::run(acc[mt][2 * np], a[mt], b[0], b[1]);
-        Mma<T>::run(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-      }
-    }
-  }
-}
-
 // fp32 operands, CUDA cores: thread (tr, tc) of 16 x 8 owns rows
 // tr + 16 i and columns tc + 8 j (i, j < 8), kept in acc as element
 // (i, j) -> acc[i / 4][2 (i % 4) + j / 4][j % 4].
@@ -359,7 +288,6 @@ gmm_kernel(const T* __restrict__ x, const void* __restrict__ w_,
            T* __restrict__ out, int C, int D, int F, int vec_x, int vec_w) {
   using L = Layout<T, FMT>;
   using W = typename L::W;
-  constexpr bool kMma = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   T* dq = reinterpret_cast<T*>(smem + kStages * L::kStageBytes);
   float* s_col =
@@ -403,10 +331,7 @@ gmm_kernel(const T* __restrict__ x, const void* __restrict__ w_,
         __syncthreads();
         ws = dq;
       }
-      if constexpr (kMma)
-        mma_tile<T, L::kLdx, L::kLdw>(acc, xs, ws, live);
-      else
-        fma_tile<L::kLdx, L::kLdw>(acc, xs, ws);
+      fma_tile<L::kLdx, L::kLdw>(acc, xs, ws);
     }
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -414,17 +339,9 @@ gmm_kernel(const T* __restrict__ x, const void* __restrict__ w_,
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          int row, col;
-          if constexpr (kMma) {
-            const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-            row = warp * 32 + mt * 16 + (lane >> 2) + 8 * (q >> 1);
-            col = nt * 8 + 2 * (lane & 3) + (q & 1);
-          } else {  // the inverse of fma_tile's (i, j) -> acc mapping
-            row = (threadIdx.x >> 3) + 16 * (4 * mt + nt / 2);
-            col = (threadIdx.x & 7) + 8 * (4 * (nt % 2) + q);
-          }
-          row += r0;
-          col += n0;
+          // the inverse of fma_tile's (i, j) -> acc mapping
+          const int row = r0 + (threadIdx.x >> 3) + 16 * (4 * mt + nt / 2);
+          const int col = n0 + (threadIdx.x & 7) + 8 * (4 * (nt % 2) + q);
           if (row < C && col < F)
             oe[(long long)row * F + col] = from_float<T>(acc[mt][nt][q]);
         }
@@ -454,98 +371,46 @@ cudaError_t dispatch(int x_dtype, const void* x, const void* w,
                      const void* scale, int scale_dtype, float qmax,
                      void* out, int E, int C, int D, int F, int vec_x,
                      int vec_w, cudaStream_t st) {
-  if (x_dtype == 0)
-    return launch<float, FMT>(x, w, scale, scale_dtype, qmax, out, E, C, D,
-                              F, vec_x, vec_w, st);
-  if constexpr (FMT == 0) {  // 16-bit x, quantized w: gmm_q16_kernel
-    if (x_dtype == 1)
-      return launch<__nv_bfloat16, FMT>(x, w, scale, scale_dtype, qmax, out,
-                                        E, C, D, F, vec_x, vec_w, st);
-    if (x_dtype == 2)
-      return launch<__half, FMT>(x, w, scale, scale_dtype, qmax, out, E, C,
-                                 D, F, vec_x, vec_w, st);
-  }
-  return cudaErrorInvalidValue;
+  if (x_dtype != 0) return cudaErrorInvalidValue;  // 16-bit x: q16
+  return launch<float, FMT>(x, w, scale, scale_dtype, qmax, out, E, C, D, F,
+                            vec_x, vec_w, st);
 }
 
-// ------------------------------------- the quantized kernel, 16-bit x
+// ----------------------------------------- the wgmma kernel, 16-bit x
 
 namespace q16 {
+
+using namespace hopper;
 
 constexpr int kM = 128;                    // weight columns a block (M)
 constexpr int kN = 80;                     // capacity rows a block (N)
 constexpr int kConsumers = 128;            // one warpgroup
 constexpr int kThreads = kConsumers + 32;  // and the producer warp
 constexpr int kWRows = 64;                 // stored weight rows a stage
-constexpr int kWBytes = kWRows * kM;       // 8 KB of 128-byte rows
 constexpr int kXBytes = kN * 128;          // 80 rows x 64 16-bit values
-constexpr int kOutLd = kM + 16;            // staged output row, elements
+constexpr int kBox = kWRows * 128;         // a 64-row box of 128-byte rows
 
 template <int FMT>
 struct Cfg {
-  static constexpr int kDepth = FMT == 1 ? 64 : 128;  // contraction rows
+  static constexpr int kDepth = FMT == 2 ? 128 : 64;  // contraction rows
   static constexpr int kXBoxes = kDepth / 64;          // x tiles a stage
   static constexpr int kSteps = kDepth / 16;           // k16 steps a stage
-  static constexpr int kStages = FMT == 1 ? 5 : 3;
+  // the weight tile: 128 columns of 16-bit floats as two 64-column
+  // boxes, or 128 int8 bytes a row as one
+  static constexpr int kWBytes = FMT == 0 ? 2 * kBox : kBox;
+  static constexpr int kStages = FMT == 0 ? 4 : FMT == 1 ? 5 : 3;
   static constexpr int kStageBytes = kWBytes + kXBoxes * kXBytes;
   static constexpr int kRing = kStages * kStageBytes;
   static constexpr int kSmem = 1024 + kRing + 2 * kStages * 8;
+  // the staged output row, in elements: 16-bit floats store single
+  // values (a row 68 words, so a warp's four row pairs fall on distinct
+  // banks), the quantized formats a thread's four adjacent columns
+  static constexpr int kOutLd = FMT == 0 ? kM + 8 : kM + 16;
 };
+static_assert(Cfg<0>::kRing >= kN * kM * 4, "partials fit the ring");
 static_assert(Cfg<2>::kRing >= kN * kM * 4, "partials fit the ring");
-static_assert(Cfg<2>::kRing >= kN * kOutLd * 2, "staging fits the ring");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// One box of a 3-D tensor map (coordinates innermost first) into shared
-// memory; its bytes complete the barrier's transaction count.
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
-                                       int c0, int c1, int c2,
-                                       uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(smem_u32(bar))
-      : "memory");
-}
+static_assert(Cfg<2>::kRing >= kN * Cfg<2>::kOutLd * 2,
+              "staging fits the ring");
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
@@ -566,24 +431,6 @@ __device__ __forceinline__ const float* peer(const float* p, uint32_t rank) {
       : "=l"(a)
       : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
   return reinterpret_cast<const float*>(a);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Shared-memory descriptor of a K-major B tile in the 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t x_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 #define Q16_ACC                                                            \
@@ -764,20 +611,37 @@ __device__ __forceinline__ void dequant_frags(uint32_t (&a)[2][4],
 // producer lanes 1..31 in the layout TMA would have written: the raw
 // weight tile (stored rows from p0, columns from f0; zero past Dw, F)
 // and an x tile (capacity rows from c0, depths from k0; zero past C, D).
+// Float weights fill two 64-column boxes, int8 bytes one.
+template <typename T, int FMT>
 __device__ __forceinline__ void copy_w(unsigned char* wt,
-                                       const int8_t* __restrict__ we,
+                                       const int8_t* __restrict__ we_,
                                        int p0, int f0, int Dw, int F,
                                        int lane) {
-  for (int i = lane - 1; i < kWRows * 32; i += 31) {
-    const int r = i >> 5, c = (i & 31) * 4, p = p0 + r;
-    uint32_t v = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int f = f0 + c + b;
-      if (p < Dw && f < F)
-        v |= (uint32_t)(uint8_t)we[(long long)p * F + f] << (8 * b);
+  if constexpr (FMT == 0) {
+    const T* we = reinterpret_cast<const T*>(we_);
+    for (int i = lane - 1; i < 2 * kWRows * 32; i += 31) {
+      const int b = i / (kWRows * 32), r = (i >> 5) % kWRows;
+      const int c = (i & 31) * 2, p = p0 + r, f = f0 + 64 * b + c;
+      T v[2] = {T{}, T{}};
+      if (p < Dw) {
+        if (f < F) v[0] = we[(long long)p * F + f];
+        if (f + 1 < F) v[1] = we[(long long)p * F + f + 1];
+      }
+      *reinterpret_cast<uint32_t*>(wt + b * kBox + swz(r, 2 * c)) =
+          *reinterpret_cast<const uint32_t*>(v);
     }
-    *reinterpret_cast<uint32_t*>(wt + swz(r, c)) = v;
+  } else {
+    for (int i = lane - 1; i < kWRows * 32; i += 31) {
+      const int r = i >> 5, c = (i & 31) * 4, p = p0 + r;
+      uint32_t v = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int f = f0 + c + b;
+        if (p < Dw && f < F)
+          v |= (uint32_t)(uint8_t)we_[(long long)p * F + f] << (8 * b);
+      }
+      *reinterpret_cast<uint32_t*>(wt + swz(r, c)) = v;
+    }
   }
 }
 
@@ -803,7 +667,7 @@ __device__ __forceinline__ void copy_x(unsigned char* xt,
 // block r adds, for its share of the tile's rows (8-row groups
 // [10 r / split, 10 (r + 1) / split)), the partials of ranks 0, 1, ... in
 // that order and stores those rows: the same sums in the same order on
-// every launch.
+// every launch. `w` is T [E, D, F] (FMT 0) or int8 bytes.
 template <typename T, int FMT>
 __global__ void __launch_bounds__(kThreads, 2)
 gmm_q16_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -829,35 +693,53 @@ gmm_q16_kernel(const __grid_constant__ CUtensorMap xmap,
       mbar_init(&full[i], all_tma ? 1 : 32);
       mbar_init(&empty[i], kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {
     // ------------------------------------------------ producer warp
     const int lane = threadIdx.x & 31;
-    const int8_t* we = w + (long long)e * Dw * F;
+    const long long wsz = FMT == 0 ? (long long)sizeof(T) : 1;
+    const int8_t* we = w + (long long)e * Dw * F * wsz;
     const T* xe = x + (long long)e * C * D;
     const uint32_t tx =
-        (tma_w ? kWBytes : 0) + (tma_x ? K::kXBoxes * kXBytes : 0);
+        (tma_w ? K::kWBytes : 0) + (tma_x ? K::kXBoxes * kXBytes : 0);
+    // Float weights stream through once; x is read again by every
+    // column tile of its expert, so it is the one kept in L2.
+    const uint64_t once = FMT == 0 ? l2_evict_first() : 0;
+    const uint64_t again = FMT == 0 ? l2_evict_last() : 0;
     for (int i = 0; i < nt; ++i) {
       const int stage = i % K::kStages, t = t0 + i;
       mbar_wait(&empty[stage], ((i / K::kStages) & 1) ^ 1);
       unsigned char* wt = ring + stage * K::kStageBytes;
       if (lane == 0) {
         mbar_arrive_tx(&full[stage], tx);
-        if (tma_w) tma_3d(wt, &wmap, f0, t * kWRows, e, &full[stage]);
+        if (tma_w) {
+          if constexpr (FMT == 0) {
+            tma_load_3d(wt, &wmap, f0, t * kWRows, e, &full[stage], once);
+            tma_load_3d(wt + kBox, &wmap, f0 + 64, t * kWRows, e,
+                        &full[stage], once);
+          } else {
+            tma_load_3d(wt, &wmap, f0, t * kWRows, e, &full[stage]);
+          }
+        }
         if (tma_x)
-          for (int b = 0; b < K::kXBoxes; ++b)
-            tma_3d(wt + kWBytes + b * kXBytes, &xmap,
-                   t * K::kDepth + 64 * b, c0, e, &full[stage]);
+          for (int b = 0; b < K::kXBoxes; ++b) {
+            if constexpr (FMT == 0)
+              tma_load_3d(wt + K::kWBytes + b * kXBytes, &xmap,
+                          t * K::kDepth + 64 * b, c0, e, &full[stage], again);
+            else
+              tma_load_3d(wt + K::kWBytes + b * kXBytes, &xmap,
+                          t * K::kDepth + 64 * b, c0, e, &full[stage]);
+          }
       } else if (!all_tma) {
-        if (!tma_w) copy_w(wt, we, t * kWRows, f0, Dw, F, lane);
+        if (!tma_w) copy_w<T, FMT>(wt, we, t * kWRows, f0, Dw, F, lane);
         if (!tma_x)
           for (int b = 0; b < K::kXBoxes; ++b)
-            copy_x<T>(wt + kWBytes + b * kXBytes, xe, c0,
+            copy_x<T>(wt + K::kWBytes + b * kXBytes, xe, c0,
                       t * K::kDepth + 64 * b, C, D, lane);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        fence_proxy_async();
         mbar_arrive(&full[stage]);
       }
     }
@@ -871,52 +753,76 @@ gmm_q16_kernel(const __grid_constant__ CUtensorMap xmap,
   // ---------------------------------------------- consumer warpgroup
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q = lane & 3;
-  const int cb = 4 * col_group<FMT>(warp, lane >> 2);  // first column
-  uint32_t s2[4];  // (s_c, s_c) of the thread's four columns, in T
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = f0 + cb + j;
-    float s = 0.f;
-    if (col < F) {
-      const long long i = (long long)e * F + col;
-      s = scale_dtype == 0
-              ? static_cast<const float*>(scale)[i]
-              : scale_dtype == 1
-                    ? to_float(static_cast<const __nv_bfloat16*>(scale)[i])
-                    : to_float(static_cast<const __half*>(scale)[i]);
-      s = round_to<T>(round_to<T>(s) / qmax);
-    }
-    const T h = from_float<T>(s);
-    const uint32_t b = *reinterpret_cast<const uint16_t*>(&h);
-    s2[j] = b | (b << 16);
-  }
+  // The thread's first column: float weights keep M rows in column
+  // order (rows 16 warp + lane / 4 (+ 8) of each 64-column tile);
+  // quantized ones group a thread's four columns.
+  const int cb = FMT == 0 ? 16 * warp + (lane >> 2)
+                          : 4 * col_group<FMT>(warp, lane >> 2);
   float acc[2][40];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int i = 0; i < 40; ++i) acc[mt][i] = 0.f;
-  uint32_t frag[2][2][4];  // two steps' fragments: one fills, one is read
-  for (int i = 0; i < nt; ++i) {
-    const int stage = i % K::kStages;
-    mbar_wait(&full[stage], (i / K::kStages) & 1);
-    const unsigned char* wt = ring + stage * K::kStageBytes;
-    const uint32_t xs = smem_u32(wt + kWBytes);
-    uint32_t words[4];
-    load_words<FMT>(words, wt, 0, q, cb);
-#pragma unroll
-    for (int st = 0; st < K::kSteps; ++st) {
-      uint32_t(&a)[2][4] = frag[st & 1];
-      dequant_frags<T, FMT>(a, words, s2);
-      // The next step's loads go out now and land behind this wgmma.
-      if (st + 1 < K::kSteps) load_words<FMT>(words, wt, st + 1, q, cb);
+  if constexpr (FMT == 0) {
+    for (int i = 0; i < nt; ++i) {
+      const int stage = i % K::kStages;
+      mbar_wait(&full[stage], (i / K::kStages) & 1);
+      const uint32_t ws = smem_u32(ring + stage * K::kStageBytes);
+      const uint32_t xs = ws + K::kWBytes;
       wgmma_fence();
-      const uint64_t desc =
-          x_desc(xs + (st >> 2) * kXBytes + (st & 3) * 32);
-      Wgmma<T>::run(acc[0], a[0], desc);
-      Wgmma<T>::run(acc[1], a[1], desc);
+#pragma unroll
+      for (int st = 0; st < K::kSteps; ++st) {
+        const uint64_t b = desc_k(xs + st * 32);
+        wgmma_ss<T, kN, 0, 1>(acc[0], desc_mn(ws + st * 2048, kBox), b, 1);
+        wgmma_ss<T, kN, 0, 1>(acc[1], desc_mn(ws + kBox + st * 2048, kBox),
+                              b, 1);
+      }
       wgmma_commit();
-      wgmma_wait<1>();  // step st - 1 is done: its fragments and x free
-      if (st == 0 && i > 0) mbar_arrive(&empty[(i - 1) % K::kStages]);
+      wgmma_wait<1>();  // stage i - 1's products are done: free it
+      if (i > 0) mbar_arrive(&empty[(i - 1) % K::kStages]);
+    }
+  } else {
+    uint32_t s2[4];  // (s_c, s_c) of the thread's four columns, in T
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = f0 + cb + j;
+      float s = 0.f;
+      if (col < F) {
+        const long long i = (long long)e * F + col;
+        s = scale_dtype == 0
+                ? static_cast<const float*>(scale)[i]
+                : scale_dtype == 1
+                      ? to_float(static_cast<const __nv_bfloat16*>(scale)[i])
+                      : to_float(static_cast<const __half*>(scale)[i]);
+        s = round_to<T>(round_to<T>(s) / qmax);
+      }
+      const T h = from_float<T>(s);
+      const uint32_t b = *reinterpret_cast<const uint16_t*>(&h);
+      s2[j] = b | (b << 16);
+    }
+    uint32_t frag[2][2][4];  // two steps' fragments: one fills, one read
+    for (int i = 0; i < nt; ++i) {
+      const int stage = i % K::kStages;
+      mbar_wait(&full[stage], (i / K::kStages) & 1);
+      const unsigned char* wt = ring + stage * K::kStageBytes;
+      const uint32_t xs = smem_u32(wt + K::kWBytes);
+      uint32_t words[4];
+      load_words<FMT>(words, wt, 0, q, cb);
+#pragma unroll
+      for (int st = 0; st < K::kSteps; ++st) {
+        uint32_t(&a)[2][4] = frag[st & 1];
+        dequant_frags<T, FMT>(a, words, s2);
+        // The next step's loads go out now and land behind this wgmma.
+        if (st + 1 < K::kSteps) load_words<FMT>(words, wt, st + 1, q, cb);
+        wgmma_fence();
+        const uint64_t desc =
+            desc_k(xs + (st >> 2) * kXBytes + (st & 3) * 32);
+        Wgmma<T>::run(acc[0], a[0], desc);
+        Wgmma<T>::run(acc[1], a[1], desc);
+        wgmma_commit();
+        wgmma_wait<1>();  // step st - 1 is done: its fragments and x free
+        if (st == 0 && i > 0) mbar_arrive(&empty[(i - 1) % K::kStages]);
+      }
     }
   }
   wgmma_wait<0>();
@@ -952,20 +858,30 @@ gmm_q16_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 
   // Epilogue: [80 rows][128 columns] staged in T, then 16-byte stores.
+  constexpr int kLd = K::kOutLd;
   T* stg = reinterpret_cast<T*>(ring);
 #pragma unroll
   for (int jn = 0; jn < kN / 8; ++jn)
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       const int n = 8 * jn + 2 * q + b;
-      T v[4];
+      if constexpr (FMT == 0) {
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          v[2 * mt + h] = from_float<T>(acc[mt][4 * jn + 2 * h + b]);
-      *reinterpret_cast<uint2*>(stg + n * kOutLd + cb) =
-          *reinterpret_cast<const uint2*>(v);
+          for (int h = 0; h < 2; ++h)
+            stg[n * kLd + 64 * mt + cb + 8 * h] =
+                from_float<T>(acc[mt][4 * jn + 2 * h + b]);
+      } else {
+        T v[4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            v[2 * mt + h] = from_float<T>(acc[mt][4 * jn + 2 * h + b]);
+        *reinterpret_cast<uint2*>(stg + n * kLd + cb) =
+            *reinterpret_cast<const uint2*>(v);
+      }
     }
   consumers_sync();
   T* oe = out + (long long)e * C * F;
@@ -975,7 +891,7 @@ gmm_q16_kernel(const __grid_constant__ CUtensorMap xmap,
     const int n = i / (kM / 8), cc = (i % (kM / 8)) * 8;
     const int c = c0 + n, f = f0 + cc;
     if (c >= C || f >= F) continue;
-    const T* src = stg + n * kOutLd + cc;
+    const T* src = stg + n * kLd + cc;
     T* dst = oe + (long long)c * F + f;
     if (vec)
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
@@ -984,37 +900,12 @@ gmm_q16_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // A 3-D map over [d2][d1][d0] elements of `bytes` each: boxes of
 // (b0, b1, 1) in the 128-byte swizzle, zeros outside the tensor.
 cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType dt, int bytes,
                      const void* base, long long d0, long long d1,
                      long long d2, int b0, int b1) {
-  const EncodeTiled fn = encode_tiled();
+  const hopper::EncodeTiled fn = hopper::encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
                               (cuuint64_t)d2};
@@ -1039,16 +930,14 @@ cudaError_t launch(const void* x, const void* w, const void* scale,
   CUtensorMap xmap = {}, wmap = {};
   cudaError_t err;
   if (tma_x) {
-    err = make_map(&xmap,
-                   std::is_same<T, __half>::value
-                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                   2, x, D, C, E, 64, kN);
+    err = make_map(&xmap, tma_type<T>(), 2, x, D, C, E, 64, kN);
     if (err != cudaSuccess) return err;
   }
   if (tma_w) {
-    err = make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, F,
-                   FMT == 2 ? D / 2 : D, E, kM, kWRows);
+    err = FMT == 0 ? make_map(&wmap, tma_type<T>(), 2, w, F, D, E, 64,
+                              kWRows)
+                   : make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, F,
+                              FMT == 2 ? D / 2 : D, E, kM, kWRows);
     if (err != cudaSuccess) return err;
   }
   auto kern = gmm_q16_kernel<T, FMT>;
@@ -1080,9 +969,9 @@ cudaError_t launch(const void* x, const void* w, const void* scale,
 }  // namespace
 
 // gmm_kernel. x_dtype / scale_dtype: 0 fp32, 1 bf16, 2 fp16. w_format:
-// 0 float of x's dtype (any x_dtype), 1 int8 or 2 packed int4 (x_dtype
-// 0 only). vec_x / vec_w: the rows of x / w allow 16-byte copies (row
-// length a multiple of 16 bytes, pointers 16-byte aligned).
+// 0 float of x's dtype, 1 int8 or 2 packed int4; x_dtype 0 only (16-bit
+// x takes the q16 entry). vec_x / vec_w: the rows of x / w allow 16-byte
+// copies (row length a multiple of 16 bytes, pointers 16-byte aligned).
 extern "C" int paddle_tpu_torch_grouped_matmul(
     const void* x, const void* w, const void* scale, void* out, int E, int C,
     int D, int F, int x_dtype, int w_format, int scale_dtype, float qmax,
@@ -1105,11 +994,12 @@ extern "C" int paddle_tpu_torch_grouped_matmul(
   return (int)cudaErrorInvalidValue;
 }
 
-// gmm_q16_kernel: x_dtype 1 bf16 or 2 fp16, w_format 1 int8 or 2 packed
-// int4, scale_dtype as above; split: the parts of D (1-4), one cluster
-// of `split` blocks per output tile. tma_x / tma_w: the rows of x / w
-// can be described to TMA (row length a multiple of 16 bytes, pointers
-// 16-byte aligned); otherwise the producer copies them.
+// gmm_q16_kernel: x_dtype 1 bf16 or 2 fp16, w_format 0 float of x's
+// dtype, 1 int8 or 2 packed int4, scale_dtype as above (unused for
+// format 0); split: the parts of D (1-4), one cluster of `split` blocks
+// per output tile. tma_x / tma_w: the rows of x / w can be described to
+// TMA (row length a multiple of 16 bytes, pointers 16-byte aligned);
+// otherwise the producer copies them.
 extern "C" int paddle_tpu_torch_grouped_matmul_q16(
     const void* x, const void* w, const void* scale, void* out, int E, int C,
     int D, int F, int x_dtype, int w_format, int scale_dtype, float qmax,
@@ -1120,19 +1010,15 @@ extern "C" int paddle_tpu_torch_grouped_matmul_q16(
     return (int)cudaErrorInvalidValue;
   if (split < 1 || split > 4) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 1 && w_format == 1)
-    return (int)q16::launch<__nv_bfloat16, 1>(x, w, scale, scale_dtype, qmax,
-                                              out, E, C, D, F, split, tma_x,
-                                              tma_w, st);
-  if (x_dtype == 1 && w_format == 2)
-    return (int)q16::launch<__nv_bfloat16, 2>(x, w, scale, scale_dtype, qmax,
-                                              out, E, C, D, F, split, tma_x,
-                                              tma_w, st);
-  if (x_dtype == 2 && w_format == 1)
-    return (int)q16::launch<__half, 1>(x, w, scale, scale_dtype, qmax, out,
-                                       E, C, D, F, split, tma_x, tma_w, st);
-  if (x_dtype == 2 && w_format == 2)
-    return (int)q16::launch<__half, 2>(x, w, scale, scale_dtype, qmax, out,
-                                       E, C, D, F, split, tma_x, tma_w, st);
+#define PADDLE_GMM_Q16(T, FMT)                                             \
+  return (int)q16::launch<T, FMT>(x, w, scale, scale_dtype, qmax, out, E, \
+                                  C, D, F, split, tma_x, tma_w, st)
+  if (x_dtype == 1 && w_format == 0) PADDLE_GMM_Q16(__nv_bfloat16, 0);
+  if (x_dtype == 1 && w_format == 1) PADDLE_GMM_Q16(__nv_bfloat16, 1);
+  if (x_dtype == 1 && w_format == 2) PADDLE_GMM_Q16(__nv_bfloat16, 2);
+  if (x_dtype == 2 && w_format == 0) PADDLE_GMM_Q16(__half, 0);
+  if (x_dtype == 2 && w_format == 1) PADDLE_GMM_Q16(__half, 1);
+  if (x_dtype == 2 && w_format == 2) PADDLE_GMM_Q16(__half, 2);
+#undef PADDLE_GMM_Q16
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives shared by the port's TMA + wgmma kernels
-// (qkv_proj.cu, flash_attention.cu): mbarriers, TMA tensor maps, bulk
-// tensor loads and stores, named barriers, setmaxnreg, and warpgroup
-// matrix multiplies (wgmma) with their shared-memory descriptors.
+// (qkv_proj.cu, flash_attention.cu, grouped_matmul.cu): mbarriers, TMA
+// tensor maps, bulk tensor loads and stores, named barriers, setmaxnreg,
+// and warpgroup matrix multiplies (wgmma) with their shared-memory
+// descriptors.
 //
 // The layouts these kernels use: TMA writes a box whose inner extent is
 // 64 16-bit values (128 bytes) as rows of 128 bytes under the 128-byte
@@ -87,6 +88,63 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(smem_u32(bar))
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The same with an L2 cache policy (`l2_evict_first` / `l2_evict_last`).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+// L2 policies for data read once (evicted first) and data read again
+// by other blocks (kept).
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+// 4 bytes from global to shared memory, asynchronously (zeros where
+// `ok` is false, reading nothing); `mbar_arrive_cp_async` makes their
+// completion one arrival on a barrier.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+// One arrival on `bar` once this thread's earlier cp.async copies have
+// landed (counted among the barrier's expected arrivals).
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
@@ -267,6 +325,22 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t saddr,
   "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, " \
   "%26, %27, %28, %29, %30, %31}"
 
+#define HOPPER_ACC40 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+#define HOPPER_LIST40 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, " \
+  "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
+  "%38, %39}"
+
 #define HOPPER_ACC64 \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
   "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
@@ -333,13 +407,13 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t saddr,
   "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
 
 // d (64 x N) += A (64 x 16) . B (16 x N), fp32 sums of 16-bit T: A from
-// shared memory (K-major, descriptor `a`), B from shared memory
-// (descriptor `b`; MN-major when TB is 1); with scale_d 0 the sum
-// starts from zero instead of d.
-#define HOPPER_SS(N, TY, LIST, A, B, SC, TB)                             \
+// shared memory (descriptor `a`; MN-major when TA is 1, else K-major),
+// B from shared memory (descriptor `b`; MN-major when TB is 1); with
+// scale_d 0 the sum starts from zero instead of d.
+#define HOPPER_SS(N, TY, LIST, A, B, SC, TA, TB)                         \
   "{\n.reg .pred p;\nsetp.ne.b32 p, " SC ", 0;\n"                       \
   "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " " LIST  \
-  ", " A ", " B ", p, 1, 1, 0, " TB ";\n}\n"
+  ", " A ", " B ", p, 1, 1, " TA ", " TB ";\n}\n"
 // The same with A from registers: a[0..3] hold the thread's values of
 // rows 16 w + l / 4 (a[0], a[2]) and + 8 (a[1], a[3]), columns
 // 2 (l % 4) + {0, 1} (a[0], a[1]) and + 8 (a[2], a[3]), two T a word.
@@ -348,44 +422,55 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t saddr,
   "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " " LIST  \
   ", " A0 ", " B ", p, 1, 1, " TB ";\n}\n"
 
-template <typename T, int N, int TB>
+template <typename T, int N, int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: N");
+  static_assert(N == 64 || N == 80 || N == 128 || N == 256, "wgmma_ss: N");
   constexpr bool kHalf = std::is_same<T, __half>::value;
   if constexpr (N == 64) {
     if constexpr (kHalf)
       asm volatile(HOPPER_SS("64", "f16", HOPPER_LIST32, "%32", "%33",
-                             "%34", "%35")
+                             "%34", "%35", "%36")
                    : HOPPER_ACC32
-                   : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
     else
       asm volatile(HOPPER_SS("64", "bf16", HOPPER_LIST32, "%32", "%33",
-                             "%34", "%35")
+                             "%34", "%35", "%36")
                    : HOPPER_ACC32
-                   : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 80) {
+    if constexpr (kHalf)
+      asm volatile(HOPPER_SS("80", "f16", HOPPER_LIST40, "%40", "%41",
+                             "%42", "%43", "%44")
+                   : HOPPER_ACC40
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+    else
+      asm volatile(HOPPER_SS("80", "bf16", HOPPER_LIST40, "%40", "%41",
+                             "%42", "%43", "%44")
+                   : HOPPER_ACC40
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   } else if constexpr (N == 128) {
     if constexpr (kHalf)
       asm volatile(HOPPER_SS("128", "f16", HOPPER_LIST64, "%64", "%65",
-                             "%66", "%67")
+                             "%66", "%67", "%68")
                    : HOPPER_ACC64
-                   : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
     else
       asm volatile(HOPPER_SS("128", "bf16", HOPPER_LIST64, "%64", "%65",
-                             "%66", "%67")
+                             "%66", "%67", "%68")
                    : HOPPER_ACC64
-                   : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   } else {
     if constexpr (kHalf)
       asm volatile(HOPPER_SS("256", "f16", HOPPER_LIST128, "%128", "%129",
-                             "%130", "%131")
+                             "%130", "%131", "%132")
                    : HOPPER_ACC128
-                   : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
     else
       asm volatile(HOPPER_SS("256", "bf16", HOPPER_LIST128, "%128", "%129",
-                             "%130", "%131")
+                             "%130", "%131", "%132")
                    : HOPPER_ACC128
-                   : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 }
 
@@ -393,9 +478,22 @@ template <typename T, int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
-  static_assert(N == 128 || N == 256, "wgmma_rs: N");
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_rs: N");
   constexpr bool kHalf = std::is_same<T, __half>::value;
-  if constexpr (N == 128) {
+  if constexpr (N == 64) {
+    if constexpr (kHalf)
+      asm volatile(HOPPER_RS("64", "f16", HOPPER_LIST32,
+                             "{%32, %33, %34, %35}", "%36", "%37", "%38")
+                   : HOPPER_ACC32
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+                     "r"(scale_d), "n"(TB));
+    else
+      asm volatile(HOPPER_RS("64", "bf16", HOPPER_LIST32,
+                             "{%32, %33, %34, %35}", "%36", "%37", "%38")
+                   : HOPPER_ACC32
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+                     "r"(scale_d), "n"(TB));
+  } else if constexpr (N == 128) {
     if constexpr (kHalf)
       asm volatile(HOPPER_RS("128", "f16", HOPPER_LIST64,
                              "{%64, %65, %66, %67}", "%68", "%69", "%70")
@@ -430,6 +528,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 #undef HOPPER_RS
 #undef HOPPER_ACC32
 #undef HOPPER_LIST32
+#undef HOPPER_ACC40
+#undef HOPPER_LIST40
 #undef HOPPER_ACC64
 #undef HOPPER_LIST64
 #undef HOPPER_ACC128

@@ -21,7 +21,10 @@ and keys alike, and a query attends a key only of its own segment (and
 not above the diagonal when causal). So a real token sees only real
 tokens and a padded one only padding, as in the TPU kernel. Its
 backward is `paddle_tpu_torch::flash_bwd_seg`, the same backward with
-the same segment test.
+the same segment test; on the card in bf16 and fp16 one persistent
+TMA + wgmma launch that skips the 64-row tile pairs whose segment
+ranges cannot meet (`segment_tile_pairs` says which; their p is
+exactly 0).
 
 Being a dispatched operator, the forward can be named by a selective
 checkpoint policy: `save_only_these_names(SPLASH_RESIDUAL_NAME)` keeps
@@ -96,7 +99,7 @@ _SIGNATURES = {
     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
     "paddle_tpu_torch_flash_fwd_seg": [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "paddle_tpu_torch_flash_bwd_seg": [ctypes.c_void_p] * 11
+    "paddle_tpu_torch_flash_bwd_seg": [ctypes.c_void_p] * 12
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
@@ -212,6 +215,43 @@ def flash_bwd_reference(q, k, v, out, lse, dout, causal, seg=None):
     dq = torch.einsum("bhst,bhtd->bhsd", ds, k.float())
     dk = torch.einsum("bhst,bhsd->bhtd", ds, q.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: rows of the tiles whose segment ranges K1c's 16-bit backward compares
+SEG_TILE = 64
+
+
+def segment_tile_ranges(seg):
+    """[B, ceil(S / 64), 2] int32: the least and greatest segment id of
+    each 64-row tile of `seg` [B, S] (rows past S left out) — the plain
+    version of the ranges K1c's 16-bit backward computes in its
+    pre-pass."""
+    B, S = seg.shape
+    nt = -(-S // SEG_TILE)
+    pad = nt * SEG_TILE - S
+    info = torch.iinfo(torch.int32)
+    seg = seg.to(torch.int32)
+    lo = torch.nn.functional.pad(seg, (0, pad), value=info.max)
+    hi = torch.nn.functional.pad(seg, (0, pad), value=info.min)
+    return torch.stack([lo.view(B, nt, SEG_TILE).amin(-1),
+                        hi.view(B, nt, SEG_TILE).amax(-1)], -1)
+
+
+def segment_tile_pairs(seg, causal):
+    """[B, nt, nt] bool, query tile by key tile (64 rows each): the tile
+    pairs K1c's 16-bit backward computes — their ranges overlap, and the
+    key tile is not wholly after the query tile when causal. Every other
+    pair holds only pairs of two segments (or keys after their queries),
+    whose p is exactly 0."""
+    r = segment_tile_ranges(seg)
+    lo, hi = r[..., 0], r[..., 1]
+    pairs = (lo[:, :, None] <= hi[:, None, :]) & \
+        (lo[:, None, :] <= hi[:, :, None])
+    if causal:
+        nt = r.shape[1]
+        pairs &= torch.ones(nt, nt, dtype=torch.bool,
+                            device=seg.device).tril()
+    return pairs
 
 
 # The forward and backward as registered operators (scale 1; `name` only
@@ -501,9 +541,11 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, seg=None):
             *ptrs, *grads, B * H, S, D, _DTYPE_CODES[q.dtype], int(causal),
             stream)
     else:
+        ranges = torch.empty(B, -(-S // SEG_TILE), 2, dtype=torch.int32,
+                             device=q.device)
         err = lib.paddle_tpu_torch_flash_bwd_seg(
-            *ptrs, seg.data_ptr(), *grads, B, H, S, D, _DTYPE_CODES[q.dtype],
-            int(causal), stream)
+            *ptrs, seg.data_ptr(), ranges.data_ptr(), *grads, B, H, S, D,
+            _DTYPE_CODES[q.dtype], int(causal), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     if seg is None:

@@ -12,17 +12,18 @@
 On a CUDA tensor it launches `csrc/grouped_matmul.cu`, the Hopper
 kernels that replace the TPU kernels `_gmm_kernel`, `_gmm_kernel_quant`
 and `_gmm_kernel_quant4`, or raises: there is no fallback. At the
-serving shapes the products are bound by the weight bytes. int8 and
-int4 weights under bf16 or fp16 activations (the quantized serving
-path) take `gmm_q16_kernel`: a block owns 128 weight columns of one
-expert and 80 capacity rows, the weights stream in through TMA and are
-dequantized in registers as wgmma's register operand, x is its
-shared-memory operand, and where the output tiles cannot fill the card
-the blocks of one tile split D and add their partials in a fixed order
-(`plan` says which). Float weights and fp32 activations take
-`gmm_kernel`, a block per (expert, 64 columns) that dequantizes in
-shared memory. (The source explains both designs.) On a CPU tensor it
-runs `grouped_matmul_reference`, the plain PyTorch version of the JAX
+serving shapes the products are bound by the weight bytes. Every weight
+format under bf16 or fp16 activations (the serving path) takes
+`gmm_q16_kernel`: a block owns 128 weight columns of one expert and 80
+capacity rows, the weights and x stream in through TMA, and wgmma
+multiplies them; float weights are its shared-memory operand as they
+arrive, int8 and int4 weights are dequantized in registers as its
+register operand; where the output tiles cannot fill the card the blocks
+of one tile split D and add their partials in a fixed order (`plan` says
+which). fp32 activations take `gmm_kernel`, a block per (expert, 64
+columns) on the CUDA cores that dequantizes in shared memory. (The
+source explains both designs.) On a CPU tensor it runs
+`grouped_matmul_reference`, the plain PyTorch version of the JAX
 package's einsum oracle, which the tests and `chip_smoke.py` also hold
 the kernels against.
 
@@ -179,7 +180,7 @@ _SIGNATURES = {"paddle_tpu_torch_grouped_matmul":
 #: gmm_q16_kernel's tile: weight columns (wgmma M) and capacity rows
 #: (wgmma N) a block, and contraction rows a stage per weight format
 Q16_COLS, Q16_ROWS = 128, 80
-Q16_DEPTH = {1: 64, 2: 128}
+Q16_DEPTH = {0: 64, 1: 64, 2: 128}
 #: the card's SMs where no card is asked (an H100 SXM)
 H100_SMS = 132
 
@@ -187,15 +188,18 @@ H100_SMS = 132
 def plan(E, C, D, F, w_format, x_dtype, sms=H100_SMS):
     """Which kernel a launch takes and how it is cut, from the shapes
     alone: `w_format` 0 float, 1 int8, 2 packed int4 (D is the logical
-    depth). int8 and int4 weights under bf16 or fp16 activations take
-    "q16" (`gmm_q16_kernel`), everything else "mma" (`gmm_kernel`).
-    For "q16", `tiles` = E x ceil(F / 128) x ceil(C / 80) output tiles;
+    depth). Every format under bf16 or fp16 activations takes "q16"
+    (`gmm_q16_kernel`), fp32 activations "mma" (`gmm_kernel`). For
+    "q16", `tiles` = E x ceil(F / 128) x ceil(C / 80) output tiles;
     where they cannot give every one of `sms` SMs a block, D is split
-    into the fewest parts that do (at most 4, at least one stage each),
-    and each tile's `split` blocks form one cluster. (Fewer, longer
-    blocks run faster than more: the split's reduction costs more than
-    a full card gains; see `tools/torch_gmm_ab.py --sweep`.)"""
-    q16 = w_format in (1, 2) and x_dtype in (torch.bfloat16, torch.float16)
+    (at most 4 parts, at least one stage each) and each tile's `split`
+    blocks form one cluster: int8 and int4 into the fewest parts that
+    give every SM a block, float weights into the most parts that still
+    leave no SM two blocks (at ffn2 2 parts, where 3 put two blocks on
+    half the SMs and ran 4% slower; `tools/torch_gmm_ab.py --sweep`).
+    (Fewer, longer blocks run faster than more: the split's reduction
+    costs more than a full card gains.)"""
+    q16 = x_dtype in (torch.bfloat16, torch.float16)
     if not q16:
         return {"kernel": "mma", "split": 1, "cluster": 1,
                 "blocks": E * -(-F // 64)}
@@ -203,7 +207,8 @@ def plan(E, C, D, F, w_format, x_dtype, sms=H100_SMS):
     stages = -(-D // Q16_DEPTH[w_format])
     split = 1
     if tiles < sms:
-        split = max(1, min(4, stages, -(-sms // tiles)))
+        parts = sms // tiles if w_format == 0 else -(-sms // tiles)
+        split = max(1, min(4, stages, parts))
     return {"kernel": "q16", "m_tile": Q16_COLS, "n_tile": Q16_ROWS,
             "k_tile": Q16_DEPTH[w_format], "tiles": tiles, "split": split,
             "cluster": split, "blocks": tiles * split}

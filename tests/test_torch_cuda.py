@@ -903,12 +903,70 @@ def test_gmm_q16_kernel_bit_identical_across_launches(fmt, D, F,
         rtol=1e-2, atol=1e-2)
 
 
+# Float weights on the wgmma kernel where its cuts fall: (E, C, D, F)
+# and the split `plan` gives them. C = 1, 81, 256 and 300 over 80-row
+# chunks, D and F off the 64-row stage and the 128-column tile (a
+# second 64-column box wholly past F), 100-byte weight rows and 76-byte
+# x rows that TMA cannot describe (copied by the producer warp), and D
+# split in 1 to 4 parts (2 at the MoE step's ffn2).
+_GMM_FP_SHAPES = [
+    ((4, 300, 64, 4096), 1),   # enough tiles: unsplit
+    ((2, 81, 96, 200), 2),     # C one past a chunk, F off the tile
+    ((1, 80, 200, 264), 4),    # D and F off their tiles
+    ((3, 1, 256, 72), 4),      # one capacity row; 144-byte rows
+    ((3, 256, 512, 50), 4),    # 100-byte weight rows: no TMA for w
+    ((2, 300, 38, 136), 1),    # 76-byte x rows: no TMA for x
+    ((4, 80, 1024, 1280), 3),  # 40 tiles
+    ((8, 80, 4096, 1024), 2),  # the MoE step's ffn2
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,split", _GMM_FP_SHAPES)
+@pytest.mark.parametrize("xname", ["bf16", "fp16"])
+def test_gmm_fp_wgmma_across_its_tiles(shape, split, xname, cuda_device):
+    """The wgmma kernel with float weights (both operands from shared
+    memory) against the plain version where its cuts fall. The same
+    16-bit operands, fp32 sums in another order, one output rounding:
+    1e-2, as test_gmm_kernels_match_plain."""
+    E, C, D, F = shape
+    x, w, _ = _gmm_case(E, C, D, F, xname, cuda_device)
+    p = tgmm.plan(E, C, D, F, 0, x.dtype, tgmm._sms(cuda_device))
+    assert (p["kernel"], p["k_tile"], p["split"]) == ("q16", 64, split)
+    before = tgmm.fp_launch_count
+    got = tgmm.grouped_expert_matmul(x, w)
+    torch.cuda.synchronize()
+    assert tgmm.fp_launch_count == before + 1
+    want = tgmm.grouped_matmul_reference(x, w)
+    assert got.dtype == x.dtype and got.shape == (E, C, F)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xname", ["bf16", "fp16"])
+@pytest.mark.parametrize("E,D,F", [(8, 1024, 4096), (8, 4096, 1024),
+                                   (4, 1024, 1280)])
+def test_gmm_fp_wgmma_bit_identical_across_launches(xname, E, D, F,
+                                                    cuda_device):
+    """At the MoE step's two products (ffn2 split in 2 parts added in
+    rank order) and a product split in 3, two launches on the same
+    inputs give the same bits."""
+    x, w, _ = _gmm_case(E, 80, D, F, xname, cuda_device)
+    a = tgmm.grouped_expert_matmul(x, w)
+    b = tgmm.grouped_expert_matmul(x, w)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(
+        a.float(), tgmm.grouped_matmul_reference(x, w).float(), rtol=1e-2,
+        atol=1e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["int8-fp32", "int4-fp32", "int8",
-                                     "int4"])
+                                     "int4", "fp32", "bf16", "fp16"])
 def test_gmm_routes_by_activation_dtype(variant, cuda_device, monkeypatch):
-    """fp32 activations with int8 or int4 weights reach the mma kernel's
-    instantiations (the wgmma entry must not run), and 16-bit ones the
+    """fp32 activations, with float, int8 or int4 weights, reach the mma
+    entry's kernel (the wgmma entry must not run), and 16-bit ones the
     wgmma kernel (the mma entry must not run); either counts one launch
     of its format."""
     from paddle_tpu_torch.ops import _build
@@ -1118,6 +1176,127 @@ def test_flash_seg_kernel_refuses_unsupported_operands(cuda_device):
         tfa.flash_bwd_seg(q, q, q, q, lse, q, seg.long(), False)
     with pytest.raises(ValueError):
         tfa.flash_bwd_seg(q, q, q, q, lse.double(), q, seg, False)
+
+
+# K1c's backward on its wgmma kernels (bf16, fp16), where their cuts
+# fall: S off the 64-row walked tiles and the 128-row fixed ones, D 64
+# and 128, causal or not, under trailing padding; then every id pattern
+# at S = 512 and 200. The same tolerances as test_flash_kernels_match_
+# plain: both sides multiply the same 16-bit operands in fp32, round p
+# and ds to that dtype before the products they feed and round the
+# outputs once.
+_SEG_BWD_TOL = {torch.bfloat16: 3e-2, torch.float16: 4e-3}
+
+
+def _seg_more(pattern, B, S, rng):
+    """`_seg`'s patterns, and "one" (a single segment), "three" (packed
+    ids 0-5, more than two in a tile) and "blocks" (ids that change
+    every 128 rows, so whole tile pairs hold two segments and are
+    skipped)."""
+    if pattern == "one":
+        return np.ones((B, S), dtype=np.int32)
+    if pattern == "three":
+        return np.sort(rng.randint(0, 6, (B, S)), axis=1).astype(np.int32)
+    if pattern == "blocks":
+        ids = np.arange(S) // 128 + np.arange(B)[:, None]
+        return np.ascontiguousarray(ids, dtype=np.int32)
+    return _seg(pattern, B, S, rng)
+
+
+def _seg_bwd_case(B, H, S, D, dtype, pattern, causal, device, seed):
+    rng = np.random.RandomState(seed)
+    seg = torch.tensor(_seg_more(pattern, B, S, rng), device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, dout = (torch.randn(B, H, S, D, generator=g, device=device,
+                                 dtype=dtype) for _ in range(4))
+    q = (q * D ** -0.5).to(dtype)
+    out, lse = tfa.flash_fwd_reference(q, k, v, causal, seg)
+    return q, k, v, out, lse, dout, seg
+
+
+def _check_seg_bwd(args, causal, dtype):
+    before = tfa.seg_bwd_launch_count
+    got = tfa.flash_bwd_seg(*args, causal)
+    torch.cuda.synchronize()
+    assert tfa.seg_bwd_launch_count == before + 1
+    want = tfa.flash_bwd_reference(*args[:6], causal, args[6])
+    tol = _SEG_BWD_TOL[dtype]
+    for a, e in zip(got, want):
+        assert torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), e.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 200, 512,
+                               1000])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_seg_bwd_wgmma_across_its_tiles(S, D, causal, dtype,
+                                              cuda_device):
+    args = _seg_bwd_case(2, 2, S, D, dtype, "trailing", causal, cuda_device,
+                         seed=S + D)
+    _check_seg_bwd(args, causal, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["trailing", "left", "interleaved",
+                                     "one", "three", "blocks"])
+@pytest.mark.parametrize("S", [200, 512])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_seg_bwd_wgmma_id_patterns(pattern, S, causal, dtype,
+                                         cuda_device):
+    """Every id pattern, with the tile pairs the kernels skip counted:
+    "blocks" skips whole pairs, "one" none."""
+    args = _seg_bwd_case(3, 2, S, 64, dtype, pattern, causal, cuda_device,
+                         seed=S + len(pattern))
+    pairs = tfa.segment_tile_pairs(args[6], causal)
+    if pattern == "blocks":
+        assert not pairs.all()
+    if pattern == "one":
+        nt = pairs.shape[1]
+        full = torch.ones(nt, nt, dtype=torch.bool, device=cuda_device)
+        assert torch.equal(pairs[0], full.tril() if causal else full)
+    _check_seg_bwd(args, causal, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(16, 512), (64, 128)])
+def test_flash_seg_bwd_wgmma_bit_identical_across_launches(B, S,
+                                                           cuda_device):
+    """At the BERT shapes, two launches give the same bits (each
+    gradient element is one block's fixed-order sum; no atomics)."""
+    args = _seg_bwd_case(B, 12, S, 64, torch.bfloat16, "trailing", False,
+                         cuda_device, seed=3)
+    first = tfa.flash_bwd_seg(*args, False)
+    second = tfa.flash_bwd_seg(*args, False)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_bwd_routes_by_dtype_and_segments(dtype, cuda_device):
+    """K1c's backward: bf16 and fp16 reach flash_bwd_wgmma_kernel (and
+    its pre-pass), fp32 the CUDA-core kernels; K1a's backward (no
+    segments) keeps the mma.sync kernels in 16 bits. Each backward runs
+    twice in the profiled window: the profiler has been seen to miss the
+    window's first kernel."""
+    args = _seg_bwd_case(2, 2, 200, 64, dtype, "trailing", False,
+                         cuda_device, seed=7)
+    names = _device_kernels(
+        lambda: [tfa.flash_bwd_seg(*args, False) for _ in range(2)])
+    wg = any("flash_bwd_wgmma_kernel" in n for n in names)
+    assert wg == (dtype != torch.float32), names
+    assert any("flash_delta_seg_kernel" in n for n in names) == wg, names
+    assert any("flash_bwd_dkdv_kernel" in n for n in names) == (not wg)
+    names = _device_kernels(
+        lambda: [tfa.flash_bwd(*args[:6], False) for _ in range(2)])
+    assert not any("wgmma" in n for n in names), names
+    if dtype != torch.float32:
+        assert any("flash_bwd_dkdv_mma_kernel" in n for n in names), names
+        assert any("flash_bwd_dq_mma_kernel" in n for n in names), names
 
 
 # --------------------------------------------------- BERT on the card

@@ -29,19 +29,20 @@ def _interpret_splash():
     jfa._INTERPRET = old
 
 
-def segments(pattern, rng):
-    """[B, S] int32 segment ids: a key-padding mask (1 real, 0 padding)
-    with the padding after the tokens, before them, or strewn among
-    them, no padding, or a packed batch of segments 0-3."""
+def segments(pattern, rng, length=S):
+    """[B, length] int32 segment ids: a key-padding mask (1 real, 0
+    padding) with the padding after the tokens, before them, or strewn
+    among them, no padding, or a packed batch of segments 0-3."""
     if pattern == "packed":
-        return np.sort(rng.randint(0, 4, (B, S)), axis=1).astype(np.int32)
+        return np.sort(rng.randint(0, 4, (B, length)),
+                       axis=1).astype(np.int32)
     if pattern == "interleaved":
-        keep = rng.rand(B, S) < 0.6
+        keep = rng.rand(B, length) < 0.6
     elif pattern == "none":
-        keep = np.ones((B, S), bool)
+        keep = np.ones((B, length), bool)
     else:
-        lens = rng.randint(1, S, B)
-        keep = np.arange(S)[None] < lens[:, None]
+        lens = rng.randint(1, length, B)
+        keep = np.arange(length)[None] < lens[:, None]
         if pattern == "left":
             keep = keep[:, ::-1]
     return keep.astype(np.int32)
@@ -158,3 +159,41 @@ def test_residual_policy_keeps_tagged_segmented_forward(monkeypatch):
     assert len(calls) == 2
     for a, e in zip(got, want):
         assert torch.equal(a, e)
+
+
+# The tile ranges K1c's 16-bit backward skips by (its kernels compute
+# them on the card; these are their plain versions), at S = 300: four
+# full 64-row tiles and a ragged one.
+TILED_S = 300
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_segment_tile_ranges(pattern):
+    seg = segments(pattern, np.random.RandomState(4), TILED_S)
+    got = tfa.segment_tile_ranges(torch.tensor(seg)).numpy()
+    nt = -(-TILED_S // 64)
+    assert got.shape == (B, nt, 2) and got.dtype == np.int32
+    for b in range(B):
+        for t in range(nt):
+            rows = seg[b, 64 * t:64 * (t + 1)]
+            assert tuple(got[b, t]) == (rows.min(), rows.max())
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_segment_tile_pairs_skip_only_invisible_pairs(pattern, causal):
+    """No tile pair that holds a visible (query, key) pair is skipped;
+    where each row's ids are sorted (every pattern but the interleaved
+    one), exactly the pairs that hold one are kept."""
+    seg = segments(pattern, np.random.RandomState(5), TILED_S)
+    pairs = tfa.segment_tile_pairs(torch.tensor(seg), causal).numpy()
+    nt = -(-TILED_S // 64)
+    vis = np.zeros((B, 64 * nt, 64 * nt), bool)
+    vis[:, :TILED_S, :TILED_S] = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        vis &= np.tril(np.ones((64 * nt, 64 * nt), bool))
+    held = vis.reshape(B, nt, 64, nt, 64).any(axis=(2, 4))
+    assert pairs.shape == (B, nt, nt)
+    assert not (held & ~pairs).any()
+    if pattern != "interleaved":
+        assert np.array_equal(pairs, held)

@@ -149,11 +149,11 @@ def test_expert_weight_bytes_and_format_detection():
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16,
                                  torch.float16])
 def test_plan_routes_each_dtype_and_format(fmt, xdt):
-    """int8 and int4 weights under 16-bit activations take the wgmma
-    kernel; float weights, and fp32 activations of every format, the
-    mma.sync kernel with its (expert, 64-column) blocks."""
+    """Every weight format under 16-bit activations takes the wgmma
+    kernel; fp32 activations of every format the CUDA-core kernel with
+    its (expert, 64-column) blocks."""
     p = tgmm.plan(8, 80, 1024, 4096, fmt, xdt)
-    q16 = fmt in (1, 2) and xdt != torch.float32
+    q16 = xdt != torch.float32
     assert p["kernel"] == ("q16" if q16 else "mma")
     if not q16:
         assert (p["split"], p["cluster"], p["blocks"]) == (1, 1, 8 * 64)
@@ -196,6 +196,31 @@ def test_plan_at_edge_shapes(E, C, D, F, fmt, tiles, split):
     assert (p["tiles"], p["split"]) == (tiles, split)
     assert p["cluster"] == split and p["blocks"] == tiles * split
     assert p["tiles"] == E * -(-F // 128) * -(-C // 80)
+
+
+@pytest.mark.parametrize("E,C,D,F,tiles,split", [
+    (1, 80, 64, 128, 1, 1),           # one float stage: no split
+    (1, 80, 128, 128, 1, 2),          # two stages: split 2
+    (2, 81, 96, 200, 8, 2),           # C one past a chunk, F off the tile
+    (1, 80, 200, 264, 3, 4),          # D and F off their tiles
+    (3, 1, 256, 72, 3, 4),            # one capacity row
+    (2, 300, 38, 136, 16, 1),         # D under one stage
+    (4, 300, 64, 4096, 512, 1),       # enough tiles: unsplit
+    (8, 80, 1024, 4096, 256, 1),      # the MoE step's ffn1
+    (8, 80, 4096, 1024, 64, 2),       # its ffn2: 128 blocks, one an SM
+    (4, 80, 1024, 1280, 40, 3),       # 40 tiles: split 3
+])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16])
+def test_plan_float_weights_at_edge_shapes(E, C, D, F, tiles, split, xdt):
+    """Float weights under 16-bit activations: the wgmma kernel's 128 x 80
+    tile and 64-row stage, and the split `plan` takes for them: the most
+    parts that leave no SM two blocks (never more than 4 or than the
+    stages D has; 1 once the tiles fill the SMs)."""
+    p = tgmm.plan(E, C, D, F, 0, xdt)
+    assert (p["kernel"], p["m_tile"], p["n_tile"], p["k_tile"]) == (
+        "q16", 128, 80, 64)
+    assert (p["tiles"], p["split"]) == (tiles, split)
+    assert p["cluster"] == split and p["blocks"] == tiles * split
 
 
 def test_plan_follows_the_sm_count():

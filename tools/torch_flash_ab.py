@@ -18,7 +18,14 @@ another copy of it (for example the parent commit's, unpacked with
   this, this, other, other, this) with CUDA events and L2 flushed, as
   `chip_smoke.py` times kernels; K1b beside SDPA on transposed copies,
   its bound and achieved TFLOP/s, each side held against the plain
-  version first.
+  version first;
+* K1c's backward at BERT pretraining's [16, 12, 512, 64] and BERT's
+  [64, 12, 128, 64] bf16 (full, trailing padding at the train phase's
+  lengths), timed the same way beside SDPA's backward with the segment
+  mask, its bound, its TFLOP/s over the pairs the ids make visible and
+  the share of 64-row tile pairs its segment ranges keep; each side
+  held against the plain backward first (the other copy called through
+  its own entry: the parent's takes no ranges scratch).
 
 With `--sweep` it also builds copies of this tree's source whose K1b
 kernel takes other key tiles and ring depths at D = 128 (64 or 128
@@ -28,7 +35,11 @@ D = 128 shapes. With `--probe` it builds copies whose K1b consumers skip
 the softmax, the S = Q K^T products, the P V products, both products,
 or all but the loads (their outputs are wrong; they keep every load and
 store), and one without the warpgroups' turns, and times them beside
-the full kernel at its three shapes.
+the full kernel at its three shapes; and copies of K1c's 16-bit
+backward without the segment-range skip (every tile pair visited, all
+masked), without its products and softmax (loads only), without its dQ
+items, without its dK/dV items, and with its pre-pass alone, timed at
+both BERT shapes.
 
 Needs a card and nvcc; imports torch and the port only.
 """
@@ -99,8 +110,9 @@ def split_name(name):
 FALSE = ("false", "(bool)0", "0")
 # Template arguments this tree dropped: kernel -> index in the other
 # copy's list. The other copy's instantiations with it false are this
-# tree's without it; those with it true are gone.
-DROPPED = {"flash_fwd_mma_kernel": 2}  # kPaddle
+# tree's without it; those with it true are gone. (kSeg: K1c's 16-bit
+# backward left these kernels for bwd16::flash_bwd_wgmma_kernel.)
+DROPPED = {"flash_bwd_dkdv_mma_kernel": 2, "flash_bwd_dq_mma_kernel": 2}
 
 
 def match(name, mine):
@@ -121,14 +133,25 @@ def match(name, mine):
     return None
 
 
-def load(path):
+def load(path, text=None):
+    """The library at `path`; `text`, its source, says whether its
+    segmented backward takes the ranges scratch (this tree's does)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     lib = ctypes.CDLL(str(path))
     for fn in ("paddle_tpu_torch_flash_fwd", "paddle_tpu_torch_flash_bwd",
-               "paddle_tpu_torch_flash_fwd_bshd"):
+               "paddle_tpu_torch_flash_fwd_bshd",
+               "paddle_tpu_torch_flash_bwd_seg"):
         getattr(lib, fn).argtypes = fa._SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
+    lib.seg_ranges = text is None or _RANGES in text
+    if not lib.seg_ranges:
+        lib.paddle_tpu_torch_flash_bwd_seg.argtypes = \
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
+
+
+# the segmented backward's C entry with the ranges scratch
+_RANGES = "const void* seg,\n    void* ranges, void* dq"
 
 
 def main():
@@ -154,7 +177,8 @@ def main():
                                               build / f"lib_{side}.so"),
                        srcs)
         reports = {side: usage(t) for side, t in zip(srcs, texts)}
-    libs = {side: load(build / f"lib_{side}.so") for side in srcs}
+    libs = {side: load(build / f"lib_{side}.so", srcs[side].read_text())
+            for side in srcs}
     same = True
     for name, use in sorted(reports["other"].items()):
         mine = match(name, reports["this"])
@@ -228,11 +252,164 @@ def main():
               f"this at {flops / (mean['this'] * 1e-3) / 1e12:.1f} TFLOP/s, "
               f"{bound / mean['this']:.1%} of the bound", flush=True)
         del q, k, v, want
+    for B, S, shortest in SEG_SHAPES:
+        case = seg_case(B, S, shortest, dev)
+        runs = {side: seg_bwd_run(libs[side], case, f"{side} K1c backward")
+                for side in ("other", "this")}
+        times = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other", "other", "this"):
+            times[side].append(chip_smoke.cuda_ms(runs[side], flush=flush))
+        mean = {s: sum(t) / len(t) for s, t in times.items()}
+        sdpa, bound, flops, kept = seg_yardsticks(case, flush)
+        print(f"K1c backward bf16 [{B}, 12, {S}, 64] lengths {shortest}-{S}"
+              f" ms on {card}: other {[round(t, 4) for t in times['other']]}"
+              f" (mean {mean['other']:.4f}), this "
+              f"{[round(t, 4) for t in times['this']]} (mean "
+              f"{mean['this']:.4f}): {mean['this'] / mean['other'] - 1:+.2%};"
+              f" SDPA backward with the segment mask {sdpa:.4f}; bound "
+              f"{bound:.4f}, this at {flops / (mean['this'] * 1e-3) / 1e12:.1f}"
+              f" TFLOP/s over visible pairs, {bound / mean['this']:.1%} of "
+              f"the bound; tile pairs kept {kept:.1%}", flush=True)
+        del case, runs
     if args.sweep:
         sweep(build, flush, card)
     if args.probe:
         probe(build, flush, card)
+        probe_seg_bwd(build, flush, card)
     return 0 if same else 1
+
+
+# K1c's backward shapes: (sequences, S, shortest length), 12 heads of 64
+SEG_SHAPES = ((16, 512, 64), (64, 128, 16))
+
+
+def seg_case(B, S, shortest, dev):
+    """(q, k, v, out, lse, dout, seg) of K1c's backward at chip_smoke's
+    operands, trailing padding at lengths shortest..S."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(S)
+    lens = rng.integers(shortest, S + 1, B)
+    seg = torch.tensor((np.arange(S)[None] < lens[:, None]).astype(np.int32),
+                       device=dev)
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v, dout = (torch.randn(B, 12, S, 64, generator=g, device=dev,
+                                 dtype=torch.bfloat16) for _ in range(4))
+    q = (q * 64 ** -0.5).to(torch.bfloat16)
+    out, lse = fa.flash_fwd_reference(q, k, v, False, seg)
+    return q, k, v, out, lse, dout, seg
+
+
+def seg_bwd_run(lib, case, label):
+    """A launch of the library's segmented backward on `case`, held
+    against the plain backward once."""
+    import torch
+    import chip_smoke
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, out, lse, dout, seg = case
+    B, H, S, D = q.shape
+    grads = [torch.empty_like(q) for _ in range(3)]
+    delta = torch.empty_like(lse)
+    ranges = torch.empty(B, -(-S // 64), 2, dtype=torch.int32,
+                         device=q.device)
+    ptrs = [t.data_ptr() for t in (q, k, v, out, dout, lse, delta, seg)]
+    if lib.seg_ranges:
+        ptrs.append(ranges.data_ptr())
+
+    def run():
+        err = lib.paddle_tpu_torch_flash_bwd_seg(
+            *ptrs, *(g.data_ptr() for g in grads), B, H, S, D, 1, 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{label} launch failed: CUDA error {err}")
+    run()
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_reference(q, k, v, out, lse, dout, False, seg)
+    for n, a, e in zip(("dq", "dk", "dv"), grads, want):
+        chip_smoke.close_or_fail(f"{label} {n} [{B}, {H}, {S}, {D}]", a, e,
+                                 chip_smoke.TRAIN_TOL["bfloat16"])
+    return run
+
+
+def seg_yardsticks(case, flush):
+    """(SDPA backward ms with the segment mask, bound ms, flops over the
+    visible pairs, share of 64-row tile pairs kept) of K1c's backward."""
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, out, lse, dout, seg = case
+    B, H, S, D = q.shape
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    sq = [t.detach().requires_grad_() for t in (q, k, v)]
+    so = F.scaled_dot_product_attention(*sq, attn_mask=same, scale=1.0)
+    sdpa = chip_smoke.cuda_ms(lambda: torch.autograd.grad(
+        so, sq, dout, retain_graph=True), flush=flush)
+    bound, _ = chip_smoke.seg_bound(q, seg, backward=True)
+    flops = 10 * D * H * int((seg[:, :, None] == seg[:, None, :]).sum())
+    kept = fa.segment_tile_pairs(seg, False).float().mean().item()
+    return sdpa, bound, flops, kept
+
+
+# The probe's cuts of K1c's 16-bit backward, as patterns of this tree's
+# source: each must occur once.
+_SEG_CUTS = {
+    "no skip": (r"visit = visit && a\.x <= c\.y && c\.x <= a\.y;",
+                "mask = true;"),
+    "loads only": (r"if \(w0 >= 0 && \(fl & 1\)\) \{",
+                   "if (w0 >= 0 && (fl & 1) && S < 0) {"),
+    "no dQ pass": (r"const int first = 0, last = \(int\)\(2 \* per\);",
+                   "const int first = 0, last = (int)per;"),
+    "no dK/dV pass": (r"const int first = 0, last = \(int\)\(2 \* per\);",
+                      "const int first = (int)per, last = (int)(2 * per);"),
+    "pre-pass only": (r"\n  auto kern = flash_bwd_wgmma_kernel<T, D, kSeg>;",
+                      "\n  return cudaSuccess;"
+                      "\n  auto kern = flash_bwd_wgmma_kernel<T, D, kSeg>;"),
+}
+
+
+def probe_seg_bwd(build, flush, card):
+    """K1c's 16-bit backward beside copies without its skip, its
+    products, one of its passes, or all but its pre-pass."""
+    import torch
+    import chip_smoke
+    src = (ROOT / "paddle_tpu_torch/ops/csrc/flash_attention.cu").read_text()
+    cuts = {"full": src}
+    for cut, (pat, rep) in _SEG_CUTS.items():
+        if len(re.findall(pat, src)) != 1:
+            raise SystemExit(f"torch_flash_ab --probe: K1c's backward "
+                             f"changed ({cut})")
+        cuts[cut] = re.sub(pat, rep, src)
+
+    def make(cut):
+        name = cut.replace(" ", "_").replace("/", "")
+        path = build / f"probe_seg_{name}.cu"
+        path.write_text(cuts[cut])
+        compile_v(path, path.with_suffix(".so"))
+        return load(path.with_suffix(".so"))
+    with ThreadPoolExecutor(len(cuts)) as ex:
+        libs = dict(zip(cuts, ex.map(make, cuts)))
+    dev = torch.device("cuda")
+    for B, S, shortest in SEG_SHAPES:
+        case = seg_case(B, S, shortest, dev)
+        q, k, v, out, lse, dout, seg = case
+        grads = [torch.empty_like(q) for _ in range(3)]
+        delta = torch.empty_like(lse)
+        ranges = torch.empty(B, -(-S // 64), 2, dtype=torch.int32,
+                             device=dev)
+        cells = []
+        for cut, lib in libs.items():
+            def run(lib=lib):
+                lib.paddle_tpu_torch_flash_bwd_seg(
+                    *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta,
+                                             seg, ranges)),
+                    *(g.data_ptr() for g in grads), B, 12, S, 64, 1, 0,
+                    torch.cuda.current_stream().cuda_stream)
+            cells.append(f"{cut} {chip_smoke.cuda_ms(run, flush=flush):.4f}")
+        print(f"probe K1c backward bf16 [{B}, 12, {S}, 64] ms on {card}: "
+              + "; ".join(cells), flush=True)
+        del case, grads
 
 
 # The probe's cuts of K1b's consumer loop, as patterns of this tree's
