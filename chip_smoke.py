@@ -23,9 +23,10 @@ each (or a few):
    over the same three; the three
    grouped expert matmuls — float, int8 and int4 experts — at the MoE
    step's two expert products, each with its bytes/s and share of its
-   bound; flash attention forward/backward,
-   add+LayerNorm forward/backward and the fused QKV projection (forward,
-   and its gradients through autograd) at the train step's; the
+   bound; flash attention forward/backward (with their TFLOP/s and share
+   of the bound), add+LayerNorm forward/backward and the fused QKV
+   projection (forward, and its gradients through autograd) at the train
+   step's; the
    paddle-layout flash forward at [8, 1024, 16, 128] causal and full,
    [8, 1024, 8, 256] causal, and forward + backward through
    `flash_attention()`, these two with their TFLOP/s and share of the
@@ -79,7 +80,8 @@ each (or a few):
    warm-up and timed steps on one fixed batch (random weights from a
    numpy seed through `convert.load_jax_hybrid_gpt`): finite, falling
    loss, and every train kernel launched exactly as the policy predicts
-   per step (the flash forward once a layer); then one profiled step,
+   per step (the flash forward once a layer); then one profiled step
+   (K1a's forward and backward device ms on lines of their own),
    and the same steps timed at bench_gpt's batch 32; then batch 8 again
    with remat_policy None (the flash forward twice a layer) and with
    qkv_kernel=True (the fused projection twice a layer), side by side,
@@ -1305,10 +1307,13 @@ def check_flash(fa, device, flush):
             records.setdefault(name, {})[kname] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib)
+            flops = flash_flops(q, True, bwd)
             print(f"kernel check: {kname} {name} [{B}, {H}, {S}, {D}] causal"
                   f" max_abs_err={err:.3g} (tol {tol} (1 + |plain|)) "
                   f"kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-                  f"bound_ms={bound_ms:.4f} ({bound_by}) yardstick: "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}), "
+                  f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+                  f"{bound_ms / ms:.1%} of the bound; yardstick: "
                   f"scaled_dot_product_attention"
                   f"{' backward' if bwd else ''} {lib:.4f} ms", flush=True)
         del q, k, v, dout, qs, out, lse, args
@@ -1937,11 +1942,18 @@ def profile_train(trainer, params, opt, tok, lab, step_num, label):
         return
     device_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
-    ours = {}
+    ours, k1a = {}, {"forward": [0.0, 0], "backward": [0.0, 0]}
     for e in dev:
         for fam in ("flash", "add_ln", "qkv_proj"):
             if f"{fam}_" in e.key:
                 ours[fam] = ours.get(fam, 0.0) + e.self_device_time_total
+        # K1a's kernels by name: the forward's, the backward's and its
+        # delta pre-pass
+        part = "forward" if "flash_fwd" in e.key else "backward" if (
+            "flash_bwd" in e.key or "flash_delta" in e.key) else None
+        if part:
+            k1a[part][0] += e.self_device_time_total
+            k1a[part][1] += e.count
     print(f"profile: one train step [{label}], {host_ms:.1f} ms on the host "
           f"clock (profiled), {device_ms:.1f} ms of device time in "
           f"{sum(e.count for e in dev)} device launches, device busy "
@@ -1951,6 +1963,11 @@ def profile_train(trainer, params, opt, tok, lab, step_num, label):
           + "; most device time: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms "
               f"x{e.count}" for e in top), flush=True)
+    for part, (t, n) in k1a.items():
+        print(f"profile: train step [{label}] K1a {part}: {t / 1e3:.3f} ms "
+              f"of device time a step in {n} kernel launches "
+              f"({t / 1e3 / device_ms:.1%} of the step's device time)",
+              flush=True)
 
 
 # --------------------------------------- phase 3, segmented flash (K1c)

@@ -34,7 +34,25 @@ def _xla_attention(q, k, v, bias=None, causal=False, scale=None,
     """Plain attention over [B, S, H, D]: fp32 logits times `scale`
     plus the additive `bias`, -1e30 above the diagonal (aligned to the
     last key) when causal, softmax, dropout of the probabilities, and
-    the output in q's dtype."""
+    the output in q's dtype.
+
+    k and v may have fewer heads than q where their count divides q's:
+    query head n reads key/value head n // (H_q / H_kv), as JAX's
+    `jax.nn.dot_product_attention` does. Like JAX, only that path takes
+    them: without dropout, and when causal only with q and k of one
+    length; elsewhere grouped heads raise, as JAX's general path does."""
+    hq, hkv = q.shape[2], k.shape[2]
+    if hkv != hq:
+        if hkv == 0 or hq % hkv or v.shape[2] != hkv:
+            raise ValueError(
+                f"attention: {hq} query heads do not divide into groups "
+                f"of {k.shape[2]} key and {v.shape[2]} value heads")
+        if dropout_p > 0.0 or (causal and q.shape[1] != k.shape[1]):
+            raise ValueError(
+                "attention: grouped key/value heads take no dropout and, "
+                "when causal, need queries and keys of one length")
+        k = k.repeat_interleave(hq // hkv, dim=2)
+        v = v.repeat_interleave(hq // hkv, dim=2)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale

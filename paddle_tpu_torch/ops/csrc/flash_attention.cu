@@ -62,26 +62,26 @@
 // What bounds it: at the train step's shapes ([8, 16, 1024, 64] bf16)
 // the forward moves ~67 MB and does ~1.7e10 flops, the backward ~2.5x
 // those flops: the card's bound is set by bytes for the forward and by
-// tensor-core flops for the backward. So the work is kept on chip:
-//   * a block of 128 threads owns a 64-row tile (queries, or keys in the
-//     dk/dv pass) and walks the other operand's 64-row tiles, staged
-//     through shared memory, so each q/k/v/dout row is read from device
-//     memory once per tile pair and S x S scores never reach device
-//     memory;
-//   * causal tiles above the diagonal are never visited, and only the
-//     diagonal tile (and the ragged last tile) is masked; query tiles are
-//     issued heaviest first.
-// 16-bit operands of the splash entries take the tensor cores (mma.sync
-// m16n8k16, the path the train step runs; described at its kernels
-// below). fp32 operands keep
+// tensor-core flops for the backward. So the work is kept on chip: a
+// block owns a tile of queries (or keys in the backward's dk/dv pass)
+// and walks the other operand's tiles, staged through shared memory, so
+// each q/k/v/dout row is read from device memory once per tile pair and
+// S x S scores never reach device memory; causal tiles above the
+// diagonal are never visited, and only tiles that cross it (or hold rows
+// past S) are masked; the heaviest causal tiles are issued first.
+// 16-bit operands of the splash entry without segments (K1a, the path
+// the train step runs) take the Hopper kernels: the forward is the
+// paddle-layout forward's TMA + wgmma kernel (bshd::, kLse) over K1a's
+// [BH, S, D] read as [B = BH, S, H = 1, D], storing the logsumexp; the
+// backward is bwd16's persistent TMA + wgmma kernel without segments
+// (kSeg false), its items in an order that balances causal walks. K1c's
+// 16-bit forward keeps the mma.sync forward below. fp32 operands keep
 // fp32 products on the CUDA cores: each thread owns a 4 x 8 block of the
 // 64 x 64 score tile (rows rg + 16i, columns cg + 8j) and a 4 x D/8 block
 // of the output tile; rows of a tile live in 8 neighbouring lanes, so
 // row max and row sum are three shuffles; shared rows, staged as fp32,
 // are padded by 4 floats so the 16-byte shared-memory loads are free of
-// bank conflicts. Next for speed in the splash kernels: K1a's forward on
-// the paddle-layout forward's TMA + wgmma design, and K1a's backward on
-// bwd16's kernel (its kSeg = false instantiation).
+// bank conflicts (64-row tiles of 128 threads).
 //
 // Built with nvcc into a shared library with a plain C interface
 // (paddle_tpu_torch/ops/flash_attention.py), launched on the caller's
@@ -568,13 +568,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------------
-// Tensor-core path for 16-bit operands (bf16, fp16): the same three
-// passes, each 64-row tile split over 4 warps of 16 rows, every product
-// an mma.sync m16n8k16 with fp32 accumulation. Tiles are staged in shared
-// memory in their own dtype (rows padded by 8 elements, so ldmatrix reads
-// them without bank conflicts); a score tile stays in registers in the
-// mma accumulator layout and is rounded to the operand dtype where it
-// feeds the next product (p before p v, ds before ds k and ds^T q), as the
+// K1c's forward for 16-bit operands (bf16, fp16): each 64-row query tile
+// split over 4 warps of 16 rows, every product an mma.sync m16n8k16 with
+// fp32 accumulation. Tiles are staged in shared memory in their own
+// dtype (rows padded by 8 elements, so ldmatrix reads them without bank
+// conflicts); a score tile stays in registers in the mma accumulator
+// layout and is rounded to the operand dtype where it feeds p v, as the
 // splash kernel rounds p to v's dtype. Row max, row sum and the softmax
 // stay fp32.
 
@@ -713,7 +712,8 @@ __device__ __forceinline__ void store_row16(T* dst, int row, int t,
 }
 
 // The splash entry (contiguous [BH, S, D], scale 1, out = acc * (1 / l),
-// lse kept); kSeg as flash_fwd_kernel's.
+// lse kept); kSeg as flash_fwd_kernel's. Only K1c (kSeg) instantiates it:
+// K1a's 16-bit forward is bshd::flash_fwd_bshd_wgmma_kernel.
 template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -817,147 +817,6 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// K1a's backward in 16 bits (K1c's is bwd16's below).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int S,
-                          int causal) {
-  constexpr int LDS = ld16<D>();
-  extern __shared__ float4 smem4[];
-  T* Ks = reinterpret_cast<T*>(smem4);
-  T* Vs = Ks + kTile * LDS;
-  T* Qs = Vs + kTile * LDS;
-  T* dOs = Qs + kTile * LDS;
-  float* lse_s = reinterpret_cast<float*>(dOs + kTile * LDS);
-  float* delta_s = lse_s + kTile;
-  const int ntiles = (S + kTile - 1) / kTile;
-  const int kt = blockIdx.y;  // low key tiles see the most query tiles
-  const int k0 = kt * kTile;
-  const long long off = (long long)blockIdx.x * S * D;
-  const long long roff = (long long)blockIdx.x * S;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  load_tile16<T, D>(Ks, k + off, k0, S);
-  load_tile16<T, D>(Vs, v + off, k0, S);
-  float adk[D / 8][4], adv[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[nt][e] = adv[nt][e] = 0.f;
-
-  for (int qt = causal ? kt : 0; qt < ntiles; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile16<T, D>(Qs, q + off, q0, S);
-    load_tile16<T, D>(dOs, dout + off, q0, S);
-    if (threadIdx.x < kTile) {
-      const bool ok = q0 + threadIdx.x < S;
-      lse_s[threadIdx.x] = ok ? lse[roff + q0 + threadIdx.x] : 0.f;
-      delta_s[threadIdx.x] = ok ? delta[roff + q0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-    // rows: this warp's 16 keys; columns: the tile's 64 queries
-    float p[8][4], ds[8][4];
-    mma_rows<T, D>(p, Ks, Qs, warp, lane);
-    mma_rows<T, D>(ds, Vs, dOs, warp, lane);
-    const bool edge = q0 + kTile > S || k0 + kTile > S ||
-                      (causal && k0 + kTile - 1 > q0);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const int key = k0 + warp * 16 + g + 8 * (e >> 1), qi = q0 + col;
-        const bool masked =
-            edge && (qi >= S || key >= S || (causal && key > qi));
-        const float pv = masked ? 0.f : expf(p[nt][e] - lse_s[col]);
-        p[nt][e] = pv;
-        ds[nt][e] = pv * (ds[nt][e] - delta_s[col]);
-      }
-    mma_pv<T, D>(adv, p, dOs, lane);   // dv += p^T dout
-    mma_pv<T, D>(adk, ds, Qs, lane);   // dk += ds^T q
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = k0 + warp * 16 + g + 8 * h;
-    if (key < S) {
-      store_row16<T, D>(dk + off, key, t, adk, h, 1.f);
-      store_row16<T, D>(dv + off, key, t, adv, h, 1.f);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int S, int causal) {
-  constexpr int LDS = ld16<D>();
-  extern __shared__ float4 smem4[];
-  T* Qs = reinterpret_cast<T*>(smem4);
-  T* dOs = Qs + kTile * LDS;
-  T* Ks = dOs + kTile * LDS;
-  T* Vs = Ks + kTile * LDS;
-  const int ntiles = (S + kTile - 1) / kTile;
-  const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int q0 = qt * kTile;
-  const long long off = (long long)blockIdx.x * S * D;
-  const long long roff = (long long)blockIdx.x * S;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  load_tile16<T, D>(Qs, q + off, q0, S);
-  load_tile16<T, D>(dOs, dout + off, q0, S);
-  float row_lse[2], row_delta[2], acc[D / 8][4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int qi = q0 + warp * 16 + g + 8 * h;
-    row_lse[h] = qi < S ? lse[roff + qi] : 0.f;
-    row_delta[h] = qi < S ? delta[roff + qi] : 0.f;
-  }
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  const int nkt = causal ? qt + 1 : ntiles;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile16<T, D>(Ks, k + off, k0, S);
-    load_tile16<T, D>(Vs, v + off, k0, S);
-    __syncthreads();
-    float p[8][4], ds[8][4];
-    mma_rows<T, D>(p, Qs, Ks, warp, lane);
-    mma_rows<T, D>(ds, dOs, Vs, warp, lane);
-    const bool edge = k0 + kTile > S || (causal && k0 + kTile - 1 > q0);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const int key = k0 + col;
-        const int qi = q0 + warp * 16 + g + 8 * (e >> 1);
-        const bool masked = edge && (key >= S || (causal && key > qi));
-        const float pv =
-            masked ? 0.f : expf(p[nt][e] - row_lse[e >> 1]);
-        ds[nt][e] = pv * (ds[nt][e] - row_delta[e >> 1]);
-      }
-    mma_pv<T, D>(acc, ds, Ks, lane);  // dq += ds k
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int qi = q0 + warp * 16 + g + 8 * h;
-    if (qi < S) store_row16<T, D>(dq + off, qi, t, acc, h, 1.f);
-  }
-}
-
 template <int D, bool kSeg>
 constexpr int fwd_smem() {
   return (3 * kTile * (D + 4) + kTile * kLP + (kSeg ? kTile : 0)) * 4;
@@ -974,10 +833,6 @@ template <int D, bool kSeg>
 constexpr int fwd_smem16() {
   return 3 * kTile * ld16<D>() * 2 + (kSeg ? kTile * 4 : 0);
 }
-template <int D>
-constexpr int bwd_smem16() {  // dk/dv's lse and delta
-  return 4 * kTile * ld16<D>() * 2 + 2 * kTile * 4;
-}
 
 // Raises the kernel's dynamic shared memory limit to SMEM and launches
 // it on `grid`; returns from the caller on any error.
@@ -993,7 +848,8 @@ constexpr int bwd_smem16() {  // dk/dv's lse and delta
   } while (0)
 
 // ------------------------------------------------------------------------
-// The paddle-layout forward for 16-bit operands (K1b): TMA + wgmma.
+// The paddle-layout forward for 16-bit operands (K1b), and K1a's: TMA +
+// wgmma.
 //
 // q, k and v stay in place as [B, S, H, D]: one 4-D tensor map each over
 // (D, H, S, B), boxes of 64 columns (128 bytes) x rows, zeros past S. A
@@ -1029,6 +885,25 @@ constexpr int bwd_smem16() {  // dk/dv's lse and delta
 // registers a thread beside the scores and p, past the 168 a thread that
 // every thread of a block of 288 or 384 gets (with those 168, ptxas
 // spills and serializes the wgmmas, C7512).
+//
+// K1a (the splash entry's contiguous [BH, S, D] without segments, bf16
+// and fp16) is the same kernel with kLse: its operands are the paddle
+// layout with B = BH and H = 1 (4-D maps over (D, 1, S, BH)), the query
+// arrives scaled and rounded (no scaling pass), the output is acc *
+// (1 / l) (l > 0: every row sees key 0) and each row's logsumexp m +
+// log l, in the natural log, goes to the fp32 [BH, S] buffer from the
+// same m and l that scaled the output. Its blocks are persistent (a
+// block an SM walking the items in K1b's order, heads grouped for L2 and
+// the heaviest query tiles first, so the static round robin stays
+// balanced): the ring runs on across items, and with two query buffers
+// (D = 64) the producer loads the next item's queries while the
+// consumers finish this one and store its output, which hides the
+// fixed cost a block an item pays at every item (tools/torch_flash_ab.py
+// --sweep on an H100, [8, 16, 1024, 64] causal bf16: 0.0803 ms a block
+// an item, 0.0743 persistent). At D = 64 the key tiles, ring depth
+// and consumer warpgroups are K1a's own (kBN64, kStages64, kWG64;
+// tools/torch_flash_ab.py --sweep times the others); at D = 128 K1a
+// takes K1b's, with one query buffer.
 
 namespace bshd {
 
@@ -1038,18 +913,29 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Bytes of keys and values the blocks in flight may share in L2 (of
 // its 50 MB): heads are grouped to fit.
 constexpr long long kL2Budget = 16LL << 20;
+// K1a's blocks: persistent (a block an SM, walking items) or a block an
+// item as K1b's
+constexpr bool kLsePersist = true;
+// K1a at D = 64: keys a tile, slots of each ring, consumer warpgroups
+constexpr int kBN64 = 128, kStages64 = 4, kWG64 = 2;
 
 template <int D>
 struct Cfg {
   // consumer warpgroups, 64 query rows each, and a producer warpgroup
-  static constexpr int kWG = 2;
+  static constexpr int kWG = D == 64 ? kWG64 : 2;
   static constexpr int kBM = 64 * kWG;  // query rows a block
   static constexpr int kConsumers = 128 * kWG;
   static constexpr int kThreads = kConsumers + 128;
-  // registers a consumer thread: all the producer's but 40
-  static constexpr int kRegs = (65536 / 128 - 40) / kWG / 8 * 8;
-  static constexpr int kBN = D == 128 ? 128 : 64;  // keys a tile
-  static constexpr int kStages = D == 128 ? 3 : 2;  // slots of each ring
+  // registers a producer thread keeps (setmaxnreg), and a consumer
+  // thread's: the rest of the SM's (232, or 160 with three consumer
+  // warpgroups)
+  static constexpr int kProdRegs = kWG == 3 ? 32 : 40;
+  static constexpr int kRegs =
+      (65536 - kProdRegs * 128) / kConsumers / 8 * 8;
+  // keys a tile
+  static constexpr int kBN = D == 64 ? kBN64 : D == 128 ? 128 : 64;
+  // slots of each ring
+  static constexpr int kStages = D == 64 ? kStages64 : D == 128 ? 3 : 2;
   static constexpr int kChunks = D / 64;           // 128-byte column boxes
   static constexpr int kQChunk = kBM * 128;
   static constexpr int kKVChunk = kBN * 128;
@@ -1058,6 +944,12 @@ struct Cfg {
   static constexpr int kSmem =
       1024 + kQBytes + 2 * kStages * kTileBytes + (4 * kStages + 1) * 8;
   static_assert(kSmem <= 232448, "shared memory of one block");
+  // K1a's query tile buffers (two where they fit, so that a persistent
+  // block loads its next item's queries while it finishes this one's),
+  // each with a full and an empty barrier, and its shared memory
+  static constexpr int kLseQBufs = kSmem + kQBytes + 24 <= 232448 ? 2 : 1;
+  static constexpr int kLseSmem =
+      kSmem + (kLseQBufs - 1) * kQBytes + (2 * kLseQBufs - 1) * 8;
 };
 
 // The softmax step of one key tile over this thread's scores s (rows
@@ -1138,35 +1030,48 @@ __device__ __forceinline__ void pv_gemm(float (&o)[D / 2],
                       1);
 }
 
-template <typename T, int D>
+// kLse: K1a (see above); lse is then its [BH, S] logsumexp, else unused.
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 flash_fwd_bshd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
-                            T* __restrict__ out, int S, int H, int BH,
-                            int group, int causal, float scale) {
+                            T* __restrict__ out, float* __restrict__ lse,
+                            int S, int H, int BH, int group, int causal,
+                            float scale) {
   using C = Cfg<D>;
   constexpr int kBN = C::kBN, kStages = C::kStages, kBM = C::kBM;
   constexpr int kWG = C::kWG, kConsumers = C::kConsumers;
+  constexpr int kQBufs = kLse ? C::kLseQBufs : 1;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* Qs =
+  unsigned char* Qs =  // the query tile's buffers
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* Kr = Qs + C::kQBytes;            // the key ring
+  unsigned char* Kr = Qs + kQBufs * C::kQBytes;      // the key ring
   unsigned char* Vr = Kr + kStages * C::kTileBytes;  // the value ring
   uint64_t* kfull = reinterpret_cast<uint64_t*>(Vr + kStages * C::kTileBytes);
   uint64_t* kempty = kfull + kStages;
   uint64_t* vfull = kempty + kStages;
   uint64_t* vempty = vfull + kStages;
-  uint64_t* qbar = vempty + kStages;
-  // Block -> (head, query tile): heads in groups of `group` whose keys
+  uint64_t* qfull = vempty + kStages;
+  uint64_t* qempty = qfull + kQBufs;  // K1a's only
+  // Item -> (head, query tile): heads in groups of `group` whose keys
   // and values fit L2 together, each group's query tiles heaviest first.
-  const int nq = (S + kBM - 1) / kBM;
-  const int g0 = blockIdx.x / (group * nq) * group;  // the group's first
-  const int in = blockIdx.x - g0 * nq, gh = min(group, BH - g0);
-  const int bh = g0 + in % gh, b = bh / H, h = bh % H;
-  const int q0 = (nq - 1 - in / gh) * kBM;  // heaviest causal tiles first
-  const int kend = causal ? min(q0 + kBM, S) : S;  // keys the block sees
-  const int nkt = (kend + kBN - 1) / kBN;
+  // Block b takes items b, b + gridDim.x, ... below BH * nq: K1b's grid
+  // has a block an item, K1a's may be persistent.
+  const int nq = (S + kBM - 1) / kBM, items = BH * nq;
+  struct Item {
+    int bh, q0, nkt;
+  };
+  const auto item_of = [&](int item) {
+    const int g0 = item / (group * nq) * group;  // the group's first
+    const int in = item - g0 * nq, gh = min(group, BH - g0);
+    Item it;
+    it.bh = g0 + in % gh;
+    it.q0 = (nq - 1 - in / gh) * kBM;  // heaviest causal tiles first
+    const int kend = causal ? min(it.q0 + kBM, S) : S;  // keys it sees
+    it.nkt = (kend + kBN - 1) / kBN;
+    return it;
+  };
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
       mbar_init(&kfull[i], 1);
@@ -1174,33 +1079,45 @@ flash_fwd_bshd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_init(&vfull[i], 1);
       mbar_init(&vempty[i], kConsumers);
     }
-    mbar_init(qbar, 1);
+    for (int i = 0; i < kQBufs; ++i) {
+      mbar_init(&qfull[i], 1);
+      if (kLse) mbar_init(&qempty[i], kConsumers);
+    }
     mbar_init_fence();
   }
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {
     // ------------------------------------------- producer warpgroup
-    setmaxnreg_dec<40>();
+    setmaxnreg_dec<C::kProdRegs>();
     if (threadIdx.x != kConsumers) return;
-    mbar_arrive_tx(qbar, C::kQBytes);
-#pragma unroll
-    for (int c = 0; c < C::kChunks; ++c)
-      tma_load_4d(Qs + c * C::kQChunk, &qmap, 64 * c, h, q0, b, qbar);
-    for (int kt = 0; kt < nkt; ++kt) {
-      const int slot = kt % kStages, parity = ((kt / kStages) & 1) ^ 1;
-      mbar_wait(&kempty[slot], parity);
-      mbar_arrive_tx(&kfull[slot], C::kTileBytes);
-#pragma unroll
-      for (int c = 0; c < C::kChunks; ++c)
-        tma_load_4d(Kr + slot * C::kTileBytes + c * C::kKVChunk, &kmap,
-                    64 * c, h, kt * kBN, b, &kfull[slot]);
-      mbar_wait(&vempty[slot], parity);
-      mbar_arrive_tx(&vfull[slot], C::kTileBytes);
+    int i = 0;  // key and value tiles loaded so far
+    for (int item = blockIdx.x, n = 0; item < items;
+         item += gridDim.x, ++n) {
+      const Item it = item_of(item);
+      const int b = it.bh / H, h = it.bh % H, qb = n % kQBufs;
+      if constexpr (kLse)  // the buffer's last item is stored
+        mbar_wait(&qempty[qb], ((n / kQBufs) & 1) ^ 1);
+      mbar_arrive_tx(&qfull[qb], C::kQBytes);
 #pragma unroll
       for (int c = 0; c < C::kChunks; ++c)
-        tma_load_4d(Vr + slot * C::kTileBytes + c * C::kKVChunk, &vmap,
-                    64 * c, h, kt * kBN, b, &vfull[slot]);
+        tma_load_4d(Qs + qb * C::kQBytes + c * C::kQChunk, &qmap, 64 * c, h,
+                    it.q0, b, &qfull[qb]);
+      for (int kt = 0; kt < it.nkt; ++kt, ++i) {
+        const int slot = i % kStages, parity = ((i / kStages) & 1) ^ 1;
+        mbar_wait(&kempty[slot], parity);
+        mbar_arrive_tx(&kfull[slot], C::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c)
+          tma_load_4d(Kr + slot * C::kTileBytes + c * C::kKVChunk, &kmap,
+                      64 * c, h, kt * kBN, b, &kfull[slot]);
+        mbar_wait(&vempty[slot], parity);
+        mbar_arrive_tx(&vfull[slot], C::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c)
+          tma_load_4d(Vr + slot * C::kTileBytes + c * C::kKVChunk, &vmap,
+                      64 * c, h, kt * kBN, b, &vfull[slot]);
+      }
     }
     return;
   }
@@ -1210,153 +1127,188 @@ flash_fwd_bshd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, qd = lane & 3;
-  const int w0 = q0 + 64 * wg;  // the warpgroup's first query row
-  // The warpgroup's query rows: 8 KB of each column box.
-  unsigned char* Qw = Qs + wg * 64 * 128;
-  mbar_wait(qbar, 0);
-#pragma unroll
-  for (int c = 0; c < C::kChunks; ++c)
-    for (int i = tid; i < 64 * 8; i += 128) {
-      uint4* p = reinterpret_cast<uint4*>(Qw + c * C::kQChunk) + i;
-      uint4 x = *p;
-      T* e = reinterpret_cast<T*>(&x);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) e[t] = from_float<T>(to_float(e[t]) * scale);
-      *p = x;
-    }
-  fence_proxy_async();
-  named_sync(1 + wg, 128);
-
-  const int nkw = causal ? (min(w0 + 64, S) + kBN - 1) / kBN : nkt;
-  const uint32_t qs = smem_u32(Qw), ks = smem_u32(Kr), vs = smem_u32(Vr);
-  // Keys visible to the thread's rows: below lim_row, counted from
-  // column 2 qd of each tile.
-  const int row = w0 + 16 * warp + g;
-  const int lim_row[2] = {causal ? min(row + 1, S) : S,
-                          causal ? min(row + 9, S) : S};
-  // Only a tile that holds keys past S, or above the warpgroup's first
-  // row when causal, takes the mask.
-  const auto masked = [&](int kt) {
-    return (kt + 1) * kBN > S || (causal && (kt + 1) * kBN - 1 > w0);
-  };
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
-  float o[D / 2], s[kBN / 2];
-  uint32_t pa[kBN / 16][4];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-
-  // The warpgroups take turns to issue their products (barrier 4 + wg
+  const uint32_t ks = smem_u32(Kr), vs = smem_u32(Vr);
+  // K1b's warpgroups take turns to issue their products (barrier 4 + wg
   // each, the first turn warpgroup 0's), so one's softmax runs beside
-  // another's products; each takes nkt + 1 turns, one a tile and one for
-  // the last P V, idle ones for tiles above its rows.
+  // another's products; each takes nkt + 1 turns an item, one a tile and
+  // one for the last P V, idle ones for tiles above its rows. K1a's
+  // issue as they go: at D = 64 the turns cost more than they gain
+  // (tools/torch_flash_ab.py --probe on an H100, [8, 16, 1024, 64]
+  // causal bf16: 0.0730 ms with them, 0.0711 without).
+  constexpr bool kTurns = !kLse;
   const int turn = 4 + wg, next = 4 + (wg + 1) % kWG;
-  if (wg == kWG - 1) named_arrive(4, 256);
+  if (kTurns && wg == kWG - 1) named_arrive(4, 256);
+  int i0 = 0;  // key and value tiles of the earlier items
+  for (int item = blockIdx.x, n = 0; item < items;
+       item += gridDim.x, ++n) {
+    const Item it = item_of(item);
+    const int bh = it.bh, b = bh / H, h = bh % H, nkt = it.nkt;
+    const int qb = n % kQBufs;
+    const int w0 = it.q0 + 64 * wg;  // the warpgroup's first query row
+    // The warpgroup's query rows: 8 KB of each column box.
+    unsigned char* Qw = Qs + qb * C::kQBytes + wg * 64 * 128;
+    mbar_wait(&qfull[qb], (n / kQBufs) & 1);
+    if constexpr (!kLse) {  // K1b scales the query; K1a's arrives scaled
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c)
+        for (int i = tid; i < 64 * 8; i += 128) {
+          uint4* p = reinterpret_cast<uint4*>(Qw + c * C::kQChunk) + i;
+          uint4 x = *p;
+          T* e = reinterpret_cast<T*>(&x);
+#pragma unroll
+          for (int t = 0; t < 8; ++t)
+            e[t] = from_float<T>(to_float(e[t]) * scale);
+          *p = x;
+        }
+      fence_proxy_async();
+      named_sync(1 + wg, 128);
+    }
 
-  // The first tile: its scores, softmax and p.
-  mbar_wait(&kfull[0], 0);
-  named_sync(turn, 256);
-  wgmma_fence();
-  s_gemm<T, D>(s, qs, ks);
-  wgmma_commit();
-  named_arrive(next, 256);
-  wgmma_wait<0>();
-  mbar_arrive(&kempty[0]);
-  {
-    const int lim[2] = {lim_row[0] - 2 * qd, lim_row[1] - 2 * qd};
-    if (masked(0))
-      softmax_tile<kBN, true>(s, m, l, lim, alpha);
-    else
-      softmax_tile<kBN, false>(s, m, l, lim, alpha);
-  }
-  pack_p<T, kBN>(pa, s);
-  // Tile kt's scores beside tile kt - 1's P V.
-  for (int kt = 1; kt < nkw; ++kt) {
-    const int slot = kt % kStages, prev = (kt - 1) % kStages;
-    const int lim[2] = {lim_row[0] - kt * kBN - 2 * qd,
-                        lim_row[1] - kt * kBN - 2 * qd};
-    mbar_wait(&kfull[slot], (kt / kStages) & 1);
-    mbar_wait(&vfull[prev], ((kt - 1) / kStages) & 1);
-    named_sync(turn, 256);
-    wgmma_fence();
-    s_gemm<T, D>(s, qs, ks + slot * C::kTileBytes);
-    wgmma_commit();
-    pv_gemm<T, D>(o, pa, vs + prev * C::kTileBytes);
-    wgmma_commit();
-    named_arrive(next, 256);
-    wgmma_wait<1>();  // the scores are in: the key tile is free
-    mbar_arrive(&kempty[slot]);
-    if (masked(kt))
-      softmax_tile<kBN, true>(s, m, l, lim, alpha);
-    else
-      softmax_tile<kBN, false>(s, m, l, lim, alpha);
-    wgmma_wait<0>();  // P V is done: its value tile and p are free
-    mbar_arrive(&vempty[prev]);
+    const int nkw = causal ? (min(w0 + 64, S) + kBN - 1) / kBN : nkt;
+    const uint32_t qs = smem_u32(Qw);
+    // Keys visible to the thread's rows: below lim_row, counted from
+    // column 2 qd of each tile.
+    const int row = w0 + 16 * warp + g;
+    const int lim_row[2] = {causal ? min(row + 1, S) : S,
+                            causal ? min(row + 9, S) : S};
+    // Only a tile that holds keys past S, or above the warpgroup's first
+    // row when causal, takes the mask.
+    const auto masked = [&](int kt) {
+      return (kt + 1) * kBN > S || (causal && (kt + 1) * kBN - 1 > w0);
+    };
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    float o[D / 2], s[kBN / 2];
+    uint32_t pa[kBN / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+    // The first tile: its scores, softmax and p.
+    {
+      const int slot = i0 % kStages;
+      mbar_wait(&kfull[slot], (i0 / kStages) & 1);
+      if (kTurns) named_sync(turn, 256);
+      wgmma_fence();
+      s_gemm<T, D>(s, qs, ks + slot * C::kTileBytes);
+      wgmma_commit();
+      if (kTurns) named_arrive(next, 256);
+      wgmma_wait<0>();
+      mbar_arrive(&kempty[slot]);
+      const int lim[2] = {lim_row[0] - 2 * qd, lim_row[1] - 2 * qd};
+      if (masked(0))
+        softmax_tile<kBN, true>(s, m, l, lim, alpha);
+      else
+        softmax_tile<kBN, false>(s, m, l, lim, alpha);
+    }
+    pack_p<T, kBN>(pa, s);
+    // Tile kt's scores beside tile kt - 1's P V.
+    for (int kt = 1; kt < nkw; ++kt) {
+      const int slot = (i0 + kt) % kStages, prev = (i0 + kt - 1) % kStages;
+      const int lim[2] = {lim_row[0] - kt * kBN - 2 * qd,
+                          lim_row[1] - kt * kBN - 2 * qd};
+      mbar_wait(&kfull[slot], ((i0 + kt) / kStages) & 1);
+      mbar_wait(&vfull[prev], ((i0 + kt - 1) / kStages) & 1);
+      if (kTurns) named_sync(turn, 256);
+      wgmma_fence();
+      s_gemm<T, D>(s, qs, ks + slot * C::kTileBytes);
+      wgmma_commit();
+      pv_gemm<T, D>(o, pa, vs + prev * C::kTileBytes);
+      wgmma_commit();
+      if (kTurns) named_arrive(next, 256);
+      wgmma_wait<1>();  // the scores are in: the key tile is free
+      mbar_arrive(&kempty[slot]);
+      if (masked(kt))
+        softmax_tile<kBN, true>(s, m, l, lim, alpha);
+      else
+        softmax_tile<kBN, false>(s, m, l, lim, alpha);
+      wgmma_wait<0>();  // P V is done: its value tile and p are free
+      mbar_arrive(&vempty[prev]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          o[4 * j + 2 * hh] *= alpha[hh];
+          o[4 * j + 2 * hh + 1] *= alpha[hh];
+        }
+      pack_p<T, kBN>(pa, s);
+    }
+    {
+      const int last = (i0 + nkw - 1) % kStages;
+      mbar_wait(&vfull[last], ((i0 + nkw - 1) / kStages) & 1);
+      if (kTurns) named_sync(turn, 256);
+      wgmma_fence();
+      pv_gemm<T, D>(o, pa, vs + last * C::kTileBytes);
+      wgmma_commit();
+      if (kTurns) named_arrive(next, 256);
+      wgmma_wait<0>();
+      mbar_arrive(&vempty[last]);
+    }
+    // Tiles wholly above the warpgroup's rows (causal): released unread.
+    for (int kt = nkw; kt < nkt; ++kt) {
+      const int slot = (i0 + kt) % kStages;
+      const int parity = ((i0 + kt) / kStages) & 1;
+      mbar_wait(&kfull[slot], parity);
+      mbar_arrive(&kempty[slot]);
+      mbar_wait(&vfull[slot], parity);
+      mbar_arrive(&vempty[slot]);
+      if (kTurns) named_sync(turn, 256);
+      if (kTurns) named_arrive(next, 256);
+    }
+    i0 += nkt;
+
+    // Epilogue: acc / max(l, 1e-30) (kLse: acc * (1 / l), and the rows'
+    // logsumexp) into the warpgroup's query rows of shared memory (the
+    // 128-byte swizzle: conflict-free), then 16-byte rows of out.
+    float f[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float lsum = l[hh];
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+      if constexpr (kLse) {
+        f[hh] = 1.f / lsum;
+        const int qrow = row + 8 * hh;
+        if (qd == 0 && qrow < S)
+          lse[(long long)bh * S + qrow] = m[hh] + logf(lsum);
+      } else {
+        f[hh] = fmaxf(lsum, 1e-30f);
+      }
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        o[4 * j + 2 * hh] *= alpha[hh];
-        o[4 * j + 2 * hh + 1] *= alpha[hh];
+        const int r = 16 * warp + g + 8 * hh;
+        *reinterpret_cast<uint32_t*>(Qw + (j >> 3) * C::kQChunk + r * 128 +
+                                     (((j & 7) ^ (r & 7)) << 4) + 4 * qd) =
+            kLse ? Mma<T>::pack(o[4 * j + 2 * hh] * f[hh],
+                                o[4 * j + 2 * hh + 1] * f[hh])
+                 : Mma<T>::pack(o[4 * j + 2 * hh] / f[hh],
+                                o[4 * j + 2 * hh + 1] / f[hh]);
       }
-    pack_p<T, kBN>(pa, s);
-  }
-  const int last = (nkw - 1) % kStages;
-  mbar_wait(&vfull[last], ((nkw - 1) / kStages) & 1);
-  named_sync(turn, 256);
-  wgmma_fence();
-  pv_gemm<T, D>(o, pa, vs + last * C::kTileBytes);
-  wgmma_commit();
-  named_arrive(next, 256);
-  wgmma_wait<0>();
-  mbar_arrive(&vempty[last]);
-  // Tiles wholly above the warpgroup's rows (causal): released unread.
-  for (int kt = nkw; kt < nkt; ++kt) {
-    const int slot = kt % kStages, parity = (kt / kStages) & 1;
-    mbar_wait(&kfull[slot], parity);
-    mbar_arrive(&kempty[slot]);
-    mbar_wait(&vfull[slot], parity);
-    mbar_arrive(&vempty[slot]);
-    named_sync(turn, 256);
-    named_arrive(next, 256);
-  }
-  if (wg == 0) named_sync(turn, 256);  // the last warpgroup's last turn
-
-  // Epilogue: acc / max(l, 1e-30) into the warpgroup's query rows of
-  // shared memory (the 128-byte swizzle: conflict-free), then 16-byte
-  // rows of out.
-  float f[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    float lsum = l[hh];
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-    f[hh] = fmaxf(lsum, 1e-30f);
-  }
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = 16 * warp + g + 8 * hh;
-      *reinterpret_cast<uint32_t*>(Qw + (j >> 3) * C::kQChunk + r * 128 +
-                                   (((j & 7) ^ (r & 7)) << 4) + 4 * qd) =
-          Mma<T>::pack(o[4 * j + 2 * hh] / f[hh],
-                       o[4 * j + 2 * hh + 1] / f[hh]);
+    named_sync(1 + wg, 128);
+    for (int i = tid; i < 64 * (D / 8); i += 128) {
+      const int r = i / (D / 8), cc = i % (D / 8), qrow = w0 + r;
+      if (qrow < S)
+        *reinterpret_cast<uint4*>(out +
+                                  (((long long)b * S + qrow) * H + h) * D +
+                                  8 * cc) =
+            *reinterpret_cast<const uint4*>(Qw + (cc >> 3) * C::kQChunk +
+                                            r * 128 +
+                                            (((cc & 7) ^ (r & 7)) << 4));
     }
-  named_sync(1 + wg, 128);
-  for (int i = tid; i < 64 * (D / 8); i += 128) {
-    const int r = i / (D / 8), cc = i % (D / 8), qrow = w0 + r;
-    if (qrow < S)
-      *reinterpret_cast<uint4*>(out + (((long long)b * S + qrow) * H + h) * D +
-                                8 * cc) =
-          *reinterpret_cast<const uint4*>(Qw + (cc >> 3) * C::kQChunk +
-                                          r * 128 +
-                                          (((cc & 7) ^ (r & 7)) << 4));
+    if constexpr (kLse) {  // the buffer may take the next query tile
+      fence_proxy_async();
+      mbar_arrive(&qempty[qb]);
+    }
   }
+  if (kTurns && wg == 0) named_sync(turn, 256);  // the last one's last turn
 }
 
-template <typename T, int D>
+// K1b over [B, S, H, D]; with kLse K1a over [BH, S, D] as B = BH, H = 1,
+// its logsumexp into lse.
+template <typename T, int D, bool kLse>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int H, int causal, float scale,
+                   float* lse, int B, int S, int H, int causal, float scale,
                    cudaStream_t stream) {
   using C = Cfg<D>;
   const long long dims[4] = {D, H, S, B};
@@ -1369,18 +1321,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   err = make_map<T, 4>(&vmap, v, dims, strides, {64, 1, C::kBN, 1});
   if (err != cudaSuccess) return err;
-  auto kern = flash_fwd_bshd_wgmma_kernel<T, D>;
+  auto kern = flash_fwd_bshd_wgmma_kernel<T, D, kLse>;
+  constexpr int smem = kLse ? C::kLseSmem : C::kSmem;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::kSmem);
+                             smem);
   if (err != cudaSuccess) return err;
   const long long kv_bytes = 4LL * S * D;  // a head's keys and values
   const int group = (int)std::max(
       1LL, std::min<long long>(B * H, kL2Budget / kv_bytes));
-  const long long blocks = (long long)B * H * ((S + C::kBM - 1) / C::kBM);
-  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  kern<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
-      qmap, kmap, vmap, static_cast<T*>(out), S, H, B * H, group, causal,
-      scale);
+  const long long items = (long long)B * H * ((S + C::kBM - 1) / C::kBM);
+  if (items > 2147483647LL) return cudaErrorInvalidValue;
+  long long blocks = items;
+  if (kLse && kLsePersist) {
+    static int sms = 0;
+    if (!sms) {
+      int dev = 0;
+      err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      if (err != cudaSuccess) return err;
+    }
+    blocks = std::min(items, (long long)sms);
+  }
+  kern<<<(unsigned)blocks, C::kThreads, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<T*>(out), lse, S, H, B * H, group,
+      causal, scale);
   return cudaGetLastError();
 }
 
@@ -1426,14 +1392,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // and dV accumulators are 128 fp32 registers a thread beside S and dP.
 //
 // The kernel takes the causal switch and compiles without segments
-// (kSeg false: no ranges, no ids), so K1a's backward, which today keeps
-// its mma.sync kernels above, can take it too.
+// (kSeg false: no ranges, no ids) for K1a's backward. Its causal items
+// walk from 2 to S / 64 tiles, and a block takes every gridDim.x-th
+// item: in K1c's order (a head's items adjacent) the heaviest ones fall
+// on some blocks together (at [128 heads, S = 1024] on 132 blocks, the
+// most loaded block walks 1.38x the mean). Without segments a block
+// takes units instead, a dK/dV item and the dQ item that walks as far,
+// longest walks first (see decode_item): the blocks' mean idle share of
+// the kernel's span falls from 26% to 6% (tools/torch_flash_ab.py
+// --probe on an H100, [8, 16, 1024, 64] causal bf16).
 
 namespace bwd16 {
 
 using namespace hopper;
 
 constexpr float kLog2e = 1.4426950408889634f;
+// Bytes of q, k, v and dO that the items in flight may share in L2
+// without segments: heads are grouped to fit.
+constexpr long long kItemL2Budget = 64LL << 20;
 
 constexpr int kPrepThreads = 128;
 
@@ -1716,23 +1692,43 @@ __device__ __forceinline__ void walk_tile(float (&acc0)[D / 2],
   wgmma_wait<0>();
 }
 
-// Item `item` of the launch: the dK/dV pass's (bh, key tile) items
+// Item `item` of the launch: whether it is a dQ item, its head, its
+// first fixed row, and the walked tiles [tb, te) it can need (fewer when
+// causal). With segments (K1c): the dK/dV pass's (bh, key tile) items
 // first, a head's tiles adjacent from key tile 0, then the dQ pass's
-// from the last query tile (the heaviest causal tiles first): whether it
-// is a dQ item, its head, its first fixed row, and the walked tiles
-// [tb, te) it can need (fewer when causal).
+// from the last query tile (the heaviest causal tiles first). Without
+// (K1a): a unit is a head's dK/dV item of key tile r with its dQ item of
+// query tile nf - 1 - r, which walk as many tiles when causal; a block
+// takes its units b, b + gridDim.x, ... each as its dK/dV item and then
+// its dQ item, so every block does both kinds alike; units go in head
+// groups of `group`, rank-major in a group (the longest walks first).
+// Past a block's last unit, bh is -1.
 struct Item {
   bool dq;
   int bh, f0, tb, te;
 };
 
+template <bool kSeg>
 __device__ __forceinline__ Item decode_item(int item, int per, int nf,
-                                            int nt, int causal) {
+                                            int nt, int causal, int group) {
   Item it;
-  it.dq = item >= per;
-  const int k = it.dq ? item - per : item;
-  it.bh = k / nf;
-  it.f0 = (it.dq ? nf - 1 - k % nf : k % nf) * 128;
+  if constexpr (kSeg) {
+    it.dq = item >= per;
+    const int k = it.dq ? item - per : item;
+    it.bh = k / nf;
+    it.f0 = (it.dq ? nf - 1 - k % nf : k % nf) * 128;
+  } else {
+    const int j = item / gridDim.x;  // the block's j-th item
+    const int u = item % gridDim.x + gridDim.x * (j >> 1);  // its unit
+    it.dq = j & 1;
+    it.bh = -1;
+    if (u >= per) return it;
+    const int g0 = u / (nf * group) * group;  // the group's first
+    const int gh = min(group, per / nf - g0);
+    const int in = u - nf * g0, r = in / gh;
+    it.bh = g0 + in % gh;
+    it.f0 = (it.dq ? nf - 1 - r : r) * 128;
+  }
   it.tb = !it.dq && causal ? it.f0 / 64 : 0;
   it.te = it.dq && causal ? min(nt, it.f0 / 64 + 2) : nt;
   return it;
@@ -1774,6 +1770,11 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qf,
   uint64_t* fixfull = empty + kStages;
   uint64_t* fixempty = fixfull + kBufs;
   const int nf = (S + C::kBM - 1) / C::kBM, nt = (S + 63) / 64;
+  // without segments, heads in groups whose q, k, v and dO fit L2
+  const int group =
+      kSeg ? 1
+           : (int)max(1LL, min((long long)(per / nf),
+                               kItemL2Budget / (8LL * S * D)));
   if (threadIdx.x == 0) {
     // full barriers: the producer lanes' copies, and lane 0
     for (int i = 0; i < kStages; ++i) {
@@ -1804,19 +1805,21 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qf,
     };
     Ranges next{};
     if (first + (int)blockIdx.x < last) {
-      const Item it = decode_item(first + blockIdx.x, per, nf, nt, causal);
+      const Item it =
+          decode_item<kSeg>(first + blockIdx.x, per, nf, nt, causal, group);
       next = ranges_of(it, it.tb + lane);
     }
     int i = 0, n = 0;  // stages filled, items begun
     for (int item = first + blockIdx.x; item < last;
          item += gridDim.x, ++n) {
-      const Item it = decode_item(item, per, nf, nt, causal);
+      const Item it = decode_item<kSeg>(item, per, nf, nt, causal, group);
+      if (!kSeg && it.bh < 0) break;  // past the block's last unit
       const long long roff = (long long)it.bh * S;
       const int* segb = kSeg ? seg + (long long)(it.bh / H) * S : nullptr;
       const Ranges first_ranges = next;
       if (item + (int)gridDim.x < last) {
         const Item nx =
-            decode_item(item + gridDim.x, per, nf, nt, causal);
+            decode_item<kSeg>(item + gridDim.x, per, nf, nt, causal, group);
         next = ranges_of(nx, nx.tb + lane);
       }
       // the fixed tiles, with their rows' ids (and, for dQ, lse and
@@ -1913,7 +1916,8 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qf,
   int i = 0, n = 0;  // stages used, items begun
   for (int item = first + blockIdx.x; item < last;
        item += gridDim.x, ++n) {
-    const Item it = decode_item(item, per, nf, nt, causal);
+    const Item it = decode_item<kSeg>(item, per, nf, nt, causal, group);
+    if (!kSeg && it.bh < 0) break;  // past the block's last unit
     const long long roff = (long long)it.bh * S;
     const int fr = it.f0 + rr;
     float acc0[D / 2], acc1[D / 2];  // dK and dV, or dQ
@@ -1974,7 +1978,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const int tiles = kSeg ? BH / H * ((S + 63) / 64) : 0;
   const long long blocks = dblocks + (tiles + 3) / 4;
   const long long per = (long long)BH * ((S + C::kBM - 1) / C::kBM);
-  if (blocks > 2147483647LL || 2 * per > 2147483647LL)
+  if (blocks > 2147483647LL || 2 * per + 65536 > 2147483647LL)
     return cudaErrorInvalidValue;
   flash_delta_seg_kernel<T, D, kSeg>
       <<<(unsigned)blocks, kPrepThreads, 0, stream>>>(
@@ -2006,8 +2010,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
   }
-  const int first = 0, last = (int)(2 * per);  // the items: both passes
-  const int grid = std::min(last - first, sms);
+  // the items: both passes. Without segments a block takes its units
+  // (per of them) in turn, two items each (see decode_item): its range
+  // runs a round past its last unit.
+  const int units = kSeg ? (int)(2 * per) : (int)per;
+  const int grid = std::min(units, sms);
+  const int first = 0, last = kSeg ? units : 2 * units + grid;
   kern<<<grid, C::kThreads, C::kSmem, stream>>>(
       fixm[0], fixm[1], fixm[2], fixm[3], walkm[0], walkm[1], walkm[2],
       walkm[3], lse, delta, seg, reinterpret_cast<const int2*>(ranges),
@@ -2023,8 +2031,11 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 float* lse, const int* seg, int BH, int S, int causal,
                 Layout lay, float scale, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2 && kPaddle) {
-    return bshd::launch<T, D>(q, k, v, out, BH / lay.H, S, lay.H, causal,
-                              scale, stream);
+    return bshd::launch<T, D, false>(q, k, v, out, nullptr, BH / lay.H, S,
+                                     lay.H, causal, scale, stream);
+  } else if constexpr (sizeof(T) == 2 && !kSeg) {  // K1a
+    return bshd::launch<T, D, true>(q, k, v, out, lse, BH, S, 1, causal,
+                                    1.f, stream);
   } else {
     const dim3 grid(BH, (S + kTile - 1) / kTile);
     const T* qp = static_cast<const T*>(q);
@@ -2077,14 +2088,15 @@ cudaError_t fwd_any(const void* q, const void* k, const void* v, void* out,
 }
 
 // kSeg: with segment ids `seg` [BH / H, S] (and `ranges`, the 16-bit
-// kernels' scratch of [BH / H, ceil(S / 64)] int2).
+// kernels' scratch of [BH / H, ceil(S / 64)] int2). 16-bit operands take
+// bwd16's kernel, fp32 the CUDA-core kernels.
 template <typename T, int D, bool kSeg>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const float* lse, float* delta, void* dq,
                 void* dk, void* dv, const int* seg, int* ranges, int BH,
                 int H, int S, int causal, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2 && kSeg) {
-    return bwd16::launch<T, D, true>(q, k, v, out, dout, lse, delta, seg,
+  if constexpr (sizeof(T) == 2) {
+    return bwd16::launch<T, D, kSeg>(q, k, v, out, dout, lse, delta, seg,
                                      ranges, dq, dk, dv, BH, H, S, causal,
                                      stream);
   } else {
@@ -2099,23 +2111,13 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const dim3 grid(BH, (S + kTile - 1) / kTile);
-    T* dqp = static_cast<T*>(dq);
-    T* dkp = static_cast<T*>(dk);
-    T* dvp = static_cast<T*>(dv);
-    if constexpr (sizeof(T) == 4) {
-      PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_kernel<T, D, kSeg>),
-                          (dkdv_smem<D, kSeg>()), qp, kp, vp, dop, lse, delta,
-                          dkp, dvp, seg, S, H, causal);
-      PADDLE_FLASH_LAUNCH((flash_bwd_dq_kernel<T, D, kSeg>),
-                          (dq_smem<D, kSeg>()), qp, kp, vp, dop, lse, delta,
-                          dqp, seg, S, H, causal);
-    } else {
-      PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_mma_kernel<T, D>),
-                          (bwd_smem16<D>()), qp, kp, vp, dop, lse, delta, dkp,
-                          dvp, S, causal);
-      PADDLE_FLASH_LAUNCH((flash_bwd_dq_mma_kernel<T, D>), (bwd_smem16<D>()),
-                          qp, kp, vp, dop, lse, delta, dqp, S, causal);
-    }
+    PADDLE_FLASH_LAUNCH((flash_bwd_dkdv_kernel<T, D, kSeg>),
+                        (dkdv_smem<D, kSeg>()), qp, kp, vp, dop, lse, delta,
+                        static_cast<T*>(dk), static_cast<T*>(dv), seg, S, H,
+                        causal);
+    PADDLE_FLASH_LAUNCH((flash_bwd_dq_kernel<T, D, kSeg>),
+                        (dq_smem<D, kSeg>()), qp, kp, vp, dop, lse, delta,
+                        static_cast<T*>(dq), seg, S, H, causal);
     return cudaSuccess;
   }
 }

@@ -37,7 +37,11 @@ On a CUDA tensor each operator launches `csrc/flash_attention.cu`, the
 Hopper kernels that replace the TPU's splash kernel (`_splash_kernel`:
 forward and fused dq/dkv backward, unsegmented or segmented), or
 raises: head_dim 64 or 128,
-fp32/bf16/fp16, any S; there is no fallback. On a CPU tensor each runs
+fp32/bf16/fp16, any S; there is no fallback. In bf16 and fp16 K1a's
+forward is the paddle-layout forward's TMA + wgmma kernel over
+[B * H, S, D] (storing the logsumexp) and its backward, like K1c's, one
+persistent TMA + wgmma launch after a delta pre-pass; K1c's forward is
+the mma.sync kernel; fp32 takes CUDA-core kernels. On a CPU tensor each runs
 its plain PyTorch version (`flash_fwd_reference`, `flash_bwd_reference`,
 given the segment ids for K1c), the same arithmetic over whole S x S
 score matrices (p and ds rounded to

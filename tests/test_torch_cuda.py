@@ -428,6 +428,84 @@ def test_flash_kernel_refuses_unsupported_operands(cuda_device):
         tfa.splash_mha(q, k, v)
 
 
+# K1a's 16-bit kernels where their tiles cut: S off the forward's 128-row
+# query and key tiles and the backward's 64-row walked tiles (1, 63, 65,
+# 127, 129, 200, 1000: TMA zero-fills past S, the keys there get p = 0
+# and only rows below S are stored), S on them (64, 128, 1024), D 64 and
+# 128, causal and full; out, lse and the backward from the plain (out,
+# lse). Tolerances of test_flash_kernels_match_plain.
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 200, 1000,
+                               1024])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
+                                       (torch.float16, 4e-3)])
+def test_flash_wgmma_across_its_tiles(S, D, causal, dtype, tol,
+                                      cuda_device):
+    q, k, v, dout = _fa_case(2, 3, S, D, dtype, cuda_device, seed=S + D + 2)
+    before = (tfa.fwd_launch_count, tfa.bwd_launch_count)
+    out, lse = tfa._launch_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = tfa.flash_fwd_reference(q, k, v, causal)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-5, atol=2e-5)
+    got = tfa._launch_bwd(q, k, v, ref_out, ref_lse, dout, causal)
+    torch.cuda.synchronize()
+    assert (tfa.fwd_launch_count, tfa.bwd_launch_count) == (
+        before[0] + 1, before[1] + 1)
+    want = tfa.flash_bwd_reference(q, k, v, ref_out, ref_lse, dout, causal)
+    for a, e in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a.float(), e.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_bit_identical_across_launches(D, cuda_device):
+    """At the train step's [8, 16, 1024, D] bf16 causal, two launches of
+    K1a's forward (out, lse) and of its backward give the same bits."""
+    q, k, v, dout = _fa_case(8, 16, 1024, D, torch.bfloat16, cuda_device)
+    first = tfa._launch_fwd(q, k, v, True)
+    second = tfa._launch_fwd(q, k, v, True)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    out, lse = first
+    first = tfa._launch_bwd(q, k, v, out, lse, dout, True)
+    second = tfa._launch_bwd(q, k, v, out, lse, dout, True)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_fwd_routes_by_dtype_and_segments(dtype, cuda_device):
+    """K1a's forward: bf16 and fp16 reach the wgmma forward
+    (flash_fwd_bshd_wgmma_kernel), fp32 the CUDA-core flash_fwd_kernel;
+    K1c's forward keeps flash_fwd_mma_kernel in 16 bits (flash_fwd_kernel
+    in fp32). Each forward runs twice in the profiled window: the profiler
+    has been seen to miss the window's first kernel."""
+    q, k, v, _ = _fa_case(2, 2, 200, 64, dtype, cuda_device)
+    seg = torch.ones(2, 200, dtype=torch.int32, device=cuda_device)
+    fp32 = dtype == torch.float32
+    before = tfa.fwd_launch_count
+    names = _device_kernels(
+        lambda: [tfa._launch_fwd(q, k, v, True) for _ in range(2)])
+    assert tfa.fwd_launch_count == before + 2
+    assert any(("flash_fwd_kernel" if fp32 else "flash_fwd_bshd_wgmma_kernel")
+               in n for n in names), names
+    assert not any("flash_fwd_mma_kernel" in n for n in names), names
+    assert any("flash_fwd_kernel" in n for n in names) == fp32, names
+    before = tfa.seg_launch_count
+    names = _device_kernels(
+        lambda: [tfa._launch_fwd_seg(q, k, v, seg, True) for _ in range(2)])
+    assert tfa.seg_launch_count == before + 2
+    assert any(("flash_fwd_kernel" if fp32 else "flash_fwd_mma_kernel")
+               in n for n in names), names
+    assert not any("wgmma" in n for n in names), names
+
+
 # ---------------------------------------------- the train step (K1a+K2)
 
 
@@ -1278,11 +1356,10 @@ def test_flash_seg_bwd_wgmma_bit_identical_across_launches(B, S,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_flash_bwd_routes_by_dtype_and_segments(dtype, cuda_device):
-    """K1c's backward: bf16 and fp16 reach flash_bwd_wgmma_kernel (and
-    its pre-pass), fp32 the CUDA-core kernels; K1a's backward (no
-    segments) keeps the mma.sync kernels in 16 bits. Each backward runs
-    twice in the profiled window: the profiler has been seen to miss the
-    window's first kernel."""
+    """K1c's backward and K1a's (no segments): bf16 and fp16 reach
+    flash_bwd_wgmma_kernel (and its pre-pass), fp32 the CUDA-core
+    kernels. Each backward runs twice in the profiled window: the
+    profiler has been seen to miss the window's first kernel."""
     args = _seg_bwd_case(2, 2, 200, 64, dtype, "trailing", False,
                          cuda_device, seed=7)
     names = _device_kernels(
@@ -1291,12 +1368,15 @@ def test_flash_bwd_routes_by_dtype_and_segments(dtype, cuda_device):
     assert wg == (dtype != torch.float32), names
     assert any("flash_delta_seg_kernel" in n for n in names) == wg, names
     assert any("flash_bwd_dkdv_kernel" in n for n in names) == (not wg)
+    before = tfa.bwd_launch_count
     names = _device_kernels(
         lambda: [tfa.flash_bwd(*args[:6], False) for _ in range(2)])
-    assert not any("wgmma" in n for n in names), names
-    if dtype != torch.float32:
-        assert any("flash_bwd_dkdv_mma_kernel" in n for n in names), names
-        assert any("flash_bwd_dq_mma_kernel" in n for n in names), names
+    assert tfa.bwd_launch_count == before + 2
+    assert any("flash_bwd_wgmma_kernel" in n for n in names) == wg, names
+    assert any("flash_delta_seg_kernel" in n for n in names) == wg, names
+    assert any("flash_bwd_dkdv_kernel" in n for n in names) == (not wg)
+    assert any("flash_bwd_dq_kernel" in n for n in names) == (not wg)
+    assert not any("_mma_kernel" in n for n in names), names
 
 
 # --------------------------------------------------- BERT on the card

@@ -134,6 +134,60 @@ def test_cross_entropy_ignore_index(reduction):
         close(got, want)
 
 
+def _np_cross_entropy(logits, labels, axis, ignore_index, reduction):
+    """numpy in float64: log-softmax along `axis`, the labels' entries
+    picked, ignored labels 0 and out of the mean's count."""
+    x = np.moveaxis(logits.astype(np.float64), axis, -1)
+    logp = x - x.max(-1, keepdims=True)
+    logp = logp - np.log(np.exp(logp).sum(-1, keepdims=True))
+    valid = labels != ignore_index
+    picked = np.take_along_axis(logp, np.where(valid, labels, 0)[..., None],
+                                -1)[..., 0]
+    loss = np.where(valid, -picked, 0.0)
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
+    return loss.sum() / max(valid.sum(), 1)
+
+
+# [B, S, C] logits with the classes last (S == C, where a class axis
+# taken at dim 1 gives a wrong loss without an error, and S != C), and
+# [B, C, S] with axis=1
+@pytest.mark.parametrize("shape,axis", [((2, 4, 4), -1), ((2, 3, 5), -1),
+                                        ((2, 5, 3), 1)],
+                         ids=["B4C4", "B3C5", "axis1"])
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+def test_cross_entropy_nd_logits(shape, axis, reduction):
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal(shape).astype(np.float32)
+    lab_shape = tuple(n for i, n in enumerate(shape) if i != axis % 3)
+    labels = rng.integers(0, shape[axis], lab_shape)
+    labels[0, 1] = -1                           # one label ignored
+    got = tF.cross_entropy(torch.tensor(logits), torch.tensor(labels),
+                           ignore_index=-1, reduction=reduction, axis=axis)
+    want = jF.cross_entropy(paddle.to_tensor(logits),
+                            paddle.to_tensor(labels), ignore_index=-1,
+                            reduction=reduction, axis=axis)
+    assert tuple(got.shape) == tuple(want.shape)
+    close(got, want, tol=1e-6)
+    close(got, _np_cross_entropy(logits, labels, axis, -1, reduction),
+          tol=1e-6)
+    # labels with the class axis kept at size 1 give the same loss
+    got1 = tF.cross_entropy(torch.tensor(logits),
+                            torch.tensor(np.expand_dims(labels, axis)),
+                            ignore_index=-1, reduction=reduction, axis=axis)
+    close(got1, got, tol=0)
+
+
+def test_cross_entropy_refuses_unported_arguments():
+    x, lab = torch.zeros(3, 4), torch.zeros(3, dtype=torch.long)
+    for kw in ({"weight": torch.ones(4)}, {"soft_label": True},
+               {"use_softmax": False}, {"label_smoothing": 0.1}):
+        with pytest.raises(TypeError):
+            tF.cross_entropy(x, lab, **kw)
+
+
 def _mha_input(B, S, E, seed):
     return np.random.RandomState(seed).randn(B, S, E).astype(np.float32)
 
@@ -287,6 +341,42 @@ def test_sdpa_additive_path(kernel_calls, case):
     want = jF.scaled_dot_product_attention(
         *map(paddle.to_tensor, (q, k, v)), attn_mask=paddle.to_tensor(mask))
     close(out, want)             # every row: both take the additive path
+
+
+# q with 4 heads against k and v with 2 or 1 (query head n reads key
+# head n // (4 / H_kv), as jax.nn.dot_product_attention does)
+@pytest.mark.parametrize("kv_heads", [2, 1])
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_grouped_kv_heads(kernel_calls, kv_heads, causal):
+    rng = np.random.RandomState(13)
+    q = rng.randn(1, 4, 8, 16).astype(np.float32)
+    k, v = (rng.randn(1, 4, kv_heads, 16).astype(np.float32)
+            for _ in range(2))
+    out = tF.scaled_dot_product_attention(*map(torch.tensor, (q, k, v)),
+                                          is_causal=causal)
+    want = jF.scaled_dot_product_attention(*map(paddle.to_tensor, (q, k, v)),
+                                           is_causal=causal)
+    assert kernel_calls == []
+    assert tuple(out.shape) == (1, 4, 8, 16)
+    close(out, want)
+
+
+def test_sdpa_grouped_kv_heads_refused():
+    """A head count that does not divide q's raises; so do grouped heads
+    under attention dropout, which JAX's general path refuses too."""
+    rng = np.random.RandomState(14)
+    q = torch.tensor(rng.randn(1, 4, 6, 16).astype(np.float32))
+    k3 = torch.tensor(rng.randn(1, 4, 4, 16).astype(np.float32))
+    with pytest.raises(ValueError, match="do not divide"):
+        tF.scaled_dot_product_attention(q, k3, k3)
+    k2 = k3[:, :, :2]
+    with pytest.raises(ValueError, match="no dropout"):
+        tF.scaled_dot_product_attention(q, k2, k2, dropout_p=0.5,
+                                        training=True)
+    with pytest.raises(Exception):
+        jF.scaled_dot_product_attention(
+            *map(paddle.to_tensor, (q.numpy(), k2.numpy(), k2.numpy())),
+            dropout_p=0.5, training=True)
 
 
 def test_seed_gives_the_same_dropout_masks():

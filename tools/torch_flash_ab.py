@@ -10,14 +10,16 @@ another copy of it (for example the parent commit's, unpacked with
   copy has, beside the same kernel of this tree (a template argument
   this tree adds must be false there, and one it drops (`DROPPED`) must
   have been false in the other copy: the instantiation that the other
-  copy compiled), and whether they are equal; kernels only one copy has
-  are listed as such;
+  copy compiled), and whether they are equal (the parameter space,
+  cmem[0], is printed but not compared: a kernel parameter this tree
+  adds grows it); kernels only one copy has are listed as such;
 * K1a's forward and backward at the train step's [8, 16, 1024, 64] bf16
   causal, and the paddle-layout forward K1b at [8, 1024, 16, 128] bf16
   causal and full and [8, 1024, 8, 256] causal, timed in turns (other,
   this, this, other, other, this) with CUDA events and L2 flushed, as
-  `chip_smoke.py` times kernels; K1b beside SDPA on transposed copies,
-  its bound and achieved TFLOP/s, each side held against the plain
+  `chip_smoke.py` times kernels, beside SDPA (K1a: on the same
+  operands, the backward through autograd; K1b: on transposed copies),
+  their bounds and achieved TFLOP/s, each side held against the plain
   version first;
 * K1c's backward at BERT pretraining's [16, 12, 512, 64] and BERT's
   [64, 12, 128, 64] bf16 (full, trailing padding at the train phase's
@@ -31,15 +33,27 @@ With `--sweep` it also builds copies of this tree's source whose K1b
 kernel takes other key tiles and ring depths at D = 128 (64 or 128
 keys, 2 to 4 stages, as shared memory allows) and other L2 budgets for
 its head groups (4 MB to all heads at once), and times each at the two
-D = 128 shapes. With `--probe` it builds copies whose K1b consumers skip
-the softmax, the S = Q K^T products, the P V products, both products,
-or all but the loads (their outputs are wrong; they keep every load and
-store), and one without the warpgroups' turns, and times them beside
-the full kernel at its three shapes; and copies of K1c's 16-bit
+D = 128 shapes; copies whose K1a forward at D = 64 takes other key
+tiles (64, 128), ring depths (2 to 6), consumer warpgroups (2, 3), a
+block an item instead of persistent blocks, other L2 budgets for its
+head groups, or K1b's warpgroup turns; and copies whose K1a backward
+orders its items in head groups of other L2 budgets (8 MB to all
+heads) or in K1c's order (a head's items adjacent), each timed at
+K1a's shape and held against the plain version. With `--probe` it
+builds copies whose K1b and K1a forward consumers (one kernel) skip the
+softmax, the S = Q K^T products, the P V products, both products, or
+all but the loads (their outputs are wrong; they keep every load and
+store), and one without K1b's warpgroup turns, and times them beside
+the full kernel at K1b's three shapes and K1a's; copies of the 16-bit
 backward without the segment-range skip (every tile pair visited, all
 masked), without its products and softmax (loads only), without its dQ
 items, without its dK/dV items, and with its pre-pass alone, timed at
-both BERT shapes.
+both BERT shapes (K1c) and, loads only and pre-pass only, at K1a's;
+and copies of the
+backward that stamp each block's start and end (%globaltimer), in this
+tree's item order and in K1c's, which give K1a's item tail: the
+kernel's span, the last block's end past the median block's, and the
+blocks' mean idle share of the span.
 
 Needs a card and nvcc; imports torch and the port only.
 """
@@ -110,9 +124,17 @@ def split_name(name):
 FALSE = ("false", "(bool)0", "0")
 # Template arguments this tree dropped: kernel -> index in the other
 # copy's list. The other copy's instantiations with it false are this
-# tree's without it; those with it true are gone. (kSeg: K1c's 16-bit
-# backward left these kernels for bwd16::flash_bwd_wgmma_kernel.)
-DROPPED = {"flash_bwd_dkdv_mma_kernel": 2, "flash_bwd_dq_mma_kernel": 2}
+# tree's without it; those with it true are gone. (None today: the
+# mma.sync backward kernels that dropped kSeg are gone with K1a's
+# backward now on bwd16::flash_bwd_wgmma_kernel.)
+DROPPED = {}
+
+
+def same_usage(a, b):
+    """Whether two usage strings agree, the parameter space aside."""
+    def strip(u):
+        return re.sub(r", \d+ bytes cmem\[0\]", "", u or "")
+    return strip(a) == strip(b)
 
 
 def match(name, mine):
@@ -173,10 +195,15 @@ def main():
     srcs = {"other": Path(args.parent),
             "this": ROOT / "paddle_tpu_torch/ops/csrc/flash_attention.cu"}
     with ThreadPoolExecutor(2) as ex:
-        texts = ex.map(lambda side: compile_v(srcs[side],
-                                              build / f"lib_{side}.so"),
-                       srcs)
-        reports = {side: usage(t) for side, t in zip(srcs, texts)}
+        texts = dict(zip(srcs, ex.map(
+            lambda side: compile_v(srcs[side], build / f"lib_{side}.so"),
+            srcs)))
+    reports = {side: usage(t) for side, t in texts.items()}
+    for side, text in texts.items():  # serialized wgmma, spills
+        for line in text.splitlines():
+            if re.search(r"C75\d\d|spill", line) and not re.search(
+                    r"0 bytes spill stores, 0 bytes spill loads", line):
+                print(f"ptxas ({side}): {line.strip()}", flush=True)
     libs = {side: load(build / f"lib_{side}.so", srcs[side].read_text())
             for side in srcs}
     same = True
@@ -185,7 +212,7 @@ def main():
         if mine is None:
             print(f"only in the other copy: {name}: [{use}]", flush=True)
             continue
-        ok = reports["this"][mine] == use
+        ok = same_usage(reports["this"][mine], use)
         same &= ok
         print(f"{'same' if ok else 'DIFFERS'}: {name}: other [{use}]; this "
               f"{mine!r} [{reports['this'].get(mine)}]", flush=True)
@@ -199,39 +226,27 @@ def main():
 
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
-    B, H, S, D = 8, 16, 1024, 64
-    g = torch.Generator(device=dev).manual_seed(0)
-    q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=dev,
-                               dtype=torch.bfloat16) for _ in range(4))
-    q = (q * D ** -0.5).to(torch.bfloat16)
-    out, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
-    lse, delta = (torch.empty(B, H, S, device=dev) for _ in range(2))
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
-    def fwd(lib):
-        return lambda: lib.paddle_tpu_torch_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B * H, S, D, 1, 1, stream())
-
-    def bwd(lib):
-        return lambda: lib.paddle_tpu_torch_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B * H, S, D, 1, 1, stream())
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    for kname, make in (("K1a forward", fwd), ("K1a backward", bwd)):
+    case = k1a_case(dev)
+    yard = k1a_yardsticks(case, flush)
+    for part, make in (("forward", k1a_fwd_run), ("backward", k1a_bwd_run)):
+        runs = {side: make(libs[side], case, f"{side} K1a {part}")
+                for side in ("other", "this")}
         times = {"other": [], "this": []}
         for side in ("other", "this", "this", "other", "other", "this"):
-            times[side].append(chip_smoke.cuda_ms(make(libs[side]),
-                                                  flush=flush))
+            times[side].append(chip_smoke.cuda_ms(runs[side], flush=flush))
         mean = {s: sum(t) / len(t) for s, t in times.items()}
-        print(f"{kname} bf16 [{B}, {H}, {S}, {D}] causal ms: other "
-              f"{times['other']} (mean {mean['other']:.4f}), this "
-              f"{times['this']} (mean {mean['this']:.4f}): "
-              f"{mean['this'] / mean['other'] - 1:+.2%}", flush=True)
-    del q, k, v, do, out, dq, dk, dv, lse, delta
+        sdpa, bound, flops = yard[part]
+        print(f"K1a {part} bf16 {list(case[0].shape)} causal ms on {card}: "
+              f"other {[round(t, 4) for t in times['other']]} (mean "
+              f"{mean['other']:.4f}), this "
+              f"{[round(t, 4) for t in times['this']]} (mean "
+              f"{mean['this']:.4f}): {mean['this'] / mean['other'] - 1:+.2%}"
+              f"; SDPA{' backward' if part == 'backward' else ''} "
+              f"{sdpa:.4f}; bound {bound:.4f}, this at "
+              f"{flops / (mean['this'] * 1e-3) / 1e12:.1f} TFLOP/s, "
+              f"{bound / mean['this']:.1%} of the bound", flush=True)
+    del case
     for H, D, causal in BSHD_SHAPES:
         q, k, v = bshd_operands(H, D, dev)
         want = fa.flash_fwd_bshd_reference(q, k, v, D ** -0.5, causal)
@@ -273,10 +288,96 @@ def main():
         del case, runs
     if args.sweep:
         sweep(build, flush, card)
+        sweep_k1a(build, flush, card)
     if args.probe:
         probe(build, flush, card)
         probe_seg_bwd(build, flush, card)
+        probe_tail(build, card)
     return 0 if same else 1
+
+
+def k1a_case(dev, B=8, H=16, S=1024, D=64):
+    """(q, k, v, dout, out, lse) of K1a at the train step's shape, bf16,
+    q scaled as `splash_mha` hands it to the kernels; (out, lse) from the
+    plain forward."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, dout = (torch.randn(B, H, S, D, generator=g, device=dev,
+                                 dtype=torch.bfloat16) for _ in range(4))
+    q = (q * D ** -0.5).to(torch.bfloat16)
+    out, lse = fa.flash_fwd_reference(q, k, v, True)
+    return q, k, v, dout, out, lse
+
+
+def k1a_fwd_run(lib, case, label):
+    """A launch of the library's K1a forward on `case`, held against the
+    plain (out, lse) once."""
+    import torch
+    import chip_smoke
+    q, k, v, _dout, want_out, want_lse = case
+    B, H, S, D = q.shape
+    out, lse = torch.empty_like(q), torch.empty_like(want_lse)
+
+    def run():
+        err = lib.paddle_tpu_torch_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B * H, S, D, 1, 1,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{label} launch failed: CUDA error {err}")
+    run()
+    torch.cuda.synchronize()
+    chip_smoke.close_or_fail(f"{label} out", out, want_out,
+                             chip_smoke.TRAIN_TOL["bfloat16"])
+    chip_smoke.close_or_fail(f"{label} lse", lse, want_lse,
+                             chip_smoke.TOL["float32"])
+    return run
+
+
+def k1a_bwd_run(lib, case, label):
+    """A launch of the library's K1a backward on `case`, held against
+    the plain backward once."""
+    import torch
+    import chip_smoke
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, dout, out, lse = case
+    B, H, S, D = q.shape
+    grads = [torch.empty_like(q) for _ in range(3)]
+    delta = torch.empty_like(lse)
+
+    def run():
+        err = lib.paddle_tpu_torch_flash_bwd(
+            *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta)),
+            *(g.data_ptr() for g in grads), B * H, S, D, 1, 1,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{label} launch failed: CUDA error {err}")
+    run()
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_reference(q, k, v, out, lse, dout, True)
+    for n, a, e in zip(("dq", "dk", "dv"), grads, want):
+        chip_smoke.close_or_fail(f"{label} {n}", a, e,
+                                 chip_smoke.TRAIN_TOL["bfloat16"])
+    return run
+
+
+def k1a_yardsticks(case, flush):
+    """{"forward" / "backward": (SDPA ms on the same operands at scale 1,
+    the backward through autograd; bound ms; flops)} of K1a's call."""
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke
+    q, k, v, dout, _out, _lse = case
+    fwd = chip_smoke.cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=1.0), flush=flush)
+    sq = [t.detach().requires_grad_() for t in (q, k, v)]
+    so = F.scaled_dot_product_attention(*sq, is_causal=True, scale=1.0)
+    bwd = chip_smoke.cuda_ms(lambda: torch.autograd.grad(
+        so, sq, dout, retain_graph=True), flush=flush)
+    return {part: (ms, chip_smoke.flash_bound(q, part == "backward")[0],
+                   chip_smoke.flash_flops(q, True, part == "backward"))
+            for part, ms in (("forward", fwd), ("backward", bwd))}
 
 
 # K1c's backward shapes: (sequences, S, shortest length), 12 heads of 64
@@ -359,10 +460,11 @@ _SEG_CUTS = {
                 "mask = true;"),
     "loads only": (r"if \(w0 >= 0 && \(fl & 1\)\) \{",
                    "if (w0 >= 0 && (fl & 1) && S < 0) {"),
-    "no dQ pass": (r"const int first = 0, last = \(int\)\(2 \* per\);",
-                   "const int first = 0, last = (int)per;"),
-    "no dK/dV pass": (r"const int first = 0, last = \(int\)\(2 \* per\);",
-                      "const int first = (int)per, last = (int)(2 * per);"),
+    "no dQ pass": (r"const int first = 0, last = kSeg \? units :",
+                   "const int first = 0, last = kSeg ? (int)per :"),
+    "no dK/dV pass": (r"const int first = 0, last = kSeg \? units :",
+                      "const int first = kSeg ? (int)per : 0, "
+                      "last = kSeg ? units :"),
     "pre-pass only": (r"\n  auto kern = flash_bwd_wgmma_kernel<T, D, kSeg>;",
                       "\n  return cudaSuccess;"
                       "\n  auto kern = flash_bwd_wgmma_kernel<T, D, kSeg>;"),
@@ -410,6 +512,115 @@ def probe_seg_bwd(build, flush, card):
         print(f"probe K1c backward bf16 [{B}, 12, {S}, 64] ms on {card}: "
               + "; ".join(cells), flush=True)
         del case, grads
+    # K1a (no segments): the cuts that apply to it
+    q, k, v, dout, out, lse = k1a_case(dev)
+    B, H, S, D = q.shape
+    grads = [torch.empty_like(q) for _ in range(3)]
+    delta = torch.empty_like(lse)
+    cells = []
+    for cut in ("full", "loads only", "pre-pass only"):
+        def run(lib=libs[cut]):
+            lib.paddle_tpu_torch_flash_bwd(
+                *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta)),
+                *(g.data_ptr() for g in grads), B * H, S, D, 1, 1,
+                torch.cuda.current_stream().cuda_stream)
+        cells.append(f"{cut} {chip_smoke.cuda_ms(run, flush=flush):.4f}")
+    print(f"probe K1a backward bf16 [{B}, {H}, {S}, {D}] causal ms on "
+          f"{card}: " + "; ".join(cells), flush=True)
+
+
+# Block start and end stamps in the 16-bit backward, for probe_tail: a
+# device array, its reader, and where the stamps go (each pattern once).
+_STAMP_DECL = (
+    "\nnamespace bwd16 {\n",
+    "\n__device__ unsigned long long g_probe_t[2 * 4096];\n"
+    "__device__ __forceinline__ unsigned long long probe_clock() {\n"
+    "  unsigned long long t;\n"
+    "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+    "  return t;\n}\n\nnamespace bwd16 {\n")
+_STAMP_START = (
+    "  const int qd = lane & 3;\n  const int rr =",
+    "  const int qd = lane & 3;\n"
+    "  if (threadIdx.x == 0) g_probe_t[2 * blockIdx.x] = probe_clock();\n"
+    "  const int rr =")
+_STAMP_END = (
+    "    if (!it.dq) store_rows<T, D>(dv + roff * D, acc1, fr, S, qd);\n"
+    "  }\n}\n",
+    "    if (!it.dq) store_rows<T, D>(dv + roff * D, acc1, fr, S, qd);\n"
+    "  }\n"
+    "  if (threadIdx.x == 0) g_probe_t[2 * blockIdx.x + 1] = probe_clock();"
+    "\n}\n")
+_STAMP_READ = (
+    '\nextern "C" int paddle_probe_times(void* host, int n) {\n'
+    "  return (int)cudaMemcpyFromSymbol(host, g_probe_t,\n"
+    "                                   (size_t)n * 16);\n}\n")
+
+
+def substitute(src, subs, what):
+    """`src` with each (old, new) of `subs` replaced; each old must occur
+    exactly once."""
+    for old, new in subs:
+        if src.count(old) != 1:
+            raise SystemExit(f"torch_flash_ab: the source changed ({what}: "
+                             f"{old.strip()[:60]!r})")
+        src = src.replace(old, new)
+    return src
+
+
+def probe_tail(build, card):
+    """K1a's backward item tail: each block's start and end stamped, in
+    this tree's item order and in K1c's; the kernel's span, the last
+    block's end past the median block's, and the blocks' mean idle share
+    of the span (their ends to the last end)."""
+    import statistics
+    import torch
+    src = (ROOT / "paddle_tpu_torch/ops/csrc/flash_attention.cu").read_text()
+    stamps = (_STAMP_DECL, _STAMP_START, _STAMP_END)
+    orders = {"this order": substitute(src, stamps, "stamps") + _STAMP_READ,
+              "K1c's order": substitute(src, stamps + K1C_ORDER,
+                                        "stamps") + _STAMP_READ}
+
+    def make(order):
+        path = build / f"tail_{order.split()[0].replace(chr(39), '')}.cu"
+        path.write_text(orders[order])
+        compile_v(path, path.with_suffix(".so"))
+        lib = load(path.with_suffix(".so"))
+        lib.paddle_probe_times.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.paddle_probe_times.restype = ctypes.c_int
+        return lib
+    with ThreadPoolExecutor(len(orders)) as ex:
+        libs = dict(zip(orders, ex.map(make, orders)))
+    dev = torch.device("cuda")
+    q, k, v, dout, out, lse = k1a_case(dev)
+    B, H, S, D = q.shape
+    grads = [torch.empty_like(q) for _ in range(3)]
+    delta = torch.empty_like(lse)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    items = 2 * B * H * -(-S // 128)
+    grid = min(items // 2, sms)  # both orders at this shape
+    cells = []
+    for order, lib in libs.items():
+        spans = []
+        for _ in range(5):
+            lib.paddle_tpu_torch_flash_bwd(
+                *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta)),
+                *(g.data_ptr() for g in grads), B * H, S, D, 1, 1,
+                torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            t = (ctypes.c_ulonglong * (2 * grid))()
+            if lib.paddle_probe_times(ctypes.addressof(t), grid):
+                raise SystemExit("torch_flash_ab: reading the stamps failed")
+            start, end = list(t[0::2]), list(t[1::2])
+            span = max(end) - min(start)
+            tail = max(end) - statistics.median(end)
+            idle = sum(max(end) - e for e in end) / (grid * span)
+            spans.append((span / 1e6, tail / span, idle))
+        span, tail, idle = (statistics.median(x) for x in zip(*spans))
+        cells.append(f"{order}: span {span:.4f} ms, last end past the "
+                     f"median {tail:.1%} of it, mean idle {idle:.1%}")
+    print(f"probe K1a backward item tail bf16 [{B}, {H}, {S}, {D}] causal, "
+          f"{items} items on {grid} blocks, median of 5 launches (L2 warm) "
+          f"on {card}: " + "; ".join(cells), flush=True)
 
 
 # The probe's cuts of K1b's consumer loop, as patterns of this tree's
@@ -463,14 +674,43 @@ def probe(build, flush, card):
               f"{'causal' if causal else 'full'} ms on {card}: "
               + "; ".join(cells), flush=True)
         del q, k, v, out
+    q, k, v, _dout, out, lse = k1a_case(dev)
+    B, H, S, D = q.shape
+    cells = []
+    for cut, lib in libs.items():
+        def run(lib=lib):
+            lib.paddle_tpu_torch_flash_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), B * H, S, D, 1, 1,
+                torch.cuda.current_stream().cuda_stream)
+        cells.append(f"{cut} {chip_smoke.cuda_ms(run, flush=flush):.4f}")
+    print(f"probe K1a forward bf16 [{B}, {H}, {S}, {D}] causal ms on {card}: "
+          + "; ".join(cells), flush=True)
 
 
 # K1b's shapes: (heads, head_dim, causal) at B = 8, S = 1024, bf16
 BSHD_SHAPES = ((16, 128, True), (16, 128, False), (8, 256, True))
 # the sweep's knobs, as the source spells them in K1b's Cfg
-BSHD_KNOBS = ("static constexpr int kBN = D == 128 ? {} : 64;",
-              "static constexpr int kStages = D == 128 ? {} : 2;",
-              "constexpr long long kL2Budget = {}LL << 20;")
+BSHD_KNOBS = (
+    "static constexpr int kBN = D == 64 ? kBN64 : D == 128 ? {} : 64;",
+    "static constexpr int kStages = D == 64 ? kStages64 : D == 128 ? {} : 2;",
+    "constexpr long long kL2Budget = {}LL << 20;")
+# K1a's forward at D = 64 (keys a tile, ring depth, consumer warpgroups)
+# and its backward's item order (the L2 budget of its head groups), as
+# the source spells them
+K1A_FWD_KNOB = "constexpr int kBN64 = {}, kStages64 = {}, kWG64 = {};"
+K1A_FWD_PERSIST = "constexpr bool kLsePersist = {};"
+K1A_FWD_L2 = BSHD_KNOBS[2]  # shared with K1b
+# K1a with K1b's warpgroup turns
+K1A_TURNS = ("constexpr bool kTurns = !kLse;", "constexpr bool kTurns = true;")
+K1A_BWD_KNOB = "constexpr long long kItemL2Budget = {}LL << 20;"
+# the backward's items in K1c's order (a head's items adjacent; its
+# items one range, not units taken in turn)
+K1C_ORDER = (("  if constexpr (kSeg) {\n    it.dq = item >= per;",
+              "  if constexpr (true) {\n    it.dq = item >= per;"),
+             ("const int units = kSeg ? (int)(2 * per) : (int)per;",
+              "const int units = (int)(2 * per);"),
+             ("last = kSeg ? units : 2 * units + grid;", "last = units;"))
 
 
 def bshd_operands(H, D, dev):
@@ -512,6 +752,94 @@ def bshd_yardsticks(q, k, v, causal, flush):
         qt, kt, vt, is_causal=causal, scale=D ** -0.5), flush=flush)
     bound, _ = chip_smoke.flash_bound(qt, False, causal, lse=False)
     return sdpa, bound, chip_smoke.flash_flops(qt, causal)
+
+
+def sweep_k1a(build, flush, card):
+    """K1a's forward at other key tiles, ring depths and consumer
+    warpgroups (D = 64), and its backward in other item orders, each at
+    the train step's shape against the plain version."""
+    import torch
+    import chip_smoke
+    src = (ROOT / "paddle_tpu_torch/ops/csrc/flash_attention.cu").read_text()
+    fwd_now = tuple(int(x) for x in re.search(
+        K1A_FWD_KNOB.replace("{}", r"(\d+)"), src).groups()) + (
+        re.search(K1A_FWD_PERSIST.replace("{}", r"(\w+)"), src).group(1),
+        int(re.search(K1A_FWD_L2.replace("{}", r"(\d+)"), src).group(1)),
+        False)
+    bwd_now = int(re.search(K1A_BWD_KNOB.replace("{}", r"(\d+)"),
+                            src).group(1))
+    # (keys a tile, stages, consumer warpgroups, persistent, L2 budget of
+    # the head groups in MB, warpgroup turns)
+    fwd_vars = [(128, 4, 2, "true", 16, False), (128, 2, 2, "true", 16, False),
+                (128, 3, 2, "true", 16, False), (128, 6, 2, "true", 16, False),
+                (64, 4, 2, "true", 16, False), (128, 4, 2, "true", 64, False),
+                (128, 4, 2, "false", 16, False), (128, 4, 2, "true", 16, True),
+                (128, 4, 3, "true", 16, False), (64, 4, 3, "true", 16, False)]
+    bwd_vars = [8, 16, 32, 64, 4096, "K1c's order"]
+    texts = {}
+    for var in fwd_vars:
+        knobs = [(knob.format(*now_v), knob.format(*var_v)) for knob, now_v,
+                 var_v in ((K1A_FWD_KNOB, fwd_now[:3], var[:3]),
+                           (K1A_FWD_PERSIST, fwd_now[3:4], var[3:4]),
+                           (K1A_FWD_L2, fwd_now[4:5], var[4:5]))]
+        knobs += [K1A_TURNS] if var[5] else []
+        texts[("fwd", var)] = substitute(src, knobs, "K1a forward knobs") \
+            if var != fwd_now else src
+    for var in bwd_vars:
+        texts[("bwd", var)] = substitute(src, K1C_ORDER if isinstance(
+            var, str) else [(K1A_BWD_KNOB.format(bwd_now),
+                             K1A_BWD_KNOB.format(var))],
+            "K1a backward order") if var != bwd_now else src
+
+    def make(key):
+        name = "_".join(str(x) for x in ((key[0],) + (
+            key[1] if isinstance(key[1], tuple) else (key[1],))))
+        path = build / ("sweep_k1a_" + re.sub(r"\W", "", name) + ".cu")
+        path.write_text(texts[key])
+        text = compile_v(path, path.with_suffix(".so"))
+        serial = [ln.strip() for ln in text.splitlines()
+                  if re.search(r"C75\d\d", ln)]
+        return load(path.with_suffix(".so")), usage(text), serial
+    with ThreadPoolExecutor(len(texts)) as ex:
+        built = dict(zip(texts, ex.map(make, texts)))
+    libs = {key: lib for key, (lib, _, _) in built.items()}
+    case = k1a_case(torch.device("cuda"))
+    shape = list(case[0].shape)
+    cells = []
+    kern = ("bshd::flash_fwd_bshd_wgmma_kernel<__nv_bfloat16, (int)64, "
+            "(bool)1>")
+    for var in fwd_vars:
+        use = built[("fwd", var)][1].get(kern, "")
+        print(f"sweep K1a forward {var}: ptxas [{use}]"
+              + "".join(f"; {w}" for w in built[("fwd", var)][2]),
+              flush=True)
+        # the consumers' setmaxnreg share assumes the launch bound's
+        # registers: a copy given fewer, or one that spills, is not run
+        want = 65536 // (128 * (var[2] + 1)) // 8 * 8
+        if f"Used {want} registers" not in use or not re.search(
+                r"0 bytes spill stores, 0 bytes spill loads", use):
+            cells.append(f"{var}: not run (ptxas [{use}])")
+            continue
+        run = k1a_fwd_run(libs[("fwd", var)], case, f"sweep K1a forward {var}")
+        mark = " (this tree)" if var == fwd_now else ""
+        grid = "persistent" if var[3] == "true" else "a block an item"
+        cells.append(f"{var[0]} keys x {var[1]} stages x {var[2]} consumer "
+                     f"warpgroups, {grid}, head groups of {var[4]} MB"
+                     f"{', turns' if var[5] else ''}{mark} "
+                     f"{chip_smoke.cuda_ms(run, flush=flush):.4f}")
+    print(f"sweep K1a forward bf16 {shape} causal ms on {card}: "
+          + "; ".join(cells), flush=True)
+    cells = []
+    for var in bwd_vars:
+        run = k1a_bwd_run(libs[("bwd", var)], case,
+                          f"sweep K1a backward {var}")
+        label = var if isinstance(var, str) else (
+            f"head groups of {var} MB" if var < 4096 else "all heads")
+        mark = " (this tree)" if var == bwd_now else ""
+        cells.append(f"{label}{mark} "
+                     f"{chip_smoke.cuda_ms(run, flush=flush):.4f}")
+    print(f"sweep K1a backward bf16 {shape} causal ms on {card}: "
+          + "; ".join(cells), flush=True)
 
 
 def sweep(build, flush, card):
