@@ -24,16 +24,20 @@ each (or a few):
    grouped expert matmuls — float, int8 and int4 experts — at the MoE
    step's two expert products, each with its bytes/s and share of its
    bound; flash attention forward/backward (with their TFLOP/s and share
-   of the bound), add+LayerNorm forward/backward and the fused QKV
-   projection (forward, and its gradients through autograd) at the train
-   step's; the
+   of the bound), add+LayerNorm forward/backward (dw and db included,
+   two launches of each bit-identical, GB/s beside F.layer_norm's) and
+   the fused QKV projection (forward, and its gradients through
+   autograd) at the train step's; the
    paddle-layout flash forward at [8, 1024, 16, 128] causal and full,
    [8, 1024, 8, 256] causal, and forward + backward through
    `flash_attention()`, these two with their TFLOP/s and share of the
    bound; the split-K 1x1 weight gradient at ResNet-50's
    [401408, 256] x [401408, 64]; the segmented flash forward and its
    backward at BERT's [64, 12, 128, 64] and [16, 12, 512, 64] under
-   trailing, left and interleaved padding, fp32 and causal too), with
+   trailing, left and interleaved padding, fp32 and causal too, the
+   forward also at S = 77 and 200 and over a sequence of full length
+   beside one of length 1, both with the share of tile pairs their
+   segment ranges keep), with
    times (CUDA events,
    L2 flushed
    between launches), the card's bound for the same work and, where one
@@ -1322,9 +1326,15 @@ def check_flash(fa, device, flush):
 
 def check_add_ln(ln, device, flush):
     """Phase 3 for add+LayerNorm at the train step's 8192 rows x 1024:
-    forward (out, z, mu, rstd) and backward (dz) kernels against their
-    plain versions; returns the bf16 {"add_ln_fwd": ..., "add_ln_bwd":
-    ...}."""
+    forward (out, z, mu, rstd) and backward (dz, and dw and db, the
+    backward kernel's fp32 sums over rows) kernels against their plain
+    versions, dw and db within 1e-6 of each column's sum of |terms| (as
+    K6's check); two launches of each bit-identical. Times: the backward
+    as the train step runs it, dw and db included; yardsticks F.layer_norm
+    over the pre-added z and its backward with w and b requiring grad
+    (dx, dw and db in one call), each with its GB/s (the kernels move 4
+    tensors, the yardsticks 2 and 3). Returns the bf16 {"add_ln_fwd":
+    ..., "add_ln_bwd": ...}."""
     import torch
     import torch.nn.functional as F
     N, d = TRAIN_BATCH * TRAIN_SEQ, HIDDEN
@@ -1338,17 +1348,34 @@ def check_add_ln(ln, device, flush):
         w = torch.rand(d, generator=g, device=device)
         b = torch.randn(d, generator=g, device=device)
         got = ln._launch_fwd(x, r, w, b, 1e-5)
+        again = ln._launch_fwd(x, r, w, b, 1e-5)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"add_ln_fwd {name}: two launches differ")
         want = ln.add_ln_fwd_reference(x, r, w, b, 1e-5)
         err_f = max(close_or_fail(f"add_ln_fwd {name} {n}", a, e, tol)
                     for n, a, e in zip(("out", "z", "mu", "rstd"), got,
                                        want))
         z, mu, rs = want[1], want[2], want[3]
-        dz = ln._launch_bwd(z, w, mu, rs, gout, gz)
+        dz, dw, db = ln._launch_bwd(z, w, mu, rs, gout, gz)
+        again = ln._launch_bwd(z, w, mu, rs, gout, gz)
         torch.cuda.synchronize()
-        err_b = close_or_fail(f"add_ln_bwd {name} dz", dz,
-                              ln.add_ln_bwd_reference(z, w, mu, rs, gout,
-                                                      gz), tol)
+        if not all(torch.equal(a, c) for a, c in zip((dz, dw, db), again)):
+            fail(f"add_ln_bwd {name}: two launches differ")
+        ref_dz, ref_dw, ref_db = ln.add_ln_bwd_reference(z, w, mu, rs, gout,
+                                                         gz)
+        err_b = close_or_fail(f"add_ln_bwd {name} dz", dz, ref_dz, tol)
+        zhat = (z.float() - mu[:, None]) * rs[:, None]
+        for n, a, e, terms in (("dw", dw, ref_dw, gout.float() * zhat),
+                               ("db", db, ref_db, gout.float())):
+            mass = terms.abs().sum(0)
+            diff = (a - e).abs()
+            if not bool(torch.isfinite(a).all()) or not bool(
+                    (diff <= 1e-6 * mass).all()):
+                fail(f"add_ln_bwd {name} {n}: past 1e-6 of a column's sum "
+                     f"of |terms| ({float((diff / mass).max()):.3g})")
+            err_b = max(err_b, float(diff.max()))
+        del zhat, again
         fwd_ms = cuda_ms(lambda: ln._launch_fwd(x, r, w, b, 1e-5),
                          flush=flush)
         bwd_ms = cuda_ms(lambda: ln._launch_bwd(z, w, mu, rs, gout, gz),
@@ -1359,28 +1386,37 @@ def check_add_ln(ln, device, flush):
         bwd_plain = cuda_ms(lambda: ln.add_ln_bwd_reference(
             z, w, mu, rs, gout, gz), flush=flush)
         # yardsticks: F.layer_norm over the pre-added z (no single call
-        # adds and normalises), and its backward through autograd
+        # adds and normalises), and its backward through autograd with w
+        # and b requiring grad: dx, dw and db in one call
         wd, bd = w.to(dtype), b.to(dtype)      # F.layer_norm's types
         fwd_lib = cuda_ms(lambda: F.layer_norm(z, (d,), wd, bd, 1e-5),
                           flush=flush)
-        zl = z.detach().requires_grad_()
-        lo = F.layer_norm(zl, (d,), wd, bd, 1e-5)
+        leaves = [t.detach().requires_grad_() for t in (z, wd, bd)]
+        lo = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-5)
         bwd_lib = cuda_ms(lambda: torch.autograd.grad(
-            lo, zl, gout, retain_graph=True), flush=flush)
-        del lo, zl
+            lo, leaves, gout, retain_graph=True), flush=flush)
+        del lo, leaves
         bound_ms, bound_by = add_ln_bound(x)
-        for kname, err, ms, plain, lib in (
-                ("add_ln_fwd", err_f, fwd_ms, fwd_plain, fwd_lib),
-                ("add_ln_bwd", err_b, bwd_ms, bwd_plain, bwd_lib)):
+        nbytes = x.numel() * x.element_size()
+        for kname, err, ms, plain, lib, lib_tensors in (
+                ("add_ln_fwd", err_f, fwd_ms, fwd_plain, fwd_lib, 2),
+                ("add_ln_bwd", err_b, bwd_ms, bwd_plain, bwd_lib, 3)):
             records.setdefault(name, {})[kname] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib)
+            bwd = kname.endswith("bwd")
             print(f"kernel check: {kname} {name} [{N}, {d}] "
-                  f"max_abs_err={err:.3g} (tol {tol} (1 + |plain|)) "
-                  f"kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+                  f"max_abs_err={err:.3g} (tol {tol} (1 + |plain|)"
+                  f"{'; dw, db within 1e-6 of each sum of |terms|' if bwd else ''}"
+                  f"), two launches bit-identical; kernel_ms={ms:.4f}"
+                  f"{' (dw, db included)' if bwd else ''}, "
+                  f"{4 * nbytes / (ms * 1e-3) / 1e9:.0f} GB/s over 4 tensors, "
+                  f"{bound_ms / ms:.1%} of the bound; plain_ms={plain:.4f} "
                   f"bound_ms={bound_ms:.4f} ({bound_by}) yardstick: "
-                  f"F.layer_norm{' backward' if kname.endswith('bwd') else ''}"
-                  f" over the pre-added z {lib:.4f} ms", flush=True)
+                  f"F.layer_norm{' backward (dx, dw, db)' if bwd else ''}"
+                  f" over the pre-added z {lib:.4f} ms, "
+                  f"{lib_tensors * nbytes / (lib * 1e-3) / 1e9:.0f} GB/s over "
+                  f"{lib_tensors} tensors", flush=True)
     return records["bfloat16"]
 
 
@@ -1968,6 +2004,10 @@ def profile_train(trainer, params, opt, tok, lab, step_num, label):
               f"of device time a step in {n} kernel launches "
               f"({t / 1e3 / device_ms:.1%} of the step's device time)",
               flush=True)
+    k2 = [e for e in dev if "add_ln_" in e.key]
+    print(f"profile: train step [{label}] K2: " + ", ".join(
+        f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+        for e in k2), flush=True)
 
 
 # --------------------------------------- phase 3, segmented flash (K1c)
@@ -2014,11 +2054,15 @@ def seg_bound(q, seg, causal=False, backward=False):
 def check_flash_seg(fa, device, flush):
     """Phase 3 for the segmented flash forward (K1c) at the BERT phase's
     shapes, [64, 12, 128, 64] and [16, 12, 512, 64] bf16 full, under
-    trailing, left and interleaved padding, then fp32 and causal at the
-    first: out and lse against the plain version (the K1a forward's
-    tolerance), every row finite. Times at each shape under the serve
-    phase's trailing padding: kernel, plain version and, as the
-    yardstick, SDPA with the same segment mask. Returns the record of
+    trailing, left and interleaved padding, at S = 77 and 200 (off its
+    128-row tiles) under the same three, with one sequence of full
+    length beside one of length 1, then fp32 and causal at the first:
+    out and lse against the plain version (the K1a forward's tolerance),
+    every row finite. Times at each BERT shape under the serve phase's
+    trailing padding: kernel, plain version and, as the yardstick, SDPA
+    with the same segment mask; with the kernel's TFLOP/s over the
+    visible pairs, its share of the bound and of the (64-row query,
+    128-row key) tile pairs it computes. Returns the record of
     [64, 12, 128, 64] bf16."""
     import numpy as np
     import torch
@@ -2027,9 +2071,11 @@ def check_flash_seg(fa, device, flush):
     D = BERT["hidden_size"] // H
     rng = np.random.default_rng(SEED + 11)
     cases = [(B, S, torch.bfloat16, False, pat)
-             for B, S, _ in BERT_BATCHES
+             for B, S in [(B, S) for B, S, _ in BERT_BATCHES] + [(8, 77),
+                                                                (8, 200)]
              for pat in ("trailing", "left", "interleaved")]
-    cases += [(64, 128, torch.float32, False, "interleaved"),
+    cases += [(2, 512, torch.bfloat16, False, "full and 1"),
+              (64, 128, torch.float32, False, "interleaved"),
               (64, 128, torch.bfloat16, True, "trailing")]
     errs = {}
     for B, S, dtype, causal, pat in cases:
@@ -2039,7 +2085,11 @@ def check_flash_seg(fa, device, flush):
         q, k, v = (torch.randn(B, H, S, D, generator=g, device=device,
                                dtype=dtype) for _ in range(3))
         q = (q * D ** -0.5).to(dtype)
-        seg = torch.tensor(seg_ids(pat, B, S, rng), device=device)
+        if pat == "full and 1":
+            ids = (np.arange(S)[None] < np.array([[S], [1]])).astype(np.int32)
+        else:
+            ids = seg_ids(pat, B, S, rng)
+        seg = torch.tensor(ids, device=device)
         out, lse = fa._launch_fwd_seg(q, k, v, seg, causal)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, causal, seg)
@@ -2071,11 +2121,17 @@ def check_flash_seg(fa, device, flush):
         records[S] = dict(max_abs_err=errs[(S, "bfloat16")], ms=ms,
                           plain_ms=plain, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=lib)
+        flops = 4 * D * H * int(same.sum())
+        kept = fa.segment_tile_pairs(seg, False, fa.SEG_TILE,
+                                     fa.SEG_FWD_KEY_TILE).float().mean()
         print(f"kernel check: flash_fwd_seg bfloat16 [{B}, {H}, {S}, {D}] "
               f"full, lengths {shortest}-{S}: kernel_ms={ms:.4f} plain_ms="
-              f"{plain:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
-              f"yardstick: scaled_dot_product_attention with the segment "
-              f"mask {lib:.4f} ms", flush=True)
+              f"{plain:.4f} bound_ms={bound_ms:.4f} ({bound_by}), the "
+              f"kernel at {bound_ms / ms:.1%} of it, "
+              f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s over the visible "
+              f"pairs, {float(kept):.1%} of the (64 x 128) tile pairs "
+              f"computed; yardstick: scaled_dot_product_attention with the "
+              f"segment mask {lib:.4f} ms", flush=True)
         del q, k, v, seg, same
     return {"flash_fwd_seg": records[BERT_BATCHES[0][1]]}
 
@@ -2356,6 +2412,12 @@ def profile_bert(model, ids, S):
         return
     device_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    k1c = [e for e in dev if "flash_fwd" in e.key or "seg_ranges" in e.key]
+    k1c_ms = sum(e.self_device_time_total for e in k1c) / 1e3
+    print(f"profile: BERT forward S={S}, K1c: {k1c_ms:.3f} ms of device "
+          f"time, {k1c_ms / device_ms:.1%} of the forward's, in " + ", ".join(
+              f"{e.key[:56]} {e.self_device_time_total / 1e3:.3f} ms "
+              f"x{e.count}" for e in k1c), flush=True)
     print(f"profile: BERT forward S={S}: {host_ms:.3f} ms on the host "
           f"clock, {device_ms:.3f} ms of device time in "
           f"{sum(e.count for e in dev)} device launches, device busy "
@@ -2529,7 +2591,7 @@ def profile_bert_train(model, ids, mlm, nsp):
     device_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     flash = {k: sum(e.self_device_time_total for e in dev if k in e.key)
-             for k in ("flash_fwd", "flash_bwd", "flash_delta")}
+             for k in ("flash_fwd", "seg_ranges", "flash_bwd", "flash_delta")}
     print(f"profile: BERT train step (A), {host_ms:.1f} ms on the host "
           f"clock (profiled), {device_ms:.2f} ms of device time in "
           f"{sum(e.count for e in dev)} device launches, device busy "
@@ -2538,6 +2600,12 @@ def profile_bert_train(model, ids, mlm, nsp):
           + "; most device time: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
               f"x{e.count}" for e in top), flush=True)
+    fwd = [e for e in dev if "flash_fwd" in e.key or "seg_ranges" in e.key]
+    fwd_ms = sum(e.self_device_time_total for e in fwd) / 1e3
+    print(f"profile: BERT train step (A), K1c's forward: {fwd_ms:.3f} ms of "
+          f"device time, {fwd_ms / device_ms:.1%} of the step's, in " +
+          ", ".join(f"{e.key[:56]} {e.self_device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in fwd), flush=True)
     bwd = [e for e in dev if "flash_bwd" in e.key or "flash_delta" in e.key]
     bwd_ms = sum(e.self_device_time_total for e in bwd) / 1e3
     print(f"profile: BERT train step (A), K1c's backward: {bwd_ms:.3f} ms of "

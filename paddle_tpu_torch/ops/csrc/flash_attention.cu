@@ -42,9 +42,10 @@
 // alpha = 0 and no NaN. Every row has at least one key of its segment
 // (itself), so the final sum is positive. At BERT-base's shapes
 // ([64, 12, 128, 64] and [16, 12, 512, 64] bf16) the work is bound by
-// bytes (~50.7 MB, 0.0151 ms at 3.35 TB/s). Key tiles outside a query
-// tile's segments are visited all the same; skipping them is speed for
-// later.
+// bytes (~50.7 MB, 0.0151 ms at 3.35 TB/s). In fp32 that is the CUDA-core
+// forward below; in bf16 and fp16 it is K1a's TMA + wgmma forward with
+// kSeg, which never loads a key tile whose segment range cannot meet a
+// query tile's (described at bshd:: below).
 //
 // Its backward in fp32 is the CUDA-core backward below with the same
 // switch: the fixed tile's ids (keys in the dk/dv pass, queries in the
@@ -75,7 +76,7 @@
 // [BH, S, D] read as [B = BH, S, H = 1, D], storing the logsumexp; the
 // backward is bwd16's persistent TMA + wgmma kernel without segments
 // (kSeg false), its items in an order that balances causal walks. K1c's
-// 16-bit forward keeps the mma.sync forward below. fp32 operands keep
+// 16-bit forward is the same forward with kSeg. fp32 operands keep
 // fp32 products on the CUDA cores: each thread owns a 4 x 8 block of the
 // 64 x 64 score tile (rows rg + 16i, columns cg + 8j) and a 4 x D/8 block
 // of the output tile; rows of a tile live in 8 neighbouring lanes, so
@@ -568,14 +569,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------------
-// K1c's forward for 16-bit operands (bf16, fp16): each 64-row query tile
-// split over 4 warps of 16 rows, every product an mma.sync m16n8k16 with
-// fp32 accumulation. Tiles are staged in shared memory in their own
-// dtype (rows padded by 8 elements, so ldmatrix reads them without bank
-// conflicts); a score tile stays in registers in the mma accumulator
-// layout and is rounded to the operand dtype where it feeds p v, as the
-// splash kernel rounds p to v's dtype. Row max, row sum and the softmax
-// stay fp32.
+// Two fp32 values rounded to a 16-bit T and packed into one 32-bit word
+// (the low half first): the register operands of the wgmma kernels.
 
 template <typename T>
 struct Mma;
@@ -585,14 +580,6 @@ struct Mma<__nv_bfloat16> {
     __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&h);
   }
-  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
 };
 template <>
 struct Mma<__half> {
@@ -600,222 +587,7 @@ struct Mma<__half> {
     __half2 h = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&h);
   }
-  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
 };
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-template <int D>
-__host__ __device__ constexpr int ld16() { return D + 8; }  // padded row
-
-// Rows [row0, row0 + 64) of a contiguous [S, D] 16-bit slice into a
-// shared tile; rows at or past S are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile16(T* dst, const T* src, int row0,
-                                            int S) {
-  constexpr int LDS = ld16<D>();
-  constexpr int PER_ROW = D / 8;  // 16-byte vectors
-  for (int idx = threadIdx.x; idx < kTile * PER_ROW; idx += kThreads) {
-    const int r = idx / PER_ROW, c = (idx % PER_ROW) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      x = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) = x;
-  }
-}
-
-// s[nt] (16 x 8 accumulator tiles, nt < 8) = this warp's 16 rows of
-// the tile As times the 64 rows of the tile Bs, transposed:
-// s[i][j] = a_i . b_j over D.
-template <typename T, int D>
-__device__ __forceinline__ void mma_rows(float s[8][4], const T* As,
-                                         const T* Bs, int warp, int lane) {
-  constexpr int LDS = ld16<D>();
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t a[4];
-    ldsm_x4(a, As + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
-                   kc * 16 + 8 * (lane >> 4));
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, Bs + ((2 * np + (lane >> 4)) * 8 + (lane & 7)) * LDS +
-                     kc * 16 + 8 * ((lane >> 3) & 1));
-      Mma<T>::run(s[2 * np], a, b[0], b[1]);
-      Mma<T>::run(s[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x D) += P (16 x 64, accumulator layout, rounded to T) times the
-// 64 x D tile Vs.
-template <typename T, int D>
-__device__ __forceinline__ void mma_pv(float acc[D / 8][4],
-                                       const float p[8][4], const T* Vs,
-                                       int lane) {
-  constexpr int LDS = ld16<D>();
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const uint32_t a[4] = {Mma<T>::pack(p[2 * kc][0], p[2 * kc][1]),
-                           Mma<T>::pack(p[2 * kc][2], p[2 * kc][3]),
-                           Mma<T>::pack(p[2 * kc + 1][0], p[2 * kc + 1][1]),
-                           Mma<T>::pack(p[2 * kc + 1][2], p[2 * kc + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_t(b, Vs + (kc * 16 + 8 * ((lane >> 3) & 1) + (lane & 7)) * LDS +
-                       (2 * dp + (lane >> 4)) * 8);
-      Mma<T>::run(acc[2 * dp], a, b[0], b[1]);
-      Mma<T>::run(acc[2 * dp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Row `row` (this lane's quad share: columns 8nt + 2t, +1) of a
-// contiguous [S, D] 16-bit output, from accumulator half h (0: row g,
-// 1: row g + 8), times `f`.
-template <typename T, int D>
-__device__ __forceinline__ void store_row16(T* dst, int row, int t,
-                                            const float acc[D / 8][4], int h,
-                                            float f) {
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const float lo = acc[nt][2 * h], hi = acc[nt][2 * h + 1];
-    *reinterpret_cast<uint32_t*>(dst + (long long)row * D + nt * 8 + 2 * t) =
-        Mma<T>::pack(lo * f, hi * f);
-  }
-}
-
-// The splash entry (contiguous [BH, S, D], scale 1, out = acc * (1 / l),
-// lse kept); kSeg as flash_fwd_kernel's. Only K1c (kSeg) instantiates it:
-// K1a's 16-bit forward is bshd::flash_fwd_bshd_wgmma_kernel.
-template <typename T, int D, bool kSeg>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, const int* __restrict__ seg,
-                     int S, int causal, Layout lay) {
-  constexpr int LDS = ld16<D>();
-  extern __shared__ float4 smem4[];
-  T* Qs = reinterpret_cast<T*>(smem4);
-  T* Ks = Qs + kTile * LDS;
-  T* Vs = Ks + kTile * LDS;
-  int* Segs = reinterpret_cast<int*>(Vs + kTile * LDS);  // the key tile's
-  const int ntiles = (S + kTile - 1) / kTile;
-  const int qt = ntiles - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int q0 = qt * kTile;
-  const long long off = (long long)blockIdx.x * S * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int* segb =
-      kSeg ? seg + (long long)(blockIdx.x / lay.H) * S : nullptr;
-
-  load_tile16<T, D>(Qs, q + off, q0, S);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[D / 8][4];
-  int qseg[2];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  if constexpr (kSeg) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int qi = q0 + warp * 16 + g + 8 * h;
-      qseg[h] = qi < S ? segb[qi] : 0;
-    }
-  }
-  const int nkt = causal ? qt + 1 : ntiles;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile16<T, D>(Ks, k + off, k0, S);
-    load_tile16<T, D>(Vs, v + off, k0, S);
-    if (kSeg && threadIdx.x < kTile)
-      Segs[threadIdx.x] = k0 + threadIdx.x < S ? segb[k0 + threadIdx.x] : 0;
-    __syncthreads();
-    float s[8][4];
-    mma_rows<T, D>(s, Qs, Ks, warp, lane);
-    if (kSeg || k0 + kTile > S || (causal && k0 + kTile - 1 > q0)) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * t + (e & 1);
-          const int key = k0 + col;
-          const int qi = q0 + warp * 16 + g + 8 * (e >> 1);
-          if (key >= S || (causal && key > qi) ||
-              (kSeg && Segs[col] != qseg[e >> 1]))
-            s[nt][e] = -INFINITY;
-        }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      // finite without segments (every visited tile holds a visible key
-      // for every row); with them -inf stands for no key yet, as in
-      // flash_fwd_kernel
-      const float m_new = fmaxf(m[h], mx);
-      const float m_ref = kSeg && m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[h] - m_ref);
-      float psum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        s[nt][2 * h] = expf(s[nt][2 * h] - m_ref);
-        s[nt][2 * h + 1] = expf(s[nt][2 * h + 1] - m_ref);
-        psum += s[nt][2 * h] + s[nt][2 * h + 1];
-      }
-      l[h] = l[h] * alpha + psum;  // this lane's columns only
-      m[h] = m_new;
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        acc[nt][2 * h] *= alpha;
-        acc[nt][2 * h + 1] *= alpha;
-      }
-    }
-    mma_pv<T, D>(acc, s, Vs, lane);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float lsum = l[h];
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-    const int qi = q0 + warp * 16 + g + 8 * h;
-    if (qi < S) {
-      store_row16<T, D>(out + off, qi, t, acc, h, 1.f / lsum);
-      if (t == 0) lse[(long long)blockIdx.x * S + qi] = m[h] + logf(lsum);
-    }
-  }
-}
 
 template <int D, bool kSeg>
 constexpr int fwd_smem() {
@@ -828,10 +600,6 @@ constexpr int dkdv_smem() {
 template <int D, bool kSeg>
 constexpr int dq_smem() {
   return (4 * kTile * (D + 4) + kTile * kLP + (kSeg ? kTile : 0)) * 4;
-}
-template <int D, bool kSeg>
-constexpr int fwd_smem16() {
-  return 3 * kTile * ld16<D>() * 2 + (kSeg ? kTile * 4 : 0);
 }
 
 // Raises the kernel's dynamic shared memory limit to SMEM and launches
@@ -846,6 +614,26 @@ constexpr int fwd_smem16() {
     e_ = cudaGetLastError();                                               \
     if (e_ != cudaSuccess) return e_;                                      \
   } while (0)
+
+// The least and greatest segment id of the 64-row tile t of seg [B, S]
+// (tile t: batch t / ceil(S / 64); rows at or past S left out), reduced
+// over the 32 lanes of a warp: the ranges K1c's 16-bit kernels skip by.
+__device__ __forceinline__ int2 tile_range(const int* __restrict__ seg, int S,
+                                           int t, int lane) {
+  const int nt = (S + 63) / 64, b = t / nt, r0 = (t % nt) * 64;
+  int lo = 0x7fffffff, hi = -0x7fffffff - 1;
+  for (int r = r0 + lane; r < min(r0 + 64, S); r += 32) {
+    const int v = seg[(long long)b * S + r];
+    lo = min(lo, v);
+    hi = max(hi, v);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  return make_int2(lo, hi);
+}
 
 // ------------------------------------------------------------------------
 // The paddle-layout forward for 16-bit operands (K1b), and K1a's: TMA +
@@ -904,6 +692,34 @@ constexpr int fwd_smem16() {
 // and consumer warpgroups are K1a's own (kBN64, kStages64, kWG64;
 // tools/torch_flash_ab.py --sweep times the others); at D = 128 K1a
 // takes K1b's, with one query buffer.
+//
+// K1c (the segmented forward, splash_mha(kv_keep=), bf16 and fp16) is
+// K1a's kernel with kSeg. A pre-pass (seg_ranges_kernel) writes each
+// (batch, 64-row tile)'s least and greatest segment id. The producer is
+// a warp: from those ranges (the next item's loaded while it issues this
+// one's) it decides, for each key tile and each consumer warpgroup,
+// whether the warpgroup needs the tile (the ranges of its 64 query rows
+// and of the tile overlap, and causality allows it) and whether it must
+// mask it (unless both ranges are one and the same id, and the tile
+// holds no key past S and none above a row). A key tile no warpgroup
+// needs is never loaded: its p would be exactly 0 for every row. A
+// loaded tile's kBN ids travel with its K tile, in the same ring slot on
+// the same full barrier (cp.async by the producer's lanes, zeros past
+// S), with a header word: both warpgroups' flags, the tile's index and
+// whether it is the item's last. The query tile's ids come the same way
+// with the query tile. A warpgroup walks the loaded tiles, releases
+// unread those it does not need (issuing first the P V it holds, so it
+// never keeps a value slot across a tile it skips), and masks a score
+// whose key lies at or past S, above the row (causal) or in another
+// segment. Masking breaks K1a's invariant (every visited tile holds a
+// visible key for every row): a row can meet a visited tile with no key
+// of its segment before any that has one, and its running max is then
+// -inf; 0 is then the reference, so the tile adds p = 0 and alpha = 0
+// and no NaN. Every row sees its own key, so l > 0 at the end and the
+// logsumexp of every row, padded ones too, is finite (K1c's backward
+// reads it). The ids past S arrive as 0, a padding id: they never
+// count, since a tile that holds keys past S takes the mask, whose test
+// keeps key < S.
 
 namespace bshd {
 
@@ -918,67 +734,105 @@ constexpr long long kL2Budget = 16LL << 20;
 constexpr bool kLsePersist = true;
 // K1a at D = 64: keys a tile, slots of each ring, consumer warpgroups
 constexpr int kBN64 = 128, kStages64 = 4, kWG64 = 2;
+// K1c's forward: keys a tile, and its blocks (persistent, or a block an
+// item: the hardware balances items that skipping made unequal)
+constexpr int kBNSeg = 128;
+constexpr bool kSegPersist = true;
+// K1c's producer warp's registers (setmaxnreg)
+constexpr int kProdRegsSeg = 56;
 
-template <int D>
+template <int D, bool kSeg = false>
 struct Cfg {
+  static constexpr int kD = D;
   // consumer warpgroups, 64 query rows each, and a producer warpgroup
-  static constexpr int kWG = D == 64 ? kWG64 : 2;
+  // (K1c: two, the flags its producer writes)
+  static constexpr int kWG = kSeg ? 2 : D == 64 ? kWG64 : 2;
   static constexpr int kBM = 64 * kWG;  // query rows a block
   static constexpr int kConsumers = 128 * kWG;
   static constexpr int kThreads = kConsumers + 128;
   // registers a producer thread keeps (setmaxnreg), and a consumer
-  // thread's: the rest of the SM's (232, or 160 with three consumer
-  // warpgroups)
-  static constexpr int kProdRegs = kWG == 3 ? 32 : 40;
+  // thread's: the rest of what the block holds (a thread's share of the
+  // SM's 65536, in 8s, times kThreads), as setmaxnreg.inc waits until the
+  // block has the registers it asks for: 232, or 160 with three consumer
+  // warpgroups; K1c's producer warp, which decides which tiles to load,
+  // keeps 56 and its consumers get 224
+  static constexpr int kProdRegs = kSeg ? kProdRegsSeg : kWG == 3 ? 32 : 40;
   static constexpr int kRegs =
-      (65536 - kProdRegs * 128) / kConsumers / 8 * 8;
+      (65536 / kThreads / 8 * 8 * kThreads - kProdRegs * 128) / kConsumers /
+      8 * 8;
+  static_assert(kProdRegs * 128 + kRegs * kConsumers <=
+                    65536 / kThreads / 8 * 8 * kThreads,
+                "setmaxnreg: the block's registers");
   // keys a tile
-  static constexpr int kBN = D == 64 ? kBN64 : D == 128 ? 128 : 64;
-  // slots of each ring
-  static constexpr int kStages = D == 64 ? kStages64 : D == 128 ? 3 : 2;
+  static constexpr int kBN =
+      kSeg ? kBNSeg : D == 64 ? kBN64 : D == 128 ? 128 : 64;
+  // slots of each ring (K1c: four, and two at D = 128 beside its ids)
+  static constexpr int kStages =
+      kSeg ? (D == 128 ? 2 : 4) : D == 64 ? kStages64 : D == 128 ? 3 : 2;
   static constexpr int kChunks = D / 64;           // 128-byte column boxes
   static constexpr int kQChunk = kBM * 128;
   static constexpr int kKVChunk = kBN * 128;
   static constexpr int kTileBytes = kChunks * kKVChunk;  // K or V
   static constexpr int kQBytes = kChunks * kQChunk;
-  static constexpr int kSmem =
-      1024 + kQBytes + 2 * kStages * kTileBytes + (4 * kStages + 1) * 8;
+  // K1c: a key slot's ids and header word (padded to 16 bytes), and a
+  // query buffer's ids
+  static constexpr int kIdStride = kBN + 4;
+  static constexpr int kKIdBytes = kSeg ? kStages * kIdStride * 4 : 0;
+  static constexpr int kQIdBytes = kSeg ? kBM * 4 : 0;
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes +
+                               (4 * kStages + 1) * 8 + kKIdBytes;
   static_assert(kSmem <= 232448, "shared memory of one block");
   // K1a's query tile buffers (two where they fit, so that a persistent
-  // block loads its next item's queries while it finishes this one's),
+  // block loads its next item's queries while it finishes this one),
   // each with a full and an empty barrier, and its shared memory
-  static constexpr int kLseQBufs = kSmem + kQBytes + 24 <= 232448 ? 2 : 1;
-  static constexpr int kLseSmem =
-      kSmem + (kLseQBufs - 1) * kQBytes + (2 * kLseQBufs - 1) * 8;
+  static constexpr int kLseQBufs =
+      kSmem + kQBytes + 24 + 2 * kQIdBytes <= 232448 ? 2 : 1;
+  static constexpr int kLseSmem = kSmem + (kLseQBufs - 1) * kQBytes +
+                                  (2 * kLseQBufs - 1) * 8 +
+                                  kLseQBufs * kQIdBytes;
 };
 
 // The softmax step of one key tile over this thread's scores s (rows
 // r + 8 hh, r = the thread's first row): with kMask, keys at or past
 // lim[hh] (S, or the row + 1 when causal; relative to the thread's first
-// column) get -inf; the running max m moves to cover the tile, s becomes
-// p = exp(s - m), and l = l alpha + sum p. Returns alpha = exp(m_old -
-// m_new) per row, the factor the output still has to take.
-template <int N, bool kMask>
+// column) get -inf, and with kSeg also keys whose id (kid, the tile's
+// ids from the thread's first column) is not the row's (qseg); the
+// running max m moves to cover the tile, s becomes p = exp(s - m), and
+// l = l alpha + sum p. Returns alpha = exp(m_old - m_new) per row, the
+// factor the output still has to take.
+template <int N, bool kMask, bool kSeg = false>
 __device__ __forceinline__ void softmax_tile(float (&s)[N / 2], float (&m)[2],
                                              float (&l)[2],
                                              const int (&lim)[2],
-                                             float (&alpha)[2]) {
+                                             float (&alpha)[2],
+                                             const int* __restrict__ kid =
+                                                 nullptr,
+                                             int2 qseg = int2{}) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j)
+    for (int j = 0; j < N / 8; ++j) {
+      int2 ids{};
+      if (kSeg && kMask) ids = *reinterpret_cast<const int2*>(kid + 8 * j);
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         float& x = s[4 * j + 2 * hh + u];
-        if (kMask) x = 8 * j + u < lim[hh] ? x : -INFINITY;
+        if (kMask) {
+          bool vis = 8 * j + u < lim[hh];
+          if (kSeg) vis = vis && (u ? ids.y : ids.x) == (hh ? qseg.y : qseg.x);
+          x = vis ? x : -INFINITY;
+        }
         mx = fmaxf(mx, x);
       }
+    }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    // finite: key 0, in the first tile, is visible to every row
+    // finite without segments: key 0, in the first tile, is visible to
+    // every row; with them -inf stands for no key of the row's segment
+    // yet, and 0 is the reference
     const float m_new = fmaxf(m[hh], mx);
-    const float ml = m_new * kLog2e;
+    const float ml = (kSeg && m_new == -INFINITY ? 0.f : m_new) * kLog2e;
     alpha[hh] = exp2_approx(fmaf(m[hh], kLog2e, -ml));
     float psum = 0.f;
 #pragma unroll
@@ -1008,38 +862,57 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 16][4],
 
 // s = Q K^T over the warpgroup's query rows (at qs) and the key tile at
 // ks.
-template <typename T, int D>
-__device__ __forceinline__ void s_gemm(float (&s)[Cfg<D>::kBN / 2],
-                                       uint32_t qs, uint32_t ks) {
+template <typename T, typename C>
+__device__ __forceinline__ void s_gemm(float (&s)[C::kBN / 2], uint32_t qs,
+                                       uint32_t ks) {
 #pragma unroll
-  for (int st = 0; st < D / 16; ++st)
-    wgmma_ss<T, Cfg<D>::kBN, 0>(
-        s, desc_k(qs + (st >> 2) * Cfg<D>::kQChunk + (st & 3) * 32),
-        desc_k(ks + (st >> 2) * Cfg<D>::kKVChunk + (st & 3) * 32), st > 0);
+  for (int st = 0; st < C::kD / 16; ++st)
+    wgmma_ss<T, C::kBN, 0>(
+        s, desc_k(qs + (st >> 2) * C::kQChunk + (st & 3) * 32),
+        desc_k(ks + (st >> 2) * C::kKVChunk + (st & 3) * 32), st > 0);
 }
 
 // o += p V over the value tile at vs.
-template <typename T, int D>
-__device__ __forceinline__ void pv_gemm(float (&o)[D / 2],
-                                        const uint32_t (&pa)[Cfg<D>::kBN / 16]
-                                                            [4],
+template <typename T, typename C>
+__device__ __forceinline__ void pv_gemm(float (&o)[C::kD / 2],
+                                        const uint32_t (&pa)[C::kBN / 16][4],
                                         uint32_t vs) {
 #pragma unroll
-  for (int kk = 0; kk < Cfg<D>::kBN / 16; ++kk)
-    wgmma_rs<T, D, 1>(o, pa[kk], desc_mn(vs + kk * 2048, Cfg<D>::kKVChunk),
-                      1);
+  for (int kk = 0; kk < C::kBN / 16; ++kk)
+    wgmma_rs<T, C::kD, 1>(o, pa[kk], desc_mn(vs + kk * 2048, C::kKVChunk),
+                          1);
 }
 
-// kLse: K1a (see above); lse is then its [BH, S] logsumexp, else unused.
-template <typename T, int D, bool kLse>
-__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+// K1c's walk decision for warpgroup `wg` (first query row q0 + 64 wg,
+// ids in [a.x, a.y]) and the key tile from key k0 (ids in [c.x, c.y]):
+// 1 it needs the tile, 3 it needs it masked, 0 it does not.
+template <int kBN>
+__device__ __forceinline__ int seg_flags(int wg, int q0, int k0, int S,
+                                         int causal, int2 a, int2 c) {
+  const int r0 = q0 + 64 * wg;
+  if (r0 >= S) return 0;
+  const bool visit = (!causal || k0 <= min(r0 + 63, S - 1)) &&
+                     a.x <= c.y && c.x <= a.y;
+  const bool mask = k0 + kBN > S || (causal && k0 + kBN - 1 > r0) ||
+                    !(a.x == a.y && c.x == c.y && a.x == c.x);
+  return visit ? (mask ? 3 : 1) : 0;
+}
+
+// kLse: K1a (see above), lse its [BH, S] logsumexp, else unused. kSeg
+// (with kLse): K1c, seg its [BH / nh, S] ids and ranges their
+// [BH / nh, ceil(S / 64)] (least, greatest) ids a 64-row tile.
+template <typename T, int D, bool kLse, bool kSeg>
+__global__ void __launch_bounds__(Cfg<D, kSeg>::kThreads, 1)
 flash_fwd_bshd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
                             T* __restrict__ out, float* __restrict__ lse,
-                            int S, int H, int BH, int group, int causal,
+                            const int* __restrict__ seg,
+                            const int2* __restrict__ ranges, int nh, int S,
+                            int H, int BH, int group, int causal,
                             float scale) {
-  using C = Cfg<D>;
+  static_assert(kLse || !kSeg, "K1c keeps the logsumexp");
+  using C = Cfg<D, kSeg>;
   constexpr int kBN = C::kBN, kStages = C::kStages, kBM = C::kBM;
   constexpr int kWG = C::kWG, kConsumers = C::kConsumers;
   constexpr int kQBufs = kLse ? C::kLseQBufs : 1;
@@ -1054,6 +927,9 @@ flash_fwd_bshd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* vempty = vfull + kStages;
   uint64_t* qfull = vempty + kStages;
   uint64_t* qempty = qfull + kQBufs;  // K1a's only
+  // K1c: each key slot's ids and header, each query buffer's ids
+  int* Kid = reinterpret_cast<int*>(qempty + (kLse ? kQBufs : 0));
+  int* Qid = Kid + kStages * C::kIdStride;
   // Item -> (head, query tile): heads in groups of `group` whose keys
   // and values fit L2 together, each group's query tiles heaviest first.
   // Block b takes items b, b + gridDim.x, ... below BH * nq: K1b's grid
@@ -1074,13 +950,14 @@ flash_fwd_bshd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
-      mbar_init(&kfull[i], 1);
+      // K1c: the producer lanes' id copies, and lane 0
+      mbar_init(&kfull[i], kSeg ? 33 : 1);
       mbar_init(&kempty[i], kConsumers);
       mbar_init(&vfull[i], 1);
       mbar_init(&vempty[i], kConsumers);
     }
     for (int i = 0; i < kQBufs; ++i) {
-      mbar_init(&qfull[i], 1);
+      mbar_init(&qfull[i], kSeg ? 33 : 1);
       if (kLse) mbar_init(&qempty[i], kConsumers);
     }
     mbar_init_fence();
@@ -1090,6 +967,109 @@ flash_fwd_bshd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (threadIdx.x >= kConsumers) {
     // ------------------------------------------- producer warpgroup
     setmaxnreg_dec<C::kProdRegs>();
+    if constexpr (kSeg) {
+      // a warp: lane l decides for the key tile of the 64-row tile
+      // base + l (kBN / 64 lanes a key tile), and the warp issues the
+      // needed ones in order, each once the next is known (the last is
+      // marked so)
+      if (threadIdx.x >= kConsumers + 32) return;
+      const int lane = threadIdx.x & 31;
+      constexpr int R = kBN / 64;  // 64-row tiles a key tile
+      const int nt = (S + 63) / 64;
+      struct Rg {
+        int2 a0, a1, c;  // the warpgroups' ranges, the lane's tile's
+      };
+      const auto ranges_of = [&](const Item& it, int t) {
+        const int2* rb = ranges + (long long)(it.bh / nh) * nt;
+        Rg r;
+        r.a0 = rb[it.q0 / 64];
+        r.a1 = rb[min(it.q0 / 64 + 1, nt - 1)];
+        r.c = rb[min(t, nt - 1)];
+        return r;
+      };
+      Rg next{};
+      if ((int)blockIdx.x < items) next = ranges_of(item_of(blockIdx.x), lane);
+      int i = 0;  // key and value tiles loaded so far
+      for (int item = blockIdx.x, n = 0; item < items;
+           item += gridDim.x, ++n) {
+        const Item it = item_of(item);
+        const int* segb = seg + (long long)(it.bh / nh) * S;
+        const Rg first = next;
+        if (item + (int)gridDim.x < items)
+          next = ranges_of(item_of(item + gridDim.x), lane);
+        const int qb = n % kQBufs;
+        mbar_wait(&qempty[qb], ((n / kQBufs) & 1) ^ 1);
+        for (int r = lane; r < kBM; r += 32) {
+          const int row = it.q0 + r;
+          cp_async_4(Qid + qb * kBM + r, segb + (row < S ? row : 0),
+                     row < S);
+        }
+        mbar_arrive_cp_async(&qfull[qb]);
+        if (lane == 0) {
+          mbar_arrive_tx(&qfull[qb], C::kQBytes);
+#pragma unroll
+          for (int c = 0; c < C::kChunks; ++c)
+            tma_load_4d(Qs + qb * C::kQBytes + c * C::kQChunk, &qmap, 64 * c,
+                        0, it.q0, it.bh, &qfull[qb]);
+        }
+        // key tile kt with flags fl (and, for the item's last, 16)
+        const auto issue = [&](int kt, int fl) {
+          const int slot = i % kStages, parity = ((i / kStages) & 1) ^ 1;
+          const int k0 = kt * kBN;
+          int* kid = Kid + slot * C::kIdStride;
+          mbar_wait(&kempty[slot], parity);
+          for (int r = lane; r < kBN; r += 32)
+            cp_async_4(kid + r, segb + (k0 + r < S ? k0 + r : 0),
+                       k0 + r < S);
+          mbar_arrive_cp_async(&kfull[slot]);
+          if (lane == 0) {
+            kid[kBN] = fl | kt << 5;
+            mbar_arrive_tx(&kfull[slot], C::kTileBytes);
+#pragma unroll
+            for (int c = 0; c < C::kChunks; ++c)
+              tma_load_4d(Kr + slot * C::kTileBytes + c * C::kKVChunk, &kmap,
+                          64 * c, 0, k0, it.bh, &kfull[slot]);
+            mbar_wait(&vempty[slot], parity);
+            mbar_arrive_tx(&vfull[slot], C::kTileBytes);
+#pragma unroll
+            for (int c = 0; c < C::kChunks; ++c)
+              tma_load_4d(Vr + slot * C::kTileBytes + c * C::kKVChunk, &vmap,
+                          64 * c, 0, k0, it.bh, &vfull[slot]);
+          }
+          ++i;
+        };
+        int pend = -1, pfl = 0;  // the needed tile not yet issued
+        for (int base = 0; base < R * it.nkt; base += 32) {
+          const Rg rg = base == 0 ? first : ranges_of(it, base + lane);
+          // the key tile's range: its R 64-row tiles'
+          int2 c = rg.c;
+          if (R == 2) {
+            c.x = min(c.x, __shfl_xor_sync(0xffffffffu, c.x, 1));
+            c.y = max(c.y, __shfl_xor_sync(0xffffffffu, c.y, 1));
+          }
+          const int kt = (base + lane) / R;
+          const int fl =
+              lane % R == 0 && kt < it.nkt
+                  ? seg_flags<kBN>(0, it.q0, kt * kBN, S, causal, rg.a0, c) |
+                        seg_flags<kBN>(1, it.q0, kt * kBN, S, causal, rg.a1,
+                                       c) << 2
+                  : 0;
+          for (unsigned need = __ballot_sync(0xffffffffu, fl != 0); need;
+               need &= need - 1) {
+            const int k = __ffs(need) - 1;
+            const int flk = __shfl_sync(0xffffffffu, fl, k);
+            if (pend >= 0) issue(pend, pfl);
+            pend = (base + k) / R;
+            pfl = flk;
+          }
+        }
+        // every row sees its own key, so an item needs a tile; were it
+        // otherwise, tile 0 unread keeps the consumers' walk whole
+        if (pend < 0) pend = 0;
+        issue(pend, pfl | 16);
+      }
+      return;
+    }
     if (threadIdx.x != kConsumers) return;
     int i = 0;  // key and value tiles loaded so far
     for (int item = blockIdx.x, n = 0; item < items;
@@ -1164,96 +1144,182 @@ flash_fwd_bshd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       named_sync(1 + wg, 128);
     }
 
-    const int nkw = causal ? (min(w0 + 64, S) + kBN - 1) / kBN : nkt;
     const uint32_t qs = smem_u32(Qw);
     // Keys visible to the thread's rows: below lim_row, counted from
     // column 2 qd of each tile.
     const int row = w0 + 16 * warp + g;
     const int lim_row[2] = {causal ? min(row + 1, S) : S,
                             causal ? min(row + 9, S) : S};
-    // Only a tile that holds keys past S, or above the warpgroup's first
-    // row when causal, takes the mask.
-    const auto masked = [&](int kt) {
-      return (kt + 1) * kBN > S || (causal && (kt + 1) * kBN - 1 > w0);
-    };
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
     float o[D / 2], s[kBN / 2];
     uint32_t pa[kBN / 16][4];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 
-    // The first tile: its scores, softmax and p.
-    {
-      const int slot = i0 % kStages;
-      mbar_wait(&kfull[slot], (i0 / kStages) & 1);
-      if (kTurns) named_sync(turn, 256);
-      wgmma_fence();
-      s_gemm<T, D>(s, qs, ks + slot * C::kTileBytes);
-      wgmma_commit();
-      if (kTurns) named_arrive(next, 256);
-      wgmma_wait<0>();
-      mbar_arrive(&kempty[slot]);
-      const int lim[2] = {lim_row[0] - 2 * qd, lim_row[1] - 2 * qd};
-      if (masked(0))
-        softmax_tile<kBN, true>(s, m, l, lim, alpha);
-      else
-        softmax_tile<kBN, false>(s, m, l, lim, alpha);
-    }
-    pack_p<T, kBN>(pa, s);
-    // Tile kt's scores beside tile kt - 1's P V.
-    for (int kt = 1; kt < nkw; ++kt) {
-      const int slot = (i0 + kt) % kStages, prev = (i0 + kt - 1) % kStages;
-      const int lim[2] = {lim_row[0] - kt * kBN - 2 * qd,
-                          lim_row[1] - kt * kBN - 2 * qd};
-      mbar_wait(&kfull[slot], ((i0 + kt) / kStages) & 1);
-      mbar_wait(&vfull[prev], ((i0 + kt - 1) / kStages) & 1);
-      if (kTurns) named_sync(turn, 256);
-      wgmma_fence();
-      s_gemm<T, D>(s, qs, ks + slot * C::kTileBytes);
-      wgmma_commit();
-      pv_gemm<T, D>(o, pa, vs + prev * C::kTileBytes);
-      wgmma_commit();
-      if (kTurns) named_arrive(next, 256);
-      wgmma_wait<1>();  // the scores are in: the key tile is free
-      mbar_arrive(&kempty[slot]);
-      if (masked(kt))
-        softmax_tile<kBN, true>(s, m, l, lim, alpha);
-      else
-        softmax_tile<kBN, false>(s, m, l, lim, alpha);
-      wgmma_wait<0>();  // P V is done: its value tile and p are free
-      mbar_arrive(&vempty[prev]);
+    if constexpr (kSeg) {
+      // the loaded tiles, to the one marked last: p of the tile at ring
+      // index ip waits (pend) for its P V, issued beside the next needed
+      // tile's scores or, before a tile this warpgroup skips, alone
+      const int2 qseg = make_int2(Qid[qb * kBM + 64 * wg + 16 * warp + g],
+                                  Qid[qb * kBM + 64 * wg + 16 * warp + g + 8]);
+      int ik = i0, ip = 0;
+      bool pend = false;
+      for (;;) {
+        const int slot = ik % kStages, parity = (ik / kStages) & 1;
+        const int prev = ip % kStages, pparity = (ip / kStages) & 1;
+        mbar_wait(&kfull[slot], parity);
+        const int* kid = Kid + slot * C::kIdStride;
+        const int hdr = kid[kBN];
+        const int fl = (hdr >> (2 * wg)) & 3;
+        if (fl == 0) {
+          if (pend) {
+            mbar_wait(&vfull[prev], pparity);
+            wgmma_fence();
+            pv_gemm<T, C>(o, pa, vs + prev * C::kTileBytes);
+            wgmma_commit();
+            wgmma_wait<0>();
+            mbar_arrive(&vempty[prev]);
+            pend = false;
+          }
+          mbar_arrive(&kempty[slot]);
+          mbar_wait(&vfull[slot], parity);
+          mbar_arrive(&vempty[slot]);
+        } else {
+          const int k0 = (hdr >> 5) * kBN;
+          const int lim[2] = {lim_row[0] - k0 - 2 * qd,
+                              lim_row[1] - k0 - 2 * qd};
+          if (pend) {
+            mbar_wait(&vfull[prev], pparity);
+            wgmma_fence();
+            s_gemm<T, C>(s, qs, ks + slot * C::kTileBytes);
+            wgmma_commit();
+            pv_gemm<T, C>(o, pa, vs + prev * C::kTileBytes);
+            wgmma_commit();
+            wgmma_wait<1>();  // the scores are in
+            if (fl & 2)
+              softmax_tile<kBN, true, true>(s, m, l, lim, alpha, kid + 2 * qd,
+                                            qseg);
+            else
+              softmax_tile<kBN, false, true>(s, m, l, lim, alpha);
+            mbar_arrive(&kempty[slot]);  // its ids are read
+            wgmma_wait<0>();  // P V is done: its value tile and p are free
+            mbar_arrive(&vempty[prev]);
+          } else {
+            wgmma_fence();
+            s_gemm<T, C>(s, qs, ks + slot * C::kTileBytes);
+            wgmma_commit();
+            wgmma_wait<0>();
+            if (fl & 2)
+              softmax_tile<kBN, true, true>(s, m, l, lim, alpha, kid + 2 * qd,
+                                            qseg);
+            else
+              softmax_tile<kBN, false, true>(s, m, l, lim, alpha);
+            mbar_arrive(&kempty[slot]);
+          }
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+          for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          o[4 * j + 2 * hh] *= alpha[hh];
-          o[4 * j + 2 * hh + 1] *= alpha[hh];
+            for (int hh = 0; hh < 2; ++hh) {
+              o[4 * j + 2 * hh] *= alpha[hh];
+              o[4 * j + 2 * hh + 1] *= alpha[hh];
+            }
+          pack_p<T, kBN>(pa, s);
+          ip = ik;
+          pend = true;
         }
+        ++ik;
+        if (hdr & 16) break;
+      }
+      if (pend) {
+        const int prev = ip % kStages;
+        mbar_wait(&vfull[prev], (ip / kStages) & 1);
+        wgmma_fence();
+        pv_gemm<T, C>(o, pa, vs + prev * C::kTileBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        mbar_arrive(&vempty[prev]);
+      }
+      i0 = ik;
+    } else {
+      // the tiles the warpgroup reads; only a tile that holds keys past
+      // S, or above the warpgroup's first row when causal, takes the mask
+      const int nkw = causal ? (min(w0 + 64, S) + kBN - 1) / kBN : nkt;
+      const auto masked = [&](int kt) {
+        return (kt + 1) * kBN > S || (causal && (kt + 1) * kBN - 1 > w0);
+      };
+      // The first tile: its scores, softmax and p.
+      {
+        const int slot = i0 % kStages;
+        mbar_wait(&kfull[slot], (i0 / kStages) & 1);
+        if (kTurns) named_sync(turn, 256);
+        wgmma_fence();
+        s_gemm<T, C>(s, qs, ks + slot * C::kTileBytes);
+        wgmma_commit();
+        if (kTurns) named_arrive(next, 256);
+        wgmma_wait<0>();
+        mbar_arrive(&kempty[slot]);
+        const int lim[2] = {lim_row[0] - 2 * qd, lim_row[1] - 2 * qd};
+        if (masked(0))
+          softmax_tile<kBN, true>(s, m, l, lim, alpha);
+        else
+          softmax_tile<kBN, false>(s, m, l, lim, alpha);
+      }
       pack_p<T, kBN>(pa, s);
+      // Tile kt's scores beside tile kt - 1's P V.
+      for (int kt = 1; kt < nkw; ++kt) {
+        const int slot = (i0 + kt) % kStages, prev = (i0 + kt - 1) % kStages;
+        const int lim[2] = {lim_row[0] - kt * kBN - 2 * qd,
+                            lim_row[1] - kt * kBN - 2 * qd};
+        mbar_wait(&kfull[slot], ((i0 + kt) / kStages) & 1);
+        mbar_wait(&vfull[prev], ((i0 + kt - 1) / kStages) & 1);
+        if (kTurns) named_sync(turn, 256);
+        wgmma_fence();
+        s_gemm<T, C>(s, qs, ks + slot * C::kTileBytes);
+        wgmma_commit();
+        pv_gemm<T, C>(o, pa, vs + prev * C::kTileBytes);
+        wgmma_commit();
+        if (kTurns) named_arrive(next, 256);
+        wgmma_wait<1>();  // the scores are in: the key tile is free
+        mbar_arrive(&kempty[slot]);
+        if (masked(kt))
+          softmax_tile<kBN, true>(s, m, l, lim, alpha);
+        else
+          softmax_tile<kBN, false>(s, m, l, lim, alpha);
+        wgmma_wait<0>();  // P V is done: its value tile and p are free
+        mbar_arrive(&vempty[prev]);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            o[4 * j + 2 * hh] *= alpha[hh];
+            o[4 * j + 2 * hh + 1] *= alpha[hh];
+          }
+        pack_p<T, kBN>(pa, s);
+      }
+      {
+        const int last = (i0 + nkw - 1) % kStages;
+        mbar_wait(&vfull[last], ((i0 + nkw - 1) / kStages) & 1);
+        if (kTurns) named_sync(turn, 256);
+        wgmma_fence();
+        pv_gemm<T, C>(o, pa, vs + last * C::kTileBytes);
+        wgmma_commit();
+        if (kTurns) named_arrive(next, 256);
+        wgmma_wait<0>();
+        mbar_arrive(&vempty[last]);
+      }
+      // Tiles wholly above the warpgroup's rows (causal): released unread.
+      for (int kt = nkw; kt < nkt; ++kt) {
+        const int slot = (i0 + kt) % kStages;
+        const int parity = ((i0 + kt) / kStages) & 1;
+        mbar_wait(&kfull[slot], parity);
+        mbar_arrive(&kempty[slot]);
+        mbar_wait(&vfull[slot], parity);
+        mbar_arrive(&vempty[slot]);
+        if (kTurns) named_sync(turn, 256);
+        if (kTurns) named_arrive(next, 256);
+      }
+      i0 += nkt;
     }
-    {
-      const int last = (i0 + nkw - 1) % kStages;
-      mbar_wait(&vfull[last], ((i0 + nkw - 1) / kStages) & 1);
-      if (kTurns) named_sync(turn, 256);
-      wgmma_fence();
-      pv_gemm<T, D>(o, pa, vs + last * C::kTileBytes);
-      wgmma_commit();
-      if (kTurns) named_arrive(next, 256);
-      wgmma_wait<0>();
-      mbar_arrive(&vempty[last]);
-    }
-    // Tiles wholly above the warpgroup's rows (causal): released unread.
-    for (int kt = nkw; kt < nkt; ++kt) {
-      const int slot = (i0 + kt) % kStages;
-      const int parity = ((i0 + kt) / kStages) & 1;
-      mbar_wait(&kfull[slot], parity);
-      mbar_arrive(&kempty[slot]);
-      mbar_wait(&vfull[slot], parity);
-      mbar_arrive(&vempty[slot]);
-      if (kTurns) named_sync(turn, 256);
-      if (kTurns) named_arrive(next, 256);
-    }
-    i0 += nkt;
 
     // Epilogue: acc / max(l, 1e-30) (kLse: acc * (1 / l), and the rows'
     // logsumexp) into the warpgroup's query rows of shared memory (the
@@ -1304,24 +1370,47 @@ flash_fwd_bshd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (kTurns && wg == 0) named_sync(turn, 256);  // the last one's last turn
 }
 
+// K1c's pre-pass: each (batch, 64-row tile)'s least and greatest
+// segment id of seg [tiles / ceil(S / 64), S] (rows at or past S left
+// out), a warp a tile.
+__global__ void __launch_bounds__(128)
+seg_ranges_kernel(const int* __restrict__ seg, int2* __restrict__ ranges,
+                  int S, int tiles) {
+  const int t = blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (t < tiles) {
+    const int2 r = tile_range(seg, S, t, threadIdx.x & 31);
+    if ((threadIdx.x & 31) == 0) ranges[t] = r;
+  }
+}
+
 // K1b over [B, S, H, D]; with kLse K1a over [BH, S, D] as B = BH, H = 1,
-// its logsumexp into lse.
-template <typename T, int D, bool kLse>
+// its logsumexp into lse; with kSeg K1c, K1a's operands with the ids seg
+// [B / nh, S] and the pre-pass's ranges scratch of B / nh * ceil(S / 64)
+// pairs.
+template <typename T, int D, bool kLse, bool kSeg = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int B, int S, int H, int causal, float scale,
+                   float* lse, const int* seg, int2* ranges, int nh, int B,
+                   int S, int H, int causal, float scale,
                    cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<D, kSeg>;
+  cudaError_t err;
+  if constexpr (kSeg) {
+    const int tiles = B / nh * ((S + 63) / 64);
+    seg_ranges_kernel<<<(tiles + 3) / 4, 128, 0, stream>>>(seg, ranges, S,
+                                                           tiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   const long long dims[4] = {D, H, S, B};
   const long long strides[3] = {D, (long long)H * D, (long long)S * H * D};
   CUtensorMap qmap, kmap, vmap;
-  cudaError_t err = make_map<T, 4>(&qmap, q, dims, strides,
-                                   {64, 1, C::kBM, 1});
+  err = make_map<T, 4>(&qmap, q, dims, strides, {64, 1, C::kBM, 1});
   if (err != cudaSuccess) return err;
   err = make_map<T, 4>(&kmap, k, dims, strides, {64, 1, C::kBN, 1});
   if (err != cudaSuccess) return err;
   err = make_map<T, 4>(&vmap, v, dims, strides, {64, 1, C::kBN, 1});
   if (err != cudaSuccess) return err;
-  auto kern = flash_fwd_bshd_wgmma_kernel<T, D, kLse>;
+  auto kern = flash_fwd_bshd_wgmma_kernel<T, D, kLse, kSeg>;
   constexpr int smem = kLse ? C::kLseSmem : C::kSmem;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
@@ -1332,7 +1421,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const long long items = (long long)B * H * ((S + C::kBM - 1) / C::kBM);
   if (items > 2147483647LL) return cudaErrorInvalidValue;
   long long blocks = items;
-  if (kLse && kLsePersist) {
+  if (kSeg ? kSegPersist : kLse && kLsePersist) {
     static int sms = 0;
     if (!sms) {
       int dev = 0;
@@ -1345,8 +1434,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     blocks = std::min(items, (long long)sms);
   }
   kern<<<(unsigned)blocks, C::kThreads, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<T*>(out), lse, S, H, B * H, group,
-      causal, scale);
+      qmap, kmap, vmap, static_cast<T*>(out), lse, seg, ranges, nh, S, H,
+      B * H, group, causal, scale);
   return cudaGetLastError();
 }
 
@@ -1428,19 +1517,8 @@ flash_delta_seg_kernel(const T* __restrict__ out,
     const int t = (int)(blockIdx.x - dblocks) * 4 + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (t >= tiles) return;
-    const int nt = (S + 63) / 64, b = t / nt, r0 = (t % nt) * 64;
-    int lo = 0x7fffffff, hi = -0x7fffffff - 1;
-    for (int r = r0 + lane; r < min(r0 + 64, S); r += 32) {
-      const int v = seg[(long long)b * S + r];
-      lo = min(lo, v);
-      hi = max(hi, v);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-    }
-    if (lane == 0) ranges[t] = make_int2(lo, hi);
+    const int2 r = tile_range(seg, S, t, lane);
+    if (lane == 0) ranges[t] = r;
     return;
   }
   constexpr int kLanes = D / 8;  // lanes a row
@@ -2028,29 +2106,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 template <typename T, int D, bool kPaddle, bool kSeg>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
-                float* lse, const int* seg, int BH, int S, int causal,
-                Layout lay, float scale, cudaStream_t stream) {
+                float* lse, const int* seg, int* ranges, int BH, int S,
+                int causal, Layout lay, float scale, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2 && kPaddle) {
-    return bshd::launch<T, D, false>(q, k, v, out, nullptr, BH / lay.H, S,
-                                     lay.H, causal, scale, stream);
-  } else if constexpr (sizeof(T) == 2 && !kSeg) {  // K1a
-    return bshd::launch<T, D, true>(q, k, v, out, lse, BH, S, 1, causal,
-                                    1.f, stream);
+    return bshd::launch<T, D, false>(q, k, v, out, nullptr, nullptr, nullptr,
+                                     1, BH / lay.H, S, lay.H, causal, scale,
+                                     stream);
+  } else if constexpr (sizeof(T) == 2) {  // K1a, or with kSeg K1c
+    return bshd::launch<T, D, true, kSeg>(
+        q, k, v, out, lse, seg, reinterpret_cast<int2*>(ranges),
+        kSeg ? lay.H : 1, BH, S, 1, causal, 1.f, stream);
   } else {
     const dim3 grid(BH, (S + kTile - 1) / kTile);
-    const T* qp = static_cast<const T*>(q);
-    const T* kp = static_cast<const T*>(k);
-    const T* vp = static_cast<const T*>(v);
-    T* op = static_cast<T*>(out);
-    if constexpr (sizeof(T) == 4) {
-      PADDLE_FLASH_LAUNCH((flash_fwd_kernel<T, D, kPaddle, kSeg>),
-                          (fwd_smem<D, kSeg>()), qp, kp, vp, op, lse, seg, S,
-                          causal, lay, scale);
-    } else {
-      PADDLE_FLASH_LAUNCH((flash_fwd_mma_kernel<T, D, kSeg>),
-                          (fwd_smem16<D, kSeg>()), qp, kp, vp, op, lse, seg,
-                          S, causal, lay);
-    }
+    PADDLE_FLASH_LAUNCH((flash_fwd_kernel<T, D, kPaddle, kSeg>),
+                        (fwd_smem<D, kSeg>()), static_cast<const T*>(q),
+                        static_cast<const T*>(k), static_cast<const T*>(v),
+                        static_cast<T*>(out), lse, seg, S, causal, lay,
+                        scale);
     return cudaSuccess;
   }
 }
@@ -2059,12 +2131,12 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
 // 128, with segment ids where `seg` is given, the paddle-layout entry
 // (`paddle`) at 128 or 256.
 cudaError_t fwd_any(const void* q, const void* k, const void* v, void* out,
-                    float* lse, const int* seg, int BH, int S, int D,
-                    int dtype, int causal, bool paddle, Layout lay,
+                    float* lse, const int* seg, int* ranges, int BH, int S,
+                    int D, int dtype, int causal, bool paddle, Layout lay,
                     float scale, cudaStream_t st) {
-#define PADDLE_FLASH_FWD(T, HD, P, SG)                                    \
-  return fwd<T, HD, P, SG>(q, k, v, out, lse, seg, BH, S, causal, lay,   \
-                           scale, st)
+#define PADDLE_FLASH_FWD(T, HD, P, SG)                                     \
+  return fwd<T, HD, P, SG>(q, k, v, out, lse, seg, ranges, BH, S, causal, \
+                           lay, scale, st)
 #define PADDLE_FLASH_FWD_DTYPES(HD, P, SG)                    \
   if (dtype == 0) PADDLE_FLASH_FWD(float, HD, P, SG);         \
   if (dtype == 1) PADDLE_FLASH_FWD(__nv_bfloat16, HD, P, SG); \
@@ -2141,27 +2213,32 @@ extern "C" int paddle_tpu_torch_flash_fwd(const void* q, const void* k,
                                           int causal, void* stream) {
   if (!valid(BH, S) || (head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
-  return (int)fwd_any(q, k, v, out, static_cast<float*>(lse), nullptr, BH,
-                      S, head_dim, dtype, causal, false, Layout{}, 1.f,
+  return (int)fwd_any(q, k, v, out, static_cast<float*>(lse), nullptr,
+                      nullptr, BH, S, head_dim, dtype, causal, false,
+                      Layout{}, 1.f,
                       static_cast<cudaStream_t>(stream));
 }
 
 // The segmented forward (splash_mha(kv_keep=)'s K1c): the splash entry's
 // operands and lse over B * H heads, with int32 segment ids [B, S] of
 // queries and keys alike; a query sees a key only of its own segment.
+// `ranges`: scratch of B * ceil(S / 64) int32 pairs (8-byte aligned),
+// each 64-row tile's least and greatest id, which bf16 and fp16 write
+// (seg_ranges_kernel) and read (flash_fwd_bshd_wgmma_kernel); fp32 runs
+// the CUDA-core flash_fwd_kernel and leaves it alone.
 extern "C" int paddle_tpu_torch_flash_fwd_seg(const void* q, const void* k,
                                               const void* v, const void* seg,
-                                              void* out, void* lse, int B,
-                                              int H, int S, int head_dim,
-                                              int dtype, int causal,
-                                              void* stream) {
+                                              void* ranges, void* out,
+                                              void* lse, int B, int H, int S,
+                                              int head_dim, int dtype,
+                                              int causal, void* stream) {
   if (B <= 0 || H <= 0 || !valid(B * H, S) || seg == nullptr ||
-      (head_dim != 64 && head_dim != 128))
+      ranges == nullptr || (head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
   const Layout lay{H, 0, 0, 0};
   return (int)fwd_any(q, k, v, out, static_cast<float*>(lse),
-                      static_cast<const int*>(seg), B * H, S, head_dim,
-                      dtype, causal, false, lay, 1.f,
+                      static_cast<const int*>(seg), static_cast<int*>(ranges),
+                      B * H, S, head_dim, dtype, causal, false, lay, 1.f,
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -2181,8 +2258,8 @@ extern "C" int paddle_tpu_torch_flash_fwd_bshd(const void* q, const void* k,
       (head_dim != 128 && head_dim != 256))
     return (int)cudaErrorInvalidValue;
   const Layout lay{H, (long long)S * H * head_dim, head_dim, H * head_dim};
-  return (int)fwd_any(q, k, v, out, nullptr, nullptr, B * H, S, head_dim,
-                      dtype, causal, true, lay, scale,
+  return (int)fwd_any(q, k, v, out, nullptr, nullptr, nullptr, B * H, S,
+                      head_dim, dtype, causal, true, lay, scale,
                       static_cast<cudaStream_t>(stream));
 }
 

@@ -19,12 +19,16 @@ forward is `paddle_tpu_torch::flash_fwd_seg` (K1c), JAX's segmented
 splash kernel: `kv_keep.to(torch.int32)` are the segment ids of queries
 and keys alike, and a query attends a key only of its own segment (and
 not above the diagonal when causal). So a real token sees only real
-tokens and a padded one only padding, as in the TPU kernel. Its
-backward is `paddle_tpu_torch::flash_bwd_seg`, the same backward with
-the same segment test; on the card in bf16 and fp16 one persistent
-TMA + wgmma launch that skips the 64-row tile pairs whose segment
-ranges cannot meet (`segment_tile_pairs` says which; their p is
-exactly 0).
+tokens and a padded one only padding, as in the TPU kernel. On the
+card in bf16 and fp16 it is K1a's TMA + wgmma forward after a pre-pass
+that writes each 64-row tile's segment range, and it never loads a key
+tile (128 rows) whose range cannot meet a warpgroup's 64 query rows'
+(`segment_tile_pairs(seg, causal, 64, 128)` says which pairs it
+computes; the others' p is exactly 0). Its backward is
+`paddle_tpu_torch::flash_bwd_seg`, the same backward with the same
+segment test; on the card in bf16 and fp16 one persistent TMA + wgmma
+launch that skips the 64-row tile pairs whose segment ranges cannot
+meet (`segment_tile_pairs`).
 
 Being a dispatched operator, the forward can be named by a selective
 checkpoint policy: `save_only_these_names(SPLASH_RESIDUAL_NAME)` keeps
@@ -39,9 +43,10 @@ forward and fused dq/dkv backward, unsegmented or segmented), or
 raises: head_dim 64 or 128,
 fp32/bf16/fp16, any S; there is no fallback. In bf16 and fp16 K1a's
 forward is the paddle-layout forward's TMA + wgmma kernel over
-[B * H, S, D] (storing the logsumexp) and its backward, like K1c's, one
-persistent TMA + wgmma launch after a delta pre-pass; K1c's forward is
-the mma.sync kernel; fp32 takes CUDA-core kernels. On a CPU tensor each runs
+[B * H, S, D] (storing the logsumexp), and K1c's the same kernel with
+its segment ids after a ranges pre-pass; their backwards are one
+persistent TMA + wgmma launch after a delta pre-pass; fp32 takes
+CUDA-core kernels. On a CPU tensor each runs
 its plain PyTorch version (`flash_fwd_reference`, `flash_bwd_reference`,
 given the segment ids for K1c), the same arithmetic over whole S x S
 score matrices (p and ds rounded to
@@ -101,7 +106,7 @@ _SIGNATURES = {
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "paddle_tpu_torch_flash_fwd_bshd": [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
-    "paddle_tpu_torch_flash_fwd_seg": [ctypes.c_void_p] * 6
+    "paddle_tpu_torch_flash_fwd_seg": [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "paddle_tpu_torch_flash_bwd_seg": [ctypes.c_void_p] * 12
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
@@ -221,40 +226,45 @@ def flash_bwd_reference(q, k, v, out, lse, dout, causal, seg=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-#: rows of the tiles whose segment ranges K1c's 16-bit backward compares
+#: rows of the tiles whose segment ranges K1c's 16-bit kernels compare
+#: (the backward's query and key tiles, the forward's warpgroup rows)
 SEG_TILE = 64
+#: keys a tile of K1c's 16-bit forward
+SEG_FWD_KEY_TILE = 128
 
 
-def segment_tile_ranges(seg):
-    """[B, ceil(S / 64), 2] int32: the least and greatest segment id of
-    each 64-row tile of `seg` [B, S] (rows past S left out) — the plain
-    version of the ranges K1c's 16-bit backward computes in its
-    pre-pass."""
+def segment_tile_ranges(seg, tile=SEG_TILE):
+    """[B, ceil(S / tile), 2] int32: the least and greatest segment id
+    of each `tile`-row tile of `seg` [B, S] (rows past S left out) — at
+    64 rows the plain version of the ranges K1c's 16-bit kernels compute
+    in their pre-passes."""
     B, S = seg.shape
-    nt = -(-S // SEG_TILE)
-    pad = nt * SEG_TILE - S
+    nt = -(-S // tile)
+    pad = nt * tile - S
     info = torch.iinfo(torch.int32)
     seg = seg.to(torch.int32)
     lo = torch.nn.functional.pad(seg, (0, pad), value=info.max)
     hi = torch.nn.functional.pad(seg, (0, pad), value=info.min)
-    return torch.stack([lo.view(B, nt, SEG_TILE).amin(-1),
-                        hi.view(B, nt, SEG_TILE).amax(-1)], -1)
+    return torch.stack([lo.view(B, nt, tile).amin(-1),
+                        hi.view(B, nt, tile).amax(-1)], -1)
 
 
-def segment_tile_pairs(seg, causal):
-    """[B, nt, nt] bool, query tile by key tile (64 rows each): the tile
-    pairs K1c's 16-bit backward computes — their ranges overlap, and the
-    key tile is not wholly after the query tile when causal. Every other
-    pair holds only pairs of two segments (or keys after their queries),
-    whose p is exactly 0."""
-    r = segment_tile_ranges(seg)
-    lo, hi = r[..., 0], r[..., 1]
-    pairs = (lo[:, :, None] <= hi[:, None, :]) & \
-        (lo[:, None, :] <= hi[:, :, None])
+def segment_tile_pairs(seg, causal, q_tile=SEG_TILE, k_tile=SEG_TILE):
+    """[B, ceil(S / q_tile), ceil(S / k_tile)] bool, query tile by key
+    tile: the tile pairs K1c's 16-bit kernels compute — their ranges
+    overlap, and the key tile does not start after the query tile's last
+    row when causal. Every other pair holds only pairs of two segments
+    (or keys after their queries), whose p is exactly 0. The backward's
+    tiles are 64 rows each; the forward's (64, SEG_FWD_KEY_TILE)."""
+    rq = segment_tile_ranges(seg, q_tile)
+    rk = segment_tile_ranges(seg, k_tile)
+    pairs = (rq[:, :, None, 0] <= rk[:, None, :, 1]) & \
+        (rk[:, None, :, 0] <= rq[:, :, None, 1])
     if causal:
-        nt = r.shape[1]
-        pairs &= torch.ones(nt, nt, dtype=torch.bool,
-                            device=seg.device).tril()
+        first_key = torch.arange(rk.shape[1], device=seg.device) * k_tile
+        last_query = torch.arange(rq.shape[1], device=seg.device) * q_tile \
+            + q_tile - 1
+        pairs &= first_key[None, :] <= last_query[:, None]
     return pairs
 
 
@@ -506,11 +516,14 @@ def _launch_fwd_seg(q, k, v, seg, causal):
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    ranges = torch.empty(B, -(-S // SEG_TILE), 2, dtype=torch.int32,
+                         device=q.device)
     lib = _build.load("flash_attention", _SIGNATURES)
     err = lib.paddle_tpu_torch_flash_fwd_seg(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), B, H, S, D, _DTYPE_CODES[q.dtype],
-        int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+        ranges.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, S, D,
+        _DTYPE_CODES[q.dtype], int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd_seg kernel launch failed: CUDA error "
                            f"{err}")

@@ -4,16 +4,19 @@ step's K2.
 `add_ln(x, r, w, b, eps)` is the port of
 `paddle_tpu/ops/pallas/layer_norm.py:add_ln`: it returns
 `(LN(x + r) * w + b, x + r)`, the second output being the new residual
-stream. It is a `torch.autograd.Function` whose forward and backward
-each run one kernel:
+stream. It is a `torch.autograd.Function` whose forward runs one kernel
+and whose backward runs one kernel and the sum of its partials:
 
 * forward: z = x + r summed in fp32 and stored in x's dtype; out is
   normalised from the fp32 sum (not from the rounded z), in x's dtype;
   the fp32 row mean and rstd are kept for the backward;
 * backward: dz = rstd * (g*w - mean(g*w) - zhat * mean(g*w*zhat)) + g_z,
   with zhat from the STORED z and the fp32 mean and rstd; x and r both
-  receive dz; dw and db are torch sums over rows, as the JAX package
-  leaves them to XLA.
+  receive dz; dw = sum over rows of g * zhat and db = sum of g, in
+  fp32: the JAX package leaves these two sums to XLA, which fuses them
+  into one pass; here the backward kernel sums them as it walks the
+  rows (each block's partials, then a second launch adding the blocks'
+  in a fixed order).
 
 w and b are taken in fp32 whatever their dtype (their gradients flow
 back through the cast). On a CUDA tensor each step launches
@@ -33,7 +36,8 @@ import torch
 
 from . import _build
 
-#: kernel launches so far (each wrapper adds one per launch, nowhere else)
+#: kernel launches so far (each wrapper adds one per launch, nowhere
+#: else; the backward's partial sum is part of its launch)
 fwd_launch_count = 0
 bwd_launch_count = 0
 
@@ -42,8 +46,10 @@ MAX_D = 4096
 _SIGNATURES = {
     "paddle_tpu_torch_add_ln_fwd": [ctypes.c_void_p] * 8
     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
-    "paddle_tpu_torch_add_ln_bwd": [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "paddle_tpu_torch_add_ln_bwd_blocks": [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 3,
+    "paddle_tpu_torch_add_ln_bwd": [ctypes.c_void_p] * 10
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 
 
@@ -79,13 +85,16 @@ def add_ln_fwd_reference(x2, r2, w, b, eps):
 
 
 def add_ln_bwd_reference(z2, w, mu, rs, g2, gz2):
-    """Plain version of the backward kernel over rows [N, d]: returns
-    dz (in g's dtype) with the residual cotangent g_z added."""
+    """Plain version of the backward kernels over rows [N, d]: returns
+    (dz in g's dtype with the residual cotangent g_z added, dw, db),
+    dw = sum over rows of g * zhat and db = sum of g, both fp32."""
     zhat = (z2.float() - mu[:, None]) * rs[:, None]
-    gw = g2.float() * w
+    gf = g2.float()
+    gw = gf * w
     m1 = gw.mean(-1, keepdim=True)
     m2 = (gw * zhat).mean(-1, keepdim=True)
-    return (rs[:, None] * (gw - m1 - zhat * m2) + gz2.float()).to(g2.dtype)
+    dz = (rs[:, None] * (gw - m1 - zhat * m2) + gz2.float()).to(g2.dtype)
+    return dz, (gf * zhat).sum(0), gf.sum(0)
 
 
 class _AddLN(torch.autograd.Function):
@@ -108,15 +117,10 @@ class _AddLN(torch.autograd.Function):
         g2 = g_out.reshape(z2.shape)
         gz2 = g_z.reshape(z2.shape)
         if z2.device.type == "cpu":
-            dz = add_ln_bwd_reference(z2, w, mu, rs, g2, gz2)
+            dz, dw, db = add_ln_bwd_reference(z2, w, mu, rs, g2, gz2)
         else:
-            dz = _launch_bwd(z2, w, mu, rs, g2.contiguous(),
-                             gz2.contiguous())
-        # the per-feature reductions, as the JAX package's XLA sums
-        zhat = (z2.float() - mu[:, None]) * rs[:, None]
-        gf = g2.float()
-        dw = (gf * zhat).sum(0)
-        db = gf.sum(0)
+            dz, dw, db = _launch_bwd(z2, w, mu, rs, g2.contiguous(),
+                                     gz2.contiguous())
         dz = dz.view(shape)
         return dz, dz, dw, db, None
 
@@ -181,20 +185,33 @@ def _launch_fwd(x2, r2, w, b, eps):
 
 
 def _launch_bwd(z2, w, mu, rs, g2, gz2):
+    """(dz, dw, db): the backward kernel, then the fixed-order sum of its
+    blocks' dw and db partials (one launch counted)."""
     global bwd_launch_count
     rows, d = z2.shape
     _check("add_ln_bwd", d, (z2, g2, gz2), (w, mu, rs))
     dz = torch.empty_like(z2)
     if rows == 0:
-        return dz
+        dw = torch.zeros(d, dtype=torch.float32, device=z2.device)
+        return dz, dw, torch.zeros_like(dw)
+    dw = torch.empty(d, dtype=torch.float32, device=z2.device)
+    db = torch.empty_like(dw)
     lib = _build.load("layer_norm", _SIGNATURES)
+    code = _DTYPE_CODES[z2.dtype]
+    blocks = lib.paddle_tpu_torch_add_ln_bwd_blocks(
+        z2.data_ptr(), g2.data_ptr(), gz2.data_ptr(), dz.data_ptr(), rows, d,
+        code)
+    if blocks <= 0:
+        raise RuntimeError(f"add_ln_bwd kernel: no grid for [{rows}, {d}]: "
+                           f"CUDA error {-blocks}")
+    part = torch.empty(blocks, 2, d, dtype=torch.float32, device=z2.device)
     err = lib.paddle_tpu_torch_add_ln_bwd(
         z2.data_ptr(), w.data_ptr(), mu.data_ptr(), rs.data_ptr(),
-        g2.data_ptr(), gz2.data_ptr(), dz.data_ptr(), rows, d,
-        _DTYPE_CODES[z2.dtype],
+        g2.data_ptr(), gz2.data_ptr(), dz.data_ptr(), part.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), blocks, rows, d, code,
         torch.cuda.current_stream(z2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"add_ln_bwd kernel launch failed: CUDA error "
                            f"{err}")
     bwd_launch_count += 1
-    return dz
+    return dz, dw, db

@@ -343,12 +343,92 @@ def test_add_ln_kernels_match_plain(shape, dtype, tol, cuda_device):
     z, mu, rs = want[1], want[2], want[3]
     g2, gz2 = gout.reshape(-1, d), gz.reshape(-1, d)
     before = tln.bwd_launch_count
-    dz = tln._launch_bwd(z, w, mu, rs, g2, gz2)
+    dz = tln._launch_bwd(z, w, mu, rs, g2, gz2)[0]
     torch.cuda.synchronize()
     assert tln.bwd_launch_count == before + 1
     torch.testing.assert_close(
-        dz.float(), tln.add_ln_bwd_reference(z, w, mu, rs, g2, gz2).float(),
+        dz.float(),
+        tln.add_ln_bwd_reference(z, w, mu, rs, g2, gz2)[0].float(),
         rtol=tol, atol=tol)
+
+
+# The persistent kernels where their cuts fall: row groups of one warp
+# (d <= 1024), two and four (1 x 4096), rows that leave some groups idle
+# (7, 15) or end off a wave (4097), the train step's 8192 x 1024, d off
+# the 16-byte vector (33, 100 in bf16/fp16: V = 1) and views offset by one
+# element (V = 1 at every d). out, z, mu, rstd and dz at the tolerances
+# of test_add_ln_kernels_match_plain (fp16: one spacing, 2^-10
+# relative); dw and db, fp32 sums over rows in another order, within
+# 1e-6 of each column's sum of |terms| (chip_smoke.py's bound).
+_LN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+
+
+def _ln_offset(t, offset):
+    """t's values in a contiguous view `offset` elements into a buffer."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8192, 1024), (7, 100), (15, 33),
+                                   (1, 4096), (4097, 768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_add_ln_persistent_kernels_match_plain(shape, dtype, offset,
+                                               cuda_device):
+    x, r, w, b, gout, gz = _ln_case(shape, dtype, cuda_device, seed=7)
+    x, r, gout, gz = (_ln_offset(t, offset) for t in (x, r, gout, gz))
+    tol = _LN_TOL[dtype]
+    got = tln._launch_fwd(x, r, w, b, 1e-5)
+    again = tln._launch_fwd(x, r, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = tln.add_ln_fwd_reference(x, r, w, b, 1e-5)
+    for a, e in zip(got, want):
+        assert bool(torch.isfinite(a.float()).all())
+        torch.testing.assert_close(a.float(), e.float(), rtol=tol, atol=tol)
+    z, mu, rs = want[1], want[2], want[3]
+    before = tln.bwd_launch_count
+    dz, dw, db = tln._launch_bwd(z, w, mu, rs, gout, gz)
+    again = tln._launch_bwd(z, w, mu, rs, gout, gz)
+    torch.cuda.synchronize()
+    assert tln.bwd_launch_count == before + 2
+    assert all(torch.equal(a, c) for a, c in zip((dz, dw, db), again))
+    ref_dz, ref_dw, ref_db = tln.add_ln_bwd_reference(z, w, mu, rs, gout, gz)
+    torch.testing.assert_close(dz.float(), ref_dz.float(), rtol=tol,
+                               atol=tol)
+    zhat = (z.float() - mu[:, None]) * rs[:, None]
+    for got_s, ref_s, terms in ((dw, ref_dw, gout.float() * zhat),
+                                (db, ref_db, gout.float())):
+        assert got_s.dtype == torch.float32 and got_s.shape == (shape[1],)
+        bound = 1e-6 * terms.abs().sum(0)
+        assert bool(((got_s - ref_s).abs() <= bound).all()), \
+            float(((got_s - ref_s).abs() / bound).max())
+
+
+@pytest.mark.cuda
+def test_add_ln_grads_through_autograd_on_card(cuda_device):
+    """`add_ln` differentiated on the card returns the backward kernel's
+    dw and db (through the fp32 cast of bf16 w and b), one launch of
+    each kernel, equal to the autograd reference's."""
+    x, r, w, b, gout, gz = _ln_case((3, 50, 1024), torch.bfloat16,
+                                    cuda_device, seed=8)
+    args = [t.clone().requires_grad_() for t in (x, r, w.bfloat16(),
+                                                 b.bfloat16())]
+    before = (tln.fwd_launch_count, tln.bwd_launch_count)
+    out, z = tln.add_ln(*args)
+    got = torch.autograd.grad((out, z), args, (gout, gz))
+    torch.cuda.synchronize()
+    assert (tln.fwd_launch_count, tln.bwd_launch_count) == (
+        before[0] + 1, before[1] + 1)
+    ref = [t.detach().clone().requires_grad_() for t in args]
+    want = torch.autograd.grad(tln.add_ln_reference(*ref), ref, (gout, gz))
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype
+        torch.testing.assert_close(a.float(), e.float(), rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.cuda
@@ -481,11 +561,11 @@ def test_flash_wgmma_bit_identical_across_launches(D, cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_flash_fwd_routes_by_dtype_and_segments(dtype, cuda_device):
-    """K1a's forward: bf16 and fp16 reach the wgmma forward
-    (flash_fwd_bshd_wgmma_kernel), fp32 the CUDA-core flash_fwd_kernel;
-    K1c's forward keeps flash_fwd_mma_kernel in 16 bits (flash_fwd_kernel
-    in fp32). Each forward runs twice in the profiled window: the profiler
-    has been seen to miss the window's first kernel."""
+    """K1a's and K1c's forwards: bf16 and fp16 reach the wgmma forward
+    (flash_fwd_bshd_wgmma_kernel; K1c after its seg_ranges_kernel), fp32
+    the CUDA-core flash_fwd_kernel; no flash_fwd_mma_kernel runs. Each
+    forward runs twice in the profiled window: the profiler has been
+    seen to miss the window's first kernel."""
     q, k, v, _ = _fa_case(2, 2, 200, 64, dtype, cuda_device)
     seg = torch.ones(2, 200, dtype=torch.int32, device=cuda_device)
     fp32 = dtype == torch.float32
@@ -501,9 +581,11 @@ def test_flash_fwd_routes_by_dtype_and_segments(dtype, cuda_device):
     names = _device_kernels(
         lambda: [tfa._launch_fwd_seg(q, k, v, seg, True) for _ in range(2)])
     assert tfa.seg_launch_count == before + 2
-    assert any(("flash_fwd_kernel" if fp32 else "flash_fwd_mma_kernel")
+    assert any(("flash_fwd_kernel" if fp32 else "flash_fwd_bshd_wgmma_kernel")
                in n for n in names), names
-    assert not any("wgmma" in n for n in names), names
+    assert any("seg_ranges_kernel" in n for n in names) == (not fp32), names
+    assert not any("flash_fwd_mma_kernel" in n for n in names), names
+    assert any("flash_fwd_kernel" in n for n in names) == fp32, names
 
 
 # ---------------------------------------------- the train step (K1a+K2)
@@ -1349,6 +1431,93 @@ def test_flash_seg_bwd_wgmma_bit_identical_across_launches(B, S,
                          cuda_device, seed=3)
     first = tfa.flash_bwd_seg(*args, False)
     second = tfa.flash_bwd_seg(*args, False)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+# K1c's forward on the wgmma kernel (bf16, fp16) where its cuts fall: S
+# off the 128-row query and key tiles (1, 63, 77, 200, 1000) and on them
+# (128, 512), D 64 and 128, causal or not, under trailing padding; then
+# every id pattern: trailing, left, interleaved, every token its own id
+# (most key tiles skipped) and one segment (none). out and lse against
+# the plain forward, every row finite (a row may meet loaded tiles with
+# no key of its segment first). Tolerances of
+# test_flash_wgmma_across_its_tiles.
+def _seg_fwd_ids(pattern, B, S, rng):
+    """`_seg_more`'s patterns and "own": every token its own segment."""
+    if pattern == "own":
+        return np.ascontiguousarray(np.broadcast_to(
+            np.arange(S, dtype=np.int32), (B, S)))
+    return _seg_more(pattern, B, S, rng)
+
+
+def _check_seg_fwd(B, H, S, D, dtype, pattern, causal, device, seed):
+    rng = np.random.RandomState(seed)
+    seg = torch.tensor(_seg_fwd_ids(pattern, B, S, rng), device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device=device,
+                           dtype=dtype) for _ in range(3))
+    q = (q * D ** -0.5).to(dtype)
+    before = tfa.seg_launch_count
+    out, lse = tfa.flash_fwd_seg(q, k, v, seg, causal, "")
+    torch.cuda.synchronize()
+    assert tfa.seg_launch_count == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    assert bool(torch.isfinite(lse).all())
+    ref_out, ref_lse = tfa.flash_fwd_reference(q, k, v, causal, seg)
+    tol = _SEG_BWD_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-5, atol=2e-5)
+    return seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 77, 128, 200, 512, 1000])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_seg_fwd_wgmma_across_its_tiles(S, D, causal, dtype,
+                                              cuda_device):
+    _check_seg_fwd(2, 2, S, D, dtype, "trailing", causal, cuda_device,
+                   seed=S + D + 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["trailing", "left", "interleaved",
+                                     "own", "one"])
+@pytest.mark.parametrize("S", [77, 200, 1000])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_seg_fwd_wgmma_id_patterns(pattern, S, D, causal, dtype,
+                                         cuda_device):
+    """Every id pattern, with the tile pairs the forward skips counted:
+    "own" skips most, "one" none."""
+    seg = _check_seg_fwd(3, 2, S, D, dtype, pattern, causal, cuda_device,
+                         seed=S + D + len(pattern))
+    pairs = tfa.segment_tile_pairs(seg, causal, tfa.SEG_TILE,
+                                   tfa.SEG_FWD_KEY_TILE)
+    if pattern == "own" and S >= 200:
+        assert not pairs.all()
+    if pattern == "one":
+        full = tfa.segment_tile_pairs(torch.ones_like(seg), causal,
+                                      tfa.SEG_TILE, tfa.SEG_FWD_KEY_TILE)
+        assert torch.equal(pairs, full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(16, 512), (64, 128)])
+def test_flash_seg_fwd_wgmma_bit_identical_across_launches(B, S,
+                                                           cuda_device):
+    """At the BERT shapes, two launches of K1c's forward give the same
+    out and lse."""
+    rng = np.random.RandomState(S)
+    seg = torch.tensor(_seg("trailing", B, S, rng), device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn(B, 12, S, 64, generator=g, device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    first = tfa.flash_fwd_seg(q, k, v, seg, False, "")
+    second = tfa.flash_fwd_seg(q, k, v, seg, False, "")
     assert all(torch.equal(a, c) for a, c in zip(first, second))
 
 

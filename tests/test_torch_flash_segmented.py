@@ -197,3 +197,32 @@ def test_segment_tile_pairs_skip_only_invisible_pairs(pattern, causal):
     assert not (held & ~pairs).any()
     if pattern != "interleaved":
         assert np.array_equal(pairs, held)
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_tile_pairs_drop_only_zero_probabilities(pattern, causal):
+    """The (64-row query, 128-row key) tile pairs K1c's 16-bit forward
+    never loads hold only exactly-zero p in the plain forward: p =
+    exp(s - lse) of its masked scores, with lse from
+    `flash_fwd_reference`; at these ids it drops some under every
+    pattern but the unpadded and the interleaved ones."""
+    seg = torch.tensor(segments(pattern, np.random.RandomState(6),
+                                TILED_S))
+    q, k, v = (torch.tensor(a[:, :, :TILED_S]) for a in (
+        np.random.RandomState(7).randn(3, B, H, TILED_S, 64)
+        .astype(np.float32)))
+    _, lse = tfa.flash_fwd_reference(q, k, v, causal, seg)
+    p = torch.exp(tfa._scores(q, k, causal, seg) - lse[..., None])
+    qt, kt = tfa.SEG_TILE, tfa.SEG_FWD_KEY_TILE
+    pairs = tfa.segment_tile_pairs(seg, causal, qt, kt)
+    nq, nk = -(-TILED_S // qt), -(-TILED_S // kt)
+    assert pairs.shape == (B, nq, nk)
+    padded = torch.zeros(B, H, nq * qt, nk * kt)
+    padded[:, :, :TILED_S, :TILED_S] = p
+    nonzero = (padded.view(B, H, nq, qt, nk, kt) != 0).any(dim=(1, 3, 5))
+    assert not (nonzero & ~pairs).any()
+    if pattern == "none":
+        assert bool(pairs.all()) or causal
+    elif pattern != "interleaved":
+        assert not bool(pairs.all())

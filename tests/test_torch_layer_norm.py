@@ -96,3 +96,29 @@ def test_add_ln_cpu_path_launches_no_kernel():
     before = (tln.fwd_launch_count, tln.bwd_launch_count)
     _torch_add_ln(tln.add_ln, x, r, w, b, torch.float32)
     assert (tln.fwd_launch_count, tln.bwd_launch_count) == before
+
+
+# The backward's plain version returns dw and db itself (the kernel sums
+# them as it walks the rows): held against the whole function
+# differentiated by autograd, fp32 on both sides, summed in another
+# order -> 1e-5.
+@pytest.mark.parametrize("shape", [(7, 100), (3, 5, 33), (1, 4096)])
+def test_add_ln_bwd_reference_dw_db_match_autograd(shape):
+    x, r, w, b = _inputs(shape, seed=4)
+    d = shape[-1]
+    xt, rt, wt, bt = map(torch.tensor, (x, r, w, b))
+    g = torch.tensor(np.random.RandomState(5).randn(*shape)
+                     .astype(np.float32))
+    gz = torch.tensor(np.random.RandomState(6).randn(*shape)
+                      .astype(np.float32))
+    _, z, mu, rs = tln.add_ln_fwd_reference(xt.reshape(-1, d),
+                                            rt.reshape(-1, d), wt, bt, 1e-5)
+    dz, dw, db = tln.add_ln_bwd_reference(z, wt, mu, rs, g.reshape(-1, d),
+                                          gz.reshape(-1, d))
+    args = [t.clone().requires_grad_() for t in (xt, rt, wt, bt)]
+    want = torch.autograd.grad(tln.add_ln_reference(*args), args, (g, gz))
+    assert dw.dtype == db.dtype == torch.float32
+    for name, got, ref in (("dz", dz.view(shape), want[0]), ("dw", dw, want[2]),
+                           ("db", db, want[3])):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)

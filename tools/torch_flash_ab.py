@@ -27,7 +27,13 @@ another copy of it (for example the parent commit's, unpacked with
   mask, its bound, its TFLOP/s over the pairs the ids make visible and
   the share of 64-row tile pairs its segment ranges keep; each side
   held against the plain backward first (the other copy called through
-  its own entry: the parent's takes no ranges scratch).
+  its own entry: the parent's takes no ranges scratch);
+* K1c's forward at the same two shapes and ids, timed the same way
+  beside SDPA with the segment mask, its bound, its TFLOP/s over the
+  visible pairs and the share of (64-row query, 128-row key) tile pairs
+  it computes; each side held against the plain forward first (the
+  other copy through its own entry: a forward without the ranges
+  scratch is called without it).
 
 With `--sweep` it also builds copies of this tree's source whose K1b
 kernel takes other key tiles and ring depths at D = 128 (64 or 128
@@ -39,7 +45,9 @@ block an item instead of persistent blocks, other L2 budgets for its
 head groups, or K1b's warpgroup turns; and copies whose K1a backward
 orders its items in head groups of other L2 budgets (8 MB to all
 heads) or in K1c's order (a head's items adjacent), each timed at
-K1a's shape and held against the plain version. With `--probe` it
+K1a's shape and held against the plain version; and copies whose K1c
+forward takes 64-key tiles, or a block an item instead of persistent
+blocks, timed at both BERT shapes. With `--probe` it
 builds copies whose K1b and K1a forward consumers (one kernel) skip the
 softmax, the S = Q K^T products, the P V products, both products, or
 all but the loads (their outputs are wrong; they keep every load and
@@ -49,7 +57,9 @@ backward without the segment-range skip (every tile pair visited, all
 masked), without its products and softmax (loads only), without its dQ
 items, without its dK/dV items, and with its pre-pass alone, timed at
 both BERT shapes (K1c) and, loads only and pre-pass only, at K1a's;
-and copies of the
+copies of K1c's 16-bit forward without the tile skip (every tile
+loaded and masked), with its loads only (every tile released unread)
+and with its pre-pass only, at both BERT shapes; and copies of the
 backward that stamp each block's start and end (%globaltimer), in this
 tree's item order and in K1c's, which give K1a's item tail: the
 kernel's span, the last block's end past the median block's, and the
@@ -162,18 +172,25 @@ def load(path, text=None):
     lib = ctypes.CDLL(str(path))
     for fn in ("paddle_tpu_torch_flash_fwd", "paddle_tpu_torch_flash_bwd",
                "paddle_tpu_torch_flash_fwd_bshd",
-               "paddle_tpu_torch_flash_bwd_seg"):
+               "paddle_tpu_torch_flash_bwd_seg",
+               "paddle_tpu_torch_flash_fwd_seg"):
         getattr(lib, fn).argtypes = fa._SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
     lib.seg_ranges = text is None or _RANGES in text
     if not lib.seg_ranges:
         lib.paddle_tpu_torch_flash_bwd_seg.argtypes = \
             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.fwd_ranges = text is None or bool(re.search(_FWD_RANGES, text))
+    if not lib.fwd_ranges:
+        lib.paddle_tpu_torch_flash_fwd_seg.argtypes = \
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
-# the segmented backward's C entry with the ranges scratch
+# the segmented backward's C entry with the ranges scratch, and the
+# segmented forward's
 _RANGES = "const void* seg,\n    void* ranges, void* dq"
+_FWD_RANGES = r"paddle_tpu_torch_flash_fwd_seg\([^)]*void\* ranges"
 
 
 def main():
@@ -285,13 +302,31 @@ def main():
               f"{bound:.4f}, this at {flops / (mean['this'] * 1e-3) / 1e12:.1f}"
               f" TFLOP/s over visible pairs, {bound / mean['this']:.1%} of "
               f"the bound; tile pairs kept {kept:.1%}", flush=True)
+        runs = {side: seg_fwd_run(libs[side], case, f"{side} K1c forward")
+                for side in ("other", "this")}
+        times = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other", "other", "this"):
+            times[side].append(chip_smoke.cuda_ms(runs[side], flush=flush))
+        mean = {s: sum(t) / len(t) for s, t in times.items()}
+        sdpa, bound, flops, kept = seg_fwd_yardsticks(case, flush)
+        print(f"K1c forward bf16 [{B}, 12, {S}, 64] lengths {shortest}-{S}"
+              f" ms on {card}: other {[round(t, 4) for t in times['other']]}"
+              f" (mean {mean['other']:.4f}), this "
+              f"{[round(t, 4) for t in times['this']]} (mean "
+              f"{mean['this']:.4f}): {mean['this'] / mean['other'] - 1:+.2%};"
+              f" SDPA with the segment mask {sdpa:.4f}; bound {bound:.4f}, "
+              f"this at {flops / (mean['this'] * 1e-3) / 1e12:.1f} TFLOP/s "
+              f"over visible pairs, {bound / mean['this']:.1%} of the bound;"
+              f" (64 x 128) tile pairs computed {kept:.1%}", flush=True)
         del case, runs
     if args.sweep:
         sweep(build, flush, card)
         sweep_k1a(build, flush, card)
+        sweep_seg_fwd(build, flush, card)
     if args.probe:
         probe(build, flush, card)
         probe_seg_bwd(build, flush, card)
+        probe_seg_fwd(build, flush, card)
         probe_tail(build, card)
     return 0 if same else 1
 
@@ -431,6 +466,144 @@ def seg_bwd_run(lib, case, label):
         chip_smoke.close_or_fail(f"{label} {n} [{B}, {H}, {S}, {D}]", a, e,
                                  chip_smoke.TRAIN_TOL["bfloat16"])
     return run
+
+
+def seg_fwd_run(lib, case, label):
+    """A launch of the library's segmented forward on `case`, held
+    against the plain forward once."""
+    import torch
+    import chip_smoke
+    q, k, v, want_out, want_lse, _dout, seg = case
+    B, H, S, D = q.shape
+    out, lse = torch.empty_like(q), torch.empty_like(want_lse)
+    ranges = torch.empty(B, -(-S // 64), 2, dtype=torch.int32,
+                         device=q.device)
+    ptrs = [t.data_ptr() for t in (q, k, v, seg)]
+    if lib.fwd_ranges:
+        ptrs.append(ranges.data_ptr())
+
+    def run():
+        err = lib.paddle_tpu_torch_flash_fwd_seg(
+            *ptrs, out.data_ptr(), lse.data_ptr(), B, H, S, D, 1, 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{label} launch failed: CUDA error {err}")
+    run()
+    torch.cuda.synchronize()
+    chip_smoke.close_or_fail(f"{label} out [{B}, {H}, {S}, {D}]", out,
+                             want_out, chip_smoke.TRAIN_TOL["bfloat16"])
+    chip_smoke.close_or_fail(f"{label} lse [{B}, {H}, {S}, {D}]", lse,
+                             want_lse, chip_smoke.TOL["float32"])
+    return run
+
+
+def seg_fwd_yardsticks(case, flush):
+    """(SDPA ms with the segment mask, bound ms, flops over the visible
+    pairs, share of (64-row query, 128-row key) tile pairs computed) of
+    K1c's forward."""
+    import torch.nn.functional as F
+    import chip_smoke
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, _out, _lse, _dout, seg = case
+    B, H, S, D = q.shape
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    sdpa = chip_smoke.cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=same, scale=1.0), flush=flush)
+    bound, _ = chip_smoke.seg_bound(q, seg)
+    flops = 4 * D * H * int((seg[:, :, None] == seg[:, None, :]).sum())
+    kept = fa.segment_tile_pairs(seg, False, fa.SEG_TILE,
+                                 fa.SEG_FWD_KEY_TILE).float().mean().item()
+    return sdpa, bound, flops, kept
+
+
+# K1c's forward: the key tile and the blocks, as the source spells them
+SEG_FWD_KNOBS = ("constexpr int kBNSeg = {};",
+                 "constexpr bool kSegPersist = {};")
+# the probe's cuts of K1c's 16-bit forward, as patterns of this tree's
+# source: each must occur once
+_SEG_FWD_CUTS = {
+    "no skip": ((r"a\.x <= c\.y && c\.x <= a\.y;\n  const bool mask =",
+                 "true;\n  const bool mask = true ||"),),
+    "loads only": ((r"const int fl = \(hdr >> \(2 \* wg\)\) & 3;",
+                    "const int fl = 0 & hdr;"),),
+    "pre-pass only": ((r"\n  const long long dims\[4\] = \{D, H, S, B\};",
+                       "\n  if (kSeg) return cudaSuccess;"
+                       "\n  const long long dims[4] = {D, H, S, B};"),),
+}
+
+
+def seg_fwd_copies(build, texts, prefix):
+    """{name: library} of the sources `texts` ({name: text}), built in
+    parallel under build/ with `prefix`."""
+    def make(name):
+        path = build / (prefix + re.sub(r"\W", "_", name) + ".cu")
+        path.write_text(texts[name])
+        compile_v(path, path.with_suffix(".so"))
+        return load(path.with_suffix(".so"))
+    with ThreadPoolExecutor(len(texts)) as ex:
+        return dict(zip(texts, ex.map(make, texts)))
+
+
+def sweep_seg_fwd(build, flush, card):
+    """K1c's forward with 64- and 128-key tiles, persistent blocks or a
+    block an item, at both BERT shapes against the plain forward."""
+    import torch
+    import chip_smoke
+    src = (ROOT / "paddle_tpu_torch/ops/csrc/flash_attention.cu").read_text()
+    now = (re.search(SEG_FWD_KNOBS[0].replace("{}", r"(\d+)"), src).group(1),
+           re.search(SEG_FWD_KNOBS[1].replace("{}", r"(\w+)"), src).group(1))
+    variants = [("128", "true"), ("64", "true"), ("128", "false"),
+                ("64", "false")]
+    texts = {f"{bn} keys, {'persistent' if p == 'true' else 'a block an item'}"
+             + (" (this tree)" if (bn, p) == now else ""):
+             substitute(src, [(k.format(n), k.format(v)) for k, n, v in zip(
+                 SEG_FWD_KNOBS, now, (bn, p))], "K1c forward knobs")
+             if (bn, p) != now else src for bn, p in variants}
+    libs = seg_fwd_copies(build, texts, "sweep_seg_fwd_")
+    for B, S, shortest in SEG_SHAPES:
+        case = seg_case(B, S, shortest, torch.device("cuda"))
+        cells = []
+        for name, lib in libs.items():
+            run = seg_fwd_run(lib, case, f"sweep K1c forward {name}")
+            cells.append(f"{name} {chip_smoke.cuda_ms(run, flush=flush):.4f}")
+        print(f"sweep K1c forward bf16 [{B}, 12, {S}, 64] lengths "
+              f"{shortest}-{S} ms on {card}: " + "; ".join(cells), flush=True)
+        del case
+
+
+def probe_seg_fwd(build, flush, card):
+    """K1c's 16-bit forward beside copies without its tile skip, with
+    its loads only, or with its pre-pass only."""
+    import torch
+    import chip_smoke
+    src = (ROOT / "paddle_tpu_torch/ops/csrc/flash_attention.cu").read_text()
+    texts = {"full": src}
+    for cut, subs in _SEG_FWD_CUTS.items():
+        text = src
+        for pat, rep in subs:
+            if len(re.findall(pat, text)) != 1:
+                raise SystemExit(f"torch_flash_ab --probe: K1c's forward "
+                                 f"changed ({cut})")
+            text = re.sub(pat, rep, text)
+        texts[cut] = text
+    libs = seg_fwd_copies(build, texts, "probe_seg_fwd_")
+    for B, S, shortest in SEG_SHAPES:
+        q, k, v, _out, lse, _dout, seg = seg_case(B, S, shortest,
+                                                  torch.device("cuda"))
+        out = torch.empty_like(q)
+        ranges = torch.empty(B, -(-S // 64), 2, dtype=torch.int32,
+                             device=q.device)
+        cells = []
+        for cut, lib in libs.items():
+            def run(lib=lib):
+                lib.paddle_tpu_torch_flash_fwd_seg(
+                    *(t.data_ptr() for t in (q, k, v, seg, ranges, out, lse)),
+                    B, 12, S, 64, 1, 0,
+                    torch.cuda.current_stream().cuda_stream)
+            cells.append(f"{cut} {chip_smoke.cuda_ms(run, flush=flush):.4f}")
+        print(f"probe K1c forward bf16 [{B}, 12, {S}, 64] lengths "
+              f"{shortest}-{S} ms on {card}: " + "; ".join(cells), flush=True)
+        del q, k, v, out, lse, seg
 
 
 def seg_yardsticks(case, flush):
@@ -626,10 +799,11 @@ def probe_tail(build, card):
 # The probe's cuts of K1b's consumer loop, as patterns of this tree's
 # source: every call of each.
 _SOFTMAX = r"softmax_tile<kBN, (true|false)>\(s, m, l, lim, alpha\);"
-_S_GEMM = r"\n\s*s_gemm<T, D>\([^;]*\);"
-_PV_GEMM = r"\n\s*pv_gemm<T, D>\([^;]*\);"
+_S_GEMM = r"\n\s*s_gemm<T, C>\([^;]*\);"
+_PV_GEMM = r"\n\s*pv_gemm<T, C>\([^;]*\);"
 _TURNS = r"named_(sync|arrive)\((turn|next|4), 256\);"
-_COUNTS = {_SOFTMAX: 4, _S_GEMM: 2, _PV_GEMM: 2}
+# (K1c's segmented walk has 2 S and 3 P V products of its own)
+_COUNTS = {_SOFTMAX: 4, _S_GEMM: 4, _PV_GEMM: 5}
 
 
 def probe(build, flush, card):
@@ -692,8 +866,8 @@ def probe(build, flush, card):
 BSHD_SHAPES = ((16, 128, True), (16, 128, False), (8, 256, True))
 # the sweep's knobs, as the source spells them in K1b's Cfg
 BSHD_KNOBS = (
-    "static constexpr int kBN = D == 64 ? kBN64 : D == 128 ? {} : 64;",
-    "static constexpr int kStages = D == 64 ? kStages64 : D == 128 ? {} : 2;",
+    "kSeg ? kBNSeg : D == 64 ? kBN64 : D == 128 ? {} : 64;",
+    "kSeg ? (D == 128 ? 2 : 4) : D == 64 ? kStages64 : D == 128 ? {} : 2;",
     "constexpr long long kL2Budget = {}LL << 20;")
 # K1a's forward at D = 64 (keys a tile, ring depth, consumer warpgroups)
 # and its backward's item order (the L2 budget of its head groups), as
@@ -807,7 +981,7 @@ def sweep_k1a(build, flush, card):
     shape = list(case[0].shape)
     cells = []
     kern = ("bshd::flash_fwd_bshd_wgmma_kernel<__nv_bfloat16, (int)64, "
-            "(bool)1>")
+            "(bool)1, (bool)0>")
     for var in fwd_vars:
         use = built[("fwd", var)][1].get(kern, "")
         print(f"sweep K1a forward {var}: ptxas [{use}]"
