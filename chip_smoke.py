@@ -19,8 +19,8 @@ each (or a few):
 3. kernel check — each kernel against its plain version at the shapes
    its path gives it (paged attention at the serving step's: the ragged
    entry over float, int8 and fp8 pools, the verify entry (4 queries a
-   group, a short group padded with position 0, a group of slot -1)
-   over the same three; the three
+   group, a short group padded with position 0, a group of slot -1;
+   two launches bit-identical) over the same three; the three
    grouped expert matmuls — float, int8 and int4 experts — at the MoE
    step's two expert products, each with its bytes/s and share of its
    bound; flash attention forward/backward (with their TFLOP/s and share
@@ -32,7 +32,9 @@ each (or a few):
    [8, 1024, 8, 256] causal, and forward + backward through
    `flash_attention()`, these two with their TFLOP/s and share of the
    bound; the split-K 1x1 weight gradient at ResNet-50's
-   [401408, 256] x [401408, 64]; the segmented flash forward and its
+   [401408, 256] x [401408, 64] and, timed beside `torch.mm` too, its
+   stage-3 [25088, 1024] x [25088, 256] (two launches of each
+   bit-identical); the segmented flash forward and its
    backward at BERT's [64, 12, 128, 64] and [16, 12, 512, 64] under
    trailing, left and interleaved padding, fp32 and causal too, the
    forward also at S = 77 and 200 and over a sequence of full length
@@ -163,6 +165,9 @@ WARMUP_STEPS, TIMED_STEPS = 3, 5
 # and its tolerance relative to each sum's absolute mass (check_wgrad)
 WGRAD_N, WGRAD_CI, WGRAD_CO, WGRAD_CHUNK = 401408, 256, 64, 4096
 WGRAD_TOL = 1e-6
+# a second ResNet-50 1x1 wgrad, stage 3 at batch 128 (N = 128 x 14 x 14,
+# 1024 -> 256 channels), timed so the kernel is not tuned to one shape
+WGRAD_SHAPE2 = (25088, 1024, 256, 3136)
 
 # BERT-base (bench.py's bench_bert: `bert_base()`, BertModel's
 # defaults) served in eval as a two-class sequence classifier: 64
@@ -504,6 +509,8 @@ def check_paged_variants(pa, device, flush):
             torch.cuda.synchronize()
             err = close_or_fail(f"{label} {name}", got[valid],
                                 plain(*args)[valid], tol)
+            if entry == "verify" and not torch.equal(fn(*args), got):
+                fail(f"{label} {name}: two runs gave different bits")
             ms = cuda_ms(lambda: fn(*args), flush=flush)
             plain_ms = cuda_ms(lambda: plain(*args), iters=5, flush=flush)
             sdpa_ms = cuda_ms(sdpa_yardstick(
@@ -518,7 +525,9 @@ def check_paged_variants(pa, device, flush):
             print(f"kernel check: {label} {name} q [{shape}] over "
                   f"{str(args[1].dtype).split('.')[-1]} pools, H={HEADS} "
                   f"Dh={HIDDEN // HEADS} BS={BLOCK} max_abs_err={err:.3g} "
-                  f"(tol {tol} (1 + |plain|)) kernel_ms={ms:.4f} "
+                  f"(tol {tol} (1 + |plain|)"
+                  f"{'; two runs bit-identical' if entry == 'verify' else ''}"
+                  f") kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
                   f"({bound_by}; {token_bound_ms:.4f} counting K/V once per "
                   f"attended query and key) yardstick: SDPA on a "
@@ -1567,7 +1576,8 @@ def check_flash_bshd(fa, device, flush):
 def check_wgrad(cw, device, flush):
     """Phase 3 for the split-K 1x1 weight gradient (K6): the kernel
     against its plain version at ResNet-50's [401408, 256] x [401408,
-    64] bf16 (chunk 4096) and at a small fp32 shape; returns the bf16
+    64] bf16 (chunk 4096), at its stage-3 [25088, 1024] x [25088, 256]
+    bf16 (chunk 3136) and at a small fp32 shape; returns the first's
     {"wgrad_1x1": ...}. Both sides add exact fp32 products (16-bit
     products are exact in fp32) in fp32, the chunks in the same order
     and the terms inside a chunk in another: an element's error scales
@@ -1579,6 +1589,7 @@ def check_wgrad(cw, device, flush):
     record = None
     for (N, Ci, Co, chunk), dtype in (((WGRAD_N, WGRAD_CI, WGRAD_CO,
                                         WGRAD_CHUNK), torch.bfloat16),
+                                      (WGRAD_SHAPE2, torch.bfloat16),
                                       ((8192, 72, 40, 1024), torch.float32)):
         name = str(dtype).split(".")[-1]
         g = torch.Generator(device=device).manual_seed(SEED + Ci)

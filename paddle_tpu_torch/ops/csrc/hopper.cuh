@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives shared by the port's TMA + wgmma kernels
-// (qkv_proj.cu, flash_attention.cu, grouped_matmul.cu): mbarriers, TMA
-// tensor maps, bulk tensor loads and stores, named barriers, setmaxnreg,
-// and warpgroup matrix multiplies (wgmma) with their shared-memory
-// descriptors.
+// (qkv_proj.cu, flash_attention.cu, grouped_matmul.cu, conv_wgrad.cu)
+// and the paged kernel's verify walk (paged_attention.cu): mbarriers,
+// TMA tensor maps, bulk tensor loads and stores, plain bulk copies,
+// named barriers, setmaxnreg, and warpgroup matrix multiplies (wgmma)
+// with their shared-memory descriptors.
 //
 // The layouts these kernels use: TMA writes a box whose inner extent is
 // 64 16-bit values (128 bytes) as rows of 128 bytes under the 128-byte
@@ -87,6 +88,31 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The same with an L2 cache policy (`l2_evict_first` / `l2_evict_last`).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar,
+                                            uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory by the TMA unit, completing
+// that many bytes of the barrier's transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -17,47 +17,88 @@
 // region pads short groups with position 0, so a group can read
 // [p, p + 1, 0, 0]. The scaled query is rounded to its own dtype as
 // the Pallas wrapper does; logits, the online softmax (running max,
-// denominator, weighted sum) and the PV product are fp32; the output
-// takes q's dtype.
+// denominator, weighted sum, the running max starting at the Pallas
+// kernel's finite mask value) and the PV product are fp32; the output
+// takes q's dtype. Pages past the walk are never read.
 //
-// What bounds it: device memory. Each (group, head) reads (max pos + 1)
-// K and V rows of Dh elements (and, quantized, one fp32 scale per row)
-// and does 4 * Dh * G flops per row — at most a few flops per byte,
-// far below the ~295 the tensor cores need, and a decode or verify walk
-// is long (up to the whole context) while there are few of them (8
-// slots x 16 heads). So the design spends nothing on matrix units and
-// everything on reading each needed row once per group, with as many
-// reads in flight as it can:
-//   * one block of 4 warps per (group, head); the warps take the walk's
-//     pages in turn (warp w reads pages w, w+4, ...), each keeping its
-//     own online-softmax state, and merge the four states in shared
-//     memory at the end, so a long walk takes a quarter of the time;
-//   * each lane holds Dh/32 elements of every query of the group and of
-//     its accumulator in registers, and a K or V row is one coalesced
-//     warp load (lane l reads elements [l*Dh/32, (l+1)*Dh/32)); each
-//     row, once loaded, serves all G dot products — that single read is
-//     the point of the verify entry;
-//   * keys are taken CHUNK at a time (8 for up to 4 queries, 4 for up
-//     to 8), with unconditional loads, so 2 * CHUNK row loads are in
-//     flight before the first dot product needs one, and the G * CHUNK
-//     cross-lane sums interleave their shuffles;
-//   * the walk stops at the group's newest position: pages past it are
-//     never read, and no mask value is materialised for a masked key.
-// Quantized rows are Dh bytes: at Dh = 64 a warp load fills half a
-// 128-byte line (a layout in which one load covers two rows is later
-// work). No K/V row is staged in shared memory (only the warps' final
-// states are): within a block no row is read twice, and rows that
-// several groups of one slot share (a prefill chunk re-walks its slot's
-// pages once per token) are served from L2.
+// What bounds it: device memory. A walk reads (max pos + 1) K and V
+// rows of H x Dh elements (and, quantized, their fp32 scales) and does
+// 4 Dh G flops per row and head: a few flops a byte, far below the
+// ~295 the tensor cores need. Decode and verify walks are long (up to
+// the whole context) and few (8 slots at the serving shapes), so what
+// holds a kernel is how many bytes it keeps in flight, and whether the
+// longest walk is the serial path of one SM. Two kernels:
+//
+// paged_attend_kernel (the ragged entry, G = 1; the verify entry over
+// fp32 pools and fp32 queries over 16-bit pools): one block of 4 warps
+// per (group, head); the warps take the walk's pages in turn (warp w
+// reads pages w, w+4, ...), each keeping its own online-softmax state,
+// and merge the four states in shared memory at the end. Each lane holds
+// Dh/32 elements of every query of the group and of its accumulator in
+// registers; a K or V row of one head is one coalesced warp load; keys
+// are taken CHUNK at a time (8 for up to 4 queries, 4 for up to 8) with
+// unconditional loads, so 2 * CHUNK row loads are in flight before the
+// first dot product needs one. No row is staged in shared memory: rows
+// that several groups of one slot share (a prefill chunk re-walks its
+// slot's pages once per token) are served from L2.
+//
+// verify_walk_kernel (the verify entry, G >= 2, over 16-bit pools with
+// queries of their type and over int8 / fp8 pools with any float
+// queries): a split-page walk of whole pages across heads.
+//   * Work items: (group, head block, range of key tiles). A key tile
+//     is KT = gcd(BS, 16) consecutive entries of one page; a head block
+//     is 16 heads at Dh = 64, 8 at Dh = 128 (a tile of K and V is then
+//     64 KB in 16 bits, 33 KB quantized). Each group's walk of
+//     last / KT + 1 tiles is cut into R equal ranges (ops/
+//     paged_attention.py:verify_plan, R = SMs / (groups x head blocks)),
+//     so the longest walk is spread over R blocks instead of being one
+//     block's serial path. (Ranges in proportion to each walk's length,
+//     planned in every block from all groups' positions, gave items of at
+//     most 3 tiles instead of 4 at verify_case's shape, and read 4-13%
+//     slower on an H100, in calls where the parent's kernel read the same:
+//     the plan's extra round trip and longer merges cost more than the
+//     shorter items saved.)
+//   * Loads: a producer warp reads the item's block-table entries into
+//     registers (32 pages a load, the next 32 prefetched), then keeps a
+//     ring of tiles in flight (3 stages, 5 quantized), each pool entry's
+//     heads of the block one bulk copy (cp.async.bulk: 2 KB of [H, Dh]
+//     in bf16) into a row padded by 16 bytes, so the rows of 8 keys fall
+//     on 8 bank groups; quantized tiles bring their [KT, heads] fp32
+//     scales by cp.async. No global load the producer makes depends on
+//     another inside the ring's loop.
+//   * Arithmetic on the tensor cores, a warp a head (mma.sync m16n8k16,
+//     fp32 sums): S = q K^T with the group's queries as the rows (G <= 8
+//     of 16) and 16 keys as the columns, K by ldmatrix; the online
+//     softmax in fp32 on the S fragments (a row's 16 keys lie in 4
+//     lanes); then O += P V with P's fragments taken from S's, V by
+//     ldmatrix.trans. int8 / e4m3 K and V are converted exactly to the
+//     product type in registers, value by value (one 16-byte load of a
+//     key row a lane, the fragments' columns permuted so a lane's dims
+//     are consecutive, measured ~9% slower on an H100), and their fp32
+//     scales multiply the fp32 dot product and p. Rounding stays where
+//     the CUDA-core version has it: the scaled
+//     query is rounded to its dtype (fp32 queries are split into three
+//     bf16 parts, exact), and p (times v's scale) is split into a hi and
+//     a lo part of the product type (three for fp32 queries), so P V
+//     keeps ~16 significant bits of p where one part would keep 8.
+//   * Combine: each item stores its (m, l, acc) per (query, head) in
+//     fp32; after a grid-wide sync (a cooperative launch, at most one
+//     block an SM) every block merges (group, head) units: the items of
+//     a unit in range order, each rescaled to the largest max, as the
+//     warp merge above does, their states staged in shared memory so
+//     that every thread's loads are in flight together. An item
+//     that holds no key of a query adds weight 0 (its max stays at the
+//     mask value). Two launches give the same bits.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (paddle_tpu_torch/ops/paged_attention.py), launched on the caller's
-// stream, allocating nothing.
+// stream, allocating nothing (the wrapper passes the verify walk's
+// scratch).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+#include <cooperative_groups.h>
 #include <cuda_fp8.h>
-#include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -306,12 +347,23 @@ cudaError_t launch_shape(const Args& a) {
   return cudaGetLastError();
 }
 
+// The (q, pool) pairs whose verify groups (G >= 2) take the verify walk:
+// int8 / fp8 pools under any float query, 16-bit pools under their own
+// type.
+template <typename TQ, typename TKV>
+constexpr bool kWalkPair =
+    sizeof(TKV) == 1 || (sizeof(TKV) == 2 && std::is_same<TQ, TKV>::value);
+
 template <typename TQ, typename TKV, int HEAD_DIM>
 cudaError_t launch_group(const Args& a) {
   if (a.G == 1) return launch_shape<TQ, TKV, HEAD_DIM, 1>(a);
-  if (a.G <= 4) return launch_shape<TQ, TKV, HEAD_DIM, 4>(a);
-  if (a.G <= 8) return launch_shape<TQ, TKV, HEAD_DIM, 8>(a);
-  return cudaErrorInvalidValue;
+  if constexpr (kWalkPair<TQ, TKV>) {
+    return cudaErrorInvalidValue;  // paddle_tpu_torch_paged_verify's
+  } else {
+    if (a.G <= 4) return launch_shape<TQ, TKV, HEAD_DIM, 4>(a);
+    if (a.G <= 8) return launch_shape<TQ, TKV, HEAD_DIM, 8>(a);
+    return cudaErrorInvalidValue;
+  }
 }
 
 template <typename TQ, typename TKV>
@@ -332,12 +384,560 @@ cudaError_t launch_quantized(int head_dim, int kv_dtype, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+
+// ------------------------------------------------------ the verify walk
+
+namespace vw {
+
+using namespace hopper;
+
+constexpr int kKT = 16;               // keys a tile, at most
+constexpr int kRingBudget = 204800;   // shared-memory bytes of the ring
+constexpr int kMaxStages = 6;         // tiles in it, at most
+
+// The tensor-core type of the products: fp16 under fp16 queries, else
+// bf16 (fp32 queries are split into three bf16 parts).
+template <typename TQ>
+using ME = typename std::conditional<std::is_same<TQ, __half>::value, __half,
+                                     __nv_bfloat16>::type;
+
+template <typename TQ, typename TKV, int HEAD_DIM>
+struct Cfg {
+  static constexpr int kHB = HEAD_DIM == 64 ? 16 : 8;  // heads a block
+  static constexpr int kConsumers = kHB * 32;          // a warp a head
+  static constexpr int kThreads = kConsumers + 32;     // and a producer warp
+  static constexpr bool kQuant = sizeof(TKV) == 1;
+  // parts of q and of p in the tensor-core type: fp32 queries three
+  // (exact), p two (hi + lo: ~16 significant bits) or three
+  static constexpr int kQParts = std::is_same<TQ, float>::value ? 3 : 1;
+  static constexpr int kPParts = std::is_same<TQ, float>::value ? 3 : 2;
+  // a pool entry's heads of the block, padded by 16 bytes so that the 8
+  // keys an ldmatrix reads fall on 8 different bank groups
+  static constexpr int kRowBytes = kHB * HEAD_DIM * (int)sizeof(TKV) + 16;
+  static constexpr int kTileBytes = kKT * kRowBytes;   // K or V of a tile
+  static constexpr int kScales = kKT * kHB;            // fp32 a pool a tile
+  static constexpr int kStageBytes =
+      2 * kTileBytes + (kQuant ? 2 * kScales * 4 : 0);
+  static constexpr int kStages = kRingBudget / kStageBytes < kMaxStages
+                                     ? kRingBudget / kStageBytes
+                                     : kMaxStages;
+  static constexpr int kRing = kStages * kStageBytes;
+  static constexpr int kSmem = 128 + kRing + 2 * kStages * 8;
+};
+
+__device__ __forceinline__ int walk_last(const int* positions, int n, int G,
+                                         int MB, int BS) {
+  int last = 0;
+  for (int g = 0; g < G; ++g)
+    last = max(last, positions[(long long)n * G + g]);
+  return min(last, MB * BS - 1);
+}
+
+// Item `item` = (group n, head block hbk, range r of R): its walk's slot,
+// its newest key `last` (the true maximum of the group's positions,
+// inside the table), and its key tiles [t0, t1) of the walk's tn.
+struct Walk {
+  int n, hbk, slot, last, t0, t1;
+};
+__device__ __forceinline__ Walk walk_of(int item, const int* positions,
+                                        const int* slot_ids, int G, int S,
+                                        int MB, int BS, int KT, int hblk,
+                                        int R) {
+  Walk w;
+  w.n = item / (hblk * R);
+  w.hbk = item / R % hblk;
+  const int r = item % R;
+  int slot = slot_ids[w.n];
+  w.slot = slot < 0 ? 0 : (slot >= S ? S - 1 : slot);  // padding -> slot 0
+  w.last = walk_last(positions, w.n, G, MB, BS);
+  const long long tn = w.last / KT + 1;
+  w.t0 = (int)(r * tn / R);
+  w.t1 = (int)((r + 1) * tn / R);
+  return w;
+}
+
+// ----------------------------------------------- tensor-core fragments
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float a, float b);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float a, float b) {
+  const __half2 v = __floats2half2_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x split into P parts of the tensor-core type T, part i holding what
+// the parts before it left: parts[0] + parts[1] + ... ~ x.
+template <typename T, int P>
+__device__ __forceinline__ void split(float x, float (&parts)[P]) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    parts[i] = to_float(from_float<T>(x));
+    x -= parts[i];
+  }
+}
+
+// d += a (16 x 16, row-major) . b (16 x 8, column-major), fp32 sums
+template <typename T>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+template <int N>
+__device__ __forceinline__ void bar_sync1() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
+}
+
+// Two 1-byte pool values as a pair of the tensor-core type T (exact:
+// int8 and e4m3 values are exact in bf16 and fp16).
+template <typename T, typename TKV>
+__device__ __forceinline__ uint32_t pair(TKV a, TKV b) {
+  return pack2<T>(to_float(a), to_float(b));
+}
+
+// A pair's halves kept where `lo` / `hi` hold (masked keys read zeros,
+// whatever the shared memory held).
+__device__ __forceinline__ uint32_t keep(uint32_t v, bool lo, bool hi) {
+  return v & ((lo ? 0x0000FFFFu : 0u) | (hi ? 0xFFFF0000u : 0u));
+}
+
+// state: acc [items][G][kHB][HEAD_DIM], then m and l [items][G][kHB],
+// fp32. Grid: `gridDim.x` persistent blocks (cooperative).
+template <typename TQ, typename TKV, int HEAD_DIM>
+__global__ void __launch_bounds__(Cfg<TQ, TKV, HEAD_DIM>::kThreads, 1)
+verify_walk_kernel(const TQ* __restrict__ q,            // [N, G, H, Dh]
+                   const TKV* __restrict__ k_pool,      // [NB, BS, H, Dh]
+                   const TKV* __restrict__ v_pool,
+                   const float* __restrict__ k_scale,   // [NB, BS, H]
+                   const float* __restrict__ v_scale,
+                   const int* __restrict__ block_tables,  // [S, MB]
+                   const int* __restrict__ slot_ids,      // [N]
+                   const int* __restrict__ positions,     // [N, G]
+                   TQ* __restrict__ out,                  // [N, G, H, Dh]
+                   float* __restrict__ state, int N, int G, int H, int BS,
+                   int S, int MB, float scale, int R) {
+  using C = Cfg<TQ, TKV, HEAD_DIM>;
+  using T = ME<TQ>;
+  constexpr int QP = C::kQParts, PP = C::kPParts;
+  constexpr int KS = HEAD_DIM / 16;  // k16 steps of q . k
+  constexpr int ND = HEAD_DIM / 8;   // n8 tiles of p . v
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::kRing);
+  uint64_t* empty = full + C::kStages;
+  const int KT = BS % 16 == 0 ? 16 : BS % 8 == 0 ? 8 : BS % 4 == 0 ? 4
+               : BS % 2 == 0 ? 2 : 1;  // gcd(BS, 16)
+  const int hblk = (H + C::kHB - 1) / C::kHB;
+  const int items = N * hblk * R;
+  float* st_acc = state;
+  float* st_m = state + (long long)items * G * C::kHB * HEAD_DIM;
+  float* st_l = st_m + (long long)items * G * C::kHB;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < C::kStages; ++i) {
+      mbar_init(&full[i], C::kQuant ? 33 : 1);
+      mbar_init(&empty[i], C::kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= C::kConsumers) {
+    // ------------------------------------------------ producer warp
+    const int lane = threadIdx.x & 31;
+    long long it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const Walk w =
+          walk_of(item, positions, slot_ids, G, S, MB, BS, KT, hblk, R);
+      if (w.t0 >= w.t1) continue;
+      const int* row = block_tables + (long long)w.slot * MB;
+      const int p_last = (w.t1 - 1) * KT / BS;
+      int base = w.t0 * KT / BS;
+      // this lane's page entries: page base + lane, and 32 pages on
+      int cur = base + lane <= p_last ? row[base + lane] : 0;
+      int nxt = base + 32 + lane <= p_last ? row[base + 32 + lane] : 0;
+      const int h0 = w.hbk * C::kHB, hb = min(C::kHB, H - h0);
+      const uint32_t entry_bytes = hb * HEAD_DIM * (int)sizeof(TKV);
+      for (int t = w.t0; t < w.t1; ++t, ++it) {
+        const int p = t * KT / BS;
+        if (p - base >= 32) {
+          base += 32;
+          cur = nxt;
+          nxt = base + 32 + lane <= p_last ? row[base + 32 + lane] : 0;
+        }
+        const int blk = __shfl_sync(0xffffffffu, cur, p - base);
+        const long long e0 = (long long)blk * BS + (t * KT - p * BS);
+        const int stage = (int)(it % C::kStages);
+        mbar_wait(&empty[stage], (int)((it / C::kStages) & 1) ^ 1);
+        unsigned char* st = ring + stage * C::kStageBytes;
+        if (lane == 0) mbar_arrive_tx(&full[stage], 2 * KT * entry_bytes);
+        __syncwarp();
+        if (lane % 16 < KT) {  // lanes 0.. K's entries, 16.. V's
+          const int which = lane / 16, e = lane % 16;
+          bulk_load(st + which * C::kTileBytes + e * C::kRowBytes,
+                    (which ? v_pool : k_pool) +
+                        ((e0 + e) * H + h0) * HEAD_DIM,
+                    entry_bytes, &full[stage]);
+        }
+        if constexpr (C::kQuant) {
+          float* sd = reinterpret_cast<float*>(st + 2 * C::kTileBytes);
+          for (int i = lane; i < 2 * KT * hb; i += 32) {
+            const int which = i / (KT * hb), j = i % (KT * hb);
+            cp_async_4(sd + which * C::kScales + j,
+                       (which ? v_scale : k_scale) + (e0 + j / hb) * H + h0 +
+                           j % hb,
+                       true);
+          }
+          mbar_arrive_cp_async(&full[stage]);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------ consumers: a warp a head
+    const int hh = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tq = lane & 3;  // fragment row, column pair
+    long long it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const Walk w =
+          walk_of(item, positions, slot_ids, G, S, MB, BS, KT, hblk, R);
+      if (w.t0 >= w.t1) continue;
+      const int h0 = w.hbk * C::kHB, hb = min(C::kHB, H - h0);
+      const int hc = min(hh, hb - 1);  // warps past the heads read one
+      // query g of the group (rows 8.. of each fragment are zeros): q
+      // scaled and rounded to its dtype, as A fragments in QP parts
+      const int qpos = g < G ? positions[(long long)w.n * G + g] : -1;
+      uint32_t qa[QP][KS][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float x0 = 0.f, x1 = 0.f;
+          if (g < G) {
+            const TQ* src = q + (((long long)w.n * G + g) * H + h0 + hc) *
+                                    HEAD_DIM + ks * 16 + 8 * hf + 2 * tq;
+            x0 = to_float(from_float<TQ>(to_float(src[0]) * scale));
+            x1 = to_float(from_float<TQ>(to_float(src[1]) * scale));
+          }
+          float p0[QP], p1[QP];
+          split<T, QP>(x0, p0);
+          split<T, QP>(x1, p1);
+#pragma unroll
+          for (int i = 0; i < QP; ++i) {
+            qa[i][ks][2 * hf] = pack2<T>(p0[i], p1[i]);
+            qa[i][ks][2 * hf + 1] = 0u;
+          }
+        }
+      float o[ND][4], m = kMaskValue, lsum = 0.f;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+      for (int t = w.t0; t < w.t1; ++t, ++it) {
+        const int stage = (int)(it % C::kStages);
+        mbar_wait(&full[stage], (int)((it / C::kStages) & 1));
+        const unsigned char* kt = ring + stage * C::kStageBytes;
+        const unsigned char* vt = kt + C::kTileBytes;
+        const float* ksc =
+            reinterpret_cast<const float*>(kt + 2 * C::kTileBytes);
+        const float* vsc = ksc + C::kScales;
+        const int hoff = hc * HEAD_DIM * (int)sizeof(TKV);
+        // s[nt][e]: query g, keys 8 nt + 2 tq + {0, 1} (e = 0, 1)
+        float s[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t b[4];  // (nt 0: b0, b1), (nt 1: b0, b1)
+          if constexpr (C::kQuant) {
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                const TKV* pk = reinterpret_cast<const TKV*>(
+                    kt + (8 * nt + g) * C::kRowBytes + hoff) +
+                    ks * 16 + 8 * hf + 2 * tq;
+                b[2 * nt + hf] = pair<T>(pk[0], pk[1]);
+              }
+          } else {
+            ldsm_x4(b, kt + ((lane & 7) + 8 * (lane >> 4)) * C::kRowBytes +
+                           hoff + (ks * 16 + 8 * ((lane >> 3) & 1)) * 2);
+          }
+#pragma unroll
+          for (int i = 0; i < QP; ++i) {
+            mma<T>(s[0], qa[i][ks], b[0], b[1]);
+            mma<T>(s[1], qa[i][ks], b[2], b[3]);
+          }
+        }
+        // the online softmax of row g over the tile's keys
+        const int n_keys = min(KT, w.last - t * KT + 1);  // keys read
+        float mt = kMaskValue;
+        bool vis[2][2];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = 8 * nt + 2 * tq + e;
+            if constexpr (C::kQuant) s[nt][e] *= ksc[key * hb + hc];
+            vis[nt][e] = key < n_keys && t * KT + key <= qpos;
+            if (vis[nt][e]) mt = fmaxf(mt, s[nt][e]);
+          }
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float m_new = fmaxf(m, mt);
+        const float alpha = expf(m - m_new);
+        float pv[2][2], psum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            pv[nt][e] = vis[nt][e] ? expf(s[nt][e] - m_new) : 0.f;
+            psum += pv[nt][e];
+          }
+        psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+        psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+        lsum = lsum * alpha + psum;
+        m = m_new;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          o[nd][0] *= alpha;
+          o[nd][1] *= alpha;
+        }
+        // p (times v's scale) as A fragments in PP parts
+        uint32_t pa[PP][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          float x[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            x[e] = pv[nt][e];
+            if constexpr (C::kQuant)  // (a key not read has no scale)
+              x[e] = vis[nt][e] ? x[e] * vsc[(8 * nt + 2 * tq + e) * hb + hc]
+                                : 0.f;
+          }
+          float p0[PP], p1[PP];
+          split<T, PP>(x[0], p0);
+          split<T, PP>(x[1], p1);
+#pragma unroll
+          for (int i = 0; i < PP; ++i) {
+            pa[i][2 * nt] = pack2<T>(p0[i], p1[i]);
+            pa[i][2 * nt + 1] = 0u;
+          }
+        }
+        // o += p . v over the n8 tiles of head_dim; keys past n_keys read
+        // zeros
+        const bool k0 = 2 * tq < n_keys, k1 = 2 * tq + 1 < n_keys;
+        const bool k8 = 2 * tq + 8 < n_keys, k9 = 2 * tq + 9 < n_keys;
+#pragma unroll
+        for (int nd = 0; nd < ND; nd += 2) {
+          uint32_t b[4];  // (nd: b0, b1), (nd + 1: b0, b1)
+          if constexpr (C::kQuant) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                const TKV* pv0 = reinterpret_cast<const TKV*>(
+                    vt + (2 * tq + 8 * hf) * C::kRowBytes + hoff) +
+                    (nd + j) * 8 + g;
+                b[2 * j + hf] = pair<T>(pv0[0], pv0[C::kRowBytes]);
+              }
+          } else {
+            ldsm_x4_t(b, vt + ((lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                  C::kRowBytes +
+                             hoff + (nd * 8 + 8 * (lane >> 4)) * 2);
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const uint32_t b0 = keep(b[2 * j], k0, k1);
+            const uint32_t b1 = keep(b[2 * j + 1], k8, k9);
+#pragma unroll
+            for (int i = 0; i < PP; ++i) mma<T>(o[nd + j], pa[i], b0, b1);
+          }
+        }
+        __syncwarp();
+        mbar_arrive(&empty[stage]);
+      }
+      if (hh < hb && g < G) {
+        const long long sidx = ((long long)item * G + g) * C::kHB + hh;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd)
+          *reinterpret_cast<float2*>(st_acc + sidx * HEAD_DIM + nd * 8 +
+                                     2 * tq) = make_float2(o[nd][0], o[nd][1]);
+        if (tq == 0) {
+          st_m[sidx] = m;
+          st_l[sidx] = lsum;
+        }
+      }
+    }
+  }
+
+  // ----------------------------------------------------------- combine
+  cooperative_groups::this_grid().sync();  // every item's state is stored
+  if (threadIdx.x >= C::kConsumers) return;
+  // A (group, head) unit at a time, in shared memory (the ring's): each
+  // item's m and l, each query's largest max and the items' weights
+  // exp(m - max) (0 for an empty range), then the items' accumulators
+  // kRC at a time, every thread's loads in flight together; the sums
+  // over the items run in range order.
+  constexpr int kRC = 16;           // items a pass of the accumulators
+  constexpr int D4 = HEAD_DIM / 4;  // float4s a row
+  const int tid = threadIdx.x;
+  float* wgt = reinterpret_cast<float*>(ring);  // [R][G]: m, then weights
+  float* lsm = wgt + R * G;                     // [R][G]
+  float* mxs = lsm + R * G;                     // [G]
+  float* dens = mxs + G;                        // [G]
+  float4* red = reinterpret_cast<float4*>(
+      ring + ((2 * R * G + 2 * G) * 4 + 15) / 16 * 16);  // [kRC][G][D4]
+  for (int u = blockIdx.x; u < N * H; u += gridDim.x) {
+    const int n = u / H, h = u % H, hk = h / C::kHB, hh = h % C::kHB;
+    const long long tn = walk_last(positions, n, G, MB, BS) / KT + 1;
+    const long long item0 = ((long long)n * hblk + hk) * R;
+    for (int i = tid; i < R * G; i += C::kConsumers) {
+      const int r = i / G, g = i % G;
+      const bool ok = (r + 1) * tn / R != r * tn / R;  // a range with tiles
+      const long long sidx = ((item0 + r) * G + g) * C::kHB + hh;
+      wgt[i] = ok ? st_m[sidx] : kMaskValue;
+      lsm[i] = ok ? st_l[sidx] : 0.f;
+    }
+    bar_sync1<C::kConsumers>();
+    if (tid < G) {
+      float mx = kMaskValue;
+      for (int r = 0; r < R; ++r) mx = fmaxf(mx, wgt[r * G + tid]);
+      mxs[tid] = mx;
+    }
+    bar_sync1<C::kConsumers>();
+    for (int i = tid; i < R * G; i += C::kConsumers)
+      wgt[i] = expf(wgt[i] - mxs[i % G]);  // an empty range: l = acc = 0
+    bar_sync1<C::kConsumers>();
+    if (tid < G) {
+      float den = 0.f;
+      for (int r = 0; r < R; ++r)
+        den = fmaf(wgt[r * G + tid], lsm[r * G + tid], den);
+      dens[tid] = fmaxf(den, 1e-30f);
+    }
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);  // thread (g, d4)
+    for (int r0 = 0; r0 < R; r0 += kRC) {
+      for (int i = tid; i < kRC * G * D4; i += C::kConsumers) {
+        const int rr = i / (G * D4), g = i / D4 % G, d4 = i % D4;
+        const int r = r0 + rr;
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < R && (r + 1) * tn / R != r * tn / R) {
+          a = *reinterpret_cast<const float4*>(
+              st_acc + (((item0 + r) * G + g) * C::kHB + hh) * HEAD_DIM +
+              4 * d4);
+          const float c = wgt[r * G + g];
+          a = make_float4(c * a.x, c * a.y, c * a.z, c * a.w);
+        }
+        red[i] = a;
+      }
+      bar_sync1<C::kConsumers>();
+      if (tid < G * D4)
+        for (int rr = 0; rr < kRC && r0 + rr < R; ++rr) {
+          const float4 a = red[rr * G * D4 + tid];
+          acc.x += a.x;
+          acc.y += a.y;
+          acc.z += a.z;
+          acc.w += a.w;
+        }
+      bar_sync1<C::kConsumers>();
+    }
+    if (tid < G * D4) {
+      const int g = tid / D4, d = tid % D4 * 4;
+      const float den = dens[g];
+      Vec<TQ, 4> res;
+      res.v[0] = from_float<TQ>(acc.x / den);
+      res.v[1] = from_float<TQ>(acc.y / den);
+      res.v[2] = from_float<TQ>(acc.z / den);
+      res.v[3] = from_float<TQ>(acc.w / den);
+      *reinterpret_cast<Vec<TQ, 4>*>(
+          out + (((long long)n * G + g) * H + h) * HEAD_DIM + d) = res;
+    }
+  }
+}
+
+template <typename TQ, typename TKV, int HEAD_DIM>
+cudaError_t launch_shape(const Args& a, float* state, int R, int grid) {
+  using C = Cfg<TQ, TKV, HEAD_DIM>;
+  auto kern = verify_walk_kernel<TQ, TKV, HEAD_DIM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(C::kThreads);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;  // the combine's grid sync
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const TQ*>(a.q),
+      static_cast<const TKV*>(a.k_pool), static_cast<const TKV*>(a.v_pool),
+      a.k_scale, a.v_scale, a.block_tables, a.slot_ids, a.positions,
+      static_cast<TQ*>(a.out), state, a.N, a.G, a.H, a.BS, a.S, a.MB,
+      a.scale, R);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV>
+cudaError_t launch(int head_dim, const Args& a, float* state, int R,
+                   int grid) {
+  if (a.G < 2 || a.G > 8) return cudaErrorInvalidValue;
+  if (head_dim == 64) return launch_shape<TQ, TKV, 64>(a, state, R, grid);
+  if (head_dim == 128) return launch_shape<TQ, TKV, 128>(a, state, R, grid);
+  return cudaErrorInvalidValue;
+}
+
+template <typename TQ>
+cudaError_t launch_quantized(int head_dim, int kv_dtype, const Args& a,
+                             float* state, int R, int grid) {
+  if (a.k_scale == nullptr || a.v_scale == nullptr)
+    return cudaErrorInvalidValue;
+  if (kv_dtype == 3)
+    return launch<TQ, signed char>(head_dim, a, state, R, grid);
+  if (kv_dtype == 4) return launch<TQ, fp8e4m3>(head_dim, a, state, R, grid);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace vw
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16, 3 = int8, 4 =
 // float8_e4m3fn. Supported (q, pool) pairs: equal float types, float32
 // queries over 16-bit pools, and any float query type over int8 or fp8
-// pools, which need k_scale/v_scale ([NB, BS, H] fp32). Returns a
+// pools, which need k_scale/v_scale ([NB, BS, H] fp32); groups of G >= 2
+// over the pairs the verify walk takes (kWalkPair) are
+// paddle_tpu_torch_paged_verify's and refused here. Returns a
 // cudaError_t; 0 when the kernel was launched.
 extern "C" int paddle_tpu_torch_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
@@ -372,5 +972,51 @@ extern "C" int paddle_tpu_torch_paged_attention(
     err = launch_quantized<__nv_bfloat16>(head_dim, kv_dtype, a);
   else if (q_dtype == 2)
     err = launch_quantized<__half>(head_dim, kv_dtype, a);
+  return (int)err;
+}
+
+// The verify walk (verify_walk_kernel): the verify entry at 2 <= G <= 8
+// over 16-bit pools under queries of their type (1 / 1, 2 / 2) or over
+// int8 / fp8 pools (3, 4, with k_scale/v_scale) under any float query.
+// Operands as for paddle_tpu_torch_paged_attention, the pools 16-byte
+// aligned; `ranges` (R) and `grid` are ops/paged_attention.py:
+// verify_plan's; state: fp32 scratch of items x G x heads a block x
+// (head_dim + 2), items = N x ceil(H / heads a block) x R (16 heads a
+// block at head_dim 64, 8 at 128). Returns a cudaError_t; 0 when the
+// kernel was launched.
+extern "C" int paddle_tpu_torch_paged_verify(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* slot_ids, const void* positions, void* out, void* state,
+    int N, int G, int H, int head_dim, int BS, int S, int MB, int q_dtype,
+    int kv_dtype, float scale, int ranges, int grid, void* stream) {
+  if (N <= 0 || G < 2 || G > 8 || H <= 0 || BS <= 0 || ranges <= 0 ||
+      grid <= 0 || state == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (kv_dtype <= 2 && (k_scale != nullptr || v_scale != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k_pool, v_pool,
+               static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(block_tables),
+               static_cast<const int*>(slot_ids),
+               static_cast<const int*>(positions), out, N, G, H, BS, S, MB,
+               scale, static_cast<cudaStream_t>(stream)};
+  float* st = static_cast<float*>(state);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (q_dtype == 1 && kv_dtype == 1)
+    err = vw::launch<__nv_bfloat16, __nv_bfloat16>(head_dim, a, st, ranges,
+                                                   grid);
+  else if (q_dtype == 2 && kv_dtype == 2)
+    err = vw::launch<__half, __half>(head_dim, a, st, ranges, grid);
+  else if (q_dtype == 0 && kv_dtype >= 3)
+    err = vw::launch_quantized<float>(head_dim, kv_dtype, a, st, ranges,
+                                      grid);
+  else if (q_dtype == 1 && kv_dtype >= 3)
+    err = vw::launch_quantized<__nv_bfloat16>(head_dim, kv_dtype, a, st,
+                                              ranges, grid);
+  else if (q_dtype == 2 && kv_dtype >= 3)
+    err = vw::launch_quantized<__half>(head_dim, kv_dtype, a, st, ranges,
+                                       grid);
   return (int)err;
 }

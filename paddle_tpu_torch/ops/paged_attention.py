@@ -18,19 +18,30 @@ A query attends the keys of its slot (slot -1 = padding, clamped to
 slot 0) at positions <= its own.
 
 On a CUDA tensor each entry launches `csrc/paged_attention.cu`, the
-Hopper kernel that replaces the TPU kernel
+Hopper kernels that replace the TPU kernel
 `paddle_tpu/ops/pallas/paged_attention.py:_paged_attend_kernel` (its
 G=1 ragged entry, its G=K verify entry, and its quantized branch), or
-raises: there is no fallback. The work is bound by device memory, so
-the kernel reads each needed K/V row once per group, one coalesced warp
-load per row, stops at the group's newest position instead of masking
-whole blocks, and keeps the queries, the running softmax state and the
-accumulators in registers (the source explains the design). On a CPU
-tensor it runs `ragged_gather_reference` / `verify_gather_reference`,
-the plain PyTorch versions of the JAX package's gather references,
-which the tests and `chip_smoke.py` also hold the kernel against. The
-plain versions dequantize in q's dtype, as the JAX references do; the
-kernel dequantizes in fp32, as the TPU kernel does.
+raises: there is no fallback. The work is bound by device memory, and
+the source explains both designs:
+
+* the ragged entry (and the verify entry over fp32 pools, or fp32
+  queries over 16-bit pools) runs `paged_attend_kernel`: a block per
+  (group, head), each K/V row of the head one coalesced warp load, the
+  walk stopping at the group's newest position;
+* the verify entry at G >= 2 over 16-bit pools under their own query
+  type, and over int8 / fp8 pools, runs the verify walk
+  (`verify_walk_kernel`): items of (group, head block, range of key
+  tiles) as `verify_plan` cuts them, each pool entry's heads of the
+  block brought by one bulk copy into a ring, the products on the
+  tensor cores (a warp a head), and the items' softmax states merged in
+  a fixed order after a grid-wide sync, in one launch.
+
+On a CPU tensor it runs `ragged_gather_reference` /
+`verify_gather_reference`, the plain PyTorch versions of the JAX
+package's gather references, which the tests and `chip_smoke.py` also
+hold the kernels against. The plain versions dequantize in q's dtype,
+as the JAX references do; the kernels dequantize in fp32, as the TPU
+kernel does.
 
 The kernel is compiled at first use with nvcc, from this package's own
 source, into `build/paddle_tpu_torch/` at the repository root, and
@@ -199,7 +210,49 @@ def verify_gather_reference(q, k_pool, v_pool, block_tables, slot_ids,
 
 _SIGNATURES = {"paddle_tpu_torch_paged_attention":
                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-               + [ctypes.c_float, ctypes.c_void_p]}
+               + [ctypes.c_float, ctypes.c_void_p],
+               "paddle_tpu_torch_paged_verify":
+               [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+               + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+
+
+def walk_pair(q_dtype, kv_dtype):
+    """Whether verify groups (G >= 2) of this (query, pool) pair take the
+    verify walk: int8 / fp8 pools under any float query, 16-bit pools
+    under their own type. fp32 pools and fp32 queries over 16-bit pools
+    keep `paged_attend_kernel`."""
+    return kv_dtype in _QUANT_POOLS or (
+        q_dtype == kv_dtype and q_dtype in (torch.bfloat16, torch.float16))
+
+
+def verify_plan(N, H, head_dim, sms):
+    """(heads a block, head blocks, ranges a walk, items, grid) of one
+    verify-walk launch over N groups on a card of `sms` SMs: 16 heads a
+    block at head_dim 64, 8 at 128; each (group, head block)'s walk cut
+    into R = sms // (N x head blocks) ranges (at least 1), so that the
+    items fill the card once; `grid` persistent blocks, one an SM at
+    most."""
+    hb = 16 if head_dim == 64 else 8
+    hblk = -(-H // hb)
+    ranges = max(1, sms // (N * hblk))
+    items = N * hblk * ranges
+    return hb, hblk, ranges, items, min(items, sms)
+
+
+def walk_tiles(BS):
+    """Keys a tile of the verify walk: gcd(BS, 16), so a tile never
+    crosses a page."""
+    return math.gcd(BS, 16)
+
+
+def walk_ranges(last, BS, ranges):
+    """The key-tile ranges [t0, t1) of one (group, head block)'s items:
+    the walk of a group whose newest key is `last` (the maximum of its
+    positions, clamped into the table) has last // KT + 1 tiles, cut
+    into `ranges` parts as the kernel cuts them."""
+    tn = last // walk_tiles(BS) + 1
+    return [(r * tn // ranges, (r + 1) * tn // ranges)
+            for r in range(ranges)]
 
 
 def build():
@@ -263,13 +316,30 @@ def _launch(entry, q, k_pool, v_pool, block_tables, slot_ids, positions,
         return out
     lib = _build.load("paged_attention", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.paddle_tpu_torch_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr() if quant else None,
-        v_scale.data_ptr() if quant else None,
-        block_tables.data_ptr(), slot_ids.data_ptr(), positions.data_ptr(),
-        out.data_ptr(), N, G, H, Dh, BS, S, MB, _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[k_pool.dtype], float(scale), stream)
+    scale_ptrs = (k_scale.data_ptr() if quant else None,
+                  v_scale.data_ptr() if quant else None)
+    if G >= 2 and walk_pair(q.dtype, k_pool.dtype):
+        if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+            raise ValueError("paged_attention kernel: the verify walk's "
+                             "bulk copies need 16-byte aligned pools")
+        sms = torch.cuda.get_device_properties(
+            q.device).multi_processor_count
+        hb, _hblk, ranges, items, grid = verify_plan(N, H, Dh, sms)
+        state = torch.empty(items * G * hb * (Dh + 2), dtype=torch.float32,
+                            device=q.device)
+        err = lib.paddle_tpu_torch_paged_verify(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scale_ptrs,
+            block_tables.data_ptr(), slot_ids.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), state.data_ptr(), N, G, H,
+            Dh, BS, S, MB, _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
+            float(scale), ranges, grid, stream)
+    else:
+        err = lib.paddle_tpu_torch_paged_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scale_ptrs,
+            block_tables.data_ptr(), slot_ids.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), N, G, H, Dh, BS, S, MB,
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype], float(scale),
+            stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")

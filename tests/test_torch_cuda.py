@@ -233,6 +233,108 @@ def test_ragged_quantized_kernel_matches_plain(Dh, qdtype, pool,
         float((got - ref).abs().max())
 
 
+def _walk_case(G, Dh, H, BS, qdtype, pool, device, seed=0):
+    """A verify call whose walks end at 1 key, exactly one page, one page
+    + 1 key and 1024 keys (so the longest walk crosses many items), plus
+    a short group [p, p+1, 0, ...] padded with position 0 and a group of
+    slot -1, at H heads and block size BS."""
+    from paddle_tpu_torch.serving.engine import quantize_kv
+    g = torch.Generator().manual_seed(seed)
+    lens = [1, BS, BS + 1, 1024, 300]
+    S, MB = len(lens), -(-1024 // BS)
+    NB = S * MB + 1
+    bt = torch.zeros(S, MB, dtype=torch.int32)
+    perm = torch.randperm(NB - 1, generator=g) + 1
+    for s, n in enumerate(lens):
+        nb = -(-n // BS)
+        bt[s, :nb] = perm[s * MB:s * MB + nb].int()
+    slots, pos = [], []
+    for s in range(4):
+        slots.append(s)
+        pos.append([max(lens[s] - G + j, 0) for j in range(G)])
+    slots.append(4)
+    pos.append([70, 71] + [0] * (G - 2))
+    slots.append(-1)
+    pos.append([0] * G)
+    q = torch.randn(len(slots), G, H, Dh, generator=g).to(qdtype)
+    kf = torch.randn(NB, BS, H, Dh, generator=g)
+    vf = torch.randn(NB, BS, H, Dh, generator=g)
+    if pool == "float":
+        kp, vp, ks, vs = kf.to(qdtype), vf.to(qdtype), None, None
+    else:
+        kv_dtype = "int8" if pool == "int8" else "fp8_e4m3"
+        kp, ks = quantize_kv(kf, kv_dtype)
+        vp, vs = quantize_kv(vf, kv_dtype)
+    args = [q, kp, vp, bt, torch.tensor(slots, dtype=torch.int32),
+            torch.tensor(pos, dtype=torch.int32), ks, vs]
+    return [None if a is None else a.to(device) for a in args]
+
+
+def _hold_walk(args, qdtype, pool):
+    """One verify-walk launch against its plain version (its variant's
+    counter moves by one), and a second launch to the same bits."""
+    before = getattr(tpa, _VERIFY_COUNTER[pool])
+    got = tpa.verify_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert getattr(tpa, _VERIFY_COUNTER[pool]) == before + 1
+    assert torch.equal(tpa.verify_paged_attention(*args), got)
+    ref = tpa.verify_gather_reference(*args)
+    valid = args[4] >= 0
+    assert torch.isfinite(got.float()).all()
+    tol = _VERIFY_TOL[(qdtype, pool)]
+    got, ref = got[valid].float(), ref[valid].float()
+    assert bool(((got - ref).abs() <= tol * (1 + ref.abs())).all()), \
+        float((got - ref).abs().max())
+
+
+# The verify walk (G >= 2 over 16-bit pools under their own type, and
+# over int8 / fp8 pools) across its cuts: walks of 1, BS, BS + 1 and 1024
+# keys; H = 20 at Dh = 64 and 12 at Dh = 128 make a full head block
+# (16 / 8 heads, one bulk copy a pool entry) and a partial one (4 heads,
+# threads past them idle). The tolerances of
+# test_verify_kernel_matches_plain.
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype,pool", [(torch.bfloat16, "float"),
+                                         (torch.float16, "float"),
+                                         (torch.bfloat16, "int8"),
+                                         (torch.bfloat16, "fp8")])
+@pytest.mark.parametrize("G", [2, 4, 5, 8])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_verify_walk_across_its_items(Dh, G, qdtype, pool, cuda_device):
+    H = 20 if Dh == 64 else 12
+    _hold_walk(_walk_case(G, Dh, H, 16, qdtype, pool, cuda_device),
+               qdtype, pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BS", [8, 32, 12])
+def test_verify_walk_other_block_sizes(BS, cuda_device):
+    """Key tiles of gcd(BS, 16) keys: 8 (a page a tile), 16 (two tiles a
+    page) and 4 (three), with every head in one block (one bulk copy a
+    tile)."""
+    _hold_walk(_walk_case(4, 64, 16, BS, torch.bfloat16, "int8",
+                          cuda_device), torch.bfloat16, "int8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype,pool,G,walk", [
+    (torch.bfloat16, "float", 4, True), (torch.bfloat16, "int8", 4, True),
+    (torch.float32, "fp8", 4, True), (torch.float32, "float", 4, False),
+    (torch.bfloat16, "float", 1, False), (torch.bfloat16, "fp8", 1, False)])
+def test_verify_routes_by_pair(qdtype, pool, G, walk, cuda_device):
+    """Verify groups over 16-bit pools under their own type and over
+    quantized pools reach verify_walk_kernel; fp32 pools keep
+    paged_attend_kernel, and so does a group of one query. Two calls in
+    the profiled window, whose first kernel the profiler can miss."""
+    args = _verify_case(G, 64, qdtype, pool, cuda_device)
+    names = _device_kernels(
+        lambda: [tpa.verify_paged_attention(*args) for _ in range(2)])
+    assert any(("verify_walk_kernel" if walk else "paged_attend_kernel") in n
+               for n in names), names
+    assert not any(("paged_attend_kernel" if walk else "verify_walk_kernel")
+                   in n for n in names), names
+
+
 @pytest.mark.cuda
 def test_verify_kernel_refuses_unsupported_operands(cuda_device):
     """A CUDA tensor the kernel does not take raises; it never runs the
@@ -904,13 +1006,22 @@ def test_flash_bshd_kernel_refuses_unsupported_operands(cuda_device):
 
 
 # fp32 sums on both sides (16-bit products are exact in fp32), the
-# chunks added in the same order, the sums inside a chunk in another:
-# 1e-5 relative on values ~sqrt(N), atol 1e-3.
+# kernel's ranges and the plain version's chunks summed in other orders:
+# 1e-5 relative on values ~sqrt(N), atol 1e-3. Beside small and ragged
+# shapes, ResNet-50's 1x1 channel pairs (the output tile 256 x 64 or
+# 128 along the wider side, transposed where Co > Ci) at small N, N off
+# the 32-row stage where it is 1000 or 196.
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,Ci,Co,chunk", [(512, 128, 128, 128),
                                            (4096, 256, 64, 4096),
                                            (1000, 72, 40, 200),
-                                           (96, 8, 8, 48)])
+                                           (96, 8, 8, 48),
+                                           (3136, 64, 256, 448),
+                                           (3136, 256, 64, 3136),
+                                           (784, 256, 512, 784),
+                                           (784, 1024, 256, 392),
+                                           (196, 512, 2048, 196),
+                                           (196, 2048, 512, 49)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_wgrad_kernel_matches_plain(N, Ci, Co, chunk, dtype, cuda_device):
@@ -924,6 +1035,43 @@ def test_wgrad_kernel_matches_plain(N, Ci, Co, chunk, dtype, cuda_device):
     want = tcw.wgrad_1x1_reference(x, dy, chunk=chunk)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
     assert torch.equal(tcw.wgrad_1x1(x, dy, chunk=chunk), got)  # same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad_kernel_takes_more_than_65535_chunks(dtype, cuda_device):
+    """N = 2^20 at chunk 16: 65536 chunks, which the kernel's split does
+    not see (JAX takes any N % chunk == 0). The plain version adds 65536
+    chunk products one after another into sums of ~1000, so its own
+    rounding is held as chip_smoke.py holds K6: each element within 1e-6
+    of its sum's absolute mass sum_n |x[n, i] dy[n, j]|."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2 ** 20, 16, generator=g).to(dtype).to(cuda_device)
+    dy = torch.randn(2 ** 20, 16, generator=g).to(dtype).to(cuda_device)
+    got = tcw.wgrad_1x1(x, dy, chunk=16)
+    want = tcw.wgrad_1x1_reference(x, dy, chunk=16)
+    mass = x.float().abs().t() @ dy.float().abs()
+    assert bool(((got - want).abs() <= 1e-6 * mass).all()), \
+        float(((got - want).abs() / mass).max())
+    assert torch.equal(tcw.wgrad_1x1(x, dy, chunk=16), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_wgrad_routes_by_dtype(dtype, cuda_device):
+    """bf16 and fp16 reach the one-launch wgmma kernel; fp32 the CUDA-core
+    kernel and its sum of the ranges. Two calls in the profiled window:
+    the profiler has been seen to miss the window's first kernel."""
+    x = torch.randn(4096, 256, device=cuda_device).to(dtype)
+    dy = torch.randn(4096, 64, device=cuda_device).to(dtype)
+    names = _device_kernels(
+        lambda: [tcw.wgrad_1x1(x, dy, chunk=512) for _ in range(2)])
+    fp32 = dtype == torch.float32
+    want = ({"wgrad_fp32_kernel", "wgrad_sum_kernel"} if fp32
+            else {"wgrad_wgmma_kernel"})
+    kernels = ("wgrad_fp32_kernel", "wgrad_sum_kernel", "wgrad_wgmma_kernel")
+    assert {k for k in kernels if any(k in n for n in names)} == want, names
 
 
 @pytest.mark.cuda

@@ -160,6 +160,77 @@ def test_verify_plain_matches_jax(seed, G, kind, _interpret_paged):
     assert np.isfinite(got).all()
 
 
+def _context_case(G, kind, seed=5):
+    """Groups whose walks end at 1 key, exactly one page (BS), one page
+    + 1 key and the whole table (MB x BS), then a short group [p, p+1,
+    0, ...] and a group of slot -1."""
+    rng = np.random.RandomState(seed)
+    kp, vp, ks, vs = _pools(rng, kind)
+    lens = [1, BS, BS + 1, MB * BS]
+    bt = np.zeros((S, MB), np.int32)
+    for s in range(S):
+        nb = -(-lens[s] // BS)
+        bt[s, :nb] = rng.choice(np.arange(1, NB), nb, replace=False)
+    slots = list(range(S)) + [3, -1]
+    pos = [[max(lens[s] - G + j, 0) for j in range(G)] for s in range(S)]
+    pos += [[9, 10] + [0] * (G - 2), [0] * G]
+    q = rng.randn(len(slots), G, H, Dh).astype(np.float32)
+    return (q, kp, vp, bt, np.asarray(slots, np.int32),
+            np.asarray(pos, np.int32), ks, vs)
+
+
+@pytest.mark.parametrize("kind", ["float", "int8", "fp8"])
+@pytest.mark.parametrize("G", [2, 8])
+def test_verify_plain_across_page_boundaries(G, kind, _interpret_paged):
+    """fp32 queries, walks of 1, BS, BS + 1 and MB x BS keys: the port,
+    the JAX gather reference and the Pallas kernel differ only in
+    summation order (1e-5)."""
+    case = _context_case(G, kind)
+    targs, jargs = _split(case, "float32")
+    got = tpa.verify_paged_attention(*targs).numpy()
+    ref = np.asarray(fa.verify_gather_reference(*jargs))
+    kern = _pallas(jargs, ragged=False)
+    valid = case[4] >= 0
+    np.testing.assert_allclose(got[valid], ref[valid], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got[valid], kern[valid], rtol=1e-5,
+                               atol=1e-5)
+
+
+# The verify walk's split (ops/paged_attention.py:verify_plan,
+# walk_ranges): at chip_smoke.py's verify shape (8 groups, H = 16, Dh =
+# 64, BS = 16, contexts up to 1024 on 132 SMs), at Dh = 128 (two head
+# blocks), at this file's small geometry, with more groups than SMs and
+# with one group, every key tile of a walk up to its group's newest key
+# lies in exactly one item of each head block, no item reaches past the
+# walk, and the longest walk is cut into several items.
+@pytest.mark.parametrize("N,H,Dh,BS,last", [
+    (8, 16, 64, 16, [1023, 959, 776, 511, 299, 128, 63, 0]),
+    (8, 16, 128, 16, [1023, 959, 776, 511, 299, 128, 63, 0]),
+    (6, 3, 64, 4, [0, 3, 4, 23, 10, 0]),
+    (200, 16, 64, 16, [5] * 199 + [1023]),
+    (1, 20, 64, 12, [1023])])
+def test_verify_plan_covers_every_tile_once(N, H, Dh, BS, last):
+    sms = 132
+    hb, hblk, ranges, items, grid = tpa.verify_plan(N, H, Dh, sms)
+    assert hblk * hb >= H > (hblk - 1) * hb
+    assert items == N * hblk * ranges and grid == min(items, sms)
+    assert items <= sms or ranges == 1
+    kt = tpa.walk_tiles(BS)
+    assert BS % kt == 0 and 16 % kt == 0
+    for top in last:
+        tiles = top // kt + 1
+        parts = tpa.walk_ranges(top, BS, ranges)
+        covered = [t for a, b in parts for t in range(a, b)]
+        assert covered == list(range(tiles))
+        pages = sorted({t * kt // BS for t in covered})
+        assert pages == list(range(top // BS + 1))
+    if N * hblk < sms:   # the longest walk spread over several blocks
+        parts = tpa.walk_ranges(max(last), BS, ranges)
+        assert ranges >= 2
+        assert max(b - a for a, b in parts) < max(last) // kt + 1
+
+
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_ragged_quantized_plain_matches_jax(seed, kind, _interpret_paged):
