@@ -19,8 +19,11 @@ each (or a few):
 3. kernel check — each kernel against its plain version at the shapes
    its path gives it (paged attention at the serving step's: the ragged
    entry over float, int8 and fp8 pools, the verify entry (4 queries a
-   group, a short group padded with position 0, a group of slot -1;
-   two launches bit-identical) over the same three; the three
+   group, a short group padded with position 0, a group of slot -1)
+   over the same three, two launches of each bit-identical, and the
+   dense engine's pure-decode step as `pack_step` lays it out (8
+   decodes, padding to 256 tokens) over the same three, beside the
+   decode entry `paged_attention()`; the three
    grouped expert matmuls — float, int8 and int4 experts — at the MoE
    step's two expert products, each with its bytes/s and share of its
    bound; flash attention forward/backward (with their TFLOP/s and share
@@ -51,7 +54,8 @@ each (or a few):
    have launched once per layer per step;
 5. on-card correctness — two served requests re-scored by the plain
    dense causal forward in fp32, teacher-forced on the engine's output;
-   then a short profiled window of decode steps (host vs device time);
+   then a short profiled window of decode steps (host vs device time,
+   the paged kernels' share);
 5a. serve spec — the same model served by three speculative engines
    (draft_k=3, n-gram drafting) over bf16, int8 and fp8_e4m3 KV pools,
    each taking the 16 requests: every request finishes, the engine's
@@ -238,6 +242,11 @@ TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 GMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
+# the paged kernels' names, as the profiler reports them
+PAGED_KERNELS = ("paged_attend_kernel", "verify_walk_kernel",
+                 "ragged_plan_kernel")
+
+
 def fail(msg):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
@@ -332,6 +341,34 @@ def verify_case(dtype, device, kind="float", seed=SEED):
     kp, vp, ks, vs = quantized_pools(NB, dtype, kind, g)
     args = [q, kp, vp, bt, torch.tensor(slots, dtype=torch.int32),
             torch.tensor(pos, dtype=torch.int32), ks, vs]
+    return [None if a is None else a.to(device) for a in args]
+
+
+def paged_decode_case(dtype, device, kind="float", seed=SEED,
+                      ctx=(1024, 960, 777, 512, 300, 129, 64, 17)):
+    """The dense engine's pure-decode step at full width, as the port's
+    `pack_step` lays it out: one decode token for each of the 8 slots at
+    contexts `ctx` (`paged_case`'s), then padding of slot -1 at position
+    0 to T = 256; float pools in `dtype`, or "int8" / "fp8" pools
+    quantized as the engine quantizes. Returns the ragged entry's [q, k,
+    v, tables, slots, positions, k_scale, v_scale]."""
+    import torch
+    from paddle_tpu_torch.serving.batcher import pack_step
+    g = torch.Generator().manual_seed(seed)
+    H, Dh = HEADS, HIDDEN // HEADS
+    MB = MAX_SEQ // BLOCK
+    NB = SLOTS * MB + 1
+    bt = torch.zeros(SLOTS, MB, dtype=torch.int32)
+    perm = torch.randperm(NB - 1, generator=g) + 1
+    for s, n in enumerate(ctx):
+        nb = -(-n // BLOCK)
+        bt[s, :nb] = perm[s * MB:s * MB + nb].int()
+    plan = pack_step(BUDGET, SLOTS, [(s, 0, ctx[s] - 1)
+                                     for s in range(SLOTS)], [])
+    q = torch.randn(BUDGET, H, Dh, generator=g).to(dtype)
+    kp, vp, ks, vs = quantized_pools(NB, dtype, kind, g)
+    args = [q, kp, vp, bt, torch.from_numpy(plan.slot_ids),
+            torch.from_numpy(plan.positions), ks, vs]
     return [None if a is None else a.to(device) for a in args]
 
 
@@ -453,6 +490,8 @@ def check_paged_attention(pa, device, flush):
         if not bool((diff <= TOL[name] * (1 + ref.abs())).all()):
             fail(f"paged_attention {name}: max abs err {err} past "
                  f"{TOL[name]} (1 + |plain|)")
+        if not torch.equal(pa.ragged_paged_attention(*args), got):
+            fail(f"paged_attention {name}: two runs gave different bits")
         ms = cuda_ms(lambda: pa.ragged_paged_attention(*args),
                      flush=flush)
         plain_ms = cuda_ms(lambda: pa.ragged_gather_reference(*args),
@@ -465,7 +504,8 @@ def check_paged_attention(pa, device, flush):
                              sdpa_gathered_ms=sdpa_ms)
         print(f"kernel check: paged_attention {name} T={BUDGET} H={HEADS} "
               f"Dh={HIDDEN // HEADS} BS={BLOCK} max_abs_err={err:.3g} "
-              f"(tol {TOL[name]} (1 + |plain|)) kernel_ms={ms:.4f} "
+              f"(tol {TOL[name]} (1 + |plain|); two runs bit-identical) "
+              f"kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
               f"({bound_by}; {token_bound_ms:.4f} counting K/V once per "
               f"attended token and key) yardstick: SDPA on a "
@@ -509,7 +549,7 @@ def check_paged_variants(pa, device, flush):
             torch.cuda.synchronize()
             err = close_or_fail(f"{label} {name}", got[valid],
                                 plain(*args)[valid], tol)
-            if entry == "verify" and not torch.equal(fn(*args), got):
+            if not torch.equal(fn(*args), got):
                 fail(f"{label} {name}: two runs gave different bits")
             ms = cuda_ms(lambda: fn(*args), flush=flush)
             plain_ms = cuda_ms(lambda: plain(*args), iters=5, flush=flush)
@@ -525,15 +565,58 @@ def check_paged_variants(pa, device, flush):
             print(f"kernel check: {label} {name} q [{shape}] over "
                   f"{str(args[1].dtype).split('.')[-1]} pools, H={HEADS} "
                   f"Dh={HIDDEN // HEADS} BS={BLOCK} max_abs_err={err:.3g} "
-                  f"(tol {tol} (1 + |plain|)"
-                  f"{'; two runs bit-identical' if entry == 'verify' else ''}"
-                  f") kernel_ms={ms:.4f} "
+                  f"(tol {tol} (1 + |plain|); two runs bit-identical) "
+                  f"kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
                   f"({bound_by}; {token_bound_ms:.4f} counting K/V once per "
                   f"attended query and key) yardstick: SDPA on a "
                   f"pre-gathered{'' if kind == 'float' else ', dequantized'}"
                   f" copy {sdpa_ms:.4f} ms", flush=True)
     return {label: r["bfloat16"] for label, r in records.items()}
+
+
+def check_paged_decode(pa, device, flush):
+    """Phase 3 for the decode-shaped step (`paged_decode_case`) over
+    bf16, int8 and fp8 pools: the ragged entry in fp32 and bf16 queries
+    against its plain version, two launches to the same bits, timed
+    (bf16) beside its bound and the SDPA yardstick; and the decode entry
+    `paged_attention()` over the 8 slots at their contexts."""
+    import torch
+    for kind in ("float", "int8", "fp8"):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            label = f"paged_decode {kind} {name}"
+            args = paged_decode_case(dtype, device, kind)
+            valid = args[4] >= 0
+            tol = (TOL if kind == "float" else QTOL)[name]
+            got = pa.ragged_paged_attention(*args)
+            torch.cuda.synchronize()
+            err = close_or_fail(label, got[valid],
+                                pa.ragged_gather_reference(*args)[valid],
+                                tol)
+            if not torch.equal(pa.ragged_paged_attention(*args), got):
+                fail(f"{label}: two runs gave different bits")
+            q, kp, vp, bt, slots, pos, ks, vs = args
+            dec = pa.paged_attention(q[valid], kp, vp, bt, pos[valid] + 1,
+                                     ks, vs)
+            close_or_fail(f"{label} paged_attention()", dec, got[valid],
+                          tol)
+            if name != "bfloat16":
+                continue
+            ms = cuda_ms(lambda: pa.ragged_paged_attention(*args),
+                         flush=flush)
+            sdpa_ms = cuda_ms(sdpa_yardstick(args), flush=flush)
+            bound_ms, bound_by, _ = paged_bound(args)
+            print(f"kernel check: {label} q [{BUDGET}x{HEADS}x"
+                  f"{HIDDEN // HEADS}] ({int(valid.sum())} decodes, "
+                  f"{int((~valid).sum())} padding tokens) over "
+                  f"{str(kp.dtype).split('.')[-1]} pools BS={BLOCK} "
+                  f"max_abs_err={err:.3g} (tol {tol} (1 + |plain|); two "
+                  f"runs bit-identical; paged_attention() agrees) "
+                  f"kernel_ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
+                  f" yardstick: SDPA on a pre-gathered"
+                  f"{'' if kind == 'float' else ', dequantized'} copy "
+                  f"{sdpa_ms:.4f} ms", flush=True)
 
 
 # ------------------------------------------------------------- phase 4
@@ -686,7 +769,8 @@ def profile_decode(eng, label, window=16, kernel=None):
     draft_k + 1 tokens, so the horizon leaves room for that. With
     `kernel`, also the device time of the kernels whose names hold that
     string and their share of the step's. Informational: prints "not
-    measured" when the profiler records no device events."""
+    measured" when the profiler records no device events. `kernel`
+    may be a tuple of such strings."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -724,9 +808,10 @@ def profile_decode(eng, label, window=16, kernel=None):
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     share = ""
     if kernel is not None:
-        mine = [e for e in dev if kernel in e.key]
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        mine = [e for e in dev if any(n in e.key for n in names)]
         k_ms = sum(e.self_device_time_total for e in mine) / 1e3 / window
-        share = (f"; {kernel} kernels {k_ms:.3f} ms in "
+        share = (f"; {' / '.join(names)} kernels {k_ms:.3f} ms in "
                  f"{sum(e.count for e in mine) / window:.0f} launches, "
                  f"{k_ms / device_ms:.1%} of the device time")
     print(f"profile: {label} decode step, 8 slots at contexts 256-"
@@ -2784,6 +2869,7 @@ def main():
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=device)
     checks = {"paged_attention": check_paged_attention(pa, device, flush)}
     checks.update(check_paged_variants(pa, device, flush))
+    check_paged_decode(pa, device, flush)
     checks.update(check_gmm(gm, device, flush))
     checks.update(check_flash(fa, device, flush))
     checks.update(check_add_ln(ln, device, flush))
@@ -2797,7 +2883,7 @@ def main():
 
     eng, reqs, serve_launches = serve(device, counters)
     check_outputs(eng.model, reqs, device)
-    profile_decode(eng, "GPT-350M")
+    profile_decode(eng, "GPT-350M", kernel=PAGED_KERNELS)
     del eng, reqs
     torch.cuda.empty_cache()
     serve_launches.update(serve_spec(device, counters))

@@ -27,28 +27,41 @@
 // ~295 the tensor cores need. Decode and verify walks are long (up to
 // the whole context) and few (8 slots at the serving shapes), so what
 // holds a kernel is how many bytes it keeps in flight, and whether the
-// longest walk is the serial path of one SM. Two kernels:
+// longest walk is the serial path of one SM. A prefill chunk is many
+// queries of one slot: walked a query at a time, it reads its slot's
+// pages once per query (Σ (pos + 1) rows, 17x the bytes it needs at
+// the serving step's shape). Two kernels:
 //
-// paged_attend_kernel (the ragged entry, G = 1; the verify entry over
-// fp32 pools and fp32 queries over 16-bit pools): one block of 4 warps
-// per (group, head); the warps take the walk's pages in turn (warp w
-// reads pages w, w+4, ...), each keeping its own online-softmax state,
-// and merge the four states in shared memory at the end. Each lane holds
-// Dh/32 elements of every query of the group and of its accumulator in
-// registers; a K or V row of one head is one coalesced warp load; keys
-// are taken CHUNK at a time (8 for up to 4 queries, 4 for up to 8) with
-// unconditional loads, so 2 * CHUNK row loads are in flight before the
-// first dot product needs one. No row is staged in shared memory: rows
-// that several groups of one slot share (a prefill chunk re-walks its
-// slot's pages once per token) are served from L2.
+// paged_attend_kernel (fp32 pools, and fp32 queries over 16-bit pools,
+// on both entries): one block of 4 warps per (group, head); the warps
+// take the walk's pages in turn (warp w reads pages w, w+4, ...), each
+// keeping its own online-softmax state, and merge the four states in
+// shared memory at the end. Each lane holds Dh/32 elements of every
+// query of the group and of its accumulator in registers; a K or V row
+// of one head is one coalesced warp load; keys are taken CHUNK at a
+// time (8 for up to 4 queries, 4 for up to 8) with unconditional loads,
+// so 2 * CHUNK row loads are in flight before the first dot product
+// needs one.
 //
-// verify_walk_kernel (the verify entry, G >= 2, over 16-bit pools with
-// queries of their type and over int8 / fp8 pools with any float
-// queries): a split-page walk of whole pages across heads.
+// verify_walk_kernel (16-bit pools with queries of their type, and
+// int8 / fp8 pools with any float queries, on both entries): a
+// split-page walk of whole pages across heads, over groups of queries
+// from one of two sources:
+//   * the verify entry (kRagged false, G >= 2): group n is the [G]
+//     queries of q[n], walked to the maximum of positions[n];
+//   * the ragged entry (kRagged true; also verify calls of G = 1):
+//     groups are found on the device, the maximal runs of consecutive
+//     flat tokens whose slot is the same (clamped as above), cut every
+//     kRows = 16 tokens (mma.sync's rows), so a prefill chunk reads a
+//     page once per 16 queries. Each row keeps its own position for the
+//     mask; the group's walk ends at the true maximum of its rows'
+//     positions (any order, any slot layout is right; pack_step's —
+//     decodes, then chunks in ascending positions, then padding —
+//     is what makes the runs long).
 //   * Work items: (group, head block, range of key tiles). A key tile
 //     is KT = gcd(BS, 16) consecutive entries of one page; a head block
 //     is 16 heads at Dh = 64, 8 at Dh = 128 (a tile of K and V is then
-//     64 KB in 16 bits, 33 KB quantized). Each group's walk of
+//     64 KB in 16 bits, 33 KB quantized). Verify: each group's walk of
 //     last / KT + 1 tiles is cut into R equal ranges (ops/
 //     paged_attention.py:verify_plan, R = SMs / (groups x head blocks)),
 //     so the longest walk is spread over R blocks instead of being one
@@ -57,10 +70,20 @@
 //     most 3 tiles instead of 4 at verify_case's shape, and read 4-13%
 //     slower on an H100, in calls where the parent's kernel read the same:
 //     the plan's extra round trip and longer merges cost more than the
-//     shorter items saved.)
+//     shorter items saved.) Ragged: walks differ by 64x (a 1024-key
+//     decode, a padding group's one tile), so every block plans from
+//     the tokens' slots and positions (build_plan: neighbour compares
+//     and block scans in shared memory, no host read): each item takes
+//     at most W tiles, the fewest that keep the items within one an SM
+//     (a second wave of short items cost more than longer items), a
+//     group ceil(tiles / W) ranges of its walk; a unit of one range
+//     writes its output in place and skips the combine. (A pre-pass
+//     launch that planned once for the walk to copy read 3.4-4.5 µs
+//     slower on an H100.)
 //   * Loads: a producer warp reads the item's block-table entries into
 //     registers (32 pages a load, the next 32 prefetched), then keeps a
-//     ring of tiles in flight (3 stages, 5 quantized), each pool entry's
+//     ring of tiles in flight (verify 3 stages, 5 quantized; ragged 2),
+//     each pool entry's
 //     heads of the block one bulk copy (cp.async.bulk: 2 KB of [H, Dh]
 //     in bf16) into a row padded by 16 bytes, so the rows of 8 keys fall
 //     on 8 bank groups; quantized tiles bring their [KT, heads] fp32
@@ -68,7 +91,8 @@
 //     another inside the ring's loop.
 //   * Arithmetic on the tensor cores, a warp a head (mma.sync m16n8k16,
 //     fp32 sums): S = q K^T with the group's queries as the rows (G <= 8
-//     of 16) and 16 keys as the columns, K by ldmatrix; the online
+//     of 16; a ragged group all 16) and 16 keys as the columns, K by
+//     ldmatrix; the online
 //     softmax in fp32 on the S fragments (a row's 16 keys lie in 4
 //     lanes); then O += P V with P's fragments taken from S's, V by
 //     ldmatrix.trans. int8 / e4m3 K and V are converted exactly to the
@@ -83,17 +107,18 @@
 //     keeps ~16 significant bits of p where one part would keep 8.
 //   * Combine: each item stores its (m, l, acc) per (query, head) in
 //     fp32; after a grid-wide sync (a cooperative launch, at most one
-//     block an SM) every block merges (group, head) units: the items of
-//     a unit in range order, each rescaled to the largest max, as the
-//     warp merge above does, their states staged in shared memory so
-//     that every thread's loads are in flight together. An item
+//     block an SM) the (group, head) units are merged: the items of a
+//     unit in range order, each rescaled to the largest max, as the
+//     warp merge above does; verify units a block each, their states
+//     staged in shared memory so that every thread's loads are in
+//     flight together; ragged units a warp for each 2 rows at Dh 64 (1
+//     at 128), dealt to the blocks first. An item
 //     that holds no key of a query adds weight 0 (its max stays at the
 //     mask value). Two launches give the same bits.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (paddle_tpu_torch/ops/paged_attention.py), launched on the caller's
-// stream, allocating nothing (the wrapper passes the verify walk's
-// scratch).
+// stream, allocating nothing (the wrapper passes the walk's scratch).
 
 #include <cooperative_groups.h>
 #include <cuda_fp8.h>
@@ -150,8 +175,6 @@ __global__ void __launch_bounds__(kWarps * 32)
 paged_attend_kernel(const TQ* __restrict__ q,          // [N, G, H, Dh]
                     const TKV* __restrict__ k_pool,    // [NB, BS, H, Dh]
                     const TKV* __restrict__ v_pool,    // [NB, BS, H, Dh]
-                    const float* __restrict__ k_scale,  // [NB, BS, H]
-                    const float* __restrict__ v_scale,  // [NB, BS, H]
                     const int* __restrict__ block_tables,  // [S, MB]
                     const int* __restrict__ slot_ids,      // [N]
                     const int* __restrict__ positions,     // [N, G]
@@ -160,7 +183,6 @@ paged_attend_kernel(const TQ* __restrict__ q,          // [N, G, H, Dh]
                     float scale) {
   constexpr int EPL = HEAD_DIM / 32;           // elements per lane
   constexpr int CHUNK = GMAX <= 4 ? 8 : 4;     // keys per inner step
-  constexpr bool kQuant = sizeof(TKV) == 1;    // int8 / fp8 payloads
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n = (int)(blockIdx.x / H);   // the block's (group, head)
@@ -209,7 +231,6 @@ paged_attend_kernel(const TQ* __restrict__ q,          // [N, G, H, Dh]
       // 2 * CHUNK row loads are issued before the first is used (a
       // branch around each load pair serialises them)
       Vec<TKV, EPL> kx[CHUNK], vx[CHUNK];
-      float ks[CHUNK], vs[CHUNK];
 #pragma unroll
       for (int j = 0; j < CHUNK; ++j) {
         const long long e = entry0 + min(j0 + j, n_keys - 1);
@@ -217,10 +238,6 @@ paged_attend_kernel(const TQ* __restrict__ q,          // [N, G, H, Dh]
             e * entry_stride + (long long)h * HEAD_DIM + lane * EPL;
         kx[j] = *reinterpret_cast<const Vec<TKV, EPL>*>(k_pool + off);
         vx[j] = *reinterpret_cast<const Vec<TKV, EPL>*>(v_pool + off);
-        if constexpr (kQuant) {
-          ks[j] = k_scale[e * H + h];
-          vs[j] = v_scale[e * H + h];
-        }
       }
       float kf[CHUNK][EPL], vf[CHUNK][EPL], s[GMAX][CHUNK];
 #pragma unroll
@@ -229,10 +246,6 @@ paged_attend_kernel(const TQ* __restrict__ q,          // [N, G, H, Dh]
         for (int i = 0; i < EPL; ++i) {
           kf[j][i] = to_float(kx[j].v[i]);
           vf[j][i] = to_float(vx[j].v[i]);
-          if constexpr (kQuant) {  // dequantize in fp32, as the TPU kernel
-            kf[j][i] *= ks[j];
-            vf[j][i] *= vs[j];
-          }
         }
       }
 #pragma unroll
@@ -341,29 +354,18 @@ cudaError_t launch_shape(const Args& a) {
   const dim3 block(kWarps * 32);
   paged_attend_kernel<TQ, TKV, HEAD_DIM, GMAX><<<grid, block, 0, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k_pool),
-      static_cast<const TKV*>(a.v_pool), a.k_scale, a.v_scale,
-      a.block_tables, a.slot_ids, a.positions, static_cast<TQ*>(a.out), a.N,
+      static_cast<const TKV*>(a.v_pool), a.block_tables, a.slot_ids,
+      a.positions, static_cast<TQ*>(a.out), a.N,
       a.G, a.H, a.BS, a.S, a.MB, a.scale);
   return cudaGetLastError();
 }
 
-// The (q, pool) pairs whose verify groups (G >= 2) take the verify walk:
-// int8 / fp8 pools under any float query, 16-bit pools under their own
-// type.
-template <typename TQ, typename TKV>
-constexpr bool kWalkPair =
-    sizeof(TKV) == 1 || (sizeof(TKV) == 2 && std::is_same<TQ, TKV>::value);
-
 template <typename TQ, typename TKV, int HEAD_DIM>
 cudaError_t launch_group(const Args& a) {
   if (a.G == 1) return launch_shape<TQ, TKV, HEAD_DIM, 1>(a);
-  if constexpr (kWalkPair<TQ, TKV>) {
-    return cudaErrorInvalidValue;  // paddle_tpu_torch_paged_verify's
-  } else {
-    if (a.G <= 4) return launch_shape<TQ, TKV, HEAD_DIM, 4>(a);
-    if (a.G <= 8) return launch_shape<TQ, TKV, HEAD_DIM, 8>(a);
-    return cudaErrorInvalidValue;
-  }
+  if (a.G <= 4) return launch_shape<TQ, TKV, HEAD_DIM, 4>(a);
+  if (a.G <= 8) return launch_shape<TQ, TKV, HEAD_DIM, 8>(a);
+  return cudaErrorInvalidValue;
 }
 
 template <typename TQ, typename TKV>
@@ -375,17 +377,7 @@ cudaError_t launch(int head_dim, const Args& a) {
   }
 }
 
-template <typename TQ>
-cudaError_t launch_quantized(int head_dim, int kv_dtype, const Args& a) {
-  if (a.k_scale == nullptr || a.v_scale == nullptr)
-    return cudaErrorInvalidValue;
-  if (kv_dtype == 3) return launch<TQ, signed char>(head_dim, a);
-  if (kv_dtype == 4) return launch<TQ, fp8e4m3>(head_dim, a);
-  return cudaErrorInvalidValue;
-}
-
-
-// ------------------------------------------------------ the verify walk
+// ------------------------------------------------------------- the walk
 
 namespace vw {
 
@@ -394,6 +386,12 @@ using namespace hopper;
 constexpr int kKT = 16;               // keys a tile, at most
 constexpr int kRingBudget = 204800;   // shared-memory bytes of the ring
 constexpr int kMaxStages = 6;         // tiles in it, at most
+// tiles in the ring of the ragged walk, at most: 2 read 3-5% faster
+// than 3 or 6 on an H100 (17 MB in flight over the card already), and
+// its combine stages nothing in the ring
+constexpr int kRaggedStages = 2;
+constexpr int kRows = 16;             // rows of a ragged group (mma's m16)
+constexpr int kMaxTokens = 1024;      // flat tokens a ragged launch plans
 
 // The tensor-core type of the products: fp16 under fp16 queries, else
 // bf16 (fp32 queries are split into three bf16 parts).
@@ -401,7 +399,7 @@ template <typename TQ>
 using ME = typename std::conditional<std::is_same<TQ, __half>::value, __half,
                                      __nv_bfloat16>::type;
 
-template <typename TQ, typename TKV, int HEAD_DIM>
+template <typename TQ, typename TKV, int HEAD_DIM, bool kRagged = false>
 struct Cfg {
   static constexpr int kHB = HEAD_DIM == 64 ? 16 : 8;  // heads a block
   static constexpr int kConsumers = kHB * 32;          // a warp a head
@@ -418,9 +416,9 @@ struct Cfg {
   static constexpr int kScales = kKT * kHB;            // fp32 a pool a tile
   static constexpr int kStageBytes =
       2 * kTileBytes + (kQuant ? 2 * kScales * 4 : 0);
-  static constexpr int kStages = kRingBudget / kStageBytes < kMaxStages
-                                     ? kRingBudget / kStageBytes
-                                     : kMaxStages;
+  static constexpr int kMost = kRagged ? kRaggedStages : kMaxStages;
+  static constexpr int kStages =
+      kRingBudget / kStageBytes < kMost ? kRingBudget / kStageBytes : kMost;
   static constexpr int kRing = kStages * kStageBytes;
   static constexpr int kSmem = 128 + kRing + 2 * kStages * 8;
 };
@@ -454,6 +452,244 @@ __device__ __forceinline__ Walk walk_of(int item, const int* positions,
   w.t0 = (int)(r * tn / R);
   w.t1 = (int)((r + 1) * tn / R);
   return w;
+}
+
+// ------------------------------------------------------ the ragged plan
+
+// The plan of T flat tokens, in ints: a header (groups, W, items, state
+// slots), then for each group its first token, newest key, slot, first
+// item and first state slot, T + 1 entries each (start[groups] = T,
+// item[groups] = items).
+__host__ __device__ constexpr int plan_ints(int T) { return 8 + 5 * (T + 1); }
+// The plan, the tokens' slots and positions, and a block scan's totals.
+__host__ __device__ constexpr int plan_smem(int T) {
+  return 4 * ((plan_ints(T) + 2 * T + 1) & ~1) + 32 * 8;
+}
+
+struct Plan {
+  int* p;
+  int T;
+  __device__ int groups() const { return p[0]; }
+  __device__ int items() const { return p[2]; }
+  __device__ int* start() const { return p + 8; }
+  __device__ int* last() const { return p + 8 + (T + 1); }
+  __device__ int* slot() const { return p + 8 + 2 * (T + 1); }
+  __device__ int* item() const { return p + 8 + 3 * (T + 1); }
+  __device__ int* sslot() const { return p + 8 + 4 * (T + 1); }
+};
+
+// The exclusive scan, over the block's threads in thread order, of v
+// (kMax: the running maximum from `lo`; else the sum from 0), and the
+// whole in `total`; `buf`: 32 values of shared memory. Every thread of
+// the block calls it (blockDim.x a multiple of 32).
+template <bool kMax, typename V>
+__device__ __forceinline__ V block_scan(V v, V lo, V* buf, V& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  V x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const V y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x = kMax ? (y > x ? y : x) : x + y;
+  }
+  if (lane == 31) buf[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    V w = lane < nw ? buf[lane] : (kMax ? lo : V(0));
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const V y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w = kMax ? (y > w ? y : w) : w + y;
+    }
+    buf[lane] = w;  // through warp `lane`
+  }
+  __syncthreads();
+  V ex = __shfl_up_sync(0xffffffffu, x, 1);
+  if (lane == 0) ex = kMax ? lo : V(0);
+  if (warp > 0) {
+    const V b = buf[warp - 1];
+    ex = kMax ? (b > ex ? b : ex) : ex + b;
+  }
+  total = buf[nw - 1];
+  __syncthreads();  // buf is free again
+  return ex;
+}
+
+// A group's items and state slots, packed as (items << 32) | slots: n
+// ranges a head block, state slots only for units of several ranges.
+__device__ __forceinline__ unsigned long long plan_count(int n, int hblk) {
+  return ((unsigned long long)(hblk * n) << 32) |
+         (unsigned)(n > 1 ? hblk * n : 0);
+}
+
+// The ragged plan of T flat tokens into `pl` in shared memory, built by
+// every thread of the block, at most PER tokens a thread.
+// Groups: the maximal runs of consecutive tokens of the same slot (slot
+// -1 clamped to 0, past S to S - 1, as the walk reads them), cut every
+// kRows tokens. Group g's walk has last / KT + 1 key tiles, `last` the
+// maximum of its rows' positions clamped into [0, last_key]. With W =
+// the fewest tiles an item at least W0 = max(wmin, ceil(hblk x all
+// tiles / target)) whose items number at most `target`, a group has n
+// = ceil(tiles / W) ranges a head block, hblk x n items, and as many
+// state slots when n > 1. Items a group take (head block, range) in
+// that order, as do its slots; so the slots number fewer than 2 x
+// target (a group of n > 1 has tiles > W >= W0, so n < 2 tiles / W).
+// `cs`, `ps`: T ints of shared memory each; `buf`: 32 of 8 bytes.
+template <int PER>
+__device__ void build_plan(const int* __restrict__ slot_ids,
+                           const int* __restrict__ positions, int T, int S,
+                           int last_key, int KT, int hblk, int target,
+                           int wmin, int* cs, int* ps,
+                           unsigned long long* buf, Plan pl) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int i = tid; i < T; i += nt) {
+    const int s = slot_ids[i];
+    cs[i] = s < 0 ? 0 : (s >= S ? S - 1 : s);
+    ps[i] = positions[i];
+  }
+  __syncthreads();
+  const int per = (T + nt - 1) / nt, i0 = tid * per;  // this thread's tokens
+  int* ibuf = reinterpret_cast<int*>(buf);
+  // the newest run start at or before each token
+  int rs[PER], run = -1, unused;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = i0 + k;
+    if (k < per && i < T && (i == 0 || cs[i] != cs[i - 1])) run = i;
+    rs[k] = run;
+  }
+  const int before = block_scan<true>(run, -1, ibuf, unused);
+  // group starts: a run's every kRows-th token
+  bool first[PER];
+  int mine = 0;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = i0 + k;
+    first[k] = k < per && i < T && (i - max(rs[k], before)) % kRows == 0;
+    mine += first[k];
+  }
+  int groups;
+  int g = block_scan<false>(mine, 0, ibuf, groups);
+  // each group's newest key (its rows in any order) and its tiles
+  int last[PER], tiles = 0;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    last[k] = 0;
+    if (first[k]) {
+      const int i = i0 + k;
+      int top = ps[i];
+      for (int r = 1; r < kRows && i + r < T && cs[i + r] == cs[i]; ++r)
+        top = max(top, ps[i + r]);
+      last[k] = min(max(top, 0), last_key);
+      tiles += last[k] / KT + 1;
+    }
+  }
+  int all;
+  block_scan<false>(tiles, 0, ibuf, all);
+  // W: the fewest tiles an item, from W0 up, whose items fit `target` (a
+  // second wave of items costs more than longer items), found by
+  // bisection: W1 fits when target > hblk x groups (each group's ceil
+  // adds at most one item a head block), else no W fits and W ends at
+  // `all`, a group an item.
+  const long long ht = (long long)hblk * all;
+  int lo = max(wmin, (int)((ht + target - 1) / target));
+  const long long room = target - (long long)hblk * groups;
+  int hi = max(lo, room > 0 ? (int)((ht + room - 1) / room) : all);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    int n = 0, fit;
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      if (first[k]) n += (last[k] / KT + mid) / mid;
+    block_scan<false>(hblk * n, 0, ibuf, fit);
+    if (fit <= target) hi = mid;
+    else lo = mid + 1;
+  }
+  const int W = lo;
+  unsigned long long counts = 0, sum;
+#pragma unroll
+  for (int k = 0; k < PER; ++k)
+    if (first[k]) counts += plan_count((last[k] / KT + W) / W, hblk);
+  unsigned long long at = block_scan<false>(counts, 0ull, buf, sum);
+#pragma unroll
+  for (int k = 0; k < PER; ++k)
+    if (first[k]) {
+      const int i = i0 + k;
+      pl.start()[g] = i;
+      pl.last()[g] = last[k];
+      pl.slot()[g] = cs[i];
+      pl.item()[g] = (int)(at >> 32);
+      pl.sslot()[g] = (int)(at & 0xffffffffu);
+      at += plan_count((last[k] / KT + W) / W, hblk);
+      ++g;
+    }
+  if (tid == 0) {
+    pl.p[0] = groups;
+    pl.p[1] = W;
+    pl.p[2] = (int)(sum >> 32);
+    pl.p[3] = (int)(sum & 0xffffffffu);
+    pl.start()[groups] = T;
+    pl.item()[groups] = (int)(sum >> 32);
+  }
+}
+
+// What a launch walks besides its operands: the verify entry's R ranges a
+// walk; the ragged entry's wmin and target (build_plan) and its state's
+// capacity in slots of kRows rows.
+struct WalkArgs {
+  int R, wmin, target, slots;
+};
+
+// An item's work: rows row0 .. row0 + rows - 1 of the flat queries (its
+// group), head block hbk, the walk's slot and newest key, key tiles
+// [t0, t1); its state at slot sbase, or (`direct`: the unit's one item)
+// its output written in place.
+struct Item {
+  int row0, rows, hbk, slot, last, t0, t1, sbase;
+  bool direct;
+};
+
+template <bool kRagged>
+__device__ __forceinline__ Item item_of(int item, const Plan& pl,
+                                        const int* positions,
+                                        const int* slot_ids, int G, int S,
+                                        int MB, int BS, int KT, int hblk,
+                                        int R) {
+  Item it;
+  if constexpr (kRagged) {
+    const int* first = pl.item();
+    int lo = 0, hi = pl.groups() - 1;  // the group: the last starting <= item
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (first[mid] <= item) lo = mid;
+      else hi = mid - 1;
+    }
+    const int n = (first[lo + 1] - first[lo]) / hblk;  // ranges a head block
+    const int k = item - first[lo], c = k % n;
+    it.row0 = pl.start()[lo];
+    it.rows = pl.start()[lo + 1] - it.row0;
+    it.hbk = k / n;
+    it.slot = pl.slot()[lo];
+    it.last = pl.last()[lo];
+    const long long tn = it.last / KT + 1;
+    it.t0 = (int)(c * tn / n);
+    it.t1 = (int)((c + 1) * tn / n);
+    it.sbase = pl.sslot()[lo] + k;
+    it.direct = n == 1;
+  } else {
+    const Walk w =
+        walk_of(item, positions, slot_ids, G, S, MB, BS, KT, hblk, R);
+    it.row0 = w.n * G;
+    it.rows = G;
+    it.hbk = w.hbk;
+    it.slot = w.slot;
+    it.last = w.last;
+    it.t0 = w.t0;
+    it.t1 = w.t1;
+    it.sbase = item;
+    it.direct = false;
+  }
+  return it;
 }
 
 // ----------------------------------------------- tensor-core fragments
@@ -531,9 +767,13 @@ __device__ __forceinline__ uint32_t keep(uint32_t v, bool lo, bool hi) {
   return v & ((lo ? 0x0000FFFFu : 0u) | (hi ? 0xFFFF0000u : 0u));
 }
 
-// state: acc [items][G][kHB][HEAD_DIM], then m and l [items][G][kHB],
-// fp32. Grid: `gridDim.x` persistent blocks (cooperative).
-template <typename TQ, typename TKV, int HEAD_DIM>
+// state: acc [slots][RS][kHB][HEAD_DIM], then m and l [slots][RS][kHB],
+// fp32: verify a slot an item (slots = items, RS = G), ragged a slot an
+// item of a unit of several (slots = wa.slots, RS = kRows). Grid:
+// `gridDim.x` persistent blocks (cooperative). Ragged: q [T, H, Dh],
+// positions [T], N = T <= kMaxTokens, G = 1, and the plan after the
+// barriers in shared memory.
+template <typename TQ, typename TKV, int HEAD_DIM, bool kRagged>
 __global__ void __launch_bounds__(Cfg<TQ, TKV, HEAD_DIM>::kThreads, 1)
 verify_walk_kernel(const TQ* __restrict__ q,            // [N, G, H, Dh]
                    const TKV* __restrict__ k_pool,      // [NB, BS, H, Dh]
@@ -545,12 +785,13 @@ verify_walk_kernel(const TQ* __restrict__ q,            // [N, G, H, Dh]
                    const int* __restrict__ positions,     // [N, G]
                    TQ* __restrict__ out,                  // [N, G, H, Dh]
                    float* __restrict__ state, int N, int G, int H, int BS,
-                   int S, int MB, float scale, int R) {
-  using C = Cfg<TQ, TKV, HEAD_DIM>;
+                   int S, int MB, float scale, WalkArgs wa) {
+  using C = Cfg<TQ, TKV, HEAD_DIM, kRagged>;
   using T = ME<TQ>;
   constexpr int QP = C::kQParts, PP = C::kPParts;
   constexpr int KS = HEAD_DIM / 16;  // k16 steps of q . k
   constexpr int ND = HEAD_DIM / 8;   // n8 tiles of p . v
+  constexpr int RH = kRagged ? 2 : 1;  // fragment rows in use: g (g + 8)
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::kRing);
@@ -558,10 +799,7 @@ verify_walk_kernel(const TQ* __restrict__ q,            // [N, G, H, Dh]
   const int KT = BS % 16 == 0 ? 16 : BS % 8 == 0 ? 8 : BS % 4 == 0 ? 4
                : BS % 2 == 0 ? 2 : 1;  // gcd(BS, 16)
   const int hblk = (H + C::kHB - 1) / C::kHB;
-  const int items = N * hblk * R;
-  float* st_acc = state;
-  float* st_m = state + (long long)items * G * C::kHB * HEAD_DIM;
-  float* st_l = st_m + (long long)items * G * C::kHB;
+  const Plan pl{reinterpret_cast<int*>(empty + C::kStages), N};
   if (threadIdx.x == 0) {
     for (int i = 0; i < C::kStages; ++i) {
       mbar_init(&full[i], C::kQuant ? 33 : 1);
@@ -569,15 +807,30 @@ verify_walk_kernel(const TQ* __restrict__ q,            // [N, G, H, Dh]
     }
     mbar_init_fence();
   }
+  if constexpr (kRagged) {
+    int* cs = pl.p + plan_ints(N);
+    build_plan<(kMaxTokens + C::kThreads - 1) / C::kThreads>(
+        slot_ids, positions, N, S, MB * BS - 1, KT, hblk, wa.target, wa.wmin,
+        cs, cs + N,
+        reinterpret_cast<unsigned long long*>(
+            pl.p + ((plan_ints(N) + 2 * N + 1) & ~1)),
+        pl);
+  }
   __syncthreads();
+  const int items = kRagged ? pl.items() : N * hblk * wa.R;
+  const int RS = kRagged ? kRows : G;  // state rows a slot
+  const long long slots = kRagged ? wa.slots : items;
+  float* st_acc = state;
+  float* st_m = state + slots * RS * C::kHB * HEAD_DIM;
+  float* st_l = st_m + slots * RS * C::kHB;
 
   if (threadIdx.x >= C::kConsumers) {
     // ------------------------------------------------ producer warp
     const int lane = threadIdx.x & 31;
     long long it = 0;
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      const Walk w =
-          walk_of(item, positions, slot_ids, G, S, MB, BS, KT, hblk, R);
+      const Item w = item_of<kRagged>(item, pl, positions, slot_ids, G, S,
+                                      MB, BS, KT, hblk, wa.R);
       if (w.t0 >= w.t1) continue;
       const int* row = block_tables + (long long)w.slot * MB;
       const int p_last = (w.t1 - 1) * KT / BS;
@@ -627,40 +880,50 @@ verify_walk_kernel(const TQ* __restrict__ q,            // [N, G, H, Dh]
     const int g = lane >> 2, tq = lane & 3;  // fragment row, column pair
     long long it = 0;
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      const Walk w =
-          walk_of(item, positions, slot_ids, G, S, MB, BS, KT, hblk, R);
+      const Item w = item_of<kRagged>(item, pl, positions, slot_ids, G, S,
+                                      MB, BS, KT, hblk, wa.R);
       if (w.t0 >= w.t1) continue;
       const int h0 = w.hbk * C::kHB, hb = min(C::kHB, H - h0);
       const int hc = min(hh, hb - 1);  // warps past the heads read one
-      // query g of the group (rows 8.. of each fragment are zeros): q
-      // scaled and rounded to its dtype, as A fragments in QP parts
-      const int qpos = g < G ? positions[(long long)w.n * G + g] : -1;
+      // rows g and (ragged) g + 8 of the group (rows past it, and a
+      // verify group's rows 8.., are zeros): q scaled and rounded to its
+      // dtype, as A fragments in QP parts
+      int qpos[RH];
+#pragma unroll
+      for (int rh = 0; rh < RH; ++rh)
+        qpos[rh] = g + 8 * rh < w.rows ? positions[w.row0 + g + 8 * rh] : -1;
       uint32_t qa[QP][KS][4];
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          float x0 = 0.f, x1 = 0.f;
-          if (g < G) {
-            const TQ* src = q + (((long long)w.n * G + g) * H + h0 + hc) *
-                                    HEAD_DIM + ks * 16 + 8 * hf + 2 * tq;
-            x0 = to_float(from_float<TQ>(to_float(src[0]) * scale));
-            x1 = to_float(from_float<TQ>(to_float(src[1]) * scale));
-          }
-          float p0[QP], p1[QP];
-          split<T, QP>(x0, p0);
-          split<T, QP>(x1, p1);
+        for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-          for (int i = 0; i < QP; ++i) {
-            qa[i][ks][2 * hf] = pack2<T>(p0[i], p1[i]);
-            qa[i][ks][2 * hf + 1] = 0u;
+          for (int rh = 0; rh < 2; ++rh) {
+            float x0 = 0.f, x1 = 0.f;
+            if (rh < RH && g + 8 * rh < w.rows) {
+              const TQ* src =
+                  q + ((long long)(w.row0 + g + 8 * rh) * H + h0 + hc) *
+                          HEAD_DIM + ks * 16 + 8 * hf + 2 * tq;
+              x0 = to_float(from_float<TQ>(to_float(src[0]) * scale));
+              x1 = to_float(from_float<TQ>(to_float(src[1]) * scale));
+            }
+            float p0[QP], p1[QP];
+            split<T, QP>(x0, p0);
+            split<T, QP>(x1, p1);
+#pragma unroll
+            for (int i = 0; i < QP; ++i)
+              qa[i][ks][2 * hf + rh] = pack2<T>(p0[i], p1[i]);
           }
-        }
-      float o[ND][4], m = kMaskValue, lsum = 0.f;
+      float o[ND][4], m[RH], lsum[RH];
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+#pragma unroll
+      for (int rh = 0; rh < RH; ++rh) {
+        m[rh] = kMaskValue;
+        lsum[rh] = 0.f;
+      }
       for (int t = w.t0; t < w.t1; ++t, ++it) {
         const int stage = (int)(it % C::kStages);
         mbar_wait(&full[stage], (int)((it / C::kStages) & 1));
@@ -670,7 +933,7 @@ verify_walk_kernel(const TQ* __restrict__ q,            // [N, G, H, Dh]
             reinterpret_cast<const float*>(kt + 2 * C::kTileBytes);
         const float* vsc = ksc + C::kScales;
         const int hoff = hc * HEAD_DIM * (int)sizeof(TKV);
-        // s[nt][e]: query g, keys 8 nt + 2 tq + {0, 1} (e = 0, 1)
+        // s[nt][2 rh + e]: row g + 8 rh, key 8 nt + 2 tq + e
         float s[2][4] = {};
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
@@ -695,61 +958,70 @@ verify_walk_kernel(const TQ* __restrict__ q,            // [N, G, H, Dh]
             mma<T>(s[1], qa[i][ks], b[2], b[3]);
           }
         }
-        // the online softmax of row g over the tile's keys
+        // the online softmax of each row over the tile's keys
         const int n_keys = min(KT, w.last - t * KT + 1);  // keys read
-        float mt = kMaskValue;
-        bool vis[2][2];
+        float pv[RH][2][2];
+        bool vis[RH][2][2];
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+        for (int rh = 0; rh < RH; ++rh) {
+          float mt = kMaskValue;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int key = 8 * nt + 2 * tq + e;
-            if constexpr (C::kQuant) s[nt][e] *= ksc[key * hb + hc];
-            vis[nt][e] = key < n_keys && t * KT + key <= qpos;
-            if (vis[nt][e]) mt = fmaxf(mt, s[nt][e]);
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = 8 * nt + 2 * tq + e;
+              float& sv = s[nt][2 * rh + e];
+              if constexpr (C::kQuant) sv *= ksc[key * hb + hc];
+              vis[rh][nt][e] = key < n_keys && t * KT + key <= qpos[rh];
+              if (vis[rh][nt][e]) mt = fmaxf(mt, sv);
+            }
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+          const float m_new = fmaxf(m[rh], mt);
+          const float alpha = expf(m[rh] - m_new);
+          float psum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              pv[rh][nt][e] =
+                  vis[rh][nt][e] ? expf(s[nt][2 * rh + e] - m_new) : 0.f;
+              psum += pv[rh][nt][e];
+            }
+          psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+          psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+          lsum[rh] = lsum[rh] * alpha + psum;
+          m[rh] = m_new;
+#pragma unroll
+          for (int nd = 0; nd < ND; ++nd) {
+            o[nd][2 * rh] *= alpha;
+            o[nd][2 * rh + 1] *= alpha;
           }
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-        const float m_new = fmaxf(m, mt);
-        const float alpha = expf(m - m_new);
-        float pv[2][2], psum = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            pv[nt][e] = vis[nt][e] ? expf(s[nt][e] - m_new) : 0.f;
-            psum += pv[nt][e];
-          }
-        psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-        psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-        lsum = lsum * alpha + psum;
-        m = m_new;
-#pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          o[nd][0] *= alpha;
-          o[nd][1] *= alpha;
         }
         // p (times v's scale) as A fragments in PP parts
         uint32_t pa[PP][4];
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          float x[2];
+        for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            x[e] = pv[nt][e];
-            if constexpr (C::kQuant)  // (a key not read has no scale)
-              x[e] = vis[nt][e] ? x[e] * vsc[(8 * nt + 2 * tq + e) * hb + hc]
-                                : 0.f;
-          }
-          float p0[PP], p1[PP];
-          split<T, PP>(x[0], p0);
-          split<T, PP>(x[1], p1);
+          for (int rh = 0; rh < 2; ++rh) {
+            float x[2] = {0.f, 0.f};
+            if (rh < RH) {
 #pragma unroll
-          for (int i = 0; i < PP; ++i) {
-            pa[i][2 * nt] = pack2<T>(p0[i], p1[i]);
-            pa[i][2 * nt + 1] = 0u;
+              for (int e = 0; e < 2; ++e) {
+                x[e] = pv[rh][nt][e];
+                if constexpr (C::kQuant)  // (a key not read has no scale)
+                  x[e] = vis[rh][nt][e]
+                             ? x[e] * vsc[(8 * nt + 2 * tq + e) * hb + hc]
+                             : 0.f;
+              }
+            }
+            float p0[PP], p1[PP];
+            split<T, PP>(x[0], p0);
+            split<T, PP>(x[1], p1);
+#pragma unroll
+            for (int i = 0; i < PP; ++i)
+              pa[i][2 * nt + rh] = pack2<T>(p0[i], p1[i]);
           }
-        }
         // o += p . v over the n8 tiles of head_dim; keys past n_keys read
         // zeros
         const bool k0 = 2 * tq < n_keys, k1 = 2 * tq + 1 < n_keys;
@@ -783,15 +1055,32 @@ verify_walk_kernel(const TQ* __restrict__ q,            // [N, G, H, Dh]
         __syncwarp();
         mbar_arrive(&empty[stage]);
       }
-      if (hh < hb && g < G) {
-        const long long sidx = ((long long)item * G + g) * C::kHB + hh;
 #pragma unroll
-        for (int nd = 0; nd < ND; ++nd)
-          *reinterpret_cast<float2*>(st_acc + sidx * HEAD_DIM + nd * 8 +
-                                     2 * tq) = make_float2(o[nd][0], o[nd][1]);
-        if (tq == 0) {
-          st_m[sidx] = m;
-          st_l[sidx] = lsum;
+      for (int rh = 0; rh < RH; ++rh) {
+        const int r = g + 8 * rh;
+        if (hh >= hb || r >= w.rows) continue;
+        if (w.direct) {  // the unit's only item: its output, in place
+          const float den = fmaxf(lsum[rh], 1e-30f);
+          TQ* dst = out + ((long long)(w.row0 + r) * H + h0 + hh) * HEAD_DIM +
+                    2 * tq;
+#pragma unroll
+          for (int nd = 0; nd < ND; ++nd) {
+            Vec<TQ, 2> res;
+            res.v[0] = from_float<TQ>(o[nd][2 * rh] / den);
+            res.v[1] = from_float<TQ>(o[nd][2 * rh + 1] / den);
+            *reinterpret_cast<Vec<TQ, 2>*>(dst + nd * 8) = res;
+          }
+        } else {
+          const long long sidx = ((long long)w.sbase * RS + r) * C::kHB + hh;
+#pragma unroll
+          for (int nd = 0; nd < ND; ++nd)
+            *reinterpret_cast<float2*>(st_acc + sidx * HEAD_DIM + nd * 8 +
+                                       2 * tq) =
+                make_float2(o[nd][2 * rh], o[nd][2 * rh + 1]);
+          if (tq == 0) {
+            st_m[sidx] = m[rh];
+            st_l[sidx] = lsum[rh];
+          }
         }
       }
     }
@@ -800,98 +1089,160 @@ verify_walk_kernel(const TQ* __restrict__ q,            // [N, G, H, Dh]
   // ----------------------------------------------------------- combine
   cooperative_groups::this_grid().sync();  // every item's state is stored
   if (threadIdx.x >= C::kConsumers) return;
-  // A (group, head) unit at a time, in shared memory (the ring's): each
-  // item's m and l, each query's largest max and the items' weights
-  // exp(m - max) (0 for an empty range), then the items' accumulators
-  // kRC at a time, every thread's loads in flight together; the sums
-  // over the items run in range order.
-  constexpr int kRC = 16;           // items a pass of the accumulators
-  constexpr int D4 = HEAD_DIM / 4;  // float4s a row
   const int tid = threadIdx.x;
-  float* wgt = reinterpret_cast<float*>(ring);  // [R][G]: m, then weights
-  float* lsm = wgt + R * G;                     // [R][G]
-  float* mxs = lsm + R * G;                     // [G]
-  float* dens = mxs + G;                        // [G]
-  float4* red = reinterpret_cast<float4*>(
-      ring + ((2 * R * G + 2 * G) * 4 + 15) / 16 * 16);  // [kRC][G][D4]
-  for (int u = blockIdx.x; u < N * H; u += gridDim.x) {
-    const int n = u / H, h = u % H, hk = h / C::kHB, hh = h % C::kHB;
-    const long long tn = walk_last(positions, n, G, MB, BS) / KT + 1;
-    const long long item0 = ((long long)n * hblk + hk) * R;
-    for (int i = tid; i < R * G; i += C::kConsumers) {
-      const int r = i / G, g = i % G;
-      const bool ok = (r + 1) * tn / R != r * tn / R;  // a range with tiles
-      const long long sidx = ((item0 + r) * G + g) * C::kHB + hh;
-      wgt[i] = ok ? st_m[sidx] : kMaskValue;
-      lsm[i] = ok ? st_l[sidx] : 0.f;
-    }
-    bar_sync1<C::kConsumers>();
-    if (tid < G) {
+  constexpr int D4 = HEAD_DIM / 4;  // float4s a row
+  if constexpr (kRagged) {
+    // A warp a (group, head, RPW rows) of a unit of several ranges (units
+    // of one wrote their output already), dealt to the blocks first so
+    // that every SM has warps at work: lane (row, d4) finds its row's
+    // largest max over the ranges, then sums its float4 of the row's
+    // accumulators in range order, each range weighted by exp(m - max)
+    // (a range that holds no key of the row adds weight 0); the ranges'
+    // loads are unrolled so that several are in flight.
+    constexpr int RPW = 32 / D4;  // rows a warp: 2 at Dh 64, 1 at 128
+    constexpr int kU = kRows / RPW;  // warps a (group, head)
+    const int lane = tid & 31;
+    const int sub = lane / D4, d4 = lane % D4;
+    const int subs = pl.groups() * H * kU;
+    for (int u = blockIdx.x + gridDim.x * (tid >> 5); u < subs;
+         u += gridDim.x * (C::kConsumers / 32)) {
+      const int n = u / (H * kU), h = u / kU % H, rb = u % kU;
+      const int hk = h / C::kHB, hh = h % C::kHB;
+      const int R = (pl.item()[n + 1] - pl.item()[n]) / hblk;
+      const int row0 = pl.start()[n], rows = pl.start()[n + 1] - row0;
+      const int row = rb * RPW + sub;
+      if (R == 1 || rb * RPW >= rows) continue;  // (warp-uniform)
+      const long long sbase = pl.sslot()[n] + (long long)hk * R;
+      const bool mine = row < rows;
+      const float* sm = st_m + ((sbase * kRows + row) * C::kHB + hh);
+      const float* sl = st_l + ((sbase * kRows + row) * C::kHB + hh);
+      const float* sa = st_acc + ((sbase * kRows + row) * C::kHB + hh) *
+                                     HEAD_DIM + 4 * d4;
+      constexpr long long kStep = (long long)kRows * C::kHB;  // a range on
       float mx = kMaskValue;
-      for (int r = 0; r < R; ++r) mx = fmaxf(mx, wgt[r * G + tid]);
-      mxs[tid] = mx;
-    }
-    bar_sync1<C::kConsumers>();
-    for (int i = tid; i < R * G; i += C::kConsumers)
-      wgt[i] = expf(wgt[i] - mxs[i % G]);  // an empty range: l = acc = 0
-    bar_sync1<C::kConsumers>();
-    if (tid < G) {
+      if (mine) {
+#pragma unroll 8
+        for (int r = 0; r < R; ++r) mx = fmaxf(mx, sm[r * kStep]);
+      }
       float den = 0.f;
-      for (int r = 0; r < R; ++r)
-        den = fmaf(wgt[r * G + tid], lsm[r * G + tid], den);
-      dens[tid] = fmaxf(den, 1e-30f);
-    }
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);  // thread (g, d4)
-    for (int r0 = 0; r0 < R; r0 += kRC) {
-      for (int i = tid; i < kRC * G * D4; i += C::kConsumers) {
-        const int rr = i / (G * D4), g = i / D4 % G, d4 = i % D4;
-        const int r = r0 + rr;
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < R && (r + 1) * tn / R != r * tn / R) {
-          a = *reinterpret_cast<const float4*>(
-              st_acc + (((item0 + r) * G + g) * C::kHB + hh) * HEAD_DIM +
-              4 * d4);
-          const float c = wgt[r * G + g];
-          a = make_float4(c * a.x, c * a.y, c * a.z, c * a.w);
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (mine) {
+#pragma unroll 8
+        for (int r = 0; r < R; ++r) {
+          const float w = expf(sm[r * kStep] - mx);
+          const float4 v =
+              *reinterpret_cast<const float4*>(sa + r * kStep * HEAD_DIM);
+          den = fmaf(w, sl[r * kStep], den);
+          acc.x = fmaf(w, v.x, acc.x);
+          acc.y = fmaf(w, v.y, acc.y);
+          acc.z = fmaf(w, v.z, acc.z);
+          acc.w = fmaf(w, v.w, acc.w);
         }
-        red[i] = a;
+        den = fmaxf(den, 1e-30f);
+        Vec<TQ, 4> res;
+        res.v[0] = from_float<TQ>(acc.x / den);
+        res.v[1] = from_float<TQ>(acc.y / den);
+        res.v[2] = from_float<TQ>(acc.z / den);
+        res.v[3] = from_float<TQ>(acc.w / den);
+        *reinterpret_cast<Vec<TQ, 4>*>(
+            out + ((long long)(row0 + row) * H + h) * HEAD_DIM + 4 * d4) = res;
+      }
+    }
+  } else {
+    // A (group, head) unit at a time, in shared memory (the ring's):
+    // each item's m and l, each query's largest max and the items'
+    // weights exp(m - max) (0 for an empty range), then the items'
+    // accumulators kRC at a time, every thread's loads in flight
+    // together; the sums over the items run in range order.
+    constexpr int kRC = 16;  // items a pass of the accumulators
+    const int R = wa.R;
+    float* wgt = reinterpret_cast<float*>(ring);  // [R][G]: m, weights
+    float* lsm = wgt + R * G;                     // [R][G]
+    float* mxs = lsm + R * G;                     // [G]
+    float* dens = mxs + G;                        // [G]
+    float4* red = reinterpret_cast<float4*>(
+        ring + ((2 * R * G + 2 * G) * 4 + 15) / 16 * 16);  // [kRC][G][D4]
+    for (int u = blockIdx.x; u < N * H; u += gridDim.x) {
+      const int n = u / H, h = u % H, hk = h / C::kHB, hh = h % C::kHB;
+      const long long tn = walk_last(positions, n, G, MB, BS) / KT + 1;
+      const long long item0 = ((long long)n * hblk + hk) * R;
+      for (int i = tid; i < R * G; i += C::kConsumers) {
+        const int r = i / G, g = i % G;
+        const bool ok = (r + 1) * tn / R != r * tn / R;  // a range with tiles
+        const long long sidx = ((item0 + r) * G + g) * C::kHB + hh;
+        wgt[i] = ok ? st_m[sidx] : kMaskValue;
+        lsm[i] = ok ? st_l[sidx] : 0.f;
       }
       bar_sync1<C::kConsumers>();
-      if (tid < G * D4)
-        for (int rr = 0; rr < kRC && r0 + rr < R; ++rr) {
-          const float4 a = red[rr * G * D4 + tid];
-          acc.x += a.x;
-          acc.y += a.y;
-          acc.z += a.z;
-          acc.w += a.w;
-        }
+      if (tid < G) {
+        float mx = kMaskValue;
+        for (int r = 0; r < R; ++r) mx = fmaxf(mx, wgt[r * G + tid]);
+        mxs[tid] = mx;
+      }
       bar_sync1<C::kConsumers>();
-    }
-    if (tid < G * D4) {
-      const int g = tid / D4, d = tid % D4 * 4;
-      const float den = dens[g];
-      Vec<TQ, 4> res;
-      res.v[0] = from_float<TQ>(acc.x / den);
-      res.v[1] = from_float<TQ>(acc.y / den);
-      res.v[2] = from_float<TQ>(acc.z / den);
-      res.v[3] = from_float<TQ>(acc.w / den);
-      *reinterpret_cast<Vec<TQ, 4>*>(
-          out + (((long long)n * G + g) * H + h) * HEAD_DIM + d) = res;
+      for (int i = tid; i < R * G; i += C::kConsumers)
+        wgt[i] = expf(wgt[i] - mxs[i % G]);  // an empty range: l = acc = 0
+      bar_sync1<C::kConsumers>();
+      if (tid < G) {
+        float den = 0.f;
+        for (int r = 0; r < R; ++r)
+          den = fmaf(wgt[r * G + tid], lsm[r * G + tid], den);
+        dens[tid] = fmaxf(den, 1e-30f);
+      }
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);  // thread (g, d4)
+      for (int r0 = 0; r0 < R; r0 += kRC) {
+        for (int i = tid; i < kRC * G * D4; i += C::kConsumers) {
+          const int rr = i / (G * D4), g = i / D4 % G, d4 = i % D4;
+          const int r = r0 + rr;
+          float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r < R && (r + 1) * tn / R != r * tn / R) {
+            a = *reinterpret_cast<const float4*>(
+                st_acc + (((item0 + r) * G + g) * C::kHB + hh) * HEAD_DIM +
+                4 * d4);
+            const float c = wgt[r * G + g];
+            a = make_float4(c * a.x, c * a.y, c * a.z, c * a.w);
+          }
+          red[i] = a;
+        }
+        bar_sync1<C::kConsumers>();
+        if (tid < G * D4)
+          for (int rr = 0; rr < kRC && r0 + rr < R; ++rr) {
+            const float4 a = red[rr * G * D4 + tid];
+            acc.x += a.x;
+            acc.y += a.y;
+            acc.z += a.z;
+            acc.w += a.w;
+          }
+        bar_sync1<C::kConsumers>();
+      }
+      if (tid < G * D4) {
+        const int g = tid / D4, d = tid % D4 * 4;
+        const float den = dens[g];
+        Vec<TQ, 4> res;
+        res.v[0] = from_float<TQ>(acc.x / den);
+        res.v[1] = from_float<TQ>(acc.y / den);
+        res.v[2] = from_float<TQ>(acc.z / den);
+        res.v[3] = from_float<TQ>(acc.w / den);
+        *reinterpret_cast<Vec<TQ, 4>*>(
+            out + (((long long)n * G + g) * H + h) * HEAD_DIM + d) = res;
+      }
     }
   }
 }
 
-template <typename TQ, typename TKV, int HEAD_DIM>
-cudaError_t launch_shape(const Args& a, float* state, int R, int grid) {
-  using C = Cfg<TQ, TKV, HEAD_DIM>;
-  auto kern = verify_walk_kernel<TQ, TKV, HEAD_DIM>;
+template <typename TQ, typename TKV, int HEAD_DIM, bool kRagged>
+cudaError_t launch_shape(const Args& a, float* state, const WalkArgs& wa,
+                         int grid) {
+  using C = Cfg<TQ, TKV, HEAD_DIM, kRagged>;
+  auto kern = verify_walk_kernel<TQ, TKV, HEAD_DIM, kRagged>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem + (kRagged ? plan_smem(kMaxTokens) : 0));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(C::kThreads);
-  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.dynamicSmemBytes = C::kSmem + (kRagged ? plan_smem(a.N) : 0);
   cfg.stream = a.stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;  // the combine's grid sync
@@ -903,28 +1254,51 @@ cudaError_t launch_shape(const Args& a, float* state, int R, int grid) {
       static_cast<const TKV*>(a.k_pool), static_cast<const TKV*>(a.v_pool),
       a.k_scale, a.v_scale, a.block_tables, a.slot_ids, a.positions,
       static_cast<TQ*>(a.out), state, a.N, a.G, a.H, a.BS, a.S, a.MB,
-      a.scale, R);
+      a.scale, wa);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch(int head_dim, const Args& a, float* state, int R,
-                   int grid) {
-  if (a.G < 2 || a.G > 8) return cudaErrorInvalidValue;
-  if (head_dim == 64) return launch_shape<TQ, TKV, 64>(a, state, R, grid);
-  if (head_dim == 128) return launch_shape<TQ, TKV, 128>(a, state, R, grid);
+template <typename TQ, typename TKV, bool kRagged>
+cudaError_t launch(int head_dim, const Args& a, float* state,
+                   const WalkArgs& wa, int grid) {
+  if (kRagged ? (a.G != 1 || a.N > kMaxTokens) : (a.G < 2 || a.G > 8))
+    return cudaErrorInvalidValue;
+  if (head_dim == 64)
+    return launch_shape<TQ, TKV, 64, kRagged>(a, state, wa, grid);
+  if (head_dim == 128)
+    return launch_shape<TQ, TKV, 128, kRagged>(a, state, wa, grid);
   return cudaErrorInvalidValue;
 }
 
-template <typename TQ>
-cudaError_t launch_quantized(int head_dim, int kv_dtype, const Args& a,
-                             float* state, int R, int grid) {
-  if (a.k_scale == nullptr || a.v_scale == nullptr)
+// The walk pairs: 16-bit pools under queries of their type (1 / 1, 2 /
+// 2), int8 / fp8 pools (3, 4, with k_scale/v_scale) under any float query.
+template <bool kRagged>
+cudaError_t launch_pair(int head_dim, int q_dtype, int kv_dtype,
+                        const Args& a, float* st, const WalkArgs& wa,
+                        int grid) {
+  if (kv_dtype <= 2 && (a.k_scale != nullptr || a.v_scale != nullptr))
     return cudaErrorInvalidValue;
-  if (kv_dtype == 3)
-    return launch<TQ, signed char>(head_dim, a, state, R, grid);
-  if (kv_dtype == 4) return launch<TQ, fp8e4m3>(head_dim, a, state, R, grid);
+  if (kv_dtype >= 3 && (a.k_scale == nullptr || a.v_scale == nullptr))
+    return cudaErrorInvalidValue;
+  if (q_dtype == 1 && kv_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, kRagged>(head_dim, a, st, wa,
+                                                         grid);
+  if (q_dtype == 2 && kv_dtype == 2)
+    return launch<__half, __half, kRagged>(head_dim, a, st, wa, grid);
+  if (kv_dtype != 3 && kv_dtype != 4) return cudaErrorInvalidValue;
+  const bool i8 = kv_dtype == 3;
+  if (q_dtype == 0)
+    return i8 ? launch<float, signed char, kRagged>(head_dim, a, st, wa, grid)
+              : launch<float, fp8e4m3, kRagged>(head_dim, a, st, wa, grid);
+  if (q_dtype == 1)
+    return i8 ? launch<__nv_bfloat16, signed char, kRagged>(head_dim, a, st,
+                                                            wa, grid)
+              : launch<__nv_bfloat16, fp8e4m3, kRagged>(head_dim, a, st, wa,
+                                                        grid);
+  if (q_dtype == 2)
+    return i8 ? launch<__half, signed char, kRagged>(head_dim, a, st, wa, grid)
+              : launch<__half, fp8e4m3, kRagged>(head_dim, a, st, wa, grid);
   return cudaErrorInvalidValue;
 }
 
@@ -933,11 +1307,10 @@ cudaError_t launch_quantized(int head_dim, int kv_dtype, const Args& a,
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16, 3 = int8, 4 =
-// float8_e4m3fn. Supported (q, pool) pairs: equal float types, float32
-// queries over 16-bit pools, and any float query type over int8 or fp8
-// pools, which need k_scale/v_scale ([NB, BS, H] fp32); groups of G >= 2
-// over the pairs the verify walk takes (kWalkPair) are
-// paddle_tpu_torch_paged_verify's and refused here. Returns a
+// float8_e4m3fn. paged_attend_kernel over q [N, G, H, Dh] (G <= 8):
+// float32 queries over float32, bfloat16 or float16 pools; the other
+// pairs are the walk's (paddle_tpu_torch_paged_verify,
+// paddle_tpu_torch_paged_ragged) and refused here. Returns a
 // cudaError_t; 0 when the kernel was launched.
 extern "C" int paddle_tpu_torch_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
@@ -945,45 +1318,28 @@ extern "C" int paddle_tpu_torch_paged_attention(
     const void* slot_ids, const void* positions, void* out, int N, int G,
     int H, int head_dim, int BS, int S, int MB, int q_dtype, int kv_dtype,
     float scale, void* stream) {
-  if (N <= 0 || G <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const Args a{q, k_pool, v_pool,
-               static_cast<const float*>(k_scale),
-               static_cast<const float*>(v_scale),
+  if (N <= 0 || G <= 0 || H <= 0 || q_dtype != 0 || kv_dtype > 2 ||
+      k_scale != nullptr || v_scale != nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k_pool, v_pool, nullptr, nullptr,
                static_cast<const int*>(block_tables),
                static_cast<const int*>(slot_ids),
                static_cast<const int*>(positions), out, N, G, H, BS, S, MB,
                scale, static_cast<cudaStream_t>(stream)};
-  if (kv_dtype <= 2 && (k_scale != nullptr || v_scale != nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (q_dtype == 0 && kv_dtype == 0)
-    err = launch<float, float>(head_dim, a);
-  else if (q_dtype == 1 && kv_dtype == 1)
-    err = launch<__nv_bfloat16, __nv_bfloat16>(head_dim, a);
-  else if (q_dtype == 2 && kv_dtype == 2)
-    err = launch<__half, __half>(head_dim, a);
-  else if (q_dtype == 0 && kv_dtype == 1)
-    err = launch<float, __nv_bfloat16>(head_dim, a);
-  else if (q_dtype == 0 && kv_dtype == 2)
-    err = launch<float, __half>(head_dim, a);
-  else if (q_dtype == 0)
-    err = launch_quantized<float>(head_dim, kv_dtype, a);
-  else if (q_dtype == 1)
-    err = launch_quantized<__nv_bfloat16>(head_dim, kv_dtype, a);
-  else if (q_dtype == 2)
-    err = launch_quantized<__half>(head_dim, kv_dtype, a);
-  return (int)err;
+  if (kv_dtype == 0) return (int)launch<float, float>(head_dim, a);
+  if (kv_dtype == 1) return (int)launch<float, __nv_bfloat16>(head_dim, a);
+  return (int)launch<float, __half>(head_dim, a);
 }
 
 // The verify walk (verify_walk_kernel): the verify entry at 2 <= G <= 8
-// over 16-bit pools under queries of their type (1 / 1, 2 / 2) or over
-// int8 / fp8 pools (3, 4, with k_scale/v_scale) under any float query.
-// Operands as for paddle_tpu_torch_paged_attention, the pools 16-byte
-// aligned; `ranges` (R) and `grid` are ops/paged_attention.py:
-// verify_plan's; state: fp32 scratch of items x G x heads a block x
-// (head_dim + 2), items = N x ceil(H / heads a block) x R (16 heads a
-// block at head_dim 64, 8 at 128). Returns a cudaError_t; 0 when the
-// kernel was launched.
+// over the walk pairs: 16-bit pools under queries of their type (1 / 1,
+// 2 / 2) or int8 / fp8 pools (3, 4, with k_scale/v_scale) under any
+// float query. Operands as for paddle_tpu_torch_paged_attention, the
+// pools 16-byte aligned; `ranges` (R) and `grid` are ops/
+// paged_attention.py:verify_plan's; state: fp32 scratch of items x G x
+// heads a block x (head_dim + 2), items = N x ceil(H / heads a block) x
+// R (16 heads a block at head_dim 64, 8 at 128). Returns a cudaError_t;
+// 0 when the kernel was launched.
 extern "C" int paddle_tpu_torch_paged_verify(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* block_tables,
@@ -993,8 +1349,6 @@ extern "C" int paddle_tpu_torch_paged_verify(
   if (N <= 0 || G < 2 || G > 8 || H <= 0 || BS <= 0 || ranges <= 0 ||
       grid <= 0 || state == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (kv_dtype <= 2 && (k_scale != nullptr || v_scale != nullptr))
-    return (int)cudaErrorInvalidValue;
   const Args a{q, k_pool, v_pool,
                static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
@@ -1002,21 +1356,37 @@ extern "C" int paddle_tpu_torch_paged_verify(
                static_cast<const int*>(slot_ids),
                static_cast<const int*>(positions), out, N, G, H, BS, S, MB,
                scale, static_cast<cudaStream_t>(stream)};
-  float* st = static_cast<float*>(state);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (q_dtype == 1 && kv_dtype == 1)
-    err = vw::launch<__nv_bfloat16, __nv_bfloat16>(head_dim, a, st, ranges,
-                                                   grid);
-  else if (q_dtype == 2 && kv_dtype == 2)
-    err = vw::launch<__half, __half>(head_dim, a, st, ranges, grid);
-  else if (q_dtype == 0 && kv_dtype >= 3)
-    err = vw::launch_quantized<float>(head_dim, kv_dtype, a, st, ranges,
-                                      grid);
-  else if (q_dtype == 1 && kv_dtype >= 3)
-    err = vw::launch_quantized<__nv_bfloat16>(head_dim, kv_dtype, a, st,
-                                              ranges, grid);
-  else if (q_dtype == 2 && kv_dtype >= 3)
-    err = vw::launch_quantized<__half>(head_dim, kv_dtype, a, st, ranges,
-                                       grid);
-  return (int)err;
+  return (int)vw::launch_pair<false>(head_dim, q_dtype, kv_dtype, a,
+                                     static_cast<float*>(state),
+                                     vw::WalkArgs{ranges, 0, 0, 0},
+                                     grid);
+}
+
+// The ragged walk (verify_walk_kernel, groups found on the device): q
+// [T, H, Dh], slot_ids and positions [T] (T <= 1024), over the walk
+// pairs of paddle_tpu_torch_paged_verify. `wmin`, `target`: the plan's
+// (ops/paged_attention.py:ragged_plan); state: fp32 scratch of `slots`
+// x 16 x heads a block x (head_dim + 2), slots = 2 x target; `grid`
+// persistent blocks, at most one an SM. Returns a cudaError_t; 0 when
+// the kernel was launched.
+extern "C" int paddle_tpu_torch_paged_ragged(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* slot_ids, const void* positions, void* out, void* state,
+    int T, int H, int head_dim, int BS, int S, int MB,
+    int q_dtype, int kv_dtype, float scale, int wmin, int target,
+    int slots, int grid, void* stream) {
+  if (T <= 0 || H <= 0 || BS <= 0 || wmin <= 0 || target <= 0 ||
+      slots < 2 * target || grid <= 0 || state == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k_pool, v_pool,
+               static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(block_tables),
+               static_cast<const int*>(slot_ids),
+               static_cast<const int*>(positions), out, T, 1, H, BS, S, MB,
+               scale, static_cast<cudaStream_t>(stream)};
+  return (int)vw::launch_pair<true>(
+      head_dim, q_dtype, kv_dtype, a, static_cast<float*>(state),
+      vw::WalkArgs{0, wmin, target, slots}, grid);
 }

@@ -320,12 +320,13 @@ def test_verify_walk_other_block_sizes(BS, cuda_device):
 @pytest.mark.parametrize("qdtype,pool,G,walk", [
     (torch.bfloat16, "float", 4, True), (torch.bfloat16, "int8", 4, True),
     (torch.float32, "fp8", 4, True), (torch.float32, "float", 4, False),
-    (torch.bfloat16, "float", 1, False), (torch.bfloat16, "fp8", 1, False)])
+    (torch.bfloat16, "float", 1, True), (torch.bfloat16, "fp8", 1, True)])
 def test_verify_routes_by_pair(qdtype, pool, G, walk, cuda_device):
     """Verify groups over 16-bit pools under their own type and over
-    quantized pools reach verify_walk_kernel; fp32 pools keep
-    paged_attend_kernel, and so does a group of one query. Two calls in
-    the profiled window, whose first kernel the profiler can miss."""
+    quantized pools reach verify_walk_kernel, groups of one query too
+    (as the ragged walk's groups); fp32 pools keep paged_attend_kernel.
+    Two calls in the profiled window, whose first kernel the profiler
+    can miss."""
     args = _verify_case(G, 64, qdtype, pool, cuda_device)
     names = _device_kernels(
         lambda: [tpa.verify_paged_attention(*args) for _ in range(2)])
@@ -333,6 +334,183 @@ def test_verify_routes_by_pair(qdtype, pool, G, walk, cuda_device):
                for n in names), names
     assert not any(("paged_attend_kernel" if walk else "verify_walk_kernel")
                    in n for n in names), names
+
+
+# ------------------------------------------- the ragged walk (K3a, K3c)
+
+
+def _ragged_layout(layout, BS):
+    """(slot_ids, positions, lens, MB) of a ragged call over 6 slots of
+    lengths `lens`: "pack_step" — the port's pack_step of three decodes
+    and three prefill chunks that cross page boundaries, padded with
+    slot -1 to 160 tokens; "mixed" — interleaved slots, slot -1 beside
+    slot 0, positions in no order, runs of 15, 16, 17 and 33 tokens of
+    one slot, a position past the table and one past its slot's length
+    (a NULL block)."""
+    from paddle_tpu_torch.serving.batcher import pack_step
+    lens = [300, 17, 64, 129, 90, 41]
+    MB = -(-320 // BS)
+    if layout == "pack_step":
+        plan = pack_step(160, 6, [(0, 5, 299), (1, 5, 16), (2, 5, 63)],
+                         [(3, np.arange(70), 37, False),
+                          (4, np.arange(33), 0, True),
+                          (5, np.arange(21), 20, True)])
+        return plan.slot_ids, plan.positions, lens, MB
+    rng = np.random.RandomState(7)
+    slots, pos = [], []
+    for j in range(6):                           # interleaved slots
+        slots.append(j % 2)
+        pos.append(lens[j % 2] - 1 - j)
+    slots += [-1, 0, 0, -1]                      # slot -1 beside slot 0
+    pos += [0, 5, 3, 0]
+    for s, n in ((2, 15), (3, 16), (4, 17), (2, 33)):
+        slots += [s] * n                         # positions in no order
+        pos += rng.randint(0, lens[s], n).tolist()
+    slots += [1, 4]
+    pos += [MB * BS + 7, lens[4] + BS + 3]       # past the table; NULL
+    return (np.asarray(slots, np.int32), np.asarray(pos, np.int32), lens,
+            MB)
+
+
+def _ragged_case(layout, Dh, H, BS, qdtype, pool, device, seed=0):
+    """The ragged entry's operands over `_ragged_layout`, every slot's
+    pages drawn at random, float pools in q's dtype or int8 / fp8 pools
+    quantized as the engine quantizes."""
+    from paddle_tpu_torch.serving.engine import quantize_kv
+    slots, pos, lens, MB = _ragged_layout(layout, BS)
+    g = torch.Generator().manual_seed(seed)
+    S = len(lens)
+    NB = S * MB + 1
+    bt = torch.zeros(S, MB, dtype=torch.int32)
+    perm = torch.randperm(NB - 1, generator=g) + 1
+    for s, n in enumerate(lens):
+        nb = -(-n // BS)
+        bt[s, :nb] = perm[s * MB:s * MB + nb].int()
+    q = torch.randn(len(slots), H, Dh, generator=g).to(qdtype)
+    kf = torch.randn(NB, BS, H, Dh, generator=g)
+    vf = torch.randn(NB, BS, H, Dh, generator=g)
+    if pool == "float":
+        kp, vp, ks, vs = kf.to(qdtype), vf.to(qdtype), None, None
+    else:
+        kv_dtype = "int8" if pool == "int8" else "fp8_e4m3"
+        kp, ks = quantize_kv(kf, kv_dtype)
+        vp, vs = quantize_kv(vf, kv_dtype)
+    args = [q, kp, vp, bt, torch.from_numpy(slots), torch.from_numpy(pos),
+            ks, vs]
+    return [None if a is None else a.to(device) for a in args]
+
+
+def _hold_ragged(args, qdtype, pool):
+    """One ragged launch against its plain version (its variant's counter
+    moves by one), every row (padding included: its slot clamps to 0),
+    and a second launch to the same bits."""
+    before = getattr(tpa, _RAGGED_COUNTER[pool])
+    got = tpa.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert getattr(tpa, _RAGGED_COUNTER[pool]) == before + 1
+    assert torch.equal(tpa.ragged_paged_attention(*args), got)
+    ref = tpa.ragged_gather_reference(*args)
+    assert torch.isfinite(got.float()).all()
+    tol = _VERIFY_TOL[(qdtype, pool)]
+    got, ref = got.float(), ref.float()
+    assert bool(((got - ref).abs() <= tol * (1 + ref.abs())).all()), \
+        float((got - ref).abs().max())
+
+
+# The ragged walk (16-bit pools under their own type, int8 / fp8 pools
+# under any float query) over both layouts: H = 20 at Dh = 64 and 12 at
+# Dh = 128 make a full head block and a partial one. The tolerances of
+# test_verify_kernel_matches_plain.
+_RAGGED_PAIRS = [(torch.bfloat16, "float"), (torch.float16, "float"),
+                 (torch.bfloat16, "int8"), (torch.float32, "int8"),
+                 (torch.bfloat16, "fp8"), (torch.float32, "fp8")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype,pool", _RAGGED_PAIRS)
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("layout", ["pack_step", "mixed"])
+def test_ragged_walk_matches_plain(layout, Dh, qdtype, pool, cuda_device):
+    H = 20 if Dh == 64 else 12
+    _hold_ragged(_ragged_case(layout, Dh, H, 16, qdtype, pool, cuda_device),
+                 qdtype, pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype,pool", [(torch.bfloat16, "float"),
+                                         (torch.bfloat16, "int8")])
+@pytest.mark.parametrize("BS", [8, 12, 32])
+@pytest.mark.parametrize("layout", ["pack_step", "mixed"])
+def test_ragged_walk_other_block_sizes(layout, BS, qdtype, pool,
+                                       cuda_device):
+    """Key tiles of 8 (a page a tile), 4 (three a page) and 16 (two)."""
+    _hold_ragged(_ragged_case(layout, 64, 16, BS, qdtype, pool,
+                              cuda_device), qdtype, pool)
+
+
+@pytest.mark.cuda
+def test_ragged_walk_past_one_launch(cuda_device):
+    """More tokens than one launch plans (RAGGED_MAX_TOKENS): the call is
+    cut into launches, each counted, and still equals the plain
+    version."""
+    q, kp, vp, bt, slots, pos, _, _ = _ragged_case("pack_step", 64, 16, 16,
+                                                   torch.bfloat16, "float",
+                                                   cuda_device)
+    reps = -(-(tpa.RAGGED_MAX_TOKENS + 100) // q.shape[0])
+    args = [q.repeat(reps, 1, 1), kp, vp, bt, slots.repeat(reps),
+            pos.repeat(reps)]
+    before = tpa.launch_count
+    got = tpa.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert tpa.launch_count - before == -(-args[0].shape[0]
+                                          // tpa.RAGGED_MAX_TOKENS)
+    ref = tpa.ragged_gather_reference(*args)
+    tol = _VERIFY_TOL[(torch.bfloat16, "float")]
+    assert bool(((got.float() - ref.float()).abs()
+                 <= tol * (1 + ref.float().abs())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype,pool,walk", [
+    (torch.bfloat16, "float", True), (torch.float16, "float", True),
+    (torch.bfloat16, "int8", True), (torch.float32, "fp8", True),
+    (torch.float32, "float", False)])
+def test_ragged_routes_by_pair(qdtype, pool, walk, cuda_device):
+    """The ragged entry's walk pairs reach verify_walk_kernel, fp32 pools
+    keep paged_attend_kernel."""
+    args = _ragged_case("pack_step", 64, 16, 16, qdtype, pool, cuda_device)
+    names = _device_kernels(
+        lambda: [tpa.ragged_paged_attention(*args) for _ in range(2)])
+    assert any(("verify_walk_kernel" if walk else "paged_attend_kernel") in n
+               for n in names), names
+    assert not any(("paged_attend_kernel" if walk else "verify_walk_kernel")
+                   in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype,pool", [(torch.bfloat16, "float"),
+                                         (torch.float32, "float"),
+                                         (torch.bfloat16, "int8"),
+                                         (torch.bfloat16, "fp8")])
+def test_decode_entry_matches_plain(qdtype, pool, cuda_device):
+    """`paged_attention()` (one query a slot at its context length) on
+    the card against the ragged entry's plain version of the same call."""
+    _, kp, vp, bt, _, _, ks, vs = _ragged_case("pack_step", 64, 16, 16,
+                                               qdtype, pool, cuda_device)
+    lens = torch.tensor([300, 17, 64, 129, 90, 41], device=cuda_device)
+    q = torch.randn(6, 16, 64, generator=torch.Generator().manual_seed(3)
+                    ).to(qdtype).to(cuda_device)
+    before = getattr(tpa, _RAGGED_COUNTER[pool])
+    got = tpa.paged_attention(q, kp, vp, bt, lens, ks, vs)
+    torch.cuda.synchronize()
+    assert getattr(tpa, _RAGGED_COUNTER[pool]) == before + 1
+    ref = tpa.ragged_gather_reference(
+        q, kp, vp, bt, torch.arange(6, dtype=torch.int32,
+                                    device=cuda_device),
+        (lens - 1).int(), ks, vs)
+    tol = _VERIFY_TOL[(qdtype, pool)]
+    assert bool(((got.float() - ref.float()).abs()
+                 <= tol * (1 + ref.float().abs())).all())
 
 
 @pytest.mark.cuda

@@ -1,37 +1,42 @@
 """Parent-against-change check of the port's paged-attention kernels on
-one card: the verify walk (K3b, K3c verify) and, held as they were, the
-ragged entry (K3a, K3c ragged).
+one card: the walk over verify groups (K3b, K3c verify) and over the
+ragged entry's groups (K3a, K3c ragged).
 
     python tools/torch_paged_ab.py --parent OTHER/paged_attention.cu [--sweep] [--probe]
 
 Builds `paddle_tpu_torch/ops/csrc/paged_attention.cu` of this tree and
 another copy of it (for example the parent commit's, unpacked with
 `git archive`; a copy without `paddle_tpu_torch_paged_verify` runs its
-verify groups through `paddle_tpu_torch_paged_attention`) with
+verify groups, one without `paddle_tpu_torch_paged_ragged` its ragged
+calls, through `paddle_tpu_torch_paged_attention`) with
 `nvcc -Xptxas -v`, and prints:
 
-* registers, stack and spills of every verify-walk kernel of each copy
+* registers, stack and spills of every walk kernel of each copy
   (ptxas lines that report spills printed on their own);
 * both copies at `chip_smoke.py`'s shapes with bf16 queries: the verify
   entry (`verify_case`: 8 groups of 4 queries, H = 16, Dh = 64, BS =
-  16, contexts up to 1024) over bf16, int8 and fp8 pools, and the
-  ragged entry (`paged_case`, 256 tokens) over bf16 and int8 pools,
-  timed in turns (other, this, this, other, other, this) with CUDA
-  events and L2 flushed, as `chip_smoke.py` times kernels, each side
-  held against the plain version first (TOL / QTOL (1 + |plain|)) and
-  the verify walk's two launches to the same bits; beside them the
-  bound and the SDPA yardstick.
+  16, contexts up to 1024) over bf16, int8 and fp8 pools, the ragged
+  entry at `paged_case` (256 tokens: decodes, prefill chunks, padding)
+  over the same three, and at `paged_decode_case` (8 decodes, 248
+  padding tokens) over bf16 and int8 pools and, over bf16 pools, at
+  the profiled decode step's contexts (257-292), timed in turns (other, this,
+  this, other, other, this) with CUDA events and L2 flushed, as
+  `chip_smoke.py` times kernels, each side held against the plain
+  version first (TOL / QTOL (1 + |plain|)) and a walk's two launches to
+  the same bits; beside them the bound and the SDPA yardstick.
 
 With `--sweep` it also runs this tree's verify walk with other ranges a
 walk (one, which leaves a block a group, half, twice and four times the
-plan's, the blocks then walking several items each) and builds copies
-with other ring depths
-(at most 2, 3 or 4 tiles), each timed at the three verify cells and
-held against the plain version. With `--probe` it builds copies whose
+plan's), its ragged walk with other least tiles an item (wmin 1, 4, 8)
+and other targets (half and twice the SMs), and builds copies with other
+ring depths (at
+most 2, 3, 4 or 6 tiles, both walks), each timed at the cells it applies
+to and held
+against the plain version. With `--probe` it builds copies whose
 consumers only release the tiles they are given (loads only), that stop
-before the grid sync and the combine (no combine), and that walk no item
-(the combine alone, over stale states), each timed at the three verify
-cells.
+before the grid sync and the combine (no combine), that walk no item
+(the verify walk's combine alone, over stale states) and that stop after
+the ragged plan (the plan alone), each timed at its cells.
 
 Needs a card and nvcc; imports torch and the port only.
 """
@@ -56,8 +61,8 @@ _CODES = {"float32": 0, "bfloat16": 1, "float16": 2, "int8": 3,
 
 
 def load(path, text):
-    """The library at `path`; `text`, its source, says whether it has
-    the verify walk's entry."""
+    """The library at `path`; `text`, its source, says which entries it
+    has (the verify walk's; the ragged walk's)."""
     lib = ctypes.CDLL(str(path))
     lib.paddle_tpu_torch_paged_attention.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
@@ -68,11 +73,20 @@ def load(path, text):
             ctypes.c_int] * 9 + [ctypes.c_float] + [ctypes.c_int] * 2 + [
             ctypes.c_void_p]
         lib.paddle_tpu_torch_paged_verify.restype = ctypes.c_int
+    lib.ragged = "paddle_tpu_torch_paged_ragged" in text
+    if lib.ragged:
+        lib.paddle_tpu_torch_paged_ragged.argtypes = [ctypes.c_void_p] * 10 + [
+            ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        lib.paddle_tpu_torch_paged_ragged.restype = ctypes.c_int
     return lib
 
 
 def cells(dev):
-    """(label, entry, args) of chip_smoke.py's bf16 cells."""
+    """(label, entry, args) of chip_smoke.py's bf16 cells: the verify
+    entry over float, int8 and fp8 pools, the ragged entry at
+    `paged_case` over the same three, and at `paged_decode_case` over
+    float and int8 pools."""
     import torch
     import chip_smoke
     out = [(f"verify {kind}", "verify",
@@ -81,19 +95,29 @@ def cells(dev):
     q, kp, vp, bt, slots, pos = chip_smoke.paged_case(torch.bfloat16, dev)
     out.append(("ragged float", "ragged", [q, kp, vp, bt, slots, pos, None,
                                            None]))
-    kq, vq, ks, vs = chip_smoke.quantized_pools(
-        kp.shape[0], torch.bfloat16, "int8",
-        torch.Generator().manual_seed(chip_smoke.SEED + 12))
-    out.append(("ragged int8", "ragged", [q, kq.to(dev), vq.to(dev), bt,
-                                          slots, pos, ks.to(dev),
-                                          vs.to(dev)]))
+    for kind in ("int8", "fp8"):
+        kq, vq, ks, vs = chip_smoke.quantized_pools(
+            kp.shape[0], torch.bfloat16, kind,
+            torch.Generator().manual_seed(chip_smoke.SEED + 12))
+        out.append((f"ragged {kind}", "ragged",
+                    [q, kq.to(dev), vq.to(dev), bt, slots, pos, ks.to(dev),
+                     vs.to(dev)]))
+    for kind in ("float", "int8"):
+        out.append((f"decode {kind}", "ragged",
+                    chip_smoke.paged_decode_case(torch.bfloat16, dev, kind)))
+    # the profiled decode step's contexts (256-token prompts, 0-36 tokens
+    # generated)
+    out.append(("decode short float", "ragged", chip_smoke.paged_decode_case(
+        torch.bfloat16, dev, ctx=(292, 287, 282, 277, 272, 267, 262, 257))))
     return out
 
 
-def runner(lib, entry, args, label, ranges_of=None, check=True):
-    """A closure launching the library once on the cell (its verify walk
-    where it has one and the pair takes it), held against the plain
-    version (and, for the walk, a second launch) once."""
+def runner(lib, entry, args, label, ranges_of=None, check=True, plan=None):
+    """A closure launching the library once on the cell (its walk where
+    it has one and the pair takes it), held against the plain version
+    (and, for a walk, a second launch) once. `plan` (the ragged walk):
+    dict of wmin and target (a function of the SM count), the wrapper's
+    choice where missing."""
     import torch
     import chip_smoke
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -107,6 +131,7 @@ def runner(lib, entry, args, label, ranges_of=None, check=True):
     S, MB = bt.shape
     out = torch.empty_like(q4)
     stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     scales = (None if ks is None else ks.data_ptr(),
               None if vs is None else vs.data_ptr())
     common = (q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), *scales,
@@ -114,9 +139,19 @@ def runner(lib, entry, args, label, ranges_of=None, check=True):
               out.data_ptr())
     codes = (_CODES[str(q.dtype).split(".")[-1]],
              _CODES[str(kp.dtype).split(".")[-1]])
-    walk = lib.walk and G >= 2 and pa.walk_pair(q.dtype, kp.dtype)
-    if walk:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    pair = pa.walk_pair(q.dtype, kp.dtype)
+    walk = pair and (lib.ragged if G == 1 else lib.walk)
+    if walk and G == 1:
+        plan = plan or {}
+        target = plan.get("target", lambda n: n)(sms)
+        hb = pa.heads_a_block(Dh)
+        state = torch.empty(2 * target * pa.RAGGED_ROWS * hb * (Dh + 2),
+                            device=q.device)
+        call = (lib.paddle_tpu_torch_paged_ragged, common + (
+            state.data_ptr(), N, H, Dh, BS, S, MB, *codes, 1.0 / Dh ** 0.5,
+            plan.get("wmin", pa.RAGGED_MIN_TILES), target, 2 * target, sms,
+            stream))
+    elif walk:
         hb, hblk, r, _items, _grid = pa.verify_plan(N, H, Dh, sms)
         r = ranges_of(r) if ranges_of else r
         items = N * hblk * r
@@ -163,10 +198,10 @@ def main():
     ap.add_argument("--parent", required=True,
                     help="the other copy of paged_attention.cu")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time other ranges a walk and ring depths")
+                    help="also time other plans and ring depths")
     ap.add_argument("--probe", action="store_true",
-                    help="also time copies with loads only or without the "
-                         "combine")
+                    help="also time copies with loads only, without the "
+                         "combine, or the plan only")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -215,7 +250,9 @@ def main():
     return 0
 
 
-MAX_STAGES = "constexpr int kMaxStages = {};"
+# the ring depths of the verify walk and of the ragged walk
+STAGES = ("constexpr int kMaxStages = {};",
+          "constexpr int kRaggedStages = {};")
 
 
 def copies(build, texts, prefix):
@@ -230,43 +267,56 @@ def copies(build, texts, prefix):
 
 
 def time_cells(runs, flush, card, what):
-    """Each (name, library, ranges function, checked) timed at the
-    verify cells."""
+    """Each (name, library, entries, keyword arguments of `runner`)
+    timed at the cells of the entries it names ("verify", "ragged")."""
     import torch
     import chip_smoke
-    for label, entry, cargs in cells(torch.device("cuda"))[:3]:
+    for label, entry, cargs in cells(torch.device("cuda")):
         out = []
-        for name, lib, ranges_of, check in runs:
-            run = runner(lib, entry, cargs, f"{what} {name} {label}",
-                         ranges_of, check)
+        for name, lib, entries, kw in runs:
+            if entry not in entries:
+                continue
+            run = runner(lib, entry, cargs, f"{what} {name} {label}", **kw)
             out.append(f"{name} {chip_smoke.cuda_ms(run, flush=flush):.4f}")
-        print(f"{what} {label} bf16 ms on {card}: " + "; ".join(out),
-              flush=True)
+        if out:
+            print(f"{what} {label} bf16 ms on {card}: " + "; ".join(out),
+                  flush=True)
+
+
+BOTH = ("verify", "ragged")
 
 
 def sweep(build, flush, card):
-    """This tree's walk at other ranges a walk, and copies with other
-    ring depths, each held against the plain version."""
+    """This tree's walks at other plans, and copies with other ring
+    depths, each held against the plain version: the verify walk at
+    other ranges a walk; the ragged walk at other least tiles an item
+    (wmin) and other targets (half and twice the SMs)."""
     src = SRC.read_text()
-    now = int(re.search(MAX_STAGES.replace("{}", r"(\d+)"), src).group(1))
-    texts = {f"at most {n} tiles in the ring"
-             + (" (this tree)" if n == now else ""):
-             src if n == now else substitute(
-                 src, [(MAX_STAGES.format(now), MAX_STAGES.format(n))],
-                 "stages")
-             for n in (2, 3, 4, now)}
+    now = [int(re.search(c.replace("{}", r"(\d+)"), src).group(1))
+           for c in STAGES]
+    texts = {"this tree": src}
+    for n in (2, 3, 4, 6):
+        texts[f"at most {n} tiles in the ring"] = substitute(
+            src, [(c.format(m), c.format(n)) for c, m in zip(STAGES, now)],
+            "stages")
     built = copies(build, texts, "sweep_paged_")
-    runs = [(n, lib, None, True) for n, lib in built.items()]
-    this = built[next(n for n in built if "this tree" in n)]
+    runs = [(n, lib, BOTH, {}) for n, lib in built.items()]
+    this = built["this tree"]
     for f, name in ((1 / 16, "one range a walk"), (0.5, "half the ranges"),
                     (2, "twice the ranges"), (4, "four times the ranges")):
-        runs.append((name, this, lambda r, f=f: max(1, int(r * f)), True))
+        runs.append((name, this, ("verify",),
+                     {"ranges_of": lambda r, f=f: max(1, int(r * f))}))
+    for w in (1, 4, 8):
+        runs.append((f"wmin {w}", this, ("ragged",), {"plan": {"wmin": w}}))
+    for f, name in ((0.5, "half"), (2, "twice")):
+        runs.append((f"target {name} the SMs", this, ("ragged",), {
+            "plan": {"target": lambda sms, f=f: int(sms * f)}}))
     time_cells(runs, flush, card, "sweep")
 
 
 # The probe's cuts, as (pattern, replacement, count) of this tree's source.
 _LOADS_ONLY = (
-    ("        // s[nt][e]: query g, keys 8 nt + 2 tq + {0, 1} (e = 0, 1)\n",
+    ("        // s[nt][2 rh + e]: row g + 8 rh, key 8 nt + 2 tq + e\n",
      "#if 0\n", 1),
     ("        __syncwarp();\n        mbar_arrive(&empty[stage]);\n",
      "#endif\n        mbar_arrive(&empty[stage]);\n", 1))
@@ -275,6 +325,10 @@ _NO_COMBINE = (
      "stored\n", "  return;\n", 1),)
 _NO_ITEMS = (("for (int item = blockIdx.x; item < items; item += gridDim.x)",
               "for (int item = blockIdx.x; item < 0; item += gridDim.x)", 2),)
+_PLAN_ONLY = (
+    ("  const int items = kRagged ? pl.items() : N * hblk * wa.R;\n",
+     "  if (kRagged) return;\n"
+     "  const int items = kRagged ? pl.items() : N * hblk * wa.R;\n", 1),)
 
 
 def cut(src, subs, what):
@@ -287,15 +341,18 @@ def cut(src, subs, what):
 
 
 def probe(build, flush, card):
-    """The walk beside copies with loads only, without the combine, and
-    with the combine only."""
+    """The walks beside copies with loads only, without the combine, with
+    the combine only (the verify walk's, over stale states) and with the
+    ragged plan only."""
     src = SRC.read_text()
     texts = {"full": src, "loads only": cut(src, _LOADS_ONLY, "loads only"),
              "no combine": cut(src, _NO_COMBINE, "no combine"),
-             "combine only": cut(src, _NO_ITEMS, "combine only")}
+             "combine only": cut(src, _NO_ITEMS, "combine only"),
+             "plan only": cut(src, _PLAN_ONLY, "plan only")}
     built = copies(build, texts, "probe_paged_")
-    time_cells([(n, lib, None, n == "full") for n, lib in built.items()],
-               flush, card, "probe")
+    entries = {"combine only": ("verify",), "plan only": ("ragged",)}
+    time_cells([(n, lib, entries.get(n, BOTH), {"check": n == "full"})
+                for n, lib in built.items()], flush, card, "probe")
 
 
 if __name__ == "__main__":
