@@ -4,7 +4,8 @@ NVIDIA card.
     python3 chip_smoke.py          # from the repository root
 
 Drives the port's paths end to end — serving a dense GPT-350M, serving
-it speculatively over bf16, int8 and fp8 KV pools, serving the
+it speculatively over bf16, int8 and fp8 KV pools, serving it with
+several decode ticks a dispatch and with penalties, serving the
 8-expert MoE-350M with float, int8 and int4 experts, the train step
 (with and without the fused QKV projection), the paddle-layout
 `flash_attention()` entry, the `wgrad_1x1` entry, BERT-base
@@ -65,11 +66,26 @@ each (or a few):
    margin, and the int8/fp8 engines' share of tokens equal to the bf16
    engine's is reported; then a profiled window of speculative decode
    steps;
+5e. serve multitick — the same model served by engines that run up to
+   4 decode ticks a dispatch without the host (`ticks_per_dispatch=4`
+   and "auto"; draft_k=3 at 4 ticks over bf16, int8 and fp8 pools; a
+   penalized greedy pair, repetition 1.2 and presence 0.5, at 1 and 4
+   ticks), each on the 16 requests with every dispatch's ticks under
+   `torch.cuda.set_sync_debug_mode("error")`: tokens equal to phase 4's
+   1-tick engine, to phase 5a's engine of the same pool and to each
+   other; launches held exactly (the paged variants issued ticks x 24,
+   nothing else); more ticks than dispatches; dispatches, issued and
+   executed ticks, early exits, tokens/s, TTFT and host ms a dispatch
+   printed; then one profiled 4-tick dispatch (device ms a tick);
 5d. on-card spec check — fp32, 2 layers at full width: the draft_k=3
    float-pool engine on the card (kernels) gives the same greedy tokens
    and draft counts as on a CPU copy (plain versions) and as the card's
    draft_k=0 engine, unless the first differing token sat at an fp32
    top-2 logit gap under 1e-5; int8 and fp8 pools reported, not held;
+5f. on-card multi-tick check — the same 2-layer fp32 model, draft_k=3
+   with the penalties at 4 ticks: the card's greedy tokens equal a CPU
+   copy's and the card's 1-tick engine's; seeded penalized sampling at
+   4 ticks equals its 1-tick twin on the card;
 5b. serve MoE — MoE-350M (bench_gpt_moe's widths: GPT-350M with every
    FFN 8 experts, top-2, capacity factor 1.25; random weights from a
    numpy seed through `convert.load_jax_gpt(moe=...)`) served by three
@@ -78,7 +94,11 @@ each (or a few):
    attention launched once and the engine's grouped-matmul variant twice
    per layer per step (the other two never), and every valid token's
    two choices are counted or dropped; then a profiled decode window of
-   each engine, with the grouped matmuls' share of its device time;
+   each engine, with the grouped matmuls' share of its device time; and
+   the float experts at 4 ticks a dispatch (sync debug on): the float
+   1-tick engine's tokens, paged attention issued ticks x 24 and the
+   float grouped matmul issued ticks x 48 launches, routed + dropped =
+   2 x 24 x valid tokens over the ticks that counted;
 5c. on-card MoE check — fp32, 2 layers at full width, float and int8
    experts: 4 requests served on the card (kernels) and on a CPU copy
    (plain versions) give the same greedy tokens, unless the first
@@ -940,15 +960,16 @@ def serve_spec(device, counters):
     """Phase 5a: GPT-350M served by three speculative engines (draft_k=3)
     over bf16, int8 and fp8_e4m3 KV pools, each zeroing every kernel
     counter just before the 16 requests and reading them just after.
-    Returns each engine's verify and ragged variant launches (the float
-    ragged entry's, paged_attention, stays the dense serve's)."""
+    Returns (each engine's verify and ragged variant launches (the float
+    ragged entry's, paged_attention, stays the dense serve's), each
+    pool's outputs, the model)."""
     import torch
     from paddle_tpu_torch.convert import load_jax_gpt
     from paddle_tpu_torch.serving.engine import ServingEngine
     model = load_jax_gpt(random_gpt_arrays(), HEADS,
                          compute_dtype="bfloat16", device=device)
     prompts = serve_prompts()
-    launches, bf16_out = {}, None
+    launches, bf16_out, pool_out = {}, None, {}
     for kv_dtype in (None, "int8", "fp8_e4m3"):
         t0 = time.perf_counter()
         eng = ServingEngine(model, max_slots=SLOTS, block_size=BLOCK,
@@ -970,6 +991,7 @@ def serve_spec(device, counters):
         wall = time.perf_counter() - t0
         got = {name: getattr(mod, attr) for mod, attr, name in counters}
         outputs = [list(r.output) for r in reqs]
+        pool_out[kv_dtype] = outputs
         generated = sum(map(len, outputs))
         if kv_dtype is None:
             bf16_out = outputs
@@ -1014,9 +1036,7 @@ def serve_spec(device, counters):
             profile_decode(eng, f"GPT-350M draft_k={DRAFT_K} bf16 pools")
         del eng, reqs
         torch.cuda.empty_cache()
-    del model
-    torch.cuda.empty_cache()
-    return launches
+    return launches, pool_out, model
 
 
 def check_spec_on_card(device):
@@ -1090,6 +1110,301 @@ def check_spec_on_card(device):
         else:
             line += " (reported, not held)"
         print(line, flush=True)
+    del models
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------- phases 5e and 5f
+
+# the multi-tick engines: ticks a dispatch, and the penalties of the
+# penalized pair (greedy, so N = 1 and N = 4 must agree token for token)
+TICKS = 4
+PENALTY = dict(repetition_penalty=1.2, presence_penalty=0.5)
+
+
+def sync_guarded(eng):
+    """Run every dispatch's ticks of `eng` under
+    `torch.cuda.set_sync_debug_mode("error")`: a call that synchronizes
+    the host with the card between the ticks of a dispatch raises."""
+    import torch
+    run_ticks = eng._run_ticks
+
+    def guarded(d, n):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run_ticks(d, n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    eng._run_ticks = guarded
+
+
+def serve_counted(eng, prompts, counters, label):
+    """Serve the prompts to completion with every kernel counter zeroed
+    just before and read just after. Fails unless every request finished
+    with its full horizon and every KV block came back. Returns
+    (outputs, launches, the run's numbers)."""
+    import torch
+    for mod, attr, _ in counters:
+        setattr(mod, attr, 0)
+    before = (eng.steps_run, eng.dispatches_run, eng.device_ticks_run,
+              eng.device_ticks_issued, dict(eng.early_exit_counts),
+              eng.tokens_fed)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, NEW_TOKENS) for p in prompts]
+    try:
+        eng.run()
+    except RuntimeError as e:
+        fail(f"{label}: {e}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {name: getattr(mod, attr) for mod, attr, name in counters}
+    outputs = [list(r.output) for r in reqs]
+    if any(r.state != "finished" or len(r.output) != NEW_TOKENS
+           for r in reqs):
+        fail(f"{label}: not every request finished with its full horizon")
+    if eng.kv.blocks_in_use:
+        fail(f"{label}: {eng.kv.blocks_in_use} KV blocks still held after "
+             "every request finished")
+    steps, disp, ran, issued, ee, fed = before
+    run = dict(
+        steps=eng.steps_run - steps, dispatches=eng.dispatches_run - disp,
+        ticks=eng.device_ticks_run - ran,
+        issued=eng.device_ticks_issued - issued,
+        finish=eng.early_exit_counts["finish"] - ee["finish"],
+        overflow=eng.early_exit_counts["overflow"] - ee["overflow"],
+        fed=eng.tokens_fed - fed, wall=wall,
+        generated=sum(map(len, outputs)),
+        ttft=sum(r.first_token_time - r.submit_time for r in reqs)
+        / len(reqs))
+    return outputs, got, run
+
+
+def multitick_line(label, eng, run, same_as, same, launches):
+    """One engine's line: dispatches, ticks issued and executed, early
+    exits, tokens/s and TTFT on the host clock, host ms a dispatch."""
+    if eng._multitick:
+        disp = run["dispatches"]
+        ticks = (f"{disp} dispatches, {run['issued']} ticks issued, "
+                 f"{run['ticks']} executed ({run['issued'] - run['ticks']} "
+                 f"past an exit), early exits finish {run['finish']} "
+                 f"overflow {run['overflow']}")
+    else:
+        disp = run["steps"]
+        ticks = f"{disp} dispatches of one tick"
+    return (f"serve multitick {label}: ticks_per_dispatch="
+            f"{'auto' if eng._ticks_auto else eng.ticks_per_dispatch}; "
+            f"{ticks}; {run['generated']} generated tokens in "
+            f"{run['wall']:.3f} s = {run['generated'] / run['wall']:.1f} "
+            f"tokens/s, mean TTFT {run['ttft'] * 1e3:.1f} ms, "
+            f"{run['wall'] * 1e3 / disp:.2f} ms per dispatch on the host "
+            f"clock; tokens equal to {same_as} {same}/{run['generated']}; "
+            "launches " + ", ".join(f"{n} {c}" for n, c in launches.items()
+                                    if c))
+
+
+def hold_multitick(label, eng, run, outputs, want_out, got, want):
+    """The holds of a multi-tick run: the reference's tokens exactly,
+    the launches exactly (every other counter 0), and more ticks than
+    dispatches."""
+    if outputs != want_out:
+        fail(f"{label}: tokens differ from the 1-tick engine's")
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)} ({run['issued']} ticks issued)")
+    if eng._multitick and not eng._ticks_auto and \
+            run["ticks"] <= run["dispatches"]:
+        fail(f"{label}: {run['ticks']} ticks in {run['dispatches']} "
+             "dispatches: the loop never ran more than one tick")
+
+
+def serve_multitick(model, device, counters, dense_out, spec_out):
+    """Phase 5e: GPT-350M (phase 5a's model) served by multi-tick engines
+    on the 16 requests: ticks_per_dispatch=4 and "auto" (greedy tokens
+    equal to phase 4's 1-tick engine, every dispatch's ticks under
+    `set_sync_debug_mode("error")`), draft_k=3 at 4 ticks over bf16,
+    int8 and fp8 pools (equal to phase 5a's engine of the same pool),
+    and a penalized greedy pair at 1 and 4 ticks (equal to each other).
+    Launches are held exactly: the paged variants issued ticks x 24
+    (steps x 24 at one tick), nothing else. Then one profiled 4-tick
+    dispatch."""
+    import torch
+    from paddle_tpu_torch.serving.batcher import SamplingConfig
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    prompts = serve_prompts()
+    base = dict(max_slots=SLOTS, block_size=BLOCK, max_seq_len=MAX_SEQ,
+                token_budget=BUDGET, cache_dtype="bfloat16", device=device)
+    runs = [("dense 4 ticks", dict(ticks_per_dispatch=TICKS), None,
+             "phase 4's 1-tick engine"),
+            ("dense auto", dict(ticks_per_dispatch="auto"), None,
+             "phase 4's 1-tick engine")]
+    for kv_dtype in (None, "int8", "fp8_e4m3"):
+        runs.append((f"draft_k={DRAFT_K} {kv_dtype or 'bfloat16'} pools",
+                     dict(ticks_per_dispatch=TICKS, kv_dtype=kv_dtype,
+                          draft_k=DRAFT_K, draft_ngram=DRAFT_NGRAM,
+                          draft_ring=DRAFT_RING), kv_dtype,
+                     "phase 5a's engine"))
+    pen = SamplingConfig(**PENALTY)
+    t_phase = time.perf_counter()
+    runs += [("penalized 1 tick", dict(sampling=pen), "pen", "itself"),
+             ("penalized 4 ticks", dict(sampling=pen,
+                                        ticks_per_dispatch=TICKS), "pen",
+              "the penalized 1-tick engine")]
+    pen_out = None
+    for label, kw, ref, ref_label in runs:
+        eng = ServingEngine(model, **base, **kw)
+        eng.generate_batch([[1, 2, 3]], max_new_tokens=2)   # warm-up
+        torch.cuda.synchronize()
+        if eng._multitick:
+            sync_guarded(eng)
+        outputs, got, run = serve_counted(eng, prompts, counters,
+                                          f"serve multitick {label}")
+        if ref == "pen":
+            want_out = pen_out = pen_out or outputs
+        elif "draft_k" in kw:
+            want_out = spec_out[ref]
+        else:
+            want_out = dense_out
+        n = run["issued"] if eng._multitick else run["steps"]
+        if eng.draft_k:
+            verify, ragged = SPEC_POOLS[kw["kv_dtype"]]
+            want = {verify: n * LAYERS, ragged: n * LAYERS}
+        else:
+            want = {"paged_attention": n * LAYERS}
+        same = sum(a == b for o, w in zip(outputs, want_out)
+                   for a, b in zip(o, w))
+        print(multitick_line(label, eng, run, ref_label, same, got)
+              + ("; every dispatch's ticks ran under "
+                 "set_sync_debug_mode('error')" if eng._multitick else ""),
+              flush=True)
+        hold_multitick(f"serve multitick {label}", eng, run, outputs,
+                       want_out, got, want)
+        if label == "dense 4 ticks":
+            profile_multitick(eng, "GPT-350M")
+        del eng
+        torch.cuda.empty_cache()
+    print(f"serve multitick: phase took {time.perf_counter() - t_phase:.1f} "
+          "s", flush=True)
+
+
+def profile_multitick(eng, label, window=4):
+    """Where a multi-tick dispatch's time goes: 8 requests with 256-token
+    prompts are prefilled, `window` pure-decode dispatches are timed on
+    the host clock and the next one runs under torch.profiler for its
+    device time, a tick's share of it and the device's busy share."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(SEED + 2)
+    # the first request decodes while the others prefill: room for that
+    # and for every timed dispatch to run all its ticks
+    horizon = eng.ticks_per_dispatch * (window + 1) + 2 * SLOTS + 8
+    reqs = [eng.submit(rng.integers(0, VOCAB, 256).tolist(), horizon)
+            for _ in range(SLOTS)]
+    while any(r.state in ("queued", "prefill") for r in reqs):
+        eng.step()
+    torch.cuda.synchronize()
+    issued0 = eng.device_ticks_issued
+    t0 = time.perf_counter()
+    for _ in range(window):
+        eng.step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / window
+    per = (eng.device_ticks_issued - issued0) / window
+    issued0 = eng.device_ticks_issued
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    ticks = eng.device_ticks_issued - issued0
+    for r in reqs:
+        eng.scheduler.cancel(r)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    head = (f"profile: {label} {ticks}-tick decode dispatch, 8 slots at "
+            f"contexts 256-{max(256 + len(r.output) for r in reqs)}: "
+            f"{host_ms:.3f} ms per dispatch on the host clock "
+            f"({host_ms / per:.3f} ms a tick)")
+    if not dev:
+        print(head + "; device time not measured (no device events)",
+              flush=True)
+        return
+    device_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    launches = sum(e.count for e in dev)
+    print(head + f", {device_ms:.3f} ms of device time in {launches} "
+          f"device launches = {device_ms / ticks:.3f} ms a tick, device "
+          f"busy {device_ms / ticks / (host_ms / per):.1%}", flush=True)
+
+
+def check_multitick_on_card(device):
+    """Phase 5f: fp32, 2 layers at full width, draft_k=3 with the
+    penalties (greedy), 4 ticks a dispatch: 4 requests of 16 new tokens
+    give the same tokens on the card (kernels, every dispatch's ticks
+    under `set_sync_debug_mode("error")`) as on a CPU copy (plain
+    versions) and as the card's 1-tick engine; then a seeded penalized
+    sampling engine with draft_k=3 at 4 ticks against its 1-tick twin
+    on the card (the generator is set back after each early exit)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.serving.batcher import SamplingConfig
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    layers = 2
+    arrays = random_gpt_arrays(SEED + 11, layers=layers)
+    rng = np.random.default_rng(SEED + 12)
+    prompts = [rng.integers(0, VOCAB, int(n)).tolist()
+               for n in (17, 40, 64, 9)]
+    prompts[3] = prompts[3] * 5
+    models = {str(d): load_jax_gpt(arrays, HEADS, device=d)
+              for d in (device, "cpu")}
+
+    def serve(dev, ticks, sampling, guard=False, eos=None):
+        eng = ServingEngine(models[str(dev)], max_slots=4, block_size=BLOCK,
+                            max_seq_len=128, token_budget=BUDGET,
+                            cache_dtype="float32", draft_k=DRAFT_K,
+                            sampling=sampling, ticks_per_dispatch=ticks,
+                            eos_token_id=eos, seed=5, device=dev)
+        if guard:
+            sync_guarded(eng)
+        try:
+            out = eng.generate_batch(prompts, max_new_tokens=16)
+        except RuntimeError as e:
+            fail(f"check multitick: {e}")
+        return out, eng
+
+    greedy = SamplingConfig(**PENALTY)
+    got, eng = serve(device, TICKS, greedy, guard=True)
+    want, _ = serve("cpu", TICKS, greedy)
+    one, _ = serve(device, 1, greedy)
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    total = sum(map(len, want))
+    line = (f"check multitick: fp32, {layers} layers at full width, "
+            f"draft_k={DRAFT_K}, penalties {PENALTY}, {TICKS} ticks a "
+            f"dispatch ({eng.dispatches_run} dispatches, "
+            f"{eng.device_ticks_run} ticks executed, "
+            f"{eng.device_ticks_issued} issued, every dispatch's ticks "
+            f"under set_sync_debug_mode('error')): {same}/{total} greedy "
+            "tokens equal on the card and the CPU")
+    if got != want or got != one:
+        fail(line + f"; {'equal' if got == one else 'not equal'} to the "
+             "card's 1-tick engine")
+    # seeded sampling, with an EOS from the free run so that a dispatch
+    # ends mid-way and the generator is set back past its exit
+    hot = SamplingConfig(strategy="sampling", temperature=0.9, top_p=0.95,
+                         **PENALTY)
+    eos = serve(device, 1, hot)[0][1][3]
+    got, eng = serve(device, TICKS, hot, guard=True, eos=eos)
+    one, _ = serve(device, 1, hot, eos=eos)
+    if got != one:
+        fail(line + "; seeded penalized sampling at 4 ticks differs from "
+             "the 1-tick engine on the card")
+    print(line + "; seeded penalized sampling (draft_k=3, top_p 0.95, "
+          f"EOS {eos}) at {TICKS} ticks equal to its 1-tick twin on the card"
+          f" ({eng.device_ticks_issued - eng.device_ticks_run} ticks past "
+          f"an exit); phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     del models
     torch.cuda.empty_cache()
 
@@ -1192,9 +1507,53 @@ def serve_moe(device, counters):
                        kernel="gmm")
         del eng, reqs
         torch.cuda.empty_cache()
+        if fmt is None:
+            serve_moe_multitick(model, device, counters, prompts, float_out)
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+def serve_moe_multitick(model, device, counters, prompts, want_out):
+    """Phase 5b's multi-tick engine: MoE-350M with float experts at 4
+    ticks a dispatch, every dispatch's ticks under
+    `set_sync_debug_mode("error")`: the float 1-tick engine's tokens,
+    paged attention issued ticks x 24 and the float grouped matmul issued
+    ticks x 48 launches (nothing else), and routed + dropped = 2 x 24 x
+    valid tokens over the ticks that counted."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    k = MOE["top_k"]
+    eng = ServingEngine(model, max_slots=SLOTS, block_size=BLOCK,
+                        max_seq_len=MAX_SEQ, token_budget=BUDGET,
+                        cache_dtype="bfloat16", ticks_per_dispatch=TICKS,
+                        device=device)
+    eng.generate_batch([[1, 2, 3]], max_new_tokens=2)       # warm-up
+    torch.cuda.synchronize()
+    sync_guarded(eng)
+    counts0 = eng.moe_expert_counts.copy()
+    dropped0 = eng.moe_dropped_total
+    label = "serve multitick MoE float experts"
+    outputs, got, run = serve_counted(eng, prompts, counters, label)
+    counts = eng.moe_expert_counts - counts0
+    dropped = eng.moe_dropped_total - dropped0
+    same = sum(a == b for o, w in zip(outputs, want_out)
+               for a, b in zip(o, w))
+    print(multitick_line("MoE float experts", eng, run,
+                         "phase 5b's float 1-tick engine", same, got)
+          + f"; {run['fed']} valid tokens fed, dropped {dropped:.0f} of "
+          f"{k * LAYERS * run['fed']} choices; every dispatch's ticks ran "
+          "under set_sync_debug_mode('error')", flush=True)
+    hold_multitick(label, eng, run, outputs, want_out, got,
+                   {"paged_attention": run["issued"] * LAYERS,
+                    "gmm_fp": run["issued"] * 2 * LAYERS})
+    if not np.all(np.isfinite(counts)) or \
+            counts.sum() + dropped != k * LAYERS * run["fed"]:
+        fail(f"{label}: {counts.sum()} routed + {dropped} dropped choices "
+             f"!= {k} x {LAYERS} layers x {run['fed']} tokens")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def check_moe_on_card(device):
@@ -2884,10 +3243,16 @@ def main():
     eng, reqs, serve_launches = serve(device, counters)
     check_outputs(eng.model, reqs, device)
     profile_decode(eng, "GPT-350M", kernel=PAGED_KERNELS)
+    dense_out = [list(r.output) for r in reqs]
     del eng, reqs
     torch.cuda.empty_cache()
-    serve_launches.update(serve_spec(device, counters))
+    spec_launches, spec_out, model = serve_spec(device, counters)
+    serve_launches.update(spec_launches)
+    serve_multitick(model, device, counters, dense_out, spec_out)
+    del model
+    torch.cuda.empty_cache()
     check_spec_on_card(device)
+    check_multitick_on_card(device)
     serve_launches.update(serve_moe(device, counters))
     check_moe_on_card(device)
 

@@ -3,7 +3,10 @@
 Port of `paddle_tpu/serving/batcher.py`:
 
 * `SamplingConfig` / `select_token` — greedy, or temperature / top-k /
-  top-p sampling from an explicit `torch.Generator`;
+  top-p sampling from an explicit `torch.Generator`, after the
+  repetition / presence / frequency penalties of a per-slot token-count
+  histogram (`apply_count_penalties`, `history_to_counts`,
+  `apply_logit_penalties`);
 * `next_pow2` / `round_up` / `choose_token_budget` / `prefill_chunk` —
   the power-of-two shape discipline of the flat step axis;
 * `pack_step` — one engine iteration (decode tokens or speculative
@@ -20,9 +23,7 @@ Port of `paddle_tpu/serving/batcher.py`:
 
 With speculation (`verify_width` = draft_k + 1 > 1) the first
 `max_slots * verify_width` flat tokens are a fixed verify region. The
-logit penalties are fields of `SamplingConfig` so that a caller can ask
-for them, but no engine of this package applies them yet (ROADMAP
-Queue 1), and the sparse decode region waits too.
+sparse decode region is not ported (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -38,9 +39,10 @@ class SamplingConfig:
     temperature: float = 1.0
     top_k: int = 0                 # 0 = off
     top_p: float = 1.0             # 1.0 = off
-    repetition_penalty: float = 1.0   # 1.0 = off (not ported yet)
-    presence_penalty: float = 0.0     # 0.0 = off (not ported yet)
-    frequency_penalty: float = 0.0    # 0.0 = off (not ported yet)
+    repetition_penalty: float = 1.0   # 1.0 = off (HF semantics)
+    presence_penalty: float = 0.0     # 0.0 = off (additive, one-shot)
+    frequency_penalty: float = 0.0    # 0.0 = off (count-scaled)
+    penalty_window: int = 128      # tokens of context the penalties see
 
 
 def needs_history(sc: SamplingConfig) -> bool:
@@ -48,6 +50,51 @@ def needs_history(sc: SamplingConfig) -> bool:
     history)."""
     return (sc.repetition_penalty != 1.0 or sc.presence_penalty != 0.0
             or sc.frequency_penalty != 0.0)
+
+
+def apply_count_penalties(logits, counts, sc: SamplingConfig):
+    """Repetition / presence / frequency penalties from a token-count
+    histogram. logits [..., V]; counts [..., Vb], the occurrences of
+    each of Vb vocab bins in the context (token t falls in bin t % Vb;
+    Vb == V is exact). Any leading batch shape: the verify head passes
+    per-position [S, K, Vb] priors.
+
+    * repetition (HF semantics): a seen token's logit is divided by the
+      penalty when positive, multiplied by it when not;
+    * presence: one subtraction per seen token;
+    * frequency: a subtraction per occurrence (count-scaled)."""
+    V, Vb = logits.shape[-1], counts.shape[-1]
+    cnt = counts.to(logits.dtype)
+    if Vb != V:
+        cnt = cnt[..., torch.arange(V, device=logits.device) % Vb]
+    seen = cnt > 0
+    if sc.repetition_penalty != 1.0:
+        rp = float(sc.repetition_penalty)
+        logits = torch.where(
+            seen, torch.where(logits > 0, logits / rp, logits * rp), logits)
+    if sc.presence_penalty != 0.0:
+        logits = logits - float(sc.presence_penalty) * seen.to(logits.dtype)
+    if sc.frequency_penalty != 0.0:
+        logits = logits - float(sc.frequency_penalty) * cnt
+    return logits
+
+
+def history_to_counts(history, vocab_bins, dtype=torch.float32):
+    """[B, W] -1-padded token history -> [B, vocab_bins] counts: one
+    scatter-add (padding adds weight 0 to bin 0)."""
+    valid = history >= 0
+    idx = torch.where(valid, history % int(vocab_bins), 0).long()
+    out = torch.zeros((history.shape[0], int(vocab_bins)), dtype=dtype,
+                      device=history.device)
+    return out.scatter_add_(1, idx, valid.to(dtype))
+
+
+def apply_logit_penalties(logits, history, sc: SamplingConfig):
+    """The penalties from a [B, W] -1-padded token-history window:
+    `apply_count_penalties` over its exact-vocab count histogram."""
+    return apply_count_penalties(
+        logits, history_to_counts(history, logits.shape[-1], logits.dtype),
+        sc)
 
 
 def filter_logits(logits, sc: SamplingConfig):
@@ -72,13 +119,17 @@ def filter_logits(logits, sc: SamplingConfig):
     return logits
 
 
-def select_token(logits, sc: SamplingConfig, generator=None):
+def select_token(logits, sc: SamplingConfig, generator=None, counts=None):
     """logits [B, V] -> token [B] int64, on the logits' device.
 
-    Greedy takes the first maximal index (as `jnp.argmax`). Sampling
-    draws from `generator`, which must live on the logits' device; the
-    draws differ from the JAX package's `jax.random` stream by design."""
+    With `counts` [B, Vb] and a penalty on, the penalties apply first
+    (`apply_count_penalties`), then the strategy. Greedy takes the first
+    maximal index (as `jnp.argmax`). Sampling draws from `generator`,
+    which must live on the logits' device; the draws differ from the
+    JAX package's `jax.random` stream by design."""
     logits = logits.float()
+    if counts is not None and needs_history(sc):
+        logits = apply_count_penalties(logits, counts, sc)
     if sc.strategy == "greedy":
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(filter_logits(logits, sc), dim=-1)

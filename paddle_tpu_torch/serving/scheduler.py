@@ -18,10 +18,14 @@ block-pressure preemption against the paged KV cache:
   `[last token, d_1..d_k]` from `draft_fn`; the draft extends with FREE
   blocks only, and the engine reports how far the group got
   (`note_accept`), which rolls back the blocks rejected drafts claimed.
+  With `device_draft` the multi-tick engine drafts on the device, so a
+  decode is planned as `[last token]` alone.
+* **Multi-tick preallocation** — `extend_for_ticks` maps FREE blocks
+  ahead of a decode so a dispatch of several ticks appends without the
+  host; the engine truncates back to what was emitted at harvest.
 
-Pure host-side bookkeeping. The prefix-cache, adapter, migration,
-device-drafting and tracing hooks of the JAX scheduler wait for later
-slices (ROADMAP.md).
+Pure host-side bookkeeping. The prefix-cache, adapter, migration and
+tracing hooks of the JAX scheduler wait for later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -77,7 +81,8 @@ class Plan:
 
 class Scheduler:
     def __init__(self, kv_cache, *, max_slots, token_budget,
-                 clock=time.monotonic, draft_k=0, draft_fn=None):
+                 clock=time.monotonic, draft_k=0, draft_fn=None,
+                 device_draft=False):
         self.kv = kv_cache
         self.max_slots = max_slots
         self.token_budget = token_budget
@@ -86,6 +91,9 @@ class Scheduler:
         # proposed tokens (draft_fn(sequence) -> draft_k ints)
         self.draft_k = int(draft_k)
         self.draft_fn = draft_fn
+        # the multi-tick engine drafts inside its decode loop: plan()
+        # feeds [last] alone, the device widens the group
+        self.device_draft = bool(device_draft)
         self.queue = collections.deque()
         self.slots = [None] * max_slots
         self._ids = itertools.count()
@@ -191,6 +199,23 @@ class Scheduler:
         draft = self.draft_fn(req.prompt + req.output)
         return [req.output[-1]] + [int(t) for t in draft[:k]]
 
+    # ------------------------------------------- multi-tick preallocation
+    def extend_for_ticks(self, slot, pos, n_ticks):
+        """Pre-extend one decode slot's blocks so a multi-tick dispatch
+        can append up to `n_ticks` tokens from `pos` without the host.
+        The first token's block is already mapped by `plan()`; the rest
+        take FREE blocks only, so a burst never evicts a neighbour.
+        Returns the capacity `cap` (pos + 1 <= cap <= pos + n_ticks) the
+        dispatch may fill; the engine truncates back to what was emitted
+        at harvest."""
+        k = min(int(n_ticks) - 1, self.kv.max_slot_tokens - (pos + 1))
+        while k > 0 and not self.kv.ensure_capacity(slot, pos + 1 + k):
+            fit = (self.kv.slot_num_blocks(slot)
+                   + self.kv.allocator.num_free) \
+                * self.kv.block_size - (pos + 1)
+            k = min(k - 1, fit) if fit > 0 else 0
+        return pos + 1 + max(k, 0)
+
     # ------------------------------------------------------------ plan
     def plan(self) -> Plan:
         """One engine iteration's work. Mutates scheduler/cache state
@@ -220,9 +245,11 @@ class Scheduler:
             if req.slot < 0:
                 continue
             protected.add(req)
-            if self.draft_k > 0:
+            if self.draft_k > 0 and not self.device_draft:
                 decode.append((req.slot, self._draft_tokens(req, pos),
                                pos))
+            elif self.draft_k > 0:
+                decode.append((req.slot, [req.output[-1]], pos))
             else:
                 decode.append((req.slot, req.output[-1], pos))
 

@@ -21,6 +21,7 @@ from paddle_tpu_torch.ops import layer_norm as tln
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops import qkv_proj as tqp
 from paddle_tpu_torch.parallel import hybrid_gpt as th
+from paddle_tpu_torch.serving.batcher import SamplingConfig
 from paddle_tpu_torch.serving.engine import ServingEngine
 
 
@@ -587,6 +588,105 @@ def test_speculative_engine_on_card(kv_dtype, cuda_device):
         plain = ServingEngine(card, device=cuda_device,
                               **dict(kw, draft_k=0))
         assert got == plain.generate_batch(prompts, max_new_tokens=12)
+
+
+# --------------------------------------------- multi-tick dispatch
+
+
+def _sync_guarded(eng):
+    """Run every dispatch's ticks of `eng` under
+    `set_sync_debug_mode("error")`: a synchronizing call between the
+    ticks of a dispatch raises."""
+    run_ticks = eng._run_ticks
+
+    def guarded(d, n):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run_ticks(d, n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    eng._run_ticks = guarded
+
+
+def _small_models(device):
+    torch.manual_seed(0)
+    cpu = GPTForGeneration(vocab_size=193, hidden_size=128, num_layers=2,
+                           num_attention_heads=2,
+                           max_position_embeddings=128, device="cpu")
+    card = GPTForGeneration(vocab_size=193, hidden_size=128, num_layers=2,
+                            num_attention_heads=2,
+                            max_position_embeddings=128, device=device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 193, n).tolist() for n in (9, 5, 30, 3)]
+    prompts[0] = [7, 8, 9] * 4                      # something to draft
+    return cpu, card, prompts
+
+
+@pytest.mark.cuda
+def test_multitick_engine_on_card_matches_cpu(cuda_device):
+    """A small fp32 model, draft_k=3 with the penalties, 4 ticks a
+    dispatch: the card (kernels, every dispatch's ticks under
+    set_sync_debug_mode("error")) gives the CPU's greedy tokens and draft
+    counts and the card's 1-tick tokens; the float verify and ragged
+    variants launched once a layer a tick issued, no other variant."""
+    cpu, card, prompts = _small_models(cuda_device)
+    kw = dict(max_slots=4, block_size=16, max_seq_len=64,
+              cache_dtype="float32", draft_k=3, ticks_per_dispatch=4,
+              sampling=SamplingConfig(repetition_penalty=1.2,
+                                      presence_penalty=0.5))
+    eng = ServingEngine(card, device=cuda_device, **kw)
+    _sync_guarded(eng)
+    counters = list(_VERIFY_COUNTER.values()) + list(_RAGGED_COUNTER.values())
+    before = {c: getattr(tpa, c) for c in counters}
+    got = eng.generate_batch(prompts, max_new_tokens=12)
+    moved = {c: getattr(tpa, c) - before[c] for c in counters}
+    issued = eng.device_ticks_issued
+    assert moved == {c: issued * 2 if c in (
+        _VERIFY_COUNTER["float"], _RAGGED_COUNTER["float"]) else 0
+        for c in counters}
+    assert eng.device_ticks_run > eng.dispatches_run
+    assert eng.kv.blocks_in_use == 0
+    ref = ServingEngine(cpu, device="cpu", **kw)
+    assert got == ref.generate_batch(prompts, max_new_tokens=12)
+    assert (eng.spec_proposed_total, eng.spec_accepted_total) == \
+        (ref.spec_proposed_total, ref.spec_accepted_total)
+    one = ServingEngine(card, device=cuda_device,
+                        **dict(kw, ticks_per_dispatch=1))
+    assert got == one.generate_batch(prompts, max_new_tokens=12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft_k", [0, 3])
+def test_multitick_sampling_on_card_never_syncs(draft_k, cuda_device):
+    """Seeded penalized top-p sampling at 4 ticks a dispatch, every
+    dispatch's ticks under set_sync_debug_mode("error"), with an EOS
+    taken from the 1-tick run at each of several places: the same
+    tokens as the 1-tick engine on the card each time, and at least one
+    dispatch issued ticks past its exit (the generator is set back
+    there)."""
+    _, card, prompts = _small_models(cuda_device)
+    kw = dict(max_slots=4, block_size=16, max_seq_len=64,
+              cache_dtype="float32", draft_k=draft_k, seed=3,
+              sampling=SamplingConfig(strategy="sampling", temperature=0.9,
+                                      top_p=0.95, repetition_penalty=1.2,
+                                      frequency_penalty=0.3))
+    free = ServingEngine(card, device=cuda_device, **kw).generate_batch(
+        prompts, max_new_tokens=12)
+    wasted = 0
+    for req, at in ((1, 3), (0, 2), (2, 3), (3, 4)):
+        eos = free[req][at]
+        eng = ServingEngine(card, device=cuda_device, ticks_per_dispatch=4,
+                            eos_token_id=eos, **kw)
+        _sync_guarded(eng)
+        got = eng.generate_batch(prompts, max_new_tokens=12)
+        one = ServingEngine(card, device=cuda_device, eos_token_id=eos, **kw)
+        assert got == one.generate_batch(prompts, max_new_tokens=12)
+        assert got[req][-1] == eos
+        assert eng.device_ticks_run > eng.dispatches_run
+        assert eng.kv.blocks_in_use == 0
+        wasted += eng.device_ticks_issued - eng.device_ticks_run
+    assert wasted > 0
 
 
 # ------------------------------------------------- add_ln (K2) kernels

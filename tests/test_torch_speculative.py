@@ -15,7 +15,7 @@ the JAX `draft_k=3` engine and to the port's `draft_k=0`, with equal
 proposed/accepted totals, under preemption and with EOS inside an
 accepted run; int8 and fp8 engines, with and without speculation,
 match the JAX engine with the same `kv_dtype`; top_k=1 speculative
-sampling equals greedy; options not ported yet raise.
+sampling equals greedy; block-sparse decode, not ported yet, raises.
 """
 import numpy as np
 import pytest
@@ -381,19 +381,20 @@ def test_speculative_top_k_one_sampling_equals_greedy(models):
 
 
 def test_unported_options_raise(models):
+    """Block-sparse decode still raises; penalized sampling and the
+    multi-tick dispatch are ported and build (tests/test_torch_penalties
+    and tests/test_torch_multitick hold them); bad values raise."""
     _, tm = models
     kw = dict(max_slots=2, block_size=8, max_seq_len=64, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(tm, sparse_blocks=4, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tm, ticks_per_dispatch=4, **kw)
+    assert ServingEngine(tm, ticks_per_dispatch=4, **kw)._multitick
     for pen in (dict(repetition_penalty=1.2), dict(presence_penalty=0.5),
                 dict(frequency_penalty=0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(tm, sampling=SamplingConfig(
-                strategy="sampling", **pen), **kw)
+        ServingEngine(tm, sampling=SamplingConfig(strategy="sampling",
+                                                  **pen), **kw)
     for bad in (dict(draft_k=-1), dict(draft_k=2, draft_ngram=0),
-                dict(draft_k=2, draft_ring=1)):
+                dict(draft_k=2, draft_ring=1), dict(ticks_per_dispatch=0)):
         with pytest.raises(ValueError):
             ServingEngine(tm, **bad, **kw)
     with pytest.raises(ValueError, match="kv_dtype"):
