@@ -5,7 +5,8 @@ NVIDIA card.
 
 Drives the port's paths end to end — serving a dense GPT-350M, serving
 it speculatively over bf16, int8 and fp8 KV pools, serving it with
-several decode ticks a dispatch and with penalties, serving the
+several decode ticks a dispatch and with penalties, with the radix
+prefix cache and with block-sparse decode, serving the
 8-expert MoE-350M with float, int8 and int4 experts, the train step
 (with and without the fused QKV projection), the paddle-layout
 `flash_attention()` entry, the `wgrad_1x1` entry, BERT-base
@@ -24,7 +25,13 @@ each (or a few):
    over the same three, two launches of each bit-identical, and the
    dense engine's pure-decode step as `pack_step` lays it out (8
    decodes, padding to 256 tokens) over the same three, beside the
-   decode entry `paged_attention()`; the three
+   decode entry `paged_attention()`; the block-sparse decode's region
+   (`paged_sparse_case`: 8 slots at contexts 700-1000 over [8, 11]
+   shortened tables with compacted positions from `select_blocks`),
+   the ragged entry over bf16, int8 and fp8 pools and the verify entry
+   (4 queries a slot) over bf16, two launches of each bit-identical,
+   timed beside the selected blocks' bound, SDPA on a gathered copy of
+   them and the same kernel over the full tables; the three
    grouped expert matmuls — float, int8 and int4 experts — at the MoE
    step's two expert products, each with its bytes/s and share of its
    bound; flash attention forward/backward (with their TFLOP/s and share
@@ -86,6 +93,30 @@ each (or a few):
    with the penalties at 4 ticks: the card's greedy tokens equal a CPU
    copy's and the card's 1-tick engine's; seeded penalized sampling at
    4 ticks equals its 1-tick twin on the card;
+5g. serve prefix — phase 5a's model served two waves (16 requests on a
+   shared 256-token system prompt with suffixes of 16-256 tokens, 64 new
+   tokens; then 4 finished conversations replayed with a new suffix and
+   one exact full-prompt replay) by a cache-off engine and
+   `prefix_caching=True` engines over bf16 and int8 pools: launches
+   held (steps x 24), the bf16 cache's every token within the near-tie
+   oracle, hits printed (sum > 0, whole blocks but the exact replay's,
+   which re-feeds its last token into a copy on write), every block
+   free after `evict_all`; prompt tokens fed, TTFT and tokens/s beside
+   the cache-off engine's; the int8 pool reported, not held;
+5h. serve sparse — the same model, 8 prompts of 700-992 tokens, 32 new
+   tokens: a dense engine, `sparse_blocks=8, sparse_recent=2` (11 of up
+   to 64 blocks) over bf16, int8 and fp8 pools, at full coverage
+   (`sparse_blocks=64`, near-tie oracle), and with draft_k=3 at 1 and 4
+   ticks (4 ticks equal to 1): the region's `paged_sparse` launches and
+   the rest's full-table launches each steps (issued ticks) x 24, skip
+   ratios and agreement with the dense engine printed;
+5i. on-card prefix and sparse check — fp32, 2 layers at full width: a
+   prefix-cache engine (two waves with a copy-on-write replay) and a
+   block-sparse engine at real sparsity (3 of up to 15 blocks), at 1
+   and 4 ticks, give the same greedy tokens, hits and selected blocks
+   on the card and on a CPU copy (and the cache engine the card's
+   cache-off tokens), unless the first difference sat at an fp32 top-2
+   gap under 1e-5;
 5b. serve MoE — MoE-350M (bench_gpt_moe's widths: GPT-350M with every
    FFN 8 experts, top-2, capacity factor 1.25; random weights from a
    numpy seed through `convert.load_jax_gpt(moe=...)`) served by three
@@ -155,7 +186,8 @@ each (or a few):
    full width on the card (kernels) and on a CPU copy (plain versions):
    the loss and every parameter agree; (b) two bf16 (A) steps from the
    same weights after the same `seed()`: every parameter bit-identical;
-8. a JSON line listing every kernel with its launches, error and times;
+8. the script's total time, and a JSON line listing every kernel with
+   its launches (each > 0), error and times;
 9. the last line, `{"ok": true, "device": {...}}`.
 
 Any failed phase raises and exits non-zero; without a card the script
@@ -639,6 +671,126 @@ def check_paged_decode(pa, device, flush):
                   f"{sdpa_ms:.4f} ms", flush=True)
 
 
+# the block-sparse decode: the B best-scoring blocks and a recency window
+# of a slot's up to 64; its shortened tables hold Bt = 1 + recent + B
+SPARSE_BLOCKS, SPARSE_RECENT = 8, 2
+SPARSE_BT = 1 + SPARSE_RECENT + SPARSE_BLOCKS
+# the pure-decode step's contexts at long context, and the sparse serve
+# phase's prompt lengths and horizon
+SPARSE_CTX = (1000, 958, 911, 874, 833, 790, 746, 700)
+SPARSE_PROMPTS, SPARSE_NEW = (700, 992), 32
+
+
+def paged_sparse_case(dtype, device, kind="float", K=1, seed=SEED):
+    """The block-sparse decode region at full width: 8 slots at contexts
+    700-1000 (`SPARSE_CTX`), K queries a slot ending at its newest
+    position, every slot's pages drawn at random; the [8, 11] shortened
+    tables and compacted positions come from the engine's
+    `select_blocks` over summaries of the pools' own keys (B = 8, 2
+    recent). Float pools in `dtype`, or "int8" / "fp8" pools quantized as
+    the engine quantizes. Returns (the sparse call's [q, k, v, tables,
+    slots, positions, k_scale, v_scale], the same queries over the full
+    tables at their true positions): the ragged entry's at K = 1, the
+    verify entry's at K > 1."""
+    import torch
+    from paddle_tpu_torch.serving.engine import quantize_kv, select_blocks
+    g = torch.Generator().manual_seed(seed)
+    H, Dh = HEADS, HIDDEN // HEADS
+    MB = MAX_SEQ // BLOCK
+    NB = SLOTS * MB + 1
+    bt = torch.zeros(SLOTS, MB, dtype=torch.int32)
+    perm = torch.randperm(NB - 1, generator=g) + 1
+    for s, n in enumerate(SPARSE_CTX):
+        nb = -(-n // BLOCK)
+        bt[s, :nb] = perm[s * MB:s * MB + nb].int()
+    pos = torch.tensor([[n - K + j for j in range(K)] for n in SPARSE_CTX],
+                       dtype=torch.int32)
+    q = torch.randn(SLOTS, K, H, Dh, generator=g)
+    kf = torch.randn(NB, BLOCK, H, Dh, generator=g)
+    vf = torch.randn(NB, BLOCK, H, Dh, generator=g)
+    short, pos_c = select_blocks(q, pos, bt, kf.amin(1), kf.amax(1),
+                                 SPARSE_BT, SPARSE_RECENT, BLOCK)
+    if kind == "float":
+        kp, vp, ks, vs = kf.to(dtype), vf.to(dtype), None, None
+    else:
+        kv_dtype = "int8" if kind == "int8" else "fp8_e4m3"
+        (kp, ks), (vp, vs) = quantize_kv(kf, kv_dtype), quantize_kv(
+            vf, kv_dtype)
+    slots = torch.arange(SLOTS, dtype=torch.int32)
+    q = q.to(dtype)
+    if K == 1:
+        q, pos, pos_c = q[:, 0], pos[:, 0], pos_c[:, 0].contiguous()
+    out = []
+    for table, p in ((short, pos_c), (bt, pos)):
+        out.append([None if a is None else a.to(device)
+                    for a in (q, kp, vp, table, slots, p, ks, vs)])
+    return out
+
+
+def check_paged_sparse(pa, device, flush):
+    """Phase 3 for the block-sparse decode (`kernel_name="paged_sparse"`):
+    the ragged entry over the shortened tables of `paged_sparse_case`
+    over bf16, int8 and fp8 pools, and the verify entry (4 queries a
+    slot) over bf16 pools, each in fp32 and bf16 queries against its
+    plain version, two launches to the same bits; timed (bf16) beside
+    its bound (the selected blocks' bytes), SDPA on a gathered copy of
+    the selected blocks, and the same kernel over the full tables at the
+    same contexts. Returns the bf16 records."""
+    import torch
+    variants = (("paged_sparse", 1, "float"), ("paged_sparse_int8", 1, "int8"),
+                ("paged_sparse_fp8", 1, "fp8"),
+                ("paged_sparse_verify", DRAFT_K + 1, "float"))
+    records = {}
+    for label, K, kind in variants:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            args, full = paged_sparse_case(dtype, device, kind, K)
+            fn, plain = ((pa.ragged_paged_attention,
+                          pa.ragged_gather_reference) if K == 1 else
+                         (pa.verify_paged_attention,
+                          pa.verify_gather_reference))
+            entry = "sparse" if K == 1 else "sparse_verify"
+            counter = pa._COUNTERS[(entry, None if kind == "float"
+                                    else args[1].dtype)]
+            tol = (TOL if kind == "float" else QTOL)[name]
+            before = getattr(pa, counter)
+            got = fn(*args, kernel_name="paged_sparse")
+            torch.cuda.synchronize()
+            if getattr(pa, counter) != before + 1:
+                fail(f"{label} {name}: {counter} did not count the launch")
+            err = close_or_fail(f"{label} {name}", got, plain(*args), tol)
+            if not torch.equal(fn(*args, kernel_name="paged_sparse"), got):
+                fail(f"{label} {name}: two runs gave different bits")
+            if name != "bfloat16":
+                continue
+            ms = cuda_ms(lambda: fn(*args, kernel_name="paged_sparse"),
+                         flush=flush)
+            plain_ms = cuda_ms(lambda: plain(*args), iters=5, flush=flush)
+            sdpa_ms = cuda_ms(sdpa_yardstick(
+                args if K == 1 else as_ragged(args)), flush=flush)
+            full_ms = cuda_ms(lambda: fn(*full), flush=flush)
+            bound_ms, bound_by, _ = paged_bound(args)
+            full_bound, _, _ = paged_bound(full)
+            records[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  sdpa_gathered_ms=sdpa_ms)
+            shape = "x".join(str(d) for d in args[0].shape)
+            print(f"kernel check: {label} {name} q [{shape}] over "
+                  f"{str(args[1].dtype).split('.')[-1]} pools, shortened "
+                  f"tables [{SLOTS}, {SPARSE_BT}] of contexts "
+                  f"{min(SPARSE_CTX)}-{max(SPARSE_CTX)} (B={SPARSE_BLOCKS},"
+                  f" {SPARSE_RECENT} recent) max_abs_err={err:.3g} (tol "
+                  f"{tol} (1 + |plain|); two runs bit-identical) "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}: the selected "
+                  f"blocks) yardstick: SDPA on a pre-gathered"
+                  f"{'' if kind == 'float' else ', dequantized'} copy of "
+                  f"the selected blocks {sdpa_ms:.4f} ms; the full-table "
+                  f"walk at the same contexts {full_ms:.4f} ms (bound "
+                  f"{full_bound:.4f} ms)", flush=True)
+    return records
+
+
 # ------------------------------------------------------------- phase 4
 
 
@@ -1071,25 +1223,10 @@ def check_spec_on_card(device):
         out = eng.generate_batch(prompts, max_new_tokens=16)
         return out, (eng.spec_proposed_total, eng.spec_accepted_total)
 
-    def first_gap(got, want):
-        """(same tokens, total, the fp32 top-2 gap at the first
-        differing token or None)."""
-        same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
-        total = sum(map(len, want))
-        for p, g, w in zip(prompts, got, want):
-            i = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
-                     None)
-            if i is None:
-                continue
-            ids = torch.tensor([p + w[:i]])
-            top = models["cpu"](ids, dtype=torch.float32)[0, -1].topk(2)
-            return same, total, float(top.values[0] - top.values[1])
-        return same, total, None
-
     for kv_dtype in (None, "int8", "fp8_e4m3"):
         got, card_counts = serve(device, kv_dtype, DRAFT_K)
         want, cpu_counts = serve("cpu", kv_dtype, DRAFT_K)
-        same, total, gap = first_gap(got, want)
+        same, total, gap = first_gap(models["cpu"], prompts, got, want)
         line = (f"check spec: fp32, {layers} layers at full width, "
                 f"{kv_dtype or 'float32'} pools, draft_k={DRAFT_K}: "
                 f"{same}/{total} greedy tokens equal on the card and the "
@@ -1098,7 +1235,7 @@ def check_spec_on_card(device):
                 f"top-2 gap {'none' if gap is None else f'{gap:.3g}'}")
         if kv_dtype is None:
             plain, _ = serve(device, None, 0)
-            p_same, _, p_gap = first_gap(got, plain)
+            p_same, _, p_gap = first_gap(models["cpu"], prompts, got, plain)
             line += (f"; {p_same}/{total} equal to the card's draft_k=0 "
                      f"engine (first gap "
                      f"{'none' if p_gap is None else f'{p_gap:.3g}'})")
@@ -1138,11 +1275,11 @@ def sync_guarded(eng):
     eng._run_ticks = guarded
 
 
-def serve_counted(eng, prompts, counters, label):
-    """Serve the prompts to completion with every kernel counter zeroed
-    just before and read just after. Fails unless every request finished
-    with its full horizon and every KV block came back. Returns
-    (outputs, launches, the run's numbers)."""
+def serve_counted(eng, prompts, counters, label, new=NEW_TOKENS):
+    """Serve the prompts to completion (`new` tokens each) with every
+    kernel counter zeroed just before and read just after. Fails unless
+    every request finished with its full horizon and every KV block came
+    back. Returns (outputs, launches, the run's numbers)."""
     import torch
     for mod, attr, _ in counters:
         setattr(mod, attr, 0)
@@ -1150,7 +1287,7 @@ def serve_counted(eng, prompts, counters, label):
               eng.device_ticks_issued, dict(eng.early_exit_counts),
               eng.tokens_fed)
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, NEW_TOKENS) for p in prompts]
+    reqs = [eng.submit(p, new) for p in prompts]
     try:
         eng.run()
     except RuntimeError as e:
@@ -1159,7 +1296,7 @@ def serve_counted(eng, prompts, counters, label):
     wall = time.perf_counter() - t0
     got = {name: getattr(mod, attr) for mod, attr, name in counters}
     outputs = [list(r.output) for r in reqs]
-    if any(r.state != "finished" or len(r.output) != NEW_TOKENS
+    if any(r.state != "finished" or len(r.output) != new
            for r in reqs):
         fail(f"{label}: not every request finished with its full horizon")
     if eng.kv.blocks_in_use:
@@ -1175,7 +1312,7 @@ def serve_counted(eng, prompts, counters, label):
         fed=eng.tokens_fed - fed, wall=wall,
         generated=sum(map(len, outputs)),
         ttft=sum(r.first_token_time - r.submit_time for r in reqs)
-        / len(reqs))
+        / len(reqs), reqs=reqs)
     return outputs, got, run
 
 
@@ -1405,6 +1542,359 @@ def check_multitick_on_card(device):
           f" ({eng.device_ticks_issued - eng.device_ticks_run} ticks past "
           f"an exit); phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    del models
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------- phases 5g, 5h and 5i
+
+# the prefix-cache workload: a shared system prompt of 16 blocks, then
+# distinct suffixes of 16-256 tokens; the second wave's conversations
+# take a new suffix of this many tokens
+SYSTEM_PROMPT, REPLAY_SUFFIX = 256, 32
+
+
+def prefix_waves():
+    """(the first wave's 16 prompts, a function of their outputs giving
+    the second wave): a shared 256-token system prompt plus a distinct
+    suffix of 16-256 tokens each (the first's 64, so that its prompt
+    fills 20 whole blocks); then 4 finished conversations (prompt +
+    output) replayed with a new 32-token suffix, and the first prompt
+    replayed exactly (its whole prompt cached: the last token is re-fed
+    into a private copy of a shared block)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 21)
+    system = rng.integers(0, VOCAB, SYSTEM_PROMPT).tolist()
+    lens = rng.integers(16, 257, N_REQUESTS)
+    lens[0] = 64
+    first = [system + rng.integers(0, VOCAB, int(n)).tolist() for n in lens]
+
+    def second(outputs):
+        return [first[i] + outputs[i]
+                + rng.integers(0, VOCAB, REPLAY_SUFFIX).tolist()
+                for i in (1, 2, 3, 4)] + [list(first[0])]
+    return first, second
+
+
+def serve_waves(eng, counters, label, pool_launches):
+    """Both waves of `prefix_waves` on `eng`, every kernel counter zeroed
+    just before and read just after; holds every request's horizon and
+    the launches (`pool_launches`: the pool's ragged variant, steps x
+    24, nothing else). Returns (requests, the run's numbers)."""
+    import torch
+    first, second = prefix_waves()
+    for mod, attr, _ in counters:
+        setattr(mod, attr, 0)
+    steps0, fed0 = eng.steps_run, eng.prefill_tokens_fed
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, NEW_TOKENS) for p in first]
+    eng.run()
+    reqs += [eng.submit(p, NEW_TOKENS)
+             for p in second([list(r.output) for r in reqs])]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {name: getattr(mod, attr) for mod, attr, name in counters}
+    steps = eng.steps_run - steps0
+    if any(r.state != "finished" or len(r.output) != NEW_TOKENS
+           for r in reqs):
+        fail(f"{label}: not every request finished with its full horizon")
+    for name, n in got.items():
+        want = steps * LAYERS if name == pool_launches else 0
+        if n != want:
+            fail(f"{label}: {name} launched {n} times, expected {want} "
+                 f"({steps} steps)")
+    generated = sum(len(r.output) for r in reqs)
+    return reqs, dict(
+        steps=steps, wall=wall, generated=generated,
+        prefill=eng.prefill_tokens_fed - fed0,
+        ttft=sum(r.first_token_time - r.submit_time for r in reqs)
+        / len(reqs))
+
+
+def serve_prefix(model, device, counters):
+    """Phase 5g: GPT-350M (phase 5a's model) served the two waves of
+    `prefix_waves` by a cache-off engine and by `prefix_caching=True`
+    engines over bf16 and int8 pools, launches held (the pool's ragged
+    variant steps x 24 times). The bf16 cache's engine: every token
+    within the near-tie oracle of the fp32 dense forward. Both cache
+    engines: hits printed, their sum > 0, each a whole number of blocks
+    but the exact replay's (its prompt less the re-fed token, through a
+    copy on write); after `evict_all` every block back on the free list.
+    Prompt tokens fed, TTFT and tokens/s beside the cache-off engine's;
+    the int8 pool's tokens reported, not held."""
+    import torch
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    base = dict(max_slots=SLOTS, block_size=BLOCK, max_seq_len=MAX_SEQ,
+                token_budget=BUDGET, cache_dtype="bfloat16", device=device)
+    off = None
+    for label, kw, variant in (
+            ("cache off", {}, "paged_attention"),
+            ("cache on", dict(prefix_caching=True), "paged_attention"),
+            ("cache on int8", dict(prefix_caching=True, kv_dtype="int8"),
+             "paged_int8")):
+        eng = ServingEngine(model, **base, **kw)
+        eng.generate_batch([[1, 2, 3]], max_new_tokens=2)   # warm-up
+        pc = eng.prefix_cache
+        if pc is not None:
+            pc.evict_all()
+            pc.hit_tokens = pc.miss_tokens = pc.evictions = 0
+        torch.cuda.synchronize()
+        reqs, run = serve_waves(eng, counters, f"serve prefix {label}",
+                                variant)
+        outputs = [list(r.output) for r in reqs]
+        off = off or outputs
+        same = sum(a == b for o, w in zip(outputs, off)
+                   for a, b in zip(o, w))
+        line = (f"serve prefix {label}: {len(reqs)} requests (16 on a "
+                f"{SYSTEM_PROMPT}-token system prompt, then 4 replayed "
+                f"conversations and 1 exact replay), {run['steps']} steps, "
+                f"{run['prefill']} prompt tokens fed, {run['generated']} "
+                f"generated tokens in {run['wall']:.3f} s = "
+                f"{run['generated'] / run['wall']:.1f} tokens/s, mean TTFT "
+                f"{run['ttft'] * 1e3:.1f} ms, {variant} {run['steps']} x "
+                f"{LAYERS} launches; tokens equal to the cache-off engine's "
+                f"{same}/{run['generated']}")
+        if pc is None:
+            print(line, flush=True)
+            del eng
+            continue
+        hits = [r.cache_hit_tokens for r in reqs]
+        print(line + f"; hits {sum(hits)} tokens ({pc.hit_ratio():.1%} of "
+              f"prompt tokens; per request {hits}), copies on write "
+              f"{pc.cow_copies}, LRU evictions {pc.evictions} blocks, "
+              f"{pc.cached_blocks} blocks cached", flush=True)
+        replay = reqs[-1]
+        odd = [h for r, h in zip(reqs[:-1], hits) if h % BLOCK]
+        if sum(hits) <= 0 or odd:
+            fail(f"serve prefix {label}: hits {hits}, not whole blocks: "
+                 f"{odd}")
+        if hits[-1] != len(replay.prompt) - 1 or pc.cow_copies < 1:
+            fail(f"serve prefix {label}: the exact replay hit {hits[-1]} "
+                 f"of {len(replay.prompt)} tokens with {pc.cow_copies} "
+                 "copies on write")
+        if kw.get("kv_dtype") is None:
+            check_outputs(model, reqs, device, label="check prefix")
+        freed = pc.evict_all()
+        alloc = eng.kv.allocator
+        if alloc.num_free != alloc.capacity or not alloc.invariant_ok:
+            fail(f"serve prefix {label}: {alloc.num_free} of "
+                 f"{alloc.capacity} blocks free after evict_all")
+        print(f"serve prefix {label}: evict_all freed {freed} blocks, all "
+              f"{alloc.capacity} blocks free", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    print(f"serve prefix: phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def sparse_prompts():
+    """The sparse serve phase's 8 prompts, 700-992 tokens (up to 62 of a
+    slot's 64 blocks with their horizon)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 31)
+    return [rng.integers(0, VOCAB, int(n)).tolist() for n in
+            rng.integers(SPARSE_PROMPTS[0], SPARSE_PROMPTS[1] + 1, SLOTS)]
+
+
+def serve_sparse(model, device, counters):
+    """Phase 5h: GPT-350M (phase 5a's model) served 8 prompts of 700-992
+    tokens, 32 new tokens each, by a dense engine and block-sparse
+    engines (`sparse_blocks=8`, `sparse_recent=2`: Bt = 11 of up to 64
+    blocks) over bf16, int8 and fp8 pools, with draft_k=3 at 1 and 4
+    ticks (sync debug on), and at full coverage (`sparse_blocks=64`).
+    Launches held exactly: a sparse step issues the region's call over
+    the shortened tables (the `paged_sparse` variant of its entry and
+    pool) and the rest's over the full tables, each steps (or issued
+    ticks) x 24. The full-coverage engine passes the near-tie oracle;
+    the 4-tick engine's tokens equal the 1-tick one's; skip ratios and
+    the agreement with the dense engine are printed, not held. Returns
+    the sparse variants' launches."""
+    import torch
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    prompts = sparse_prompts()
+    base = dict(max_slots=SLOTS, block_size=BLOCK, max_seq_len=MAX_SEQ,
+                token_budget=BUDGET, cache_dtype="bfloat16", device=device)
+    sparse = dict(sparse_blocks=SPARSE_BLOCKS, sparse_recent=SPARSE_RECENT)
+    draft = dict(draft_k=DRAFT_K, draft_ngram=DRAFT_NGRAM,
+                 draft_ring=DRAFT_RING)
+    runs = (("dense", {}, ("paged_attention",)),
+            ("sparse", sparse, ("paged_sparse", "paged_attention")),
+            ("sparse full coverage", dict(sparse_blocks=MAX_SEQ // BLOCK),
+             ("paged_sparse", "paged_attention")),
+            ("sparse int8", dict(sparse, kv_dtype="int8"),
+             ("paged_sparse_int8", "paged_int8")),
+            ("sparse fp8", dict(sparse, kv_dtype="fp8_e4m3"),
+             ("paged_sparse_fp8", "paged_fp8")),
+            (f"sparse draft_k={DRAFT_K}", dict(sparse, **draft),
+             ("paged_sparse_verify", "paged_attention")),
+            (f"sparse draft_k={DRAFT_K} {TICKS} ticks",
+             dict(sparse, **draft, ticks_per_dispatch=TICKS),
+             ("paged_sparse_verify", "paged_attention")))
+    outs, launches = {}, {}
+    for label, kw, variants in runs:
+        eng = ServingEngine(model, **base, **kw)
+        eng.generate_batch([[1, 2, 3]], max_new_tokens=2)   # warm-up
+        torch.cuda.synchronize()
+        if eng._multitick:
+            sync_guarded(eng)
+        cand0, sel0 = eng.sparse_candidate_blocks, eng.sparse_selected_blocks
+        outputs, got, run = serve_counted(eng, prompts, counters,
+                                          f"serve sparse {label}",
+                                          new=SPARSE_NEW)
+        outs[label] = outputs
+        n = run["issued"] if eng._multitick else run["steps"]
+        want = {v: n * LAYERS for v in variants}
+        for name, c in got.items():
+            if c != want.get(name, 0):
+                fail(f"serve sparse {label}: {name} launched {c} times, "
+                     f"expected {want.get(name, 0)} ({n} "
+                     f"{'ticks issued' if eng._multitick else 'steps'})")
+        if variants[0].startswith("paged_sparse"):
+            launches.setdefault(variants[0], got[variants[0]])
+        cand = eng.sparse_candidate_blocks - cand0
+        sel = eng.sparse_selected_blocks - sel0
+        ref = ("sparse" if kw.get("kv_dtype") else
+               f"sparse draft_k={DRAFT_K}" if "ticks_per_dispatch" in kw
+               else "dense")
+        same = sum(a == b for o, w in zip(outputs, outs[ref])
+                   for a, b in zip(o, w))
+        print(f"serve sparse {label}: {SLOTS} prompts of "
+              f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+              f"{SPARSE_NEW} new each; table width "
+              f"{eng.sparse_table_width or MAX_SEQ // BLOCK}, "
+              f"{run['steps']} dispatches"
+              + (f", {run['issued']} ticks issued, {run['ticks']} executed"
+                 if eng._multitick else "")
+              + f"; {run['generated']} generated tokens in {run['wall']:.3f}"
+              f" s = {run['generated'] / run['wall']:.1f} tokens/s, mean "
+              f"TTFT {run['ttft'] * 1e3:.1f} ms; decode blocks selected "
+              f"{sel} of {cand} candidates, skip ratio "
+              f"{1 - sel / cand if cand else 0.0:.3f}; tokens equal to the "
+              f"{ref} engine's {same}/{run['generated']}; launches "
+              + ", ".join(f"{v} {got[v]}" for v in variants), flush=True)
+        if label == "sparse full coverage":
+            check_outputs(model, run["reqs"], device,
+                          label="check sparse full coverage")
+        if "ticks_per_dispatch" in kw:
+            if outputs != outs[ref]:
+                fail(f"serve sparse {label}: tokens differ from the 1-tick "
+                     "engine's")
+            if run["ticks"] <= run["dispatches"]:
+                fail(f"serve sparse {label}: the loop never ran more than "
+                     "one tick a dispatch")
+        del eng
+        torch.cuda.empty_cache()
+    print(f"serve sparse: phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def first_gap(model, prompts, got, want):
+    """(tokens equal, total, the fp32 top-2 logit gap of `model` (plain
+    dense forward, teacher-forced on `want`) at the first token where
+    `got` and `want` differ, or None)."""
+    import torch
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    total = sum(map(len, want))
+    for p, g, w in zip(prompts, got, want):
+        i = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if i is None:
+            continue
+        ids = torch.tensor([p + w[:i]])
+        top = model(ids, dtype=torch.float32)[0, -1].topk(2)
+        return same, total, float(top.values[0] - top.values[1])
+    return same, total, None
+
+
+def check_prefix_sparse_on_card(device):
+    """Phase 5i: fp32, 2 layers at full width, 16-token blocks of a
+    256-token slot, a 64-token budget: a `prefix_caching=True` engine
+    (two waves: 4 prompts on a shared 64-token head, then 2 replayed
+    conversations and an exact replay of a 96-token prompt, a copy on
+    write) and a block-sparse engine (`sparse_blocks=1`,
+    `sparse_recent=1`: 3 of up to 15 blocks) over 4 prompts of 150-230
+    tokens, each at 1 and 4 ticks, on the card (kernels) and on a CPU
+    copy (plain versions). Greedy tokens, prefix hits and selected
+    blocks must be equal, unless the first differing token sat at an
+    fp32 top-2 gap under 1e-5; the card's cache engine must also give
+    the card's cache-off engine's tokens under the same rule (fp32
+    pools keep `paged_attend_kernel`, a warp per (token, head), which
+    no layout changes)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    layers = 2
+    arrays = random_gpt_arrays(SEED + 41, layers=layers)
+    models = {str(d): load_jax_gpt(arrays, HEADS, device=d)
+              for d in (device, "cpu")}
+    rng = np.random.default_rng(SEED + 42)
+    head = rng.integers(0, VOCAB, 64).tolist()
+    first = [head + rng.integers(0, VOCAB, n).tolist()
+             for n in (32, 45, 70, 9)]
+    tail = [rng.integers(0, VOCAB, 8).tolist() for _ in range(2)]
+    long = [rng.integers(0, VOCAB, int(n)).tolist()
+            for n in (150, 230, 181, 199)]
+
+    def serve(dev, ticks, waves, **kw):
+        eng = ServingEngine(models[str(dev)], max_slots=4, block_size=BLOCK,
+                            max_seq_len=256, token_budget=64,
+                            cache_dtype="float32", ticks_per_dispatch=ticks,
+                            device=dev, **kw)
+        if eng._multitick and torch.device(dev).type == "cuda":
+            sync_guarded(eng)
+        if waves:
+            out = eng.generate_batch(first, max_new_tokens=16)
+            second = [first[i] + out[i] + t
+                      for i, t in zip((1, 2), tail)] + [first[0]]
+            reqs = [eng.submit(p, 16) for p in second]
+            eng.run()
+            prompts = first + second
+            out += [list(r.output) for r in reqs]
+            pc = eng.prefix_cache
+            counts = (pc.hit_tokens, pc.cow_copies) if pc else None
+        else:
+            prompts = long
+            out = eng.generate_batch(long, max_new_tokens=16)
+            counts = (eng.sparse_candidate_blocks,
+                      eng.sparse_selected_blocks)
+        return prompts, out, counts
+
+    def hold(line, gap, same_counts):
+        if gap is not None and gap >= 1e-5:
+            fail(line + " — tokens differ past a near-tie")
+        if gap is None and not same_counts:
+            fail(line + " — equal tokens but different counts")
+
+    for label, kw in (("prefix", dict(prefix_caching=True)),
+                      ("sparse", dict(sparse_blocks=1, sparse_recent=1))):
+        waves = label == "prefix"
+        for ticks in (1, TICKS):
+            prompts, got, card = serve(device, ticks, waves, **kw)
+            _, want, cpu = serve("cpu", ticks, waves, **kw)
+            same, total, gap = first_gap(models["cpu"], prompts, got, want)
+            line = (f"check {label}: fp32, {layers} layers at full width, "
+                    f"{ticks} tick(s) a dispatch: {same}/{total} greedy "
+                    f"tokens equal on the card and the CPU; "
+                    f"{'hits, copies on write' if label == 'prefix' else 'candidate, selected blocks'}"
+                    f" {card} on the card, {cpu} on the CPU; first "
+                    f"differing token's fp32 top-2 gap "
+                    f"{'none' if gap is None else f'{gap:.3g}'}")
+            hold(line, gap, card == cpu)
+            if label == "prefix":
+                _, off, _ = serve(device, ticks, waves)
+                o_same, _, o_gap = first_gap(models["cpu"], prompts, got, off)
+                line += (f"; {o_same}/{total} equal to the card's cache-off "
+                         f"engine (first gap "
+                         f"{'none' if o_gap is None else f'{o_gap:.3g}'})")
+                hold(line, o_gap, True)
+            print(line, flush=True)
+    print(f"check prefix/sparse: phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     del models
     torch.cuda.empty_cache()
 
@@ -3153,6 +3643,7 @@ def check_bert_train_on_card(device):
 
 def main():
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3215,7 +3706,15 @@ def main():
         ("flash_fwd_seg", fa, "seg_launch_count",
          pallas + "flash_attention.py:159", csrc + "flash_attention.cu"),
         ("flash_bwd_seg", fa, "seg_bwd_launch_count",
-         pallas + "flash_attention.py:161", csrc + "flash_attention.cu")]
+         pallas + "flash_attention.py:161", csrc + "flash_attention.cu"),
+        ("paged_sparse", pa, "sparse_launch_count",
+         pallas + "paged_attention.py:196", csrc + "paged_attention.cu"),
+        ("paged_sparse_int8", pa, "sparse_int8_launch_count",
+         pallas + "paged_attention.py:196", csrc + "paged_attention.cu"),
+        ("paged_sparse_fp8", pa, "sparse_fp8_launch_count",
+         pallas + "paged_attention.py:196", csrc + "paged_attention.cu"),
+        ("paged_sparse_verify", pa, "sparse_verify_launch_count",
+         pallas + "paged_attention.py:196", csrc + "paged_attention.cu")]
     # one per source
     build_fns = (pa.build, fa.build, ln.build, gm.build, qp.build, cw.build)
     t0 = time.perf_counter()
@@ -3229,6 +3728,7 @@ def main():
     checks = {"paged_attention": check_paged_attention(pa, device, flush)}
     checks.update(check_paged_variants(pa, device, flush))
     check_paged_decode(pa, device, flush)
+    checks.update(check_paged_sparse(pa, device, flush))
     checks.update(check_gmm(gm, device, flush))
     checks.update(check_flash(fa, device, flush))
     checks.update(check_add_ln(ln, device, flush))
@@ -3249,10 +3749,13 @@ def main():
     spec_launches, spec_out, model = serve_spec(device, counters)
     serve_launches.update(spec_launches)
     serve_multitick(model, device, counters, dense_out, spec_out)
+    serve_prefix(model, device, counters)
+    serve_launches.update(serve_sparse(model, device, counters))
     del model
     torch.cuda.empty_cache()
     check_spec_on_card(device)
     check_multitick_on_card(device)
+    check_prefix_sparse_on_card(device)
     serve_launches.update(serve_moe(device, counters))
     check_moe_on_card(device)
 
@@ -3260,7 +3763,8 @@ def main():
     launches.update({n: serve_launches[n] for n in (
         "paged_attention", "paged_verify", "paged_int8", "paged_fp8",
         "paged_verify_int8", "paged_verify_fp8", "gmm_fp", "gmm_int8",
-        "gmm_int4")})
+        "gmm_int4", "paged_sparse", "paged_sparse_int8", "paged_sparse_fp8",
+        "paged_sparse_verify")})
     check_train_step(device)
     torch.cuda.empty_cache()
     launches.update(flash_bshd_phase(fa, device, counters))
@@ -3273,6 +3777,9 @@ def main():
         launches[name] = launches.get(name, 0) + n
     check_bert_train_on_card(device)
 
+    idle = [name for name, *_ in kernels if not launches[name]]
+    if idle:
+        fail(f"kernels never launched on their main path: {idle}")
     line = {"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches[name],
@@ -3281,6 +3788,8 @@ def main():
         library_ms=checks[name].get("library_ms"),
         sdpa_gathered_ms=checks[name].get("sdpa_gathered_ms"))
         for name, _m, _c, replaces, source in kernels]}
+    print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": kind,

@@ -21,6 +21,11 @@ Three entries, ports of `paddle_tpu/ops/pallas/flash_attention.py`'s
 A query attends the keys of its slot (slot -1 = padding, clamped to
 slot 0) at positions <= its own.
 
+Block-sparse decode (`kernel_name="paged_sparse"`, the JAX package's
+`paged_sparse` entry) calls the ragged and verify entries over a
+SHORTENED table `[S, Bt]`, Bt < MB, with positions compacted into it:
+the same kernels, launches counted apart.
+
 On a CUDA tensor each entry launches `csrc/paged_attention.cu`, the
 Hopper kernels that replace the TPU kernel
 `paddle_tpu/ops/pallas/paged_attention.py:_paged_attend_kernel` (its
@@ -82,6 +87,14 @@ verify_launch_count = 0
 #: verify entry over int8 / fp8 pools (K3b + K3c)
 verify_int8_launch_count = 0
 verify_fp8_launch_count = 0
+#: the same entries over the block-sparse decode's shortened tables
+#: (`kernel_name="paged_sparse"`)
+sparse_launch_count = 0
+sparse_int8_launch_count = 0
+sparse_fp8_launch_count = 0
+sparse_verify_launch_count = 0
+sparse_verify_int8_launch_count = 0
+sparse_verify_fp8_launch_count = 0
 
 _COUNTERS = {
     ("ragged", None): "launch_count",
@@ -89,7 +102,14 @@ _COUNTERS = {
     ("ragged", torch.float8_e4m3fn): "fp8_launch_count",
     ("verify", None): "verify_launch_count",
     ("verify", torch.int8): "verify_int8_launch_count",
-    ("verify", torch.float8_e4m3fn): "verify_fp8_launch_count"}
+    ("verify", torch.float8_e4m3fn): "verify_fp8_launch_count",
+    ("sparse", None): "sparse_launch_count",
+    ("sparse", torch.int8): "sparse_int8_launch_count",
+    ("sparse", torch.float8_e4m3fn): "sparse_fp8_launch_count",
+    ("sparse_verify", None): "sparse_verify_launch_count",
+    ("sparse_verify", torch.int8): "sparse_verify_int8_launch_count",
+    ("sparse_verify", torch.float8_e4m3fn):
+        "sparse_verify_fp8_launch_count"}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                 torch.int8: 3, torch.float8_e4m3fn: 4}
@@ -120,12 +140,26 @@ def _check_heads(name, h, k_pool, v_pool):
             f"{k_pool.shape[-2]}/{v_pool.shape[-2]}")
 
 
+def _entry(entry, kernel_name):
+    """The counter family of one call of `entry` ("ragged" / "verify"):
+    its own, or with `kernel_name="paged_sparse"` the block-sparse
+    decode's."""
+    if kernel_name is None:
+        return entry
+    if kernel_name != "paged_sparse":
+        raise ValueError(f"kernel_name={kernel_name!r}: None or "
+                         "'paged_sparse'")
+    return "sparse" if entry == "ragged" else "sparse_verify"
+
+
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, slot_ids,
                            positions, k_scale=None, v_scale=None, *,
-                           scale=None):
+                           scale=None, kernel_name=None):
     """Flat-token attention over a block-paged KV cache (see the module
     docstring). Returns [T, H, Dh] in q's dtype; rows of padding tokens
-    are finite but meaningless."""
+    are finite but meaningless. `kernel_name="paged_sparse"` counts the
+    launches as the block-sparse decode's."""
+    entry = _entry("ragged", kernel_name)
     T, H, Dh = q.shape
     _check_heads("ragged_paged_attention", H, k_pool, v_pool)
     if scale is None:
@@ -137,19 +171,22 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, slot_ids,
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention: no kernel for device "
                          f"{q.device}")
-    return _launch("ragged", q[:, None], k_pool, v_pool, block_tables,
+    return _launch(entry, q[:, None], k_pool, v_pool, block_tables,
                    slot_ids, positions.reshape(T, 1), k_scale, v_scale,
                    scale)[:, 0]
 
 
 def verify_paged_attention(q, k_pool, v_pool, block_tables, slot_ids,
                            positions, k_scale=None, v_scale=None, *,
-                           scale=None):
+                           scale=None, kernel_name=None):
     """Verify-shaped paged attention (see the module docstring): q
     [B, K, H, Dh], slot_ids [B], positions [B, K]. Query j of a group
     sees its slot's keys at positions <= positions[b, j], so draft j
     sees drafts 0..j-1 and nothing later. Returns [B, K, H, Dh] in q's
-    dtype; groups of padding slots are finite but meaningless."""
+    dtype; groups of padding slots are finite but meaningless.
+    `kernel_name="paged_sparse"` counts the launches as the block-sparse
+    decode's."""
+    entry = _entry("verify", kernel_name)
     B, K, H, Dh = q.shape
     _check_heads("verify_paged_attention", H, k_pool, v_pool)
     if scale is None:
@@ -161,7 +198,7 @@ def verify_paged_attention(q, k_pool, v_pool, block_tables, slot_ids,
     if q.device.type != "cuda":
         raise ValueError(f"verify_paged_attention: no kernel for device "
                          f"{q.device}")
-    return _launch("verify", q, k_pool, v_pool, block_tables, slot_ids,
+    return _launch(entry, q, k_pool, v_pool, block_tables, slot_ids,
                    positions, k_scale, v_scale, scale)
 
 

@@ -22,8 +22,9 @@ Port of `paddle_tpu/serving/batcher.py`:
                               -1 = no sample this step (mid-prefill)
 
 With speculation (`verify_width` = draft_k + 1 > 1) the first
-`max_slots * verify_width` flat tokens are a fixed verify region. The
-sparse decode region is not ported (ROADMAP Queue 1).
+`max_slots * verify_width` flat tokens are a fixed verify region;
+`reserve_region=True` (block-sparse decode) keeps the same per-slot
+region at `verify_width` 1, slot s's decode token at flat index s.
 """
 from __future__ import annotations
 
@@ -148,7 +149,7 @@ def round_up(n, m):
 
 
 def choose_token_budget(max_slots, block_size, requested=None,
-                        verify_width=1):
+                        verify_width=1, reserve_region=False):
     """Per-step token budget: a power of two >= max(max_slots,
     2*block_size), so a full decode round always fits and prefill
     chunks cover at least two KV blocks per step. An explicit
@@ -160,13 +161,16 @@ def choose_token_budget(max_slots, block_size, requested=None,
     `max_slots * verify_width` flat tokens are the reserved verify
     region (see `pack_step`), so the floor rises to that region plus
     prefill room — a budget that left prefill no token would starve
-    admission forever."""
+    admission forever. `reserve_region=True` reserves the per-slot
+    decode region at `verify_width` 1 too (block-sparse decode), with
+    the same floors."""
     vw = int(verify_width)
     region = max_slots * vw
+    region_on = vw > 1 or reserve_region
     if requested is not None:
-        floor = max_slots if vw == 1 else region + 1
+        floor = region + 1 if region_on else max_slots
         return next_pow2(max(int(requested), floor), lo=1)
-    if vw == 1:
+    if not region_on:
         return next_pow2(max(max_slots, 2 * block_size))
     return next_pow2(region + 2 * block_size)
 
@@ -206,7 +210,7 @@ class StepPlan:
 
 
 def pack_step(token_budget, max_slots, decode, prefills,
-              verify_width=1) -> StepPlan:
+              verify_width=1, reserve_region=False) -> StepPlan:
     """Pack decode entries + prefill chunks into the flat-token layout.
 
     decode: [(slot, token_or_tokens, position)] — one entry per running
@@ -223,9 +227,13 @@ def pack_step(token_budget, max_slots, decode, prefills,
     are a fixed verify region — slot s owns indices [s*vw, (s+1)*vw),
     padded with slot -1 at position 0 — so the step can reshape it to
     `[max_slots, vw]`; its decode slots get no `sample_index` (the
-    verify scores stand in), and prefill packs after the region."""
+    verify scores stand in), and prefill packs after the region.
+    `reserve_region=True` lays the same region out at `verify_width` 1
+    (block-sparse decode): slot s's decode token sits at flat index s
+    and samples through `sample_index` there."""
     vw = int(verify_width)
-    region = max_slots * vw if vw > 1 else 0
+    region_on = vw > 1 or reserve_region
+    region = max_slots * vw if region_on else 0
     token_ids = np.zeros(token_budget, np.int32)
     slot_ids = np.full(token_budget, -1, np.int32)
     positions = np.zeros(token_budget, np.int32)
@@ -241,18 +249,19 @@ def pack_step(token_budget, max_slots, decode, prefills,
             raise ValueError(
                 f"decode group of {len(toks)} tokens exceeds the "
                 f"verify width {vw}")
-        base = slot * vw if vw > 1 else i
+        base = slot * vw if region_on else i
         token_ids[base:base + len(toks)] = toks
         slot_ids[base:base + len(toks)] = slot
         positions[base:base + len(toks)] = np.arange(
             pos, pos + len(toks), dtype=np.int32)
         if vw == 1:
             sample_index[slot] = base
-            i += 1
+            if not region_on:
+                i += 1
         decode_slots.append(slot)
         decode_entries.append((slot, toks, int(pos)))
         n_decode += len(toks)
-    if vw > 1:
+    if region_on:
         i = region
     n = max(n_decode, region) + sum(len(c[1]) for c in prefills)
     if n > token_budget:

@@ -49,9 +49,23 @@ as padding that changes no state; the sampling generator is set back to
 where the first tick that did not count found it. Output equals the
 1-tick engine's.
 
-Not ported (raises `NotImplementedError`; ROADMAP Queue 1):
-block-sparse decode (`sparse_blocks`); adapters, the prefix cache and
-disaggregated roles are not arguments yet.
+With `prefix_caching=True` a radix tree (`prefix_cache.py`) shares
+the KV blocks of cached prompt heads across requests: admission adopts
+them and prefill starts at the first uncached token; a request that
+must re-feed a token inside a shared block writes into a private copy
+(`PagedKVCache.cow_block`). `close(spill_prefix=path)` writes the tree
+and its blocks to a file that `RadixPrefixCache.restore` reads back.
+
+With `sparse_blocks=B` (block-sparse decode) every decode or verify
+query scores its slot's blocks by an upper bound of q.k over each
+block's channel-wise min/max key summary, and the region attends only
+a fixed `[S, Bt]` shortened table (`select_blocks`): the first block,
+the last `sparse_recent` blocks and the B best, Bt = 1 + recent + B, with
+positions compacted into it. Prefill keeps the full table. With B at or
+past a slot's allocated blocks the selection is the identity.
+
+Adapters and disaggregated roles are not arguments yet (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -73,8 +87,13 @@ from .batcher import (SamplingConfig, apply_count_penalties,
                       pack_step, select_token)
 from .draft import (accept_length, accept_length_sampled, ngram_propose,
                     ngram_propose_device, ring_chronological)
-from .kv_cache import FP8_MAX, PagedKVCache
+from .kv_cache import FP8_MAX, SUMMARY_INIT, PagedKVCache
+from .prefix_cache import RadixPrefixCache
 from .scheduler import Scheduler
+
+#: `sparse_blocks="auto"`: the JAX engine's default when its tuned-budget
+#: cache holds no entry (the port has no such cache yet)
+SPARSE_BLOCKS_DEFAULT = 8
 
 
 def quantize_kv(x, kv_dtype):
@@ -108,9 +127,110 @@ def _append_kv(pool, scale_pool, wb, wo, x, kv_dtype):
     scale_pool[wb, wo] = s
 
 
+def _summary_rows(wb, wo, valid, k_shape):
+    """The rows one step's key-summary update touches, the same in every
+    layer: the block rows the step's offset-0 writes reset (other tokens
+    aim at the NULL row) and each token's block row, broadcast to its
+    key's [H, Dh] shape for the scatter."""
+    reset = torch.where(valid & (wo == 0), wb, 0).long()
+    return reset, wb.long()[:, None, None].expand(k_shape)
+
+
+def _update_summaries(k_sum_min, k_sum_max, k, rows):
+    """Fold one layer's appended keys k [T, H, Dh] into its block
+    summaries `[NB, H, Dh]`, in place: the rows of blocks written at
+    offset 0 are reset first, then one scatter-min and one scatter-max
+    take every appended key in (`rows` from `_summary_rows`; padding
+    aims at the NULL block). Well defined when one chunk writes many
+    entries of a block, and a freed block taken again never keeps its
+    last owner's statistics."""
+    reset, idx = rows
+    k_sum_min.index_fill_(0, reset, SUMMARY_INIT)
+    k_sum_max.index_fill_(0, reset, -SUMMARY_INIT)
+    kf = k.float()
+    k_sum_min.scatter_reduce_(0, idx, kf, "amin")
+    k_sum_max.scatter_reduce_(0, idx, kf, "amax")
+
+
+def _sparse_plan(pos_r, block_tables, table_width, recent, block_size):
+    """The half of `select_blocks` that is the same in every layer of a
+    step, from the region's positions pos_r [S, K] and block_tables
+    [S', MB] (S' >= S): each slot's candidate blocks (those up to its
+    newest query's), the forced ones (the first and the last `recent`),
+    and which blocks lie before each query's own."""
+    S, K = pos_r.shape
+    bt = block_tables[:S].long()
+    m_idx = torch.arange(bt.shape[1], device=bt.device)
+    pos = pos_r.long()
+    n_blk = pos.amax(dim=1) // block_size + 1
+    return dict(
+        bt=bt, width=int(table_width), block_size=int(block_size),
+        offset=pos % block_size,
+        valid=m_idx < n_blk[:, None],
+        forced=(m_idx == 0) | (m_idx >= (n_blk - recent)[:, None]),
+        before=m_idx < (pos // block_size)[:, :, None],      # [S, K, MB]
+        lower=m_idx[None, :] < m_idx[:, None])              # [MB, MB]
+
+
+def _select(q_r, k_sum_min, k_sum_max, plan):
+    """The layer's half of `select_blocks`: scores from this layer's
+    queries and summaries, then the shortened tables and compacted
+    positions."""
+    S, K, H, Dh = q_r.shape
+    bt, width = plan["bt"], plan["width"]
+    MB = bt.shape[1]
+    qf = q_r.float().reshape(S, K, H * Dh)
+    hi = k_sum_max[bt].reshape(S, MB, H * Dh).transpose(1, 2)
+    lo = k_sum_min[bt].reshape(S, MB, H * Dh).transpose(1, 2)
+    score = (torch.bmm(qf.clamp_min(0.0), hi)
+             + torch.bmm(qf.clamp_max(0.0), lo)).amax(dim=1)  # [S, MB]
+    score = torch.where(plan["valid"],
+                        torch.where(plan["forced"], float("inf"), score),
+                        float("-inf"))
+    # a block's place in the descending order, ties to the lower table
+    # index as jax.lax.top_k breaks them: the count of blocks ahead of it
+    a, b = score[:, :, None], score[:, None, :]
+    ahead = ((b > a) | ((b == a) & plan["lower"])).sum(dim=-1)
+    keep = (ahead < width) & (score > float("-inf"))
+    col = torch.where(keep, keep.cumsum(dim=1) - 1, width)
+    short_bt = bt.new_zeros(S, width + 1).scatter_(1, col, bt)
+    short_bt = short_bt[:, :width].to(torch.int32)
+    before = (keep[:, None, :] & plan["before"]).sum(dim=-1)
+    pos_c = (before * plan["block_size"] + plan["offset"]).to(torch.int32)
+    return short_bt, pos_c
+
+
+def select_blocks(q_r, pos_r, block_tables, k_sum_min, k_sum_max,
+                  table_width, recent, block_size):
+    """The block-sparse decode's selection, on the queries' device: a
+    shortened table of `table_width` (Bt) blocks for each slot of the
+    region and the region's positions compacted into it.
+
+    q_r [S, K, H, Dh] the region's queries (raw), pos_r [S, K] their
+    positions, block_tables [S', MB] (S' >= S), k_sum_min / k_sum_max
+    [NB, H, Dh] this layer's summaries. Each of a slot's allocated
+    blocks (those up to its newest query's) scores the upper bound of
+    q.k over its [min, max] box, sum_d max(q_d min_d, q_d max_d), summed
+    over heads and maxed over the group's K queries; the first block
+    and the last `recent` allocated blocks are forced in (+inf), blocks
+    past the allocated prefix never (-inf). The Bt highest scores are
+    kept, ties to the lower table index as `jax.lax.top_k` breaks them,
+    in table order, NULL-padded where a slot holds fewer. A position p
+    becomes (kept blocks before p's block) x block_size + p %
+    block_size, so the kernels' `key <= query` mask stays exact.
+    Returns (short_bt [S, Bt] int32, pos_c [S, K] int32). With Bt at or
+    past a slot's allocated blocks the selection is the identity. The
+    engine computes the layer-independent half (`_sparse_plan`) once a
+    step."""
+    return _select(q_r, k_sum_min, k_sum_max,
+                   _sparse_plan(pos_r, block_tables, table_width, recent,
+                                block_size))
+
+
 def _mixed_layer(cfg, pl, h, k_pool, v_pool, wb, wo, block_tables,
                  slot_ids, pos, k_scale=None, v_scale=None, kv_dtype=None,
-                 verify_width=1, region_slots=None):
+                 verify_width=1, region_slots=None, summaries=None,
+                 sparse=None):
     """One decoder layer of the mixed step on the flat token axis.
 
     h [T, D]; pl the layer's parameters; k_pool/v_pool this layer's
@@ -120,6 +240,11 @@ def _mixed_layer(cfg, pl, h, k_pool, v_pool, wb, wo, block_tables,
     block). With `verify_width` K > 1 the first S*K tokens are the
     verify region: slot s's group attends through the verify entry
     (`region_slots` = arange(S)), the rest through the ragged entry.
+    `summaries` (k_sum_min, k_sum_max, rows): this layer's [NB, H, Dh]
+    key summaries, updated on append at the step's `_summary_rows`.
+    `sparse` (the step's `_sparse_plan`): the region (at K = 1 too)
+    attends the shortened tables of `select_blocks`, the rest the full
+    ones.
     Returns (h, the MoE layer's routing stats or None)."""
     T = h.shape[0]
     H, Dh = cfg.num_heads, cfg.head_dim
@@ -128,8 +253,29 @@ def _mixed_layer(cfg, pl, h, k_pool, v_pool, wb, wo, block_tables,
     q, k, v = q[0], k[0], v[0]                       # [T, H, Dh]
     _append_kv(k_pool, k_scale, wb, wo, k, kv_dtype)
     _append_kv(v_pool, v_scale, wb, wo, v, kv_dtype)
+    if summaries is not None:
+        k_sum_min, k_sum_max, rows = summaries
+        _update_summaries(k_sum_min, k_sum_max, k, rows)
     q = q.contiguous()
-    if verify_width == 1:
+    if sparse is not None:
+        S, K = region_slots.shape[0], verify_width
+        R = S * K
+        q_r = q[:R].reshape(S, K, H, Dh)
+        short_bt, pos_c = _select(q_r, k_sum_min, k_sum_max, sparse)
+        if K == 1:
+            ar = ragged_paged_attention(
+                q[:R], k_pool, v_pool, short_bt, slot_ids[:R],
+                pos_c[:, 0].contiguous(), k_scale, v_scale,
+                kernel_name="paged_sparse")
+        else:
+            ar = verify_paged_attention(
+                q_r, k_pool, v_pool, short_bt, region_slots, pos_c,
+                k_scale, v_scale, kernel_name="paged_sparse")
+        ap = ragged_paged_attention(q[R:], k_pool, v_pool, block_tables,
+                                    slot_ids[R:], pos[R:], k_scale,
+                                    v_scale)
+        attn = torch.cat([ar.reshape(R, H, Dh), ap])
+    elif verify_width == 1:
         attn = ragged_paged_attention(q, k_pool, v_pool, block_tables,
                                       slot_ids, pos, k_scale, v_scale)
     else:
@@ -181,8 +327,10 @@ class ServingEngine:
                  sampling=None, eos_token_id=None, cache_dtype=None,
                  kv_dtype=None, moe_weight_dtype=None, seed=0,
                  clock=time.monotonic, draft_k=0, draft_ngram=3,
-                 draft_ring=128, sparse_blocks=None, ticks_per_dispatch=1,
-                 penalty_vocab_bins=None, device="cuda"):
+                 draft_ring=128, sparse_blocks=None, sparse_recent=2,
+                 track_summaries=None, prefix_caching=False,
+                 ticks_per_dispatch=1, penalty_vocab_bins=None,
+                 device="cuda"):
         # config validation is loud, as in the JAX engine, and comes
         # before anything is built
         self._ticks_auto = ticks_per_dispatch == "auto"
@@ -227,10 +375,6 @@ class ServingEngine:
             raise ValueError(
                 f"penalty_window={self.sampling.penalty_window} must be "
                 ">= 1 with penalized sampling")
-        if sparse_blocks is not None:
-            raise NotImplementedError(
-                "sparse_blocks: block-sparse decode is not ported yet "
-                "(ROADMAP Queue 1: block-sparse KV, select_blocks)")
         #: where drafts come from: "off" (draft_k=0), "host" (the 1-tick
         #: engine's n-gram scan between steps) or "device" (drafted
         #: inside the multi-tick loop)
@@ -250,14 +394,49 @@ class ServingEngine:
         if num_blocks is None:
             # full residency for every slot, + the reserved null block
             num_blocks = max_slots * mbps + 1
+        # block-sparse decode: the region attends a fixed-width table of
+        # the first block, a recency window and the B best-scoring
+        # blocks; the window covers every block a verify group's K fed
+        # tokens can span, so a group always sees its own writes
+        if sparse_blocks == "auto":
+            sparse_blocks = SPARSE_BLOCKS_DEFAULT
+        #: the B of the selection (None: dense decode attention)
+        self.sparse_blocks = (None if sparse_blocks is None
+                              else int(sparse_blocks))
+        self._sparse = self.sparse_blocks is not None
+        #: Bt, the shortened table's width (0 when dense)
+        self.sparse_table_width = 0
+        self._sparse_recent = 0
+        if self._sparse:
+            if self.sparse_blocks < 1:
+                raise ValueError(
+                    f"sparse_blocks={sparse_blocks} must be >= 1 (or None "
+                    "for dense decode attention)")
+            self._sparse_recent = max(
+                int(sparse_recent),
+                1 + -(-self.draft_k // self.block_size))
+            self.sparse_table_width = min(
+                mbps, 1 + self._sparse_recent + self.sparse_blocks)
+        # the summaries are kept on append whenever the selection needs
+        # them; `track_summaries=True` keeps them on a dense engine too
+        self._track_summaries = (self._sparse if track_summaries is None
+                                 else bool(track_summaries))
+        if self._sparse and not self._track_summaries:
+            raise ValueError(
+                "sparse_blocks needs the block summaries; don't pass "
+                "track_summaries=False on a sparse engine")
         self.token_budget = choose_token_budget(
             max_slots, self.block_size, token_budget,
-            verify_width=self.draft_k + 1)
+            verify_width=self.draft_k + 1, reserve_region=self._sparse)
         self.kv = PagedKVCache(
             L, H, Dh, num_blocks=num_blocks, block_size=self.block_size,
             max_slots=max_slots, max_blocks_per_slot=mbps,
             dtype=cache_dtype or "bfloat16", kv_dtype=kv_dtype,
-            device=self.device)
+            summaries=self._track_summaries, device=self.device)
+        #: the radix prefix cache (None unless `prefix_caching`); it is
+        #: the KV cache's eviction backstop
+        self.prefix_cache = (RadixPrefixCache(self.kv) if prefix_caching
+                             else None)
 
         def windowed_draft(tokens, k=self.draft_k, ngram=self.draft_ngram,
                            window=self.draft_ring):
@@ -268,7 +447,8 @@ class ServingEngine:
         self.scheduler = Scheduler(
             self.kv, max_slots=max_slots, token_budget=self.token_budget,
             clock=clock, draft_k=self.draft_k, draft_fn=windowed_draft,
-            device_draft=self.speculation_mode == "device")
+            device_draft=self.speculation_mode == "device",
+            prefix_cache=self.prefix_cache, reserve_region=self._sparse)
         # the verify region's group -> slot map
         self._region_slots = torch.arange(max_slots, dtype=torch.int32,
                                           device=self.device)
@@ -297,8 +477,10 @@ class ServingEngine:
         if moe_weight_dtype is not None:
             self._quantize_moe_experts(str(moe_weight_dtype))
         self.steps_run = 0
-        #: valid (non-padding) tokens fed through the step so far
+        #: valid (non-padding) tokens fed through the step so far, and
+        #: the prompt tokens among them (a prefix-cache hit feeds fewer)
         self.tokens_fed = 0
+        self.prefill_tokens_fed = 0
         # cumulative MoE routing state (host mirrors of the per-step
         # device stats)
         self.moe_expert_counts = np.zeros(max(self.num_experts, 1),
@@ -308,6 +490,11 @@ class ServingEngine:
         # cumulative draft economics
         self.spec_proposed_total = 0
         self.spec_accepted_total = 0
+        # block-sparse decode accounting: candidate blocks (a decode's
+        # allocated ones) and selected ones (at most the table width) a
+        # layer, summed over decodes; host arithmetic on known geometry
+        self.sparse_candidate_blocks = 0
+        self.sparse_selected_blocks = 0
         # multi-tick dispatch accounting: ticks that counted, ticks
         # enqueued (every one launches the step's kernels), per-slot
         # events that ended a dispatch early, and the EMAs "auto" sizes
@@ -380,12 +567,23 @@ class ServingEngine:
         wo = pos % BS
         moe = None
         kv = self.kv
+        # what the summaries and the selection share across layers
+        rows = (_summary_rows(wb, wo, valid, (T, kv.num_heads,
+                                              kv.head_dim))
+                if kv.summaries else None)
+        sparse = (_sparse_plan(pos[:kv.max_slots * K].reshape(-1, K),
+                               block_tables, self.sparse_table_width,
+                               self._sparse_recent, BS)
+                  if self._sparse else None)
         for li, pl in enumerate(self._layers):
             scales = (kv.k_scale[li], kv.v_scale[li]) if kv.quantized \
                 else (None, None)
+            summaries = ((kv.k_sum_min[li], kv.k_sum_max[li], rows)
+                         if kv.summaries else None)
             h, st = _mixed_layer(cfg, pl, h, kv.k_pool[li], kv.v_pool[li],
                                  wb, wo, block_tables, slot_ids, pos,
-                                 *scales, kv.kv_dtype, K, self._region_slots)
+                                 *scales, kv.kv_dtype, K, self._region_slots,
+                                 summaries, sparse)
             if st is not None:
                 moe = st if moe is None else \
                     {k: moe[k] + st[k] for k in moe}
@@ -525,7 +723,8 @@ class ServingEngine:
         if self._multitick:
             return self._step_multitick(plan)
         sp = pack_step(self.token_budget, self.kv.max_slots, plan.decode,
-                       plan.prefills, verify_width=self.draft_k + 1)
+                       plan.prefills, verify_width=self.draft_k + 1,
+                       reserve_region=self._sparse)
         inputs = [torch.from_numpy(a).to(self.device) for a in
                   (sp.token_ids, sp.slot_ids, sp.positions,
                    self.kv.block_tables, sp.sample_index)]
@@ -545,7 +744,12 @@ class ServingEngine:
         tok_np = host[0].astype(np.int64)
         sch.note_fed(plan)
         self.tokens_fed += int((sp.slot_ids >= 0).sum())
+        self.prefill_tokens_fed += sp.prefill_tokens
         self.steps_run += 1
+        if self._sparse:
+            # each decode's group attends min(allocated, Bt) blocks
+            for _slot, toks, pos in sp.decode_entries:
+                self._note_sparse(pos + len(toks) - 1)
         now = self.clock()
         for slot in sp.prefill_done:
             req = sch.slots[slot]
@@ -583,6 +787,35 @@ class ServingEngine:
                 sch.note_accept(slot, pos + m + 1)
         return True
 
+    def _note_sparse(self, last):
+        """Account one decode query group whose newest position is
+        `last`: its allocated blocks are the candidates, at most the
+        table width of them selected."""
+        n_blk = last // self.block_size + 1
+        self.sparse_candidate_blocks += n_blk
+        self.sparse_selected_blocks += min(n_blk, self.sparse_table_width)
+
+    def sparse_skip_ratio(self):
+        """The share of candidate KV blocks the sparse decode skipped
+        (0.0 when dense or before any decode)."""
+        if not self.sparse_candidate_blocks:
+            return 0.0
+        return 1.0 - (self.sparse_selected_blocks
+                      / self.sparse_candidate_blocks)
+
+    def close(self, *, spill_prefix=None):
+        """Release the engine's cached KV state: drop every cached
+        prefix block, after writing the tree and its blocks to
+        `spill_prefix` when given (`RadixPrefixCache.spill`; a later
+        engine's `prefix_cache.restore` reads it). The engine must be
+        drained. Returns the number of blocks spilled."""
+        spilled = 0
+        if self.prefix_cache is not None:
+            if spill_prefix is not None:
+                spilled = self.prefix_cache.spill(spill_prefix)
+            self.prefix_cache.evict_all()
+        return spilled
+
     # ---------------------------------------------- multi-tick dispatch
     def _auto_ticks(self, n_max):
         """ticks_per_dispatch="auto": the smallest n that keeps the host
@@ -609,33 +842,33 @@ class ServingEngine:
             self._gap_ema = (gap if self._gap_ema is None
                              else 0.7 * self._gap_ema + 0.3 * gap)
         sp = pack_step(self.token_budget, S, plan.decode, plan.prefills,
-                       verify_width=K)
+                       verify_width=K, reserve_region=self._sparse)
         n = self.ticks_per_dispatch if not plan.prefills else 1
         if n > 1 and self._ticks_auto:
             n = self._auto_ticks(self.ticks_per_dispatch)
         multi = n > 1
+        mapped = n * K > 1           # ticks' capacity mapped ahead
         eos = np.full(S, -1, np.int64)
         remain = np.zeros(S, np.int64)
         cap = np.zeros(S, np.int64)
-        for slot, _tok, _pos in plan.decode:
+        for slot, _tok, pos in plan.decode:
             req = sch.slots[slot]
             if req.eos_token_id is not None:
                 eos[slot] = int(req.eos_token_id)
             remain[slot] = req.max_new_tokens - len(req.output)
+            # free blocks for every token the ticks may write, as JAX's
+            # loop maps them (with a prefix cache this may evict idle
+            # cached blocks); the block tables are uploaded after this,
+            # so later ticks' appends land in mapped blocks
+            cap[slot] = (sch.extend_for_ticks(slot, pos, n * K)
+                         if mapped else pos + 1)
         # issue no tick past an exit the host can foresee: every tick
         # emits at least one token of a live decode, so a slot finishes
         # within `remain` ticks and passes its capacity within cap - pos
         # (ticks past an exit would run, and change nothing)
         if plan.decode:
-            n = min(n, min(int(remain[s]) for s, _t, _p in plan.decode))
-        for slot, _tok, pos in plan.decode:
-            # free blocks for every token the ticks may write; the block
-            # tables are uploaded after this, so later ticks' appends
-            # land in mapped blocks
-            cap[slot] = (sch.extend_for_ticks(slot, pos, n * K)
-                         if n * K > 1 else pos + 1)
-        if plan.decode:
-            n = min(n, min(int(cap[s]) - p for s, _t, p in plan.decode))
+            n = min(n, min(min(int(remain[s]), int(cap[s]) - p)
+                           for s, _t, p in plan.decode))
         host = dict(token_ids=sp.token_ids, slot_ids=sp.slot_ids,
                     positions=sp.positions,
                     block_tables=self.kv.block_tables,
@@ -673,6 +906,7 @@ class ServingEngine:
         if self._gap_ema is None:
             self._gap_ema = 0.0
         self.tokens_fed += int(out[4])
+        self.prefill_tokens_fed += sp.prefill_tokens
         if K > 1:
             self.spec_proposed_total += int(out[5])
             self.spec_accepted_total += int(out[6])
@@ -686,13 +920,18 @@ class ServingEngine:
         self.dispatches_run += 1
         self.device_ticks_run += ticks_run
         self.device_ticks_issued += n
-        if n > 1 or K > 1:
+        if mapped:
             # each decode advances to what the device emitted and gives
             # back the preallocated tail (and any rejected drafts'
             # blocks): block state at every dispatch boundary is the
             # 1-tick engine's
             for slot, _tok, pos in plan.decode:
                 sch.note_accept(slot, pos + max(int(emitted_n[slot]), 1))
+        if self._sparse:
+            # every emitted token's query group, as the JAX loop counts
+            for slot, _tok, pos in plan.decode:
+                for j in range(max(int(emitted_n[slot]), 1)):
+                    self._note_sparse(pos + j)
         now = self.clock()
         for slot in sp.prefill_done:
             req = sch.slots[slot]

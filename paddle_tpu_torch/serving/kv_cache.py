@@ -15,9 +15,20 @@ The pools are torch tensors on the engine's device, written in place
 by the mixed step. `kv_dtype="int8"` or `"fp8_e4m3"` stores them
 quantized, with fp32 scale pools `k_scale`/`v_scale` `[L, NB, BS, H]`:
 one scale per pool entry per head, at the same (block, offset)
-coordinates as the K/V bytes, so truncation and release carry the
-scales by construction. Block summaries, copy-on-write and block
-transport wait for later slices.
+coordinates as the K/V bytes, so truncation, release, copy-on-write,
+prefix adoption and transport carry the scales by construction.
+
+`summaries=True` adds the block-sparse decode's key summaries
+`k_sum_min` / `k_sum_max` `[L, NB, H, Dh]` fp32: the channel-wise min
+and max of each pool block's keys, per head, which the engine updates
+on append (a block's offset-0 write resets its row). They ride the
+same block coordinates.
+
+Shared blocks (the radix prefix cache, `prefix_cache.py`) are
+reference counted by the allocator; a write into a shared block first
+takes a private copy (`cow_block`). `export_blocks` / `import_blocks`
+move block payloads through host numpy arrays (the prefix cache's
+spill and restore).
 """
 from __future__ import annotations
 
@@ -37,6 +48,22 @@ KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 #: the largest finite float8_e4m3fn value; quantize-on-append clips to
 #: it (values past it would cast to NaN)
 FP8_MAX = 448.0
+
+#: the "empty" value of a min summary row (max rows take its negation):
+#: finite, far above any key, and far enough below the fp32 maximum that
+#: the scorer's products stay finite — an unwritten row scores a huge
+#: negative bound and is never picked over a written one
+SUMMARY_INIT = 1e30
+
+#: storage dtypes numpy has no type for travel to the host as their bits
+_HOST_BITS = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8}
+
+
+def _bits(t):
+    """`t` viewed as a dtype that indexing copies and numpy both take:
+    bf16 as int16, fp8 as uint8 (their bits), others as they are."""
+    bits = _HOST_BITS.get(t.dtype)
+    return t if bits is None else t.view(bits)
 
 
 class BlockAllocator:
@@ -118,11 +145,13 @@ class BlockAllocator:
 class PagedKVCache:
     """Paged pools on the device + per-slot block tables and the slot
     length ledger on the host. `kv_dtype` (default: `dtype`) names the
-    pools' storage; "int8" and "fp8_e4m3" add the scale pools."""
+    pools' storage; "int8" and "fp8_e4m3" add the scale pools, and
+    `summaries=True` the key-summary pools."""
 
     def __init__(self, num_layers, num_heads, head_dim, *, num_blocks,
                  block_size, max_slots, max_blocks_per_slot,
-                 dtype="float32", kv_dtype=None, device="cuda"):
+                 dtype="float32", kv_dtype=None, summaries=False,
+                 device="cuda"):
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.head_dim = head_dim
@@ -149,11 +178,26 @@ class PagedKVCache:
                                        device=self.device)
             self.v_scale = torch.zeros(shape[:-1], dtype=torch.float32,
                                        device=self.device)
+        self.summaries = bool(summaries)
+        self.k_sum_min = self.k_sum_max = None
+        if self.summaries:
+            mshape = (num_layers, self.num_blocks, num_heads, head_dim)
+            self.k_sum_min = torch.full(mshape, SUMMARY_INIT,
+                                        dtype=torch.float32,
+                                        device=self.device)
+            self.k_sum_max = torch.full(mshape, -SUMMARY_INIT,
+                                        dtype=torch.float32,
+                                        device=self.device)
         self.allocator = BlockAllocator(self.num_blocks)
         self.block_tables = np.zeros(
             (self.max_slots, self.max_blocks_per_slot), np.int32)
         self._slot_blocks = [[] for _ in range(self.max_slots)]
         self.slot_lens = np.zeros(self.max_slots, np.int32)
+        # the radix prefix cache, when one is attached: a dry free list
+        # evicts its idle cached leaves before an allocation is refused
+        self.prefix_cache = None
+        self.blocks_exported = 0
+        self.blocks_imported = 0
 
     # ------------------------------------------------------------ sizing
     @property
@@ -163,12 +207,18 @@ class PagedKVCache:
     @property
     def kv_bytes_per_token(self):
         """Device bytes one cached token costs across K+V and all
-        layers, the quantization scales included."""
+        layers, the quantization scales and (spread over a block's
+        tokens) the key-summary rows included."""
         per = (self.num_heads * self.head_dim
                * KV_DTYPES[self.kv_dtype].itemsize)
         if self.quantized:
             per += self.num_heads * 4            # fp32 scale per head
-        return self.num_layers * 2 * per
+        per *= 2                                 # K and V
+        if self.summaries:
+            # one fp32 min and max row a block, K only
+            per += (2 * self.num_heads * self.head_dim * 4
+                    ) // self.block_size
+        return self.num_layers * per
 
     @property
     def block_bytes(self):
@@ -195,6 +245,17 @@ class PagedKVCache:
         return list(self._slot_blocks[slot])
 
     # --------------------------------------------------------- lifecycle
+    def _alloc(self, n):
+        """`allocator.alloc` with the prefix cache as backstop: a dry
+        free list first evicts LRU idle cached leaves, then retries, so
+        idle cached blocks never cause a preemption the pool could have
+        absorbed."""
+        got = self.allocator.alloc(n)
+        if got is None and self.prefix_cache is not None:
+            self.prefix_cache.evict(n - self.allocator.num_free)
+            got = self.allocator.alloc(n)
+        return got
+
     def ensure_capacity(self, slot, new_len) -> bool:
         """Grow `slot`'s block table to cover `new_len` tokens. False
         (state unchanged) when the free list can't supply the blocks."""
@@ -206,7 +267,7 @@ class PagedKVCache:
         need = self.blocks_missing(slot, new_len)
         if need == 0:
             return True
-        got = self.allocator.alloc(need)
+        got = self._alloc(need)
         if got is None:
             return False
         row = self._slot_blocks[slot]
@@ -214,6 +275,110 @@ class PagedKVCache:
             self.block_tables[slot, len(row)] = b
             row.append(b)
         return True
+
+    # ---------------------------------------------------- prefix sharing
+    def adopt_blocks(self, slot, blocks):
+        """Append already-allocated (cached) blocks to `slot`'s table,
+        one reference each: the prefix cache's hit at admission. The
+        slot reads them and never writes them."""
+        row = self._slot_blocks[slot]
+        if len(row) + len(blocks) > self.max_blocks_per_slot:
+            raise ValueError("adopted prefix exceeds max_blocks_per_slot")
+        self.allocator.incref(blocks)
+        for b in blocks:
+            self.block_tables[slot, len(row)] = b
+            row.append(b)
+
+    def cow_block(self, slot, index):
+        """Copy-on-write `slot`'s table entry at `index`: a private
+        block takes a copy of the shared block's data, replaces it in
+        the table, and the slot's reference on the original is dropped.
+        False (state unchanged) when no block can be had, even after
+        eviction. A request that re-feeds a token inside a shared block
+        writes into its copy, never into what other readers see."""
+        row = self._slot_blocks[slot]
+        src = row[index]
+        got = self._alloc(1)
+        if got is None:
+            return False
+        dst = got[0]
+        self._copy_block_data(src, dst)
+        row[index] = dst
+        self.block_tables[slot, index] = dst
+        self.allocator.free([src])
+        return True
+
+    def _pools(self):
+        """Every pool tensor, each indexing its block at axis 1: K, V,
+        then the scales (quantized pools), then the summaries."""
+        out = [self.k_pool, self.v_pool]
+        if self.quantized:
+            out += [self.k_scale, self.v_scale]
+        if self.summaries:
+            out += [self.k_sum_min, self.k_sum_max]
+        return out
+
+    def _copy_block_data(self, src, dst):
+        """pool[:, dst] = pool[:, src] for every pool tensor, in place on
+        the pools' device (a device-to-device copy each, no host read):
+        a copied block dequantizes and scores as its source does."""
+        for p in self._pools():
+            b = _bits(p)
+            b[:, dst].copy_(b[:, src])
+
+    # ------------------------------------------------- block transport
+    def kv_meta(self):
+        """The pool geometry a block payload must agree with: a spill
+        restores only into a pool of the same meta."""
+        return {"num_layers": self.num_layers,
+                "num_heads": self.num_heads,
+                "head_dim": self.head_dim,
+                "block_size": self.block_size,
+                "dtype": self.dtype,
+                "kv_dtype": self.kv_dtype,
+                "summaries": self.summaries}
+
+    def export_blocks(self, block_ids):
+        """`block_ids`' data as host numpy arrays, one per pool tensor
+        (`_pools()` order), each `[n, L, ...]` (block-major). bf16 and
+        fp8 pools travel as their bits (int16, uint8)."""
+        ids = [int(b) for b in block_ids]
+        if not ids:
+            raise ValueError("export_blocks needs at least one block")
+        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        out = tuple(_bits(p).index_select(1, idx).movedim(1, 0).cpu()
+                    .numpy() for p in self._pools())
+        self.blocks_exported += len(ids)
+        return out
+
+    def import_blocks(self, block_ids, arrays):
+        """Write `export_blocks` payloads into `block_ids` (allocated by
+        the caller), in place. Payloads whose count, shape or dtype do
+        not match this pool are refused before anything is written."""
+        ids = [int(b) for b in block_ids]
+        if not ids:
+            raise ValueError("import_blocks needs at least one block")
+        pools = [_bits(p) for p in self._pools()]
+        if len(arrays) != len(pools):
+            raise ValueError(
+                f"expected {len(pools)} payload arrays for kv_dtype="
+                f"{self.kv_dtype!r} (summaries={self.summaries}), got "
+                f"{len(arrays)}")
+        host = []
+        for a, p in zip(arrays, pools):
+            a = np.asarray(a)
+            expect = (len(ids), p.shape[0]) + tuple(p.shape[2:])
+            want = torch.empty(0, dtype=p.dtype).numpy().dtype
+            if tuple(a.shape) != expect or a.dtype != want:
+                raise ValueError(
+                    f"payload {tuple(a.shape)}/{a.dtype} does not match "
+                    f"pool geometry {expect}/{want}")
+            host.append(a)
+        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        for a, p in zip(host, pools):
+            p.index_copy_(1, idx, torch.from_numpy(np.ascontiguousarray(a))
+                          .to(self.device).movedim(0, 1))
+        self.blocks_imported += len(ids)
 
     def truncate_slot(self, slot, new_len):
         """Roll back `slot` to cover only `new_len` tokens: blocks past

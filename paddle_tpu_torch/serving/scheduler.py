@@ -23,9 +23,18 @@ block-pressure preemption against the paged KV cache:
 * **Multi-tick preallocation** — `extend_for_ticks` maps FREE blocks
   ahead of a decode so a dispatch of several ticks appends without the
   host; the engine truncates back to what was emitted at harvest.
+* **Prefix cache** — with a `prefix_cache` (`prefix_cache.py`),
+  admission adopts the cached blocks of the runtime prompt's head and
+  prefill starts at the first uncached token (`Request.cache_hit_tokens`
+  counts them); a completed prefill publishes the prompt's full blocks,
+  a finish publishes prompt + output, and freeing a slot drops its
+  locks on the tree.
+* **Reserved decode region** — `reserve_region` (block-sparse decode)
+  keeps the per-slot decode region's tokens out of the prefill budget
+  at `draft_k == 0` too, as speculation does.
 
-Pure host-side bookkeeping. The prefix-cache, adapter, migration and
-tracing hooks of the JAX scheduler wait for later slices (ROADMAP.md).
+Pure host-side bookkeeping. The adapter, migration and tracing hooks of
+the JAX scheduler wait for later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -53,6 +62,7 @@ class Request:                     # in sets/queues across state moves
     output: list = dataclasses.field(default_factory=list)
     fed: int = 0                      # runtime-prompt tokens fed so far
     preemptions: int = 0
+    cache_hit_tokens: int = 0         # prefix-cache tokens skipped
     submit_time: float = 0.0
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
@@ -82,7 +92,8 @@ class Plan:
 class Scheduler:
     def __init__(self, kv_cache, *, max_slots, token_budget,
                  clock=time.monotonic, draft_k=0, draft_fn=None,
-                 device_draft=False):
+                 device_draft=False, prefix_cache=None,
+                 reserve_region=False):
         self.kv = kv_cache
         self.max_slots = max_slots
         self.token_budget = token_budget
@@ -94,6 +105,12 @@ class Scheduler:
         # the multi-tick engine drafts inside its decode loop: plan()
         # feeds [last] alone, the device widens the group
         self.device_draft = bool(device_draft)
+        # the radix prefix cache: admission skips cached prompt heads,
+        # prefill completion and finish publish the written blocks
+        self.prefix_cache = prefix_cache
+        # block-sparse decode reserves the per-slot decode region even
+        # at draft_k == 0: prefill budgets treat it as spoken for
+        self.reserve_region = bool(reserve_region)
         self.queue = collections.deque()
         self.slots = [None] * max_slots
         self._ids = itertools.count()
@@ -125,6 +142,8 @@ class Scheduler:
 
     # ------------------------------------------------------- internals
     def _free_slot(self, req):
+        if self.prefix_cache is not None:
+            self.prefix_cache.unlock_slot(req.slot)
         self.kv.release_slot(req.slot)
         self.slots[req.slot] = None
         req.slot = -1
@@ -156,6 +175,16 @@ class Scheduler:
                 req.state = "prefill"
                 req.fed = 0
                 self.slots[slot] = req
+                if self.prefix_cache is not None:
+                    # a cached prompt head: adopt its blocks, count their
+                    # K/V as resident, and prefill from the first
+                    # uncached token (a preempted request's re-admission
+                    # usually hits its own published blocks)
+                    hit = self.prefix_cache.lookup_and_adopt(
+                        slot, req.runtime_prompt)
+                    req.fed = hit
+                    req.cache_hit_tokens += hit
+                    self.kv.slot_lens[slot] = hit
 
     def _preempt_victim(self, exclude):
         """Evict the decode holding the most blocks (tie: latest
@@ -204,7 +233,9 @@ class Scheduler:
         """Pre-extend one decode slot's blocks so a multi-tick dispatch
         can append up to `n_ticks` tokens from `pos` without the host.
         The first token's block is already mapped by `plan()`; the rest
-        take FREE blocks only, so a burst never evicts a neighbour.
+        take FREE blocks only (after evicting idle cached prefix blocks,
+        as every allocation does), so a burst never preempts a
+        neighbour.
         Returns the capacity `cap` (pos + 1 <= cap <= pos + n_ticks) the
         dispatch may fill; the engine truncates back to what was emitted
         at harvest."""
@@ -253,9 +284,11 @@ class Scheduler:
             else:
                 decode.append((req.slot, req.output[-1], pos))
 
-        # with speculation the verify region is reserved up front (see
-        # batcher.pack_step): prefill budget never depends on the mix
-        reserved = len(decode) if self.draft_k == 0 \
+        # with speculation (or the sparse decode region) the region is
+        # reserved up front (see batcher.pack_step): prefill budget never
+        # depends on the mix
+        reserved = len(decode) \
+            if self.draft_k == 0 and not self.reserve_region \
             else self.max_slots * (self.draft_k + 1)
         budget_left = self.token_budget - reserved
         prefills = []
@@ -295,8 +328,14 @@ class Scheduler:
         if self.draft_k == 0:
             for slot, _tok, pos in plan.decode:
                 self.kv.slot_lens[slot] = pos + 1
-        for slot, chunk, start, _completes in plan.prefills:
+        for slot, chunk, start, completes in plan.prefills:
             self.kv.slot_lens[slot] = start + len(chunk)
+            if completes and self.prefix_cache is not None:
+                # the whole prompt's K/V is resident: publish its full
+                # blocks, so that same-head requests admitted later hit
+                req = self.slots[slot]
+                if req is not None:
+                    self.prefix_cache.insert(slot, req.runtime_prompt)
 
     def note_accept(self, slot, new_len):
         """Record a verify group's outcome: `new_len` tokens of the slot
@@ -308,6 +347,13 @@ class Scheduler:
     def finish(self, req, now=None):
         req.state = "finished"
         req.finish_time = self.clock() if now is None else now
+        if self.prefix_cache is not None and req.slot >= 0:
+            # publish prompt + output (a conversation's next turn
+            # replays it); only tokens whose K/V was written count — the
+            # last emitted token was never fed
+            n = int(self.kv.slot_lens[req.slot])
+            self.prefix_cache.insert(req.slot,
+                                     (req.prompt + req.output)[:n])
         self._free_slot(req)
 
     def cancel(self, req, now=None):

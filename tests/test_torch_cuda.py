@@ -2223,3 +2223,141 @@ def test_seed_gives_the_same_dropout_masks(cuda_device):
     assert torch.equal(F.dropout(x, 0.5), a)
     assert not torch.equal(a, b)
     assert set(a.unique().tolist()) == {0.0, 2.0}
+
+
+# ------------------------------ the prefix cache and block-sparse decode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "float32", "int8",
+                                      "fp8_e4m3"])
+def test_cow_block_on_card_copies_every_pool(kv_dtype, cuda_device):
+    """`cow_block` on card pools (with key summaries): the private copy
+    holds the shared block's K, V, scale columns and summary rows, bit
+    for bit, and the source is untouched."""
+    from paddle_tpu_torch.serving.kv_cache import PagedKVCache
+    kv = PagedKVCache(2, 4, 64, num_blocks=12, block_size=16, max_slots=2,
+                      max_blocks_per_slot=4, kv_dtype=kv_dtype,
+                      summaries=True, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for p in kv._pools():
+        if p.element_size() == 1:
+            p.view(torch.uint8).copy_(torch.randint(
+                0, 120, p.shape, generator=g, device=cuda_device,
+                dtype=torch.uint8))
+        else:
+            p.copy_(torch.randn(p.shape, generator=g, device=cuda_device))
+    assert kv.ensure_capacity(0, 32)
+    src = kv.slot_blocks(0)[1]
+
+    def bits(b):
+        return [(p.view(torch.uint8) if p.element_size() == 1 else p)
+                [:, b].clone() for p in kv._pools()]
+    before = bits(src)
+    kv.allocator.incref([src])
+    assert kv.cow_block(0, 1)
+    torch.cuda.synchronize()
+    dst = kv.slot_blocks(0)[1]
+    assert dst != src
+    for a, b, c in zip(bits(dst), before, bits(src)):
+        assert torch.equal(a, b) and torch.equal(c, b)
+
+
+def _select_inputs(K, ties, seed=0):
+    """Region inputs of 8 slots at contexts 700-1000 (BS 16, 64-block
+    tables; one slot of two blocks, one at position 0) with summaries
+    drawn at random; `ties`: blocks 1..4 of every slot share one summary
+    row, so their scores tie exactly across the cut."""
+    rng = np.random.RandomState(seed)
+    S, BS, MB, H, Dh = 8, 16, 64, 16, 64
+    NB = S * MB + 1
+    last = rng.randint(700, 1000 - K, S)
+    last[-2], last[-1] = 20, 0
+    pos = (last[:, None] + np.arange(K)[None]).astype(np.int32)
+    bt = np.zeros((S, MB), np.int32)
+    perm = rng.permutation(np.arange(1, NB))
+    for s in range(S):
+        n = int(pos[s].max()) // BS + 1
+        bt[s, :n] = perm[s * MB:s * MB + n]
+    smin = rng.randn(NB, H, Dh).astype(np.float32)
+    smax = smin + rng.rand(NB, H, Dh).astype(np.float32)
+    if ties:
+        for s in range(S):
+            smin[bt[s, 2:5]] = smin[bt[s, 1]]
+            smax[bt[s, 2:5]] = smax[bt[s, 1]]
+    q = rng.randn(S, K, H, Dh).astype(np.float32)
+    return [torch.from_numpy(a) for a in (q, pos, bt, smin, smax)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("ties", [False, True])
+def test_select_blocks_on_card_matches_cpu(K, ties, cuda_device):
+    """The selection on the card equals its CPU result on the same
+    inputs, ties at the cut included (a stable sort on both)."""
+    from paddle_tpu_torch.serving.engine import select_blocks
+    args = _select_inputs(K, ties)
+    want = select_blocks(*args, 11, 2, 16)
+    got = select_blocks(*[a.to(cuda_device) for a in args], 11, 2, 16)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu(), b)
+
+
+def _sparse_case(K, qdtype, pool, device):
+    """The paged kernel over a shortened table: 8 slots at contexts
+    700-1000, their [8, 11] tables and compacted positions from
+    `select_blocks` over summaries of the pools' own keys, pools in q's
+    dtype or quantized."""
+    from paddle_tpu_torch.serving.engine import quantize_kv, select_blocks
+    q, pos, bt, _, _ = _select_inputs(K, False, seed=1)
+    S, MB = bt.shape
+    NB, BS, H, Dh = S * MB + 1, 16, 16, 64
+    g = torch.Generator().manual_seed(2)
+    kf = torch.randn(NB, BS, H, Dh, generator=g)
+    vf = torch.randn(NB, BS, H, Dh, generator=g)
+    short, pos_c = select_blocks(q, pos, bt, kf.amin(1), kf.amax(1), 11, 2,
+                                 BS)
+    if pool == "float":
+        kp, vp, ks, vs = kf.to(qdtype), vf.to(qdtype), None, None
+    else:
+        kv_dtype = "int8" if pool == "int8" else "fp8_e4m3"
+        kp, ks = quantize_kv(kf, kv_dtype)
+        vp, vs = quantize_kv(vf, kv_dtype)
+    qq = q.to(qdtype) if K > 1 else q[:, 0].to(qdtype)
+    pp = pos_c if K > 1 else pos_c[:, 0].contiguous()
+    args = [qq, kp, vp, short, torch.arange(S, dtype=torch.int32), pp, ks,
+            vs]
+    return [None if a is None else a.to(device) for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("qdtype,pool", [(torch.bfloat16, "float"),
+                                         (torch.float32, "float"),
+                                         (torch.bfloat16, "int8"),
+                                         (torch.bfloat16, "fp8")])
+def test_paged_sparse_matches_plain(K, qdtype, pool, cuda_device):
+    """K3 over an [8, 11] shortened table (`kernel_name="paged_sparse"`):
+    the ragged entry (K = 1) and the verify entry (K = 4) against their
+    plain versions, two launches to the same bits, counted as the
+    sparse variant's."""
+    args = _sparse_case(K, qdtype, pool, cuda_device)
+    entry = "sparse" if K == 1 else "sparse_verify"
+    counter = tpa._COUNTERS[(entry, None if pool == "float"
+                             else args[1].dtype)]
+    fn = (tpa.ragged_paged_attention if K == 1
+          else tpa.verify_paged_attention)
+    plain = (tpa.ragged_gather_reference if K == 1
+             else tpa.verify_gather_reference)
+    before = getattr(tpa, counter)
+    got = fn(*args, kernel_name="paged_sparse")
+    torch.cuda.synchronize()
+    assert getattr(tpa, counter) == before + 1
+    assert torch.equal(fn(*args, kernel_name="paged_sparse"), got)
+    ref = plain(*args)
+    tol = _VERIFY_TOL[(qdtype, pool)]
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    assert bool(((got - ref).abs() <= tol * (1 + ref.abs())).all()), \
+        float((got - ref).abs().max())

@@ -281,6 +281,10 @@ def test_bad_spec_configs_raise_loudly(models):
     with pytest.raises(ValueError):
         ServingEngine(tm, penalty_vocab_bins=0, device="cpu",
                       sampling=SamplingConfig(repetition_penalty=1.3), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tm, sparse_blocks=4, ticks_per_dispatch=4,
-                      device="cpu", **kw)
+    # block-sparse decode is ported: its bad knobs are refused as
+    # JAX's engine refuses them, at any tick count
+    for bad in (dict(sparse_blocks=0),
+                dict(sparse_blocks=4, track_summaries=False)):
+        with pytest.raises(ValueError, match="sparse_blocks"):
+            ServingEngine(tm, ticks_per_dispatch=4, device="cpu", **bad,
+                          **kw)
