@@ -6,7 +6,8 @@ NVIDIA card.
 Drives the port's paths end to end — serving a dense GPT-350M, serving
 it speculatively over bf16, int8 and fp8 KV pools, serving it with
 several decode ticks a dispatch and with penalties, with the radix
-prefix cache and with block-sparse decode, serving the
+prefix cache and with block-sparse decode, with LoRA adapters and as a
+weight-only int8 stack, serving the
 8-expert MoE-350M with float, int8 and int4 experts, the train step
 (with and without the fused QKV projection), the paddle-layout
 `flash_attention()` entry, the `wgrad_1x1` entry, BERT-base
@@ -34,7 +35,11 @@ each (or a few):
    them and the same kernel over the full tables; the three
    grouped expert matmuls — float, int8 and int4 experts — at the MoE
    step's two expert products, each with its bytes/s and share of its
-   bound; flash attention forward/backward (with their TFLOP/s and share
+   bound; the int8 kernel at one group as the dense weight-only
+   projections run it (`weight_only_matmul`: [256, 1024] x [1024, 3072 |
+   1024 | 4096] and [256, 4096] x [4096, 1024], two launches of each
+   bit-identical, beside `torch.matmul` on a pre-dequantized copy);
+   flash attention forward/backward (with their TFLOP/s and share
    of the bound), add+LayerNorm forward/backward (dw and db included,
    two launches of each bit-identical, GB/s beside F.layer_norm's) and
    the fused QKV projection (forward, and its gradients through
@@ -117,6 +122,31 @@ each (or a few):
    on the card and on a CPU copy (and the cache engine the card's
    cache-off tokens), unless the first difference sat at an fp32 top-2
    gap under 1e-5;
+5j. serve LoRA — phase 5a's model with `max_adapters=3` (2 usable
+   slots) and 4 random rank-16 tenants, the 16 requests split between
+   the base model and the tenants: every request finishes, at least one
+   eviction, pins and blocks back, paged attention steps x 24 and
+   nothing else, the base-model requests within phase 5's near-tie
+   oracle (their agreement with phase 4's tokens printed), each tenant
+   against a solo engine (printed); the same mix at 4 ticks under sync
+   debug equal to it; adapter loads, hits, evictions, bytes_per_slot,
+   tokens/s, TTFT and a profiled decode step beside phase 4's;
+5k. serve weight-only — the same weights as int8 projections
+   (`weight_only=True`): the 16 requests, K4 at one group exactly steps
+   x 96 and paged attention steps x 24, projection bytes (at least 1.9x
+   under bf16), tokens/s, agreement with phase 4 and a profiled decode
+   step beside phase 4's, two requests within the near-tie oracle of
+   its own fp32 forward; and (after phase 5b) MoE-350M as
+   `FusedMultiTransformerMoeWeightOnly` (int8 attention, int4 experts)
+   on 8 requests: dense launches steps x 48 and int4 expert launches
+   steps x 48, counted apart;
+5l. on-card LoRA and weight-only check — fp32, 2 layers at full width,
+   at 1 and 4 ticks, card against a CPU copy: a tenant mix with churn
+   (tokens and adapter counters), the base-model requests on an adapter
+   engine against an engine without adapters, and the weight-only dense
+   engine (int8 weights carried in through `convert.load_jax_gpt`);
+   equal unless the first difference sat at an fp32 top-2 gap under
+   1e-5 (the weight-only MoE engine is held in phase 5c);
 5b. serve MoE — MoE-350M (bench_gpt_moe's widths: GPT-350M with every
    FFN 8 experts, top-2, capacity factor 1.25; random weights from a
    numpy seed through `convert.load_jax_gpt(moe=...)`) served by three
@@ -129,9 +159,11 @@ each (or a few):
    the float experts at 4 ticks a dispatch (sync debug on): the float
    1-tick engine's tokens, paged attention issued ticks x 24 and the
    float grouped matmul issued ticks x 48 launches, routed + dropped =
-   2 x 24 x valid tokens over the ticks that counted;
+   2 x 24 x valid tokens over the ticks that counted; then phase 5k's
+   weight-only MoE engine;
 5c. on-card MoE check — fp32, 2 layers at full width, float and int8
-   experts: 4 requests served on the card (kernels) and on a CPU copy
+   experts, and the weight-only stack (int8 attention, int4 experts) at
+   1 and 4 ticks: 4 requests served on the card (kernels) and on a CPU copy
    (plain versions) give the same greedy tokens, unless the first
    expert choice that differs, at or before the first differing token,
    sat at a near-tie of the top-k gate boundary (reported as the cause);
@@ -277,6 +309,15 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # bf16) where the kernel dequantizes in fp32, about one more bf16 spacing
 # of every key and value; in fp32 both dequantize alike.
 QTOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# multi-LoRA serving (phase 5j): 2 usable adapter slots (slot 0 is the
+# null adapter) for 4 rank-16 tenants, random A and B at this std, and
+# the adapter of each of the 16 requests (None: the base model): the
+# first 8 fill the engine's slots with two tenants, the other two
+# tenants wait at the head of the queue until the first two's requests
+# have all finished, then evict them
+LORA_SLOTS, LORA_RANK, LORA_STD = 3, 16, 0.05
+LORA_MIX = (None, "t0", "t1", "t0", None, "t1", "t0", "t1",
+            None, "t2", "t3", "t2", None, "t3", "t2", "t3")
 # speculative serving: draft_k (bench.py's engine speculation lane) and
 # the JAX engine's default n-gram order and drafting window
 DRAFT_K, DRAFT_NGRAM, DRAFT_RING = 3, 3, 128
@@ -844,9 +885,10 @@ def serve_prompts():
 
 
 def serve(device, counters):
-    """Phase 4: returns (engine, requests, launches per kernel). `counters`
-    lists every kernel's (module, attribute, name); all are zeroed just
-    before the 16 requests and read just after."""
+    """Phase 4: returns (engine, requests, launches per kernel, the run's
+    tokens/s and mean TTFT). `counters` lists every kernel's (module,
+    attribute, name); all are zeroed just before the 16 requests and read
+    just after."""
     import torch
     from paddle_tpu_torch.convert import load_jax_gpt
     from paddle_tpu_torch.serving.engine import ServingEngine
@@ -892,7 +934,8 @@ def serve(device, counters):
         if name != "paged_attention" and n:
             fail(f"kernel {name} launched {n} times on the dense serving "
                  "path")
-    return eng, reqs, launches
+    return eng, reqs, launches, dict(tokens_s=generated / wall,
+                                     ttft_ms=ttft * 1e3)
 
 
 def check_outputs(model, reqs, device, label="check"):
@@ -931,7 +974,7 @@ def check_outputs(model, reqs, device, label="check"):
           f"near-tie gap {worst:.4f}", flush=True)
 
 
-def profile_decode(eng, label, window=16, kernel=None):
+def profile_decode(eng, label, window=16, kernel=None, adapters=None):
     """Where a decode step's time goes: 8 requests with 256-token
     prompts are prefilled, then `window` pure-decode steps are timed on
     the host clock and the next `window` run under torch.profiler for
@@ -942,15 +985,19 @@ def profile_decode(eng, label, window=16, kernel=None):
     `kernel`, also the device time of the kernels whose names hold that
     string and their share of the step's. Informational: prints "not
     measured" when the profiler records no device events. `kernel`
-    may be a tuple of such strings."""
+    may be a tuple of such strings. `adapters`: the requests' adapter
+    ids, in turn. Returns {host_ms, device_ms (None when not measured),
+    launches}."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(SEED + 2)
     horizon = (eng.draft_k + 1) * 2 * window + 4
-    reqs = [eng.submit(rng.integers(0, VOCAB, 256).tolist(), horizon)
-            for _ in range(SLOTS)]
+    reqs = [eng.submit(rng.integers(0, VOCAB, 256).tolist(), horizon,
+                       adapter_id=adapters[i % len(adapters)]
+                       if adapters else None)
+            for i in range(SLOTS)]
     while any(r.state != "decode" for r in reqs):
         eng.step()
     torch.cuda.synchronize()
@@ -974,7 +1021,7 @@ def profile_decode(eng, label, window=16, kernel=None):
         print(f"profile: {label} decode step {host_ms:.3f} ms on the host "
               f"clock, {per_step:.2f} tokens a step; "
               "device time not measured (no device events)", flush=True)
-        return
+        return dict(host_ms=host_ms, device_ms=None, launches=None)
     device_ms = sum(e.self_device_time_total for e in dev) / 1e3 / window
     launches = sum(e.count for e in dev) / window
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
@@ -994,6 +1041,7 @@ def profile_decode(eng, label, window=16, kernel=None):
           f"busy {device_ms / host_ms:.1%}; most device time: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3 / window:.3f}"
               f" ms x{e.count // window}" for e in top) + share, flush=True)
+    return dict(host_ms=host_ms, device_ms=device_ms, launches=launches)
 
 
 # ---------------------------------------- phase 3, grouped expert matmuls
@@ -1099,6 +1147,74 @@ def check_gmm(gm, device, flush):
                 bound_ms=sum(c[4] for c in calls) / 2,
                 bound_by=calls[0][5])
     return records
+
+
+def check_weight_only_gmm(gm, device, flush):
+    """Phase 3 for K4 at one group, the dense weight-only projections
+    (`weight_only_matmul`, what `_mm` runs on a weight-only stack): x
+    [256, d_in] bf16 (the step's token budget) against int8 weights with
+    bf16 scales (the engine casts fp32 scales to the compute dtype) at
+    qkv [1024, 3072], out [1024, 1024], ffn1 [1024, 4096] and ffn2
+    [4096, 1024], each against its plain version (`torch.matmul` over
+    the dequantized weight, in bf16), one launch counted a call, two
+    launches bit-identical. Yardstick: `torch.matmul` on a pre-dequantized
+    bf16 copy (the dequant left out of its time). Returns the record of
+    gmm_int8_dense, the mean per call over the four products."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.fused_transformer import \
+        _quantize_stack
+    D, F = HIDDEN, 4 * HIDDEN
+    tol = GMM_TOL["bfloat16"]
+    calls = []
+    for prod, (d_in, d_out) in (("qkv", (D, 3 * D)), ("out", (D, D)),
+                                ("ffn1", (D, F)), ("ffn2", (F, D))):
+        g = torch.Generator(device=device).manual_seed(SEED)
+        x = torch.randn(BUDGET, d_in, generator=g,
+                        device=device).to(torch.bfloat16)
+        q, s = _quantize_stack(torch.randn(1, d_in, d_out, generator=g,
+                                           device=device) / d_in ** 0.5, 8)
+        w, scale = q[0], s[0].to(torch.bfloat16)
+        before = gm.dense_launch_count
+        got = gm.weight_only_matmul(x, w, scale, qmax=127.0)
+        torch.cuda.synchronize()
+        if gm.dense_launch_count != before + 1:
+            fail(f"gmm_int8_dense {prod}: {gm.dense_launch_count - before} "
+                 "launches counted for one call")
+
+        def plain():
+            return torch.matmul(x, gm.dequantize(w, scale, d_in,
+                                                 torch.bfloat16, 127.0))
+        err = close_or_fail(f"gmm_int8_dense {prod}", got, plain(), tol)
+        if not torch.equal(gm.weight_only_matmul(x, w, scale, qmax=127.0),
+                           got):
+            fail(f"gmm_int8_dense {prod}: two launches differ")
+        ms = cuda_ms(lambda: gm.weight_only_matmul(x, w, scale,
+                                                   qmax=127.0), flush=flush)
+        plain_ms = cuda_ms(plain, iters=5, flush=flush)
+        w_lib = gm.dequantize(w, scale, d_in, torch.bfloat16, 127.0)
+        lib = cuda_ms(lambda: torch.matmul(x, w_lib), flush=flush)
+        bound_ms, bound_by = gmm_bound(x[None], w[None], scale[None], d_out)
+        calls.append((err, ms, plain_ms, lib, bound_ms, bound_by))
+        flops = 2 * BUDGET * d_in * d_out
+        print(f"kernel check: gmm_int8_dense {prod} [1, {BUDGET}, {d_in}] "
+              f"x [1, {d_in}, {d_out}] int8 weights, bf16 scales "
+              f"max_abs_err={err:.3g} (tol {tol} (1 + |plain|)), two "
+              f"launches bit-identical, kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}), the kernel at {bound_ms / ms:.1%} of it, "
+              f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s; yardstick: "
+              f"torch.matmul on a pre-dequantized copy {lib:.4f} ms",
+              flush=True)
+        del x, w, scale, got, w_lib
+    n = len(calls)
+    return {"gmm_int8_dense": dict(
+        max_abs_err=max(c[0] for c in calls),
+        ms=sum(c[1] for c in calls) / n,
+        plain_ms=sum(c[2] for c in calls) / n,
+        library_ms=sum(c[3] for c in calls) / n,
+        bound_ms=sum(c[4] for c in calls) / n,
+        bound_by=max(calls, key=lambda c: c[4])[5])}
+
 
 
 # ----------------------------------------------------- phases 5a and 5d
@@ -1275,11 +1391,13 @@ def sync_guarded(eng):
     eng._run_ticks = guarded
 
 
-def serve_counted(eng, prompts, counters, label, new=NEW_TOKENS):
-    """Serve the prompts to completion (`new` tokens each) with every
-    kernel counter zeroed just before and read just after. Fails unless
-    every request finished with its full horizon and every KV block came
-    back. Returns (outputs, launches, the run's numbers)."""
+def serve_counted(eng, prompts, counters, label, new=NEW_TOKENS,
+                  adapters=None):
+    """Serve the prompts to completion (`new` tokens each; under
+    `adapters`, one adapter id a prompt) with every kernel counter zeroed
+    just before and read just after. Fails unless every request finished
+    with its full horizon and every KV block came back (and every adapter
+    pin). Returns (outputs, launches, the run's numbers)."""
     import torch
     for mod, attr, _ in counters:
         setattr(mod, attr, 0)
@@ -1287,7 +1405,8 @@ def serve_counted(eng, prompts, counters, label, new=NEW_TOKENS):
               eng.device_ticks_issued, dict(eng.early_exit_counts),
               eng.tokens_fed)
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, new) for p in prompts]
+    reqs = [eng.submit(p, new, adapter_id=a) for p, a in
+            zip(prompts, adapters or [None] * len(prompts))]
     try:
         eng.run()
     except RuntimeError as e:
@@ -1302,6 +1421,9 @@ def serve_counted(eng, prompts, counters, label, new=NEW_TOKENS):
     if eng.kv.blocks_in_use:
         fail(f"{label}: {eng.kv.blocks_in_use} KV blocks still held after "
              "every request finished")
+    if eng.adapters is not None and eng.adapters.total_pins:
+        fail(f"{label}: {eng.adapters.total_pins} adapter pins still held "
+             "after every request finished")
     steps, disp, ran, issued, ee, fed = before
     run = dict(
         steps=eng.steps_run - steps, dispatches=eng.dispatches_run - disp,
@@ -1795,16 +1917,18 @@ def serve_sparse(model, device, counters):
 def first_gap(model, prompts, got, want):
     """(tokens equal, total, the fp32 top-2 logit gap of `model` (plain
     dense forward, teacher-forced on `want`) at the first token where
-    `got` and `want` differ, or None)."""
+    `got` and `want` differ, or None). `model` may also be a function of
+    the request's index that returns its model."""
     import torch
     same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
     total = sum(map(len, want))
-    for p, g, w in zip(prompts, got, want):
+    for n, (p, g, w) in enumerate(zip(prompts, got, want)):
         i = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
         if i is None:
             continue
         ids = torch.tensor([p + w[:i]])
-        top = model(ids, dtype=torch.float32)[0, -1].topk(2)
+        m = model if isinstance(model, torch.nn.Module) else model(n)
+        top = m(ids, dtype=torch.float32)[0, -1].topk(2)
         return same, total, float(top.values[0] - top.values[1])
     return same, total, None
 
@@ -1899,13 +2023,404 @@ def check_prefix_sparse_on_card(device):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- phases 5j, 5k and 5l
+
+
+def lora_adapters(decoder, seed):
+    """The four tenants' random rank-LORA_RANK adapters (numpy draws from
+    `seed`, `serving.adapters.make_random_adapter`)."""
+    from paddle_tpu_torch.serving.adapters import make_random_adapter
+    return {f"t{i}": make_random_adapter(decoder, LORA_RANK, seed=seed + i,
+                                         scale=LORA_STD)
+            for i in range(4)}
+
+
+def projection_bytes(eng):
+    """Device bytes of the decoder's four projection weights in `eng`
+    (with their scales on a weight-only stack), as the step reads them."""
+    names = {p + k for p in ("qkv", "out", "ffn1", "ffn2")
+             for k in ("_w", "_s")}
+    return sum(t.numel() * t.element_size() for pl in eng._layers
+               for n, t in pl.items() if n in names)
+
+
+def weight_only_copy(model, device, moe=None):
+    """The weight-only twin of the float GPT `model` on `device`:
+    `GPTForGeneration(weight_only=True, moe=moe)` given `model`'s tensors,
+    its four projections quantized as the weight-only stacks quantize
+    them (`_quantize_stack`: int8, fp32 scales; MoE experts at moe's
+    `moe_quant_bits` by `_quantize_expert_stack`), every other tensor
+    copied."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.fused_transformer import (
+        _quantize_expert_stack, _quantize_stack)
+    from paddle_tpu_torch.models.gpt import GPTForGeneration
+    dec = model.decoder
+    wo = GPTForGeneration(
+        vocab_size=model.vocab_size, hidden_size=model.hidden_size,
+        num_layers=dec.num_layers, num_attention_heads=dec.num_heads,
+        intermediate_size=dec.dim_feedforward,
+        max_position_embeddings=model.max_position_embeddings,
+        weight_only=True, moe=moe, compute_dtype=model.compute_dtype,
+        device=device, dtype=model.word_embeddings.weight.dtype)
+    ebits = (moe or {}).get("moe_quant_bits") or 8
+    dst = wo.state_dict()
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if k.split(".")[-1] in ("qkv_w", "out_w", "ffn1_w", "ffn2_w"):
+                q, sc = (_quantize_expert_stack(v.float(), ebits)
+                         if v.ndim == 4 else _quantize_stack(v.float(), 8))
+                dst[k].copy_(q)
+                dst[k[:-2] + "_s"].copy_(sc)
+            else:
+                dst[k].copy_(v)
+    return wo
+
+
+def serve_lora(model, device, counters, dense_out, base, base_prof):
+    """Phase 5j: GPT-350M (phase 5a's model, bf16) served with
+    `max_adapters=3` (2 usable slots) and 4 random rank-16 tenants: the
+    16 requests split between the base model and the tenants
+    (`LORA_MIX`), so slots churn and admission blocks. Holds: every
+    request finishes, at least one eviction, pins and blocks back after
+    the drain, paged attention launched steps x 24 and nothing else, the
+    base-model requests within phase 5's near-tie oracle; prints the base
+    requests' agreement with phase 4's tokens and each tenant's with a
+    solo engine. Then the same mix at 4 ticks a dispatch under sync
+    debug (its tokens equal the 1-tick engine's) and a profiled decode
+    step, each beside phase 4's."""
+    import torch
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    ads = lora_adapters(model.decoder, SEED + 60)
+    prompts = serve_prompts()
+    mix = list(LORA_MIX)
+
+    def build(slots=LORA_SLOTS, tenants=ads, **kw):
+        eng = ServingEngine(model, max_slots=SLOTS, block_size=BLOCK,
+                            max_seq_len=MAX_SEQ, token_budget=BUDGET,
+                            cache_dtype="bfloat16", max_adapters=slots,
+                            lora_rank=LORA_RANK, device=device, **kw)
+        for t, w in tenants.items():
+            eng.register_adapter(t, w)
+        eng.generate_batch([[1, 2, 3]], max_new_tokens=2)   # warm-up
+        torch.cuda.synchronize()
+        return eng
+
+    eng = build()
+    label = "serve LoRA"
+    outputs, got, run = serve_counted(eng, prompts, counters, label,
+                                      adapters=mix)
+    c = eng.adapters
+    base_idx = [i for i, t in enumerate(mix) if t is None]
+    base_same = sum(a == b for i in base_idx
+                    for a, b in zip(outputs[i], dense_out[i]))
+    print(f"{label}: max_adapters={LORA_SLOTS} ({LORA_SLOTS - 1} usable "
+          f"slots), {len(ads)} tenants of rank {LORA_RANK} (alpha = rank), "
+          f"bytes_per_slot {c.bytes_per_slot}; {run['steps']} steps, "
+          f"{run['generated']} generated tokens in {run['wall']:.3f} s = "
+          f"{run['generated'] / run['wall']:.1f} tokens/s (phase 4: "
+          f"{base['tokens_s']:.1f}), mean TTFT {run['ttft'] * 1e3:.1f} ms "
+          f"(phase 4: {base['ttft_ms']:.1f}); adapter loads "
+          f"{c.cache_misses}, hits {c.cache_hits}, evictions "
+          f"{c.evictions}, hit ratio {c.hit_ratio():.3f}, load_seconds "
+          f"{c.load_seconds:.4f}; base-model requests' tokens equal to "
+          f"phase 4's {base_same}/{len(base_idx) * NEW_TOKENS}; launches "
+          + ", ".join(f"{n} {k}" for n, k in got.items() if k), flush=True)
+    if c.evictions < 1:
+        fail(f"{label}: {len(ads)} tenants on {LORA_SLOTS - 1} slots "
+             "evicted nothing")
+    want = {"paged_attention": run["steps"] * LAYERS}
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)} ({run['steps']} steps)")
+    check_outputs(model, [run["reqs"][i] for i in base_idx], device,
+                  label="check LoRA base requests")
+    for t in ads:
+        idx = [i for i, x in enumerate(mix) if x == t]
+        solo = build(slots=2, tenants={t: ads[t]})
+        reqs = [solo.submit(prompts[i], NEW_TOKENS, adapter_id=t)
+                for i in idx]
+        solo.run()
+        same = sum(a == b for i, r in zip(idx, reqs)
+                   for a, b in zip(outputs[i], r.output))
+        print(f"{label}: tenant {t}: {same}/{len(idx) * NEW_TOKENS} tokens "
+              "equal to a solo engine's (one usable slot, the tenant's "
+              "requests alone)", flush=True)
+        del solo
+    prof = profile_decode(eng, "GPT-350M LoRA", kernel=PAGED_KERNELS,
+                          adapters=[None, "t0", "t1"])
+    if prof["device_ms"] is not None and base_prof["device_ms"] is not None:
+        print(f"{label}: a decode step {prof['launches']:.0f} launches "
+              f"against phase 4's {base_prof['launches']:.0f}, "
+              f"{prof['device_ms']:.3f} against {base_prof['device_ms']:.3f}"
+              f" ms of device time, {prof['host_ms']:.3f} against "
+              f"{base_prof['host_ms']:.3f} ms on the host clock", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    eng = build(ticks_per_dispatch=TICKS)
+    sync_guarded(eng)
+    label = "serve LoRA 4 ticks"
+    out4, got4, run4 = serve_counted(eng, prompts, counters, label,
+                                     adapters=mix)
+    same = sum(a == b for o, w in zip(out4, outputs) for a, b in zip(o, w))
+    print(multitick_line("LoRA", eng, run4, "the 1-tick LoRA engine", same,
+                         got4) + f"; adapter loads "
+          f"{eng.adapters.cache_misses}, evictions {eng.adapters.evictions};"
+          " every dispatch's ticks ran under set_sync_debug_mode('error')",
+          flush=True)
+    hold_multitick(label, eng, run4, out4, outputs, got4,
+                   {"paged_attention": run4["issued"] * LAYERS})
+    del eng
+    torch.cuda.empty_cache()
+    print(f"serve LoRA: phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def serve_weight_only(model, device, counters, dense_out, base, base_prof):
+    """Phase 5k, dense: GPT-350M `weight_only=True` (phase 5a's weights,
+    int8 projections with fp32 scales, bf16 compute) on the 16 requests:
+    every request finishes, K4 at one group launched exactly steps x 96
+    (4 projections x 24 layers) and paged attention steps x 24, nothing
+    else; two served requests within the near-tie oracle of the
+    weight-only model's own fp32 forward; projection bytes, tokens/s,
+    agreement with phase 4's bf16 engine and a profiled decode step
+    printed beside phase 4's. Returns K4's dense launches."""
+    import torch
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    wo = weight_only_copy(model, device)
+    kw = dict(max_slots=SLOTS, block_size=BLOCK, max_seq_len=MAX_SEQ,
+              token_budget=BUDGET, cache_dtype="bfloat16", device=device)
+    # the bf16 engine's projections: 2 bytes a weight
+    float_bytes = sum(2 * getattr(model.decoder, n).numel()
+                      for n in ("qkv_w", "out_w", "ffn1_w", "ffn2_w"))
+    eng = ServingEngine(wo, **kw)
+    eng.generate_batch([[1, 2, 3]], max_new_tokens=2)       # warm-up
+    torch.cuda.synchronize()
+    wo_bytes = projection_bytes(eng)
+    label = "serve weight-only"
+    outputs, got, run = serve_counted(eng, serve_prompts(), counters, label)
+    same = sum(a == b for o, w in zip(outputs, dense_out)
+               for a, b in zip(o, w))
+    print(f"{label}: GPT-350M int8 projections (quant_bits 8, scales cast "
+          f"to bf16): projection bytes {wo_bytes} against the bf16 "
+          f"engine's {float_bytes} ({float_bytes / wo_bytes:.3f}x smaller);"
+          f" {run['steps']} steps, {run['generated']} generated tokens in "
+          f"{run['wall']:.3f} s = {run['generated'] / run['wall']:.1f} "
+          f"tokens/s (phase 4: {base['tokens_s']:.1f}), mean TTFT "
+          f"{run['ttft'] * 1e3:.1f} ms (phase 4: {base['ttft_ms']:.1f}); "
+          f"tokens equal to phase 4's bf16 engine {same}/{run['generated']}"
+          "; launches " + ", ".join(f"{n} {k}" for n, k in got.items() if k),
+          flush=True)
+    if float_bytes / wo_bytes < 1.9:
+        fail(f"{label}: projections only {float_bytes / wo_bytes:.3f}x "
+             "smaller than bf16")
+    want = {"paged_attention": run["steps"] * LAYERS,
+            "gmm_int8_dense": run["steps"] * 4 * LAYERS}
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)} ({run['steps']} steps)")
+    check_outputs(wo, run["reqs"][:2], device, label="check weight-only")
+    prof = profile_decode(eng, "GPT-350M weight-only", kernel="gmm")
+    if prof["device_ms"] is not None and base_prof["device_ms"] is not None:
+        print(f"{label}: a decode step {prof['launches']:.0f} launches "
+              f"against phase 4's {base_prof['launches']:.0f}, "
+              f"{prof['device_ms']:.3f} against {base_prof['device_ms']:.3f}"
+              f" ms of device time, {prof['host_ms']:.3f} against "
+              f"{base_prof['host_ms']:.3f} ms on the host clock", flush=True)
+    launches = {"gmm_int8_dense": got["gmm_int8_dense"]}
+    del eng, wo
+    torch.cuda.empty_cache()
+    print(f"{label}: phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def serve_moe_weight_only(model, device, counters, prompts):
+    """Phase 5k, MoE: `FusedMultiTransformerMoeWeightOnly` at MoE-350M
+    widths (phase 5b's weights: int8 attention, packed int4 experts with
+    fp16 scales) on 8 of the requests: every request finishes, the dense
+    K4 launches (attention) steps x 48 and the int4 expert launches steps
+    x 48, counted apart, paged attention steps x 24, nothing else."""
+    import torch
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    wo = weight_only_copy(model, device, moe=dict(MOE, moe_quant_bits=4))
+    eng = ServingEngine(wo, max_slots=SLOTS, block_size=BLOCK,
+                        max_seq_len=MAX_SEQ, token_budget=BUDGET,
+                        cache_dtype="bfloat16", device=device)
+    eng.generate_batch([[1, 2, 3]], max_new_tokens=2)       # warm-up
+    torch.cuda.synchronize()
+    label = "serve MoE weight-only"
+    outputs, got, run = serve_counted(eng, prompts[:SLOTS], counters, label)
+    d = wo.decoder
+    nbytes = sum(getattr(d, n).numel() * getattr(d, n).element_size()
+                 for n in ("qkv_w", "out_w", "ffn1_w", "ffn2_w", "qkv_s",
+                           "out_s", "ffn1_s", "ffn2_s"))
+    print(f"{label}: int8 attention, int4 experts (fp16 scales): "
+          f"projection bytes {nbytes}; {run['steps']} steps, "
+          f"{run['generated']} generated tokens in {run['wall']:.3f} s = "
+          f"{run['generated'] / run['wall']:.1f} tokens/s, mean TTFT "
+          f"{run['ttft'] * 1e3:.1f} ms; launches " + ", ".join(
+              f"{n} {k}" for n, k in got.items() if k), flush=True)
+    want = {"paged_attention": run["steps"] * LAYERS,
+            "gmm_int8_dense": run["steps"] * 2 * LAYERS,
+            "gmm_int4": run["steps"] * 2 * LAYERS}
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)} ({run['steps']} steps)")
+    del eng, wo
+    torch.cuda.empty_cache()
+
+
+def quantized_arrays(arrays, expert_bits=8):
+    """`random_gpt_arrays` output as a JAX weight-only model's
+    `_gen_tensors()` give it: the four projections int8 with fp32
+    scales (`*_s`), MoE experts at `expert_bits` (8, or 4: packed with
+    fp16 scales), for `convert.load_jax_gpt` to carry across."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.fused_transformer import (
+        _quantize_expert_stack, _quantize_stack)
+    out = dict(arrays)
+    for n in ("qkv_w", "out_w", "ffn1_w", "ffn2_w"):
+        w = torch.from_numpy(arrays[n])
+        q, sc = (_quantize_expert_stack(w, expert_bits) if w.ndim == 4
+                 else _quantize_stack(w, 8))
+        out[n], out[n[:-2] + "_s"] = q.numpy(), sc.numpy()
+    return out
+
+
+def merged_model(arrays, adapter, scaling):
+    """A float CPU model whose projections hold W + A B (alpha / r): the
+    plain dense forward of a tenant, for its near-tie gaps."""
+    import numpy as np
+    from paddle_tpu_torch.convert import load_jax_gpt
+    out = dict(arrays)
+    for name, (a, b) in adapter.items():
+        w = f"{name}_w"
+        out[w] = (arrays[w].astype(np.float64)
+                  + np.matmul(a.astype(np.float64),
+                              b.astype(np.float64) * scaling)
+                  ).astype(np.float32)
+    return load_jax_gpt(out, HEADS, device="cpu")
+
+
+def check_lora_weight_only_on_card(device):
+    """Phase 5l: fp32, 2 layers at full width, at 1 and 4 ticks, on the
+    card (kernels) and on a CPU copy (plain versions): a tenant mix with
+    churn (4 tenants and the base model on 2 usable slots, 4 engine
+    slots), the base-model requests alone on the card beside an engine
+    without adapters, and the weight-only dense engine (its int8
+    weights and scales carried in through `convert.load_jax_gpt`).
+    Greedy tokens (and adapter loads, hits, evictions) must be equal,
+    unless the first differing token sat at an fp32 top-2 gap under
+    1e-5 (a tenant's gap from its merged W + A B model). The weight-only
+    MoE engine is held in phase 5c."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    layers = 2
+    arrays = random_gpt_arrays(SEED + 70, layers=layers)
+    q_arrays = quantized_arrays(arrays)
+    models = {str(d): load_jax_gpt(arrays, HEADS, device=d)
+              for d in (device, "cpu")}
+    wo_models = {str(d): load_jax_gpt(q_arrays, HEADS, device=d)
+                 for d in (device, "cpu")}
+    ads = lora_adapters(models["cpu"].decoder, SEED + 71)
+    rng = np.random.default_rng(SEED + 72)
+    prompts = [rng.integers(0, VOCAB, int(n)).tolist()
+               for n in (9, 40, 23, 64, 17, 31, 50)]
+    mix = ["t0", None, "t1", "t2", None, "t3", "t0"]
+    merged = {}
+
+    def model_of(i):
+        t = mix[i]
+        if t is None:
+            return models["cpu"]
+        if t not in merged:
+            merged[t] = merged_model(arrays, ads[t], 1.0)
+        return merged[t]
+
+    def serve(m, dev, ticks, lora, ps, tenants=None):
+        eng = ServingEngine(m, max_slots=4, block_size=BLOCK,
+                            max_seq_len=256, token_budget=64,
+                            cache_dtype="float32", ticks_per_dispatch=ticks,
+                            max_adapters=LORA_SLOTS if lora else 0,
+                            lora_rank=LORA_RANK, device=dev)
+        if eng._multitick and torch.device(dev).type == "cuda":
+            sync_guarded(eng)
+        for t, w in (ads.items() if lora else ()):
+            eng.register_adapter(t, w)
+        reqs = [eng.submit(p, 16, adapter_id=a) for p, a in
+                zip(ps, tenants or [None] * len(ps))]
+        eng.run()
+        c = eng.adapters
+        if c is not None and c.total_pins:
+            fail(f"check LoRA: {c.total_pins} pins held after the drain")
+        return ([list(r.output) for r in reqs],
+                None if c is None else (c.cache_misses, c.cache_hits,
+                                        c.evictions))
+
+    def hold(line, gap, same_counts):
+        if gap is not None and gap >= 1e-5:
+            fail(line + " — tokens differ past a near-tie")
+        if gap is None and not same_counts:
+            fail(line + " — equal tokens but different counts")
+        print(line, flush=True)
+
+    base_idx = [i for i, t in enumerate(mix) if t is None]
+    base_ps = [prompts[i] for i in base_idx]
+    for ticks in (1, TICKS):
+        got, card = serve(models[str(device)], device, ticks, True, prompts,
+                          mix)
+        want, cpu = serve(models["cpu"], "cpu", ticks, True, prompts, mix)
+        same, total, gap = first_gap(model_of, prompts, got, want)
+        hold(f"check LoRA: fp32, {layers} layers at full width, {ticks} "
+             f"tick(s) a dispatch, 4 tenants and the base model on "
+             f"{LORA_SLOTS - 1} usable slots: {same}/{total} greedy tokens "
+             f"equal on the card and the CPU; adapter loads, hits, "
+             f"evictions {card} on the card, {cpu} on the CPU; first "
+             f"differing token's fp32 top-2 gap "
+             f"{'none' if gap is None else f'{gap:.3g}'}", gap, card == cpu)
+        if card[2] < 1:
+            fail("check LoRA: the tenant mix evicted nothing")
+        alone, _ = serve(models[str(device)], device, ticks, True, base_ps)
+        plain, _ = serve(models[str(device)], device, ticks, False, base_ps)
+        same, total, gap = first_gap(models["cpu"], base_ps, alone, plain)
+        hold(f"check LoRA: {ticks} tick(s), base-model requests on the "
+             f"card's adapter engine: {same}/{total} tokens equal to the "
+             f"card's engine without adapters; the mix's base-model "
+             f"requests {sum(got[i] == a for i, a in zip(base_idx, alone))}"
+             f"/{len(base_idx)} equal to them alone; first gap "
+             f"{'none' if gap is None else f'{gap:.3g}'}", gap, True)
+        got, _ = serve(wo_models[str(device)], device, ticks, False, prompts)
+        want, _ = serve(wo_models["cpu"], "cpu", ticks, False, prompts)
+        same, total, gap = first_gap(wo_models["cpu"], prompts, got, want)
+        hold(f"check weight-only: fp32, {layers} layers at full width "
+             f"(int8 weights and fp32 scales through convert), {ticks} "
+             f"tick(s): {same}/{total} greedy tokens equal on the card (K4 "
+             f"at one group) and the CPU (plain formula); first gap "
+             f"{'none' if gap is None else f'{gap:.3g}'}", gap, True)
+    print(f"check LoRA / weight-only: phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del models, wo_models, merged
+    torch.cuda.empty_cache()
+
+
+
 # ----------------------------------------------------- phases 5b and 5c
 
 
 def serve_moe(device, counters):
     """Phase 5b: MoE-350M served by three engines (float, int8, int4
     experts), each zeroing every kernel counter just before its 16
-    requests and reading them just after; returns each grouped-matmul
+    requests and reading them just after; then phase 5k's weight-only
+    MoE engine over the same weights. Returns each grouped-matmul
     variant's launches in its own engine's run."""
     import numpy as np
     import torch
@@ -1999,6 +2514,7 @@ def serve_moe(device, counters):
         torch.cuda.empty_cache()
         if fmt is None:
             serve_moe_multitick(model, device, counters, prompts, float_out)
+    serve_moe_weight_only(model, device, counters, prompts)
     del model
     torch.cuda.empty_cache()
     return launches
@@ -2047,9 +2563,11 @@ def serve_moe_multitick(model, device, counters, prompts, want_out):
 
 
 def check_moe_on_card(device):
-    """Phase 5c: fp32, 2 layers at full width, float and int8 experts: 4
-    requests of 16 new tokens served on the card (kernels) and on a CPU
-    copy (plain versions) must give the same greedy tokens. A near-tie
+    """Phase 5c: fp32, 2 layers at full width, float and int8 experts,
+    and the weight-only stack (int8 attention, int4 experts, carried in
+    through `convert.load_jax_gpt`) at 1 and 4 ticks: 4 requests of 16
+    new tokens served on the card (kernels) and on a CPU copy (plain
+    versions) must give the same greedy tokens. A near-tie
     at the top-k gate boundary turns an ulp into an expert flip
     (docs/MOE.md), so both runs record, per routed call, its engine
     step and each valid token's chosen experts, and the CPU run the
@@ -2095,14 +2613,21 @@ def check_moe_on_card(device):
         moe_utils.top_k_routing = routing
         return [list(r.output) for r in reqs], at
 
-    for fmt in (None, "int8"):
+    wo_arrays = quantized_arrays(arrays, expert_bits=4)
+    wo_moe = dict(MOE, moe_quant_bits=4)
+    for fmt, ticks in ((None, 1), ("int8", 1), ("weight-only int4", 1),
+                       ("weight-only int4", TICKS)):
         out, logs = {}, {}
+        wo = fmt == "weight-only int4"
         for dev in (device, "cpu"):
-            model = load_jax_gpt(arrays, HEADS, moe=MOE, device=dev)
+            model = (load_jax_gpt(wo_arrays, HEADS, moe=wo_moe, device=dev)
+                     if wo else load_jax_gpt(arrays, HEADS, moe=MOE,
+                                             device=dev))
             eng = ServingEngine(model, max_slots=4, block_size=BLOCK,
                                 max_seq_len=128, token_budget=BUDGET,
-                                cache_dtype="float32", moe_weight_dtype=fmt,
-                                device=dev)
+                                cache_dtype="float32",
+                                moe_weight_dtype=None if wo else fmt,
+                                ticks_per_dispatch=ticks, device=dev)
             logs[str(dev)] = []
             out[str(dev)] = serve(eng, logs[str(dev)])
             del eng, model
@@ -2112,7 +2637,10 @@ def check_moe_on_card(device):
         same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
         total = sum(map(len, want))
         line = (f"check MoE: fp32, {layers} layers at full width, "
-                f"{fmt or 'float'} experts: {same}/{total} greedy tokens "
+                f"{fmt or 'float'} experts"
+                + (" (int8 attention, carried in through convert)"
+                   if wo else "") + f", {ticks} tick(s) a dispatch: "
+                f"{same}/{total} greedy tokens "
                 f"equal on the card and the CPU; smallest top-{k} gate gap "
                 f"on the CPU side {min_gap:.3g}")
         if got != want:
@@ -3714,7 +4242,9 @@ def main():
         ("paged_sparse_fp8", pa, "sparse_fp8_launch_count",
          pallas + "paged_attention.py:196", csrc + "paged_attention.cu"),
         ("paged_sparse_verify", pa, "sparse_verify_launch_count",
-         pallas + "paged_attention.py:196", csrc + "paged_attention.cu")]
+         pallas + "paged_attention.py:196", csrc + "paged_attention.cu"),
+        ("gmm_int8_dense", gm, "dense_launch_count",
+         pallas + "grouped_matmul.py:181", csrc + "grouped_matmul.cu")]
     # one per source
     build_fns = (pa.build, fa.build, ln.build, gm.build, qp.build, cw.build)
     t0 = time.perf_counter()
@@ -3730,6 +4260,7 @@ def main():
     check_paged_decode(pa, device, flush)
     checks.update(check_paged_sparse(pa, device, flush))
     checks.update(check_gmm(gm, device, flush))
+    checks.update(check_weight_only_gmm(gm, device, flush))
     checks.update(check_flash(fa, device, flush))
     checks.update(check_add_ln(ln, device, flush))
     checks.update(check_qkv_proj(qp, device, flush))
@@ -3740,9 +4271,9 @@ def main():
     del flush
     torch.cuda.empty_cache()
 
-    eng, reqs, serve_launches = serve(device, counters)
+    eng, reqs, serve_launches, base = serve(device, counters)
     check_outputs(eng.model, reqs, device)
-    profile_decode(eng, "GPT-350M", kernel=PAGED_KERNELS)
+    base_prof = profile_decode(eng, "GPT-350M", kernel=PAGED_KERNELS)
     dense_out = [list(r.output) for r in reqs]
     del eng, reqs
     torch.cuda.empty_cache()
@@ -3751,11 +4282,15 @@ def main():
     serve_multitick(model, device, counters, dense_out, spec_out)
     serve_prefix(model, device, counters)
     serve_launches.update(serve_sparse(model, device, counters))
+    serve_lora(model, device, counters, dense_out, base, base_prof)
+    serve_launches.update(serve_weight_only(model, device, counters,
+                                            dense_out, base, base_prof))
     del model
     torch.cuda.empty_cache()
     check_spec_on_card(device)
     check_multitick_on_card(device)
     check_prefix_sparse_on_card(device)
+    check_lora_weight_only_on_card(device)
     serve_launches.update(serve_moe(device, counters))
     check_moe_on_card(device)
 
@@ -3764,7 +4299,7 @@ def main():
         "paged_attention", "paged_verify", "paged_int8", "paged_fp8",
         "paged_verify_int8", "paged_verify_fp8", "gmm_fp", "gmm_int8",
         "gmm_int4", "paged_sparse", "paged_sparse_int8", "paged_sparse_fp8",
-        "paged_sparse_verify")})
+        "paged_sparse_verify", "gmm_int8_dense")})
     check_train_step(device)
     torch.cuda.empty_cache()
     launches.update(flash_bshd_phase(fa, device, counters))

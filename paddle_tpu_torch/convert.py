@@ -1,10 +1,11 @@
 """Carry JAX models' parameters into the port.
 
-* `load_jax_gpt`: a JAX `GPTForGeneration` (dense or MoE, float
-  weights), given as a `{name: np.ndarray}` dict in the order of the
+* `load_jax_gpt`: a JAX `GPTForGeneration` (dense or MoE, float or
+  weight-only), given as a `{name: np.ndarray}` dict in the order of the
   JAX model's `_gen_tensors()`: `word_embeddings`,
   `position_embeddings`, each decoder parameter under its `_PARAM_ORDER`
-  name, `ln_f.weight`, `ln_f.bias` and `lm_head.weight`.
+  name (a weight-only stack's int8 weights and `*_s` scales included),
+  `ln_f.weight`, `ln_f.bias` and `lm_head.weight`.
 * `load_jax_hybrid_gpt`: the JAX `HybridGPT` trainer's nested `params`
   (and optionally its zero_stage-0 `opt_state`), as `jax.device_get`
   returns them.
@@ -21,50 +22,54 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .incubate.nn.fused_transformer import _PARAM_ORDER
+from .incubate.nn.fused_transformer import _PARAM_ORDER, _SCALE_NAMES
 from .models import bert as _bert
 from .models.gpt import GPTForGeneration
 from .parallel.hybrid_gpt import param_shapes
 
-_SCALE_NAMES = ("qkv_s", "out_s", "ffn1_s", "ffn2_s")
 _HEAD_NAMES = {"word_embeddings": "word_embeddings.weight",
                "position_embeddings": "position_embeddings.weight",
                "ln_f.weight": "ln_f.weight", "ln_f.bias": "ln_f.bias",
                "lm_head.weight": "lm_head.weight"}
 
 
-def jax_gpt_names(moe=False):
-    """{input name: the port's state_dict key} of a float JAX
-    `GPTForGeneration`, dense or (`moe`) MoE."""
+def jax_gpt_names(moe=False, weight_only=False):
+    """{input name: the port's state_dict key} of a JAX
+    `GPTForGeneration`, dense or (`moe`) MoE, float or weight-only."""
     dec = [n for n in _PARAM_ORDER
-           if n not in _SCALE_NAMES and (moe or n != "gate_w")]
+           if (weight_only or n not in _SCALE_NAMES)
+           and (moe or n != "gate_w")]
     return {**_HEAD_NAMES, **{n: f"decoder.{n}" for n in dec}}
 
 
 def load_jax_gpt(arrays, num_attention_heads, *, moe=None,
                  compute_dtype="float32", device="cuda",
                  dtype=torch.float32) -> GPTForGeneration:
-    """A `GPTForGeneration` on `device`, its parameters stored as
+    """A `GPTForGeneration` on `device`, its float parameters stored as
     `dtype`, holding exactly `arrays`. Shapes follow from the arrays;
     the head count cannot, so it is given, and neither can a MoE stack's
     routing: pass the JAX model's `moe=dict(num_expert, top_k,
-    capacity_factor)` for one. Raises on a missing or unknown name, a
-    shape that does not fit, `gate_w` without `moe=` or `moe=` without
-    `gate_w`, and any weight-only scale (`*_s`): pre-quantized stacks
-    are not carried across yet."""
+    capacity_factor)` for one (with `moe_quant_bits=4` for packed int4
+    experts). Any weight-only scale (`*_s`) makes a weight-only model:
+    the four projections' int8 weights and their scales are taken as
+    they are (fp32 scales; fp16 for packed int4 experts), at int8
+    attention (`quant_bits` 8). Raises on a missing or unknown name, a
+    shape or dtype that does not fit, `gate_w` without `moe=` or `moe=`
+    without `gate_w`."""
     scales = sorted(n for n in arrays if n in _SCALE_NAMES)
-    if scales:
+    weight_only = bool(scales)
+    if weight_only and len(scales) != len(_SCALE_NAMES):
         raise ValueError(f"JAX GPT parameters: weight-only scales {scales}"
-                         " are not supported; carry the float model "
-                         "across and quantize the experts in the engine "
-                         "(ServingEngine(moe_weight_dtype=...))")
+                         f" without {sorted(set(_SCALE_NAMES) - set(scales))}"
+                         ": a weight-only stack quantizes all four "
+                         "projections")
     if ("gate_w" in arrays) != bool(moe):
         raise ValueError("JAX GPT parameters: a MoE stack needs both "
                          "`gate_w` and moe=dict(num_expert, top_k, "
                          f"capacity_factor); got gate_w "
                          f"{'present' if 'gate_w' in arrays else 'absent'}"
                          f" and moe={moe!r}")
-    names = jax_gpt_names(bool(moe))
+    names = jax_gpt_names(bool(moe), weight_only)
     missing = sorted(set(names) - set(arrays))
     unknown = sorted(set(arrays) - set(names))
     if missing or unknown:
@@ -77,11 +82,27 @@ def load_jax_gpt(arrays, num_attention_heads, *, moe=None,
         num_attention_heads=num_attention_heads,
         intermediate_size=arrays["ffn1_w"].shape[-1],
         max_position_embeddings=arrays["position_embeddings"].shape[0],
-        moe=moe, compute_dtype=compute_dtype, device=device, dtype=dtype)
-    # bf16 arrays arrive as ml_dtypes' bfloat16, which torch cannot
-    # wrap: widen to fp32 first (exact), then copy_ casts to `dtype`
-    state = {names[n]: torch.tensor(np.asarray(a, np.float32))
-             for n, a in arrays.items()}
+        weight_only=weight_only, moe=moe, compute_dtype=compute_dtype,
+        device=device, dtype=dtype)
+    want = model.state_dict()
+    state = {}
+    for n, a in arrays.items():
+        a = np.asarray(a)
+        target = want[names[n]]
+        if not target.is_floating_point() or n in _SCALE_NAMES:
+            # quantized weights and their scales keep their bytes: the
+            # dtype must be the stack's own
+            got = torch.tensor(a)
+            if got.dtype != target.dtype or got.shape != target.shape:
+                raise ValueError(f"JAX GPT parameters[{n}]: {a.dtype} "
+                                 f"{a.shape}, expected {target.dtype} "
+                                 f"{tuple(target.shape)}")
+            state[names[n]] = got
+        else:
+            # bf16 arrays arrive as ml_dtypes' bfloat16, which torch
+            # cannot wrap: widen to fp32 first (exact), then copy_ casts
+            # to `dtype`
+            state[names[n]] = torch.tensor(np.asarray(a, np.float32))
     model.load_state_dict(state, strict=True)
     return model
 

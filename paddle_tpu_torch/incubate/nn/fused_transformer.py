@@ -1,21 +1,26 @@
 """Fused transformer decoder stack — the serving model's core.
 
-Port of the float-weight part of
-`paddle_tpu/incubate/nn/fused_transformer.py`: the per-layer math
-(`_ln`, `_mm`, `_qkv`, `_ffn_dense`, `_act`, and the MoE FFN
-`_ffn_moe_tokens` / `_ffn_moe` over `_expert_matmuls`) as plain
-functions on tensors, and `FusedMultiTransformer` /
-`FusedMultiTransformerMoe` as `nn.Module`s holding each weight family
-as ONE stacked `[num_layers, ...]` parameter under the JAX package's
-`_PARAM_ORDER` names, so weights carry across unchanged
-(`paddle_tpu_torch.convert`). Linear weights keep Paddle's `[in, out]`
-layout: `x @ w`. The expert products run through
-`ops.grouped_matmul.grouped_expert_matmul` (the Hopper kernels on a
-card) on float, int8 or packed-int4 expert weights; the int8/int4
-copies are made by the serving engine (`_quantize_expert_stack`).
+Port of `paddle_tpu/incubate/nn/fused_transformer.py`: the per-layer
+math (`_ln`, `_mm`, `_qkv`, `_ffn_dense`, `_act`, the multi-LoRA delta
+`_lora_delta`, and the MoE FFN `_ffn_moe_tokens` / `_ffn_moe` over
+`_expert_matmuls`) as plain functions on tensors, and
+`FusedMultiTransformer` / `FusedMultiTransformerMoe` as `nn.Module`s
+holding each weight family as ONE stacked `[num_layers, ...]` tensor
+under the JAX package's `_PARAM_ORDER` names, so weights carry across
+unchanged (`paddle_tpu_torch.convert`). Linear weights keep Paddle's
+`[in, out]` layout: `x @ w`.
 
-Weight-only int8 attention weights, LoRA, tensor and expert
-parallelism wait for later slices.
+Weight-only stacks (`FusedMultiTransformerWeightOnly`,
+`FusedMultiTransformerMoeWeightOnly`) hold the projections as int8
+buffers with a scale for each output channel (`*_s`); `_mm` with a
+scale runs `ops.grouped_matmul.weight_only_matmul`, the Hopper K4
+kernel at one group on a card, so the weight crosses device memory as
+int8. The expert products run through
+`ops.grouped_matmul.grouped_expert_matmul` on float, int8 or
+packed-int4 expert weights; the serving engine can also quantize a
+float stack's experts itself (`_quantize_expert_stack`).
+
+Tensor and expert parallelism wait for later slices.
 """
 from __future__ import annotations
 
@@ -27,8 +32,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..._device import resolve_device
-from ...ops.grouped_matmul import grouped_expert_matmul, \
-    quantize_int4_experts
+from ...ops.grouped_matmul import (grouped_expert_matmul,
+                                   quantize_int4_experts,
+                                   weight_only_matmul)
 from ...parallel import moe_utils
 
 #: the stacked decoder parameters, in the JAX package's order (a stack
@@ -38,6 +44,8 @@ _PARAM_ORDER = ("ln_s", "ln_b", "qkv_w", "qkv_b", "out_w", "out_b",
                 "ffn_ln_s", "ffn_ln_b", "gate_w",
                 "ffn1_w", "ffn1_b", "ffn2_w", "ffn2_b",
                 "qkv_s", "out_s", "ffn1_s", "ffn2_s")
+#: the weight-only scales, one for each quantized projection
+_SCALE_NAMES = ("qkv_s", "out_s", "ffn1_s", "ffn2_s")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +56,10 @@ class _MTConfig:
     dim_ff: int
     epsilon: float = 1e-5
     activation: str = "gelu"
-    moe_quant_bits: int = 0        # expert weights: 0 float, 8 int8,
-    #                                4 packed int4 (fp16 scales)
+    quant_bits: int = 0            # 0 float weights, 8 weight-only int8
+    moe_quant_bits: int = 0        # expert-stack override: 0 follows
+    #                                quant_bits, 8 int8, 4 packed int4
+    #                                (fp16 scales)
     num_experts: int = 0           # 0 = dense FFN
     moe_topk: int = 2
     capacity_factor: float = 1.25
@@ -76,34 +86,80 @@ def _ln(x, scale, bias, eps):
     return y.to(x.dtype)
 
 
-def _mm(x, w):
-    """x @ w with the weight cast to the activation dtype."""
-    return torch.matmul(x, w.to(x.dtype))
+def _mm(cfg, x, w, scale=None):
+    """x @ w with the weight cast to the activation dtype; with a scale
+    (a weight-only int8 `w`, a scale for each output channel) x @
+    (w * scale / qmax) at `qmax = 2**(quant_bits-1) - 1`, through
+    `weight_only_matmul`: on a card the K4 kernel reads the int8 bytes
+    and dequantizes in registers, on the CPU the plain formula."""
+    if scale is None:
+        return torch.matmul(x, w.to(x.dtype))
+    qmax = float(2 ** (cfg.quant_bits - 1) - 1)
+    return weight_only_matmul(x, w, scale, qmax=qmax)
 
 
-def _qkv(cfg, pl, h):
+def _lora_delta(x, a, b, oh):
+    """The multi-LoRA delta of one hooked projection (`serving/
+    adapters.py`): x [..., d_in] with T rows in all, the slot tensors a
+    [K, d_in, r] / b [K, r, d_out] (slot 0 the all-zero null adapter),
+    oh [T, K] the per-token adapter one-hot. Returns x @ a[aid] @ b[aid]
+    per token in x's dtype, computed in fp32 as JAX computes it: every
+    slot's rank-r projection (`td,kdr->tkr`), selected through the
+    one-hot, masked back to [T, K, r] and contracted over k and r at
+    once. One-hot rows are exact {0, 1}, so a token's delta does not
+    depend on the other slots, and the null slot's is exactly 0.0
+    (alpha / r is folded into b when an adapter loads)."""
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1]).float()
+    ohf = oh.float()
+    ya = torch.einsum("td,kdr->tkr", xf, a.float())
+    y = torch.einsum("tkr,tk->tr", ya, ohf)
+    yk = y[:, None, :] * ohf[:, :, None]                   # [T, K, r]
+    z = torch.einsum("tkr,krd->td", yk, b.float())
+    return z.reshape(*lead, b.shape[-1]).to(x.dtype)
+
+
+def _qkv(cfg, pl, h, lora_oh=None):
     """h [B, S, D] -> q, k, v each [B, S, H, Dh] (views of one fused
-    projection, not contiguous)."""
+    projection, not contiguous). `lora_oh` [B*S, K] adds the multi-LoRA
+    delta before the bias (the serving step, where `pl` holds the
+    layer's `lora_qkv_a` / `lora_qkv_b`)."""
     B, S, _ = h.shape
-    qkv = _mm(h, pl["qkv_w"]) + pl["qkv_b"].to(h.dtype)
+    qkv = _mm(cfg, h, pl["qkv_w"], pl.get("qkv_s"))
+    if lora_oh is not None and "lora_qkv_a" in pl:
+        qkv = qkv + _lora_delta(h, pl["lora_qkv_a"], pl["lora_qkv_b"],
+                                lora_oh)
+    qkv = qkv + pl["qkv_b"].to(qkv.dtype)
     qkv = qkv.reshape(B, S, 3, cfg.num_heads, cfg.head_dim)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-def _ffn_dense(cfg, pl, h):
-    f = _mm(h, pl["ffn1_w"]) + pl["ffn1_b"].to(h.dtype)
-    f = _act(cfg, f)
-    return _mm(f, pl["ffn2_w"]) + pl["ffn2_b"].to(h.dtype)
+def _ffn_dense(cfg, pl, h, lora_oh=None):
+    f = _mm(cfg, h, pl["ffn1_w"], pl.get("ffn1_s"))
+    if lora_oh is not None and "lora_ffn1_a" in pl:
+        f = f + _lora_delta(h, pl["lora_ffn1_a"], pl["lora_ffn1_b"],
+                            lora_oh)
+    f = _act(cfg, f + pl["ffn1_b"].to(f.dtype))
+    g = _mm(cfg, f, pl["ffn2_w"], pl.get("ffn2_s"))
+    if lora_oh is not None and "lora_ffn2_a" in pl:
+        g = g + _lora_delta(f, pl["lora_ffn2_a"], pl["lora_ffn2_b"],
+                            lora_oh)
+    return g + pl["ffn2_b"].to(g.dtype)
+
+
+def _moe_bits(cfg):
+    """The expert stack's weight-only bits: the `moe_quant_bits`
+    override when set, else the stack-wide `quant_bits`."""
+    return cfg.moe_quant_bits or cfg.quant_bits
 
 
 def _expert_matmuls(cfg, pl, expert_in):
     """The two stacked expert products on the [E, C, D] capacity buffers,
     weight-only dequant fused in: ffn1, its bias and the exact (erf)
-    GELU, then ffn2 (its bias is the caller's). The port's attention
-    weights are float, so the expert bits are `moe_quant_bits` alone
-    (the JAX `_moe_bits` falls back to the stack-wide `quant_bits`)."""
+    GELU, then ffn2 (its bias is the caller's). The expert bits come
+    from `_moe_bits`."""
     cd = expert_in.dtype
-    bits = cfg.moe_quant_bits
+    bits = _moe_bits(cfg)
     qmax = float(2 ** (bits - 1) - 1) if bits else 127.0
     f = grouped_expert_matmul(expert_in, pl["ffn1_w"], pl.get("ffn1_s"),
                               qmax=qmax, out_dtype=cd)
@@ -159,6 +215,30 @@ def _quantize_expert_stack(w, bits):
     return q, scale.float()
 
 
+def _quantize_stack(w, bits):
+    """[L, In, Out] float -> (int8 [L, In, Out], fp32 scales [L, Out]):
+    symmetric per-out-channel amax scaling, the JAX package's
+    `_quantize_stack` (the same bytes on the same fp32 input). Dequant
+    is `q * scale / qmax`."""
+    qmax = float(2 ** (bits - 1) - 1)
+    scale = w.abs().amax(dim=-2).clamp_min(1e-9)
+    q = torch.clamp(torch.round(w / scale[:, None, :] * qmax), -qmax,
+                    qmax).to(torch.int8)
+    return q, scale.float()
+
+
+def _cast_param(name, t, dtype):
+    """One decoder entry in the compute `dtype`, as the JAX engine casts
+    its arrays: integer (quantized) weights stay as they are, and a
+    weight-only scale is cast only from fp32 or fp64 (the int4 experts'
+    fp16 scales stay fp16); every other float entry is cast."""
+    if not t.is_floating_point() or (
+            name in _SCALE_NAMES
+            and t.dtype not in (torch.float32, torch.float64)):
+        return t
+    return t.to(dtype)
+
+
 class FusedMultiTransformer(nn.Module):
     """Multi-layer pre-LN GPT decoder stack with stacked parameters
     (`ln_s [L, D]`, `qkv_w [L, D, 3*H*Dh]`, `out_w [L, H*Dh, D]`,
@@ -180,6 +260,10 @@ class FusedMultiTransformer(nn.Module):
         self.num_layers = num_layers
         self.activation = activation
         self.epsilon = epsilon
+        # weight-only bits (0: float weights); the weight-only stacks set
+        # them after quantizing
+        self.quant_bits = 0
+        self.moe_quant_bits = 0
         shapes = self._shapes(num_layers, embed_dim, dim_feedforward)
         self.param_names = tuple(n for n in _PARAM_ORDER if n in shapes)
         dev = resolve_device(device)
@@ -215,14 +299,28 @@ class FusedMultiTransformer(nn.Module):
                          head_dim=self.head_dim,
                          dim_ff=self.dim_feedforward,
                          epsilon=self.epsilon,
-                         activation=self.activation)
+                         activation=self.activation,
+                         quant_bits=self.quant_bits,
+                         moe_quant_bits=self.moe_quant_bits)
 
     def layer_params(self, li, dtype=None):
         """Layer `li`'s parameters as a `{name: tensor}` dict (views of
-        the stacked parameters, or copies cast to `dtype`)."""
+        the stacked tensors, or with `dtype` cast as `_cast_param`
+        casts: integer weights never)."""
         return {n: getattr(self, n)[li] if dtype is None
-                else getattr(self, n)[li].to(dtype)
+                else _cast_param(n, getattr(self, n)[li], dtype)
                 for n in self.param_names}
+
+    def _quantize_param(self, name, quantize):
+        """Replace the float parameter `name` (`qkv_w`, ...) by the int8
+        buffer and the scale buffer (`qkv_s`, ...) that `quantize` makes
+        of it."""
+        q, s = quantize(getattr(self, name).detach().float())
+        del self._parameters[name]
+        self.register_buffer(name, q)
+        self.register_buffer(name[:-2] + "_s", s)
+        self.param_names = tuple(n for n in _PARAM_ORDER
+                                 if hasattr(self, n))
 
 
 class FusedMultiTransformerMoe(FusedMultiTransformer):
@@ -255,3 +353,74 @@ class FusedMultiTransformerMoe(FusedMultiTransformer):
                                    num_experts=self.num_expert,
                                    moe_topk=self.top_k,
                                    capacity_factor=self.capacity_factor)
+
+
+class FusedMultiTransformerWeightOnly(FusedMultiTransformer):
+    """The weight-only int8 stack (the JAX package's class of the same
+    name): `qkv_w`, `out_w`, `ffn1_w`, `ffn2_w` are int8 buffers with
+    per-out-channel fp32 scales `qkv_s`, `out_s`, `ffn1_s`, `ffn2_s`
+    [L, Out], quantized at `quant_bits` from the float weights the
+    constructor draws. Build one from a float stack with `from_float`."""
+
+    def __init__(self, *args, quant_bits=8, **kw):
+        super().__init__(*args, **kw)
+        self.quant_bits = int(quant_bits)
+        for name in ("qkv_w", "out_w", "ffn1_w", "ffn2_w"):
+            self._quantize_param(
+                name, lambda w: _quantize_stack(w, self.quant_bits))
+
+    @classmethod
+    def from_float(cls, model, quant_bits=8):
+        """The weight-only twin of the float stack `model`: its LayerNorm
+        parameters and biases as they are, its four projections
+        quantized (`_quantize_stack`). A MoE stack is refused: build
+        `FusedMultiTransformerMoeWeightOnly` directly."""
+        if isinstance(model, FusedMultiTransformerMoe):
+            raise TypeError("from_float on a MoE stack: build "
+                            "FusedMultiTransformerMoeWeightOnly directly")
+        new = cls(model.embed_dim, model.num_heads, model.dim_feedforward,
+                  num_layers=model.num_layers, activation=model.activation,
+                  epsilon=model.epsilon, device=model.ln_s.device,
+                  dtype=model.ln_s.dtype, quant_bits=quant_bits)
+        with torch.no_grad():
+            for name in model.param_names:
+                if name in ("qkv_w", "out_w", "ffn1_w", "ffn2_w"):
+                    q, s = _quantize_stack(getattr(model, name).float(),
+                                           quant_bits)
+                    getattr(new, name).copy_(q)
+                    getattr(new, name[:-2] + "_s").copy_(s)
+                else:
+                    getattr(new, name).copy_(getattr(model, name))
+        return new
+
+
+#: the reference's name for the weight-only stack
+FusedMultiTransformerINT8 = FusedMultiTransformerWeightOnly
+
+
+class FusedMultiTransformerMoeWeightOnly(FusedMultiTransformerMoe):
+    """The MoE stack with weight-only attention and experts (the JAX
+    package's class of the same name): `qkv_w` / `out_w` int8 at
+    `quant_bits` with fp32 scales; the experts at `moe_quant_bits` (or
+    `quant_bits` when it is None): 8 gives int8 [L, E, In, Out] with
+    fp32 scales [L, E, Out], 4 the nibble-packed [L, E, In/2, Out] with
+    fp16 scales (`_quantize_expert_stack`)."""
+
+    def __init__(self, *args, quant_bits=8, moe_quant_bits=None, **kw):
+        ebits = int(moe_quant_bits or 0) or int(quant_bits)
+        if ebits not in (4, 8):
+            raise ValueError(
+                f"expert weight-only bits must be 4 or 8, got {ebits}")
+        super().__init__(*args, **kw)
+        self.quant_bits = int(quant_bits)
+        self.moe_quant_bits = int(moe_quant_bits or 0)
+        for name in ("qkv_w", "out_w"):
+            self._quantize_param(
+                name, lambda w: _quantize_stack(w, self.quant_bits))
+        for name in ("ffn1_w", "ffn2_w"):
+            self._quantize_param(
+                name, lambda w: _quantize_expert_stack(w, ebits))
+
+
+#: the reference's name for the weight-only MoE stack
+FusedMultiTransformerMoeINT8 = FusedMultiTransformerMoeWeightOnly

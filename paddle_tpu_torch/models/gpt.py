@@ -1,10 +1,13 @@
 """GPT for generation — the serving model.
 
-Port of `paddle_tpu/models/gpt.py:GPTForGeneration`, float weights:
-word and position embeddings, the stacked `FusedMultiTransformer`
-decoder (`FusedMultiTransformerMoe` with `moe=dict(num_expert, top_k,
-capacity_factor)`), a final LayerNorm `ln_f` and a bias-free `lm_head`
-whose weight keeps Paddle's `[in, out]` = `[D, V]` layout.
+Port of `paddle_tpu/models/gpt.py:GPTForGeneration`: word and position
+embeddings, the stacked `FusedMultiTransformer` decoder
+(`FusedMultiTransformerMoe` with `moe=dict(num_expert, top_k,
+capacity_factor)`; with `weight_only=True` the int8 stacks
+`FusedMultiTransformerWeightOnly` and, with `moe=` (which may add
+`moe_quant_bits`), `FusedMultiTransformerMoeWeightOnly`), a final
+LayerNorm `ln_f` and a bias-free `lm_head` whose weight keeps Paddle's
+`[in, out]` = `[D, V]` layout.
 
 `forward` is the plain dense causal pass over whole sequences — the
 scoring oracle the serving engine's paged path is checked against.
@@ -17,10 +20,10 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
-from ..incubate.nn.fused_transformer import (FusedMultiTransformer,
-                                             FusedMultiTransformerMoe,
-                                             _ffn_dense, _ffn_moe, _ln, _mm,
-                                             _qkv)
+from ..incubate.nn.fused_transformer import (
+    FusedMultiTransformer, FusedMultiTransformerMoe,
+    FusedMultiTransformerMoeWeightOnly, FusedMultiTransformerWeightOnly,
+    _ffn_dense, _ffn_moe, _ln, _mm, _qkv)
 
 
 class _Head(nn.Module):
@@ -52,12 +55,6 @@ class GPTForGeneration(nn.Module):
                  compute_dtype="float32", device="cuda",
                  dtype=torch.float32):
         super().__init__()
-        if weight_only:
-            raise NotImplementedError(
-                "weight_only=True (int8 attention and dense weights) is "
-                "not ported yet (ROADMAP Queue 1, item 1: weight-only "
-                "stacks); serve float weights, with int8/int4 experts "
-                "through ServingEngine(moe_weight_dtype=...)")
         dev = resolve_device(device)
         d_ff = intermediate_size or 4 * hidden_size
         self.vocab_size = vocab_size
@@ -69,13 +66,18 @@ class GPTForGeneration(nn.Module):
         self.position_embeddings = nn.Embedding(max_position_embeddings,
                                                 hidden_size, **fac)
         if moe:
-            self.decoder = FusedMultiTransformerMoe(
-                hidden_size, num_attention_heads, d_ff,
-                num_layers=num_layers, activation="gelu", **moe, **fac)
+            cls = (FusedMultiTransformerMoeWeightOnly if weight_only
+                   else FusedMultiTransformerMoe)
+            self.decoder = cls(hidden_size, num_attention_heads, d_ff,
+                               num_layers=num_layers, activation="gelu",
+                               **moe, **fac)
         else:
             self.decoder = FusedMultiTransformer(
                 hidden_size, num_attention_heads, d_ff,
                 num_layers=num_layers, activation="gelu", **fac)
+            if weight_only:
+                self.decoder = FusedMultiTransformerWeightOnly.from_float(
+                    self.decoder)
         self.ln_f = nn.LayerNorm(hidden_size, eps=1e-5, **fac)
         self.lm_head = _Head(hidden_size, vocab_size, **fac)
         self.requires_grad_(False)
@@ -111,11 +113,12 @@ class GPTForGeneration(nn.Module):
             hn = _ln(x, pl["ln_s"], pl["ln_b"], cfg.epsilon)
             q, k, v = _qkv(cfg, pl, hn)
             attn = _causal_attention(q, k, v).reshape(B, S, cfg.embed_dim)
-            x = x + _mm(attn, pl["out_w"]) + pl["out_b"]
+            x = x + _mm(cfg, attn, pl["out_w"], pl.get("out_s")) \
+                + pl["out_b"]
             hn = _ln(x, pl["ffn_ln_s"], pl["ffn_ln_b"], cfg.epsilon)
             if cfg.num_experts:
                 x = x + _ffn_moe(cfg, pl, hn)[0]
             else:
                 x = x + _ffn_dense(cfg, pl, hn)
         x = _ln(x, self.ln_f.weight, self.ln_f.bias, 1e-5)
-        return _mm(x, self.lm_head.weight)
+        return _mm(cfg, x, self.lm_head.weight)

@@ -27,6 +27,15 @@ source explains both designs.) On a CPU tensor it runs
 package's einsum oracle, which the tests and `chip_smoke.py` also hold
 the kernels against.
 
+`weight_only_matmul` is the dense weight-only projection (`_mm` of a
+weight-only stack: x [..., D] @ int8 w [D, F] with a scale for each
+output channel) through the same kernels at one group: on a CUDA tensor
+`x[None] @ w[None] * scale[None] / qmax`, so the weight crosses device
+memory as int8 and is dequantized in registers, as XLA fuses the
+dequant into the dot on the TPU; on a CPU tensor the plain formula.
+Its launches are counted apart from the expert products'
+(`dense_launch_count`).
+
 The host helpers (`pack_int4`, `unpack_int4`, `is_packed_int4`,
 `quantize_int4_experts`, `expert_weight_bytes`) produce the JAX
 package's bytes exactly.
@@ -46,6 +55,9 @@ INT4_QMAX = 7.0
 fp_launch_count = 0
 int8_launch_count = 0
 int4_launch_count = 0
+#: launches of `weight_only_matmul`, the dense projections of a
+#: weight-only stack (not counted in the three above)
+dense_launch_count = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -155,6 +167,27 @@ def grouped_expert_matmul(x, w, scale=None, *, qmax=None, out_dtype=None):
     return _launch(x, w, scale, qmax, out_dtype)
 
 
+def weight_only_matmul(x, w, scale, *, qmax=127.0):
+    """x [..., D] @ (w [D, F] int8 * scale [F] / qmax) -> [..., F] in x's
+    dtype: the dense weight-only projection (see the module docstring).
+    On a CUDA tensor the K4 kernel at one group, or a raise; on a CPU
+    tensor the plain version, `x @ dequantize(w, scale)` with the dequant
+    in x's dtype, as the JAX package's `_mm` computes it."""
+    D = x.shape[-1]
+    if w.ndim != 2 or scale.ndim != 1 or w.shape[0] != D:
+        # a dense weight is never packed: D rows, or a raise
+        raise ValueError(f"weight_only_matmul: w [{D}, F] and scale [F], "
+                         f"got {tuple(w.shape)} and {tuple(scale.shape)}")
+    if x.device.type == "cpu":
+        return torch.matmul(x, dequantize(w, scale, D, x.dtype, qmax))
+    if x.device.type != "cuda":
+        raise ValueError(f"weight_only_matmul: no kernel for device "
+                         f"{x.device}")
+    out = _launch(x.reshape(1, -1, D).contiguous(), w[None], scale[None],
+                  float(qmax), None, dense=True)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def grouped_matmul_reference(x, w, scale=None, *, qmax=None,
                              out_dtype=None):
     """The plain PyTorch version, the JAX package's
@@ -230,8 +263,9 @@ def _vec_ok(t, row):
     return int(row * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0)
 
 
-def _launch(x, w, scale, qmax, out_dtype):
-    global fp_launch_count, int8_launch_count, int4_launch_count
+def _launch(x, w, scale, qmax, out_dtype, dense=False):
+    global fp_launch_count, int8_launch_count, int4_launch_count, \
+        dense_launch_count
     E, C, D = x.shape
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"grouped_matmul kernel: x must be fp32, bf16 or "
@@ -298,7 +332,9 @@ def _launch(x, w, scale, qmax, out_dtype):
     if err != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA "
                            f"error {err}")
-    if fmt == 0:
+    if dense:
+        dense_launch_count += 1
+    elif fmt == 0:
         fp_launch_count += 1
     elif fmt == 1:
         int8_launch_count += 1

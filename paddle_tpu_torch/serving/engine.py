@@ -64,8 +64,21 @@ the last `sparse_recent` blocks and the B best, Bt = 1 + recent + B, with
 positions compacted into it. Prefill keeps the full table. With B at or
 past a slot's allocated blocks the selection is the identity.
 
-Adapters and disaggregated roles are not arguments yet (ROADMAP
-Queue 1).
+With `max_adapters=K` the engine serves LoRA finetunes beside the base
+model (`adapters.py`): `register_adapter` takes an adapter's host
+weights, `submit(adapter_id=)` names one, admission pins it into one of
+K - 1 device slots (blocking while every slot is pinned, evicting the
+least recently used unpinned one otherwise), and every hooked
+projection adds each token's delta through one `[T, K]` one-hot a step
+(`_lora_delta`). Slot 0 is the null adapter: base-model tokens are those
+of an engine without adapters. Adapter requests bypass the prefix cache.
+
+A weight-only model (`GPTForGeneration(weight_only=True)`) keeps its
+int8 (and, for MoE experts, packed int4) weights as they are; the
+once-only cast to the compute dtype touches float tensors alone, and
+each projection runs `_mm` with its scale (K4 at one group on a card).
+
+Disaggregated roles are not arguments yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -77,11 +90,13 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..incubate.nn.fused_transformer import (_ffn_dense, _ffn_moe_tokens,
-                                             _ln, _mm, _qkv,
+from ..incubate.nn.fused_transformer import (_cast_param, _ffn_dense,
+                                             _ffn_moe_tokens, _ln,
+                                             _lora_delta, _mm, _qkv,
                                              _quantize_expert_stack)
 from ..ops.paged_attention import (MAX_GROUP, ragged_paged_attention,
                                    verify_paged_attention)
+from .adapters import AdapterCache
 from .batcher import (SamplingConfig, apply_count_penalties,
                       choose_token_budget, filter_logits, needs_history,
                       pack_step, select_token)
@@ -230,7 +245,7 @@ def select_blocks(q_r, pos_r, block_tables, k_sum_min, k_sum_max,
 def _mixed_layer(cfg, pl, h, k_pool, v_pool, wb, wo, block_tables,
                  slot_ids, pos, k_scale=None, v_scale=None, kv_dtype=None,
                  verify_width=1, region_slots=None, summaries=None,
-                 sparse=None):
+                 sparse=None, lora_oh=None):
     """One decoder layer of the mixed step on the flat token axis.
 
     h [T, D]; pl the layer's parameters; k_pool/v_pool this layer's
@@ -244,12 +259,13 @@ def _mixed_layer(cfg, pl, h, k_pool, v_pool, wb, wo, block_tables,
     key summaries, updated on append at the step's `_summary_rows`.
     `sparse` (the step's `_sparse_plan`): the region (at K = 1 too)
     attends the shortened tables of `select_blocks`, the rest the full
-    ones.
+    ones. `lora_oh` [T, K]: the step's adapter one-hot; the layer's slot
+    views in `pl` (`lora_qkv_a`, ...) add each hooked projection's delta.
     Returns (h, the MoE layer's routing stats or None)."""
     T = h.shape[0]
     H, Dh = cfg.num_heads, cfg.head_dim
     hn = _ln(h, pl["ln_s"], pl["ln_b"], cfg.epsilon)
-    q, k, v = _qkv(cfg, pl, hn[None])
+    q, k, v = _qkv(cfg, pl, hn[None], lora_oh)
     q, k, v = q[0], k[0], v[0]                       # [T, H, Dh]
     _append_kv(k_pool, k_scale, wb, wo, k, kv_dtype)
     _append_kv(v_pool, v_scale, wb, wo, v, kv_dtype)
@@ -288,13 +304,17 @@ def _mixed_layer(cfg, pl, h, k_pool, v_pool, wb, wo, block_tables,
                                     slot_ids[R:], pos[R:], k_scale,
                                     v_scale)
         attn = torch.cat([av.reshape(R, H, Dh), ap])
-    out = _mm(attn.reshape(T, cfg.embed_dim), pl["out_w"])
+    attn = attn.reshape(T, cfg.embed_dim)
+    out = _mm(cfg, attn, pl["out_w"], pl.get("out_s"))
+    if lora_oh is not None:
+        out = out + _lora_delta(attn, pl["lora_out_a"], pl["lora_out_b"],
+                                lora_oh)
     h = h + (out + pl["out_b"].to(out.dtype))
     hn = _ln(h, pl["ffn_ln_s"], pl["ffn_ln_b"], cfg.epsilon)
     if cfg.num_experts:
         f, stats = _ffn_moe_tokens(cfg, pl, hn, slot_ids >= 0)
         return h + f, stats
-    return h + _ffn_dense(cfg, pl, hn), None
+    return h + _ffn_dense(cfg, pl, hn, lora_oh), None
 
 
 def moe_utilization_entropy(counts):
@@ -330,6 +350,7 @@ class ServingEngine:
                  draft_ring=128, sparse_blocks=None, sparse_recent=2,
                  track_summaries=None, prefix_caching=False,
                  ticks_per_dispatch=1, penalty_vocab_bins=None,
+                 max_adapters=0, lora_rank=8, lora_alpha=None,
                  device="cuda"):
         # config validation is loud, as in the JAX engine, and comes
         # before anything is built
@@ -437,6 +458,14 @@ class ServingEngine:
         #: the KV cache's eviction backstop
         self.prefix_cache = (RadixPrefixCache(self.kv) if prefix_caching
                              else None)
+        # multi-LoRA adapter slots in the compute dtype (None without
+        # adapter support)
+        cdt = getattr(torch, model.compute_dtype)
+        self.adapters = (AdapterCache(dec, max_adapters=int(max_adapters),
+                                      rank=int(lora_rank), alpha=lora_alpha,
+                                      dtype=cdt, device=self.device,
+                                      clock=clock)
+                         if int(max_adapters) else None)
 
         def windowed_draft(tokens, k=self.draft_k, ngram=self.draft_ngram,
                            window=self.draft_ring):
@@ -448,7 +477,8 @@ class ServingEngine:
             self.kv, max_slots=max_slots, token_budget=self.token_budget,
             clock=clock, draft_k=self.draft_k, draft_fn=windowed_draft,
             device_draft=self.speculation_mode == "device",
-            prefix_cache=self.prefix_cache, reserve_region=self._sparse)
+            prefix_cache=self.prefix_cache, adapter_cache=self.adapters,
+            reserve_region=self._sparse)
         # the verify region's group -> slot map
         self._region_slots = torch.arange(max_slots, dtype=torch.int32,
                                           device=self.device)
@@ -457,18 +487,23 @@ class ServingEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         # cast float params to the compute dtype ONCE, on the engine's
-        # device (a per-step cast would re-read every parameter)
-        cdt = getattr(torch, model.compute_dtype)
+        # device (a per-step cast would re-read every parameter); the
+        # integer weights of a weight-only stack stay integers
         with torch.no_grad():
-            def cast(t):
-                return t.detach().to(self.device, cdt)
+            def cast(t, name=None):
+                return _cast_param(name, t.detach().to(self.device), cdt)
             self._we = cast(model.word_embeddings.weight)
             self._pe = cast(model.position_embeddings.weight)
-            self._layers = [{n: cast(p) for n, p in
+            self._layers = [{n: cast(p, n) for n, p in
                              dec.layer_params(li).items()}
                             for li in range(L)]
             self._lnf = (cast(model.ln_f.weight), cast(model.ln_f.bias))
             self._head = cast(model.lm_head.weight)
+        if self.adapters is not None:
+            # each layer reads its views of the slot tensors, which
+            # adapter loads write in place
+            for li, pl in enumerate(self._layers):
+                pl.update(self.adapters.layer_tensors(li))
         self.num_experts = self.cfg.num_experts
         # engine-side weight-only experts: the compute-dtype copies in
         # self._layers are quantized in place, and the step's cfg
@@ -546,13 +581,15 @@ class ServingEngine:
     # ------------------------------------------------------- mixed step
     @torch.no_grad()
     def _mixed_step(self, token_ids, slot_ids, positions, block_tables,
-                    sample_index, counts=None):
+                    sample_index, counts=None, adapter_ids=None):
         """One fixed-shape step: [T] tokens -> (outputs, the MoE routing
         stats or None), with the pools updated in place. Outputs: the
         [S] sampled tokens; with speculation also the verify region's
         [S, K] scores — greedy (tok, tok_v), sampling (tok, tok_v,
         tok_res, acc), see `_verify_head`. `counts` [S, Vb]: the penalty
-        histogram (penalized sampling only). Stats: per-expert counts
+        histogram (penalized sampling only). `adapter_ids` [T]: each
+        token's adapter slot (adapter engines only), one one-hot for
+        every layer. Stats: per-expert counts
         and drops summed over the layers (fp32), the balance loss
         averaged over them."""
         cfg, BS = self.cfg, self.block_size
@@ -575,6 +612,11 @@ class ServingEngine:
                                block_tables, self.sparse_table_width,
                                self._sparse_recent, BS)
                   if self._sparse else None)
+        lora_oh = None
+        if adapter_ids is not None:
+            slots = torch.arange(self.adapters.max_adapters,
+                                 device=adapter_ids.device)
+            lora_oh = (adapter_ids.long()[:, None] == slots).float()
         for li, pl in enumerate(self._layers):
             scales = (kv.k_scale[li], kv.v_scale[li]) if kv.quantized \
                 else (None, None)
@@ -583,13 +625,13 @@ class ServingEngine:
             h, st = _mixed_layer(cfg, pl, h, kv.k_pool[li], kv.v_pool[li],
                                  wb, wo, block_tables, slot_ids, pos,
                                  *scales, kv.kv_dtype, K, self._region_slots,
-                                 summaries, sparse)
+                                 summaries, sparse, lora_oh)
             if st is not None:
                 moe = st if moe is None else \
                     {k: moe[k] + st[k] for k in moe}
         xf = _ln(h, *self._lnf, cfg.epsilon)
         h_last = xf[sample_index.clamp(0, T - 1)]      # [S, D]
-        logits = _mm(h_last, self._head)
+        logits = _mm(cfg, h_last, self._head)
         tok = select_token(logits, self.sampling, self._gen, counts=counts)
         if moe is not None:
             moe["aux"] = moe["aux"] / float(len(self._layers))
@@ -617,7 +659,7 @@ class ServingEngine:
         (which holds fed token 0 already) plus fed tokens 1..j."""
         S, K = self.kv.max_slots, self.draft_k + 1
         R = S * K
-        lv = _mm(xf[:R], self._head).float().reshape(S, K, -1)
+        lv = _mm(self.cfg, xf[:R], self._head).float().reshape(S, K, -1)
         fed = token_ids[:R].reshape(S, K).long()
         if counts is not None:
             Vb = counts.shape[-1]
@@ -645,9 +687,22 @@ class ServingEngine:
         return tok_v, tok_res, acc
 
     # ------------------------------------------------------------ host
-    def submit(self, prompt_ids, max_new_tokens=32, deadline=None):
+    def register_adapter(self, adapter_id, weights):
+        """Register a LoRA finetune's host weights (see
+        `adapters.AdapterCache.register`); device slots are claimed at
+        admission."""
+        if self.adapters is None:
+            raise ValueError(
+                "this engine was built without adapter support "
+                "(ServingEngine(max_adapters=...))")
+        return self.adapters.register(adapter_id, weights)
+
+    def submit(self, prompt_ids, max_new_tokens=32, deadline=None,
+               adapter_id=None):
         """Queue one request. Returns the scheduler's Request handle
-        (read `.output` / `.state` as the engine advances)."""
+        (read `.output` / `.state` as the engine advances). `adapter_id`
+        names a registered LoRA adapter (None: the base model, the tokens
+        of an engine without adapters)."""
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -657,9 +712,36 @@ class ServingEngine:
                 f"prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds max_position_embeddings "
                 f"({maxpos})")
+        if adapter_id is not None:
+            if self.adapters is None:
+                raise ValueError(
+                    "request names an adapter but this engine was "
+                    "built without adapter support (max_adapters=0)")
+            if not self.adapters.known(adapter_id):
+                raise ValueError(
+                    f"adapter {adapter_id!r} is not registered on "
+                    "this engine (register_adapter first)")
         return self.scheduler.submit(prompt, max_new_tokens,
                                      eos_token_id=self.eos_token_id,
-                                     deadline=deadline)
+                                     deadline=deadline,
+                                     adapter_id=adapter_id)
+
+    def _slot_adapters(self):
+        """[max_slots] int32: each resident slot's pinned adapter slot (0
+        for a free slot or a base-model request)."""
+        slot_ad = np.zeros(self.kv.max_slots, np.int32)
+        for s, req in enumerate(self.scheduler.slots):
+            if req is not None:
+                slot_ad[s] = req.adapter_slot
+        return slot_ad
+
+    def _adapter_token_ids(self, sp):
+        """[T] int32 adapter slot ids of one packed step: each token takes
+        its slot's pinned adapter slot, padding the null slot 0."""
+        slot_ad = self._slot_adapters()
+        return np.where(sp.slot_ids >= 0,
+                        slot_ad[np.clip(sp.slot_ids, 0, None)],
+                        0).astype(np.int32)
 
     def _emit(self, req, tokens, now):
         """Append generated tokens; finish the request at EOS or its
@@ -731,7 +813,11 @@ class ServingEngine:
         if self._penalized:
             inputs.append(
                 torch.from_numpy(self._penalty_counts()).to(self.device))
-        outs, moe = self._mixed_step(*inputs)
+        lora = {}
+        if self.adapters is not None:
+            lora["adapter_ids"] = torch.from_numpy(
+                self._adapter_token_ids(sp)).to(self.device)
+        outs, moe = self._mixed_step(*inputs, **lora)
         # every output (and the MoE stats) rides one copy to the host
         parts = list(outs)
         if moe is not None:
@@ -881,6 +967,9 @@ class ServingEngine:
         if K > 1:
             host["ring"], host["ring_len"] = self._token_ring(
                 self.draft_ring)
+        if self.adapters is not None:
+            host["adapter_ids"] = self._adapter_token_ids(sp)
+            host["slot_ad"] = self._slot_adapters()
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                for k, v in host.items()}
         ctl, gen_states = self._run_ticks(dev, n)
@@ -957,7 +1046,9 @@ class ServingEngine:
         slot `eos` (-1 = none), `remain` (tokens left to its horizon) and
         `cap` (its preallocated capacity), and as the engine needs them
         the penalty `counts` with their window ring (`pen_ring`,
-        `pen_len`) and the draft ring (`ring`, `ring_len`).
+        `pen_len`), the draft ring (`ring`, `ring_len`), and the packed
+        plan's adapter slot ids (`adapter_ids`) with each slot's
+        (`slot_ad`), which a later tick's rebuilt tokens take.
 
         Tick 0 takes the packed plan; a later tick rebuilds the pure-
         decode inputs at the pack-time anchors (`sample_index`, or with
@@ -988,6 +1079,8 @@ class ServingEngine:
                                           d["positions"])
         block_tables, anchors = d["block_tables"], d["sample_index"]
         eos, remain, cap = d["eos"], d["remain"], d["cap"]
+        adapter_ids, slot_ad = d.get("adapter_ids"), d.get("slot_ad")
+        aid = None
         slot_iota = torch.arange(S, device=dev)
         iota_k = torch.arange(K, device=dev)[None, :]
         if K == 1:
@@ -1052,6 +1145,10 @@ class ServingEngine:
                     pid = scattered(torch.zeros_like(positions), at,
                                     cur_pos)
                     si = torch.where(live, anchors, -1)
+                if slot_ad is not None:
+                    aid = (adapter_ids if t == 0 else
+                           scattered(torch.zeros_like(adapter_ids), at,
+                                     slot_ad))
             else:
                 drafts = ngram_propose_device(
                     ring_chronological(ring[:, :Wr], ring_len), ring_len,
@@ -1072,10 +1169,14 @@ class ServingEngine:
                                 else torch.zeros_like(positions), at,
                                 (cur_pos[:, None] + iota_k).reshape(-1))
                 si = anchors if first else torch.full_like(anchors, -1)
+                if slot_ad is not None:
+                    aid = scattered(adapter_ids if first
+                                    else torch.zeros_like(adapter_ids), at,
+                                    slot_ad[:, None].expand(S, K).reshape(-1))
             if sampling:
                 gen_states.append(self._gen.get_state())
             outs, moe = self._mixed_step(tid, sid, pid, block_tables, si,
-                                         cnt)
+                                         cnt, aid)
             if K == 1:
                 tok = outs[0]
                 emitted = tok[:, None]

@@ -32,9 +32,15 @@ block-pressure preemption against the paged KV cache:
 * **Reserved decode region** — `reserve_region` (block-sparse decode)
   keeps the per-slot decode region's tokens out of the prefill budget
   at `draft_k == 0` too, as speculation does.
+* **Adapters** — with an `adapter_cache` (`adapters.py`), admission pins
+  the queue head's adapter into a device slot (`Request.adapter_slot`)
+  and blocks at the head while every slot is pinned; `_free_slot` drops
+  the pin on every path (finish, preempt, expire, cancel). Requests
+  under a non-null adapter bypass the prefix cache: their K/V depends
+  on the adapter, and the radix tree keys by token ids alone.
 
-Pure host-side bookkeeping. The adapter, migration and tracing hooks of
-the JAX scheduler wait for later slices (ROADMAP.md).
+Pure host-side bookkeeping. The migration and tracing hooks of the JAX
+scheduler wait for later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -63,6 +69,8 @@ class Request:                     # in sets/queues across state moves
     fed: int = 0                      # runtime-prompt tokens fed so far
     preemptions: int = 0
     cache_hit_tokens: int = 0         # prefix-cache tokens skipped
+    adapter_id: object = None         # a registered LoRA adapter, or None
+    adapter_slot: int = 0             # its pinned device slot (0 = null)
     submit_time: float = 0.0
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
@@ -93,7 +101,7 @@ class Scheduler:
     def __init__(self, kv_cache, *, max_slots, token_budget,
                  clock=time.monotonic, draft_k=0, draft_fn=None,
                  device_draft=False, prefix_cache=None,
-                 reserve_region=False):
+                 adapter_cache=None, reserve_region=False):
         self.kv = kv_cache
         self.max_slots = max_slots
         self.token_budget = token_budget
@@ -108,6 +116,9 @@ class Scheduler:
         # the radix prefix cache: admission skips cached prompt heads,
         # prefill completion and finish publish the written blocks
         self.prefix_cache = prefix_cache
+        # the LoRA adapter cache: admission pins a request's adapter
+        # into a device slot, `_free_slot` releases the pin
+        self.adapters = adapter_cache
         # block-sparse decode reserves the per-slot decode region even
         # at draft_k == 0: prefill budgets treat it as spoken for
         self.reserve_region = bool(reserve_region)
@@ -118,17 +129,20 @@ class Scheduler:
 
     # ---------------------------------------------------------- intake
     def submit(self, prompt, max_new_tokens, eos_token_id=None,
-               deadline=None):
+               deadline=None, adapter_id=None):
         total = len(prompt) + max_new_tokens - 1  # last token never fed
         if total > self.kv.max_slot_tokens:
             raise ValueError(
                 f"request needs {total} cached tokens; a slot holds at "
                 f"most {self.kv.max_slot_tokens}")
+        if adapter_id is not None and self.adapters is None:
+            raise ValueError("request names an adapter but the "
+                             "scheduler has no adapter cache")
         now = self.clock()
         req = Request(req_id=next(self._ids), prompt=list(prompt),
                       max_new_tokens=int(max_new_tokens),
                       eos_token_id=eos_token_id, deadline=deadline,
-                      arrival=now, submit_time=now)
+                      arrival=now, submit_time=now, adapter_id=adapter_id)
         self.queue.append(req)
         return req
 
@@ -144,6 +158,12 @@ class Scheduler:
     def _free_slot(self, req):
         if self.prefix_cache is not None:
             self.prefix_cache.unlock_slot(req.slot)
+        if self.adapters is not None and req.adapter_id is not None:
+            # every release path comes through here, so each admission's
+            # pin is dropped exactly once; the adapter stays resident
+            # until LRU eviction needs its slot
+            self.adapters.release(req.adapter_id)
+            req.adapter_slot = 0
         self.kv.release_slot(req.slot)
         self.slots[req.slot] = None
         req.slot = -1
@@ -165,21 +185,39 @@ class Scheduler:
                 expired.append(req)
         return expired
 
+    def _acquire_adapter(self, req):
+        """Pin the queue head's adapter into a device slot. True on
+        success (or no adapter); False when every slot is pinned by
+        in-flight requests: admission then blocks at the head until one
+        finishes."""
+        if self.adapters is None or req.adapter_id is None:
+            req.adapter_slot = 0
+            return True
+        slot_a = self.adapters.acquire(req.adapter_id)
+        if slot_a is None:
+            return False
+        req.adapter_slot = int(slot_a)
+        return True
+
     def _admit(self):
         for slot in range(self.max_slots):
             if not self.queue:
                 break
             if self.slots[slot] is None:
+                if not self._acquire_adapter(self.queue[0]):
+                    break
                 req = self.queue.popleft()
                 req.slot = slot
                 req.state = "prefill"
                 req.fed = 0
                 self.slots[slot] = req
-                if self.prefix_cache is not None:
+                if self.prefix_cache is not None \
+                        and req.adapter_id is None:
                     # a cached prompt head: adopt its blocks, count their
                     # K/V as resident, and prefill from the first
                     # uncached token (a preempted request's re-admission
-                    # usually hits its own published blocks)
+                    # usually hits its own published blocks); adapter
+                    # requests bypass the tree
                     hit = self.prefix_cache.lookup_and_adopt(
                         slot, req.runtime_prompt)
                     req.fed = hit
@@ -333,8 +371,10 @@ class Scheduler:
             if completes and self.prefix_cache is not None:
                 # the whole prompt's K/V is resident: publish its full
                 # blocks, so that same-head requests admitted later hit
+                # (base-model requests only: adapter K/V never enters
+                # the token-keyed tree)
                 req = self.slots[slot]
-                if req is not None:
+                if req is not None and req.adapter_id is None:
                     self.prefix_cache.insert(slot, req.runtime_prompt)
 
     def note_accept(self, slot, new_len):
@@ -347,7 +387,8 @@ class Scheduler:
     def finish(self, req, now=None):
         req.state = "finished"
         req.finish_time = self.clock() if now is None else now
-        if self.prefix_cache is not None and req.slot >= 0:
+        if self.prefix_cache is not None and req.slot >= 0 \
+                and req.adapter_id is None:
             # publish prompt + output (a conversation's next turn
             # replays it); only tokens whose K/V was written count — the
             # last emitted token was never fed

@@ -2361,3 +2361,199 @@ def test_paged_sparse_matches_plain(K, qdtype, pool, cuda_device):
     assert torch.isfinite(got).all()
     assert bool(((got - ref).abs() <= tol * (1 + ref.abs())).all()), \
         float((got - ref).abs().max())
+
+
+# --------------------- weight-only projections (K4 at one group), LoRA
+
+_WO_SHAPES = {"qkv": (1024, 3072), "out": (1024, 1024),
+              "ffn1": (1024, 4096), "ffn2": (4096, 1024)}
+
+
+def _wo_case(T, D, F, xdt, device, seed=0):
+    """(x [T, D], int8 w [D, F], scale [F]) as a weight-only stack holds
+    them in an engine of compute dtype `xdt` (scales cast to it)."""
+    from paddle_tpu_torch.incubate.nn.fused_transformer import \
+        _quantize_stack
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(T, D, generator=g).to(xdt)
+    q, s = _quantize_stack(torch.randn(1, D, F, generator=g) / math.sqrt(D),
+                           8)
+    return x.to(device), q[0].to(device), s[0].to(xdt).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [256, 1, 7])
+@pytest.mark.parametrize("proj", list(_WO_SHAPES))
+@pytest.mark.parametrize("xdt,tol", [(torch.bfloat16, 2e-2),
+                                     (torch.float32, 1e-4)])
+def test_weight_only_mm_runs_k4_and_matches_plain(T, proj, xdt, tol,
+                                                  cuda_device):
+    """`_mm` with a scale on a CUDA tensor launches K4 once at one group
+    (counted as a dense launch, not an expert one), gives the same bits
+    twice, and matches the plain formula on the card: |kernel - plain|
+    <= tol (1 + |plain|), tol as the grouped products'."""
+    from paddle_tpu_torch.incubate.nn.fused_transformer import _MTConfig, _mm
+    D, F = _WO_SHAPES[proj]
+    x, w, s = _wo_case(T, D, F, xdt, cuda_device)
+    cfg = _MTConfig(num_layers=1, num_heads=16, head_dim=64, dim_ff=4096,
+                    quant_bits=8)
+    counts = {n: getattr(tgmm, n) for n in (
+        "dense_launch_count", "int8_launch_count", "int4_launch_count",
+        "fp_launch_count")}
+    got = _mm(cfg, x, w, s)
+    torch.cuda.synchronize()
+    for name, before in counts.items():
+        assert getattr(tgmm, name) == before + (name == "dense_launch_count")
+    assert got.shape == (T, F) and got.dtype == xdt
+    assert torch.equal(_mm(cfg, x, w, s), got)
+    plain = torch.matmul(x, tgmm.dequantize(w, s, D, xdt, 127.0))
+    got, plain = got.float(), plain.float()
+    assert torch.isfinite(got).all()
+    assert bool(((got - plain).abs() <= tol * (1 + plain.abs())).all()), \
+        float((got - plain).abs().max())
+    # a [B, S, D] input keeps its leading axes
+    got3 = _mm(cfg, x[None], w, s)
+    assert got3.shape == (1, T, F)
+
+
+@pytest.mark.cuda
+def test_weight_only_mm_refuses_on_card(cuda_device):
+    """A CUDA operand K4 cannot take raises; nothing falls back."""
+    x, w, s = _wo_case(8, 64, 48, torch.bfloat16, cuda_device)
+    before = tgmm.dense_launch_count
+    with pytest.raises(TypeError):               # a float weight
+        tgmm.weight_only_matmul(x, w.to(torch.bfloat16), s)
+    with pytest.raises(TypeError):               # a scale of the wrong width
+        tgmm.weight_only_matmul(x, w, s[:-1].contiguous())
+    with pytest.raises(ValueError):              # a weight of other depth
+        tgmm.weight_only_matmul(x, w[:32].contiguous(), s)
+    with pytest.raises(ValueError):              # operands on two devices
+        tgmm.weight_only_matmul(x, w.cpu(), s)
+    assert tgmm.dense_launch_count == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moe", [None, "int8", "int4"])
+def test_engine_never_casts_integer_weights(moe, cuda_device):
+    """A bf16 engine over a weight-only stack keeps the int8 (packed
+    int4) weights as the model's own tensors, not copies, casts the fp32
+    scales to bf16 (fp16 int4 scales stay), and every decode step runs
+    the dense projections through K4: 4 a layer dense, 2 a layer MoE."""
+    torch.manual_seed(0)
+    kw = {} if moe is None else dict(moe=dict(
+        num_expert=4, top_k=2, capacity_factor=1.25,
+        moe_quant_bits=4 if moe == "int4" else None))
+    m = GPTForGeneration(vocab_size=193, hidden_size=128, num_layers=2,
+                         num_attention_heads=2, max_position_embeddings=128,
+                         weight_only=True, compute_dtype="bfloat16",
+                         device=cuda_device, **kw)
+    eng = ServingEngine(m, max_slots=2, block_size=16, max_seq_len=64,
+                        cache_dtype="bfloat16", device=cuda_device)
+    for li, pl in enumerate(eng._layers):
+        for n in ("qkv_w", "out_w", "ffn1_w", "ffn2_w"):
+            assert pl[n].dtype == torch.int8
+            assert pl[n].data_ptr() == getattr(m.decoder, n)[li].data_ptr()
+        assert pl["qkv_s"].dtype == torch.bfloat16
+        assert pl["ffn1_s"].dtype == (torch.float16 if moe == "int4"
+                                      else torch.bfloat16)
+    before = tgmm.dense_launch_count
+    out = eng.generate_batch([[5, 9, 23], [7, 1]], max_new_tokens=4)
+    assert all(len(o) == 4 for o in out)
+    assert tgmm.dense_launch_count - before == \
+        eng.steps_run * 2 * (4 if moe is None else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_lora_delta_on_card_matches_cpu(dtype, tol, cuda_device):
+    """`_lora_delta` on the card against the CPU at the serving widths
+    (T 256, d 1024 -> 3072, rank 16, 3 slots): fp32 within 1e-5 (1 +
+    |x|); the null slot's rows exactly 0 on both."""
+    from paddle_tpu_torch.incubate.nn.fused_transformer import _lora_delta
+    g = torch.Generator().manual_seed(0)
+    T, K, D, F, r = 256, 3, 1024, 3072, 16
+    x = torch.randn(T, D, generator=g).to(dtype)
+    a = (torch.randn(K, D, r, generator=g) * 0.05).to(dtype)
+    b = (torch.randn(K, r, F, generator=g) * 0.05).to(dtype)
+    a[0] = 0
+    b[0] = 0
+    ids = torch.randint(0, K, (T,), generator=g)
+    oh = (ids[:, None] == torch.arange(K)).float()
+    want = _lora_delta(x, a, b, oh)
+    got = _lora_delta(*(t.to(cuda_device) for t in (x, a, b, oh))).cpu()
+    assert got.dtype == dtype
+    assert not got[ids == 0].any() and not want[ids == 0].any()
+    got, want = got.float(), want.float()
+    assert bool(((got - want).abs() <= tol * (1 + want.abs())).all()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_adapter_engine_on_card_matches_cpu(cuda_device):
+    """A small fp32 model with three tenants on two usable slots, served
+    on the card and on the CPU at 1 and 4 ticks: the same greedy tokens
+    and adapter counters; null requests equal to an engine without
+    adapters; pins and blocks back after the drain."""
+    from paddle_tpu_torch.serving.adapters import make_random_adapter
+    torch.manual_seed(0)
+    kw = dict(vocab_size=193, hidden_size=128, num_layers=2,
+              num_attention_heads=2, max_position_embeddings=128)
+    cpu = GPTForGeneration(device="cpu", **kw)
+    card = GPTForGeneration(device=cuda_device, **kw)
+    card.load_state_dict(cpu.state_dict())
+    ads = {t: make_random_adapter(cpu.decoder, 8, seed=i, scale=0.2)
+           for i, t in enumerate(("a", "b", "c"))}
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 193, n).tolist() for n in (9, 5, 30, 3, 17)]
+    mix = ["a", None, "b", "c", "a"]
+    for ticks in (1, 4):
+        outs = {}
+        for dev, m in ((cuda_device, card), ("cpu", cpu)):
+            eng = ServingEngine(m, max_slots=3, block_size=16,
+                                max_seq_len=64, cache_dtype="float32",
+                                max_adapters=3, lora_rank=8,
+                                ticks_per_dispatch=ticks, device=dev)
+            for t, w in ads.items():
+                eng.register_adapter(t, w)
+            reqs = [eng.submit(p, 8, adapter_id=t)
+                    for p, t in zip(prompts, mix)]
+            eng.run()
+            assert eng.adapters.total_pins == 0
+            assert eng.kv.blocks_in_use == 0
+            c = eng.adapters
+            outs[str(dev)] = ([list(r.output) for r in reqs],
+                              (c.cache_hits, c.cache_misses, c.evictions))
+        assert outs[str(cuda_device)] == outs["cpu"]
+        assert outs["cpu"][1][2] >= 1
+    base = ServingEngine(card, max_slots=3, block_size=16, max_seq_len=64,
+                         cache_dtype="float32", device=cuda_device)
+    want = base.generate_batch([prompts[1]], max_new_tokens=8)
+    assert outs[str(cuda_device)][0][1] == want[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moe", [None, "int4"])
+def test_weight_only_engine_on_card_matches_cpu(moe, cuda_device):
+    """A small fp32 weight-only model (dense; int8 attention with int4
+    experts) on the card (K4 for every projection) and on the CPU (the
+    plain formula): the same greedy tokens."""
+    torch.manual_seed(0)
+    kw = dict(vocab_size=193, hidden_size=128, num_layers=2,
+              num_attention_heads=2, max_position_embeddings=128,
+              weight_only=True)
+    if moe:
+        kw["moe"] = dict(num_expert=4, top_k=2, capacity_factor=1.25,
+                         moe_quant_bits=4)
+    cpu = GPTForGeneration(device="cpu", **kw)
+    card = GPTForGeneration(device=cuda_device, **kw)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 193, n).tolist() for n in (9, 5, 30, 3)]
+    ekw = dict(max_slots=4, block_size=16, max_seq_len=64,
+               cache_dtype="float32")
+    want = ServingEngine(cpu, device="cpu", **ekw).generate_batch(
+        prompts, max_new_tokens=8)
+    got = ServingEngine(card, device=cuda_device, **ekw).generate_batch(
+        prompts, max_new_tokens=8)
+    assert got == want

@@ -277,10 +277,10 @@ def test_refusals(models):
         load_jax_gpt(dict(arrays, ffn1_s=np.ones((LAYERS, E, 4 * HIDDEN),
                                                   np.float32)),
                      HEADS, moe=moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="bits"):
         GPTForGeneration(vocab_size=17, hidden_size=8, num_layers=1,
                          num_attention_heads=2, weight_only=True,
-                         device="cpu")
+                         moe=dict(moe, moe_quant_bits=2), device="cpu")
     with pytest.raises(ValueError, match="ep_size"):
         tft.FusedMultiTransformerMoe(8, 2, 16, num_layers=1, ep_size=2,
                                      device="cpu")

@@ -381,15 +381,16 @@ def test_speculative_top_k_one_sampling_equals_greedy(models):
 
 
 def test_unported_options_raise(models):
-    """Adapters are not an argument yet; block-sparse decode, the prefix
-    cache, penalized sampling and the multi-tick dispatch are ported
-    and build (tests/test_torch_sparse_kv, test_torch_prefix_cache,
-    test_torch_penalties and test_torch_multitick hold them); bad
-    values raise."""
+    """Adapters, block-sparse decode, the prefix cache, penalized
+    sampling and the multi-tick dispatch are ported and build
+    (tests/test_torch_adapters, test_torch_sparse_kv,
+    test_torch_prefix_cache, test_torch_penalties and
+    test_torch_multitick hold them); bad values raise."""
     _, tm = models
     kw = dict(max_slots=2, block_size=8, max_seq_len=64, device="cpu")
-    with pytest.raises(TypeError, match="max_adapters"):
-        ServingEngine(tm, max_adapters=2, **kw)
+    assert ServingEngine(tm, max_adapters=2, **kw).adapters.max_adapters == 2
+    with pytest.raises(ValueError, match="max_adapters"):
+        ServingEngine(tm, max_adapters=1, **kw)
     # 8 blocks a slot: the first, 2 recent and 4 selected take 7
     assert ServingEngine(tm, sparse_blocks=4, **kw).sparse_table_width == 7
     assert ServingEngine(tm, prefix_caching=True, **kw).prefix_cache
