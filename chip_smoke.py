@@ -8,7 +8,9 @@ it speculatively over bf16, int8 and fp8 KV pools, serving it with
 several decode ticks a dispatch and with penalties, with the radix
 prefix cache and with block-sparse decode, with LoRA adapters and as a
 weight-only int8 stack, serving the
-8-expert MoE-350M with float, int8 and int4 experts, the train step
+8-expert MoE-350M with float, int8 and int4 experts, serving both
+with tensor (and expert) parallelism over ranks on the one card, the
+train step
 (with and without the fused QKV projection), the paddle-layout
 `flash_attention()` entry, the `wgrad_1x1` entry, BERT-base
 inference over padded batches and BERT-base pretraining through
@@ -55,7 +57,11 @@ each (or a few):
    trailing, left and interleaved padding, fp32 and causal too, the
    forward also at S = 77 and 200 and over a sequence of full length
    beside one of length 1, both with the share of tile pairs their
-   segment ranges keep), with
+   segment ranges keep; and at a tensor-parallel rank's shapes
+   (`check_tp_shapes`): the paged kernel's ragged and verify entries at
+   8 heads, K4 at one group at the shard widths and the grouped expert
+   matmuls at [4, 80, 1024] x [1024, 2048] and [4, 80, 2048] x [2048,
+   1024]), with
    times (CUDA events,
    L2 flushed
    between launches), the card's bound for the same work and, where one
@@ -138,8 +144,8 @@ each (or a few):
    step beside phase 4's, two requests within the near-tie oracle of
    its own fp32 forward; and (after phase 5b) MoE-350M as
    `FusedMultiTransformerMoeWeightOnly` (int8 attention, int4 experts)
-   on 8 requests: dense launches steps x 48 and int4 expert launches
-   steps x 48, counted apart;
+   on 8 requests: dense launches steps x 2L and int4 expert launches
+   steps x 2L (L = MOE_LAYERS), counted apart;
 5l. on-card LoRA and weight-only check — fp32, 2 layers at full width,
    at 1 and 4 ticks, card against a CPU copy: a tenant mix with churn
    (tokens and adapter counters), the base-model requests on an adapter
@@ -148,8 +154,9 @@ each (or a few):
    equal unless the first difference sat at an fp32 top-2 gap under
    1e-5 (the weight-only MoE engine is held in phase 5c);
 5b. serve MoE — MoE-350M (bench_gpt_moe's widths: GPT-350M with every
-   FFN 8 experts, top-2, capacity factor 1.25; random weights from a
-   numpy seed through `convert.load_jax_gpt(moe=...)`) served by three
+   FFN 8 experts, top-2, capacity factor 1.25; depth cut to MOE_LAYERS
+   = L = 12; random weights from a numpy seed through
+   `convert.load_jax_gpt(moe=...)`) served by three
    engines in turn, `moe_weight_dtype` None, "int8" and "int4", each
    taking the dense phase's 16 requests: every request finishes, paged
    attention launched once and the engine's grouped-matmul variant twice
@@ -157,9 +164,9 @@ each (or a few):
    two choices are counted or dropped; then a profiled decode window of
    each engine, with the grouped matmuls' share of its device time; and
    the float experts at 4 ticks a dispatch (sync debug on): the float
-   1-tick engine's tokens, paged attention issued ticks x 24 and the
-   float grouped matmul issued ticks x 48 launches, routed + dropped =
-   2 x 24 x valid tokens over the ticks that counted; then phase 5k's
+   1-tick engine's tokens, paged attention issued ticks x L and the
+   float grouped matmul issued ticks x 2L launches, routed + dropped =
+   2 x L x valid tokens over the ticks that counted; then phase 5k's
    weight-only MoE engine;
 5c. on-card MoE check — fp32, 2 layers at full width, float and int8
    experts, and the weight-only stack (int8 attention, int4 experts) at
@@ -167,6 +174,24 @@ each (or a few):
    (plain versions) give the same greedy tokens, unless the first
    expert choice that differs, at or before the first differing token,
    sat at a near-tie of the top-k gate boundary (reported as the cause);
+5m. serve TP — every rank a process on the one card, joined over gloo
+   (NCCL takes a card a rank): GPT-350M at full depth, bf16, by
+   `TPServingEngine(tensor_parallel=2)` on 2 ranks, the 16 requests:
+   each rank's paged launches exactly steps x 24 at its 8 heads,
+   every rank's tokens equal, rank 0's within phase 5's near-tie
+   oracle, a profiled decode window on each rank (host and device ms a
+   step printed beside phase 4's 1-rank engine; the ranks share the
+   card, so these are not TP speed); then MoE-350M's widths at
+   MOE_TP_LAYERS layers with int8 experts at tp = 2 x ep = 2 on 4 ranks:
+   paged launches steps x L, gmm_int8 steps x 2L, routed + dropped = 2 x
+   L x valid tokens on every rank, every rank's tokens and routing
+   counts equal, beside the 1-rank engine of the same model;
+5n. on-card TP check — fp32, 2 layers at full width: TP engines (tp = 2
+   with draft_k=3; the weight-only int8 stack at tp = 2, K4's dense
+   route at the shard widths; MoE float experts at tp = 2 x ep = 2),
+   launches held, each equal to the card's 1-rank engine and to a CPU
+   copy unless the first differing token sat at an fp32 top-2 gap under
+   1e-5; a failed rank fails the script;
 6. train — GPT-350M at full width in `bench_gpt`'s exact config (bf16,
    bf16 grads, remat with remat_policy="save_splash_residuals", fused
    CE in 4 chunks) trained by the port's `HybridGPT` at batch 8 for
@@ -240,8 +265,11 @@ N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, (64, 512), 64
 SEED = 0
 
 # MoE-350M: bench.py's bench_gpt_moe (GPT-350M widths, every FFN 8
-# experts, top-2, capacity factor 1.25)
+# experts, top-2, capacity factor 1.25), served at half its depth (the
+# widths, and so every kernel's shapes, are whole) to keep the script
+# inside its time limit
 MOE = dict(num_expert=8, top_k=2, capacity_factor=1.25)
+MOE_LAYERS = 12
 
 # GPT-350M train step: bench.py's bench_gpt TPU config at batch 8 (its
 # own batch, 32, is timed after it)
@@ -2243,8 +2271,9 @@ def serve_moe_weight_only(model, device, counters, prompts):
     """Phase 5k, MoE: `FusedMultiTransformerMoeWeightOnly` at MoE-350M
     widths (phase 5b's weights: int8 attention, packed int4 experts with
     fp16 scales) on 8 of the requests: every request finishes, the dense
-    K4 launches (attention) steps x 48 and the int4 expert launches steps
-    x 48, counted apart, paged attention steps x 24, nothing else."""
+    K4 launches (attention) steps x 2L and the int4 expert launches steps
+    x 2L, counted apart, paged attention steps x L (L = MOE_LAYERS),
+    nothing else."""
     import torch
     from paddle_tpu_torch.serving.engine import ServingEngine
     wo = weight_only_copy(model, device, moe=dict(MOE, moe_quant_bits=4))
@@ -2265,9 +2294,9 @@ def serve_moe_weight_only(model, device, counters, prompts):
           f"{run['generated'] / run['wall']:.1f} tokens/s, mean TTFT "
           f"{run['ttft'] * 1e3:.1f} ms; launches " + ", ".join(
               f"{n} {k}" for n, k in got.items() if k), flush=True)
-    want = {"paged_attention": run["steps"] * LAYERS,
-            "gmm_int8_dense": run["steps"] * 2 * LAYERS,
-            "gmm_int4": run["steps"] * 2 * LAYERS}
+    want = {"paged_attention": run["steps"] * MOE_LAYERS,
+            "gmm_int8_dense": run["steps"] * 2 * MOE_LAYERS,
+            "gmm_int4": run["steps"] * 2 * MOE_LAYERS}
     for name, n in got.items():
         if n != want.get(name, 0):
             fail(f"{label}: {name} launched {n} times, expected "
@@ -2431,7 +2460,8 @@ def serve_moe(device, counters):
     E, k = MOE["num_expert"], MOE["top_k"]
     D, F = HIDDEN, 4 * HIDDEN
     t0 = time.perf_counter()
-    model = load_jax_gpt(random_gpt_arrays(SEED + 8, experts=E), HEADS,
+    model = load_jax_gpt(random_gpt_arrays(SEED + 8, layers=MOE_LAYERS,
+                                           experts=E), HEADS,
                          moe=MOE, compute_dtype="bfloat16", device=device,
                          dtype=torch.bfloat16)
     n_params = sum(p.numel() for p in model.parameters())
@@ -2440,7 +2470,7 @@ def serve_moe(device, counters):
           f"{n_params} resident parameters, {n_expert} of them experts "
           f"({E} experts, top-{k}, capacity factor "
           f"{MOE['capacity_factor']}; vocab {VOCAB}, hidden {HIDDEN}, "
-          f"{LAYERS} layers, {HEADS} heads, bf16)", flush=True)
+          f"{MOE_LAYERS} layers, {HEADS} heads, bf16)", flush=True)
     prompts = serve_prompts()
     variant = {None: "gmm_fp", "int8": "gmm_int8", "int4": "gmm_int4"}
     launches, float_out = {}, None
@@ -2476,8 +2506,8 @@ def serve_moe(device, counters):
         ttft = sum(r.first_token_time - r.submit_time for r in reqs) \
             / len(reqs)
         wdt = fmt or "bfloat16"
-        wbytes = (expert_weight_bytes(E, D, F, wdt, LAYERS)
-                  + expert_weight_bytes(E, F, D, wdt, LAYERS))
+        wbytes = (expert_weight_bytes(E, D, F, wdt, MOE_LAYERS)
+                  + expert_weight_bytes(E, F, D, wdt, MOE_LAYERS))
         print(f"serve MoE {wdt} experts: expert_weight_bytes {wbytes} "
               f"({n_params} resident parameters); built in {build_s:.1f} s;"
               f" {steps} steps, {generated} generated tokens in {wall:.3f} "
@@ -2487,7 +2517,7 @@ def serve_moe(device, counters):
               f"{eng.scheduler.preemption_count}; {fed} valid tokens fed, "
               f"expert utilization entropy "
               f"{moe_utilization_entropy(counts):.4f}, dropped {dropped:.0f}"
-              f" of {k * LAYERS * fed} choices, last aux "
+              f" of {k * MOE_LAYERS * fed} choices, last aux "
               f"{eng.moe_last_aux:.4f}; tokens equal to the float "
               f"engine's {same}/{generated}; launches " + ", ".join(
                   f"{n} {got[n]}" for n in ("paged_attention", "gmm_fp",
@@ -2497,16 +2527,17 @@ def serve_moe(device, counters):
                for r in reqs):
             fail(f"serve MoE {wdt}: not every request finished with its "
                  "full horizon")
-        want = {"paged_attention": steps * LAYERS,
-                variant[fmt]: steps * 2 * LAYERS}
+        want = {"paged_attention": steps * MOE_LAYERS,
+                variant[fmt]: steps * 2 * MOE_LAYERS}
         for name, n in got.items():
             if n != want.get(name, 0):
                 fail(f"serve MoE {wdt}: {name} launched {n} times, "
                      f"expected {want.get(name, 0)} ({steps} steps)")
         if not np.all(np.isfinite(counts)) or \
-                counts.sum() + dropped != k * LAYERS * fed:
+                counts.sum() + dropped != k * MOE_LAYERS * fed:
             fail(f"serve MoE {wdt}: {counts.sum()} routed + {dropped} "
-                 f"dropped choices != {k} x {LAYERS} layers x {fed} tokens")
+                 f"dropped choices != {k} x {MOE_LAYERS} layers x {fed} "
+                 "tokens")
         launches[variant[fmt]] = got[variant[fmt]]
         profile_decode(eng, f"MoE-350M {fmt or 'float'} experts",
                        kernel="gmm")
@@ -2524,9 +2555,9 @@ def serve_moe_multitick(model, device, counters, prompts, want_out):
     """Phase 5b's multi-tick engine: MoE-350M with float experts at 4
     ticks a dispatch, every dispatch's ticks under
     `set_sync_debug_mode("error")`: the float 1-tick engine's tokens,
-    paged attention issued ticks x 24 and the float grouped matmul issued
-    ticks x 48 launches (nothing else), and routed + dropped = 2 x 24 x
-    valid tokens over the ticks that counted."""
+    paged attention issued ticks x L and the float grouped matmul issued
+    ticks x 2L launches (nothing else), and routed + dropped = 2 x L x
+    valid tokens over the ticks that counted (L = MOE_LAYERS)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.serving.engine import ServingEngine
@@ -2549,15 +2580,15 @@ def serve_moe_multitick(model, device, counters, prompts, want_out):
     print(multitick_line("MoE float experts", eng, run,
                          "phase 5b's float 1-tick engine", same, got)
           + f"; {run['fed']} valid tokens fed, dropped {dropped:.0f} of "
-          f"{k * LAYERS * run['fed']} choices; every dispatch's ticks ran "
+          f"{k * MOE_LAYERS * run['fed']} choices; every dispatch's ticks ran "
           "under set_sync_debug_mode('error')", flush=True)
     hold_multitick(label, eng, run, outputs, want_out, got,
-                   {"paged_attention": run["issued"] * LAYERS,
-                    "gmm_fp": run["issued"] * 2 * LAYERS})
+                   {"paged_attention": run["issued"] * MOE_LAYERS,
+                    "gmm_fp": run["issued"] * 2 * MOE_LAYERS})
     if not np.all(np.isfinite(counts)) or \
-            counts.sum() + dropped != k * LAYERS * run["fed"]:
+            counts.sum() + dropped != k * MOE_LAYERS * run["fed"]:
         fail(f"{label}: {counts.sum()} routed + {dropped} dropped choices "
-             f"!= {k} x {LAYERS} layers x {run['fed']} tokens")
+             f"!= {k} x {MOE_LAYERS} layers x {run['fed']} tokens")
     del eng
     torch.cuda.empty_cache()
 
@@ -4169,36 +4200,417 @@ def check_bert_train_on_card(device):
 # ---------------------------------------------------------------- main
 
 
-def main():
+# ------------------------------------------- phases 3 (TP), 5m and 5n
+
+# tensor-parallel serving: every rank a process on the one card over gloo
+# (NCCL takes one card a rank), so the ranks' kernels interleave on it and
+# their times are not TP speed. TP x EP MoE at a cut depth: four ranks
+# share the card and its host.
+TP, MOE_TP, MOE_EP, MOE_TP_LAYERS = 2, 2, 2, 4
+
+
+def check_tp_shapes(pa, gm, device, flush):
+    """Phase 3 at a TP rank's shapes (GPT-350M at tp = 2, MoE-350M at
+    tp = 2 x ep = 2): the paged kernel's ragged and verify entries over
+    8 heads (the rank's half of `paged_case` / `verify_case`: bf16 pools
+    and int8 pools); K4 at one group at the rank's dense weight-only
+    products [256, 1024] x [1024, 1536 | 2048] and [256, 512 | 2048] x
+    [512 | 2048, 1024] (int8, bf16 scales); the grouped expert matmuls
+    at the rank's [4, 80, 1024] x [1024, 2048] and [4, 80, 2048] x
+    [2048, 1024], float / int8 / int4 under bf16 and float under fp32.
+    Each against its plain version, two launches bit-identical, timed."""
     import torch
-    t_start = time.perf_counter()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+    from paddle_tpu_torch.incubate.nn.fused_transformer import \
+        _quantize_stack
+    h = HEADS // TP
+
+    def rank_half(args):
+        """The rank's heads of q and the pools (and the scale pools)."""
+        q, kp, vp = (a[..., :h, :].contiguous() for a in args[:3])
+        return [q, kp, vp] + list(args[3:6]) + [
+            None if a is None else a[..., :h].contiguous()
+            for a in args[6:]]
+
+    cases = [("ragged bf16", pa.ragged_paged_attention,
+              pa.ragged_gather_reference,
+              rank_half(paged_case(torch.bfloat16, device)), TOL)]
+    for kind in ("float", "int8"):
+        cases.append((f"verify {kind} pools", pa.verify_paged_attention,
+                      pa.verify_gather_reference,
+                      rank_half(verify_case(torch.bfloat16, device, kind)),
+                      TOL if kind == "float" else QTOL))
+    for label, fn, plain, args, tol in cases:
+        if args[0].shape[-2] != h or args[1].shape[-2] != h:
+            fail(f"check TP shapes {label}: not cut to {h} heads")
+        valid = args[4] >= 0
+        got = fn(*args)
+        torch.cuda.synchronize()
+        err = close_or_fail(f"paged {label} at {h} heads", got[valid],
+                            plain(*args)[valid], tol["bfloat16"])
+        if not torch.equal(fn(*args), got):
+            fail(f"paged {label} at {h} heads: two runs differ")
+        ms = cuda_ms(lambda: fn(*args), flush=flush)
+        print(f"kernel check TP: paged {label} q "
+              f"{list(args[0].shape)} pools {list(args[1].shape)} "
+              f"max_abs_err={err:.3g} (tol {tol['bfloat16']} (1 + |plain|);"
+              f" two runs bit-identical) kernel_ms={ms:.4f}", flush=True)
+    D, F = HIDDEN, 4 * HIDDEN
+    g = torch.Generator(device=device).manual_seed(SEED)
+    for d_in, d_out in ((D, 3 * D // TP), (D // TP, D), (D, F // TP),
+                        (F // TP, D)):
+        x = torch.randn(BUDGET, d_in, generator=g,
+                        device=device).to(torch.bfloat16)
+        q, s = _quantize_stack(torch.randn(1, d_in, d_out, generator=g,
+                                           device=device) / d_in ** 0.5, 8)
+        w, scale = q[0], s[0].to(torch.bfloat16)
+        got = gm.weight_only_matmul(x, w, scale, qmax=127.0)
+        torch.cuda.synchronize()
+        err = close_or_fail(
+            f"gmm_int8_dense [{d_in}, {d_out}]", got, torch.matmul(
+                x, gm.dequantize(w, scale, d_in, torch.bfloat16, 127.0)),
+            GMM_TOL["bfloat16"])
+        if not torch.equal(gm.weight_only_matmul(x, w, scale, qmax=127.0),
+                           got):
+            fail(f"gmm_int8_dense [{d_in}, {d_out}]: two launches differ")
+        ms = cuda_ms(lambda: gm.weight_only_matmul(x, w, scale, qmax=127.0),
+                     flush=flush)
+        print(f"kernel check TP: gmm_int8_dense [{BUDGET}, {d_in}] x "
+              f"[{d_in}, {d_out}] max_abs_err={err:.3g} (tol "
+              f"{GMM_TOL['bfloat16']} (1 + |plain|); two launches "
+              f"bit-identical) kernel_ms={ms:.4f}", flush=True)
+    E = MOE["num_expert"] // MOE_EP
+    for variant, xdt in (("fp", torch.bfloat16), ("int8", torch.bfloat16),
+                         ("int4", torch.bfloat16), ("fp", torch.float32)):
+        dname = str(xdt).split(".")[-1]
+        for d_in, d_out in ((D, F // MOE_TP), (F // MOE_TP, D)):
+            x, w, scale = gmm_case(gm, variant, xdt, d_in, d_out, device)
+            x, w = x[:E].contiguous(), w[:E].contiguous()
+            scale = None if scale is None else scale[:E].contiguous()
+            got = gm.grouped_expert_matmul(x, w, scale)
+            torch.cuda.synchronize()
+            err = close_or_fail(
+                f"gmm_{variant} {dname} [{E}, {x.shape[1]}, {d_in}]", got,
+                gm.grouped_matmul_reference(x, w, scale), GMM_TOL[dname])
+            if not torch.equal(gm.grouped_expert_matmul(x, w, scale), got):
+                fail(f"gmm_{variant} {dname} at TP shapes: two launches "
+                     "differ")
+            ms = cuda_ms(lambda: gm.grouped_expert_matmul(x, w, scale),
+                         flush=flush)
+            print(f"kernel check TP: gmm_{variant} {dname} "
+                  f"{list(x.shape)} x [{E}, {d_in}, {d_out}] "
+                  f"{str(w.dtype).split('.')[-1]} weights max_abs_err="
+                  f"{err:.3g} (tol {GMM_TOL[dname]} (1 + |plain|); two "
+                  f"launches bit-identical) kernel_ms={ms:.4f}", flush=True)
+
+
+def tp_rank_main(rank, world, out_dir, job):
+    """One rank of a TP phase: joins the gloo group of `world` processes
+    on cuda:0 and saves `job(rank, world)`'s result. Its standard output
+    writes each line whole (the ranks share one pipe)."""
+    import datetime
+    import io
+    import os
+
+    import torch
+    import torch.distributed as dist
+    sys.stdout = io.TextIOWrapper(
+        io.BufferedWriter(io.FileIO(sys.stdout.fileno(), "w",
+                                    closefd=False), 1 << 16),
+        line_buffering=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(out_dir, "rendezvous"),
+        world_size=world, rank=rank, timeout=datetime.timedelta(seconds=600))
+    try:
+        torch.save(job(rank, world), os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_run(world, job):
+    """Run `job` in `world` spawned rank processes (`tp_rank_main`); a
+    failed rank fails the phase (the others are stopped). Returns each
+    rank's result."""
+    import os
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_tp", job.__name__)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    mp.start_processes(tp_rank_main, args=(world, out_dir, job),
+                       nprocs=world, join=True, start_method="spawn")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def hold_counts(label, got, want):
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)}")
+
+
+def tp_dense_job(rank, world):
+    """Phase 5m's dense half on one rank: GPT-350M at full depth, bf16,
+    `TPServingEngine(tensor_parallel=2)` on phase 4's 16 requests
+    (paged launches exactly steps x 24, rank 0's tokens within the
+    near-tie oracle), a profiled decode window; then phase 5n's dense
+    checks."""
+    import torch
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.serving.distributed import TPServingEngine
+    device = torch.device("cuda:0")
+    counters = [(m, attr, name) for name, m, attr, _r, _s in kernel_table()]
+    t0 = time.perf_counter()
+    model = load_jax_gpt(random_gpt_arrays(), HEADS,
+                         compute_dtype="bfloat16", device=device)
+    eng = TPServingEngine(model, tensor_parallel=TP, device=device,
+                          max_slots=SLOTS, block_size=BLOCK,
+                          max_seq_len=MAX_SEQ, token_budget=BUDGET,
+                          cache_dtype="bfloat16")
+    eng.generate_batch([[1, 2, 3]], max_new_tokens=2)      # warm-up
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    label = f"serve TP rank {rank}/{world}"
+    torch.cuda.reset_peak_memory_stats(device)
+    outputs, got, run = serve_counted(eng, serve_prompts(), counters, label)
+    hold_counts(label, got, {"paged_attention": run["steps"] * LAYERS})
+    print(f"{label}: GPT-350M bf16, {eng.kv.num_heads} of {HEADS} heads, "
+          f"kv_bytes_per_token {eng.kv.kv_bytes_per_token}, built in "
+          f"{build_s:.1f} s; {run['steps']} steps, {run['generated']} "
+          f"generated tokens in {run['wall']:.3f} s = "
+          f"{run['generated'] / run['wall']:.1f} tokens/s, "
+          f"{run['wall'] / run['steps'] * 1e3:.2f} ms a step on the host "
+          f"clock, mean TTFT {run['ttft'] * 1e3:.1f} ms, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated(device)}"
+          f" B; paged_attention {got['paged_attention']} launches = steps "
+          f"x {LAYERS}", flush=True)
+    if rank == 0:
+        check_outputs(model, run["reqs"], device, label="check TP")
+    prof = profile_decode(eng, f"GPT-350M TP={TP} rank {rank}", window=8,
+                          kernel=PAGED_KERNELS)
+    res = dict(outputs=outputs, steps=run["steps"], wall=run["wall"],
+               generated=run["generated"], prof=prof)
+    del eng, model, run
+    torch.cuda.empty_cache()
+    res["check"] = tp_check_dense(rank, device, counters)
+    return res
+
+
+def tp_check(rank, label, arrays, kw, make, want_launches, moe=None,
+             counters=()):
+    """Phase 5n, one engine: fp32 at 2 layers on the card under TP (every
+    rank), and (rank 0) the card's 1-rank engine and a CPU copy (plain
+    versions) of the same config: equal greedy tokens unless the first
+    difference sat at an fp32 top-2 logit gap under 1e-5 (of the plain
+    forward, teacher-forced). `want_launches(steps)`: the TP engine's
+    launches, held exactly."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    rng = np.random.default_rng(SEED + 12)
+    prompts = [rng.integers(0, VOCAB, int(n)).tolist()
+               for n in (17, 40, 64, 9)]
+    prompts[3] = prompts[3] * 5
+    base = dict(max_slots=4, block_size=BLOCK, max_seq_len=128,
+                token_budget=BUDGET, cache_dtype="float32", **kw)
+    card = load_jax_gpt(arrays, HEADS, moe=moe, device="cuda:0")
+    eng = make(card, base)
+    for mod, attr, _ in counters:
+        setattr(mod, attr, 0)
+    steps0 = eng.steps_run
+    got = eng.generate_batch(prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    launches = {name: getattr(mod, attr) for mod, attr, name in counters}
+    hold_counts(f"check TP {label} rank {rank}", launches,
+                want_launches(eng.steps_run - steps0))
+    del eng
+    if rank:
+        return got
+    one = ServingEngine(card, device="cuda:0", **base).generate_batch(
+        prompts, max_new_tokens=16)
+    cpu_model = load_jax_gpt(arrays, HEADS, moe=moe, device="cpu")
+    cpu = ServingEngine(cpu_model, device="cpu", **base).generate_batch(
+        prompts, max_new_tokens=16)
+    same1, total, gap1 = first_gap(cpu_model, prompts, got, one)
+    same2, _, gap2 = first_gap(cpu_model, prompts, got, cpu)
+    line = (f"check TP: {label}, fp32, 2 layers at full width: "
+            f"{same1}/{total} greedy tokens equal to the card's 1-rank "
+            f"engine (first gap {'none' if gap1 is None else f'{gap1:.3g}'}"
+            f"), {same2}/{total} to a CPU copy (first gap "
+            f"{'none' if gap2 is None else f'{gap2:.3g}'}); launches "
+            + ", ".join(f"{n} {c}" for n, c in launches.items() if c))
+    for g in (gap1, gap2):
+        if g is not None and g >= 1e-5:
+            fail(line + " — tokens differ past a near-tie")
+    print(line, flush=True)
+    del card, cpu_model
+    torch.cuda.empty_cache()
+    return got
+
+
+def tp_check_dense(rank, device, counters):
+    """Phase 5n's dense engines: draft_k=3 and the weight-only int8 stack
+    (K4's dense route at the rank's widths, 4 launches a layer a step)
+    at tp = 2."""
+    from paddle_tpu_torch.serving.distributed import TPServingEngine
+    arrays = random_gpt_arrays(SEED + 11, layers=2)
+
+    def tp(model, base):
+        return TPServingEngine(model, tensor_parallel=TP, device=device,
+                               **base)
+    return dict(
+        spec=tp_check(rank, f"tp = {TP}, draft_k={DRAFT_K}", arrays,
+                      dict(draft_k=DRAFT_K), tp,
+                      lambda n: {"paged_verify": 2 * n,
+                                 "paged_attention": 2 * n},
+                      counters=counters),
+        weight_only=tp_check(rank, f"tp = {TP}, weight-only int8",
+                             quantized_arrays(arrays), {}, tp,
+                             lambda n: {"paged_attention": 2 * n,
+                                        "gmm_int8_dense": 8 * n},
+                             counters=counters))
+
+
+def tp_moe_job(rank, world):
+    """Phase 5m's MoE half on one rank of tp = 2 x ep = 2: MoE-350M's
+    widths at MOE_TP_LAYERS layers, bf16, int8 experts, on the 16
+    requests (paged launches steps x L, gmm_int8 steps x 2 L, nothing
+    else; routed + dropped = 2 x L x valid tokens), rank 0 also the
+    1-rank engine of the same model; then phase 5n's MoE check."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.serving.distributed import TPServingEngine
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    device = torch.device("cuda:0")
+    counters = [(m, attr, name) for name, m, attr, _r, _s in kernel_table()]
+    E, k, L = MOE["num_expert"], MOE["top_k"], MOE_TP_LAYERS
+    model = load_jax_gpt(random_gpt_arrays(SEED + 8, layers=L, experts=E),
+                         HEADS, moe=MOE, compute_dtype="bfloat16",
+                         device=device, dtype=torch.bfloat16)
+    kw = dict(max_slots=SLOTS, block_size=BLOCK, max_seq_len=MAX_SEQ,
+              token_budget=BUDGET, cache_dtype="bfloat16",
+              moe_weight_dtype="int8", device=device)
+    eng = TPServingEngine(model, tensor_parallel=MOE_TP,
+                          expert_parallel=MOE_EP, **kw)
+    eng.generate_batch([[1, 2, 3]], max_new_tokens=2)      # warm-up
+    counts0, dropped0 = eng.moe_expert_counts.copy(), eng.moe_dropped_total
+    label = (f"serve TP MoE rank {rank}/{world} (mp rank {eng.mp_rank}, "
+             f"ep rank {eng.ep_rank})")
+    outputs, got, run = serve_counted(eng, serve_prompts(), counters, label)
+    counts = eng.moe_expert_counts - counts0
+    dropped = eng.moe_dropped_total - dropped0
+    hold_counts(label, got, {"paged_attention": run["steps"] * L,
+                             "gmm_int8": run["steps"] * 2 * L})
+    if not np.all(np.isfinite(counts)) or \
+            counts.sum() + dropped != k * L * run["fed"]:
+        fail(f"{label}: {counts.sum()} routed + {dropped} dropped choices "
+             f"!= {k} x {L} layers x {run['fed']} tokens")
+    print(f"{label}: MoE-350M widths at {L} layers, int8 experts, "
+          f"{E // MOE_EP} of {E} experts and {eng.kv.num_heads} of {HEADS} "
+          f"heads on this rank; {run['steps']} steps, {run['generated']} "
+          f"generated tokens in {run['wall']:.3f} s, "
+          f"{run['wall'] / run['steps'] * 1e3:.2f} ms a step on the host "
+          f"clock; {run['fed']} valid tokens fed, routed {counts.sum():.0f}"
+          f" + dropped {dropped:.0f} = {k} x {L} x {run['fed']}; launches "
+          f"paged_attention {got['paged_attention']}, gmm_int8 "
+          f"{got['gmm_int8']}", flush=True)
+    prof = profile_decode(eng, f"MoE-350M ({L} layers) int8 experts "
+                          f"TP={MOE_TP} x EP={MOE_EP} rank {rank}",
+                          window=4, kernel="gmm")
+    res = dict(outputs=outputs, counts=counts.tolist(), dropped=dropped,
+               steps=run["steps"], wall=run["wall"], prof=prof)
+    del eng
+    if rank == 0:
+        one = ServingEngine(model, **kw)
+        one.generate_batch([[1, 2, 3]], max_new_tokens=2)
+        one_out, _, one_run = serve_counted(one, serve_prompts(), counters,
+                                            "serve TP MoE 1-rank")
+        res["one"] = dict(outputs=one_out, steps=one_run["steps"],
+                          wall=one_run["wall"])
+        del one
+    del model
+    torch.cuda.empty_cache()
+
+    def tp(m, base):
+        return TPServingEngine(m, tensor_parallel=MOE_TP,
+                               expert_parallel=MOE_EP, device=device, **base)
+    res["check"] = tp_check(
+        rank, f"MoE float experts, tp = {MOE_TP} x ep = {MOE_EP}",
+        random_gpt_arrays(SEED + 9, layers=2, experts=E), {}, tp,
+        lambda n: {"paged_attention": 2 * n, "gmm_fp": 4 * n}, moe=MOE,
+        counters=counters)
+    return res
+
+
+def serve_tp(base, base_prof, dense_out):
+    """Phases 5m and 5n: the dense job on 2 ranks, then the MoE job on 4,
+    each rank a process on cuda:0 over gloo. Every rank's tokens must
+    equal rank 0's; host and device ms a step printed beside phase 4's
+    1-rank engine (the ranks share one card: not TP speed)."""
+    t0 = time.perf_counter()
+    dense = tp_run(TP, tp_dense_job)
+    for r, res in enumerate(dense[1:], 1):
+        if res["outputs"] != dense[0]["outputs"] or \
+                res["check"] != dense[0]["check"]:
+            fail(f"serve TP: rank {r}'s tokens differ from rank 0's")
+    same = sum(a == b for o, w in zip(dense[0]["outputs"], dense_out)
+               for a, b in zip(o, w))
+    total = sum(map(len, dense_out))
+
+    def ms(p, key):
+        return "not measured" if p[key] is None else f"{p[key]:.3f}"
+    print(f"serve TP: tp = {TP} on one card over gloo, every rank's tokens "
+          f"equal; {same}/{total} tokens equal to phase 4's 1-rank engine; "
+          + "; ".join(f"rank {r}: {res['generated'] / res['wall']:.1f} "
+                      f"tokens/s, decode step {ms(res['prof'], 'host_ms')}"
+                      f" ms host, {ms(res['prof'], 'device_ms')} ms device"
+                      for r, res in enumerate(dense))
+          + f"; 1-rank engine (phase 4): {base['tokens_s']:.1f} tokens/s, "
+          f"decode step {ms(base_prof, 'host_ms')} ms host, "
+          f"{ms(base_prof, 'device_ms')} ms device; in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    moe = tp_run(MOE_TP * MOE_EP, tp_moe_job)
+    for r, res in enumerate(moe[1:], 1):
+        if (res["outputs"], res["counts"], res["check"]) != \
+                (moe[0]["outputs"], moe[0]["counts"], moe[0]["check"]):
+            fail(f"serve TP MoE: rank {r}'s tokens or routing counts "
+                 "differ from rank 0's")
+    one = moe[0]["one"]
+    same = sum(a == b for o, w in zip(moe[0]["outputs"], one["outputs"])
+               for a, b in zip(o, w))
+    print(f"serve TP MoE: tp = {MOE_TP} x ep = {MOE_EP}, {MOE_TP_LAYERS} "
+          f"layers, every rank's tokens and routing counts equal; "
+          f"{same}/{sum(map(len, one['outputs']))} tokens equal to the "
+          f"1-rank engine's (bf16, reported); "
+          + "; ".join(f"rank {r}: {res['wall'] / res['steps'] * 1e3:.2f} ms"
+                      f" a step host, decode step "
+                      f"{ms(res['prof'], 'device_ms')} ms device"
+                      for r, res in enumerate(moe))
+          + f"; 1-rank engine {one['wall'] / one['steps'] * 1e3:.2f} ms a "
+          f"step host; in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def kernel_table():
+    """Every kernel variant of the port: (name, module, counter
+    attribute, TPU kernel replaced, source)."""
     from paddle_tpu_torch.ops import conv_wgrad as cw
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import grouped_matmul as gm
     from paddle_tpu_torch.ops import layer_norm as ln
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import qkv_proj as qp
-
-    device = torch.device("cuda:0")
-    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
-    torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"device: {kind}, {count} device(s), torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}", flush=True)
-    print(smi, flush=True)
-
-    # (name, module, counter attribute, TPU kernel replaced, source)
     csrc = "paddle_tpu_torch/ops/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
-    kernels = [
+    return [
         ("paged_attention", pa, "launch_count",
          pallas + "paged_attention.py:101", csrc + "paged_attention.cu"),
         ("paged_verify", pa, "verify_launch_count",
@@ -4245,6 +4657,35 @@ def main():
          pallas + "paged_attention.py:196", csrc + "paged_attention.cu"),
         ("gmm_int8_dense", gm, "dense_launch_count",
          pallas + "grouped_matmul.py:181", csrc + "grouped_matmul.cu")]
+
+
+def main():
+    import torch
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from paddle_tpu_torch.ops import conv_wgrad as cw
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    from paddle_tpu_torch.ops import layer_norm as ln
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import qkv_proj as qp
+
+    device = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"device: {kind}, {count} device(s), torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    print(smi, flush=True)
+
+    kernels = kernel_table()
     # one per source
     build_fns = (pa.build, fa.build, ln.build, gm.build, qp.build, cw.build)
     t0 = time.perf_counter()
@@ -4261,6 +4702,7 @@ def main():
     checks.update(check_paged_sparse(pa, device, flush))
     checks.update(check_gmm(gm, device, flush))
     checks.update(check_weight_only_gmm(gm, device, flush))
+    check_tp_shapes(pa, gm, device, flush)
     checks.update(check_flash(fa, device, flush))
     checks.update(check_add_ln(ln, device, flush))
     checks.update(check_qkv_proj(qp, device, flush))
@@ -4271,28 +4713,41 @@ def main():
     del flush
     torch.cuda.empty_cache()
 
+    def mark(label):
+        print(f"chip_smoke: {label} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    mark("build and kernel checks")
     eng, reqs, serve_launches, base = serve(device, counters)
     check_outputs(eng.model, reqs, device)
     base_prof = profile_decode(eng, "GPT-350M", kernel=PAGED_KERNELS)
     dense_out = [list(r.output) for r in reqs]
     del eng, reqs
     torch.cuda.empty_cache()
+    mark("phases 4, 5")
     spec_launches, spec_out, model = serve_spec(device, counters)
     serve_launches.update(spec_launches)
+    mark("phase 5a")
     serve_multitick(model, device, counters, dense_out, spec_out)
+    mark("phase 5e")
     serve_prefix(model, device, counters)
     serve_launches.update(serve_sparse(model, device, counters))
+    mark("phases 5g, 5h")
     serve_lora(model, device, counters, dense_out, base, base_prof)
     serve_launches.update(serve_weight_only(model, device, counters,
                                             dense_out, base, base_prof))
     del model
     torch.cuda.empty_cache()
+    mark("phases 5j, 5k")
     check_spec_on_card(device)
     check_multitick_on_card(device)
     check_prefix_sparse_on_card(device)
     check_lora_weight_only_on_card(device)
+    mark("phases 5d, 5f, 5i, 5l")
     serve_launches.update(serve_moe(device, counters))
     check_moe_on_card(device)
+    mark("phases 5b, 5c")
+    serve_tp(base, base_prof, dense_out)
+    mark("phases 5m, 5n")
 
     launches = train(device, counters)
     launches.update({n: serve_launches[n] for n in (
@@ -4302,6 +4757,7 @@ def main():
         "paged_sparse_verify", "gmm_int8_dense")})
     check_train_step(device)
     torch.cuda.empty_cache()
+    mark("phases 6, 7")
     launches.update(flash_bshd_phase(fa, device, counters))
     launches.update(wgrad_phase(cw, device, counters))
     launches.update(serve_bert(fa, device, counters))

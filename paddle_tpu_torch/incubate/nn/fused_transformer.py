@@ -20,7 +20,13 @@ int8. The expert products run through
 packed-int4 expert weights; the serving engine can also quantize a
 float stack's experts itself (`_quantize_expert_stack`).
 
-Tensor and expert parallelism wait for later slices.
+Under tensor parallelism (`serving.distributed.TPServingEngine`) the
+functions run on one rank's shard: `cfg.num_heads` is the rank's heads,
+and `cfg.mp_group` names the group over which the row-parallel products
+(attention out, ffn2, each expert's ffn2) are all-reduced before their
+bias. Under expert parallelism (`cfg.ep_size > 1`) a rank holds
+`E / ep_size` experts, runs them on its rows of the dispatch table and
+all-reduces its partial combine over `cfg.ep_group`.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -63,6 +70,11 @@ class _MTConfig:
     num_experts: int = 0           # 0 = dense FFN
     moe_topk: int = 2
     capacity_factor: float = 1.25
+    mp_group: object = None        # the TP group the row-parallel
+    #                                products are all-reduced over
+    ep_group: object = None        # the EP group of the MoE combine
+    ep_size: int = 1
+    ep_rank: int = 0
 
     @property
     def embed_dim(self):
@@ -96,6 +108,15 @@ def _mm(cfg, x, w, scale=None):
         return torch.matmul(x, w.to(x.dtype))
     qmax = float(2 ** (cfg.quant_bits - 1) - 1)
     return weight_only_matmul(x, w, scale, qmax=qmax)
+
+
+def _maybe_all_reduce(cfg, x):
+    """Sum x over the TP group in place (no-op without one): the
+    counterpart of the JAX package's `_maybe_psum`. A failed collective
+    raises; nothing is caught."""
+    if cfg.mp_group is not None:
+        dist.all_reduce(x, group=cfg.mp_group)
+    return x
 
 
 def _lora_delta(x, a, b, oh):
@@ -142,9 +163,11 @@ def _ffn_dense(cfg, pl, h, lora_oh=None):
     f = _act(cfg, f + pl["ffn1_b"].to(f.dtype))
     g = _mm(cfg, f, pl["ffn2_w"], pl.get("ffn2_s"))
     if lora_oh is not None and "lora_ffn2_a" in pl:
+        # row-parallel under TP: the rank's A holds its F/tp rows, so the
+        # delta is a partial sum that joins the base product's reduction
         g = g + _lora_delta(f, pl["lora_ffn2_a"], pl["lora_ffn2_b"],
                             lora_oh)
-    return g + pl["ffn2_b"].to(g.dtype)
+    return _maybe_all_reduce(cfg, g) + pl["ffn2_b"].to(g.dtype)
 
 
 def _moe_bits(cfg):
@@ -175,8 +198,16 @@ def _ffn_moe_tokens(cfg, pl, h, valid):
     ffn2's bias, and the gate-weighted combine. `valid` [T] bool (or
     None) masks padding tokens out of routing, capacity and statistics;
     a dropped (token, choice) contributes 0 and the layer's residual
-    carries the token. Returns (out [T, D], stats {counts [E], dropped,
-    aux})."""
+    carries the token.
+
+    Expert parallelism (`cfg.ep_size` > 1): the token set and the routing
+    are the same on every rank, so the training path's all-to-all is not
+    needed: the rank gathers only its E/ep resident experts' rows of the
+    dispatch table, runs them, reduces ffn2 over `cfg.mp_group` before
+    the bias, combines their outputs alone and all-reduces the partial
+    mixture over `cfg.ep_group`. The statistics are the same on every
+    rank and are not reduced. Returns (out [T, D], stats {counts [E],
+    dropped, aux})."""
     T, D = h.shape
     E = cfg.num_experts
     cd = h.dtype
@@ -184,10 +215,19 @@ def _ffn_moe_tokens(cfg, pl, h, valid):
     C = moe_utils.expert_capacity(T, E, cfg.moe_topk, cfg.capacity_factor)
     r = moe_utils.top_k_routing(logits, cfg.moe_topk, C, valid=valid,
                                 dtype=cd)
-    expert_in = moe_utils.dispatch_tokens_indexed(h, r.plan, E, C)
-    eout = _expert_matmuls(cfg, pl, expert_in)
+    ep = cfg.ep_size
+    E_loc = E // ep
+    tos = moe_utils.dispatch_indices(r.plan, E, C)
+    if ep > 1:
+        tos = moe_utils.local_indices(tos, cfg.ep_rank, E_loc)
+    expert_in = moe_utils.dispatch_tokens_indexed(h, r.plan, E_loc, C,
+                                                  indices=tos)
+    eout = _maybe_all_reduce(cfg, _expert_matmuls(cfg, pl, expert_in))
     eout = eout + pl["ffn2_b"][:, None, :].to(cd)
-    out = moe_utils.combine_tokens_indexed(eout, r.plan)
+    out = moe_utils.combine_tokens_indexed(
+        eout, r.plan, e_offset=cfg.ep_rank * E_loc, num_local=E_loc)
+    if ep > 1:
+        dist.all_reduce(out, group=cfg.ep_group)
     stats = {"counts": r.plan.counts, "dropped": r.plan.dropped,
              "aux": r.balance_loss}
     return out, stats

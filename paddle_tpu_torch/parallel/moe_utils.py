@@ -162,20 +162,39 @@ def dispatch_indices(plan, num_experts, capacity):
     return tos[:E]
 
 
-def dispatch_tokens_indexed(x, plan, num_experts, capacity):
+def dispatch_tokens_indexed(x, plan, num_experts, capacity,
+                            indices=None):
     """x [T, d] -> [E, C, d] capacity buffers by gather (unclaimed slots
-    zero)."""
-    tos = dispatch_indices(plan, num_experts, capacity)
+    zero). `indices`: an [E', C] token-index table to gather by instead
+    of the plan's whole one (the expert-parallel path passes its
+    resident experts' rows, `local_indices`)."""
+    tos = (dispatch_indices(plan, num_experts, capacity)
+           if indices is None else indices)
     g = x[tos.clamp_min(0).long()]                       # [E, C, d]
     return g * (tos >= 0).to(x.dtype)[..., None]
 
 
-def combine_tokens_indexed(eout, plan):
-    """eout [E, C, d] -> [T, d], the gate-weighted mixture of each
-    token's in-capacity choices, by gather; dropped choices give 0."""
-    E, C = eout.shape[0], eout.shape[1]
-    el = plan.gate_idx.long().clamp(0, E - 1)
+def local_indices(tos, ep_rank, num_local):
+    """The rows of the [E, C] token-index table of the experts resident
+    on ep rank `ep_rank` (experts ep_rank * num_local onwards)."""
+    return tos[ep_rank * num_local:(ep_rank + 1) * num_local]
+
+
+def combine_tokens_indexed(eout, plan, e_offset=0, num_local=None):
+    """eout [E_loc, C, d] -> [T, d], the gate-weighted mixture of each
+    token's in-capacity choices, by gather; dropped choices give 0.
+    `e_offset` / `num_local`: eout holds experts e_offset .. e_offset +
+    num_local - 1 only (one ep rank's), and choices of other experts give
+    0; the ranks' partial mixtures sum to the whole one."""
+    E_loc, C = eout.shape[0], eout.shape[1]
+    if num_local is None:
+        num_local = E_loc
+    e = plan.gate_idx.long()
+    ok = plan.in_cap
+    if num_local != plan.e_oh.shape[-1]:         # some experts elsewhere
+        ok = ok & (e >= e_offset) & (e < e_offset + num_local)
+    el = (e - e_offset).clamp(0, E_loc - 1)
     cl = plan.slot.long().clamp(0, C - 1)
     vals = eout[el, cl]                                  # [T, k, d]
-    w = plan.gates.to(eout.dtype) * plan.in_cap.to(eout.dtype)
+    w = plan.gates.to(eout.dtype) * ok.to(eout.dtype)
     return (vals * w[..., None]).sum(dim=1)

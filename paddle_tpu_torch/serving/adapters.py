@@ -28,9 +28,13 @@ requests keep full sharing. Preemption needs nothing more: the victim
 re-prefills under the same adapter. MoE stacks hook qkv and attention
 out only.
 
-The tensor-parallel layout of the slots (the JAX cache's `prepare` /
-`place` hooks) and the metrics mirror of the raw counters wait for
-later slices.
+Under tensor parallelism a rank's slot tensors hold its share of each
+projection (`parallel.mp_layers.SERVING_LORA_TP_SPECS`): the TP engine
+reallocates them at the rank's widths and sets `prepare(name, payload)`,
+which cuts a registered adapter's full host payload (and permutes
+`lora_qkv_b` shard-major) before the in-place load. Registration still
+takes and checks the full widths. The metrics mirror of the raw counters
+waits for a later slice.
 """
 from __future__ import annotations
 
@@ -104,6 +108,9 @@ class AdapterCache:
         self.cache_misses = 0
         self.evictions = 0
         self.load_seconds = 0.0
+        #: prepare(name, payload) -> the payload as this cache's slot
+        #: tensor `name` holds it (a TP rank's cut); None: as it is
+        self.prepare = None
 
     # -------------------------------------------------------- inspection
     def layer_tensors(self, li):
@@ -132,10 +139,9 @@ class AdapterCache:
     def bytes_per_slot(self):
         """The device bytes one resident tenant costs: its slice of every
         slot tensor, r (d_in + d_out) L x the element size summed over
-        the hooked projections."""
-        item = torch.empty((), dtype=self.dtype).element_size()
-        return sum(self.rank * (di + do) * self.num_layers * item
-                   for _, di, do in self.hooks)
+        the hooked projections (at a TP rank's widths on a rank)."""
+        return sum(t[:, 0].numel() * t.element_size()
+                   for t in self.tensors.values())
 
     # ------------------------------------------------------ registration
     def register(self, adapter_id, weights):
@@ -234,9 +240,11 @@ class AdapterCache:
                 a, b = host[name]
                 b = np.asarray(b, np.float64) * self.scaling
                 for kind, arr in (("a", a), ("b", b)):
+                    key = f"lora_{name}_{kind}"
                     payload = torch.from_numpy(np.ascontiguousarray(arr))
-                    self.tensors[f"lora_{name}_{kind}"][:, slot].copy_(
-                        payload.to(self.dtype))
+                    if self.prepare is not None:
+                        payload = self.prepare(key, payload)
+                    self.tensors[key][:, slot].copy_(payload.to(self.dtype))
 
     # ----------------------------------------------------------- metrics
     def hit_ratio(self):

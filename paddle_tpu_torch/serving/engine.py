@@ -78,6 +78,12 @@ int8 (and, for MoE experts, packed int4) weights as they are; the
 once-only cast to the compute dtype touches float tensors alone, and
 each projection runs `_mm` with its scale (K4 at one group on a card).
 
+Tensor- and expert-parallel serving is `distributed.TPServingEngine`,
+a subclass that runs this host loop on every rank of a process group
+over its shard of the weights and pools. It reaches the step through
+three hooks: `_step_cfg` (the rank's heads and groups), `_sync_outputs`
+(rank 0's sampled tokens to every rank, each tick) and the clock.
+
 Disaggregated roles are not arguments yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
@@ -88,11 +94,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..incubate.nn.fused_transformer import (_cast_param, _ffn_dense,
                                              _ffn_moe_tokens, _ln,
-                                             _lora_delta, _mm, _qkv,
+                                             _lora_delta,
+                                             _maybe_all_reduce, _mm, _qkv,
                                              _quantize_expert_stack)
 from ..ops.paged_attention import (MAX_GROUP, ragged_paged_attention,
                                    verify_paged_attention)
@@ -187,10 +195,14 @@ def _sparse_plan(pos_r, block_tables, table_width, recent, block_size):
         lower=m_idx[None, :] < m_idx[:, None])              # [MB, MB]
 
 
-def _select(q_r, k_sum_min, k_sum_max, plan):
+def _select(q_r, k_sum_min, k_sum_max, plan, group=None):
     """The layer's half of `select_blocks`: scores from this layer's
     queries and summaries, then the shortened tables and compacted
-    positions."""
+    positions. `group`: under TP each rank holds a slice of the heads,
+    and the [S, K, MB] scores are all-reduced over it before the max
+    over the group's K queries (max_k(a_k + b_k) is not max_k(a_k) +
+    max_k(b_k) where the ranks' maxima fall on different queries), so
+    every rank selects the blocks one rank holding every head would."""
     S, K, H, Dh = q_r.shape
     bt, width = plan["bt"], plan["width"]
     MB = bt.shape[1]
@@ -198,7 +210,10 @@ def _select(q_r, k_sum_min, k_sum_max, plan):
     hi = k_sum_max[bt].reshape(S, MB, H * Dh).transpose(1, 2)
     lo = k_sum_min[bt].reshape(S, MB, H * Dh).transpose(1, 2)
     score = (torch.bmm(qf.clamp_min(0.0), hi)
-             + torch.bmm(qf.clamp_max(0.0), lo)).amax(dim=1)  # [S, MB]
+             + torch.bmm(qf.clamp_max(0.0), lo))             # [S, K, MB]
+    if group is not None:
+        dist.all_reduce(score, group=group)
+    score = score.amax(dim=1)                                 # [S, MB]
     score = torch.where(plan["valid"],
                         torch.where(plan["forced"], float("inf"), score),
                         float("-inf"))
@@ -277,7 +292,8 @@ def _mixed_layer(cfg, pl, h, k_pool, v_pool, wb, wo, block_tables,
         S, K = region_slots.shape[0], verify_width
         R = S * K
         q_r = q[:R].reshape(S, K, H, Dh)
-        short_bt, pos_c = _select(q_r, k_sum_min, k_sum_max, sparse)
+        short_bt, pos_c = _select(q_r, k_sum_min, k_sum_max, sparse,
+                                  cfg.mp_group)
         if K == 1:
             ar = ragged_paged_attention(
                 q[:R], k_pool, v_pool, short_bt, slot_ids[:R],
@@ -309,6 +325,9 @@ def _mixed_layer(cfg, pl, h, k_pool, v_pool, wb, wo, block_tables,
     if lora_oh is not None:
         out = out + _lora_delta(attn, pl["lora_out_a"], pl["lora_out_b"],
                                 lora_oh)
+    # row-parallel under TP: the rank's product (and LoRA delta) covers
+    # its heads alone; the sum over the group comes before the bias
+    out = _maybe_all_reduce(cfg, out)
     h = h + (out + pl["out_b"].to(out.dtype))
     hn = _ln(h, pl["ffn_ln_s"], pl["ffn_ln_b"], cfg.epsilon)
     if cfg.num_experts:
@@ -407,7 +426,8 @@ class ServingEngine:
         self.model = model
         dec = model.decoder
         self.cfg = dec._cfg()
-        L, H, Dh = dec.num_layers, dec.num_heads, dec.head_dim
+        # the pools hold the heads the step runs (a TP rank's share)
+        L, H, Dh = dec.num_layers, self._step_cfg().num_heads, dec.head_dim
         maxpos = model.max_position_embeddings
         max_seq_len = min(max_seq_len or maxpos, maxpos)
         self.block_size = int(block_size)
@@ -484,6 +504,9 @@ class ServingEngine:
                                           device=self.device)
         self.eos_token_id = eos_token_id
         self.clock = clock
+        #: the clock the multi-tick EMAs time dispatches by (a TP rank's
+        #: scheduler clock is rank 0's broadcast time, this one its own)
+        self._timer = clock
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         # cast float params to the compute dtype ONCE, on the engine's
@@ -579,6 +602,17 @@ class ServingEngine:
         self.moe_last_aux = float(aux)
 
     # ------------------------------------------------------- mixed step
+    def _step_cfg(self):
+        """The decoder config the step runs under: the stack's, with the
+        engine's expert bits. The TP engine gives the rank's heads and
+        its process groups."""
+        return self.cfg
+
+    def _sync_outputs(self, outs):
+        """The step's sampled outputs as every host decision reads them:
+        here as they are; a TP engine takes rank 0's."""
+        return outs
+
     @torch.no_grad()
     def _mixed_step(self, token_ids, slot_ids, positions, block_tables,
                     sample_index, counts=None, adapter_ids=None):
@@ -592,7 +626,7 @@ class ServingEngine:
         every layer. Stats: per-expert counts
         and drops summed over the layers (fp32), the balance loss
         averaged over them."""
-        cfg, BS = self.cfg, self.block_size
+        cfg, BS = self._step_cfg(), self.block_size
         K = self.draft_k + 1
         T = token_ids.shape[0]
         valid = slot_ids >= 0
@@ -818,6 +852,7 @@ class ServingEngine:
             lora["adapter_ids"] = torch.from_numpy(
                 self._adapter_token_ids(sp)).to(self.device)
         outs, moe = self._mixed_step(*inputs, **lora)
+        outs = self._sync_outputs(outs)
         # every output (and the MoE stats) rides one copy to the host
         parts = list(outs)
         if moe is not None:
@@ -922,7 +957,7 @@ class ServingEngine:
         a prefill chunk needs the host packer next step anyway."""
         sch = self.scheduler
         S, K = self.kv.max_slots, self.draft_k + 1
-        t_launch = self.clock()
+        t_launch = self._timer()
         if self._gap_ema is not None or self._last_harvest is not None:
             gap = max(t_launch - (self._last_harvest or t_launch), 0.0)
             self._gap_ema = (gap if self._gap_ema is None
@@ -988,7 +1023,7 @@ class ServingEngine:
             # the ticks past the exit drew from the generator as well:
             # take it back to where the first of them found it
             self._gen.set_state(gen_states[ticks_run])
-        self._last_harvest = self.clock()
+        self._last_harvest = self._timer()
         d = (self._last_harvest - t_launch) / ticks_run
         self._tick_ema = (d if self._tick_ema is None
                           else 0.7 * self._tick_ema + 0.3 * d)
@@ -1177,6 +1212,7 @@ class ServingEngine:
                 gen_states.append(self._gen.get_state())
             outs, moe = self._mixed_step(tid, sid, pid, block_tables, si,
                                          cnt, aid)
+            outs = self._sync_outputs(outs)
             if K == 1:
                 tok = outs[0]
                 emitted = tok[:, None]

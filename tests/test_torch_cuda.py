@@ -2557,3 +2557,95 @@ def test_weight_only_engine_on_card_matches_cpu(moe, cuda_device):
     got = ServingEngine(card, device=cuda_device, **ekw).generate_batch(
         prompts, max_new_tokens=8)
     assert got == want
+
+
+# --------------------------------- tensor- and expert-parallel serving
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_ragged_kernel_at_a_tp_ranks_heads(dtype, tol, cuda_device):
+    """A tp = 2 rank of GPT-350M attends 8 of the 16 heads: the ragged
+    entry over the rank's half of the heads against its plain version."""
+    args = _case(dtype, cuda_device)
+    args = [a[..., :8, :].contiguous() if a.dim() >= 3 else a for a in args]
+    got = tpa.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    ref = tpa.ragged_gather_reference(*args)
+    valid = args[4] >= 0
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got[valid].float(), ref[valid].float(),
+                               rtol=tol, atol=tol)
+
+
+#: a tp = 2 rank's dense weight-only products (GPT-350M's shard widths)
+_TP_WO_SHAPES = {"qkv": (1024, 1536), "out": (512, 1024),
+                 "ffn1": (1024, 2048), "ffn2": (2048, 1024)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("proj", list(_TP_WO_SHAPES))
+@pytest.mark.parametrize("xdt,tol", [(torch.bfloat16, 2e-2),
+                                     (torch.float32, 1e-4)])
+def test_weight_only_mm_at_tp_shard_widths(proj, xdt, tol, cuda_device):
+    D, F = _TP_WO_SHAPES[proj]
+    x, w, s = _wo_case(256, D, F, xdt, cuda_device)
+    got = tgmm.weight_only_matmul(x, w, s, qmax=127.0)
+    torch.cuda.synchronize()
+    plain = torch.matmul(x, tgmm.dequantize(w, s, D, xdt, 127.0))
+    got, plain = got.float(), plain.float()
+    assert torch.isfinite(got).all()
+    assert bool(((got - plain).abs() <= tol * (1 + plain.abs())).all()), \
+        float((got - plain).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("d_in,d_out", [(1024, 2048), (2048, 1024)])
+def test_grouped_matmul_at_tp_ep_shard_widths(fmt, d_in, d_out,
+                                              cuda_device):
+    """A tp = 2 x ep = 2 rank of MoE-350M runs 4 of the 8 experts at half
+    the FFN width: [4, 80, d_in] x [4, d_in, d_out] bf16 against the
+    plain version."""
+    from paddle_tpu_torch.incubate.nn.fused_transformer import \
+        _quantize_expert_stack
+    g = torch.Generator().manual_seed(d_in)
+    x = torch.randn(4, 80, d_in, generator=g).to(torch.bfloat16)
+    wf = torch.randn(4, d_in, d_out, generator=g) / math.sqrt(d_in)
+    if fmt == "fp":
+        w, s = wf.to(torch.bfloat16), None
+    else:
+        q, s = _quantize_expert_stack(wf[None], 8 if fmt == "int8" else 4)
+        w, s = q[0], s[0]
+    x, w = x.to(cuda_device), w.to(cuda_device)
+    s = None if s is None else s.to(cuda_device)
+    got = tgmm.grouped_expert_matmul(x, w, s)
+    torch.cuda.synchronize()
+    want = tgmm.grouped_matmul_reference(x, w, s)
+    got, want = got.float(), want.float()
+    assert bool(((got - want).abs() <= 2e-2 * (1 + want.abs())).all()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_tp_engines_on_card_match_one_rank(cuda_device, tmp_path):
+    """Two ranks on the one card over gloo (NCCL takes a card a rank):
+    fp32 TP = 2 dense and draft_k=3 engines give the card's 1-rank
+    engine's tokens, and every rank the same; `tensor_parallel=1`
+    without a group is the 1-rank engine."""
+    import torch_tp_ranks as tr
+    from paddle_tpu_torch.serving.distributed import TPServingEngine
+    cases = {"dense": {}, "draft3": dict(draft_k=3)}
+    jobs = [dict(name=n, model="seeded", tp=2, ep=1, kw=kw, traffic="batch",
+                 device="cuda:0") for n, kw in cases.items()]
+    ranks = tr.run_ranks(2, str(tmp_path), jobs)
+    model = tr.seeded_model("cuda:0")
+    for name, kw in cases.items():
+        want = tr.serve(ServingEngine(model, device="cuda:0",
+                                      **dict(tr.BASE_KW, **kw)), "batch")
+        assert ranks[0][name]["tokens"] == ranks[1][name]["tokens"] \
+            == want["tokens"], name
+        one = TPServingEngine(model, tensor_parallel=1, device="cuda:0",
+                              **dict(tr.BASE_KW, **kw))
+        assert tr.serve(one, "batch")["tokens"] == want["tokens"]
