@@ -9,8 +9,9 @@ several decode ticks a dispatch and with penalties, with the radix
 prefix cache and with block-sparse decode, with LoRA adapters and as a
 weight-only int8 stack, serving the
 8-expert MoE-350M with float, int8 and int4 experts, serving both
-with tensor (and expert) parallelism over ranks on the one card, the
-train step
+with tensor (and expert) parallelism over ranks on the one card, and
+by a disaggregated fleet of prefill and decode replicas behind the
+replica router, the train step
 (with and without the fused QKV projection), the paddle-layout
 `flash_attention()` entry, the `wgrad_1x1` entry, BERT-base
 inference over padded batches and BERT-base pretraining through
@@ -192,6 +193,29 @@ each (or a few):
    launches held, each equal to the card's 1-rank engine and to a CPU
    copy unless the first differing token sat at an fp32 top-2 gap under
    1e-5; a failed rank fails the script;
+5o. serve disagg — phase 5a's model (bf16, full depth) served by a
+   disaggregated fleet: one `role="prefill"` and two `role="decode"`
+   engines with phase 4's settings behind `ReplicaRouter(roles=...)`
+   over `InProcessTransport` (each replica's `engine.step` in the event
+   loop's executor, so the replicas step from several threads), the 16
+   requests streamed at once: every request finishes, 16 handoffs,
+   every block exported, sent and imported once, the payload exactly
+   blocks x 1,572,864 B plus frame headers, the ragged paged kernel
+   launched by each replica exactly its own steps x 24 (its step
+   thread's tally) and nothing else, every replica drained, tokens
+   within phase 5's near-tie oracle;
+   tokens/s, TTFT and the inter-token gap beside phase 4's, steps a
+   replica, the share of blocks streamed ahead of their ticket, the
+   codec's, export's and import's seconds; then the same with one shed
+   hop between the decode replicas mid-stream;
+5p. on-card disaggregation check — fp32, 2 layers at full width, 4
+   requests of 16 new tokens (prompts of 40-200 tokens over a 64-token
+   budget): the fleet's greedy tokens equal the card's monolithic
+   engine's and the same fleet's on the CPU, no near-tie used, over the
+   float pool, int8 pools with draft_k=2 on the decode role and prefix
+   caching on the prefill role, one shed hop, and a prefill replica
+   whose step raises mid-prefill (its requests fail over to a second
+   prefill replica); each replica's launches held in each;
 6. train — GPT-350M at full width in `bench_gpt`'s exact config (bf16,
    bf16 grads, remat with remat_policy="save_splash_residuals", fused
    CE in 4 chunks) trained by the port's `HybridGPT` at batch 8 for
@@ -4218,7 +4242,12 @@ def check_tp_shapes(pa, gm, device, flush):
     [512 | 2048, 1024] (int8, bf16 scales); the grouped expert matmuls
     at the rank's [4, 80, 1024] x [1024, 2048] and [4, 80, 2048] x
     [2048, 1024], float / int8 / int4 under bf16 and float under fp32.
-    Each against its plain version, two launches bit-identical, timed."""
+    Each against its plain version, two launches bit-identical, timed
+    beside the plain version, its bound (`paged_bound`, `gmm_bound`)
+    and the library call
+    of the full-width check (SDPA on a pre-gathered copy of the rank's
+    heads for the paged entries, `torch.matmul` / `torch.bmm` on a
+    pre-dequantized copy for K4)."""
     import torch
     from paddle_tpu_torch.incubate.nn.fused_transformer import \
         _quantize_stack
@@ -4250,10 +4279,18 @@ def check_tp_shapes(pa, gm, device, flush):
         if not torch.equal(fn(*args), got):
             fail(f"paged {label} at {h} heads: two runs differ")
         ms = cuda_ms(lambda: fn(*args), flush=flush)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=5, flush=flush)
+        sdpa_ms = cuda_ms(sdpa_yardstick(
+            as_ragged(args) if args[5].dim() == 2 else args), flush=flush)
+        bound_ms, bound_by, _ = paged_bound(args)
         print(f"kernel check TP: paged {label} q "
               f"{list(args[0].shape)} pools {list(args[1].shape)} "
               f"max_abs_err={err:.3g} (tol {tol['bfloat16']} (1 + |plain|);"
-              f" two runs bit-identical) kernel_ms={ms:.4f}", flush=True)
+              f" two runs bit-identical) kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}), the kernel at {bound_ms / ms:.1%} of it; "
+              f"yardstick: SDPA on a pre-gathered copy {sdpa_ms:.4f} ms",
+              flush=True)
     D, F = HIDDEN, 4 * HIDDEN
     g = torch.Generator(device=device).manual_seed(SEED)
     for d_in, d_out in ((D, 3 * D // TP), (D // TP, D), (D, F // TP),
@@ -4274,10 +4311,19 @@ def check_tp_shapes(pa, gm, device, flush):
             fail(f"gmm_int8_dense [{d_in}, {d_out}]: two launches differ")
         ms = cuda_ms(lambda: gm.weight_only_matmul(x, w, scale, qmax=127.0),
                      flush=flush)
+        plain_ms = cuda_ms(lambda: torch.matmul(x, gm.dequantize(
+            w, scale, d_in, torch.bfloat16, 127.0)), iters=5, flush=flush)
+        w_lib = gm.dequantize(w, scale, d_in, torch.bfloat16, 127.0)
+        lib = cuda_ms(lambda: torch.matmul(x, w_lib), flush=flush)
+        bound_ms, bound_by = gmm_bound(x[None], w[None], scale[None], d_out)
         print(f"kernel check TP: gmm_int8_dense [{BUDGET}, {d_in}] x "
               f"[{d_in}, {d_out}] max_abs_err={err:.3g} (tol "
               f"{GMM_TOL['bfloat16']} (1 + |plain|); two launches "
-              f"bit-identical) kernel_ms={ms:.4f}", flush=True)
+              f"bit-identical) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} "
+              f"({bound_by}), the kernel at {bound_ms / ms:.1%} of it; "
+              f"yardstick: torch.matmul on a pre-dequantized copy "
+              f"{lib:.4f} ms", flush=True)
     E = MOE["num_expert"] // MOE_EP
     for variant, xdt in (("fp", torch.bfloat16), ("int8", torch.bfloat16),
                          ("int4", torch.bfloat16), ("fp", torch.float32)):
@@ -4296,11 +4342,21 @@ def check_tp_shapes(pa, gm, device, flush):
                      "differ")
             ms = cuda_ms(lambda: gm.grouped_expert_matmul(x, w, scale),
                          flush=flush)
+            plain_ms = cuda_ms(lambda: gm.grouped_matmul_reference(
+                x, w, scale), iters=5, flush=flush)
+            w_lib = gm.dequantize(w, scale, d_in, xdt)
+            lib = cuda_ms(lambda: torch.bmm(x, w_lib), flush=flush)
+            bound_ms, bound_by = gmm_bound(x, w, scale, d_out)
             print(f"kernel check TP: gmm_{variant} {dname} "
                   f"{list(x.shape)} x [{E}, {d_in}, {d_out}] "
                   f"{str(w.dtype).split('.')[-1]} weights max_abs_err="
                   f"{err:.3g} (tol {GMM_TOL[dname]} (1 + |plain|); two "
-                  f"launches bit-identical) kernel_ms={ms:.4f}", flush=True)
+                  f"launches bit-identical) kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}), the kernel at "
+                  f"{bound_ms / ms:.1%} of it; yardstick: torch.bmm"
+                  f"{'' if scale is None else ' on a pre-dequantized copy'}"
+                  f" {lib:.4f} ms", flush=True)
 
 
 def tp_rank_main(rank, world, out_dir, job):
@@ -4599,6 +4655,446 @@ def serve_tp(base, base_prof, dense_out):
           f"step host; in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------- phases 5o and 5p
+
+#: the disaggregated fleet: one prefill replica and two decode replicas
+DISAGG_ROLES = ("prefill", "decode", "decode")
+#: the payload of one bf16 GPT-350M block: L x BS x H x Dh x 2 B x (k, v)
+BLOCK_BYTES = LAYERS * BLOCK * HEADS * (HIDDEN // HEADS) * 2 * 2
+
+
+def timed_transport():
+    """The router's default transport, `InProcessTransport` (every
+    block through the codec), timing its calls: `seconds` in the
+    codec, `frames` sent and `ahead` (the blocks streamed ahead of their
+    ticket). Every call comes from the event loop's thread."""
+    from paddle_tpu_torch.serving.distributed import InProcessTransport
+
+    class Timed(InProcessTransport):
+        def __init__(self):
+            super().__init__()
+            self.seconds, self.frames, self.ahead = 0.0, 0, 0
+            self._in_ticket = False
+
+        def send_chunk(self, src, dst, key, meta, chunk):
+            t0 = time.perf_counter()
+            super().send_chunk(src, dst, key, meta, chunk)
+            self.frames += 1
+            if not self._in_ticket:
+                self.seconds += time.perf_counter() - t0
+                self.ahead += chunk.count
+
+        def send_ticket(self, src, dst, key, ticket):
+            t0 = time.perf_counter()
+            self._in_ticket = True
+            try:
+                super().send_ticket(src, dst, key, ticket)
+            finally:
+                self._in_ticket = False
+            self.frames += 1
+            self.seconds += time.perf_counter() - t0
+
+    return Timed()
+
+
+def disagg_fleet(model, device, roles=DISAGG_ROLES, per_role=None, **kw):
+    """(router, engines): one `ServingEngine` a role on `device` behind a
+    `ReplicaRouter` over `timed_transport()`; `kw` for every engine and
+    `per_role` {role: kw} on top. Each engine's block export and import
+    is timed into its `moved` dict, and the paged-attention launches
+    its steps make are tallied into its `launches` {kernel name: n}
+    from the stepping thread's own counts, so each replica's launches
+    are known while the others launch from their threads."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving.distributed import ReplicaRouter
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    from paddle_tpu_torch.serving.frontend import ServingFrontend
+    names = {attr: name for name, m, attr, _r, _s in kernel_table()
+             if m is pa}
+    engines = []
+    for i, role in enumerate(roles):
+        eng = ServingEngine(model, role=role, name=f"{role}{i}",
+                            device=device,
+                            **dict(kw, **(per_role or {}).get(role, {})))
+        eng.launches = dict.fromkeys(names.values(), 0)
+
+        def counted(*a, _step=eng.step, _tally=eng.launches, **k):
+            before = pa.thread_counts()
+            try:
+                return _step(*a, **k)
+            finally:
+                for attr, n in pa.thread_counts().items():
+                    _tally[names[attr]] += n - before.get(attr, 0)
+        eng.step = counted
+        eng.moved = {"export": 0.0, "import": 0.0}
+        for what in ("export", "import"):
+            fn = getattr(eng.kv, f"{what}_blocks")
+
+            def timed(*a, _fn=fn, _what=what, _m=eng.moved):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a)
+                finally:
+                    _m[_what] += time.perf_counter() - t0
+            setattr(eng.kv, f"{what}_blocks", timed)
+        engines.append(eng)
+    router = ReplicaRouter([ServingFrontend(e, max_pending=64)
+                            for e in engines], roles=list(roles),
+                           transport=timed_transport())
+    return router, engines
+
+
+async def fleet_stream(router, prompts, new, during=None):
+    """Every prompt through `router.stream` at once; `during(router)` runs
+    beside the streams (a shed, a crash). Returns (outputs, each
+    request's token arrival times, the start time)."""
+    import asyncio
+    t0 = time.perf_counter()
+    times = [[] for _ in prompts]
+
+    async def one(i, p):
+        out = []
+        async for tok in router.stream(p, new):
+            times[i].append(time.perf_counter())
+            out.append(tok)
+        return out
+    tasks = [asyncio.ensure_future(one(i, p)) for i, p in enumerate(prompts)]
+    if during is not None:
+        await during(router)
+    return list(await asyncio.gather(*tasks)), times, t0
+
+
+def live_decode(engines, idxs, min_tokens):
+    """The first of replicas `idxs` holding a decode with at least
+    `min_tokens` tokens out, or None."""
+    for i in idxs:
+        if any(r is not None and r.state == "decode"
+               and len(r.output) >= min_tokens
+               for r in engines[i].scheduler.slots):
+            return i
+    return None
+
+
+def shed_hop(engines, idxs, min_tokens=8):
+    """A `during` for `fleet_stream`: one `router.shed(i, 1)` on a decode
+    replica of `idxs` once one holds a live decode (60 s at most)."""
+    import asyncio
+
+    async def during(router):
+        for _ in range(60_000):
+            i = live_decode(engines, idxs, min_tokens)
+            if i is not None and router.shed(i, 1):
+                return
+            await asyncio.sleep(0.001)
+        fail("no decode replica held a live decode to shed")
+    return during
+
+
+class _Counts:
+    """A snapshot of the fleet's counters, so a run reads its own
+    deltas."""
+
+    def __init__(self, router, engines):
+        st = router.stats()
+        self.migrations = dict(st["migrations"])
+        self.transport = dict(st["transport"])
+        t = router.transport
+        self.timed = (t.seconds, t.frames, t.ahead)
+        self.engines = [(e.steps_run, e.kv.blocks_exported,
+                         e.kv.blocks_imported, dict(e.moved),
+                         dict(e.launches)) for e in engines]
+
+
+def fleet_deltas(router, engines, before):
+    """The counters a run moved: migrations, transport, timed codec,
+    and each engine's steps, blocks exported, blocks imported, its
+    export / import seconds and its paged-attention launches."""
+    now = _Counts(router, engines)
+    return dict(
+        migrations={k: v - before.migrations.get(k, 0)
+                    for k, v in now.migrations.items()},
+        transport={k: v - before.transport[k]
+                   for k, v in now.transport.items()},
+        seconds=now.timed[0] - before.timed[0],
+        frames=now.timed[1] - before.timed[1],
+        ahead=now.timed[2] - before.timed[2],
+        steps=[a[0] - b[0] for a, b in zip(now.engines, before.engines)],
+        exported=[a[1] - b[1] for a, b in zip(now.engines, before.engines)],
+        imported=[a[2] - b[2] for a, b in zip(now.engines, before.engines)],
+        moved={w: sum(a[3][w] - b[3][w] for a, b in zip(
+            now.engines, before.engines)) for w in ("export", "import")},
+        launches=[{k: n - b[4][k] for k, n in a[4].items() if n - b[4][k]}
+                  for a, b in zip(now.engines, before.engines)])
+
+
+def hold_fleet(label, engines, d, outputs, new, per_replica, got,
+               handoffs, sheds, payload=None, dropped=False):
+    """The checks of a fleet run: every request finished with its full
+    horizon, the handoffs and sheds counted, every block exported once,
+    sent once and imported once (`dropped`: a failover dropped transfers
+    in flight, so fewer are imported; with `payload`, the transport's
+    bytes exactly blocks x payload plus frame headers), each replica's
+    launches exactly its `per_replica` {kernel name: n} (those made by
+    its steps), the run's counts (`got`) exactly their sum, and every
+    replica of `engines` drained with its allocator whole."""
+    if any(len(o) != new for o in outputs):
+        fail(f"{label}: not every request finished with its full horizon")
+    if d["migrations"] != {"handoff": handoffs, "shed": sheds}:
+        fail(f"{label}: migrations {d['migrations']}, expected "
+             f"{handoffs} handoffs and {sheds} sheds")
+    sent = d["transport"]["blocks_sent"]
+    imported = sum(d["imported"])
+    if sent != sum(d["exported"]) or (imported > sent if dropped
+                                      else imported != sent):
+        fail(f"{label}: blocks sent {sent}, exported {d['exported']}, "
+             f"imported {d['imported']}")
+    if payload is not None:
+        headers = d["transport"]["bytes_sent"] - sent * payload
+        if not 0 < headers < 4096 * d["frames"]:
+            fail(f"{label}: {d['transport']['bytes_sent']} bytes sent for "
+                 f"{sent} blocks of {payload} B in {d['frames']} frames")
+    for i, (want, mine) in enumerate(zip(per_replica, d["launches"])):
+        if mine != {k: n for k, n in want.items() if n}:
+            fail(f"{label}: replica {i}'s steps launched {mine}, expected "
+                 f"{want}")
+    hold_counts(label, got, {k: sum(w.get(k, 0) for w in per_replica)
+                             for k in got})
+    for e in engines:
+        if e.prefix_cache is not None:
+            e.prefix_cache.evict_all()
+        if e.kv.blocks_in_use or not e.kv.allocator.invariant_ok:
+            fail(f"{label}: replica {e.name} holds {e.kv.blocks_in_use} "
+                 "blocks after the drain (or its allocator is broken)")
+
+
+def serve_disagg(model, device, counters, dense_out, base):
+    """Phase 5o: GPT-350M (phase 5a's model, bf16, full depth) served by
+    a disaggregated fleet — one `role="prefill"` replica and two
+    `role="decode"` replicas with phase 4's engine settings behind a
+    `ReplicaRouter` over `InProcessTransport` — on the 16 requests, all
+    streamed at once. Holds: every request finishes with its full
+    horizon, 16 handoffs, every block exported once, sent once and
+    imported once, the payload exactly blocks x 1,572,864 B (the rest
+    frame headers), the ragged paged kernel launched by each replica
+    exactly its own steps x 24 and nothing else, every replica drained,
+    the tokens within phase 5's near-tie oracle. All 16 requests start
+    together, when both decode replicas are equally idle, so the router
+    (the JAX package's placement rule: least queued, then lowest index)
+    hands every one to the first decode replica; the second decodes
+    only in the second run, the same with one `router.shed(i, 1)` hop
+    on a decode replica mid-stream. Prints
+    tokens/s and TTFT beside phase 4's, the mean inter-token gap, steps
+    a replica, the share of blocks streamed ahead of their ticket, the
+    codec's, export's and import's seconds."""
+    import asyncio
+    from types import SimpleNamespace
+
+    import torch
+    t_phase = time.perf_counter()
+    prompts = serve_prompts()
+    router, engines = disagg_fleet(
+        model, device, max_slots=SLOTS, block_size=BLOCK,
+        max_seq_len=MAX_SEQ, token_budget=BUDGET, cache_dtype="bfloat16")
+    runs = {}
+
+    async def drive():
+        async with router:
+            # warm-up: a few requests, so that every replica has run
+            await asyncio.gather(*[router.submit([1, 2, 3, i], 2)
+                                   for i in range(4)])
+            torch.cuda.synchronize()
+            for label, during in (("serve disagg", None),
+                                  ("serve disagg shed", shed_hop(
+                                      engines, (1, 2)))):
+                before = _Counts(router, engines)
+                for mod, attr, _ in counters:
+                    setattr(mod, attr, 0)
+                outs, times, t0 = await fleet_stream(router, prompts,
+                                                     NEW_TOKENS, during)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = {name: getattr(mod, attr)
+                       for mod, attr, name in counters}
+                runs[label] = (outs, times, t0, wall, got,
+                               fleet_deltas(router, engines, before))
+    asyncio.run(drive())
+    for label, (outs, times, t0, wall, got, d) in runs.items():
+        shed = 1 if label.endswith("shed") else 0
+        hold_fleet(label, engines, d, outs, NEW_TOKENS,
+                   [{"paged_attention": n * LAYERS} for n in d["steps"]],
+                   got, handoffs=len(prompts), sheds=shed,
+                   payload=BLOCK_BYTES)
+        generated = sum(map(len, outs))
+        ttft = sum(t[0] - t0 for t in times) / len(times)
+        gaps = [b - a for t in times for a, b in zip(t, t[1:])]
+        same = sum(a == b for o, w in zip(outs, dense_out)
+                   for a, b in zip(o, w))
+        sent = d["transport"]["blocks_sent"]
+        print(f"{label}: roles {list(DISAGG_ROLES)}, phase 4's engine "
+              f"settings, InProcessTransport; {len(prompts)} "
+              f"requests, {generated} generated tokens in {wall:.3f} s = "
+              f"{generated / wall:.1f} tokens/s (phase 4: "
+              f"{base['tokens_s']:.1f}), mean TTFT {ttft * 1e3:.1f} ms "
+              f"(phase 4: {base['ttft_ms']:.1f}), mean inter-token gap "
+              f"{sum(gaps) / len(gaps) * 1e3:.2f} ms; steps per replica "
+              f"{d['steps']}; migrations {d['migrations']}; blocks sent "
+              f"{sent} (exported {d['exported']}, imported "
+              f"{d['imported']}), {d['transport']['bytes_sent']} B = "
+              f"{sent} x {BLOCK_BYTES} B + "
+              f"{d['transport']['bytes_sent'] - sent * BLOCK_BYTES} B of "
+              f"headers in {d['frames']} frames; {d['ahead']}/{sent} = "
+              f"{d['ahead'] / sent:.1%} streamed ahead of the tickets; "
+              f"codec {d['seconds']:.3f} s, export {d['moved']['export']:.3f}"
+              f" s, import {d['moved']['import']:.3f} s (wall, host clock);"
+              f" paged_attention launches {got['paged_attention']}, each "
+              f"replica's = its steps x {LAYERS} ("
+              + ", ".join(str(x.get("paged_attention", 0))
+                          for x in d["launches"])
+              + f"); {same}/{generated} tokens equal to phase 4's",
+              flush=True)
+        check_outputs(model, [SimpleNamespace(req_id=i, prompt=p, output=o)
+                              for i, (p, o) in enumerate(zip(prompts, outs))],
+                      device, label=f"check {label[6:]}")
+    del router, engines
+    torch.cuda.empty_cache()
+    print(f"serve disagg: phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def check_disagg_on_card(device, counters):
+    """Phase 5p: fp32, 2 layers at full width, 4 requests of 16 new
+    tokens (prompts of 40-200 tokens over a 64-token budget, so blocks
+    stream ahead), the same geometry on every engine. The fleet's greedy
+    tokens must equal the card's monolithic engine's and those of the
+    same fleet on the CPU (plain versions), with no near-tie used, in
+    four cases: (1) the float pool, 1 prefill + 2 decode replicas;
+    (2) int8 pools with draft_k=2 on the decode role and
+    prefix_caching=True on the prefill role; (3) one shed hop between
+    the decode replicas; (4) two prefill replicas and one decode
+    replica, the first prefill replica's step raising mid-prefill (its
+    requests restart on the other). Launches held in each, replica by
+    replica: the ragged variant its steps x 2, the verify variant its
+    steps x 2 on a decode replica with draft_k, nothing else. Cases 1,
+    3 and 4 share one monolithic reference (the same engine settings).
+    Prints each case's wall seconds."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    layers = 2
+    arrays = random_gpt_arrays(SEED + 71, layers=layers)
+    models = {str(d): load_jax_gpt(arrays, HEADS, device=d)
+              for d in (device, "cpu")}
+    rng = np.random.default_rng(SEED + 72)
+    prompts = [rng.integers(0, VOCAB, int(n)).tolist()
+               for n in (40, 200, 97, 151)]
+    geo = dict(max_slots=4, block_size=BLOCK, max_seq_len=256,
+               token_budget=64, cache_dtype="float32")
+    int8 = dict(kv_dtype="int8")
+    cases = (
+        ("float", DISAGG_ROLES, {}, {}, None),
+        ("int8 + draft_k=2 + prefix", DISAGG_ROLES, int8,
+         {"decode": dict(draft_k=2), "prefill": dict(prefix_caching=True)},
+         None),
+        ("shed hop", DISAGG_ROLES, {}, {}, "shed"),
+        ("prefill failover", ("prefill", "prefill", "decode"), {}, {},
+         "crash"))
+
+    def serve_fleet(dev, roles, kw, per_role, event):
+        router, engines = disagg_fleet(models[str(dev)], dev, roles=roles,
+                                       per_role=per_role, **geo, **kw)
+        during = None
+        if event == "shed":
+            during = shed_hop(engines, (1, 2), min_tokens=4)
+        elif event == "crash":
+            real, calls = engines[0].step, [0]
+
+            def flaky():
+                calls[0] += 1
+                if calls[0] > 1:
+                    raise RuntimeError("injected prefill crash")
+                return real()
+            engines[0].step = flaky
+
+        async def drive():
+            async with router:
+                before = _Counts(router, engines)
+                for mod, attr, _ in counters:
+                    setattr(mod, attr, 0)
+                outs, _, _ = await fleet_stream(router, prompts, 16, during)
+                if torch.device(dev).type == "cuda":
+                    torch.cuda.synchronize()
+                got = {name: getattr(mod, attr)
+                       for mod, attr, name in counters}
+                return outs, got, fleet_deltas(router, engines, before)
+        outs, got, d = asyncio.run(drive())
+        return outs, got, d, router, engines
+
+    monos = {}                      # the card's monolithic tokens by kw
+    for label, roles, kw, per_role, event in cases:
+        t_case = time.perf_counter()
+        mono_kw = dict(kw, **({"draft_k": 2, "prefix_caching": True}
+                              if per_role else {}))
+        key = tuple(sorted(mono_kw.items()))
+        if key not in monos:
+            mono = ServingEngine(models[str(device)], device=device, **geo,
+                                 **mono_kw)
+            monos[key] = mono.generate_batch(prompts, 16)
+            del mono
+        want = monos[key]
+        t_fleet = time.perf_counter()
+        got_out, got, d, router, engines = serve_fleet(
+            device, roles, kw, per_role, event)
+        t_cpu = time.perf_counter()
+        cpu_out, _, _, _, _ = serve_fleet("cpu", roles, kw, per_role, event)
+        t_end = time.perf_counter()
+        ragged = ("paged_int8" if kw.get("kv_dtype") == "int8"
+                  else "paged_attention")
+        per_replica = [{ragged: n * layers} for n in d["steps"]]
+        if per_role:
+            for want_i, n, e in zip(per_replica, d["steps"], engines):
+                if e.draft_k:
+                    want_i["paged_verify_int8"] = n * layers
+        alive = [e for e in engines if not (event == "crash"
+                                            and e is engines[0])]
+        hold_fleet(f"check disagg {label}", alive, d, got_out, 16,
+                   per_replica, got, handoffs=len(prompts),
+                   sheds=1 if event == "shed" else 0,
+                   dropped=event == "crash")
+        same, total, gap = first_gap(models["cpu"], prompts, got_out, want)
+        c_same, _, c_gap = first_gap(models["cpu"], prompts, got_out,
+                                     cpu_out)
+        line = (f"check disagg: fp32, {layers} layers at full width, "
+                f"{label}, roles {list(roles)}: {same}/{total} greedy "
+                f"tokens equal to the card's monolithic engine, "
+                f"{c_same}/{total} to the same fleet on the CPU (first "
+                f"differing token's fp32 top-2 gap "
+                f"{'none' if gap is None else f'{gap:.3g}'} / "
+                f"{'none' if c_gap is None else f'{c_gap:.3g}'}, no near-"
+                f"tie used); steps per replica {d['steps']}, migrations "
+                f"{d['migrations']}, failovers {router.failovers}, blocks "
+                f"sent {d['transport']['blocks_sent']} ({d['ahead']} "
+                f"streamed ahead); launches "
+                + ", ".join(f"{n} {k}" for n, k in got.items() if k)
+                + f", each replica's its steps x {layers}; wall "
+                f"{t_fleet - t_case:.1f} s monolithic, "
+                f"{t_cpu - t_fleet:.1f} s card fleet, "
+                f"{t_end - t_cpu:.1f} s CPU fleet")
+        print(line, flush=True)
+        if gap is not None or c_gap is not None:
+            fail(line + " — the fleet's tokens differ")
+        if event == "crash" and not router.failovers:
+            fail(line + " — the injected crash caused no failover")
+        del router, engines
+    del models
+    torch.cuda.empty_cache()
+    print(f"check disagg: phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def kernel_table():
     """Every kernel variant of the port: (name, module, counter
     attribute, TPU kernel replaced, source)."""
@@ -4735,14 +5231,17 @@ def main():
     serve_lora(model, device, counters, dense_out, base, base_prof)
     serve_launches.update(serve_weight_only(model, device, counters,
                                             dense_out, base, base_prof))
+    mark("phases 5j, 5k")
+    serve_disagg(model, device, counters, dense_out, base)
     del model
     torch.cuda.empty_cache()
-    mark("phases 5j, 5k")
+    mark("phase 5o")
     check_spec_on_card(device)
     check_multitick_on_card(device)
     check_prefix_sparse_on_card(device)
     check_lora_weight_only_on_card(device)
-    mark("phases 5d, 5f, 5i, 5l")
+    check_disagg_on_card(device, counters)
+    mark("phases 5d, 5f, 5i, 5l, 5p")
     serve_launches.update(serve_moe(device, counters))
     check_moe_on_card(device)
     mark("phases 5b, 5c")

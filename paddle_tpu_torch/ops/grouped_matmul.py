@@ -43,6 +43,7 @@ package's bytes exactly.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -58,6 +59,16 @@ int4_launch_count = 0
 #: launches of `weight_only_matmul`, the dense projections of a
 #: weight-only stack (not counted in the three above)
 dense_launch_count = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def count(counter, n=1):
+    """Add `n` to the launch counter named `counter`, under a lock: the
+    engines of a serving fleet launch from several threads at once, and
+    an unlocked `+=` can lose an increment."""
+    with _COUNT_LOCK:
+        globals()[counter] += n
+
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -264,8 +275,6 @@ def _vec_ok(t, row):
 
 
 def _launch(x, w, scale, qmax, out_dtype, dense=False):
-    global fp_launch_count, int8_launch_count, int4_launch_count, \
-        dense_launch_count
     E, C, D = x.shape
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"grouped_matmul kernel: x must be fp32, bf16 or "
@@ -332,12 +341,6 @@ def _launch(x, w, scale, qmax, out_dtype, dense=False):
     if err != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA "
                            f"error {err}")
-    if dense:
-        dense_launch_count += 1
-    elif fmt == 0:
-        fp_launch_count += 1
-    elif fmt == 1:
-        int8_launch_count += 1
-    else:
-        int4_launch_count += 1
+    count("dense_launch_count" if dense else
+          ("fp_launch_count", "int8_launch_count", "int4_launch_count")[fmt])
     return out

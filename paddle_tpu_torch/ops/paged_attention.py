@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -110,6 +111,27 @@ _COUNTERS = {
     ("sparse_verify", torch.int8): "sparse_verify_int8_launch_count",
     ("sparse_verify", torch.float8_e4m3fn):
         "sparse_verify_fp8_launch_count"}
+_COUNT_LOCK = threading.Lock()
+_THREAD = threading.local()     # this thread's launches, by counter
+
+
+def count(counter, n=1):
+    """Add `n` to the launch counter named `counter`, under a lock: the
+    engines of a serving fleet launch from several threads at once, and
+    an unlocked `+=` can lose an increment. The calling thread's own
+    tally (`thread_counts`) grows by `n` too."""
+    with _COUNT_LOCK:
+        globals()[counter] += n
+    mine = _THREAD.__dict__
+    mine[counter] = mine.get(counter, 0) + n
+
+
+def thread_counts():
+    """{counter: launches} made by the calling thread so far. A caller
+    that steps one engine in this thread reads it before and after the
+    step to know that engine's launches while other threads launch."""
+    return dict(_THREAD.__dict__)
+
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                 torch.int8: 3, torch.float8_e4m3fn: 4}
@@ -511,6 +533,5 @@ def _launch(entry, q, k_pool, v_pool, block_tables, slot_ids, positions,
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    counter = _COUNTERS[(entry, k_pool.dtype if quant else None)]
-    globals()[counter] += launches
+    count(_COUNTERS[(entry, k_pool.dtype if quant else None)], launches)
     return out

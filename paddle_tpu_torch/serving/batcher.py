@@ -9,6 +9,8 @@ Port of `paddle_tpu/serving/batcher.py`:
   `apply_logit_penalties`);
 * `next_pow2` / `round_up` / `choose_token_budget` / `prefill_chunk` —
   the power-of-two shape discipline of the flat step axis;
+* `FairQueue` — the serving frontend's bounded round-robin admission
+  queue across tenants;
 * `pack_step` — one engine iteration (decode tokens or speculative
   verify groups + prefill chunks) packed into the FIXED
   `[token_budget]` flat-token layout:
@@ -28,6 +30,7 @@ region at `verify_width` 1, slot s's decode token at flat index s.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -149,7 +152,8 @@ def round_up(n, m):
 
 
 def choose_token_budget(max_slots, block_size, requested=None,
-                        verify_width=1, reserve_region=False):
+                        verify_width=1, role="mixed",
+                        reserve_region=False):
     """Per-step token budget: a power of two >= max(max_slots,
     2*block_size), so a full decode round always fits and prefill
     chunks cover at least two KV blocks per step. An explicit
@@ -163,13 +167,23 @@ def choose_token_budget(max_slots, block_size, requested=None,
     prefill room — a budget that left prefill no token would starve
     admission forever. `reserve_region=True` reserves the per-slot
     decode region at `verify_width` 1 too (block-sparse decode), with
-    the same floors."""
+    the same floors.
+
+    `role="decode"` (disaggregated serving) shrinks the default: a
+    decode-role replica admits migrated requests whose KV arrives by
+    block transport, so its steps need the decode (or verify) tokens
+    plus one prefill token of headroom (a preempted migrant re-prefills
+    locally). Every step pays the full `[T]` compute, so the small
+    budget is where the decode role's inter-token gain comes from. An
+    explicit `requested` always wins."""
     vw = int(verify_width)
     region = max_slots * vw
     region_on = vw > 1 or reserve_region
     if requested is not None:
         floor = region + 1 if region_on else max_slots
         return next_pow2(max(int(requested), floor), lo=1)
+    if role == "decode":
+        return next_pow2(region + 1, lo=1)
     if not region_on:
         return next_pow2(max(max_slots, 2 * block_size))
     return next_pow2(region + 2 * block_size)
@@ -189,6 +203,72 @@ def prefill_chunk(remaining, budget_left):
     while p * 2 <= budget_left:
         p *= 2
     return p
+
+
+class FairQueue:
+    """Bounded round-robin admission queue across tenants.
+
+    The frontend's backpressure and fairness primitive: each tenant has
+    its own FIFO lane, `pop()` serves the lanes round-robin so one
+    chatty tenant cannot starve the others, and the total size is
+    bounded: `push` refuses past `max_pending`, and the frontend turns
+    the refusal into a wait for space. Host-side and synchronous."""
+
+    def __init__(self, max_pending=256):
+        self.max_pending = int(max_pending)
+        self._lanes = collections.OrderedDict()   # tenant -> deque
+        self._size = 0
+
+    def __len__(self):
+        return self._size
+
+    @property
+    def full(self):
+        return self._size >= self.max_pending
+
+    def push(self, tenant, item):
+        """False (the item not queued) when the queue is full."""
+        if self.full:
+            return False
+        self._lanes.setdefault(tenant, collections.deque()).append(item)
+        self._size += 1
+        return True
+
+    def pop(self):
+        """The next item, rotating across tenants; None when empty. A
+        tenant goes to the back of the rotation after each item it is
+        served, so K tenants each get about 1/K of the admissions
+        whatever their lanes' depths."""
+        while self._lanes:
+            tenant, lane = next(iter(self._lanes.items()))
+            self._lanes.move_to_end(tenant)
+            if not lane:
+                del self._lanes[tenant]
+                continue
+            item = lane.popleft()
+            self._size -= 1
+            if not lane:
+                del self._lanes[tenant]
+            return item
+        return None
+
+    def items(self):
+        """Every queued item across the lanes (inspection only)."""
+        for lane in self._lanes.values():
+            yield from lane
+
+    def remove(self, item):
+        """Drop a queued item (a cancellation before admission)."""
+        for tenant, lane in list(self._lanes.items()):
+            try:
+                lane.remove(item)
+            except ValueError:
+                continue
+            self._size -= 1
+            if not lane:
+                del self._lanes[tenant]
+            return True
+        return False
 
 
 @dataclasses.dataclass

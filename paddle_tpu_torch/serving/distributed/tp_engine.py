@@ -68,7 +68,12 @@ class TPServingEngine(ServingEngine):
     engine's."""
 
     def __init__(self, model, *, tensor_parallel=2, expert_parallel=1,
-                 device=None, clock=time.monotonic, **kw):
+                 device=None, clock=time.monotonic, role="mixed", **kw):
+        if role != "mixed":
+            raise NotImplementedError(
+                f"role={role!r} under tensor parallelism is not ported: a "
+                "migration ticket would need every rank's heads gathered "
+                "into one process")
         dec = model.decoder
         tp, ep = int(tensor_parallel), int(expert_parallel)
         if tp < 1 or ep < 1:
@@ -209,6 +214,16 @@ class TPServingEngine(ServingEngine):
                 "close(spill_prefix=) under tensor parallelism is not "
                 "ported (each rank holds a slice of every block)")
         return super().close(spill_prefix=spill_prefix)
+
+    def extract_request(self, req):
+        raise NotImplementedError(
+            "extract_request under tensor parallelism is not ported (each "
+            "rank holds a slice of every block)")
+
+    def submit_migrated(self, ticket):
+        raise NotImplementedError(
+            "submit_migrated under tensor parallelism is not ported (each "
+            "rank holds a slice of every block)")
 
     def swap_weights(self, *args, **kw):
         raise NotImplementedError(

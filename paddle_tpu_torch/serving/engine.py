@@ -84,11 +84,23 @@ over its shard of the weights and pools. It reaches the step through
 three hooks: `_step_cfg` (the rank's heads and groups), `_sync_outputs`
 (rank 0's sampled tokens to every rank, each tick) and the clock.
 
-Disaggregated roles are not arguments yet (ROADMAP Queue 1).
+Disaggregated prefill/decode serving: `role="prefill"` parks each
+request in the "handoff" state right after its first sampled token;
+`extract_request` then exports its KV blocks (scales and summaries
+included) into a `distributed.transport.MigrationTicket`, which a
+decode-role engine admits mid-stream by `submit_migrated` (the
+scheduler imports the blocks at admission instead of prefilling), with
+greedy output token-identical to a monolithic engine. While the prompt
+prefills, `export_unshipped` hands out the full blocks written so far,
+so the destination holds most of the KV before the ticket exists.
+`role="decode"` defaults to a decode-sized token budget; any engine's
+live decode can be shed to another the same way. The router
+(`distributed.router.ReplicaRouter`) drives it.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import time
 
@@ -113,6 +125,9 @@ from .draft import (accept_length, accept_length_sampled, ngram_propose,
 from .kv_cache import FP8_MAX, SUMMARY_INIT, PagedKVCache
 from .prefix_cache import RadixPrefixCache
 from .scheduler import Scheduler
+
+#: default replica names: the role and a sequence number
+_ENGINE_SEQ = itertools.count()
 
 #: `sparse_blocks="auto"`: the JAX engine's default when its tuned-budget
 #: cache holds no entry (the port has no such cache yet)
@@ -370,7 +385,7 @@ class ServingEngine:
                  track_summaries=None, prefix_caching=False,
                  ticks_per_dispatch=1, penalty_vocab_bins=None,
                  max_adapters=0, lora_rank=8, lora_alpha=None,
-                 device="cuda"):
+                 role="mixed", name=None, device="cuda"):
         # config validation is loud, as in the JAX engine, and comes
         # before anything is built
         self._ticks_auto = ticks_per_dispatch == "auto"
@@ -382,6 +397,16 @@ class ServingEngine:
         #: sizes each dispatch at or below it)
         self.ticks_per_dispatch = tp
         self._multitick = tp > 1
+        # the disaggregated role: "prefill" parks a request in "handoff"
+        # at its first sampled token for extraction toward a decode
+        # replica; "decode" serves like "mixed" (it re-prefills a
+        # preempted migrant) under a decode-sized default budget
+        if role not in ("mixed", "prefill", "decode"):
+            raise ValueError(f"unknown engine role {role!r}")
+        self.role = role
+        #: the replica's label (the role and a sequence number by default)
+        self.name = (str(name) if name is not None
+                     else f"{role}{next(_ENGINE_SEQ)}")
         self.device = resolve_device(device)
         self.sampling = sampling or SamplingConfig()
         self.draft_k = int(draft_k)
@@ -468,7 +493,8 @@ class ServingEngine:
                 "track_summaries=False on a sparse engine")
         self.token_budget = choose_token_budget(
             max_slots, self.block_size, token_budget,
-            verify_width=self.draft_k + 1, reserve_region=self._sparse)
+            verify_width=self.draft_k + 1, role=self.role,
+            reserve_region=self._sparse)
         self.kv = PagedKVCache(
             L, H, Dh, num_blocks=num_blocks, block_size=self.block_size,
             max_slots=max_slots, max_blocks_per_slot=mbps,
@@ -732,11 +758,12 @@ class ServingEngine:
         return self.adapters.register(adapter_id, weights)
 
     def submit(self, prompt_ids, max_new_tokens=32, deadline=None,
-               adapter_id=None):
+               tenant="default", adapter_id=None, trace_id=None):
         """Queue one request. Returns the scheduler's Request handle
         (read `.output` / `.state` as the engine advances). `adapter_id`
         names a registered LoRA adapter (None: the base model, the tokens
-        of an engine without adapters)."""
+        of an engine without adapters); `tenant` and `trace_id` ride the
+        request (the frontend's fairness lane, a fleet trace id)."""
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -757,8 +784,99 @@ class ServingEngine:
                     "this engine (register_adapter first)")
         return self.scheduler.submit(prompt, max_new_tokens,
                                      eos_token_id=self.eos_token_id,
-                                     deadline=deadline,
-                                     adapter_id=adapter_id)
+                                     deadline=deadline, tenant=tenant,
+                                     adapter_id=adapter_id,
+                                     trace_id=trace_id)
+
+    def cancel(self, req):
+        """Abort a request (the frontend's cancellation): its blocks and
+        prefix locks are reclaimed at once. False when it had already
+        ended."""
+        return self.scheduler.cancel(req)
+
+    # -------------------------------------------- migration (disagg)
+    def _slot_chunk(self, req, first_block, last_block):
+        """`req`'s table blocks [first_block, last_block) as one
+        transport chunk (None when the range is empty)."""
+        # the distributed package imports this module: import late
+        from .distributed.transport import BlockChunk
+        ids = self.kv.slot_blocks(req.slot)[first_block:last_block]
+        if not ids:
+            return None
+        return BlockChunk(start=int(first_block), count=len(ids),
+                          arrays=self.kv.export_blocks(ids))
+
+    def export_unshipped(self, req):
+        """The stream-ahead of a prefill in flight: the FULL blocks
+        written since the last call, as a BlockChunk (or None). A full
+        block's contents are final (later chunks write later blocks, and
+        decode writes land past the prompt), so the decode side holds
+        most of the KV before the handoff ticket exists."""
+        if req.slot < 0:
+            return None
+        full = int(self.kv.slot_lens[req.slot]) // self.block_size
+        chunk = self._slot_chunk(req, req.shipped_blocks, full)
+        if chunk is not None:
+            req.shipped_blocks = full
+        return chunk
+
+    def extract_request(self, req):
+        """Take a resident request out of this engine to migrate it:
+        export the blocks not streamed ahead yet (all of them for a
+        decode shed), capture the host state, then free the slot.
+        Returns the MigrationTicket the destination's `submit_migrated`
+        takes. The ticket carries bit-exact KV (scales and summaries
+        included) and the whole token history, so the destination goes
+        on as this engine would have."""
+        if req.slot < 0 or req.state not in ("decode", "handoff"):
+            raise ValueError(
+                f"request {req.req_id} not extractable "
+                f"(state={req.state!r}, slot={req.slot})")
+        from .distributed.transport import MigrationTicket
+        slot_len = int(self.kv.slot_lens[req.slot])
+        total = self.kv.blocks_for(slot_len)
+        tail = self._slot_chunk(req, req.shipped_blocks, total)
+        ticket = MigrationTicket(
+            prompt=list(req.prompt), output=list(req.output),
+            max_new_tokens=req.max_new_tokens,
+            eos_token_id=req.eos_token_id, deadline=req.deadline,
+            tenant=req.tenant, slot_len=slot_len, total_blocks=total,
+            kv_meta=self.kv.kv_meta(), chunks=[tail] if tail else [],
+            submit_time=req.submit_time,
+            first_token_time=req.first_token_time,
+            cache_hit_tokens=req.cache_hit_tokens,
+            preemptions=req.preemptions, created_at=self.clock(),
+            adapter_id=req.adapter_id, trace_id=req.trace_id)
+        self.scheduler.extract(req)
+        return ticket
+
+    def submit_migrated(self, ticket):
+        """Admit a migrated request: its pool geometry must equal this
+        engine's, its chunks must cover `total_blocks`, and its adapter
+        (if any) must be registered here; then the ticket is queued, and
+        the scheduler imports its blocks into a slot at the next plan.
+        Returns the Request handle."""
+        mine = self.kv.kv_meta()
+        theirs = dict(ticket.kv_meta or {})
+        if theirs != mine:
+            raise ValueError(
+                f"migrated KV geometry {theirs} does not match this "
+                f"engine's {mine}: disaggregated replicas must share "
+                "block_size, kv_dtype and the layer geometry")
+        covered = sum(c.count for c in ticket.chunks)
+        if covered != ticket.total_blocks:
+            raise ValueError(
+                f"ticket carries {covered} blocks but declares "
+                f"{ticket.total_blocks}: the transport lost a chunk")
+        aid = ticket.adapter_id
+        if aid is not None and (self.adapters is None
+                                or not self.adapters.known(aid)):
+            raise ValueError(
+                f"migrated request needs adapter {aid!r}, which is not "
+                "registered on this engine: register every adapter on "
+                "every replica of a migrating fleet "
+                "(ReplicaRouter.register_adapter does)")
+        return self.scheduler.submit_migrated(ticket)
 
     def _slot_adapters(self):
         """[max_slots] int32: each resident slot's pinned adapter slot (0
@@ -776,6 +894,14 @@ class ServingEngine:
         return np.where(sp.slot_ids >= 0,
                         slot_ad[np.clip(sp.slot_ids, 0, None)],
                         0).astype(np.int32)
+
+    def _emit_first(self, req, token, now):
+        """A completed prefill's first sampled token. On a prefill-role
+        engine a request that did not finish at it parks in "handoff",
+        every prompt token's K/V written, until the frontend extracts it
+        toward a decode replica."""
+        if not self._emit(req, [token], now) and self.role == "prefill":
+            req.state = "handoff"
 
     def _emit(self, req, tokens, now):
         """Append generated tokens; finish the request at EOS or its
@@ -875,7 +1001,7 @@ class ServingEngine:
         for slot in sp.prefill_done:
             req = sch.slots[slot]
             if req is not None:
-                self._emit(req, [int(tok_np[slot])], now)
+                self._emit_first(req, int(tok_np[slot]), now)
         if not self.draft_k:
             for slot in sp.decode_slots:
                 req = sch.slots[slot]
@@ -1060,7 +1186,7 @@ class ServingEngine:
         for slot in sp.prefill_done:
             req = sch.slots[slot]
             if req is not None:
-                self._emit(req, [int(staged[slot, 0])], now)
+                self._emit_first(req, int(staged[slot, 0]), now)
         for slot in sp.decode_slots:
             req = sch.slots[slot]
             if req is not None:

@@ -28,7 +28,8 @@ Shared blocks (the radix prefix cache, `prefix_cache.py`) are
 reference counted by the allocator; a write into a shared block first
 takes a private copy (`cow_block`). `export_blocks` / `import_blocks`
 move block payloads through host numpy arrays (the prefix cache's
-spill and restore).
+spill and restore, and the block transport of disaggregated serving,
+whose destination admits a migrated request by `import_into_slot`).
 """
 from __future__ import annotations
 
@@ -379,6 +380,48 @@ class PagedKVCache:
             p.index_copy_(1, idx, torch.from_numpy(np.ascontiguousarray(a))
                           .to(self.device).movedim(0, 1))
         self.blocks_imported += len(ids)
+
+    def import_into_slot(self, slot, slot_len, chunks):
+        """Admit a migrated request's KV: allocate blocks covering
+        `slot_len` tokens, write the transported chunks
+        (`transport.BlockChunk`s) into them and wire up `slot`'s table.
+        The chunks must cover blocks [0, blocks_for(slot_len)) with no
+        gap, which is checked before anything is allocated. Returns
+        False, with the state unchanged, when the free list (after the
+        prefix cache's eviction backstop) cannot supply the blocks; the
+        scheduler then leaves the request queued and retries."""
+        if slot_len <= 0:
+            raise ValueError(f"import_into_slot needs slot_len >= 1, "
+                             f"got {slot_len}")
+        need = self.blocks_for(slot_len)
+        ordered = sorted(chunks, key=lambda c: c.start)
+        at = 0
+        for c in ordered:
+            if c.start != at:
+                raise ValueError(
+                    f"migration chunks leave a gap at block {at} "
+                    f"(next chunk starts at {c.start})")
+            at += c.count
+        if at != need:
+            raise ValueError(
+                f"migration chunks cover {at} blocks but slot_len="
+                f"{slot_len} needs {need}")
+        if self._slot_blocks[slot]:
+            raise ValueError(f"slot {slot} is not empty")
+        got = self._alloc(need)
+        if got is None:
+            return False
+        try:
+            for c in ordered:
+                self.import_blocks(got[c.start:c.start + c.count], c.arrays)
+        except Exception:
+            self.allocator.free(got)
+            raise
+        self._slot_blocks[slot] = list(got)
+        self.block_tables[slot, :need] = got
+        self.block_tables[slot, need:] = NULL_BLOCK
+        self.slot_lens[slot] = slot_len
+        return True
 
     def truncate_slot(self, slot, new_len):
         """Roll back `slot` to cover only `new_len` tokens: blocks past

@@ -38,9 +38,17 @@ block-pressure preemption against the paged KV cache:
   the pin on every path (finish, preempt, expire, cancel). Requests
   under a non-null adapter bypass the prefix cache: their K/V depends
   on the adapter, and the radix tree keys by token ids alone.
+* **Migration** (disaggregated serving) — a request arriving from
+  another replica (`submit_migrated`) joins the FRONT of the queue with
+  its KV payload; admission imports the blocks into a slot
+  (`kv.import_into_slot`) instead of prefilling, and waits at the head
+  while the pool cannot cover them. `extract` releases a resident
+  request that migrates away (the engine exported its blocks first).
+  A prefill-role engine parks a request whose prompt is done in the
+  `"handoff"` state, which plans neither prefill nor decode.
 
-Pure host-side bookkeeping. The migration and tracing hooks of the JAX
-scheduler wait for later slices (ROADMAP.md).
+Pure host-side bookkeeping. `Request.trace_id` is carried for the
+tracing hooks of a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -63,14 +71,22 @@ class Request:                     # in sets/queues across state moves
     eos_token_id: Optional[int] = None
     deadline: Optional[float] = None  # absolute clock() time
     arrival: float = 0.0
-    state: str = "queued"   # queued|prefill|decode|finished|expired|cancelled
+    state: str = "queued"
+    # queued|prefill|handoff|decode|finished|expired|cancelled|migrated
     slot: int = -1
     output: list = dataclasses.field(default_factory=list)
     fed: int = 0                      # runtime-prompt tokens fed so far
     preemptions: int = 0
     cache_hit_tokens: int = 0         # prefix-cache tokens skipped
+    tenant: str = "default"           # the frontend's fairness lane
     adapter_id: object = None         # a registered LoRA adapter, or None
     adapter_slot: int = 0             # its pinned device slot (0 = null)
+    # disaggregated serving: an inbound migration carries its KV payload
+    # until admission imports it; a prefill-role engine counts the full
+    # blocks already streamed ahead, so extraction ships only the tail
+    ticket: Optional[object] = None
+    shipped_blocks: int = 0
+    trace_id: Optional[str] = None    # carried for fleet-wide tracing
     submit_time: float = 0.0
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
@@ -129,7 +145,8 @@ class Scheduler:
 
     # ---------------------------------------------------------- intake
     def submit(self, prompt, max_new_tokens, eos_token_id=None,
-               deadline=None, adapter_id=None):
+               deadline=None, tenant="default", adapter_id=None,
+               trace_id=None):
         total = len(prompt) + max_new_tokens - 1  # last token never fed
         if total > self.kv.max_slot_tokens:
             raise ValueError(
@@ -142,8 +159,35 @@ class Scheduler:
         req = Request(req_id=next(self._ids), prompt=list(prompt),
                       max_new_tokens=int(max_new_tokens),
                       eos_token_id=eos_token_id, deadline=deadline,
-                      arrival=now, submit_time=now, adapter_id=adapter_id)
+                      arrival=now, submit_time=now, tenant=str(tenant),
+                      adapter_id=adapter_id, trace_id=trace_id)
         self.queue.append(req)
+        return req
+
+    def submit_migrated(self, ticket):
+        """Queue a request migrated in from another replica: its KV
+        payload rides `req.ticket` until a slot frees and the blocks fit,
+        then admission imports the blocks instead of prefilling. Joins
+        the FRONT of the queue — like a preemption victim, the request
+        is mid-stream and its caller is waiting on the next token. The
+        timing fields carry over."""
+        total = len(ticket.prompt) + int(ticket.max_new_tokens) - 1
+        if total > self.kv.max_slot_tokens:
+            raise ValueError(
+                f"migrated request needs {total} cached tokens; a slot "
+                f"holds at most {self.kv.max_slot_tokens}")
+        req = Request(req_id=next(self._ids), prompt=list(ticket.prompt),
+                      max_new_tokens=int(ticket.max_new_tokens),
+                      eos_token_id=ticket.eos_token_id,
+                      deadline=ticket.deadline, arrival=self.clock(),
+                      submit_time=ticket.submit_time,
+                      tenant=str(ticket.tenant), output=list(ticket.output),
+                      cache_hit_tokens=int(ticket.cache_hit_tokens),
+                      preemptions=int(ticket.preemptions), ticket=ticket,
+                      adapter_id=ticket.adapter_id,
+                      trace_id=ticket.trace_id)
+        req.first_token_time = ticket.first_token_time
+        self.queue.appendleft(req)
         return req
 
     @property
@@ -199,11 +243,42 @@ class Scheduler:
         req.adapter_slot = int(slot_a)
         return True
 
+    def _admit_migrated(self, slot):
+        """Admit the migrated request at the queue head into `slot` by
+        importing its transported blocks. False when it must wait: every
+        adapter slot is pinned, or the free list (after prefix-cache
+        eviction) cannot cover the blocks yet. It waits at the head on
+        purpose: it is mid-stream, and resuming it beats admitting fresh
+        prompts behind it."""
+        req = self.queue[0]
+        if not self._acquire_adapter(req):
+            return False
+        if not self.kv.import_into_slot(slot, req.ticket.slot_len,
+                                        req.ticket.chunks):
+            # release the fresh pin, so the retry cannot stack a second
+            if self.adapters is not None and req.adapter_id is not None:
+                self.adapters.release(req.adapter_id)
+                req.adapter_slot = 0
+            return False
+        self.queue.popleft()
+        req.slot = slot
+        req.state = "decode"
+        # the whole runtime prompt's K/V is resident: the next step feeds
+        # output[-1] at position slot_len, as after a prefill
+        req.fed = len(req.runtime_prompt)
+        req.ticket = None
+        self.slots[slot] = req
+        return True
+
     def _admit(self):
         for slot in range(self.max_slots):
             if not self.queue:
                 break
             if self.slots[slot] is None:
+                if self.queue[0].ticket is not None:
+                    if not self._admit_migrated(slot):
+                        break
+                    continue
                 if not self._acquire_adapter(self.queue[0]):
                     break
                 req = self.queue.popleft()
@@ -396,6 +471,17 @@ class Scheduler:
             self.prefix_cache.insert(req.slot,
                                      (req.prompt + req.output)[:n])
         self._free_slot(req)
+
+    def extract(self, req, now=None):
+        """Release a resident request that migrates away: its slot,
+        blocks and prefix locks are reclaimed (the engine exported the
+        payload first), and it reaches "migrated", terminal on this
+        replica. Shared prefix blocks it had adopted stay cached."""
+        if req.slot < 0:
+            raise ValueError(f"request {req.req_id} is not resident")
+        self._free_slot(req)
+        req.state = "migrated"
+        req.finish_time = self.clock() if now is None else now
 
     def cancel(self, req, now=None):
         """Abort a queued or resident request: its blocks are reclaimed

@@ -2633,14 +2633,16 @@ def test_tp_engines_on_card_match_one_rank(cuda_device, tmp_path):
     """Two ranks on the one card over gloo (NCCL takes a card a rank):
     fp32 TP = 2 dense and draft_k=3 engines give the card's 1-rank
     engine's tokens, and every rank the same; `tensor_parallel=1`
-    without a group is the 1-rank engine."""
+    without a group is the 1-rank engine. The model is the rank
+    worker's seeded one at hidden 256 (head_dim 64, 2 heads a rank)."""
     import torch_tp_ranks as tr
     from paddle_tpu_torch.serving.distributed import TPServingEngine
     cases = {"dense": {}, "draft3": dict(draft_k=3)}
-    jobs = [dict(name=n, model="seeded", tp=2, ep=1, kw=kw, traffic="batch",
-                 device="cuda:0") for n, kw in cases.items()]
+    jobs = [dict(name=n, model="seeded", hidden=256, tp=2, ep=1, kw=kw,
+                 traffic="batch", device="cuda:0")
+            for n, kw in cases.items()]
     ranks = tr.run_ranks(2, str(tmp_path), jobs)
-    model = tr.seeded_model("cuda:0")
+    model = tr.seeded_model("cuda:0", 256)
     for name, kw in cases.items():
         want = tr.serve(ServingEngine(model, device="cuda:0",
                                       **dict(tr.BASE_KW, **kw)), "batch")
@@ -2649,3 +2651,111 @@ def test_tp_engines_on_card_match_one_rank(cuda_device, tmp_path):
         one = TPServingEngine(model, tensor_parallel=1, device="cuda:0",
                               **dict(tr.BASE_KW, **kw))
         assert tr.serve(one, "batch")["tokens"] == want["tokens"]
+
+
+def _fleet_model(device):
+    torch.manual_seed(0)
+    return GPTForGeneration(vocab_size=193, hidden_size=128, num_layers=2,
+                            num_attention_heads=2,
+                            max_position_embeddings=128, device=device)
+
+
+_FLEET_KW = dict(max_slots=3, block_size=16, max_seq_len=128,
+                 token_budget=64, cache_dtype="float32")
+
+
+@pytest.mark.cuda
+def test_disagg_fleet_on_card_matches_monolithic(cuda_device):
+    """One prefill and one decode replica on the card behind the router
+    (fp32, 2 layers, the same token budget everywhere) give the card's
+    monolithic engine's greedy tokens; the paged kernel launched steps x
+    layers over both replicas; every block back after the drain."""
+    import asyncio
+    from paddle_tpu_torch.serving.distributed import ReplicaRouter
+    from paddle_tpu_torch.serving.frontend import ServingFrontend
+    model = _fleet_model(cuda_device)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, 193, n).tolist() for n in (9, 40, 75, 3)]
+    want = ServingEngine(model, device=cuda_device,
+                         **_FLEET_KW).generate_batch(prompts, 12)
+    engines = [ServingEngine(model, role=role, device=cuda_device,
+                             **_FLEET_KW) for role in ("prefill", "decode")]
+    router = ReplicaRouter([ServingFrontend(e) for e in engines],
+                           roles=["prefill", "decode"])
+
+    async def run():
+        async with router:
+            return await asyncio.gather(*[router.submit(p, 12)
+                                          for p in prompts])
+    before = tpa.launch_count
+    got = asyncio.run(run())
+    torch.cuda.synchronize()
+    assert got == want
+    assert router.stats()["migrations"]["handoff"] == len(prompts)
+    assert tpa.launch_count - before == 2 * sum(e.steps_run
+                                                for e in engines)
+    for e in engines:
+        assert e.kv.blocks_in_use == 0 and e.kv.allocator.invariant_ok
+
+
+@pytest.mark.cuda
+def test_two_replicas_from_two_threads_keep_launch_counts(cuda_device):
+    """Two engines stepped from two threads at once: their tokens are
+    each engine's alone, the paged kernel's count is exactly steps x
+    layers summed over both, and each thread's own tally is its
+    engine's steps x layers."""
+    import threading
+    model = _fleet_model(cuda_device)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, 193, n).tolist() for n in (17, 60, 5, 33)]
+    want = ServingEngine(model, device=cuda_device,
+                         **_FLEET_KW).generate_batch(prompts, 24)
+    engines = [ServingEngine(model, device=cuda_device, **_FLEET_KW)
+               for _ in range(2)]
+    outs, mine = [None, None], [None, None]
+
+    def serve(i):
+        before = tpa.thread_counts().get("launch_count", 0)
+        outs[i] = engines[i].generate_batch(prompts, 24)
+        mine[i] = tpa.thread_counts()["launch_count"] - before
+    torch.cuda.synchronize()
+    before = tpa.launch_count
+    threads = [threading.Thread(target=serve, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert outs == [want, want]
+    assert tpa.launch_count - before == 2 * sum(e.steps_run
+                                                for e in engines)
+    assert mine == [2 * e.steps_run for e in engines]
+
+
+@pytest.mark.cuda
+def test_two_threads_build_an_unbuilt_kernel_once(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """Two threads loading a kernel that is not built yet (a fresh build
+    directory) run nvcc once and load one library."""
+    import subprocess
+    import threading
+    from paddle_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    runs = []
+    real = subprocess.run
+
+    def counting(cmd, *a, **kw):
+        runs.append(cmd[0])
+        return real(cmd, *a, **kw)
+    monkeypatch.setattr(_build.subprocess, "run", counting)
+    libs = []
+    threads = [threading.Thread(target=lambda: libs.append(_build.load(
+        "paged_attention", tpa._SIGNATURES))) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(runs) == 1 and runs[0].endswith("nvcc")
+    assert len(libs) == 2 and libs[0] is libs[1]
+    assert [p.suffix for p in (tmp_path / "build").iterdir()] == [".so"]

@@ -157,6 +157,10 @@ def test_port_imports_no_jax():
             "    importlib.import_module(m)\n"
             "need = {'paddle_tpu_torch.parallel.mp_layers',"
             " 'paddle_tpu_torch.serving.distributed.tp_engine',"
+            " 'paddle_tpu_torch.serving.distributed.transport',"
+            " 'paddle_tpu_torch.serving.distributed.router',"
+            " 'paddle_tpu_torch.serving.distributed.health',"
+            " 'paddle_tpu_torch.serving.frontend',"
             " 'paddle_tpu_torch.serving.engine'}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [m for m in sys.modules if m == 'jax'"

@@ -114,12 +114,14 @@ def serve(eng, traffic, adapters=None):
     return out
 
 
-def seeded_model(device):
+def seeded_model(device, hidden=32):
     """A small float GPT drawn from torch seed 0 on the CPU (the same
-    weights in every process), on `device`."""
+    weights in every process), on `device`. The card's paged kernel
+    takes head_dim 64 or 128: a card job asks for `hidden` 256."""
     from paddle_tpu_torch.models.gpt import GPTForGeneration
     torch.manual_seed(0)
-    model = GPTForGeneration(vocab_size=VOCAB, hidden_size=32, num_layers=2,
+    model = GPTForGeneration(vocab_size=VOCAB, hidden_size=hidden,
+                             num_layers=2,
                              num_attention_heads=HEADS,
                              max_position_embeddings=128, device="cpu")
     return model.to(device)
@@ -149,7 +151,7 @@ def _rank_main(rank, world, rdv, data_dir, jobs):
             kind = job["model"]
             device = job.get("device", "cpu")
             if kind == "seeded":
-                models[kind] = seeded_model(device)
+                models[kind] = seeded_model(device, job.get("hidden", 32))
             elif kind not in models:
                 with np.load(os.path.join(data_dir, f"{kind}.npz")) as z:
                     arrays = dict(z)
