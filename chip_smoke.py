@@ -277,6 +277,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -987,7 +988,8 @@ def serve(device, counters):
             fail(f"kernel {name} launched {n} times on the dense serving "
                  "path")
     return eng, reqs, launches, dict(tokens_s=generated / wall,
-                                     ttft_ms=ttft * 1e3)
+                                     ttft_ms=ttft * 1e3, wall=wall,
+                                     steps=steps)
 
 
 def check_outputs(model, reqs, device, label="check"):
@@ -5095,6 +5097,258 @@ def check_disagg_on_card(device, counters):
           flush=True)
 
 
+# ------------------------------------------------------------ phase 5q
+
+
+def load_trace_smoke():
+    """tools/torch_trace_smoke.py (the fleet-trace contract) as a
+    module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "torch_trace_smoke.py")
+    spec = importlib.util.spec_from_file_location("torch_trace_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def hold_traced_engine(label, eng, run, prefill_fed, smoke):
+    """The registry, tracer and flight recorder of one traced engine run
+    against the engine's own counts: the step and token counters, the
+    finished requests, TTFT count, every contract metric exported, one
+    closed monotone trace a request, and the span-derived TTFT,
+    inter-token and queue-wait values in the histograms' buckets count
+    for count (sums to the summation order's rounding)."""
+    from paddle_tpu_torch.profiler import metrics as pm
+    from paddle_tpu_torch.serving import metrics as sm
+    from paddle_tpu_torch.serving import tracing
+    n = len(run["reqs"])
+    text = pm.REGISTRY.to_prometheus()
+    missing = [m for m in sm.CONTRACT_METRICS if m not in text]
+    want = {"steps": run["steps"], "prefill tokens": prefill_fed,
+            "decode tokens": run["fed"] - prefill_fed,
+            "finished": n, "TTFT count": n, "flight steps": run["steps"]}
+    got = {"steps": sm.SERVING_STEPS.value,
+           "prefill tokens": sm.SERVING_TOKENS.labels("prefill").value,
+           "decode tokens": sm.SERVING_TOKENS.labels("decode").value,
+           "finished": sm.SERVING_REQUESTS.labels("finished").value,
+           "TTFT count": sm.SERVING_TTFT_SECONDS.count,
+           "flight steps": eng.flight.steps}
+    traces = [tracing.TRACER.get(r.trace_id) for r in run["reqs"]]
+    bad = [t.trace_id for t in traces
+           if t is None or t.outcome != "finished" or not t.monotone()]
+    failures = []
+    derived = [t.derive() for t in traces if t is not None]
+    smoke.hold_histogram(failures, "TTFT", sm.SERVING_TTFT_SECONDS,
+                          [d["ttft"] for d in derived])
+    smoke.hold_histogram(failures, "inter-token",
+                          sm.SERVING_INTER_TOKEN_SECONDS,
+                          [g for d in derived for g in d["inter_token"]])
+    smoke.hold_histogram(failures, "queue wait",
+                          sm.SERVING_TRACE_QUEUE_WAIT,
+                          [d["queue_wait"] for d in derived])
+    if missing or got != want or bad or tracing.TRACER.active() \
+            or len(tracing.TRACER.traces()) != n or failures:
+        fail(f"{label}: registry {got} against the engine's {want}; "
+             f"missing metrics {missing}; traces not closed or not "
+             f"monotone {bad}; open {len(tracing.TRACER.active())}; "
+             f"{failures}")
+    return sum(d["ttft"] for d in derived) / n
+
+
+def serve_observed(model, device, counters, dense_out, base):
+    """Phase 5q: the observability plane on the card.
+    (a) GPT-350M (phase 5a's model) at phase 4's settings on the 16
+    requests with metrics, tracing and an SLOMonitor on: tokens equal
+    to phase 4's, the paged kernel launched steps x 24 (nothing else),
+    the registry's counters against the engine's, one closed monotone
+    trace a request, the spans against the histograms, every contract
+    metric exported; tokens/s and host ms a step beside phase 4's,
+    holding the run's wall time at most 2 x phase 4's + 0.05 s.
+    (b) 4 requests at 4 ticks a dispatch with recording on, every
+    dispatch's ticks under set_sync_debug_mode("error"): tokens equal to
+    a 1-tick engine's on the same requests.
+    (c) tools/torch_trace_smoke.py's fleet contract on phase 5p's fp32
+    2-layer model at full width.
+    Then the port's Profiler over 8 decode steps of (a)'s engine: its
+    summary() printed, its chrome export read back."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.serving import slo, tracing
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    smoke = load_trace_smoke()
+    prompts = serve_prompts()
+    geo = dict(max_slots=SLOTS, block_size=BLOCK, max_seq_len=MAX_SEQ,
+               token_budget=BUDGET, cache_dtype="bfloat16", device=device)
+
+    # (a) the traced engine
+    tracing.recording(False)
+    eng = ServingEngine(model, name="observed", **geo)
+    eng.generate_batch([[1, 2, 3]], max_new_tokens=2)     # warm-up
+    torch.cuda.synchronize()
+    tracing.recording(True)
+    monitor = slo.SLOMonitor().attach()
+    prefill0 = eng.prefill_tokens_fed
+    outputs, got, run = serve_counted(eng, prompts, counters,
+                                      "serve observed", new=NEW_TOKENS)
+    same = sum(a == b for o, w in zip(outputs, dense_out)
+               for a, b in zip(o, w))
+    if outputs != dense_out:
+        fail("serve observed: tokens differ from phase 4's with recording "
+             "on")
+    want = {"paged_attention": run["steps"] * LAYERS}
+    if {k: n for k, n in got.items() if n} != want:
+        fail(f"serve observed: launches {got}, expected {want}")
+    ttft = hold_traced_engine("serve observed", eng, run,
+                              eng.prefill_tokens_fed - prefill0, smoke)
+    report = monitor.evaluate()
+    monitor.detach()
+    # the same engine again with recording off: a second reading of the
+    # pair in turns (phase 4 off, on, off)
+    tracing.recording(False)
+    off_out, _, off = serve_counted(eng, prompts, counters,
+                                    "serve observed off", new=NEW_TOKENS)
+    if off_out != dense_out:
+        fail("serve observed: tokens differ from phase 4's with recording "
+             "off")
+    tracing.recording(True, reset=False)
+
+    def ms(r):
+        return r["wall"] / r["steps"] * 1e3
+    line = (f"serve observed: GPT-350M at phase 4's settings, metrics, "
+            f"tracing and an SLOMonitor on: {run['steps']} steps, "
+            f"{run['generated']} tokens in {run['wall']:.3f} s = "
+            f"{run['generated'] / run['wall']:.1f} tokens/s (recording "
+            f"off: phase 4 {base['tokens_s']:.1f}, this engine after it "
+            f"{off['generated'] / off['wall']:.1f}), {ms(run):.2f} ms a "
+            f"step on the host clock (off: {ms(base):.2f}, "
+            f"{ms(off):.2f}); tokens equal to phase 4's "
+            f"{same}/{run['generated']}; paged_attention "
+            f"launches {got['paged_attention']} = steps x {LAYERS}; "
+            f"{len(tracing.TRACER.traces())} traces closed, span-derived "
+            f"mean TTFT {ttft * 1e3:.1f} ms; SLO "
+            + ", ".join(f"{t} ttft_p95 {r['ttft_p95']['value'] * 1e3:.1f} ms"
+                        f" burn {r['ttft_p95']['burn_rate']:.2f}"
+                        for t, r in report.items() if "ttft_p95" in r))
+    print(line, flush=True)
+    if run["wall"] > 2 * base["wall"] + 0.05:
+        fail(line + " — recording more than doubled the run's time")
+
+    # the Profiler over 8 decode steps of the traced engine
+    rng = np.random.default_rng(SEED + 91)
+    reqs = [eng.submit(rng.integers(0, VOCAB, 128).tolist(), 32)
+            for _ in range(SLOTS)]
+    while any(r.state != "decode" for r in reqs):
+        eng.step()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = profiler.Profiler(
+            on_trace_ready=profiler.export_chrome_tracing(tmp, "observed"))
+        with prof:
+            for _ in range(8):
+                with profiler.RecordEvent("decode_step"):
+                    eng.step()
+            torch.cuda.synchronize()
+        with open(prof.exported_path) as f:
+            events = json.load(f)["traceEvents"]
+    for r in reqs:
+        eng.cancel(r)
+    text = prof.summary(top_k=8)
+    tracks = {str(e.get("tid")) for e in events}
+    flight_slices = [e for e in events if e.get("tid") == "engine:observed"
+                     and e.get("ph") == "X"]
+    trace_events = [e for e in events
+                    if str(e.get("tid", "")).startswith("trace:")]
+    spans = [e for e in events if e.get("name") == "decode_step"
+             and e.get("ph") == "X"]
+    if len(spans) != 8 or not flight_slices or not trace_events \
+            or "Metrics Summary" not in text \
+            or "request traces" not in text:
+        fail(f"profiler: {len(spans)} host spans, {len(flight_slices)} "
+             f"flight slices, {len(trace_events)} trace events in the "
+             f"chrome export ({len(tracks)} tracks); summary sections "
+             "missing")
+    device_line = ("device kernels read" if profiler.statistic.NO_DEVICE_KERNELS
+                   not in text else "no device kernels read")
+    print(f"profiler: 8 decode steps of the traced engine; chrome export "
+          f"{len(events)} events on {len(tracks)} tracks ({len(spans)} "
+          f"host spans, {len(flight_slices)} flight slices, "
+          f"{len(trace_events)} trace events); summary: {device_line}",
+          flush=True)
+    tracing.recording(False)
+    del eng
+    torch.cuda.empty_cache()
+
+    # (b) traced multi-tick dispatches under sync debug
+    few = prompts[:4]
+    one = ServingEngine(model, **geo)
+    want_out = one.generate_batch(few, NEW_TOKENS)
+    del one
+    eng = ServingEngine(model, ticks_per_dispatch=TICKS, **geo)
+    eng.generate_batch([[1, 2, 3]], max_new_tokens=2)     # warm-up
+    torch.cuda.synchronize()
+    sync_guarded(eng)
+    tracing.recording(True)
+    outputs, got, run = serve_counted(eng, few, counters,
+                                      "serve observed multitick",
+                                      new=NEW_TOKENS)
+    tracing.recording(False)
+    if outputs != want_out:
+        fail("serve observed multitick: tokens differ from the 1-tick "
+             "engine's")
+    if eng.flight.steps != run["dispatches"] or run["ticks"] <= \
+            run["dispatches"]:
+        fail(f"serve observed multitick: {eng.flight.steps} flight "
+             f"records for {run['dispatches']} dispatches of "
+             f"{run['ticks']} ticks")
+    print(f"serve observed multitick: {len(few)} requests at {TICKS} "
+          f"ticks a dispatch, recording on, every dispatch's ticks under "
+          f"set_sync_debug_mode('error'): tokens equal to the 1-tick "
+          f"engine's; {run['dispatches']} dispatches of {run['ticks']} "
+          f"ticks, {run['issued']} issued; paged_attention launches "
+          f"{got['paged_attention']} = issued x {LAYERS}: "
+          f"{got['paged_attention'] == run['issued'] * LAYERS}", flush=True)
+    if got["paged_attention"] != run["issued"] * LAYERS:
+        fail("serve observed multitick: launches differ from issued ticks "
+             f"x {LAYERS}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # (c) the fleet-trace contract on a 2-layer fp32 fleet at full width
+    small = load_jax_gpt(random_gpt_arrays(SEED + 71, layers=2), HEADS,
+                         device=device)
+    try:
+        stats, failures = smoke.run_smoke(
+            small, device, geo=dict(max_slots=4, block_size=BLOCK,
+                                    max_seq_len=256, token_budget=64,
+                                    cache_dtype="float32"),
+            vocab=VOCAB, tail=(20, 120), max_new=32)
+    finally:
+        tracing.recording(False)
+    line = (f"serve observed fleet: 1 prefill + 2 decode replicas, fp32, 2 "
+            f"layers at full width, int8 pools: {stats['traces']} stitched "
+            f"traces / {stats['events']} events, span-derived mean TTFT "
+            f"{stats['span_ttft_mean_ms']:.1f} ms, {stats['handoffs']} "
+            f"handoffs + {stats['sheds']} shed, {stats['transport_bytes']} "
+            f"transport bytes, mean handoff latency "
+            f"{stats['handoff_ms_mean']:.2f} ms, {stats['breaches']} SLO "
+            "breach")
+    print(line, flush=True)
+    if failures:
+        fail(line + f" — {failures}")
+    tracing.TRACER.reset()
+    del small, stats
+    torch.cuda.empty_cache()
+    print(f"serve observed: phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def kernel_table():
     """Every kernel variant of the port: (name, module, counter
     attribute, TPU kernel replaced, source)."""
@@ -5233,9 +5487,11 @@ def main():
                                             dense_out, base, base_prof))
     mark("phases 5j, 5k")
     serve_disagg(model, device, counters, dense_out, base)
+    mark("phase 5o")
+    serve_observed(model, device, counters, dense_out, base)
     del model
     torch.cuda.empty_cache()
-    mark("phase 5o")
+    mark("phase 5q")
     check_spec_on_card(device)
     check_multitick_on_card(device)
     check_prefix_sparse_on_card(device)

@@ -17,6 +17,11 @@ Ported so far:
   acceptance, KV rollback); MoE models (`GPTForGeneration(moe=...)`,
   the routing of `parallel.moe_utils`) with float, int8 or packed-int4
   experts (`moe_weight_dtype=`);
+* the serving observability plane — `profiler` (the metrics registry,
+  host spans, `Profiler` over `torch.profiler`, `summary()`, the chrome
+  export) and `serving.metrics` / `serving.tracing` / `serving.slo`
+  (the JAX package's metric names, request traces, step flight
+  recorders, the SLO monitor);
 * the single-device train step — `parallel.hybrid_gpt.HybridGPT`;
 * BERT pretraining — `hapi.Model` over `models.bert`, prepared with
   `optimizer.Lamb` (the optimizer base: parameter groups, the clips of

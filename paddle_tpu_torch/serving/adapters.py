@@ -33,8 +33,10 @@ projection (`parallel.mp_layers.SERVING_LORA_TP_SPECS`): the TP engine
 reallocates them at the rank's widths and sets `prepare(name, payload)`,
 which cuts a registered adapter's full host payload (and permutes
 `lora_qkv_b` shard-major) before the in-place load. Registration still
-takes and checks the full widths. The metrics mirror of the raw counters
-waits for a later slice.
+takes and checks the full widths. The raw counters (`cache_hits`,
+`cache_misses`, `evictions`, `load_seconds`) are always on; while
+`profiler.metrics._enabled` is on they are mirrored into the
+`paddle_tpu_serving_adapter_*` metrics.
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..profiler import metrics as _pmetrics
+from . import metrics as smetrics
 
 #: hooked projection names, in the order the slot tensors are kept
 DENSE_HOOKS = ("qkv", "out", "ffn1", "ffn2")
@@ -192,8 +196,11 @@ class AdapterCache:
             self._pins[slot] += 1
             self._touch(slot)
             self.cache_hits += 1
+            if _pmetrics._enabled:
+                smetrics.SERVING_ADAPTER_CACHE_HITS.inc()
             return slot
         # cold: a free slot first, else the least recently used unpinned
+        evicted = False
         free = [s for s in range(1, self.max_adapters)
                 if self._slot_ids[s] is None]
         if free:
@@ -207,14 +214,22 @@ class AdapterCache:
             del self._resident[self._slot_ids[slot]]
             self._slot_ids[slot] = None
             self.evictions += 1
+            evicted = True
         self.cache_misses += 1
         t0 = self.clock()
         self._load(slot, host)
-        self.load_seconds += self.clock() - t0
+        dt = self.clock() - t0
+        self.load_seconds += dt
         self._slot_ids[slot] = adapter_id
         self._resident[adapter_id] = slot
         self._pins[slot] += 1
         self._touch(slot)
+        if _pmetrics._enabled:
+            smetrics.SERVING_ADAPTER_CACHE_MISSES.inc()
+            smetrics.SERVING_ADAPTER_LOAD_SECONDS.inc(max(dt, 0.0))
+            if evicted:
+                smetrics.SERVING_ADAPTER_EVICTIONS.inc()
+            smetrics.SERVING_ADAPTERS_RESIDENT.set(self.resident_count)
         return slot
 
     def release(self, adapter_id):

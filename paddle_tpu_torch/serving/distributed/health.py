@@ -13,12 +13,17 @@ so a death is noticed at the next dispatch; the async prober (`run()`)
 sweeps every `interval` seconds and fires the replica's `down_event`,
 which the router's in-flight streams wait on beside their token queue
 (the rescue of requests stranded on a replica that died without failing
-its handles). `snapshot()` gives the up/down split the JAX package also
-exports as a gauge (that mirror waits for the metrics slice).
+its handles). `snapshot()` gives the up/down split; every change to it
+(`add`, `mark_down`, `mark_up`) sets the
+`paddle_tpu_serving_router_replicas_up` gauge while
+`profiler.metrics._enabled` is on.
 """
 from __future__ import annotations
 
 import asyncio
+
+from ...profiler import metrics as _pmetrics
+from ..metrics import ROUTER_REPLICAS_UP
 
 
 class ReplicaHealth:
@@ -39,6 +44,7 @@ class ReplicaHealth:
         self.frontends.append(frontend)
         self._down.append(False)
         self._events.append(None)
+        self._export()
         return len(self.frontends) - 1
 
     def probe(self, i):
@@ -69,6 +75,7 @@ class ReplicaHealth:
             ev = self._events[i]
             if ev is not None:
                 ev.set()
+        self._export()
 
     def mark_up(self, i):
         """Revive a replica by hand (a restarted frontend). The SAME Event
@@ -79,6 +86,7 @@ class ReplicaHealth:
         ev = self._events[i]
         if ev is not None:
             ev.clear()
+        self._export()
 
     def down_event(self, i):
         """The asyncio.Event fired when replica `i` goes down."""
@@ -93,6 +101,10 @@ class ReplicaHealth:
         return {"up": [i for i, d in enumerate(self._down) if not d],
                 "down": [i for i, d in enumerate(self._down) if d],
                 "probes": self.probes}
+
+    def _export(self):
+        if _pmetrics._enabled:
+            ROUTER_REPLICAS_UP.set(sum(1 for d in self._down if not d))
 
     async def run(self, interval=0.05):
         """Background sweep: fire the down events of replicas whose step

@@ -35,8 +35,13 @@ a single frontend, and adds:
   hold it resident, and never enters the shadow tries (adapter K/V is
   never in a replica's prefix cache).
 
-The router's counters (`stats()`) are always on; the metrics mirrors and
-trace spans of the JAX package wait for a later slice (ROADMAP.md).
+The router's counters (`stats()`) are always on. While
+`profiler.metrics._enabled` is on it also records the router metrics of
+`serving.metrics` (dispatches by replica and outcome, roles, migrations,
+failovers, affinity hits, per-replica load, and the handoff latency);
+while tracing is on it mints one trace id a request, records each
+dispatch and failover on it, and closes it when the caller's stream
+ends early (a deadline, a cancellation, an error).
 """
 from __future__ import annotations
 
@@ -44,12 +49,36 @@ import asyncio
 import heapq
 import itertools
 
+from ...profiler import metrics as _pmetrics
+from .. import metrics as smetrics
+from .. import tracing as _tracing
 from ..frontend import (DeadlineExceeded, FrontendClosed, RequestCancelled,
                         RequestMigrated)
 from .health import ReplicaHealth
 from .transport import InProcessTransport
 
 ROLES = ("mixed", "prefill", "decode")
+
+
+def _outcome(e):
+    """The router_requests outcome label of an attempt that raised `e`."""
+    if isinstance(e, DeadlineExceeded):
+        return "expired"
+    if isinstance(e, RequestCancelled):
+        return "cancelled"
+    return "error"
+
+
+def _close_outcome(e):
+    """The trace outcome of a stream that ended by raising `e`: a
+    caller's cancellation or abandonment (GeneratorExit) closes it
+    "cancelled"."""
+    if isinstance(e, DeadlineExceeded):
+        return "expired"
+    if isinstance(e, (RequestCancelled, GeneratorExit,
+                      asyncio.CancelledError)):
+        return "cancelled"
+    return "error"
 
 
 class NoReplicaAvailable(Exception):
@@ -360,6 +389,12 @@ class ReplicaRouter:
         return (len(fe._fair) + len(sch.queue) + sch.num_active
                 + self._inflight[i])
 
+    def _export_depths(self):
+        if _pmetrics._enabled:
+            for i in range(len(self.frontends)):
+                smetrics.ROUTER_REPLICA_QUEUE_DEPTH.labels(str(i)).set(
+                    self.queue_depth(i))
+
     def _live(self, targets, exclude=()):
         return [i for i in targets if i not in exclude
                 and i not in self._quiesced and self.health.alive(i)]
@@ -405,6 +440,7 @@ class ReplicaRouter:
         if self.policy == "round_robin":
             idx = live[next(self._rr) % len(live)]
             self._shadow_note(idx, prompt, adapter_id)
+            self._export_depths()
             return idx, False
         if adapter_id is not None:
             # adapter requests bypass the prefix cache, so the trie
@@ -413,7 +449,11 @@ class ReplicaRouter:
             if holders:
                 live = holders
                 self.adapter_affinity_hits += 1
-            return self._least_loaded(live), bool(holders)
+                if _pmetrics._enabled:
+                    smetrics.ROUTER_ADAPTER_AFFINITY_HITS.inc()
+            idx = self._least_loaded(live)
+            self._export_depths()
+            return idx, bool(holders)
         hits = {i: self.shadow.match(i, prompt) for i in live}
         best = max(hits.values())
         affinity = best >= self.shadow.bs        # at least one full block
@@ -421,9 +461,12 @@ class ReplicaRouter:
             [i for i in live if hits[i] == best] if affinity else live)
         if affinity:
             self.affinity_hits += 1
+            if _pmetrics._enabled:
+                smetrics.ROUTER_AFFINITY_HITS.inc()
         # recorded at dispatch, not completion: concurrent requests of one
         # head converge on one replica before the first finishes prefill
         self.shadow.insert(idx, prompt)
+        self._export_depths()
         return idx, affinity
 
     def _pick_decode(self, tokens, exclude=()):
@@ -525,11 +568,51 @@ class ReplicaRouter:
             self.rebalance()
 
     # ---------------------------------------------------------- helpers
+    def _count_role(self, role):
+        self.role_dispatches[role] += 1
+        if _pmetrics._enabled:
+            smetrics.ROUTER_DISPATCH_ROLE.labels(role).inc()
+
+    def _note_migration(self, reason):
+        self.migrations[reason] += 1
+        if _pmetrics._enabled:
+            smetrics.ROUTER_MIGRATIONS.labels(reason).inc()
+
     def _fail_over(self, idx):
         """The bookkeeping of a replica's death on a failover path."""
         self.health.mark_down(idx)
         self.shadow.drop(idx)
         self.failovers += 1
+        self._count(idx, "failover")
+        if _pmetrics._enabled:
+            smetrics.ROUTER_FAILOVERS.inc()
+
+    def _version(self, idx):
+        """Replica `idx`'s checkpoint version label ("v0": the port has
+        no weight swap yet)."""
+        return getattr(self.frontends[idx].engine, "weights_version", "v0")
+
+    def _count(self, idx, outcome):
+        if _pmetrics._enabled:
+            smetrics.ROUTER_REQUESTS.labels(
+                str(idx), outcome, self._version(idx)).inc()
+
+    def _rname(self, idx):
+        """Replica `idx`'s name on trace events: its engine's."""
+        return getattr(self.frontends[idx].engine, "name",
+                       f"replica{idx}")
+
+    def _tevent(self, trace_id, name, idx, **attrs):
+        if _tracing._enabled:
+            _tracing.TRACER.event(trace_id, name, replica=self._rname(idx),
+                                  **attrs)
+
+    def _tclose(self, trace_id, outcome):
+        """Close a trace from the router's side of the stream (the caller
+        abandoned it, a deadline, an error). The first terminal wins, so
+        a finish or cancel the scheduler recorded stands."""
+        if trace_id is not None and _tracing._enabled:
+            _tracing.TRACER.finish(trace_id, outcome, replica="router")
 
     def _is_replica_death(self, idx, e):
         """True when replica `idx` is gone (fail over); False when it is
@@ -554,13 +637,14 @@ class ReplicaRouter:
 
         return release
 
-    def _remaining(self, deadline):
+    def _remaining(self, idx, deadline):
         """Seconds left before `deadline` (None: no deadline); raises
-        DeadlineExceeded when already past."""
+        DeadlineExceeded (counted on replica `idx`) when already past."""
         if deadline is None:
             return None
         remaining = deadline - self.clock()
         if remaining <= 0:
+            self._count(idx, "expired")
             raise DeadlineExceeded()
         return remaining
 
@@ -599,32 +683,53 @@ class ReplicaRouter:
         deadline = (self.clock() + float(timeout)
                     if timeout is not None else None)
         delivered = 0
-        while True:
-            idx, _ = self._pick(prompt, adapter_id=adapter_id)
-            self.role_dispatches["mixed"] += 1
-            remaining = self._remaining(deadline)
-            release = self._hold(idx)
-            attempt_out = []
-            try:
-                agen = self.frontends[idx].stream(
-                    prompt, max_new_tokens, tenant=tenant,
-                    timeout=remaining, on_admitted=release,
-                    adapter_id=adapter_id)
-                async for tok in self._attempt(idx, agen, attempt_out):
-                    if len(attempt_out) > delivered:
-                        delivered += 1
-                        yield tok
-                # the replica finished it: publish the conversation to its
-                # trie (as the engine's finish published the blocks)
-                self._shadow_note(idx, list(prompt) + attempt_out,
-                                  adapter_id)
-                return
-            except _FAILOVER_ERRORS as e:
-                if not self._is_replica_death(idx, e):
+        # one trace id a request, minted before the dispatch loop: a
+        # failover's re-dispatch records onto the same trace (its
+        # "dispatched" event reopens a trace the dying replica's cancel
+        # closed)
+        trace_id = (_tracing.TRACER.mint(tenant=str(tenant))
+                    if _tracing._enabled else None)
+        try:
+            while True:
+                idx, _ = self._pick(prompt, adapter_id=adapter_id)
+                self._count_role("mixed")
+                self._tevent(trace_id, "dispatched", idx, role="mixed",
+                             tenant=tenant, version=self._version(idx))
+                remaining = self._remaining(idx, deadline)
+                release = self._hold(idx)
+                attempt_out = []
+                try:
+                    agen = self.frontends[idx].stream(
+                        prompt, max_new_tokens, tenant=tenant,
+                        timeout=remaining, on_admitted=release,
+                        adapter_id=adapter_id, trace_id=trace_id)
+                    async for tok in self._attempt(idx, agen,
+                                                   attempt_out):
+                        if len(attempt_out) > delivered:
+                            delivered += 1
+                            yield tok
+                    # the replica finished it: publish the conversation to
+                    # its trie (as the engine's finish published the
+                    # blocks)
+                    self._shadow_note(idx, list(prompt) + attempt_out,
+                                      adapter_id)
+                    self._count(idx, "finished")
+                    return
+                except _FAILOVER_ERRORS as e:
+                    if not self._is_replica_death(idx, e):
+                        self._count(idx, "error")
+                        raise
+                    self._fail_over(idx)
+                    self._tevent(trace_id, "failover", idx,
+                                 delivered=delivered)
+                except Exception as e:
+                    self._count(idx, _outcome(e))
                     raise
-                self._fail_over(idx)
-            finally:
-                release()
+                finally:
+                    release()
+        except BaseException as e:
+            self._tclose(trace_id, _close_outcome(e))
+            raise
 
     async def _stream_disagg(self, prompt, max_new_tokens, tenant,
                              timeout, adapter_id=None):
@@ -650,6 +755,11 @@ class ReplicaRouter:
         delivered = 0
         transport = self.transport
         inbox = [None, None]                # (dst, key) awaiting collect
+        # one trace id for the whole pipeline: the prefill dispatch, the
+        # stream-ahead, the ticket's transport, the decode admission,
+        # shed hops and failover restarts (the ticket carries it)
+        trace_id = (_tracing.TRACER.mint(tenant=str(tenant))
+                    if _tracing._enabled else None)
 
         def _drop_inbox():
             if inbox[0] is not None:
@@ -663,7 +773,10 @@ class ReplicaRouter:
         try:
             while True:                     # the failover restart loop
                 pidx, _ = self._pick(prompt, adapter_id=adapter_id)
-                self.role_dispatches["prefill"] += 1
+                self._count_role("prefill")
+                self._tevent(trace_id, "dispatched", pidx,
+                             role=self.roles[pidx], tenant=tenant,
+                             version=self._version(pidx))
                 on_blocks = None
                 didx = key = None
                 if self.roles[pidx] == "prefill":
@@ -677,14 +790,15 @@ class ReplicaRouter:
 
                     def on_blocks(chunk, p=pidx, d=didx, k=key, m=meta):
                         transport.send_chunk(p, d, k, m, chunk)
-                remaining = self._remaining(deadline)
+                remaining = self._remaining(pidx, deadline)
                 release = self._hold(pidx)
                 attempt_out = []
                 try:
                     agen = self.frontends[pidx].stream(
                         prompt, max_new_tokens, tenant=tenant,
                         timeout=remaining, on_admitted=release,
-                        on_blocks=on_blocks, adapter_id=adapter_id)
+                        on_blocks=on_blocks, adapter_id=adapter_id,
+                        trace_id=trace_id)
                     async for tok in self._attempt(pidx, agen,
                                                    attempt_out):
                         if len(attempt_out) > delivered:
@@ -695,15 +809,22 @@ class ReplicaRouter:
                     _drop_inbox()
                     self._shadow_note(pidx, prompt + attempt_out,
                                       adapter_id)
+                    self._count(pidx, "finished")
                     return
                 except RequestMigrated as e:
                     ticket = e.ticket
                 except _FAILOVER_ERRORS as e:
                     _drop_inbox()
                     if not self._is_replica_death(pidx, e):
+                        self._count(pidx, "error")
                         raise
                     self._fail_over(pidx)
+                    self._tevent(trace_id, "failover", pidx,
+                                 delivered=delivered)
                     continue
+                except Exception as e:
+                    self._count(pidx, _outcome(e))
+                    raise
                 finally:
                     release()
 
@@ -716,32 +837,47 @@ class ReplicaRouter:
                     didx = self._pick_decode(path, exclude=(pidx,))
                     key = _route(didx)
                     self._shadow_migrate(pidx, didx, path, adapter_id)
-                    self.migrations["shed"] += 1
+                    self._note_migration("shed")
                 else:
-                    self.migrations["handoff"] += 1
+                    self._note_migration("handoff")
+                self._count(pidx, "migrated")
+                hand_t0 = self.clock()
                 transport.send_ticket(pidx, didx, key, ticket)
                 restart = False
                 while True:                 # the decode phase + shed hops
                     assembled = transport.collect(didx, key)
                     inbox[0] = inbox[1] = None
-                    self.role_dispatches["decode"] += 1
+                    self._count_role("decode")
+                    self._tevent(trace_id, "dispatched", didx,
+                                 role="decode", tenant=tenant,
+                                 version=self._version(didx))
                     history = (list(assembled.prompt)
                                + list(assembled.output))
                     self._shadow_note(didx, history, adapter_id)
-                    self._remaining(deadline)
+                    self._remaining(didx, deadline)
                     release = self._hold(didx)
                     attempt_out = []
                     base = len(assembled.output)
+                    gap_open = True
                     try:
                         agen = self.frontends[didx].stream_ticket(
                             assembled, on_admitted=release)
                         async for tok in self._attempt(didx, agen,
                                                        attempt_out):
+                            if gap_open:
+                                # the stream's gap the migration cost:
+                                # the ticket's send to the destination's
+                                # first token
+                                gap_open = False
+                                if _pmetrics._enabled:
+                                    smetrics.SERVING_HANDOFF_LATENCY \
+                                        .observe(self.clock() - hand_t0)
                             if base + len(attempt_out) > delivered:
                                 delivered += 1
                                 yield tok
                         self._shadow_note(didx, history + attempt_out,
                                           adapter_id)
+                        self._count(didx, "finished")
                         return
                     except RequestMigrated as e:
                         # a shed: move to a lighter decode replica, the
@@ -750,22 +886,36 @@ class ReplicaRouter:
                         path = list(t2.prompt) + list(t2.output)
                         didx = self._pick_decode(path, exclude=(old,))
                         self._shadow_migrate(old, didx, path, adapter_id)
-                        self.migrations["shed"] += 1
+                        self._note_migration("shed")
+                        self._count(old, "migrated")
                         key = _route(didx)
+                        hand_t0 = self.clock()
                         transport.send_ticket(old, didx, key, t2)
                         continue
                     except _FAILOVER_ERRORS as e:
                         if not self._is_replica_death(didx, e):
+                            self._count(didx, "error")
                             raise
                         # the KV died with the replica: restart from
                         # prefill, the delivered tokens suppressed
                         self._fail_over(didx)
+                        self._tevent(trace_id, "failover", didx,
+                                     delivered=delivered)
                         restart = True
                         break
+                    except Exception as e:
+                        self._count(didx, _outcome(e))
+                        raise
                     finally:
                         release()
                 if not restart:
                     return
+        except BaseException as e:
+            # the caller abandoned the stream (possibly mid-handoff, the
+            # ticket still in the inbox, which the finally drops), a
+            # deadline, or an error: close the trace
+            self._tclose(trace_id, _close_outcome(e))
+            raise
         finally:
             _drop_inbox()
 

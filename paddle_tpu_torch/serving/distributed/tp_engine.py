@@ -180,6 +180,16 @@ class TPServingEngine(ServingEngine):
             at += o.numel()
         return tuple(synced)
 
+    def _flight_extra(self):
+        # the split rides every flight record, so a merged fleet trace
+        # tells a TP x EP replica's step slices from a one-card sibling's
+        return {"tp": self.tensor_parallel, "ep": self.expert_parallel}
+
+    def _kv_bytes_per_token(self):
+        # the rank's pools hold 1/tp of the heads: the gauge reports the
+        # whole group's cost, as the JAX engine's sharded pools do
+        return self.kv.kv_bytes_per_token * self.tensor_parallel
+
     # ------------------------------------------------------------ host
     def _broadcast(self, value, dtype):
         t = torch.tensor([value], dtype=dtype, device=self.device)

@@ -35,7 +35,10 @@ Three layers:
 
 Counters on the transport (`bytes_sent`, `bytes_received`,
 `blocks_sent`, `tickets_sent`) are always on; block counts also ride
-`PagedKVCache.blocks_exported` / `blocks_imported`.
+`PagedKVCache.blocks_exported` / `blocks_imported`. While
+`profiler.metrics._enabled` is on the byte counts are mirrored into
+`paddle_tpu_serving_kv_transport_bytes_total`, and while tracing is on
+a ticket's send records a `migration_transport` span on its trace.
 """
 from __future__ import annotations
 
@@ -44,6 +47,10 @@ import json
 import struct
 
 import numpy as np
+
+from ...profiler import metrics as _pmetrics
+from .. import metrics as smetrics
+from .. import tracing as _tracing
 
 MAGIC = b"PTKV"
 VERSION = 1
@@ -193,7 +200,8 @@ class KVTransport:
     prefill's stream-ahead); `send_ticket` ships a ticket's host state
     and its remaining chunks (a handoff or a shed); `collect` pops the
     assembled ticket at the destination; `pending` / `drop` manage
-    abandoned transfers. The byte and block counters are always on."""
+    abandoned transfers. The byte and block counters are always on; the
+    registry mirror records only while profiler metrics are on."""
 
     def __init__(self):
         self.bytes_sent = 0
@@ -204,6 +212,10 @@ class KVTransport:
     def _note(self, sent, received):
         self.bytes_sent += int(sent)
         self.bytes_received += int(received)
+        if _pmetrics._enabled:
+            smetrics.SERVING_KV_TRANSPORT_BYTES.labels("sent").inc(sent)
+            smetrics.SERVING_KV_TRANSPORT_BYTES.labels("received").inc(
+                received)
 
     def send_chunk(self, src, dst, key, meta, chunk):
         """One chunk toward (dst, key); `meta` is the source pool's
@@ -250,12 +262,17 @@ class InProcessTransport(KVTransport):
         self._box(dst, key)["chunks"].append(chunk)
 
     def send_ticket(self, src, dst, key, ticket):
+        nb0 = self.bytes_sent
         for chunk in ticket.chunks:
             self.send_chunk(src, dst, key, ticket.kv_meta, chunk)
         data = encode_state(ticket)
         self._note(len(data), len(data))
         self.tickets_sent += 1
         self._box(dst, key)["state"] = decode_state(data)
+        if _tracing._enabled:
+            _tracing.on_transport(ticket.trace_id, src, dst,
+                                  nbytes=self.bytes_sent - nb0,
+                                  blocks=sum(c.count for c in ticket.chunks))
 
     def collect(self, dst, key):
         box = self._inbox.pop((dst, key), None)

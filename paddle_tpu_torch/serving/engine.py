@@ -96,6 +96,21 @@ so the destination holds most of the KV before the ticket exists.
 `role="decode"` defaults to a decode-sized token budget; any engine's
 live decode can be shed to another the same way. The router
 (`distributed.router.ReplicaRouter`) drives it.
+
+Observability: while `profiler.metrics._enabled` is on, every step (a
+dispatch, on a multi-tick engine) publishes the serving metrics of
+`serving.metrics` (TTFT and inter-token histograms, token, step and
+request counters, queue, slot and pool gauges, draft and rollback
+counters, prefix-cache, sparse, migration and MoE deltas, and on a
+multi-tick engine the ticks a dispatch ran, the readback stall and the
+early exits). While `serving.tracing._enabled` is on it also records
+the request traces' span events and one record a step in the engine's
+`StepFlightRecorder` (`self.flight`). Both read only host ints and
+floats the step already holds: no hook reads a device tensor or adds
+a launch. (A speculative multi-tick dispatch counts its verify groups
+by accepted drafts on the device, recording on or off, and takes the
+accepted total from that histogram; the histogram feeds the
+accept-length metric and the flight record.)
 """
 from __future__ import annotations
 
@@ -109,6 +124,8 @@ import torch
 import torch.distributed as dist
 
 from .._device import resolve_device
+from ..profiler import metrics as _pmetrics
+from ..profiler.metrics import moe_utilization_entropy
 from ..incubate.nn.fused_transformer import (_cast_param, _ffn_dense,
                                              _ffn_moe_tokens, _ln,
                                              _lora_delta,
@@ -116,6 +133,8 @@ from ..incubate.nn.fused_transformer import (_cast_param, _ffn_dense,
                                              _quantize_expert_stack)
 from ..ops.paged_attention import (MAX_GROUP, ragged_paged_attention,
                                    verify_paged_attention)
+from . import metrics as smetrics
+from . import tracing as _tracing
 from .adapters import AdapterCache
 from .batcher import (SamplingConfig, apply_count_penalties,
                       choose_token_budget, filter_logits, needs_history,
@@ -351,19 +370,6 @@ def _mixed_layer(cfg, pl, h, k_pool, v_pool, wb, wo, block_tables,
     return h + _ffn_dense(cfg, pl, hn, lora_oh), None
 
 
-def moe_utilization_entropy(counts):
-    """Normalised entropy of a per-expert token-count vector in [0, 1]
-    (1 = balanced; 0 = degenerate or no MoE) — the JAX package's
-    `profiler.metrics.moe_utilization_entropy`."""
-    c = np.asarray(counts, np.float64)
-    total = c.sum()
-    if total <= 0 or c.size <= 1:
-        return 0.0
-    p = c / total
-    p = p[p > 0]
-    return float(-(p * np.log(p)).sum() / np.log(c.size))
-
-
 def _to_host(parts):
     """Copy device tensors to the host in one transfer: numpy arrays in
     float64 (exact for token ids and counts), each in its own shape."""
@@ -525,6 +531,7 @@ class ServingEngine:
             device_draft=self.speculation_mode == "device",
             prefix_cache=self.prefix_cache, adapter_cache=self.adapters,
             reserve_region=self._sparse)
+        self.scheduler.replica = self.name
         # the verify region's group -> slot map
         self._region_slots = torch.arange(max_slots, dtype=torch.int32,
                                           device=self.device)
@@ -590,6 +597,28 @@ class ServingEngine:
         self._tick_ema = None        # seconds per tick
         self._gap_ema = None         # host seconds between dispatches
         self._last_harvest = None
+        #: seconds the multi-tick host loop spent on its readbacks
+        self.host_stall_total = 0.0
+        # the bases of the metrics' deltas: preemptions, imported
+        # blocks, prefix hit / miss / evicted tokens, skipped blocks
+        self._preempt_seen = 0
+        self._imported_seen = 0
+        self._prefix_seen = (0, 0, 0)
+        self._sparse_skip_seen = 0
+        if _pmetrics._enabled:
+            # why this replica is or isn't speculating: one mode reads 1
+            for m in ("off", "host", "device"):
+                smetrics.SERVING_SPECULATION_STATE.labels(m).set(
+                    1.0 if m == self.speculation_mode else 0.0)
+        #: one host record a step, noted while tracing is on; registered
+        #: so the profiler's chrome export and summary() merge it
+        self.flight = _tracing.StepFlightRecorder(self.name, self.role)
+        _tracing.register_flight_recorder(self.flight)
+
+    def _flight_extra(self):
+        """Extra fields of every flight record (the TP engine stamps its
+        split)."""
+        return {}
 
     def _quantize_moe_experts(self, dtype_str):
         """Quantize every layer's expert FFN weights (int8 with fp32
@@ -622,10 +651,18 @@ class ServingEngine:
         return moe_utilization_entropy(self.moe_expert_counts)
 
     def _note_moe_stats(self, counts, dropped, aux):
-        """Fold one step's routing stats into the host mirrors."""
-        self.moe_expert_counts += np.asarray(counts, np.float64)
+        """Fold one step's routing stats (already on the host) into the
+        host mirrors and, while recording, the MoE metrics (per-expert
+        token counters, dropped tokens, the aux-loss gauge and the
+        cumulative utilization entropy)."""
+        counts = np.asarray(counts, np.float64)
+        self.moe_expert_counts += counts
         self.moe_dropped_total += float(dropped)
         self.moe_last_aux = float(aux)
+        if _pmetrics._enabled:
+            _pmetrics.record_moe_stats(
+                "serving", counts, float(dropped), self.moe_last_aux,
+                utilization=self.moe_utilization_entropy())
 
     # ------------------------------------------------------- mixed step
     def _step_cfg(self):
@@ -782,17 +819,23 @@ class ServingEngine:
                 raise ValueError(
                     f"adapter {adapter_id!r} is not registered on "
                     "this engine (register_adapter first)")
-        return self.scheduler.submit(prompt, max_new_tokens,
-                                     eos_token_id=self.eos_token_id,
-                                     deadline=deadline, tenant=tenant,
-                                     adapter_id=adapter_id,
-                                     trace_id=trace_id)
+        req = self.scheduler.submit(prompt, max_new_tokens,
+                                    eos_token_id=self.eos_token_id,
+                                    deadline=deadline, tenant=tenant,
+                                    adapter_id=adapter_id,
+                                    trace_id=trace_id)
+        if _pmetrics._enabled:
+            smetrics.SERVING_QUEUE_DEPTH.set(len(self.scheduler.queue))
+        return req
 
     def cancel(self, req):
         """Abort a request (the frontend's cancellation): its blocks and
         prefix locks are reclaimed at once. False when it had already
         ended."""
-        return self.scheduler.cancel(req)
+        ok = self.scheduler.cancel(req)
+        if ok and _pmetrics._enabled:
+            smetrics.SERVING_REQUESTS.labels("cancelled").inc()
+        return ok
 
     # -------------------------------------------- migration (disagg)
     def _slot_chunk(self, req, first_block, last_block):
@@ -847,7 +890,11 @@ class ServingEngine:
             cache_hit_tokens=req.cache_hit_tokens,
             preemptions=req.preemptions, created_at=self.clock(),
             adapter_id=req.adapter_id, trace_id=req.trace_id)
+        if _tracing._enabled:
+            _tracing.on_extracted(req, ticket, self.name)
         self.scheduler.extract(req)
+        if _pmetrics._enabled:
+            smetrics.SERVING_REQUESTS.labels("migrated").inc()
         return ticket
 
     def submit_migrated(self, ticket):
@@ -876,7 +923,10 @@ class ServingEngine:
                 "registered on this engine: register every adapter on "
                 "every replica of a migrating fleet "
                 "(ReplicaRouter.register_adapter does)")
-        return self.scheduler.submit_migrated(ticket)
+        req = self.scheduler.submit_migrated(ticket)
+        if _pmetrics._enabled:
+            smetrics.SERVING_QUEUE_DEPTH.set(len(self.scheduler.queue))
+        return req
 
     def _slot_adapters(self):
         """[max_slots] int32: each resident slot's pinned adapter slot (0
@@ -895,29 +945,145 @@ class ServingEngine:
                         slot_ad[np.clip(sp.slot_ids, 0, None)],
                         0).astype(np.int32)
 
-    def _emit_first(self, req, token, now):
+    def _emit_first(self, req, token, now, trace_on):
         """A completed prefill's first sampled token. On a prefill-role
         engine a request that did not finish at it parks in "handoff",
         every prompt token's K/V written, until the frontend extracts it
         toward a decode replica."""
-        if not self._emit(req, [token], now) and self.role == "prefill":
+        if not self._emit(req, [token], now, trace_on) \
+                and self.role == "prefill":
             req.state = "handoff"
+            if trace_on:
+                _tracing.TRACER.event(req.trace_id, "handoff",
+                                      replica=self.name, ts=now)
 
-    def _emit(self, req, tokens, now):
+    def _emit(self, req, tokens, now, trace_on, verify=False):
         """Append generated tokens; finish the request at EOS or its
-        horizon. Returns True when it finished."""
+        horizon. Returns True when it finished. Observes the TTFT (the
+        first token) or the inter-token gap, and records their span
+        twins: the first_token event's ts minus the enqueued event's is
+        `now - req.submit_time`, and a decode / verify event carries the
+        same `gap`, so every span-derived value is the one the histogram
+        observed."""
         if req.state == "prefill":
             req.state = "decode"
-        if req.first_token_time is None:
+        first = req.first_token_time is None
+        gap = None
+        if first:
             req.first_token_time = now
+            if _pmetrics._enabled:
+                smetrics.SERVING_TTFT_SECONDS.observe(now - req.submit_time)
+        elif req._last_token_time is not None:
+            gap = now - req._last_token_time
+            if _pmetrics._enabled:
+                smetrics.SERVING_INTER_TOKEN_SECONDS.observe(gap)
+        req._last_token_time = now
+        if trace_on:
+            if first:
+                _tracing.on_first_token(req, self.name, ts=now)
+            else:
+                _tracing.on_tokens(req, self.name, ts=now, n=len(tokens),
+                                   gap=gap, verify=verify)
         for token in tokens:
             req.output.append(token)
             if len(req.output) >= req.max_new_tokens or (
                     req.eos_token_id is not None
                     and token == req.eos_token_id):
                 self.scheduler.finish(req, now)
+                if _pmetrics._enabled:
+                    smetrics.SERVING_REQUESTS.labels("finished").inc()
                 return True
         return False
+
+    def _trace_prefills(self, plan, now):
+        """One prefill_chunk span a planned chunk (a slot's resident is
+        the chunk's request: admissions happen only inside plan())."""
+        for slot, chunk, start, completes in plan.prefills:
+            req = self.scheduler.slots[slot]
+            if req is not None:
+                _tracing.TRACER.event(
+                    req.trace_id, "prefill_chunk", replica=self.name,
+                    ts=now, start=int(start), tokens=len(chunk),
+                    completes=bool(completes))
+
+    def _record_step(self, prefill_tokens, decode_tokens):
+        """Publish one step's (or dispatch's) registry metrics: the step
+        and token counters, the queue, slot and pool gauges, and the
+        sparse decode's skipped blocks and attended share."""
+        sch, kv = self.scheduler, self.kv
+        smetrics.SERVING_STEPS.inc()
+        smetrics.SERVING_TOKENS.labels("prefill").inc(prefill_tokens)
+        smetrics.SERVING_TOKENS.labels("decode").inc(decode_tokens)
+        smetrics.SERVING_QUEUE_DEPTH.set(len(sch.queue))
+        smetrics.SERVING_ACTIVE_SLOTS.set(sch.num_active)
+        smetrics.SERVING_KV_BLOCKS_IN_USE.set(kv.blocks_in_use)
+        smetrics.SERVING_KV_BLOCK_UTILIZATION.set(kv.utilization)
+        smetrics.SERVING_KV_BYTES_PER_TOKEN.set(self._kv_bytes_per_token())
+        if self._sparse and self.sparse_candidate_blocks:
+            skipped = (self.sparse_candidate_blocks
+                       - self.sparse_selected_blocks)
+            if skipped > self._sparse_skip_seen:
+                smetrics.SERVING_KV_BLOCKS_SKIPPED.inc(
+                    skipped - self._sparse_skip_seen)
+                self._sparse_skip_seen = skipped
+            smetrics.SERVING_SPARSE_ATTENTION_RATIO.set(
+                self.sparse_selected_blocks / self.sparse_candidate_blocks)
+
+    def _kv_bytes_per_token(self):
+        """The bytes one cached token costs across K+V and every layer
+        (the TP engine counts every rank's heads)."""
+        return self.kv.kv_bytes_per_token
+
+    def _record_deltas(self, publish):
+        """Advance the preemption, imported-block and prefix-cache delta
+        bases, publishing each delta when `publish`."""
+        sch, kv, pc = self.scheduler, self.kv, self.prefix_cache
+        new_p = sch.preemption_count - self._preempt_seen
+        if new_p and publish:
+            smetrics.SERVING_PREEMPTIONS.inc(new_p)
+        new_imp = kv.blocks_imported - self._imported_seen
+        if new_imp and publish:
+            smetrics.SERVING_KV_BLOCKS_MIGRATED.inc(new_imp)
+        self._preempt_seen = sch.preemption_count
+        self._imported_seen = kv.blocks_imported
+        if pc is not None:
+            h0, m0, e0 = self._prefix_seen
+            if publish:
+                if pc.hit_tokens > h0:
+                    smetrics.SERVING_PREFIX_HIT_TOKENS.inc(
+                        pc.hit_tokens - h0)
+                if pc.miss_tokens > m0:
+                    smetrics.SERVING_PREFIX_MISS_TOKENS.inc(
+                        pc.miss_tokens - m0)
+                if pc.evictions > e0:
+                    smetrics.SERVING_PREFIX_EVICTIONS.inc(
+                        pc.evictions - e0)
+            self._prefix_seen = (pc.hit_tokens, pc.miss_tokens,
+                                 pc.evictions)
+
+    def _note_flight(self, t0, prefill_tokens, decode_tokens, spec_accept,
+                     spec_groups, **fields):
+        """One flight record: host ints and floats the step holds. The
+        port has no jit cache, so `compile_cache_size` is -1, the value
+        the JAX engine records when its cache probe fails."""
+        sch = self.scheduler
+        self.flight.note(
+            ts=t0, dur=self.clock() - t0,
+            prefill_tokens=int(prefill_tokens),
+            decode_tokens=int(decode_tokens),
+            active_slots=int(sch.num_active), queue_depth=len(sch.queue),
+            spec_accept_tokens=spec_accept, spec_groups=spec_groups,
+            sparse_skip_ratio=(self.sparse_skip_ratio() if self._sparse
+                               else 0.0),
+            blocks_imported=int(self.kv.blocks_imported),
+            compile_cache_size=-1, **fields, **self._flight_extra())
+
+    def flush_observability(self):
+        """Publish observability a dispatch deferred. The port's engines
+        publish every step's metrics and flight record at its end (it
+        has no asynchronous multi-tick harvest), so this is a no-op, as
+        on the JAX package's synchronous engines; the frontend calls it
+        when its step loop goes idle."""
 
     def _penalty_counts(self):
         """[max_slots, penalty_vocab_bins] float32 histogram of each
@@ -959,11 +1125,18 @@ class ServingEngine:
         Returns True when any work (tokens or expiries) happened, False
         when the engine is idle/starved."""
         sch = self.scheduler
+        # tracing is sampled once a step: a monitor attaching midway
+        # leaves this step's records consistent
+        trace_on = _tracing._enabled
+        t0 = self.clock() if trace_on else None
         plan = sch.plan()
+        if _pmetrics._enabled and plan.expired:
+            for _ in plan.expired:
+                smetrics.SERVING_REQUESTS.labels("expired").inc()
         if plan.empty:
             return bool(plan.expired)
         if self._multitick:
-            return self._step_multitick(plan)
+            return self._step_multitick(plan, trace_on, t0)
         sp = pack_step(self.token_budget, self.kv.max_slots, plan.decode,
                        plan.prefills, verify_width=self.draft_k + 1,
                        reserve_region=self._sparse)
@@ -998,19 +1171,39 @@ class ServingEngine:
             for _slot, toks, pos in sp.decode_entries:
                 self._note_sparse(pos + len(toks) - 1)
         now = self.clock()
+        if trace_on:
+            self._trace_prefills(plan, now)
         for slot in sp.prefill_done:
             req = sch.slots[slot]
             if req is not None:
-                self._emit_first(req, int(tok_np[slot]), now)
-        if not self.draft_k:
+                self._emit_first(req, int(tok_np[slot]), now, trace_on)
+        spec_accept = spec_groups = 0
+        if self.draft_k:
+            spec_accept, spec_groups = self._harvest_verify(sp, host, now,
+                                                            trace_on)
+        else:
             for slot in sp.decode_slots:
                 req = sch.slots[slot]
                 if req is not None:
-                    self._emit(req, [int(tok_np[slot])], now)
-            return True
+                    self._emit(req, [int(tok_np[slot])], now, trace_on)
+        if _pmetrics._enabled:
+            self._record_step(sp.prefill_tokens, sp.decode_tokens)
+            self._record_deltas(True)
+        if trace_on:
+            self._note_flight(t0, sp.prefill_tokens, sp.decode_tokens,
+                              spec_accept, spec_groups)
+        return True
+
+    def _harvest_verify(self, sp, host, now, trace_on):
+        """The 1-tick step's verify groups: accept each decode's drafts,
+        emit, roll back the blocks rejected drafts had claimed, and
+        record the accept lengths and draft counters. Returns (tokens
+        emitted, groups)."""
+        sch = self.scheduler
         tok_v = host[1].astype(np.int64)
         if self.spec_sampling:
             tok_res, acc = host[2].astype(np.int64), host[3] != 0
+        spec_accept = spec_groups = 0
         for slot, toks, pos in sp.decode_entries:
             req = sch.slots[slot]
             if req is None:
@@ -1028,11 +1221,22 @@ class ServingEngine:
                 emitted = [int(t) for t in tok_v[slot][:m + 1]]
             self.spec_proposed_total += len(toks) - 1
             self.spec_accepted_total += m
-            if not self._emit(req, emitted, now):
+            if _pmetrics._enabled:
+                smetrics.SERVING_ACCEPT_LENGTH.observe(m + 1)
+                if len(toks) > 1:
+                    smetrics.SERVING_DRAFT_TOKENS.labels("proposed").inc(
+                        len(toks) - 1)
+                    smetrics.SERVING_DRAFT_TOKENS.labels("accepted").inc(m)
+            spec_accept += m + 1
+            spec_groups += 1
+            if not self._emit(req, emitted, now, trace_on, verify=True):
                 # roll back blocks whose only contents were
                 # rejected-draft K/V
-                sch.note_accept(slot, pos + m + 1)
-        return True
+                freed = sch.note_accept(slot, pos + m + 1)
+                if freed and _pmetrics._enabled:
+                    smetrics.SERVING_SPEC_ROLLBACKS.inc()
+                    smetrics.SERVING_SPEC_ROLLBACK_BLOCKS.inc(freed)
+        return spec_accept, spec_groups
 
     def _note_sparse(self, last):
         """Account one decode query group whose newest position is
@@ -1074,7 +1278,7 @@ class ServingEngine:
             return n_max
         return max(1, min(n_max, math.ceil(h / max(0.1 * d, 1e-9))))
 
-    def _step_multitick(self, plan):
+    def _step_multitick(self, plan, trace_on, t0):
         """The multi-tick dispatch: preallocate each decode's tick
         capacity, upload the plan once, enqueue the ticks
         (`_run_ticks`), read the control block back in one copy, and
@@ -1137,10 +1341,13 @@ class ServingEngine:
         parts = [ctl["staged"], ctl["counts"], ctl["events"], ctl["ticks"],
                  ctl["fed"]]
         if K > 1:
-            parts += [ctl["spec_proposed"], ctl["spec_accepted"]]
+            parts += [ctl["spec_proposed"], ctl["spec_hist"]]
         if self.num_experts:
             parts += [ctl["moe"][k] for k in ("counts", "dropped", "aux")]
+        hs0 = self._timer()
         out = _to_host(parts)                       # the one readback
+        host_stall = self._timer() - hs0
+        self.host_stall_total += host_stall
         staged = out[0].astype(np.int64)
         emitted_n = out[1].astype(np.int64)
         events = out[2].astype(np.int64)
@@ -1157,9 +1364,15 @@ class ServingEngine:
             self._gap_ema = 0.0
         self.tokens_fed += int(out[4])
         self.prefill_tokens_fed += sp.prefill_tokens
+        spec_prop = spec_acc = 0
+        spec_hist = None
         if K > 1:
-            self.spec_proposed_total += int(out[5])
-            self.spec_accepted_total += int(out[6])
+            spec_prop = int(out[5])
+            # spec_hist[b]: the verify groups that accepted b drafts
+            spec_hist = [int(x) for x in out[6]]
+            spec_acc = sum(b * c for b, c in enumerate(spec_hist))
+            self.spec_proposed_total += spec_prop
+            self.spec_accepted_total += spec_acc
         if self.num_experts:
             counts, dropped, aux = out[-3:]
             # counts and drops sum over the ticks that counted; aux is
@@ -1176,26 +1389,64 @@ class ServingEngine:
             # blocks): block state at every dispatch boundary is the
             # 1-tick engine's
             for slot, _tok, pos in plan.decode:
-                sch.note_accept(slot, pos + max(int(emitted_n[slot]), 1))
+                freed = sch.note_accept(slot,
+                                        pos + max(int(emitted_n[slot]), 1))
+                # blocks rejected drafts had claimed: spec rollbacks
+                if freed and K > 1 and _pmetrics._enabled:
+                    smetrics.SERVING_SPEC_ROLLBACKS.inc()
+                    smetrics.SERVING_SPEC_ROLLBACK_BLOCKS.inc(freed)
         if self._sparse:
             # every emitted token's query group, as the JAX loop counts
             for slot, _tok, pos in plan.decode:
                 for j in range(max(int(emitted_n[slot]), 1)):
                     self._note_sparse(pos + j)
         now = self.clock()
+        if trace_on:
+            self._trace_prefills(plan, now)
         for slot in sp.prefill_done:
             req = sch.slots[slot]
             if req is not None:
-                self._emit_first(req, int(staged[slot, 0]), now)
+                self._emit_first(req, int(staged[slot, 0]), now, trace_on)
+        decode_emitted = 0
         for slot in sp.decode_slots:
             req = sch.slots[slot]
             if req is not None:
                 c = max(int(emitted_n[slot]), 1)
-                self._emit(req, [int(t) for t in staged[slot, :c]], now)
+                decode_emitted += c
+                self._emit(req, [int(t) for t in staged[slot, :c]], now,
+                           trace_on)
+        ev_finish = ev_over = 0
         if multi:
-            self.early_exit_counts["finish"] += int(((events & 1) > 0).sum())
-            self.early_exit_counts["overflow"] += int(
-                ((events & 2) > 0).sum())
+            ev_finish = int(((events & 1) > 0).sum())
+            ev_over = int(((events & 2) > 0).sum())
+            self.early_exit_counts["finish"] += ev_finish
+            self.early_exit_counts["overflow"] += ev_over
+        if _pmetrics._enabled:
+            self._record_step(sp.prefill_tokens, decode_emitted)
+            smetrics.SERVING_TICKS_PER_DISPATCH.observe(ticks_run)
+            smetrics.SERVING_HOST_STALL_SECONDS.inc(host_stall)
+            if ev_finish:
+                smetrics.SERVING_EARLY_EXITS.labels("finish").inc(ev_finish)
+            if ev_over:
+                smetrics.SERVING_EARLY_EXITS.labels("overflow").inc(ev_over)
+            if spec_prop:
+                smetrics.SERVING_DRAFT_TOKENS.labels("proposed").inc(
+                    spec_prop)
+                smetrics.SERVING_DRAFT_TOKENS.labels("accepted").inc(
+                    spec_acc)
+            # one accept-length observation a verify group, m + 1 for a
+            # group that accepted m drafts (the 1-tick path's)
+            for b, cnt in enumerate(spec_hist or ()):
+                for _ in range(cnt):
+                    smetrics.SERVING_ACCEPT_LENGTH.observe(b + 1)
+        self._record_deltas(_pmetrics._enabled)
+        if trace_on:
+            groups = sum(spec_hist) if spec_hist else 0
+            self._note_flight(
+                t0, sp.prefill_tokens, decode_emitted,
+                spec_acc + groups if spec_hist else 0, groups,
+                ticks=ticks_run, host_stall=host_stall,
+                early_exit_finish=ev_finish, early_exit_overflow=ev_over)
         return True
 
     @torch.no_grad()
@@ -1229,7 +1480,9 @@ class ServingEngine:
         Returns (control, generator states): control holds `staged`
         [S, N*K] (-1 padded), per-slot emitted `counts` and `events`,
         `ticks` (the ticks that counted), `fed` (valid tokens), with
-        speculation `spec_proposed` / `spec_accepted`, and with MoE the
+        speculation `spec_proposed` and `spec_hist` [K] (the live verify
+        groups that accepted b drafts, at b; the accepted drafts are
+        sum(b * spec_hist[b])), and with MoE the
         routing stats summed over the ticks that counted; a sampling
         engine also gets its generator's state before each tick."""
         S, T = self.kv.max_slots, self.token_budget
@@ -1263,7 +1516,7 @@ class ServingEngine:
             Wr = self.draft_ring
             ring = torch.cat([ring, ring.new_zeros(S, 1)], 1)  # + a dump
             spec_prop = torch.zeros((), dtype=i64, device=dev)
-            spec_acc = torch.zeros((), dtype=i64, device=dev)
+            spec_hist = torch.zeros(K, dtype=i64, device=dev)
         if self._penalized:
             cnt, pen_ring, pen_len = d["counts"], d["pen_ring"], d["pen_len"]
             W, Vb = int(self.sampling.penalty_window), self._penalty_bins
@@ -1412,7 +1665,9 @@ class ServingEngine:
                 ring_len = ring_len + torch.where(live_dec, e, 0)
                 ld = live_dec.long()
                 spec_prop = spec_prop + (k_eff * ld).sum()
-                spec_acc = spec_acc + (m * ld).sum()
+                # m <= K - 1 (no clamp); the host takes the accepted
+                # total from this histogram, one launch a tick
+                spec_hist.scatter_add_(0, m, ld)
             live = live & ~finish & ~overflow
             cur_pos = nxt
             fed_total = fed_total + (sid >= 0).sum()
@@ -1423,7 +1678,7 @@ class ServingEngine:
         ctl = dict(staged=staged[:, :N * K], counts=counts, events=events,
                    ticks=ticks, fed=fed_total, moe=mstats)
         if K > 1:
-            ctl.update(spec_proposed=spec_prop, spec_accepted=spec_acc)
+            ctl.update(spec_proposed=spec_prop, spec_hist=spec_hist)
         return ctl, gen_states
 
     def run(self, max_steps=None):

@@ -469,8 +469,10 @@ class ServingFrontend:
                     await asyncio.sleep(backoff)
                 continue
             # idle: the engine has no work, so `_admit_pending` drained
-            # the fair queue; sleep until a submission or cancellation
+            # the fair queue; publish any observability the engine
+            # deferred, then sleep until a submission or cancellation
             # wakes the loop, or the soonest frontend-held deadline
+            self.engine.flush_observability()
             self._wake.clear()
             soonest = self._next_pending_deadline()
             try:

@@ -47,8 +47,12 @@ block-pressure preemption against the paged KV cache:
   A prefill-role engine parks a request whose prompt is done in the
   `"handoff"` state, which plans neither prefill nor decode.
 
-Pure host-side bookkeeping. `Request.trace_id` is carried for the
-tracing hooks of a later slice (ROADMAP.md).
+* **Tracing** — while `tracing._enabled`, intake, admission (a fresh
+  prefill, a re-prefill after a preemption, or an import), preemption
+  and every terminal state record a span event on the request's trace
+  (`tracing.on_*`), stamped with `replica` (the owning engine's name).
+
+Pure host-side bookkeeping.
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ from typing import Optional
 import numpy as np
 
 from . import batcher
+from . import tracing as _tracing
 
 
 @dataclasses.dataclass(eq=False)   # identity semantics: requests live
@@ -86,10 +91,11 @@ class Request:                     # in sets/queues across state moves
     # blocks already streamed ahead, so extraction ships only the tail
     ticket: Optional[object] = None
     shipped_blocks: int = 0
-    trace_id: Optional[str] = None    # carried for fleet-wide tracing
+    trace_id: Optional[str] = None    # the request's fleet-wide trace
     submit_time: float = 0.0
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
+    _last_token_time: Optional[float] = None   # the inter-token gap's base
 
     @property
     def runtime_prompt(self):
@@ -142,6 +148,9 @@ class Scheduler:
         self.slots = [None] * max_slots
         self._ids = itertools.count()
         self.preemption_count = 0
+        # the replica label the tracing hooks stamp on span events; the
+        # owning engine sets its name
+        self.replica = None
 
     # ---------------------------------------------------------- intake
     def submit(self, prompt, max_new_tokens, eos_token_id=None,
@@ -162,6 +171,8 @@ class Scheduler:
                       arrival=now, submit_time=now, tenant=str(tenant),
                       adapter_id=adapter_id, trace_id=trace_id)
         self.queue.append(req)
+        if _tracing._enabled:
+            _tracing.on_submit(req, self.replica)
         return req
 
     def submit_migrated(self, ticket):
@@ -176,10 +187,11 @@ class Scheduler:
             raise ValueError(
                 f"migrated request needs {total} cached tokens; a slot "
                 f"holds at most {self.kv.max_slot_tokens}")
+        now = self.clock()
         req = Request(req_id=next(self._ids), prompt=list(ticket.prompt),
                       max_new_tokens=int(ticket.max_new_tokens),
                       eos_token_id=ticket.eos_token_id,
-                      deadline=ticket.deadline, arrival=self.clock(),
+                      deadline=ticket.deadline, arrival=now,
                       submit_time=ticket.submit_time,
                       tenant=str(ticket.tenant), output=list(ticket.output),
                       cache_hit_tokens=int(ticket.cache_hit_tokens),
@@ -188,6 +200,8 @@ class Scheduler:
                       trace_id=ticket.trace_id)
         req.first_token_time = ticket.first_token_time
         self.queue.appendleft(req)
+        if _tracing._enabled:
+            _tracing.on_submit_migrated(req, self.replica, ts=now)
         return req
 
     @property
@@ -227,6 +241,9 @@ class Scheduler:
                 req.state = "expired"
                 req.finish_time = now
                 expired.append(req)
+        if _tracing._enabled:
+            for req in expired:
+                _tracing.on_terminal(req, "expired", self.replica, ts=now)
         return expired
 
     def _acquire_adapter(self, req):
@@ -268,6 +285,9 @@ class Scheduler:
         req.fed = len(req.runtime_prompt)
         req.ticket = None
         self.slots[slot] = req
+        if _tracing._enabled:
+            _tracing.on_admitted(req, self.replica, kind="import",
+                                 ts=self.clock())
         return True
 
     def _admit(self):
@@ -286,6 +306,15 @@ class Scheduler:
                 req.state = "prefill"
                 req.fed = 0
                 self.slots[slot] = req
+                if _tracing._enabled:
+                    # a re-prefill resumes a preempted sequence (or a
+                    # migrant that lost its blocks): its own kind, so
+                    # the queue wait is observed on the first admission
+                    # only
+                    kind = ("re_prefill" if (req.output or req.preemptions)
+                            else "prefill")
+                    _tracing.on_admitted(req, self.replica, kind=kind,
+                                         ts=self.clock())
                 if self.prefix_cache is not None \
                         and req.adapter_id is None:
                     # a cached prompt head: adopt its blocks, count their
@@ -315,6 +344,8 @@ class Scheduler:
         victim.preemptions += 1
         self.preemption_count += 1
         self.queue.appendleft(victim)
+        if _tracing._enabled:
+            _tracing.on_preempted(victim, self.replica, ts=self.clock())
         return victim
 
     # ------------------------------------------------- speculative draft
@@ -471,6 +502,9 @@ class Scheduler:
             self.prefix_cache.insert(req.slot,
                                      (req.prompt + req.output)[:n])
         self._free_slot(req)
+        if _tracing._enabled:
+            _tracing.on_terminal(req, "finished", self.replica,
+                                 ts=req.finish_time)
 
     def extract(self, req, now=None):
         """Release a resident request that migrates away: its slot,
@@ -498,4 +532,7 @@ class Scheduler:
             self._free_slot(req)
         req.state = "cancelled"
         req.finish_time = self.clock() if now is None else now
+        if _tracing._enabled:
+            _tracing.on_terminal(req, "cancelled", self.replica,
+                                 ts=req.finish_time)
         return True

@@ -689,6 +689,80 @@ def test_multitick_sampling_on_card_never_syncs(draft_k, cuda_device):
     assert wasted > 0
 
 
+# ------------------------------------------------ the observability plane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ticks,draft_k", [(1, 0), (4, 3)])
+def test_recording_changes_no_token_or_launch_on_card(ticks, draft_k,
+                                                      cuda_device):
+    """A small fp32 engine with metrics and tracing on gives the tokens
+    and paged-kernel launches it gives with them off; at 4 ticks a
+    dispatch every dispatch's ticks run under set_sync_debug_mode(
+    "error") with recording on (no hook reads the card). Every request's
+    trace closes "finished" and the flight recorder notes every step."""
+    from paddle_tpu_torch.serving import metrics as sm
+    from paddle_tpu_torch.serving import tracing
+    _, card, prompts = _small_models(cuda_device)
+    kw = dict(max_slots=4, block_size=16, max_seq_len=64,
+              cache_dtype="float32", draft_k=draft_k,
+              ticks_per_dispatch=ticks)
+    counters = list(_VERIFY_COUNTER.values()) + list(_RAGGED_COUNTER.values())
+    runs = {}
+    try:
+        for on in (False, True):
+            tracing.recording(on)
+            eng = ServingEngine(card, device=cuda_device, **kw)
+            if ticks > 1:
+                _sync_guarded(eng)
+            before = {c: getattr(tpa, c) for c in counters}
+            out = eng.generate_batch(prompts, max_new_tokens=12)
+            torch.cuda.synchronize()
+            runs[on] = (out, {c: getattr(tpa, c) - before[c]
+                              for c in counters}, eng)
+        (off, off_n, _), (got, got_n, eng) = runs[False], runs[True]
+        assert got == off and got_n == off_n
+        assert sum(got_n.values()) > 0
+        traces = tracing.TRACER.traces()
+        assert len(traces) == len(prompts)
+        assert all(t.outcome == "finished" and t.monotone() for t in traces)
+        assert tracing.TRACER.active() == []
+        assert eng.flight.steps == eng.steps_run
+        assert sm.SERVING_STEPS.value == eng.steps_run
+        assert sm.SERVING_TTFT_SECONDS.count == len(prompts)
+    finally:
+        tracing.recording(False)
+
+
+@pytest.mark.cuda
+def test_profiler_device_table_names_paged_kernel(cuda_device):
+    """The port's Profiler over a few decode steps reads the paged
+    kernel among the device kernels and names it in the summary."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.profiler import statistic
+    _, card, prompts = _small_models(cuda_device)
+    eng = ServingEngine(card, device=cuda_device, max_slots=4,
+                        block_size=16, max_seq_len=64,
+                        cache_dtype="float32")
+    for p in prompts:
+        eng.submit(p, 12)
+    eng.step()
+    prof = profiler.Profiler()
+    with prof:
+        for _ in range(4):
+            with profiler.RecordEvent("decode_step"):
+                eng.step()
+        torch.cuda.synchronize()
+    eng.run()
+    kernels = statistic.device_kernel_times(prof._prof)
+    paged = [k for k in kernels if any(n in k for n in (
+        "paged_attend_kernel", "verify_walk_kernel", "ragged_plan_kernel"))]
+    assert paged, sorted(kernels)
+    text = prof.summary()
+    assert statistic.NO_DEVICE_KERNELS not in text
+    assert "decode_step" in text and paged[0][:64] in text
+
+
 # ------------------------------------------------- add_ln (K2) kernels
 
 

@@ -6,6 +6,9 @@ rendezvous at a file under the test's tmp_path (xdist workers never
 share a port), run every scenario on `TPServingEngine` and save their
 results; the tests compare them with the JAX package's engine, which
 runs the same scenarios (`SCENARIOS`, `serve`) in the test process.
+The "observed" job records metrics and traces on each rank under a
+`ManualClock` (`drive_observed`, `observed`), which the observability
+tests also drive either framework's single engine with.
 """
 from __future__ import annotations
 
@@ -114,6 +117,66 @@ def serve(eng, traffic, adapters=None):
     return out
 
 
+class ManualClock:
+    """A clock the test sets before each step: every read inside one
+    step returns the same time, in either framework's engine."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def drive_observed(eng, clock, waves, new, dt=0.125):
+    """Serve `waves` (lists of (prompt, adapter id)) on `eng` under the
+    manual `clock`: a wave is submitted at the current time once the one
+    before has drained, and the clock advances `dt` before every step.
+    Returns the requests in submission order."""
+    reqs = []
+    for wave in waves:
+        reqs += [eng.submit(p, new, adapter_id=a) if a is not None
+                 else eng.submit(p, new) for p, a in wave]
+        while eng.scheduler.has_work:
+            clock.t += dt
+            assert eng.step()
+    eng.flush_observability()
+    return reqs
+
+
+def observed(eng, reqs, metrics, serving_metrics, tracing):
+    """What the observability parity tests compare: tokens, the registry
+    over the serving contract, each request's trace and the flight
+    records (either framework's modules)."""
+    snap = metrics.REGISTRY.snapshot()
+    return dict(
+        tokens=[[int(t) for t in r.output] for r in reqs],
+        preemptions=int(eng.scheduler.preemption_count),
+        metrics={n: snap[n] for n in serving_metrics.CONTRACT_METRICS},
+        traces=[tracing.TRACER.get(r.trace_id).as_dict() for r in reqs],
+        flight=[dict(r) for r in eng.flight.records],
+        flight_steps=eng.flight.steps)
+
+
+def _observed_case(model, kw):
+    """The tp = 2 observability case on this rank: recording on, the
+    manual clock, prompts() at NEW tokens."""
+    from paddle_tpu_torch.profiler import metrics
+    from paddle_tpu_torch.serving import metrics as serving_metrics
+    from paddle_tpu_torch.serving import tracing
+    from paddle_tpu_torch.serving.distributed import TPServingEngine
+    metrics.REGISTRY.reset()
+    tracing.TRACER.reset()
+    metrics.enable()
+    tracing.enable()
+    clock = ManualClock()
+    eng = TPServingEngine(model, tensor_parallel=2, device="cpu",
+                          clock=clock, name="e0", **kw)
+    reqs = drive_observed(eng, clock, [[(p, None) for p in prompts()]],
+                          NEW)
+    return observed(eng, reqs, metrics, serving_metrics, tracing)
+
+
 def seeded_model(device, hidden=32):
     """A small float GPT drawn from torch seed 0 on the CPU (the same
     weights in every process), on `device`. The card's paged kernel
@@ -162,6 +225,9 @@ def _rank_main(rank, world, rdv, data_dir, jobs):
             kw = dict(BASE_KW, **job["kw"])
             if job["traffic"] == "clock":
                 results[job["name"]] = _clock_case(model, rank, kw)
+                continue
+            if job["traffic"] == "observed":
+                results[job["name"]] = _observed_case(model, kw)
                 continue
             eng = TPServingEngine(model, tensor_parallel=job["tp"],
                                   expert_parallel=job["ep"], device=device,
