@@ -156,7 +156,7 @@ each (or a few):
    1e-5 (the weight-only MoE engine is held in phase 5c);
 5b. serve MoE — MoE-350M (bench_gpt_moe's widths: GPT-350M with every
    FFN 8 experts, top-2, capacity factor 1.25; depth cut to MOE_LAYERS
-   = L = 12; random weights from a numpy seed through
+   = L = 4 (12 until PR 21); random weights from a numpy seed through
    `convert.load_jax_gpt(moe=...)`) served by three
    engines in turn, `moe_weight_dtype` None, "int8" and "int4", each
    taking the dense phase's 16 requests: every request finishes, paged
@@ -176,9 +176,10 @@ each (or a few):
    expert choice that differs, at or before the first differing token,
    sat at a near-tie of the top-k gate boundary (reported as the cause);
 5m. serve TP — every rank a process on the one card, joined over gloo
-   (NCCL takes a card a rank): GPT-350M at full depth, bf16, by
+   (NCCL takes a card a rank): GPT-350M's widths at TP_LAYERS = 8
+   layers (full depth until PR 21), bf16, by
    `TPServingEngine(tensor_parallel=2)` on 2 ranks, the 16 requests:
-   each rank's paged launches exactly steps x 24 at its 8 heads,
+   each rank's paged launches exactly steps x 8 at its 8 heads,
    every rank's tokens equal, rank 0's within phase 5's near-tie
    oracle, a profiled decode window on each rank (host and device ms a
    step printed beside phase 4's 1-rank engine; the ranks share the
@@ -216,6 +217,32 @@ each (or a few):
    caching on the prefill role, one shed hop, and a prefill replica
    whose step raises mid-prefill (its requests fail over to a second
    prefill replica); each replica's launches held in each;
+5r. serve generate — `GPTForGeneration.generate()` on phase 5a's
+   GPT-350M (bf16) over the first 8 serve prompts with their true
+   seq_lens, 64 new tokens: greedy with use_scan True and False give
+   the same tokens, each within phase 5's near-tie oracle; draft_k=3's
+   every token is within that oracle too (in bf16 it may part from the
+   scan at a near tie; in fp32 it is identical); seeded sampling twice
+   gives the same tokens; no kernel
+   launched (its dense-cache attention is plain torch, as JAX's is
+   XLA); then the weight-only twin (K4's dense route exactly 64
+   forwards x 96) and, after phase 5b, MoE-350M (K4's float experts
+   exactly 64 forwards x 2 x MOE_LAYERS); ms a token, tokens/s, peak
+   memory;
+5s. serve fleet — `inference.create_fleet_controller` over 2 GPT-350M
+   replicas (phase 5a's model, phase 4's settings with prefix caching),
+   the v1 bundle exported into a temporary directory: a third replica
+   booted from it (cold start to its first token printed, no nvcc
+   run), `rolling_upgrade` to v2 weights while the 16 requests stream
+   (none fails), an `SLOAutoscaler` on a tight TTFT target scaling up
+   once (a boot from the bundle) and on a loose one down once (a retire
+   spilling its prefix cache); the FLEET_* series equal the
+   controller's own events;
+5t. on-card fleet check — fp32, 2 layers at full width: the booted
+   replica's tokens equal replica 0's and a fresh v1 engine's; every
+   request streamed through the upgrade equals a fresh v1 or v2
+   engine's; every replica equals the fresh v2 engine after it, and a
+   swapped engine holds its tensors bit for bit;
 6. train — GPT-350M at full width in `bench_gpt`'s exact config (bf16,
    bf16 grads, remat with remat_policy="save_splash_residuals", fused
    CE in 4 chunks) trained by the port's `HybridGPT` at batch 8 for
@@ -290,11 +317,11 @@ N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, (64, 512), 64
 SEED = 0
 
 # MoE-350M: bench.py's bench_gpt_moe (GPT-350M widths, every FFN 8
-# experts, top-2, capacity factor 1.25), served at half its depth (the
-# widths, and so every kernel's shapes, are whole) to keep the script
-# inside its time limit
+# experts, top-2, capacity factor 1.25), served at 4 of its 24 layers
+# (the widths, and so every kernel's shapes, are whole) to keep the
+# script inside its time limit
 MOE = dict(num_expert=8, top_k=2, capacity_factor=1.25)
-MOE_LAYERS = 12
+MOE_LAYERS = 4
 
 # GPT-350M train step: bench.py's bench_gpt TPU config at batch 8 (its
 # own batch, 32, is timed after it)
@@ -1980,8 +2007,9 @@ def first_gap(model, prompts, got, want):
         i = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
         if i is None:
             continue
-        ids = torch.tensor([p + w[:i]])
         m = model if isinstance(model, torch.nn.Module) else model(n)
+        ids = torch.tensor([p + w[:i]],
+                           device=m.word_embeddings.weight.device)
         top = m(ids, dtype=torch.float32)[0, -1].topk(2)
         return same, total, float(top.values[0] - top.values[1])
     return same, total, None
@@ -2572,6 +2600,7 @@ def serve_moe(device, counters):
         if fmt is None:
             serve_moe_multitick(model, device, counters, prompts, float_out)
     serve_moe_weight_only(model, device, counters, prompts)
+    serve_generate_moe(model, device, counters)
     del model
     torch.cuda.empty_cache()
     return launches
@@ -4233,6 +4262,8 @@ def check_bert_train_on_card(device):
 # their times are not TP speed. TP x EP MoE at a cut depth: four ranks
 # share the card and its host.
 TP, MOE_TP, MOE_EP, MOE_TP_LAYERS = 2, 2, 2, 4
+# the dense TP job's depth (GPT-350M's widths), cut for the time limit
+TP_LAYERS = 8
 
 
 def check_tp_shapes(pa, gm, device, flush):
@@ -4414,7 +4445,8 @@ def hold_counts(label, got, want):
 
 
 def tp_dense_job(rank, world):
-    """Phase 5m's dense half on one rank: GPT-350M at full depth, bf16,
+    """Phase 5m's dense half on one rank: GPT-350M's widths at TP_LAYERS,
+    bf16,
     `TPServingEngine(tensor_parallel=2)` on phase 4's 16 requests
     (paged launches exactly steps x 24, rank 0's tokens within the
     near-tie oracle), a profiled decode window; then phase 5n's dense
@@ -4425,7 +4457,7 @@ def tp_dense_job(rank, world):
     device = torch.device("cuda:0")
     counters = [(m, attr, name) for name, m, attr, _r, _s in kernel_table()]
     t0 = time.perf_counter()
-    model = load_jax_gpt(random_gpt_arrays(), HEADS,
+    model = load_jax_gpt(random_gpt_arrays(layers=TP_LAYERS), HEADS,
                          compute_dtype="bfloat16", device=device)
     eng = TPServingEngine(model, tensor_parallel=TP, device=device,
                           max_slots=SLOTS, block_size=BLOCK,
@@ -4437,8 +4469,9 @@ def tp_dense_job(rank, world):
     label = f"serve TP rank {rank}/{world}"
     torch.cuda.reset_peak_memory_stats(device)
     outputs, got, run = serve_counted(eng, serve_prompts(), counters, label)
-    hold_counts(label, got, {"paged_attention": run["steps"] * LAYERS})
-    print(f"{label}: GPT-350M bf16, {eng.kv.num_heads} of {HEADS} heads, "
+    hold_counts(label, got, {"paged_attention": run["steps"] * TP_LAYERS})
+    print(f"{label}: GPT-350M's widths at {TP_LAYERS} layers, bf16, "
+          f"{eng.kv.num_heads} of {HEADS} heads, "
           f"kv_bytes_per_token {eng.kv.kv_bytes_per_token}, built in "
           f"{build_s:.1f} s; {run['steps']} steps, {run['generated']} "
           f"generated tokens in {run['wall']:.3f} s = "
@@ -4447,7 +4480,7 @@ def tp_dense_job(rank, world):
           f"clock, mean TTFT {run['ttft'] * 1e3:.1f} ms, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated(device)}"
           f" B; paged_attention {got['paged_attention']} launches = steps "
-          f"x {LAYERS}", flush=True)
+          f"x {TP_LAYERS}", flush=True)
     if rank == 0:
         check_outputs(model, run["reqs"], device, label="check TP")
     prof = profile_decode(eng, f"GPT-350M TP={TP} rank {rank}", window=8,
@@ -4608,7 +4641,7 @@ def tp_moe_job(rank, world):
     return res
 
 
-def serve_tp(base, base_prof, dense_out):
+def serve_tp(base, base_prof):
     """Phases 5m and 5n: the dense job on 2 ranks, then the MoE job on 4,
     each rank a process on cuda:0 over gloo. Every rank's tokens must
     equal rank 0's; host and device ms a step printed beside phase 4's
@@ -4619,19 +4652,17 @@ def serve_tp(base, base_prof, dense_out):
         if res["outputs"] != dense[0]["outputs"] or \
                 res["check"] != dense[0]["check"]:
             fail(f"serve TP: rank {r}'s tokens differ from rank 0's")
-    same = sum(a == b for o, w in zip(dense[0]["outputs"], dense_out)
-               for a, b in zip(o, w))
-    total = sum(map(len, dense_out))
 
     def ms(p, key):
         return "not measured" if p[key] is None else f"{p[key]:.3f}"
-    print(f"serve TP: tp = {TP} on one card over gloo, every rank's tokens "
-          f"equal; {same}/{total} tokens equal to phase 4's 1-rank engine; "
+    print(f"serve TP: tp = {TP} on one card over gloo, {TP_LAYERS} layers, "
+          f"every rank's tokens equal; "
           + "; ".join(f"rank {r}: {res['generated'] / res['wall']:.1f} "
                       f"tokens/s, decode step {ms(res['prof'], 'host_ms')}"
                       f" ms host, {ms(res['prof'], 'device_ms')} ms device"
                       for r, res in enumerate(dense))
-          + f"; 1-rank engine (phase 4): {base['tokens_s']:.1f} tokens/s, "
+          + f"; 1-rank engine (phase 4, {LAYERS} layers): "
+          f"{base['tokens_s']:.1f} tokens/s, "
           f"decode step {ms(base_prof, 'host_ms')} ms host, "
           f"{ms(base_prof, 'device_ms')} ms device; in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -5097,6 +5128,379 @@ def check_disagg_on_card(device, counters):
           flush=True)
 
 
+# ------------------------------------------------- phases 5r, 5s and 5t
+
+
+GEN_ROWS = 8        # serve generate's batch: the first 8 serve prompts
+
+
+def gen_batch():
+    """The first GEN_ROWS serve prompts right-padded into one [8, S]
+    batch, with their true lengths."""
+    import numpy as np
+    prompts = serve_prompts()[:GEN_ROWS]
+    ids = np.zeros((GEN_ROWS, max(map(len, prompts))), np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    return prompts, ids, np.array([len(p) for p in prompts], np.int32)
+
+
+def gen_run(model, ids, lens, counters, label, **kw):
+    """One timed `generate()` of NEW_TOKENS on the batch, every kernel
+    counter zeroed just before and read just after. Returns (tokens
+    [B, M] as lists, gen_lens, the launches, ms a step)."""
+    import torch
+    device = model.word_embeddings.weight.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for mod, attr, _ in counters:
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    toks, glens = model.generate(ids, max_new_tokens=NEW_TOKENS,
+                                 seq_lens=lens, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(mod, attr) for mod, attr, name in counters}
+    toks = toks.cpu()
+    if toks.shape != (len(ids), NEW_TOKENS) or toks.dtype != torch.int32 \
+            or not ((toks >= 0) & (toks < VOCAB)).all():
+        fail(f"{label}: generate() gave {tuple(toks.shape)} {toks.dtype} "
+             "ids outside the vocabulary or the shape")
+    ms = wall * 1e3 / NEW_TOKENS
+    print(f"{label}: {len(ids)} rows x {NEW_TOKENS} new tokens in "
+          f"{wall:.3f} s = {ms:.2f} ms a token (a step of every row), "
+          f"{len(ids) * NEW_TOKENS / wall:.1f} tokens/s, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated(device)}"
+          f" B; launches " + ", ".join(f"{n} {v}" for n, v in
+                                       launches.items() if v), flush=True)
+    return toks.tolist(), glens.cpu().tolist(), launches, ms
+
+
+def hold_gen_launches(label, launches, want):
+    """Every kernel's launches in a generate() run equal `want` (0 where
+    it names none)."""
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)}")
+
+
+def gen_oracle(model, prompts, toks, device, label, rows=None):
+    """Phase 5's near-tie oracle over generate()'s rows."""
+    from types import SimpleNamespace
+    reqs = [SimpleNamespace(req_id=i, prompt=list(prompts[i]),
+                            output=list(toks[i]))
+            for i in (range(len(prompts)) if rows is None else rows)]
+    check_outputs(model, reqs, device, label)
+
+
+def serve_generate(model, device, counters):
+    """Phase 5r: `GPTForGeneration.generate()` on GPT-350M (phase 5a's
+    model, bf16) over the first 8 serve prompts with their true
+    seq_lens, 64 new tokens: greedy with use_scan True and False (the
+    same tokens, within the near-tie oracle), draft_k=3 (every token
+    within the oracle; in bf16 it may part from the scan at a near
+    tie), seeded sampling twice (the same tokens); no kernel launched
+    (the dense-cache attention is plain torch, as JAX's is XLA). Then
+    the weight-only twin: K4's dense route exactly 64 forwards x 4 x 24.
+
+    The oracle (`check_outputs`, through `GPTForGeneration.forward`)
+    runs the same dense attention (`_layer_body`, `_sdp`) as
+    generate()'s prefill, so on the card it does not hold that
+    attention independently; the CPU tests hold it against the JAX
+    package's."""
+    t_phase = time.perf_counter()
+    prompts, ids, lens = gen_batch()
+    # warm-up at the runs' shapes (the first S = 512 prefill and decode
+    # steps allocate)
+    model.generate(ids, max_new_tokens=2, seq_lens=lens)
+    runs = {}
+    for label, kw in (("greedy scan", {}), ("greedy loop",
+                                             dict(use_scan=False)),
+                      ("draft_k=3", dict(draft_k=3)),
+                      ("sampling", dict(decode_strategy="sampling",
+                                        top_k=50, top_p=0.9, seed=11)),
+                      ("sampling again", dict(decode_strategy="sampling",
+                                              top_k=50, top_p=0.9,
+                                              seed=11))):
+        toks, glens, launches, ms = gen_run(
+            model, ids, lens, counters, f"serve generate {label}", **kw)
+        hold_gen_launches(f"serve generate {label}", launches, {})
+        if glens != [NEW_TOKENS] * len(ids):
+            fail(f"serve generate {label}: gen_lens {glens}")
+        runs[label] = toks
+    if runs["greedy loop"] != runs["greedy scan"]:
+        fail("serve generate: the greedy loop differs from the scan")
+    if runs["sampling again"] != runs["sampling"]:
+        fail("serve generate: two seeded sampling runs differ")
+    # a verify pass scores 4 positions in one [32, D] product where a
+    # decode step multiplies [8, D]: bf16 rounds the two differently, so
+    # the speculative run may leave the scan at a near tie (each run's
+    # every token is held by the near-tie oracle below)
+    same, total, gap = first_gap(model, prompts, runs["draft_k=3"],
+                                 runs["greedy scan"])
+    print(f"serve generate: greedy scan = loop; draft_k=3 equal to the "
+          f"scan {same}/{total} (fp32 top-2 gap at the first difference "
+          f"{gap}), {len(model.last_accept_counts)} verify steps for "
+          f"{NEW_TOKENS - 1} tokens a row; seeded sampling repeats "
+          "itself", flush=True)
+    gen_oracle(model, prompts, runs["greedy scan"], device,
+               "check generate")
+    if same != total:
+        gen_oracle(model, prompts, runs["draft_k=3"], device,
+                   "check generate draft_k=3")
+    wo = weight_only_copy(model, device)
+    wo.generate(ids, max_new_tokens=2, seq_lens=lens)
+    toks, _, launches, _ = gen_run(wo, ids, lens, counters,
+                                   "serve generate weight-only")
+    hold_gen_launches("serve generate weight-only", launches,
+                      {"gmm_int8_dense": NEW_TOKENS * 4 * LAYERS})
+    gen_oracle(wo, prompts, toks, device, "check generate weight-only",
+               rows=(0, 1))
+    del wo
+    print(f"serve generate: phase took {time.perf_counter() - t_phase:.1f} "
+          "s", flush=True)
+
+
+def serve_generate_moe(model, device, counters):
+    """Phase 5r, MoE: greedy generate() on MoE-350M at MOE_LAYERS (phase
+    5b's model): K4's float experts exactly 64 forwards x 2 x layers."""
+    prompts, ids, lens = gen_batch()
+    model.generate(ids, max_new_tokens=2, seq_lens=lens)
+    _, _, launches, _ = gen_run(model, ids, lens, counters,
+                                "serve generate MoE")
+    hold_gen_launches("serve generate MoE", launches,
+                      {"gmm_fp": NEW_TOKENS * 2 * MOE_LAYERS})
+
+
+def ordered(model, arrays):
+    """`arrays` ({name: array}, random_gpt_arrays') in the model's
+    `_gen_tensors()` order: a checkpoint for `swap_weights`."""
+    return [arrays[n] for n in model.gen_names()]
+
+
+async def fleet_requests(router, prompts, new):
+    import asyncio
+    return await asyncio.gather(*[router.submit(list(p), max_new_tokens=new)
+                                  for p in prompts])
+
+
+async def only_on(router, idx, prompts, new):
+    """`prompts` served by replica `idx` alone (every other live replica
+    quiesced for the call)."""
+    others = [i for i in range(len(router.frontends))
+              if i != idx and i not in router._quiesced]
+    for i in others:
+        router.quiesce(i)
+    try:
+        return await fleet_requests(router, prompts, new)
+    finally:
+        for i in others:
+            router.unquiesce(i)
+
+
+def serve_fleet(model, device, counters):
+    """Phase 5s: the fleet plane at full width. `create_fleet_controller`
+    over 2 GPT-350M replicas (phase 5a's model, phase 4's engine
+    settings with prefix caching) exports the v1 bundle into a temporary
+    directory; `boot_replica` boots a third from it (a probe prompt;
+    cold start printed; no nvcc run); `rolling_upgrade` flips the fleet
+    to v2 weights (another numpy seed) while the 16 requests stream
+    (none may fail); an `SLOAutoscaler` on a tight TTFT target records
+    one scale-up (a boot from the bundle), then on a loose one a
+    scale-down (a retire with a prefix spill). The registry's FLEET_*
+    series equal the controller's own events."""
+    import asyncio
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.profiler import metrics as pm
+    from paddle_tpu_torch.serving import metrics as sm
+    from paddle_tpu_torch.serving.fleet import (AutoscalerPolicy,
+                                                SLOAutoscaler)
+    from paddle_tpu_torch.serving.slo import SLOMonitor
+    t_phase = time.perf_counter()
+    prompts = serve_prompts()
+    w2 = ordered(model, random_gpt_arrays(SEED + 90))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_")
+    pm.REGISTRY.reset()
+    pm.enable()
+    try:
+        cfg = inference.Config().enable_continuous_batching(
+            max_slots=SLOTS, block_size=BLOCK, max_seq_len=MAX_SEQ,
+            token_budget=BUDGET, cache_dtype="bfloat16",
+            prefix_caching=True, num_replicas=2)
+        t0 = time.perf_counter()
+        router, ctl = inference.create_fleet_controller(
+            cfg, model, bundle_root=tmp.name, version="v1",
+            spill_dir=os.path.join(tmp.name, "spill"), device=device)
+        print(f"serve fleet: 2 replicas built and the v1 bundle exported "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        async def run():
+            async with router:
+                await fleet_requests(router, [[1, 2, 3]] * 2, 2)
+                runs = _build.nvcc_runs
+                cold0 = sm.FLEET_COLD_START.sum
+                idx = await ctl.boot_replica(probe_prompt=prompts[0],
+                                             probe_tokens=1)
+                if _build.nvcc_runs != runs:
+                    fail(f"serve fleet: the boot ran "
+                         f"{_build.nvcc_runs - runs} nvcc builds")
+                print(f"serve fleet: replica {idx} booted from the bundle "
+                      f"in {sm.FLEET_COLD_START.sum - cold0:.2f} s to its "
+                      "first token "
+                      f"(cold), 0 nvcc runs", flush=True)
+                t0 = time.perf_counter()
+                tasks = [asyncio.ensure_future(router.submit(
+                    list(p), max_new_tokens=NEW_TOKENS)) for p in prompts]
+                await asyncio.sleep(0.05)
+                flipped = await ctl.rolling_upgrade(w2, "v2")
+                outs = await asyncio.gather(*tasks)
+                upgrade_s = time.perf_counter() - t0
+                if any(len(o) != NEW_TOKENS for o in outs):
+                    fail("serve fleet: a request streamed through the "
+                         "upgrade came back short")
+                versions = router.stats()["versions"]
+                print(f"serve fleet: rolling upgrade flipped {flipped} to "
+                      f"v2 while {len(prompts)} requests streamed "
+                      f"({sum(map(len, outs))} tokens, none failed) in "
+                      f"{upgrade_s:.2f} s; versions {versions}", flush=True)
+                if versions != ["v2"] * 3 or sorted(flipped) != [0, 1, 2]:
+                    fail(f"serve fleet: versions {versions} after the "
+                         "upgrade")
+                tight = SLOMonitor({"default": {"ttft_p95": 1e-4}})
+                scaler = SLOAutoscaler(ctl, tight, policy=AutoscalerPolicy(
+                    min_replicas=3, max_replicas=4, sustain_s=0.0,
+                    recovery_s=0.0, cooldown_s=0.0))
+                for p in prompts[:4]:
+                    t0 = time.perf_counter()
+                    async for _ in router.stream(list(p), 1):
+                        ttft = time.perf_counter() - t0
+                    tight.on_ttft("default", ttft, tight.clock())
+                    if await scaler.step():
+                        break
+                up = scaler.decisions[-1] if scaler.decisions else None
+                if not up or up["direction"] != "up":
+                    fail("serve fleet: no scale-up on a burning TTFT")
+                await only_on(router, up["replica"], prompts[:2], 4)
+                scaler.monitor = SLOMonitor({"default": {"ttft_p95": 1e3}})
+                scaler.monitor.on_ttft("default", 0.01,
+                                       scaler.monitor.clock())
+                down = await scaler.step()
+                if not down or down["direction"] != "down" \
+                        or down["replica"] != up["replica"]:
+                    fail(f"serve fleet: no scale-down retiring the "
+                         f"autoscaler's replica: {down}")
+                spills = os.listdir(os.path.join(tmp.name, "spill"))
+                print(f"serve fleet: autoscaler scaled up to replica "
+                      f"{up['replica']} (burn {up['burn']:.0f}) and down "
+                      f"again; the retire spilled {spills}; active "
+                      f"{ctl.active_replicas()}", flush=True)
+                return flipped, scaler.decisions
+        flipped, decisions = asyncio.run(run())
+        boots = {k[0]: v.value for k, v in sm.FLEET_BOOTS.samples()}
+        scale = {k: v.value for k, v in sm.FLEET_SCALE_EVENTS.samples()}
+        want_scale = {(d["direction"], d["reason"]): 1.0
+                      for d in decisions}
+        if boots != {"cold": float(len(ctl.booted))} \
+                or sm.FLEET_UPGRADES.value != len(flipped) \
+                or scale != want_scale:
+            fail(f"serve fleet: FLEET_* {boots} / "
+                 f"{sm.FLEET_UPGRADES.value} / {scale} against the "
+                 f"controller's {len(ctl.booted)} boots, {len(flipped)} "
+                 f"upgrades, {want_scale}")
+        print(f"serve fleet: FLEET_BOOTS {boots}, FLEET_UPGRADES "
+              f"{sm.FLEET_UPGRADES.value:.0f}, FLEET_SCALE_EVENTS {scale}, "
+              f"FLEET_COLD_START count {sm.FLEET_COLD_START.count}: the "
+              "controller's own events", flush=True)
+    finally:
+        pm.disable()
+        pm.REGISTRY.reset()
+        tmp.cleanup()
+    del router, ctl
+    torch.cuda.empty_cache()
+    print(f"serve fleet: phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def check_fleet_on_card(device):
+    """Phase 5t: the fleet's identity checks on an fp32 2-layer model at
+    full width (v1 and v2 from two numpy seeds), 4 prompts of 16 new
+    tokens, prefix caching on: the booted replica's tokens equal replica
+    0's (and a fresh v1 engine's); each request streamed through the
+    rolling upgrade equals a fresh v1 or a fresh v2 engine's, never a
+    mix; after it every replica's tokens equal the fresh v2 engine's,
+    and a swapped engine holds the fresh v2 engine's tensors bit for
+    bit."""
+    import asyncio
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.convert import load_jax_gpt
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    a1 = random_gpt_arrays(SEED + 91, layers=2)
+    m1 = load_jax_gpt(a1, HEADS, device=device)
+    m2 = load_jax_gpt(random_gpt_arrays(SEED + 92, layers=2), HEADS,
+                      device=device)
+    rng = np.random.default_rng(SEED + 93)
+    prompts = [rng.integers(0, VOCAB, int(n)).tolist()
+               for n in (40, 200, 97, 151)]
+    new = 16
+    geo = dict(max_slots=4, block_size=BLOCK, max_seq_len=256,
+               token_budget=64, cache_dtype="float32", prefix_caching=True)
+    ref = {v: ServingEngine(m, device=device, **geo).generate_batch(
+        prompts, new) for v, m in (("v1", m1), ("v2", m2))}
+    fresh2 = ServingEngine(m2, device=device, **geo)
+    w2 = ordered(m1, random_gpt_arrays(SEED + 92, layers=2))
+    cfg = inference.Config().enable_continuous_batching(num_replicas=2,
+                                                        **geo)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        router, ctl = inference.create_fleet_controller(
+            cfg, m1, bundle_root=tmp, device=device)
+
+        async def run():
+            async with router:
+                base = await only_on(router, 0, prompts, new)
+                idx = await ctl.boot_replica()
+                booted = await only_on(router, idx, prompts, new)
+                tasks = [asyncio.ensure_future(router.submit(
+                    list(p), max_new_tokens=new)) for p in prompts]
+                await asyncio.sleep(0.01)
+                await ctl.rolling_upgrade(w2, "v2")
+                streamed = await asyncio.gather(*tasks)
+                after = [await only_on(router, i, prompts, new)
+                         for i in ctl.active_replicas()]
+                return base, booted, streamed, after, idx
+        base, booted, streamed, after, idx = asyncio.run(run())
+    if base != ref["v1"] or booted != base:
+        fail("check fleet: the booted replica's tokens differ from "
+             "replica 0's or a fresh v1 engine's")
+    versions = ["v1" if s == r1 else "v2" if s == r2 else "mix"
+                for s, r1, r2 in zip(streamed, ref["v1"], ref["v2"])]
+    if "mix" in versions:
+        fail(f"check fleet: a request streamed through the upgrade mixed "
+             f"versions: {versions}")
+    if any(a != ref["v2"] for a in after):
+        fail("check fleet: a replica's tokens after the upgrade differ "
+             "from a fresh v2 engine's")
+    swapped = router.frontends[idx].engine._weight_slots()
+    for key, t in fresh2._weight_slots().items():
+        if not torch.equal(swapped[key], t):
+            fail(f"check fleet: swapped tensor {key} differs from a fresh "
+                 "v2 engine's")
+    print(f"check fleet: booted replica {idx} = replica 0 = fresh v1; "
+          f"streamed requests ran on {versions}; {len(after)} replicas = "
+          f"fresh v2 after the upgrade; swapped tensors = fresh v2's bit "
+          f"for bit; phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 # ------------------------------------------------------------ phase 5q
 
 
@@ -5489,19 +5893,23 @@ def main():
     serve_disagg(model, device, counters, dense_out, base)
     mark("phase 5o")
     serve_observed(model, device, counters, dense_out, base)
+    mark("phase 5q")
+    serve_generate(model, device, counters)
+    serve_fleet(model, device, counters)
     del model
     torch.cuda.empty_cache()
-    mark("phase 5q")
+    mark("phases 5r, 5s")
     check_spec_on_card(device)
     check_multitick_on_card(device)
     check_prefix_sparse_on_card(device)
     check_lora_weight_only_on_card(device)
     check_disagg_on_card(device, counters)
-    mark("phases 5d, 5f, 5i, 5l, 5p")
+    check_fleet_on_card(device)
+    mark("phases 5d, 5f, 5i, 5l, 5p, 5t")
     serve_launches.update(serve_moe(device, counters))
     check_moe_on_card(device)
     mark("phases 5b, 5c")
-    serve_tp(base, base_prof, dense_out)
+    serve_tp(base, base_prof)
     mark("phases 5m, 5n")
 
     launches = train(device, counters)

@@ -27,6 +27,17 @@ and `cfg.mp_group` names the group over which the row-parallel products
 bias. Under expert parallelism (`cfg.ep_size > 1`) a rank holds
 `E / ep_size` experts, runs them on its rows of the dispatch table and
 all-reduces its partial combine over `cfg.ep_group`.
+
+The dense-cache decoder (`_sdp`, `_sdp_chunked`, `_write_cache`,
+`_layer_body`, `_decode_layer`, `_decode_stack`, `_run_stack`) is the
+JAX package's `cache_kvs` / `time_step` protocol behind
+`FusedMultiTransformer.forward` and `GenerationMixin.generate()`: one
+fixed-shape cache of prompt + new tokens, written in place, with a
+Python loop over the layers where JAX scans. The port keeps K and V in
+one layout, `[L, B, H, S_max, Dh]` each (JAX splits `[.., Dh, S]` /
+`[.., S, Dh]` for the TPU's tiles), and writes only the K new columns
+a step (a slice or an indexed write), never the whole cache. Its
+attention is plain torch on every device, as JAX's is XLA einsums.
 """
 from __future__ import annotations
 
@@ -241,6 +252,166 @@ def _ffn_moe(cfg, pl, h):
     return out.reshape(B, S, D), stats["aux"]
 
 
+# ---------------------------------------------------------------------------
+# the dense-cache decoder (forward, prefill, decode / verify)
+# ---------------------------------------------------------------------------
+
+def _sdp(q, k, v, mask):
+    """softmax(q k^T / sqrt(Dh) + mask) v with fp32 logits. q [B, Sq,
+    H, Dh], k / v [B, Sk, H, Dh]; `mask` additive (-1e9 where a key is
+    refused), broadcastable to [B, H, Sq, Sk], or None."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if mask is not None:
+        logits = logits + mask.float()
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _sdp_chunked(q, k, v, mask, q_block=256):
+    """`_sdp` a block of `q_block` queries at a time, so no [B, H, S, S]
+    logits are held at once (long prefills); S a multiple of
+    `q_block`."""
+    S = q.shape[1]
+    if mask is not None:
+        mask = mask.expand(*mask.shape[:2], S, S)
+    out = [_sdp(q[:, s:s + q_block], k, v,
+                None if mask is None else mask[:, :, s:s + q_block])
+           for s in range(0, S, q_block)]
+    return torch.cat(out, dim=1)
+
+
+def _causal_mask(S, device):
+    """[1, 1, S, S] additive causal mask: 0 on and below the diagonal,
+    -1e9 above."""
+    i = torch.arange(S, device=device)
+    return torch.where(i[None, :] <= i[:, None], 0.0, -1e9)[None, None]
+
+
+def _write_cache(cache_l, k, v, start):
+    """Write fresh k / v [B, S, H, Dh] into one layer's caches
+    (k_cache, v_cache), each [B, H, S_max, Dh], at positions
+    [start, start + S), in place."""
+    ck, cv = cache_l
+    S = k.shape[1]
+    ck[:, :, start:start + S] = k.transpose(1, 2).to(ck.dtype)
+    cv[:, :, start:start + S] = v.transpose(1, 2).to(cv.dtype)
+    return ck, cv
+
+
+def _ffn(cfg, pl, h):
+    """The layer's FFN: (out, balance loss; 0 on a dense stack)."""
+    if cfg.num_experts > 0:
+        return _ffn_moe(cfg, pl, h)
+    return _ffn_dense(cfg, pl, h), h.new_zeros((), dtype=torch.float32)
+
+
+def _out_proj(cfg, pl, attn):
+    out = _maybe_all_reduce(cfg, _mm(cfg, attn, pl["out_w"],
+                                     pl.get("out_s")))
+    return out + pl["out_b"].to(out.dtype)
+
+
+def _layer_body(cfg, x, pl, cache_l, mode, seq_lens, attn_mask):
+    """One pre-LN layer over whole sequences. mode "forward": causal
+    attention (or `attn_mask`, additive, in its place); "prefill": the
+    causal mask plus a key-validity mask from `seq_lens` [B] (and
+    `attn_mask` added), the fresh K / V written into `cache_l` at
+    [0, S). Returns (x, aux)."""
+    residual = x
+    h = _ln(x, pl["ln_s"], pl["ln_b"], cfg.epsilon)
+    q, k, v = _qkv(cfg, pl, h)
+    B, S = q.shape[0], q.shape[1]
+    if mode == "forward":
+        mask = _causal_mask(S, x.device) if attn_mask is None else attn_mask
+        attn = _sdp(q, k, v, mask)
+    else:
+        mask = _causal_mask(S, x.device)
+        if seq_lens is not None:
+            key_valid = (torch.arange(S, device=x.device)[None, :]
+                         < seq_lens[:, None])
+            mask = mask + torch.where(key_valid, 0.0,
+                                      -1e9)[:, None, None, :]
+        if attn_mask is not None:
+            mask = mask + attn_mask
+        if S >= 512 and S % 256 == 0:
+            attn = _sdp_chunked(q, k, v, mask)
+        else:
+            attn = _sdp(q, k, v, mask)
+        _write_cache(cache_l, k, v, 0)
+    x = residual + _out_proj(cfg, pl, attn.reshape(B, S, cfg.embed_dim))
+    f, aux = _ffn(cfg, pl, _ln(x, pl["ffn_ln_s"], pl["ffn_ln_b"],
+                               cfg.epsilon))
+    return x + f, aux
+
+
+def _decode_layer(cfg, x, pl, ckf, cvf, li, step, valid):
+    """One decode (K = 1) or verify (K > 1) layer over the full stacked
+    caches `ckf` / `cvf` [L, B, H, S_max, Dh]. x [B, K, D]; the K fresh
+    columns land at positions step .. step + K - 1 of layer `li`, in
+    place: `step` an int (every row at one position, a slice write) or
+    a [B] tensor (each row at its own, an indexed write). `valid`
+    [1 or B, K, S_max] says which keys each query sees. Returns (x,
+    aux)."""
+    B, K = x.shape[0], x.shape[1]
+    residual = x
+    h = _ln(x, pl["ln_s"], pl["ln_b"], cfg.epsilon)
+    q, k, v = _qkv(cfg, pl, h)                        # [B, K, H, Dh]
+    ck, cv = ckf[li], cvf[li]                         # [B, H, S_max, Dh]
+    if isinstance(step, int):
+        _write_cache((ck, cv), k, v, step)
+    else:
+        rows = torch.arange(B, device=x.device)[:, None]
+        pos = step[:, None] + torch.arange(K, device=x.device)[None, :]
+        # advanced indices around a slice land first: [B, K, H, Dh]
+        ck[rows, :, pos] = k.to(ck.dtype)
+        cv[rows, :, pos] = v.to(cv.dtype)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bkhd,bhsd->bhks", q, ck.to(q.dtype)).float()
+    logits = (logits * scale).masked_fill(~valid[:, None], -1e9)
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    attn = torch.einsum("bhks,bhsd->bkhd", p, cv.to(q.dtype))
+    x = residual + _out_proj(cfg, pl, attn.reshape(B, K, cfg.embed_dim))
+    f, aux = _ffn(cfg, pl, _ln(x, pl["ffn_ln_s"], pl["ffn_ln_b"],
+                               cfg.epsilon))
+    return x + f, aux
+
+
+def _decode_stack(cfg, layers, x, cache, step):
+    """The decode / verify stack: `_decode_layer` over every layer in
+    turn, the caches written in place. Returns (x, cache, aux sum)."""
+    ckf, cvf = cache
+    K, S_max = x.shape[1], ckf.shape[-2]
+    offs = torch.arange(K, device=x.device)
+    keys = torch.arange(S_max, device=x.device)
+    if isinstance(step, int):
+        last = (step + offs)[None]                          # [1, K]
+    else:
+        last = step[:, None] + offs[None, :]                # [B, K]
+    valid = keys[None, None, :] <= last[:, :, None]
+    aux = x.new_zeros((), dtype=torch.float32)
+    for li, pl in enumerate(layers):
+        x, a = _decode_layer(cfg, x, pl, ckf, cvf, li, step, valid)
+        aux = aux + a
+    return x, cache, aux
+
+
+def _run_stack(cfg, layers, x, cache, mode, step=None, seq_lens=None,
+               attn_mask=None):
+    """The stack over `layers` (one `{name: tensor}` dict a layer) in
+    `mode` "forward", "prefill" or "decode"; `cache` the (k, v) pair of
+    stacked caches (None in forward mode), written in place. Returns
+    (x, cache, aux sum)."""
+    if mode == "decode":
+        return _decode_stack(cfg, layers, x, cache, step)
+    aux = x.new_zeros((), dtype=torch.float32)
+    for li, pl in enumerate(layers):
+        cache_l = None if cache is None else (cache[0][li], cache[1][li])
+        x, a = _layer_body(cfg, x, pl, cache_l, mode, seq_lens, attn_mask)
+        aux = aux + a
+    return x, cache, aux
+
+
 def _quantize_expert_stack(w, bits):
     """[L, E, In, Out] float -> (int8 [L, E, In, Out], fp32 scales
     [L, E, Out]) at symmetric per-out-channel amax scaling; `bits=4`
@@ -342,6 +513,59 @@ class FusedMultiTransformer(nn.Module):
                          activation=self.activation,
                          quant_bits=self.quant_bits,
                          moe_quant_bits=self.moe_quant_bits)
+
+    def gen_cache(self, batch_size, max_seq_len, dtype=None):
+        """(k_cache, v_cache), zeros, each [L, B, H, S_max, Dh] in
+        `dtype` (default float32) on the stack's device: the caches of
+        `forward`'s prefill and decode modes. (The JAX package splits
+        K as [.., Dh, S_max] for the TPU's tiles.)"""
+        dt = getattr(torch, str(dtype or "float32"))
+        shape = (self.num_layers, batch_size, self.num_heads, max_seq_len,
+                 self.head_dim)
+        dev = self.ln_s.device
+        return (torch.zeros(shape, dtype=dt, device=dev),
+                torch.zeros(shape, dtype=dt, device=dev))
+
+    @torch.no_grad()
+    def forward(self, src, attn_mask=None, caches=None, seq_lens=None,
+                beam_offset=None, time_step=None):
+        """The reference's `cache_kvs` / `time_step` protocol. src [B, S,
+        D] in the compute dtype. Without `caches`: a causal pass (or
+        `attn_mask`, additive, in the causal mask's place); returns
+        [B, S, D]. With `caches` (`gen_cache`) and no `time_step`:
+        prefill, the causal mask plus the key-validity mask of
+        `seq_lens` [B] (and `attn_mask` added), K / V written at [0, S).
+        With `time_step`: decode (S = 1) or verify (S > 1) at position
+        `time_step`, an int or a one-element tensor for every row, or
+        a [B] tensor a row; `seq_lens` [B], when given in decode, are
+        the rows' positions. Cached modes write the caches in place and
+        return (out, caches)."""
+        if beam_offset is not None:
+            raise NotImplementedError("beam_offset: use generate()'s "
+                                      "batched beams instead")
+        mode = "forward"
+        if caches is not None:
+            mode = "decode" if time_step is not None else "prefill"
+        if mode == "decode":
+            if attn_mask is not None:
+                raise NotImplementedError(
+                    "attn_mask in decode mode: the cache mask is derived "
+                    "from positions - pass per-row positions via "
+                    "time_step/seq_lens instead")
+            if seq_lens is not None:
+                # per-row current lengths are the write / attend positions
+                time_step, seq_lens = seq_lens, None
+            step = torch.as_tensor(time_step, device=src.device)
+            step = (int(step.reshape(())) if step.numel() == 1
+                    else step.to(torch.int64).reshape(-1))
+        else:
+            step = None
+            if seq_lens is not None:
+                seq_lens = torch.as_tensor(seq_lens, device=src.device)
+        layers = [self.layer_params(li) for li in range(self.num_layers)]
+        out, caches, _ = _run_stack(self._cfg(), layers, src, caches, mode,
+                                    step, seq_lens, attn_mask)
+        return out if caches is None else (out, caches)
 
     def layer_params(self, li, dtype=None):
         """Layer `li`'s parameters as a `{name: tensor}` dict (views of

@@ -11,6 +11,12 @@ LayerNorm `ln_f` and a bias-free `lm_head` whose weight keeps Paddle's
 
 `forward` is the plain dense causal pass over whole sequences — the
 scoring oracle the serving engine's paged path is checked against.
+`generate()` (`incubate.nn.generation.GenerationMixin`) runs the
+dense-cache decoder through the cores below: `_gen_tensors()` lists
+every parameter in the JAX model's order (the embeddings, the decoder's
+stacks in `_PARAM_ORDER`, `ln_f.weight`, `ln_f.bias`,
+`lm_head.weight`), which bundles and `ServingEngine.swap_weights`
+consume too.
 """
 from __future__ import annotations
 
@@ -23,7 +29,12 @@ from .._device import resolve_device
 from ..incubate.nn.fused_transformer import (
     FusedMultiTransformer, FusedMultiTransformerMoe,
     FusedMultiTransformerMoeWeightOnly, FusedMultiTransformerWeightOnly,
-    _ffn_dense, _ffn_moe, _ln, _mm, _qkv)
+    _cast_param, _ln, _mm, _run_stack)
+from ..incubate.nn.generation import GenerationMixin
+
+#: the names of `_gen_tensors()`' entries around the decoder's stacks
+_HEAD_NAMES = ("word_embeddings", "position_embeddings")
+_TAIL_NAMES = ("ln_f.weight", "ln_f.bias", "lm_head.weight")
 
 
 class _Head(nn.Module):
@@ -36,19 +47,7 @@ class _Head(nn.Module):
             requires_grad=False)
 
 
-def _causal_attention(q, k, v):
-    """softmax(q k^T / sqrt(Dh), causal) v with fp32 logits; q/k/v
-    [B, S, H, Dh]."""
-    S = q.shape[1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
-    logits = logits / math.sqrt(q.shape[-1])
-    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    logits = logits.masked_fill(~causal, -1e9)
-    p = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
-
-
-class GPTForGeneration(nn.Module):
+class GPTForGeneration(nn.Module, GenerationMixin):
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_attention_heads=12, intermediate_size=None,
                  max_position_embeddings=1024, weight_only=False, moe=None,
@@ -101,24 +100,94 @@ class GPTForGeneration(nn.Module):
         (default: the parameters' own dtype), independent of the compute
         dtype the serving engine uses."""
         dt = dtype or self.word_embeddings.weight.dtype
-        B, S = input_ids.shape
+        S = input_ids.shape[1]
         pos = torch.arange(S, device=input_ids.device)[None, :]
         positions = pos.clamp(0, self.max_position_embeddings - 1)
         x = (self.word_embeddings.weight[input_ids].float()
              + self.position_embeddings.weight[positions].float()).to(dt)
         dec = self.decoder
         cfg = dec._cfg()
-        for li in range(cfg.num_layers):
-            pl = dec.layer_params(li, dt)
-            hn = _ln(x, pl["ln_s"], pl["ln_b"], cfg.epsilon)
-            q, k, v = _qkv(cfg, pl, hn)
-            attn = _causal_attention(q, k, v).reshape(B, S, cfg.embed_dim)
-            x = x + _mm(cfg, attn, pl["out_w"], pl.get("out_s")) \
-                + pl["out_b"]
-            hn = _ln(x, pl["ffn_ln_s"], pl["ffn_ln_b"], cfg.epsilon)
-            if cfg.num_experts:
-                x = x + _ffn_moe(cfg, pl, hn)[0]
-            else:
-                x = x + _ffn_dense(cfg, pl, hn)
+        layers = [dec.layer_params(li, dt) for li in range(cfg.num_layers)]
+        x, _, _ = _run_stack(cfg, layers, x, None, "forward")
         x = _ln(x, self.ln_f.weight, self.ln_f.bias, 1e-5)
         return _mm(cfg, x, self.lm_head.weight)
+
+    # ---- GenerationMixin cores -------------------------------------------
+    @property
+    def _dec_names(self):
+        return self.decoder.param_names
+
+    def gen_names(self):
+        """The names of `_gen_tensors()`' entries, in order (the decoder's
+        under their `_PARAM_ORDER` names)."""
+        return list(_HEAD_NAMES) + list(self._dec_names) + list(_TAIL_NAMES)
+
+    def _gen_tensors(self):
+        """Every parameter in the JAX model's `_gen_tensors()` order."""
+        dec = self.decoder
+        return ([self.word_embeddings.weight,
+                 self.position_embeddings.weight]
+                + [getattr(dec, n) for n in dec.param_names]
+                + [self.ln_f.weight, self.ln_f.bias, self.lm_head.weight])
+
+    def _gen_arrays(self):
+        """`_gen_tensors()` with the float entries in the compute dtype
+        (`_cast_param`: integer weights never, a weight-only scale only
+        from fp32)."""
+        cdt = getattr(torch, self.compute_dtype)
+        return [_cast_param(n, t, cdt)
+                for n, t in zip(self.gen_names(), self._gen_tensors())]
+
+    def _gen_cache(self, batch, s_max, dtype):
+        return self.decoder.gen_cache(batch, s_max, dtype)
+
+    def _split_arrays(self, arrays):
+        """(we, pe, layers, ln_f weight, ln_f bias, head): the decoder's
+        stacks cut into one `{name: tensor}` dict a layer (views)."""
+        n_dec = len(self._dec_names)
+        dec = dict(zip(self._dec_names, arrays[2:2 + n_dec]))
+        layers = [{n: t[li] for n, t in dec.items()}
+                  for li in range(self.decoder.num_layers)]
+        return (arrays[0], arrays[1], layers, arrays[-3], arrays[-2],
+                arrays[-1])
+
+    def _head_logits(self, parts, out):
+        _we, _pe, _layers, lnw, lnb, head = parts
+        out = _ln(out, lnw, lnb, 1e-5)
+        return torch.matmul(out, head.to(out.dtype))
+
+    def _prefill_core(self, parts, ids, seq_lens, cache):
+        """ids [B, S_pad] -> (logits [B, V] at each row's last prompt
+        token, seq_lens - 1; cache written at [0, S_pad))."""
+        we, pe, layers = parts[:3]
+        S = ids.shape[1]
+        x = self._embed(we, pe, ids,
+                        torch.arange(S, device=ids.device)[None, :])
+        out, cache, _ = _run_stack(self.decoder._cfg(), layers, x, cache,
+                                   "prefill", seq_lens=seq_lens)
+        h_last = out[torch.arange(out.shape[0], device=out.device),
+                     seq_lens - 1]
+        return self._head_logits(parts, h_last), cache
+
+    def _decode_core(self, parts, token, positions, cache):
+        """token [B] at `positions` (an int, or [B]) -> (logits [B, V],
+        cache)."""
+        we, pe, layers = parts[:3]
+        pos = (torch.full((1, 1), positions, device=token.device)
+               if isinstance(positions, int) else positions[:, None])
+        x = self._embed(we, pe, token[:, None].long(), pos)
+        out, cache, _ = _run_stack(self.decoder._cfg(), layers, x, cache,
+                                   "decode", positions)
+        return self._head_logits(parts, out[:, 0]), cache
+
+    def _verify_core(self, parts, tokens, positions, cache):
+        """Speculative verify: tokens [B, K], token j at positions + j
+        (`positions` [B]) -> (logits [B, K, V], cache); logits[:, j]
+        scores the next token after token j."""
+        we, pe, layers = parts[:3]
+        K = tokens.shape[1]
+        pos = positions[:, None] + torch.arange(K, device=tokens.device)
+        x = self._embed(we, pe, tokens.long(), pos)
+        out, cache, _ = _run_stack(self.decoder._cfg(), layers, x, cache,
+                                   "decode", positions)
+        return self._head_logits(parts, out), cache

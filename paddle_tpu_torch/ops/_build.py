@@ -29,6 +29,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC))
 
+#: nvcc compiles this process has run (a replica booted in a process
+#: that has built every kernel adds none)
+nvcc_runs = 0
 _loaded = {}
 _locks = {}                         # kernel name -> its build/load lock
 _locks_guard = threading.Lock()
@@ -82,6 +85,9 @@ def _build(name):
         f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
            "-o", str(tmp), str(src)]
+    global nvcc_runs
+    with _locks_guard:
+        nvcc_runs += 1
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed ({res.returncode}):\n"

@@ -11,6 +11,10 @@ from .batcher import FairQueue, SamplingConfig
 from .distributed import ReplicaRouter, TPServingEngine
 from .draft import accept_length, accept_length_sampled, ngram_propose
 from .engine import ServingEngine
+from .fleet import (AutoscalerPolicy, FleetBundle, FleetController,
+                    SLOAutoscaler, boot_engine_from_bundle, export_bundle,
+                    rolling_upgrade, weights_from_bundle,
+                    weights_from_model)
 from .frontend import ServingFrontend
 from .kv_cache import KV_DTYPES, BlockAllocator, PagedKVCache
 from .prefix_cache import RadixPrefixCache
@@ -18,10 +22,14 @@ from .scheduler import Request, Scheduler
 from .slo import SLOConfig, SLOMonitor
 from .tracing import RequestTracer, StepFlightRecorder
 
-__all__ = ["AdapterCache", "BlockAllocator", "FairQueue", "KV_DTYPES",
+__all__ = ["AdapterCache", "AutoscalerPolicy", "BlockAllocator",
+           "FairQueue", "FleetBundle", "FleetController", "KV_DTYPES",
            "PagedKVCache", "RadixPrefixCache", "ReplicaRouter", "Request",
-           "RequestTracer", "SLOConfig", "SLOMonitor", "SamplingConfig",
+           "RequestTracer", "SLOAutoscaler", "SLOConfig", "SLOMonitor",
+           "SamplingConfig",
            "Scheduler", "ServingEngine", "ServingFrontend",
            "StepFlightRecorder", "TPServingEngine", "accept_length",
-           "accept_length_sampled", "make_random_adapter", "metrics",
-           "ngram_propose", "slo", "tracing"]
+           "accept_length_sampled", "boot_engine_from_bundle",
+           "export_bundle", "fleet", "make_random_adapter", "metrics",
+           "ngram_propose", "rolling_upgrade", "slo", "tracing",
+           "weights_from_bundle", "weights_from_model"]

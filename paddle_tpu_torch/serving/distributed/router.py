@@ -588,8 +588,8 @@ class ReplicaRouter:
             smetrics.ROUTER_FAILOVERS.inc()
 
     def _version(self, idx):
-        """Replica `idx`'s checkpoint version label ("v0": the port has
-        no weight swap yet)."""
+        """Replica `idx`'s checkpoint version label (its engine's
+        `weights_version`, "v0" until a swap)."""
         return getattr(self.frontends[idx].engine, "weights_version", "v0")
 
     def _count(self, idx, outcome):
@@ -969,6 +969,8 @@ class ReplicaRouter:
                "failovers": self.failovers,
                "roles": list(self.roles),
                "quiesced": sorted(self._quiesced),
+               "versions": [self._version(i)
+                            for i in range(len(self.frontends))],
                "migrations": dict(self.migrations),
                "role_dispatches": dict(self.role_dispatches),
                "health": self.health.snapshot(),

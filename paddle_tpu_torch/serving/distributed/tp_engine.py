@@ -237,5 +237,6 @@ class TPServingEngine(ServingEngine):
 
     def swap_weights(self, *args, **kw):
         raise NotImplementedError(
-            "swap_weights is not ported (the fleet plane, ROADMAP Queue 1 "
-            "item 4)")
+            "swap_weights under tensor parallelism is not ported: it comes "
+            "with the process-per-rank fleet (each rank would swap its "
+            "shard between the same steps)")

@@ -141,6 +141,7 @@ from .batcher import (SamplingConfig, apply_count_penalties,
                       pack_step, select_token)
 from .draft import (accept_length, accept_length_sampled, ngram_propose,
                     ngram_propose_device, ring_chronological)
+from .fleet.export import _as_host_tensor
 from .kv_cache import FP8_MAX, SUMMARY_INIT, PagedKVCache
 from .prefix_cache import RadixPrefixCache
 from .scheduler import Scheduler
@@ -545,16 +546,14 @@ class ServingEngine:
         # cast float params to the compute dtype ONCE, on the engine's
         # device (a per-step cast would re-read every parameter); the
         # integer weights of a weight-only stack stay integers
+        self._cdt = cdt
+        self._layers = [{} for _ in range(L)]
         with torch.no_grad():
-            def cast(t, name=None):
-                return _cast_param(name, t.detach().to(self.device), cdt)
-            self._we = cast(model.word_embeddings.weight)
-            self._pe = cast(model.position_embeddings.weight)
-            self._layers = [{n: cast(p, n) for n, p in
-                             dec.layer_params(li).items()}
-                            for li in range(L)]
-            self._lnf = (cast(model.ln_f.weight), cast(model.ln_f.bias))
-            self._head = cast(model.lm_head.weight)
+            self._set_weights(self._engine_weights(
+                zip(model.gen_names(), model._gen_tensors())))
+        #: the checkpoint version the engine serves (`swap_weights` sets
+        #: it; the router's request counters and spans read it)
+        self.weights_version = "v0"
         if self.adapters is not None:
             # each layer reads its views of the slot tensors, which
             # adapter loads write in place
@@ -619,6 +618,105 @@ class ServingEngine:
         """Extra fields of every flight record (the TP engine stamps its
         split)."""
         return {}
+
+    # ------------------------------------------------ weights and swap
+    def _engine_weights(self, named):
+        """The engine's tensors of checkpoint entries, `named` (name,
+        tensor) pairs under the model's `gen_names()`: {name: tensor}
+        for the embeddings, `ln_f` and the head, {(name, layer): tensor}
+        for the decoder's stacks, each moved to the engine's device and
+        cast as `_cast_param` casts (integer weights never). `__init__`
+        and `swap_weights` share it, so a swapped engine holds the bits
+        an engine built from the new checkpoint holds."""
+        out = {}
+        for name, t in named:
+            t = t.detach().to(self.device)
+            if name in self.model.decoder.param_names:
+                for li in range(t.shape[0]):
+                    out[(name, li)] = _cast_param(name, t[li], self._cdt)
+            else:
+                out[name] = _cast_param(name, t, self._cdt)
+        return out
+
+    def _set_weights(self, flat):
+        """Install `_engine_weights`-keyed tensors as the engine's own
+        (into the layer dicts in place: adapter views stay)."""
+        self._we = flat["word_embeddings"]
+        self._pe = flat["position_embeddings"]
+        self._lnf = (flat["ln_f.weight"], flat["ln_f.bias"])
+        self._head = flat["lm_head.weight"]
+        for key, t in flat.items():
+            if isinstance(key, tuple):
+                self._layers[key[1]][key[0]] = t
+
+    def _weight_slots(self):
+        """The engine's weight tensors under `_engine_weights`' keys."""
+        slots = {"word_embeddings": self._we,
+                 "position_embeddings": self._pe,
+                 "ln_f.weight": self._lnf[0], "ln_f.bias": self._lnf[1],
+                 "lm_head.weight": self._head}
+        for li, pl in enumerate(self._layers):
+            for n in self.model.decoder.param_names:
+                slots[(n, li)] = pl[n]
+        return slots
+
+    def _own_weights(self):
+        """Give the engine its own copy of every weight tensor it shares
+        with the model (an integer weight, or a float one already in the
+        compute dtype on the device), so a swap never writes the model
+        that other engines may serve from. Once per engine: later swaps
+        copy into the same tensors."""
+        model_ptrs = {t.untyped_storage().data_ptr()
+                      for t in self.model._gen_tensors()}
+        self._set_weights({
+            key: (t.clone() if t.untyped_storage().data_ptr() in model_ptrs
+                  else t) for key, t in self._weight_slots().items()})
+
+    @torch.no_grad()
+    def swap_weights(self, arrays, version):
+        """Live weight swap between steps (`serving/fleet/upgrade.py`):
+        replace the parameters by a same-architecture checkpoint,
+        `arrays` in the model's `_gen_tensors()` order (numpy arrays or
+        tensors), through the cast `__init__` applies, so the swapped
+        engine equals one built from the new checkpoint bit for bit.
+        Each tensor is copied into the engine's own (the paged and
+        grouped-matmul kernels read the same buffers after). The cached
+        prefix blocks, computed under the old weights, are evicted.
+        Refused (nothing changed): an engine-side quantized MoE stack
+        (`moe_weight_dtype`), another tensor count, another shape, or a
+        float tensor where the engine holds an integer one. The engine
+        must be idle (drained)."""
+        if self.moe_weight_dtype is not None:
+            raise ValueError(
+                "live weight swap on an engine-side quantized MoE stack is "
+                "unsupported: the quantization transform is not "
+                "shape-preserving per tensor - export a new bundle and "
+                "boot a fresh replica instead")
+        model = self.model._gen_tensors()
+        if len(arrays) != len(model):
+            raise ValueError(
+                f"checkpoint has {len(arrays)} tensors, engine holds "
+                f"{len(model)} - not the same architecture")
+        new = [_as_host_tensor(a) for a in arrays]
+        for t, ref in zip(new, model):
+            if t.shape != ref.shape:
+                raise ValueError(
+                    f"weight shape {tuple(t.shape)} != engine shape "
+                    f"{tuple(ref.shape)}: live swap requires an "
+                    "architecture-identical checkpoint")
+            if t.is_floating_point() != ref.is_floating_point():
+                raise ValueError(
+                    f"weight dtype {t.dtype} where the engine holds "
+                    f"{ref.dtype}: not the same architecture")
+        self._own_weights()
+        slots = self._weight_slots()
+        for name, t in zip(self.model.gen_names(), new):
+            for key, v in self._engine_weights([(name, t)]).items():
+                slots[key].copy_(v)
+        # cached prefix KV was computed under the old weights
+        if self.prefix_cache is not None:
+            self.prefix_cache.evict_all()
+        self.weights_version = str(version)
 
     def _quantize_moe_experts(self, dtype_str):
         """Quantize every layer's expert FFN weights (int8 with fp32

@@ -246,14 +246,17 @@ class SLOMonitor:
                         tenant, objective).set(
                         burn if math.isfinite(burn) else -1.0)
                 key = (tenant, objective)
-                if not ok and not self._burning.get(key, False):
+                edge = not ok and not self._burning.get(key, False)
+                # the edge is marked before the callbacks run, so a
+                # callback that raises still leaves it counted once
+                self._burning[key] = not ok
+                if edge:
                     self.breaches += 1
                     if _pmetrics._enabled:
                         _smetrics.SERVING_SLO_BREACHES.labels(
                             tenant, objective).inc()
                     for cb in list(self._callbacks):
                         cb(tenant, objective, burn, value, target)
-                self._burning[key] = not ok
             if entry:
                 report[tenant] = entry
         return report

@@ -1185,7 +1185,8 @@ def _device_kernels(fn):
     """Names of the device kernels `fn` launched, by torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return [e.key for e in prof.key_averages()
@@ -2833,3 +2834,101 @@ def test_two_threads_build_an_unbuilt_kernel_once(cuda_device, tmp_path,
     assert len(runs) == 1 and runs[0].endswith("nvcc")
     assert len(libs) == 2 and libs[0] is libs[1]
     assert [p.suffix for p in (tmp_path / "build").iterdir()] == [".so"]
+
+
+# ------------------------------------------- generate(), swap and bundles
+
+
+def _gen_pair(cuda_device, **kw):
+    """The fp32 2-layer model on the CPU and the same weights on the
+    card."""
+    import copy
+    torch.manual_seed(3)
+    cpu = GPTForGeneration(vocab_size=193, hidden_size=128, num_layers=2,
+                           num_attention_heads=2, max_position_embeddings=128,
+                           device="cpu", **kw)
+    return cpu, copy.deepcopy(cpu).to(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack", ["dense", "weight-only", "moe"])
+def test_generate_on_card_matches_cpu(stack, cuda_device):
+    """generate() on the card: the scan equals the loop, draft_k=3 equals
+    greedy, and fp32 tokens and gen_lens equal the CPU's (tolerance 0);
+    K4 launches exactly a forward's projections (weight-only: 4 a layer)
+    or expert products (MoE: 2 a layer) for each of the M forwards of a
+    scan, nothing on the dense stack."""
+    kw = {"dense": {}, "weight-only": dict(weight_only=True),
+          "moe": dict(moe=dict(num_expert=4, top_k=2,
+                               capacity_factor=2.0))}[stack]
+    cpu, card = _gen_pair(cuda_device, **kw)
+    ids = np.array([[5, 6, 7, 0, 0], [8, 9, 1, 2, 3]], np.int64)
+    gkw = dict(max_new_tokens=12, seq_lens=[3, 5], cache_dtype="float32")
+    want = cpu.generate(ids, **gkw)
+    eos = int(want[0][1, 4])
+    counters = ("dense_launch_count", "fp_launch_count",
+                "int8_launch_count", "int4_launch_count")
+    before = {c: getattr(tgmm, c) for c in counters}
+    scan = card.generate(ids, **gkw)
+    torch.cuda.synchronize()
+    got = {c: getattr(tgmm, c) - before[c] for c in counters}
+    per = {"dense": {}, "weight-only": {"dense_launch_count": 4 * 2},
+           "moe": {"fp_launch_count": 2 * 2}}[stack]
+    assert got == {c: 12 * per.get(c, 0) for c in counters}
+    for a, b in zip(scan, want):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+    for extra in (dict(use_scan=False), dict(draft_k=3)):
+        for a, b in zip(card.generate(ids, **gkw, **extra), want):
+            assert torch.equal(a.cpu(), b)
+    e_cpu = cpu.generate(ids, eos_token_id=eos, **gkw)
+    e_card = card.generate(ids, eos_token_id=eos, use_scan=False, **gkw)
+    for a, b in zip(e_card, e_cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_swap_weights_on_card_equals_fresh_engine(cuda_device):
+    """A card engine swapped to v2 holds a fresh v2 card engine's tensors
+    bit for bit (bf16 compute: the cast runs on the card), keeps its
+    buffers across swaps, and serves its tokens."""
+    from paddle_tpu_torch.serving.fleet import weights_from_model
+    kw = dict(max_slots=3, block_size=16, max_seq_len=128, token_budget=64,
+              cache_dtype="bfloat16", device=cuda_device)
+
+    def model(seed):
+        torch.manual_seed(seed)
+        return GPTForGeneration(vocab_size=193, hidden_size=128,
+                                num_layers=2, num_attention_heads=2,
+                                max_position_embeddings=128,
+                                compute_dtype="bfloat16", device=cuda_device)
+    m1, m2 = model(1), model(2)
+    eng = ServingEngine(m1, **kw)
+    prompts = [[5, 9, 23, 1], [7, 1, 3]]
+    eng.generate_batch(prompts, 8)
+    eng.swap_weights(weights_from_model(m2), "v2")
+    ptrs = {k: t.data_ptr() for k, t in eng._weight_slots().items()}
+    eng.swap_weights(m1._gen_tensors(), "v1")
+    eng.swap_weights(m2._gen_tensors(), "v2")
+    assert {k: t.data_ptr() for k, t in eng._weight_slots().items()} == ptrs
+    fresh = ServingEngine(m2, **kw)
+    for k, t in fresh._weight_slots().items():
+        assert torch.equal(eng._weight_slots()[k], t), k
+    assert eng.generate_batch(prompts, 8) == fresh.generate_batch(prompts, 8)
+
+
+@pytest.mark.cuda
+def test_bundle_boot_runs_no_nvcc(cuda_device, tmp_path):
+    """A replica booted from a bundle in a process that has built the
+    kernels runs no nvcc, and serves the exporting engine's tokens."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.serving.fleet import (boot_engine_from_bundle,
+                                                export_bundle)
+    model = _fleet_model(cuda_device)
+    eng = ServingEngine(model, device=cuda_device, **_FLEET_KW)
+    prompts = [[5, 9, 23, 1] * 5, [7, 1, 3]]
+    want = eng.generate_batch(prompts, 8)
+    bdir = export_bundle(eng, str(tmp_path), version="v1")
+    runs = _build.nvcc_runs
+    boot = boot_engine_from_bundle(bdir, device=cuda_device)
+    assert boot.generate_batch(prompts, 8) == want
+    assert _build.nvcc_runs == runs and boot.weights_version == "v1"

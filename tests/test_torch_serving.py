@@ -161,7 +161,14 @@ def test_port_imports_no_jax():
             " 'paddle_tpu_torch.serving.distributed.router',"
             " 'paddle_tpu_torch.serving.distributed.health',"
             " 'paddle_tpu_torch.serving.frontend',"
-            " 'paddle_tpu_torch.serving.engine'}\n"
+            " 'paddle_tpu_torch.serving.engine',"
+            " 'paddle_tpu_torch.inference',"
+            " 'paddle_tpu_torch.incubate.nn.generation',"
+            " 'paddle_tpu_torch.serving.fleet',"
+            " 'paddle_tpu_torch.serving.fleet.export',"
+            " 'paddle_tpu_torch.serving.fleet.upgrade',"
+            " 'paddle_tpu_torch.serving.fleet.autoscaler',"
+            " 'paddle_tpu_torch.serving.fleet.controller'}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [m for m in sys.modules if m == 'jax'"
             " or m.startswith(('jax.', 'paddle_tpu.'))"

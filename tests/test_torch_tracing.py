@@ -366,6 +366,38 @@ def test_observer_errors_are_not_swallowed():
         mon.evaluate()
 
 
+def test_breach_counted_once_after_raising_callback():
+    """A sustained breach is one ok -> burning edge: after a breach
+    callback raises, three more evaluations count nothing again. JAX's
+    monitor (which swallows the raise) counts the same single breach;
+    tolerance 0 on the counts."""
+    _recording(True)
+    counts = {}
+    for pkg, (_m, sm, _t, slo) in PKG.items():
+        mon = slo.SLOMonitor({"default": {"ttft_p95": 0.1}},
+                             clock=lambda: 1.0)
+        fired = []
+
+        def bad(*a, fired=fired):
+            fired.append(a[:2])
+            raise ZeroDivisionError("callback failed")
+        mon.on_breach(bad)
+        mon.on_ttft("t", 5.0, 1.0)
+        for _ in range(3):
+            if pkg == "torch":
+                with pytest.raises(ZeroDivisionError):
+                    mon.evaluate()
+                # after the first raise the edge is marked: the later
+                # evaluations reach no callback and return
+                break
+            mon.evaluate()
+        for _ in range(3):
+            mon.evaluate()
+        counter = sm.SERVING_SLO_BREACHES.labels("t", "ttft_p95").value
+        counts[pkg] = (mon.breaches, counter, len(fired))
+    assert counts["torch"] == counts["jax"] == (1, 1, 1)
+
+
 # ------------------------------------------------------- engine parity
 
 
