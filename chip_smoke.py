@@ -12,7 +12,8 @@ weight-only int8 stack, serving the
 with tensor (and expert) parallelism over ranks on the one card, and
 by a disaggregated fleet of prefill and decode replicas behind the
 replica router, the train step
-(with and without the fused QKV projection), the paddle-layout
+(with and without the fused QKV projection), MoE training and its
+dp x ep mesh of ranks on the one card, the paddle-layout
 `flash_attention()` entry, the `wgrad_1x1` entry, BERT-base
 inference over padded batches and BERT-base pretraining through
 `hapi.Model` with LAMB and AMP O2 — and holds every
@@ -38,7 +39,10 @@ each (or a few):
    them and the same kernel over the full tables; the three
    grouped expert matmuls — float, int8 and int4 experts — at the MoE
    step's two expert products, each with its bytes/s and share of its
-   bound; the int8 kernel at one group as the dense weight-only
+   bound; the float one under autograd at the MoE train step's ffn1
+   shape [8, 5120, 1024] x [1024, 4096] (one forward launch a call, dx
+   and dw against the plain version's autograd, quantized weights
+   refusing a gradient); the int8 kernel at one group as the dense weight-only
    projections run it (`weight_only_matmul`: [256, 1024] x [1024, 3072 |
    1024 | 4096] and [256, 4096] x [4096, 1024], two launches of each
    bit-identical, beside `torch.matmul` on a pre-dequantized copy);
@@ -96,6 +100,10 @@ each (or a few):
    nothing else); more ticks than dispatches; dispatches, issued and
    executed ticks, early exits, tokens/s, TTFT and host ms a dispatch
    printed; then one profiled 4-tick dispatch (device ms a tick);
+   The on-card checks of the serving phases (5c, 5d, 5f, 5i, 5l, 5p,
+   5t) time nothing and are bound by their host loops: they run after
+   phase 5s in two processes at once, this one and a spawned child,
+   before phase 5b;
 5d. on-card spec check — fp32, 2 layers at full width: the draft_k=3
    float-pool engine on the card (kernels) gives the same greedy tokens
    and draft counts as on a CPU copy (plain versions) and as the card's
@@ -256,11 +264,33 @@ each (or a few):
    qkv_kernel=True (the fused projection twice a layer), side by side,
    the last with one profiled step (the fused projection's device ms and
    its share of the step's device time);
+6b. train MoE — MoE-350M in `bench_gpt_moe`'s exact TPU config
+   (bench.py:1749-1754: 8 experts, top-2, capacity factor 1.25, full
+   remat, fused CE in 4 chunks, bf16 grads, batch 16; random weights
+   from a numpy seed through `convert.load_jax_hybrid_gpt`), 3 warm-up
+   and 2 timed steps on one fixed batch, the last under torch.profiler
+   (host and device ms, launches, top device kernels, K1a, K2 and the
+   routing scan): a finite, falling loss, K1a and K2 exactly as full
+   remat predicts per step, no other kernel, routed + dropped = 16 x
+   1024 x 2 x 24 every step; ms a step and tokens/s (the unprofiled
+   timed step), peak memory, the last step's balance loss and routing;
+6c. train dp x ep — MoE-350M's widths at 1 layer, fp32, dp 2 x ep 2
+   with ZeRO-1, global batch 8, 2 steps, in phase 5n's 4 rank processes
+   sharing the card over gloo, after their serving job (a failed rank
+   fails the script): every rank's losses equal, and equal a 1-rank
+   card trainer's on the same weights
+   and batch, routing too (capacity factor 4: nothing drops, as a
+   rank's capacity comes from its own tokens); each rank's parameters
+   and first moments after step 1 within phase 7's bounds; step times
+   printed (host-staged, not EP speed);
 7. on-card train check — one fp32 step of the same widths at 2 layers
    on the card (kernels) and on a CPU copy (plain versions), remat off
    and with the residuals kept and the fused projection: loss and every
    parameter after the step must agree, and the card's step with the
-   residuals kept must agree with its full-remat step;
+   residuals kept must agree with its full-remat step; the same for a
+   2-layer MoE step (remat off and the residual policy; routing
+   exactly, balance and z within 1e-5), and two bf16 MoE steps from the
+   same weights bit-identical;
 7a. `flash_attention()` — three forward + backward calls at
    [8, 1024, 16, 128] bf16 causal: its forward kernel launched once a
    call, no other kernel;
@@ -3246,11 +3276,14 @@ def hold_launches(label, launches, want):
 # ------------------------------------------------------------- phase 6
 
 
-def random_hybrid_params(layers, seed=SEED):
+def random_hybrid_params(layers, seed=SEED, experts=0):
     """GPT-350M trainer parameters in the JAX `HybridGPT` layout (nested,
     blocks stacked on [L]), drawn from a numpy seed with the JAX
     trainer's init scales: N(0, 0.02), output projections N(0, 0.02 /
-    sqrt(2L)), unit LayerNorm scales, zero biases."""
+    sqrt(2L)), unit LayerNorm scales, zero biases. `experts` > 0 gives
+    MoE-350M's blocks: a gate [L, d, E] and the FFN as E experts, whose
+    1.6 G draws at 24 layers are filled by 8 threads from child seeds of
+    the same numpy seed."""
     import numpy as np
     rng = np.random.default_rng(seed)
     L, D, FF, V = layers, HIDDEN, 4 * HIDDEN, VOCAB
@@ -3262,19 +3295,48 @@ def random_hybrid_params(layers, seed=SEED):
     def zeros(*shape):
         return np.zeros(shape, np.float32)
 
-    return {"tok_emb": normal((V, D)), "pos_emb": normal((TRAIN_SEQ, D)),
-            "ln_f_w": np.ones(D, np.float32), "ln_f_b": zeros(D),
-            "head": normal((D, V)),
-            "blocks": {"ln1_w": np.ones((L, D), np.float32),
-                       "ln1_b": zeros(L, D),
-                       "w_qkv": normal((L, D, 3 * D)),
-                       "b_qkv": zeros(L, 3 * D),
-                       "w_o": normal((L, D, D), proj), "b_o": zeros(L, D),
-                       "ln2_w": np.ones((L, D), np.float32),
-                       "ln2_b": zeros(L, D),
-                       "w_fc1": normal((L, D, FF)), "b_fc1": zeros(L, FF),
-                       "w_fc2": normal((L, FF, D), proj),
-                       "b_fc2": zeros(L, D)}}
+    params = {"tok_emb": normal((V, D)), "pos_emb": normal((TRAIN_SEQ, D)),
+              "ln_f_w": np.ones(D, np.float32), "ln_f_b": zeros(D),
+              "head": normal((D, V)),
+              "blocks": {"ln1_w": np.ones((L, D), np.float32),
+                         "ln1_b": zeros(L, D),
+                         "w_qkv": normal((L, D, 3 * D)),
+                         "b_qkv": zeros(L, 3 * D),
+                         "w_o": normal((L, D, D), proj), "b_o": zeros(L, D),
+                         "ln2_w": np.ones((L, D), np.float32),
+                         "ln2_b": zeros(L, D)}}
+    if experts:
+        params["blocks"].update(
+            gate=normal((L, D, experts)),
+            w_fc1=threaded_normal(rng, (L, experts, D, FF), 0.02),
+            b_fc1=zeros(L, experts, FF),
+            w_fc2=threaded_normal(rng, (L, experts, FF, D), proj),
+            b_fc2=zeros(L, experts, D))
+    else:
+        params["blocks"].update(
+            w_fc1=normal((L, D, FF)), b_fc1=zeros(L, FF),
+            w_fc2=normal((L, FF, D), proj), b_fc2=zeros(L, D))
+    return params
+
+
+def threaded_normal(rng, shape, std, parts=8):
+    """N(0, std) float32 of `shape`, filled in `parts` threads (numpy's
+    generators release the GIL while they fill), each from a child seed
+    drawn from `rng`."""
+    import numpy as np
+    out = np.empty(shape, np.float32)
+    flat = out.reshape(-1)
+    step = -(-flat.size // parts)
+    seeds = rng.integers(0, 2 ** 63, parts)
+
+    def fill(i):
+        part = flat[i * step:(i + 1) * step]
+        np.random.default_rng(int(seeds[i])).standard_normal(
+            out=part, dtype=np.float32)
+        part *= np.float32(std)
+    with ThreadPoolExecutor(parts) as ex:
+        list(ex.map(fill, range(parts)))
+    return out
 
 
 def train_config(**kw):
@@ -3426,6 +3488,47 @@ def train(device, counters):
     return launches
 
 
+def compare_steps(label, a, b):
+    """Fails unless train step results a and b, each (loss, params,
+    opt), agree as `check_train_step` says; prints how closely they
+    do."""
+    import torch
+    (la, pa, oa), (lb, pb, ob) = a, b
+    if not abs(la - lb) <= 1e-4 * abs(lb):
+        fail(f"train check [{label}]: loss {la} vs {lb}")
+    p_tol = 0.25 * train_config().learning_rate
+    worst = {"param": 0.0, "moment": 0.0, "same": 0, "n": 0}
+
+    def walk(a, b, oa, ob, path=""):
+        for k in a:
+            if isinstance(a[k], dict):
+                walk(a[k], b[k], oa[k], ob[k], path + k + ".")
+                continue
+            x, y = a[k].cpu(), b[k].cpu()
+            err = float((x - y).abs().max())
+            worst["param"] = max(worst["param"], err)
+            worst["same"] += int(torch.equal(x, y))
+            worst["n"] += 1
+            if err > p_tol:
+                fail(f"train check [{label}]: {path}{k} differs by "
+                     f"{err} past {p_tol}")
+            m_ref = ob[k]["m"].cpu()
+            m_err = float((oa[k]["m"].cpu() - m_ref).abs().max()) / max(
+                float(m_ref.abs().max()), 1e-30)
+            worst["moment"] = max(worst["moment"], m_err)
+            if m_err > 1e-4:
+                fail(f"train check [{label}]: {path}{k} first moment "
+                     f"differs by {m_err:.3g} of its largest value, past"
+                     f" 1e-4")
+    walk(pa, pb, oa, ob)
+    print(f"check [{label}]: loss {la:.6f} vs {lb:.6f} (rel "
+          f"{abs(la - lb) / abs(lb):.2e}, tol 1e-4); Adam first moments "
+          f"within {worst['moment']:.3g} of their largest value (tol "
+          f"1e-4); parameters within {worst['param']:.3g} (tol "
+          f"{p_tol:.3g} = 0.25 lr); {worst['same']} of {worst['n']} "
+          f"parameters bit-identical", flush=True)
+
+
 def check_train_step(device):
     """Phase 7: one fp32 train step at the full widths, 2 layers, batch
     1, on the card (kernels) and on a CPU copy (plain versions), twice:
@@ -3462,70 +3565,34 @@ def check_train_step(device):
             params, opt, tok, lab)
         return float(loss), params, opt
 
-    def compare(label, a, b):
-        """Fails unless step results a and b agree as the docstring says;
-        prints how closely they do."""
-        (la, pa, oa), (lb, pb, ob) = a, b
-        if not abs(la - lb) <= 1e-4 * abs(lb):
-            fail(f"train check [{label}]: loss {la} vs {lb}")
-        p_tol = 0.25 * train_config().learning_rate
-        worst = {"param": 0.0, "moment": 0.0, "same": 0, "n": 0}
-
-        def walk(a, b, oa, ob, path=""):
-            for k in a:
-                if isinstance(a[k], dict):
-                    walk(a[k], b[k], oa[k], ob[k], path + k + ".")
-                    continue
-                x, y = a[k].cpu(), b[k].cpu()
-                err = float((x - y).abs().max())
-                worst["param"] = max(worst["param"], err)
-                worst["same"] += int(torch.equal(x, y))
-                worst["n"] += 1
-                if err > p_tol:
-                    fail(f"train check [{label}]: {path}{k} differs by "
-                         f"{err} past {p_tol}")
-                m_ref = ob[k]["m"].cpu()
-                m_err = float((oa[k]["m"].cpu() - m_ref).abs().max()) / max(
-                    float(m_ref.abs().max()), 1e-30)
-                worst["moment"] = max(worst["moment"], m_err)
-                if m_err > 1e-4:
-                    fail(f"train check [{label}]: {path}{k} first moment "
-                         f"differs by {m_err:.3g} of its largest value, past"
-                         f" 1e-4")
-        walk(pa, pb, oa, ob)
-        print(f"check [{label}]: loss {la:.6f} vs {lb:.6f} (rel "
-              f"{abs(la - lb) / abs(lb):.2e}, tol 1e-4); Adam first moments "
-              f"within {worst['moment']:.3g} of their largest value (tol "
-              f"1e-4); parameters within {worst['param']:.3g} (tol "
-              f"{p_tol:.3g} = 0.25 lr); {worst['same']} of {worst['n']} "
-              f"parameters bit-identical", flush=True)
-
     print(f"check: one fp32 train step, {layers} layers at full width, "
           f"batch 1", flush=True)
-    compare("remat off: card vs CPU", step(device, remat=False),
+    compare_steps("remat off: card vs CPU", step(device, remat=False),
             step("cpu", remat=False))
     kept = dict(remat=True, qkv_kernel=True)
     card = step(device, **kept)
-    compare("save_splash_residuals + qkv_kernel: card vs CPU", card,
+    compare_steps("save_splash_residuals + qkv_kernel: card vs CPU", card,
             step("cpu", **kept))
-    compare("save_splash_residuals vs full remat, both qkv_kernel, card",
+    compare_steps("save_splash_residuals vs full remat, both qkv_kernel, card",
             card, step(device, remat=True, qkv_kernel=True,
                        remat_policy=None))
 
 
-def profile_train(trainer, params, opt, tok, lab, step_num, label):
+def profile_train(trainer, params, opt, tok, lab, step_num, label,
+                  extra=()):
     """Where a train step's device time goes: one step under
-    torch.profiler after the timed window, its host time against the
-    device time of the kernels it launched, and each of the port's
-    kernel families' device ms and share of it. Informational: prints
-    "not measured" when the profiler records no device events."""
+    torch.profiler, its host time against the device time of the kernels
+    it launched, and each of the port's kernel families' device ms and
+    share of it, and of the kernels whose names hold one of `extra`
+    (lower case). Informational: prints "not measured" when the profiler
+    records no device events. Returns the step's (params, opt, loss)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(params, opt, tok, lab, step_num=step_num)
+        out = trainer.train_step(params, opt, tok, lab, step_num=step_num)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.key_averages()
@@ -3534,7 +3601,7 @@ def profile_train(trainer, params, opt, tok, lab, step_num, label):
         print(f"profile: train step [{label}] {host_ms:.1f} ms on the host "
               "clock (profiled); device time not measured (no device "
               "events)", flush=True)
-        return
+        return out
     device_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     ours, k1a = {}, {"forward": [0.0, 0], "backward": [0.0, 0]}
@@ -3567,6 +3634,408 @@ def profile_train(trainer, params, opt, tok, lab, step_num, label):
     print(f"profile: train step [{label}] K2: " + ", ".join(
         f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
         for e in k2), flush=True)
+    for word in extra:
+        hits = [e for e in dev if word in e.key.lower()]
+        t = sum(e.self_device_time_total for e in hits) / 1e3
+        print(f"profile: train step [{label}] kernels named *{word}*: "
+              f"{t:.3f} ms ({t / device_ms:.1%} of the step's device time)"
+              f" in {sum(e.count for e in hits)} launches: " + "; ".join(
+                  f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
+                  f"x{e.count}" for e in hits[:4]), flush=True)
+    return out
+
+
+# ------------------------------------------------ phases 6b, 6c, 7 (MoE)
+
+# bench_gpt_moe's TPU config (bench.py:1749-1754): MoE-350M, 8 experts,
+# top-2, capacity factor 1.25, full remat (its remat_policy is None)
+MOE_TRAIN = dict(moe_num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+                 remat_policy=None)
+MOE_TRAIN_BATCH, MOE_TIMED_STEPS = 16, 2
+# phase 6c: the dp x ep job's mesh, depth, global batch and steps. A
+# rank's capacity comes from its own tokens (as in JAX), so where choices
+# drop, they drop unlike one rank's over the global batch: the job runs
+# at capacity factor E / top_k = 4, where nothing drops, as JAX's own
+# ep parity test does (tests/test_moe.py)
+DP_EP = dict(dp=2, ep=2, zero_stage=1)
+DP_EP_LAYERS, DP_EP_BATCH, DP_EP_STEPS, DP_EP_CAPACITY = 1, 8, 2, 4.0
+
+
+def moe_stats_line(stats):
+    return (f"balance {float(stats['balance']):.5f}, z "
+            f"{float(stats['z']):.4f}, counts "
+            f"{[int(c) for c in stats['counts'].tolist()]}, dropped "
+            f"{int(stats['dropped'])}")
+
+
+def train_moe(device, counters):
+    """Phase 6b: MoE-350M (bench_gpt_moe's TPU config) trained for
+    WARMUP_STEPS + MOE_TIMED_STEPS steps on one fixed batch of 16, the
+    last timed step under torch.profiler (ms a step and tokens/s from the
+    others); every count zeroed just before the first step and read after
+    the last: K1a and K2 exactly as full remat predicts per step, no
+    other kernel; every step's routed + dropped choices = 16 x 1024 x 2 x
+    24; a finite, falling loss."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_hybrid_gpt
+    from paddle_tpu_torch.parallel.hybrid_gpt import (HybridGPT,
+                                                      init_opt_state)
+    t0 = time.perf_counter()
+    cfg = train_config(**MOE_TRAIN)
+    params = load_jax_hybrid_gpt(
+        random_hybrid_params(LAYERS, seed=SEED + 8,
+                             experts=MOE_TRAIN["moe_num_experts"]),
+        device=device)
+    opt = init_opt_state(cfg, params)
+    trainer = HybridGPT(cfg, device=device)
+    n_params = sum(p.numel() for p in params["blocks"].values()) + sum(
+        params[k].numel() for k in params if k != "blocks")
+    print(f"train MoE: MoE-350M ({n_params} parameters, "
+          f"{cfg.moe_experts} experts, top-{cfg.moe_top_k}, capacity "
+          f"factor {cfg.moe_capacity_factor}) built in "
+          f"{time.perf_counter() - t0:.1f} s; bench_gpt_moe's config: "
+          f"bf16, bf16_grads, full remat, fused_ce, ce_seq_chunks=4, "
+          f"zero_stage {cfg.zero_stage}, batch {MOE_TRAIN_BATCH}",
+          flush=True)
+    rng = np.random.default_rng(SEED + 9)
+    tok = rng.integers(0, VOCAB, (MOE_TRAIN_BATCH, TRAIN_SEQ))
+    lab = rng.integers(0, VOCAB, (MOE_TRAIN_BATCH, TRAIN_SEQ))
+    routed = MOE_TRAIN_BATCH * TRAIN_SEQ * cfg.moe_top_k * LAYERS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr, _ in counters:
+        setattr(mod, attr, 0)
+    losses, stats, step = [], [], 1
+    for _ in range(WARMUP_STEPS):
+        params, opt, loss = trainer.train_step(params, opt, tok, lab,
+                                               step_num=step)
+        losses.append(loss)
+        stats.append(trainer.last_moe_stats)
+        step += 1
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    clean = MOE_TIMED_STEPS - 1
+    for _ in range(clean):
+        params, opt, loss = trainer.train_step(params, opt, tok, lab,
+                                               step_num=step)
+        losses.append(loss)
+        stats.append(trainer.last_moe_stats)
+        step += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    params, opt, loss = profile_train(trainer, params, opt, tok, lab, step,
+                                      "MoE-350M", extra=("scan",))
+    losses.append(loss)
+    stats.append(trainer.last_moe_stats)
+    peak = torch.cuda.max_memory_allocated()
+    got = {name: getattr(mod, attr) for mod, attr, name in counters}
+    steps = WARMUP_STEPS + MOE_TIMED_STEPS
+    want = {"flash_fwd": 2 * LAYERS, "flash_bwd": LAYERS,
+            "add_ln_fwd": 2 * LAYERS, "add_ln_bwd": LAYERS}
+    hold_launches("train MoE", got, {n: steps * k for n, k in want.items()})
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        fail(f"train MoE: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train MoE: the loss did not fall ({losses[0]} -> "
+             f"{losses[-1]})")
+    for i, st in enumerate(stats):
+        n = float(st["counts"].sum()) + float(st["dropped"])
+        if n != routed:
+            fail(f"train MoE: step {i + 1} routed + dropped {n}, expected "
+                 f"{routed}")
+    tps = MOE_TRAIN_BATCH * TRAIN_SEQ * clean / wall
+    print(f"train MoE: batch {MOE_TRAIN_BATCH}, {MOE_TIMED_STEPS} timed "
+          f"steps after {WARMUP_STEPS} warm-up, the last profiled (above): "
+          f"{wall * 1e3 / clean:.1f} ms/step, {tps:.0f} tokens/s,"
+          f" max_memory_allocated {peak} B; losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; launches " + ", ".join(
+              f"{n} {got[n]} ({got[n] // steps}/step)" for n in want)
+          + f", other kernels 0; every step routed + dropped = {routed}; "
+          f"last step: {moe_stats_line(stats[-1])}", flush=True)
+    launches = {n: got[n] for n in want}
+    del trainer, params, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_train_job(rank, world):
+    """Phase 6c on one rank: MoE-350M's widths at DP_EP_LAYERS, fp32,
+    dp 2 x ep 2 with ZeRO-1 (`DP_EP`), DP_EP_STEPS steps on the global
+    batch's rows of this rank; returns the losses, each step's wall time
+    and stats, the parameters and Adam state after step 1, and the
+    job's seconds."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import shard_jax_hybrid_gpt
+    from paddle_tpu_torch.parallel.hybrid_gpt import (HybridGPT,
+                                                      init_opt_state)
+    t_job = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dp_ep_config(**DP_EP)
+    trainer = HybridGPT(cfg, device="cuda:0")
+    params = shard_jax_hybrid_gpt(
+        random_hybrid_params(DP_EP_LAYERS, seed=SEED + 10,
+                             experts=MOE_TRAIN["moe_num_experts"]),
+        cfg=cfg, rank=rank, device="cuda:0")
+    opt = init_opt_state(cfg, params, trainer.mesh)
+    res = dict(losses=[], ms=[], stats=[])
+    for step, (tok, lab) in enumerate(dp_ep_batches(), 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = trainer.train_step(
+            params, opt, *trainer.shard_data(tok, lab), step_num=step)
+        res["losses"].append(float(loss))
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["stats"].append({k: v.cpu() for k, v in
+                             trainer.last_moe_stats.items()})
+        if step == 1:
+            res["params1"], res["opt1"] = _to_cpu(params), _to_cpu(opt)
+    if not np.isfinite(res["losses"]).all():
+        raise RuntimeError(f"rank {rank}: non-finite loss {res['losses']}")
+    res["seconds"] = time.perf_counter() - t_job
+    return res
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def dp_ep_config(**kw):
+    """Phase 6c's config: MoE-350M's widths at DP_EP_LAYERS, fp32."""
+    import torch
+    return train_config(n_layers=DP_EP_LAYERS, bf16_grads=False,
+                        compute_dtype=torch.float32,
+                        **{**MOE_TRAIN,
+                           "moe_capacity_factor": DP_EP_CAPACITY}, **kw)
+
+
+def dp_ep_batches():
+    import numpy as np
+    rng = np.random.default_rng(SEED + 11)
+    return [(rng.integers(0, VOCAB, (DP_EP_BATCH, TRAIN_SEQ)),
+             rng.integers(0, VOCAB, (DP_EP_BATCH, TRAIN_SEQ)))
+            for _ in range(DP_EP_STEPS)]
+
+
+def train_dp_ep(device, ranks):
+    """Phase 6c: `ranks`, the results of `moe_train_job` on 4 rank
+    processes sharing the card over gloo (run in phase 5n's spawn,
+    `tp_moe_and_train_job`); every rank's losses equal rank 0's and a
+    1-rank card trainer's on the same weights and global batch within
+    rtol 1e-4,
+    the routing counts and drops exactly, and each rank's parameters and
+    Adam first moments after step 1 the 1-rank trainer's cut to the
+    rank's shard (`shard_state`), within phase 7's bounds
+    (`compare_steps`: at full width an element whose gradient is near
+    Adam's eps moves by a sizeable part of lr for summation-order noise;
+    the CPU tests' 5e-2 lr holds at their widths). The step time is
+    printed: the ranks share one card and their collectives go through
+    the host, so it is not expert-parallel speed."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_hybrid_gpt
+    from paddle_tpu_torch.parallel.hybrid_gpt import (HybridGPT,
+                                                      init_opt_state,
+                                                      shard_state)
+    t_phase = time.perf_counter()
+    world = len(ranks)
+    cfg1 = dp_ep_config()
+    one = HybridGPT(cfg1, device=device)
+    params = load_jax_hybrid_gpt(
+        random_hybrid_params(DP_EP_LAYERS, seed=SEED + 10,
+                             experts=MOE_TRAIN["moe_num_experts"]),
+        device=device)
+    opt = init_opt_state(cfg1, params)
+    losses, stats, ms = [], [], []
+    for step, (tok, lab) in enumerate(dp_ep_batches(), 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = one.train_step(params, opt, tok, lab,
+                                           step_num=step)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        stats.append(one.last_moe_stats)
+        if step == 1:
+            params1, opt1 = _to_cpu(params), _to_cpu(opt)
+    cfg = dp_ep_config(**DP_EP)
+    print(f"train dp x ep: MoE-350M's widths at {DP_EP_LAYERS} of {LAYERS} "
+          f"layers, "
+          f"fp32, capacity factor {DP_EP_CAPACITY}, dp {DP_EP['dp']} x ep "
+          f"{DP_EP['ep']}, zero_stage {DP_EP['zero_stage']}, {world} rank "
+          f"processes on the one card over gloo, global batch "
+          f"{DP_EP_BATCH}: rank 0's losses "
+          + " ".join(f"{x:.6f}" for x in ranks[0]["losses"])
+          + ", the 1-rank trainer's " + " ".join(f"{x:.6f}" for x in losses)
+          + f"; rank 0's step ms " + " ".join(f"{x:.1f}" for x in
+                                             ranks[0]["ms"])
+          + " (host-staged collectives, ranks sharing one card: not EP "
+          f"speed), the 1-rank trainer's " + " ".join(f"{x:.1f}" for x in ms)
+          + f"; the ranks' job took {ranks[0]['seconds']:.1f} s; last step: "
+          + moe_stats_line(ranks[0]["stats"][-1]), flush=True)
+    for r, res in enumerate(ranks):
+        if res["losses"] != ranks[0]["losses"]:
+            fail(f"train dp x ep: rank {r} losses {res['losses']} differ "
+                 f"from rank 0's {ranks[0]['losses']}")
+        if not np.allclose(res["losses"], losses, rtol=1e-4, atol=0):
+            fail(f"train dp x ep: rank {r} losses {res['losses']} vs the "
+                 f"1-rank trainer's {losses} past rtol 1e-4")
+        for i, st in enumerate(res["stats"]):
+            if not (torch.equal(st["counts"], stats[i]["counts"].cpu())
+                    and float(st["dropped"]) == float(stats[i]["dropped"])):
+                fail(f"train dp x ep: rank {r} step {i + 1} routing "
+                     f"{moe_stats_line(st)} vs the 1-rank trainer's "
+                     f"{moe_stats_line(stats[i])}")
+        compare_steps(f"dp x ep rank {r} vs 1 rank, after step 1",
+                      (res["losses"][0], res["params1"], res["opt1"]),
+                      (losses[0], *shard_state(cfg, params1, opt1, r)))
+    print(f"train dp x ep: every rank's losses and routing equal the "
+          f"1-rank trainer's; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del one, params, opt
+    torch.cuda.empty_cache()
+
+
+def check_moe_train_step(device):
+    """Phase 7, MoE: one fp32 step of MoE-350M's widths at 2 layers,
+    batch 1, on the card (kernels), remat off and with
+    "save_splash_residuals", each against one CPU copy's step (plain
+    versions, remat off): the loss, parameters and
+    first moments as `check_train_step` holds them, the routing counts
+    and drops exactly, balance and z within 1e-5 relative. Then one bf16
+    step (bench_gpt_moe's config at 2 layers, batch 2) from the same
+    weights twice: every parameter and moment bit-identical."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import load_jax_hybrid_gpt
+    from paddle_tpu_torch.parallel.hybrid_gpt import (HybridGPT,
+                                                      init_opt_state)
+    t_phase = time.perf_counter()
+    layers = 2
+    arrays = random_hybrid_params(layers, seed=SEED + 12,
+                                  experts=MOE_TRAIN["moe_num_experts"])
+    rng = np.random.default_rng(SEED + 13)
+    tok = rng.integers(0, VOCAB, (2, TRAIN_SEQ))
+    lab = rng.integers(0, VOCAB, (2, TRAIN_SEQ))
+
+    def step(dev, steps=1, batch=1, **kw):
+        cfg = train_config(n_layers=layers, **{**MOE_TRAIN, **kw})
+        trainer = HybridGPT(cfg, device=dev)
+        params = load_jax_hybrid_gpt(arrays, device=dev)
+        opt = init_opt_state(cfg, params)
+        for i in range(1, steps + 1):
+            params, opt, loss = trainer.train_step(
+                params, opt, tok[:batch], lab[:batch], step_num=i)
+        return float(loss), params, opt, trainer.last_moe_stats
+
+    fp32 = dict(bf16_grads=False, compute_dtype=torch.float32)
+    # one CPU step (remat off): in fp32 the policies change no value
+    cpu = step("cpu", remat=False, **fp32)
+    for policy in (None, "save_splash_residuals"):
+        card = step(device, remat=policy is not None, remat_policy=policy,
+                    **fp32)
+        label = f"MoE, remat {'off' if policy is None else policy}"
+        compare_steps(f"{label}: card vs CPU", card[:3], cpu[:3])
+        sg, sc = card[3], cpu[3]
+        if not (torch.equal(sg["counts"].cpu(), sc["counts"])
+                and float(sg["dropped"]) == float(sc["dropped"])):
+            fail(f"train check [{label}]: routing {moe_stats_line(sg)} vs "
+                 f"the CPU's {moe_stats_line(sc)}")
+        for k in ("balance", "z"):
+            if not abs(float(sg[k]) - float(sc[k])) <= 1e-5 * abs(
+                    float(sc[k])):
+                fail(f"train check [{label}]: {k} {float(sg[k])} vs "
+                     f"{float(sc[k])}")
+        print(f"check [{label}]: routing equal ({moe_stats_line(sg)}); "
+              f"balance and z within 1e-5", flush=True)
+    a, b = (step(device, batch=2) for _ in range(2))
+    same = n = 0
+
+    def walk(x, y):
+        nonlocal same, n
+        for k in x:
+            if isinstance(x[k], dict):
+                walk(x[k], y[k])
+                continue
+            n += 1
+            same += int(torch.equal(x[k], y[k]))
+    walk(a[1], b[1])
+    walk(a[2], b[2])
+    if same != n or a[0] != b[0]:
+        fail(f"train check [MoE bf16]: two identical steps: "
+             f"{same} of {n} tensors bit-identical, losses {a[0]} vs "
+             f"{b[0]}")
+    print(f"check [MoE bf16, bench_gpt_moe's config at {layers} layers]: "
+          f"two steps bit-identical in all {n} parameters and "
+          f"moments (loss {a[0]:.6f}); phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def check_gmm_backward(gm, device, flush):
+    """Phase 3 for K4 under autograd at the MoE train step's ffn1 shape,
+    [8, 5120, 1024] x [8, 1024, 4096] bf16 (C = ceil(1.25 x 16384 x 2 /
+    8)): the forward is the kernel (one launch a call), dx and dw are the
+    grouped contractions (JAX's `_gmm_core_bwd`) as bf16 `bmm`s, each
+    within GMM_TOL of the plain version's autograd; int8 and int4
+    weights raise on a gradient."""
+    import torch
+    from paddle_tpu_torch.parallel.moe_utils import expert_capacity
+    E, D, F = MOE["num_expert"], HIDDEN, 4 * HIDDEN
+    C = expert_capacity(MOE_TRAIN_BATCH * TRAIN_SEQ, E, MOE["top_k"],
+                        MOE["capacity_factor"])
+    tol = GMM_TOL["bfloat16"]
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn(E, C, D, generator=g, device=device).bfloat16()
+    w = (torch.randn(E, D, F, generator=g, device=device)
+         / D ** 0.5).bfloat16()
+    dout = torch.randn(E, C, F, generator=g, device=device).bfloat16()
+    before = gm.fp_launch_count
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = gm.grouped_expert_matmul(xa, wa)
+    dx, dw = torch.autograd.grad(out, (xa, wa), dout)
+    torch.cuda.synchronize()
+    launches = gm.fp_launch_count - before
+    if launches != 1:
+        fail(f"gmm_fp under autograd: {launches} K4 launches, expected 1")
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ref = gm.grouped_matmul_reference(xr, wr)
+    rdx, rdw = torch.autograd.grad(ref, (xr, wr), dout)
+    errs = [close_or_fail(f"gmm_fp under autograd: {name}", got.detach(),
+                          want.detach(), tol)
+            for name, got, want in (("out", out, ref), ("dx", dx, rdx),
+                                    ("dw", dw, rdw))]
+
+    def fwd_bwd(x, w, fn):
+        def run():
+            xa, wa = x.detach().requires_grad_(), w.detach().requires_grad_()
+            torch.autograd.grad(fn(xa, wa), (xa, wa), dout)
+        return run
+    ms = cuda_ms(fwd_bwd(x, w, gm.grouped_expert_matmul), iters=5,
+                 flush=flush)
+    plain = cuda_ms(fwd_bwd(x, w, gm.grouped_matmul_reference), iters=5,
+                    flush=flush)
+    q, scale = gm.quantize_int4_experts(w.float())
+    x8 = x.clone().requires_grad_()
+    for wq, sq in ((torch.randint(-127, 128, w.shape, dtype=torch.int8,
+                                  device=device),
+                    torch.ones(E, F, device=device)), (q, scale)):
+        try:
+            gm.grouped_expert_matmul(x8, wq, sq)
+        except RuntimeError as e:
+            if "gradient" not in str(e):
+                raise
+        else:
+            fail("gmm under autograd: quantized weights took a gradient")
+    print(f"kernel check: gmm_fp under autograd [{E}, {C}, {D}] x [{D}, "
+          f"{F}] bf16: one K4 forward launch a call; out / dx / dw "
+          f"max_abs_err {errs[0]:.3g} / {errs[1]:.3g} / {errs[2]:.3g} (tol "
+          f"{tol} (1 + |plain|)); forward + backward {ms:.3f} ms, plain "
+          f"version's {plain:.3f} ms; int8 and int4 weights refuse a "
+          f"gradient", flush=True)
+    del x, w, dout, out, dx, dw, ref, rdx, rdw, xa, wa, xr, wr
 
 
 # --------------------------------------- phase 3, segmented flash (K1c)
@@ -4392,20 +4861,26 @@ def check_tp_shapes(pa, gm, device, flush):
                   f" {lib:.4f} ms", flush=True)
 
 
+def whole_lines():
+    """Make this child process's standard output write each line whole:
+    it shares one pipe with the parent and its siblings."""
+    import io
+    sys.stdout = io.TextIOWrapper(
+        io.BufferedWriter(io.FileIO(sys.stdout.fileno(), "w",
+                                    closefd=False), 1 << 16),
+        line_buffering=True)
+
+
 def tp_rank_main(rank, world, out_dir, job):
     """One rank of a TP phase: joins the gloo group of `world` processes
     on cuda:0 and saves `job(rank, world)`'s result. Its standard output
     writes each line whole (the ranks share one pipe)."""
     import datetime
-    import io
     import os
 
     import torch
     import torch.distributed as dist
-    sys.stdout = io.TextIOWrapper(
-        io.BufferedWriter(io.FileIO(sys.stdout.fileno(), "w",
-                                    closefd=False), 1 << 16),
-        line_buffering=True)
+    whole_lines()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
@@ -4667,7 +5142,7 @@ def serve_tp(base, base_prof):
           f"{ms(base_prof, 'device_ms')} ms device; in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    moe = tp_run(MOE_TP * MOE_EP, tp_moe_job)
+    moe = tp_run(MOE_TP * MOE_EP, tp_moe_and_train_job)
     for r, res in enumerate(moe[1:], 1):
         if (res["outputs"], res["counts"], res["check"]) != \
                 (moe[0]["outputs"], moe[0]["counts"], moe[0]["check"]):
@@ -4685,7 +5160,18 @@ def serve_tp(base, base_prof):
                       f"{ms(res['prof'], 'device_ms')} ms device"
                       for r, res in enumerate(moe))
           + f"; 1-rank engine {one['wall'] / one['steps'] * 1e3:.2f} ms a "
-          f"step host; in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"step host; in {time.perf_counter() - t0:.1f} s, phase 6c's "
+          f"rank steps included", flush=True)
+    return [res["train"] for res in moe]
+
+
+def tp_moe_and_train_job(rank, world):
+    """Phase 5n's MoE job, then phase 6c's train job (`moe_train_job`),
+    in one spawn of the 4 ranks: a rank process's start and its first
+    launches take longer than either job's own steps."""
+    res = tp_moe_job(rank, world)
+    res["train"] = moe_train_job(rank, world)
+    return res
 
 
 # ------------------------------------------------- phases 5o and 5p
@@ -5813,6 +6299,69 @@ def kernel_table():
          pallas + "grouped_matmul.py:181", csrc + "grouped_matmul.cu")]
 
 
+# the on-card checks of the serving phases: each holds tokens against a
+# CPU copy's, none takes a time, and each is bound by its host loop, so
+# they run in two processes at once, this one and a spawned child,
+# CHECK_THREADS CPU threads each (the card's host has 8 cores); the
+# child's share took about as long as the rest on an H100's host
+SERVING_CHECKS = {
+    "5c": lambda device, counters: check_moe_on_card(device),
+    "5d": lambda device, counters: check_spec_on_card(device),
+    "5f": lambda device, counters: check_multitick_on_card(device),
+    "5i": lambda device, counters: check_prefix_sparse_on_card(device),
+    "5l": lambda device, counters: check_lora_weight_only_on_card(device),
+    "5p": check_disagg_on_card,
+    "5t": lambda device, counters: check_fleet_on_card(device)}
+CHILD_CHECKS, CHECK_THREADS = ("5c", "5i"), 4
+
+
+def check_child(_index, names):
+    """The spawned half of `serving_checks`: the checks `names` on
+    cuda:0."""
+    import torch
+    whole_lines()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(CHECK_THREADS)
+    counters = [(m, attr, name) for name, m, attr, _r, _s in kernel_table()]
+    for name in names:
+        SERVING_CHECKS[name](torch.device("cuda:0"), counters)
+
+
+def serving_checks(device, counters):
+    """Phases 5c, 5d, 5f, 5i, 5l, 5p and 5t: CHILD_CHECKS in a spawned
+    child process and the others here, at once. A failed check on
+    either side fails the script; the child is stopped if this side
+    fails first."""
+    import torch
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(check_child, args=(CHILD_CHECKS,), nprocs=1,
+                             join=False, start_method="spawn")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CHECK_THREADS)
+    try:
+        for name, check in SERVING_CHECKS.items():
+            if name not in CHILD_CHECKS:
+                check(device, counters)
+        here = time.perf_counter() - t0
+        try:
+            while not ctx.join():
+                pass
+        except ProcessException as e:
+            fail(f"serving checks: the child running {CHILD_CHECKS} "
+                 f"failed ({e})")
+    finally:
+        torch.set_num_threads(threads)
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+    print(f"serving checks: {', '.join(CHILD_CHECKS)} in a child process "
+          f"beside the others here: this side's took {here:.1f} s, both "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -5855,6 +6404,7 @@ def main():
     check_paged_decode(pa, device, flush)
     checks.update(check_paged_sparse(pa, device, flush))
     checks.update(check_gmm(gm, device, flush))
+    check_gmm_backward(gm, device, flush)
     checks.update(check_weight_only_gmm(gm, device, flush))
     check_tp_shapes(pa, gm, device, flush)
     checks.update(check_flash(fa, device, flush))
@@ -5899,17 +6449,11 @@ def main():
     del model
     torch.cuda.empty_cache()
     mark("phases 5r, 5s")
-    check_spec_on_card(device)
-    check_multitick_on_card(device)
-    check_prefix_sparse_on_card(device)
-    check_lora_weight_only_on_card(device)
-    check_disagg_on_card(device, counters)
-    check_fleet_on_card(device)
-    mark("phases 5d, 5f, 5i, 5l, 5p, 5t")
+    serving_checks(device, counters)
+    mark("phases 5c, 5d, 5f, 5i, 5l, 5p, 5t")
     serve_launches.update(serve_moe(device, counters))
-    check_moe_on_card(device)
-    mark("phases 5b, 5c")
-    serve_tp(base, base_prof)
+    mark("phase 5b")
+    dp_ep_ranks = serve_tp(base, base_prof)
     mark("phases 5m, 5n")
 
     launches = train(device, counters)
@@ -5918,9 +6462,15 @@ def main():
         "paged_verify_int8", "paged_verify_fp8", "gmm_fp", "gmm_int8",
         "gmm_int4", "paged_sparse", "paged_sparse_int8", "paged_sparse_fp8",
         "paged_sparse_verify", "gmm_int8_dense")})
+    mark("phase 6")
+    train_moe(device, counters)
+    mark("phase 6b")
+    train_dp_ep(device, dp_ep_ranks)
+    mark("phase 6c")
     check_train_step(device)
+    check_moe_train_step(device)
     torch.cuda.empty_cache()
-    mark("phases 6, 7")
+    mark("phase 7")
     launches.update(flash_bshd_phase(fa, device, counters))
     launches.update(wgrad_phase(cw, device, counters))
     launches.update(serve_bert(fa, device, counters))

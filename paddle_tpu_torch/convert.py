@@ -7,8 +7,9 @@
   name (a weight-only stack's int8 weights and `*_s` scales included),
   `ln_f.weight`, `ln_f.bias` and `lm_head.weight`.
 * `load_jax_hybrid_gpt`: the JAX `HybridGPT` trainer's nested `params`
-  (and optionally its zero_stage-0 `opt_state`), as `jax.device_get`
-  returns them.
+  (and optionally its `opt_state`, per-parameter or ZeRO-flat), dense
+  or MoE, as `jax.device_get` returns them; `shard_jax_hybrid_gpt`
+  cuts them to one rank's shard of a dp x ep mesh.
 * `load_jax_bert`: a JAX `BertModel`, `BertForPretraining` or
   `BertForSequenceClassification`, given as its `state_dict()`
   (`{name: np.ndarray}` under the JAX names).
@@ -25,7 +26,7 @@ from ._device import resolve_device
 from .incubate.nn.fused_transformer import _PARAM_ORDER, _SCALE_NAMES
 from .models import bert as _bert
 from .models.gpt import GPTForGeneration
-from .parallel.hybrid_gpt import param_shapes
+from .parallel.hybrid_gpt import param_shapes, shard_state
 
 _HEAD_NAMES = {"word_embeddings": "word_embeddings.weight",
                "position_embeddings": "position_embeddings.weight",
@@ -132,31 +133,71 @@ def _load_tree(tree, shapes, what, device):
     return out
 
 
+def _load_moments(tree, shapes, what, device):
+    """Adam moments, one {"m", "v"} per parameter, full-shaped: JAX's
+    zero_stage 0 moments as they are, its ZeRO-flat ones (a flat vector
+    padded to a multiple of its world) cut to the parameter's size and
+    reshaped."""
+    missing = sorted(set(shapes) - set(tree))
+    unknown = sorted(set(tree) - set(shapes))
+    if missing or unknown:
+        raise ValueError(f"{what}: missing {missing}, unknown {unknown}")
+    out = {}
+    for name, want in shapes.items():
+        if isinstance(want, dict):
+            out[name] = _load_moments(tree[name], want, f"{what}[{name}]",
+                                      device)
+            continue
+        if not isinstance(tree[name], dict) or set(tree[name]) != {"m",
+                                                                   "v"}:
+            raise ValueError(f"{what}[{name}]: expected {{'m', 'v'}}")
+        n = int(np.prod(want))
+        out[name] = {}
+        for k, a in tree[name].items():
+            shape = tuple(np.shape(a))
+            if shape != want:
+                if len(shape) != 1 or shape[0] < n:
+                    raise ValueError(f"{what}[{name}][{k}]: shape {shape},"
+                                     f" expected {want} or flat >= {n}")
+                a = np.asarray(a, np.float32)[:n].reshape(want)
+            out[name][k] = _as_tensor(a, device)
+    return out
+
+
 def load_jax_hybrid_gpt(params, opt_state=None, *, device="cuda"):
     """The JAX trainer's `params` as the port's fp32 parameter dict on
-    `device` (`paddle_tpu_torch.parallel.hybrid_gpt`), and with
-    `opt_state` given, `(params, opt_state)` with fp32 Adam moments.
+    `device` (`paddle_tpu_torch.parallel.hybrid_gpt`), dense or MoE, and
+    with `opt_state` given, `(params, opt_state)` with fp32 Adam moments
+    shaped as their parameters (JAX's ZeRO-flat moments unflattened).
     Widths follow from the arrays; raises on a missing or unknown name
-    or a shape that does not fit them (MoE and ZeRO-flat layouts
-    included)."""
+    or a shape that does not fit them."""
     dev = resolve_device(device)
     try:
         V, d = np.shape(params["tok_emb"])
         S = np.shape(params["pos_emb"])[0]
-        L, _, ff = np.shape(params["blocks"]["w_fc1"])
-    except (KeyError, TypeError, ValueError) as e:
+        E = np.shape(params["blocks"]["gate"])[-1] \
+            if "gate" in params["blocks"] else 0
+        L, ff = (np.shape(params["blocks"]["w_fc1"])[i] for i in (0, -1))
+    except (KeyError, TypeError, ValueError, IndexError) as e:
         raise ValueError(f"JAX HybridGPT parameters: cannot read the "
                          f"widths ({e!r})") from None
-    shapes = param_shapes(V, S, d, ff, L)
+    shapes = param_shapes(V, S, d, ff, L, E)
     out = _load_tree(params, shapes, "JAX HybridGPT params", dev)
     if opt_state is None:
         return out
+    return out, _load_moments(opt_state, shapes, "JAX HybridGPT opt_state",
+                              dev)
 
-    def moments(sh):
-        return {k: moments(v) if isinstance(v, dict) else
-                {"m": v, "v": v} for k, v in sh.items()}
-    return out, _load_tree(opt_state, moments(shapes),
-                           "JAX HybridGPT opt_state", dev)
+
+def shard_jax_hybrid_gpt(params, opt_state=None, *, cfg, rank,
+                         device="cuda"):
+    """`load_jax_hybrid_gpt`, cut to rank `rank`'s shard of `cfg`'s dp x
+    ep mesh in its ZeRO layout (`hybrid_gpt.shard_state`): a JAX
+    trainer's state at zero_stage 0 or 1 starts the port at any mesh."""
+    full = load_jax_hybrid_gpt(params, opt_state, device=device)
+    if opt_state is None:
+        return shard_state(cfg, full, None, rank)
+    return shard_state(cfg, *full, rank)
 
 
 _BERT_HEADS = ("pretraining", "sequence_classification")

@@ -228,15 +228,16 @@ def _ffn_moe_tokens(cfg, pl, h, valid):
                                 dtype=cd)
     ep = cfg.ep_size
     E_loc = E // ep
-    tos = moe_utils.dispatch_indices(r.plan, E, C)
+    e_offset = cfg.ep_rank * E_loc
+    choices = moe_utils.dispatch_choices(r.plan, E, C)
     if ep > 1:
-        tos = moe_utils.local_indices(tos, cfg.ep_rank, E_loc)
-    expert_in = moe_utils.dispatch_tokens_indexed(h, r.plan, E_loc, C,
-                                                  indices=tos)
+        choices = moe_utils.local_indices(choices, cfg.ep_rank, E_loc)
+    expert_in = moe_utils.dispatch_tokens_indexed(
+        h, r.plan, E, C, choices=choices, e_offset=e_offset)
     eout = _maybe_all_reduce(cfg, _expert_matmuls(cfg, pl, expert_in))
     eout = eout + pl["ffn2_b"][:, None, :].to(cd)
     out = moe_utils.combine_tokens_indexed(
-        eout, r.plan, e_offset=cfg.ep_rank * E_loc, num_local=E_loc)
+        eout, r.plan, e_offset=e_offset, num_local=E_loc)
     if ep > 1:
         dist.all_reduce(out, group=cfg.ep_group)
     stats = {"counts": r.plan.counts, "dropped": r.plan.dropped,

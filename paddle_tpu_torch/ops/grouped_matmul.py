@@ -169,13 +169,52 @@ def grouped_expert_matmul(x, w, scale=None, *, qmax=None, out_dtype=None):
     int8), so a caller that forgets it cannot mis-scale the dequant."""
     E, C, D = x.shape
     qmax = _qmax(w, scale, D, qmax)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"grouped_expert_matmul: no kernel for device "
+                         f"{x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        if scale is not None:
+            raise RuntimeError("grouped_expert_matmul: quantized weights "
+                               "are forward-only (no gradient), as in "
+                               "the JAX package")
+        return _GroupedMatmul.apply(x, w, out_dtype)
+    return _forward(x, w, scale, qmax, out_dtype)
+
+
+def _forward(x, w, scale, qmax, out_dtype):
     if x.device.type == "cpu":
         return grouped_matmul_reference(x, w, scale, qmax=qmax,
                                         out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"grouped_expert_matmul: no kernel for device "
-                         f"{x.device}")
     return _launch(x, w, scale, qmax, out_dtype)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """Float-weight grouped matmul under autograd: the kernel forward,
+    JAX's `_gmm_core_bwd` backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype):
+        ctx.save_for_backward(x, w)
+        return _forward(x.detach(), w.detach(), None, 127.0, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return grouped_matmul_backward(x, w, g) + (None,)
+
+
+def grouped_matmul_backward(x, w, g):
+    """(dx, dw) of out = x @ w for the cotangent g [E, C, F]: JAX's
+    `_gmm_core_bwd`, the two grouped contractions, each cast to its
+    input's dtype. They run in the inputs' dtype: a bf16 `bmm` sums its
+    exact bf16 products in fp32, the arithmetic of JAX's fp32 einsum at
+    the TPU's default precision, so an fp32 copy adds nothing but
+    time."""
+    cd = torch.promote_types(x.dtype, w.dtype)
+    gc = g.to(cd)
+    dx = torch.bmm(gc, w.to(cd).transpose(1, 2))
+    dw = torch.bmm(x.to(cd).transpose(1, 2), gc)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def weight_only_matmul(x, w, scale, *, qmax=127.0):
@@ -283,8 +322,9 @@ def _launch(x, w, scale, qmax, out_dtype, dense=False):
         raise TypeError(f"grouped_matmul kernel: out_dtype {out_dtype} "
                         f"must be x's dtype {x.dtype}")
     if x.requires_grad or w.requires_grad:
-        raise RuntimeError("grouped_matmul kernel: forward only; the "
-                           "backward is not ported (inputs require grad)")
+        # differentiable calls come through `_GroupedMatmul` detached
+        raise RuntimeError("grouped_matmul kernel: inputs that require "
+                           "grad go through grouped_expert_matmul")
     if w.ndim != 3 or w.shape[0] != E:
         raise ValueError(f"grouped_matmul kernel: w {tuple(w.shape)} does "
                          f"not match x {tuple(x.shape)}")

@@ -1668,8 +1668,9 @@ def test_gmm_kernel_refuses_without_running_plain(cuda_device,
         tgmm.grouped_expert_matmul(x4[..., :15].contiguous(), w4, s4)
     with pytest.raises(TypeError):                 # scale of a wrong shape
         tgmm.grouped_expert_matmul(x4, w4, s4[:, :5].contiguous())
-    with pytest.raises(RuntimeError, match="grad"):
-        tgmm.grouped_expert_matmul(x.requires_grad_(), w)
+    x8, w8, s8 = _gmm_case(2, 5, 16, 24, "int8", cuda_device)
+    with pytest.raises(RuntimeError, match="grad"):  # int8 is forward-only
+        tgmm.grouped_expert_matmul(x8.requires_grad_(), w8, s8)
 
 
 @pytest.mark.cuda
@@ -2175,6 +2176,123 @@ def test_train_step_embedding_grad_is_reproducible_on_card(cuda_device):
         assert torch.equal(a, b), n
     for (n, a), (_, b) in zip(leaves(runs[0][1]), leaves(runs[1][1])):
         assert torch.equal(a, b), n
+
+
+# ------------------------------------------ the MoE train step (K1a+K2)
+
+
+def _moe_train_cfg(**kw):
+    return th.GPTConfig(**{**dict(
+        vocab_size=193, seq_len=200, d_model=128, n_heads=2, n_layers=2,
+        moe_num_experts=4, moe_top_k=2, moe_capacity_factor=0.75,
+        remat=True, ce_seq_chunks=2, compute_dtype=torch.float32,
+        learning_rate=1e-3), **kw})
+
+
+def _leaves_of(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves_of(tree[k], prefix + k + ".")
+        else:
+            yield prefix + k, tree[k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [None, "save_splash_residuals"])
+def test_moe_train_step_on_card_matches_cpu(policy, cuda_device):
+    """One fp32 MoE step (capacity factor 0.75: 2 x 400 choices over 4 x
+    150 slots, so choices drop) on the card (kernels) and on the CPU
+    (plain versions) from the same parameters: the loss within 1e-4
+    relative, the routing counts and drops exactly, balance and z within
+    1e-5, every parameter within 0.25 lr; K1a and K2 launched as remat
+    predicts."""
+    cfg = _moe_train_cfg(remat_policy=policy)
+    cpu = th.HybridGPT(cfg, device="cpu")
+    card = th.HybridGPT(cfg, device=cuda_device)
+    pc, oc = cpu.init(seed=0)
+    pg, og = _to_card(pc, cuda_device), _to_card(oc, cuda_device)
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, 193, (2, 200))
+    lab = rng.randint(0, 193, (2, 200))
+    counts = (tfa.fwd_launch_count, tfa.bwd_launch_count,
+              tln.fwd_launch_count, tln.bwd_launch_count)
+    pc, oc, lc = cpu.train_step(pc, oc, tok, lab)
+    pg, og, lg = card.train_step(pg, og, tok, lab)
+    L = cfg.n_layers
+    assert (tfa.fwd_launch_count - counts[0], tfa.bwd_launch_count
+            - counts[1], tln.fwd_launch_count - counts[2],
+            tln.bwd_launch_count - counts[3]) == (
+                (L if policy else 2 * L), L, 2 * L, L)
+    assert math.isclose(float(lg), float(lc), rel_tol=1e-4)
+    sc, sg = cpu.last_moe_stats, card.last_moe_stats
+    assert torch.equal(sc["counts"], sg["counts"].cpu())
+    assert float(sc["dropped"]) == float(sg["dropped"]) > 0
+    for k in ("balance", "z"):
+        assert math.isclose(float(sg[k]), float(sc[k]), rel_tol=1e-5)
+    for (n, a), (_, b) in zip(_leaves_of(pg), _leaves_of(pc)):
+        assert float((a.cpu() - b).abs().max()) <= 0.25 * cfg.learning_rate, n
+
+
+def _to_card(tree, device):
+    return {k: _to_card(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_moe_bf16_train_steps_bit_identical_on_card(cuda_device):
+    """Two bf16 MoE steps from the same parameters give the same bits in
+    every parameter and moment: the index dispatch and combine have
+    gather backwards, with no atomic accumulation."""
+    cfg = _moe_train_cfg(compute_dtype=torch.bfloat16, bf16_grads=True,
+                         remat_policy="save_splash_residuals")
+    trainer = th.HybridGPT(cfg, device=cuda_device)
+    rng = np.random.RandomState(1)
+    tok = rng.randint(0, 193, (4, 200))
+    lab = rng.randint(0, 193, (4, 200))
+    runs = []
+    for _ in range(2):
+        params, opt = trainer.init(seed=0)
+        for step in (1, 2):
+            params, opt, _ = trainer.train_step(params, opt, tok, lab,
+                                                step_num=step)
+        runs.append((params, opt))
+    for a, b in ((runs[0][0], runs[1][0]), (runs[0][1], runs[1][1])):
+        for (n, x), (_, y) in zip(_leaves_of(a), _leaves_of(b)):
+            assert torch.equal(x, y), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bf16", "fp32"])
+def test_gmm_under_autograd_matches_plain(variant, cuda_device):
+    """Float-weight K4 under autograd: the forward is the kernel (one
+    launch a call), dx and dw are JAX's fp32 grouped contractions, both
+    within K4's tolerance of the plain version's autograd."""
+    x, w, _ = _gmm_case(4, 96, 128, 256, variant, cuda_device)
+    g = torch.randn(4, 96, 256, device=cuda_device).to(x.dtype)
+    before = tgmm.fp_launch_count
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = tgmm.grouped_expert_matmul(xa, wa)
+    assert tgmm.fp_launch_count == before + 1
+    dx, dw = torch.autograd.grad(out, (xa, wa), g)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ref = tgmm.grouped_matmul_reference(xr, wr)
+    rdx, rdw = torch.autograd.grad(ref, (xr, wr), g)
+    tol = 2e-2 if variant == "bf16" else 1e-4
+    for got, want in ((out, ref), (dx, rdx), (dw, rdw)):
+        got, want = got.detach().float(), want.detach().float()
+        torch.testing.assert_close(got, want, rtol=tol,
+                                   atol=tol * float(want.abs().max()))
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["int8", "int4"])
+def test_gmm_quantized_refuses_grad_on_card(variant, cuda_device):
+    x, w, scale = _gmm_case(2, 5, 16, 24, variant, cuda_device)
+    before = tgmm.int8_launch_count + tgmm.int4_launch_count
+    with pytest.raises(RuntimeError, match="gradient"):
+        tgmm.grouped_expert_matmul(x.requires_grad_(), w, scale)
+    assert tgmm.int8_launch_count + tgmm.int4_launch_count == before
 
 
 # ------------------------------------------ BERT pretraining on the card

@@ -231,16 +231,16 @@ def test_qkv_kernel_gate_keeps_the_einsum_branch(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(remat_policy="save_splash_residuals"),
-                                dict(qkv_kernel=True)])
+                                dict(qkv_kernel=True), dict(dp=2),
+                                dict(moe_experts=4), dict(zero_stage=1)])
 def test_config_takes_what_is_ported(kw):
-    cfg = th.GPTConfig(**WIDTHS, **kw)
+    cfg = th.GPTConfig(**{**WIDTHS, **kw})
     assert all(getattr(cfg, k) == v for k, v in kw.items())
 
 
 @pytest.mark.parametrize("field,value", [
-    ("dp", 2), ("pp", 2), ("mp", 2), ("micro_batches", 2),
-    ("sequence_parallel", True), ("moe_experts", 4),
-    ("zero_stage", 1), ("grad_bucket_bytes", 1 << 20),
+    ("pp", 2), ("mp", 2), ("micro_batches", 2),
+    ("sequence_parallel", True), ("grad_bucket_bytes", 1 << 20),
     ("remat_policy", "dots_saveable")])
 def test_config_refuses_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError, match=field):

@@ -156,6 +156,9 @@ def test_port_imports_no_jax():
             "for m in mods:\n"
             "    importlib.import_module(m)\n"
             "need = {'paddle_tpu_torch.parallel.mp_layers',"
+            " 'paddle_tpu_torch.parallel.hybrid_gpt',"
+            " 'paddle_tpu_torch.parallel.moe_utils',"
+            " 'paddle_tpu_torch.convert',"
             " 'paddle_tpu_torch.serving.distributed.tp_engine',"
             " 'paddle_tpu_torch.serving.distributed.transport',"
             " 'paddle_tpu_torch.serving.distributed.router',"
