@@ -13,7 +13,9 @@ with tensor (and expert) parallelism over ranks on the one card, and
 by a disaggregated fleet of prefill and decode replicas behind the
 replica router, the train step
 (with and without the fused QKV projection), MoE training and its
-dp x ep mesh of ranks on the one card, the paddle-layout
+dp x ep mesh of ranks on the one card, the mp x pp mesh (tensor and
+sequence parallelism, the micro-batch pipeline) and bucketed dp over
+ranks on the one card, the paddle-layout
 `flash_attention()` entry, the `wgrad_1x1` entry, BERT-base
 inference over padded batches and BERT-base pretraining through
 `hapi.Model` with LAMB and AMP O2 — and holds every
@@ -66,7 +68,12 @@ each (or a few):
    (`check_tp_shapes`): the paged kernel's ragged and verify entries at
    8 heads, K4 at one group at the shard widths and the grouped expert
    matmuls at [4, 80, 1024] x [1024, 2048] and [4, 80, 2048] x [2048,
-   1024]), with
+   1024]; and at an mp rank's shapes (`check_mp_shapes`): bf16 flash
+   attention forward and backward at [8, 8, 1024, 64] and add+LayerNorm
+   at a sequence-parallel rank's [4096, 1024] rows, and fp32 at what
+   phase 6d's mp x pp job gives them, a micro-batch of 4: [4, 8, 1024,
+   64], [2048, 1024] and the fused QKV projection into the rank's 8
+   heads, two launches of each bit-identical), with
    times (CUDA events,
    L2 flushed
    between launches), the card's bound for the same work and, where one
@@ -258,9 +265,8 @@ each (or a few):
    numpy seed through `convert.load_jax_hybrid_gpt`): finite, falling
    loss, and every train kernel launched exactly as the policy predicts
    per step (the flash forward once a layer); then one profiled step
-   (K1a's forward and backward device ms on lines of their own),
-   and the same steps timed at bench_gpt's batch 32; then batch 8 again
-   with remat_policy None (the flash forward twice a layer) and with
+   (K1a's forward and backward device ms on lines of their own); then
+   batch 8 again with remat_policy None (the flash forward twice a layer) and with
    qkv_kernel=True (the fused projection twice a layer), side by side,
    the last with one profiled step (the fused projection's device ms and
    its share of the step's device time);
@@ -274,15 +280,22 @@ each (or a few):
    remat predicts per step, no other kernel, routed + dropped = 16 x
    1024 x 2 x 24 every step; ms a step and tokens/s (the unprofiled
    timed step), peak memory, the last step's balance loss and routing;
-6c. train dp x ep — MoE-350M's widths at 1 layer, fp32, dp 2 x ep 2
-   with ZeRO-1, global batch 8, 2 steps, in phase 5n's 4 rank processes
-   sharing the card over gloo, after their serving job (a failed rank
-   fails the script): every rank's losses equal, and equal a 1-rank
-   card trainer's on the same weights
-   and batch, routing too (capacity factor 4: nothing drops, as a
-   rank's capacity comes from its own tokens); each rank's parameters
-   and first moments after step 1 within phase 7's bounds; step times
-   printed (host-staged, not EP speed);
+6d. train mesh — three jobs in phase 5n's 4 rank processes sharing the
+   card over gloo, after their serving job (a failed rank fails the
+   script), each fp32, full remat, the fused QKV projection, global
+   batch 8, 2 steps: MoE-350M's experts at 1 layer, dp 2 x ep 2 with
+   ZeRO-1 (capacity factor 4: nothing drops, as a rank's capacity comes
+   from its own tokens); `dryrun_multichip(4)`'s mesh, mp 2 x pp 2,
+   with sequence parallelism, 2 micro-batches and ZeRO-1, at GPT-350M's
+   widths at 2 layers (one a stage); a dense dp 4 job at 1 layer with
+   25 MiB gradient buckets. For each: every rank's losses equal, and
+   equal a 1-rank card trainer's on the same weights and batch, routing
+   too; each rank's parameters and first moments after step 1 within
+   phase 7's bounds; each rank's K1a, K2 and K5 launches exactly what
+   full remat predicts for its layers x micro-batches, no other kernel;
+   the bucketed job's all-reduces a step `grad_bucket_count`; rank step
+   ms and peak memory printed (host-staged, not DP / EP / TP / PP
+   speed);
 7. on-card train check — one fp32 step of the same widths at 2 layers
    on the card (kernels) and on a CPU copy (plain versions), remat off
    and with the residuals kept and the fused projection: loss and every
@@ -354,8 +367,8 @@ MOE = dict(num_expert=8, top_k=2, capacity_factor=1.25)
 MOE_LAYERS = 4
 
 # GPT-350M train step: bench.py's bench_gpt TPU config at batch 8 (its
-# own batch, 32, is timed after it)
-TRAIN_BATCH, BENCH_BATCH, TRAIN_SEQ = 8, 32, 1024
+# own batch, 32, was timed here until phase 6d needed the time)
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 WARMUP_STEPS, TIMED_STEPS = 3, 5
 
 # the split-K 1x1 weight gradient at ResNet-50's largest 1x1 wgrad (the
@@ -2839,17 +2852,19 @@ def close_or_fail(name, got, want, tol):
     return err
 
 
-def check_flash(fa, device, flush):
-    """Phase 3 for flash attention at the train step's [8, 16, 1024, 64]:
-    forward kernel (out, lse) against its plain version, backward through
-    torch.autograd.grad (dq, dk, dv) against the plain backward; returns
-    the bf16 {"flash_fwd": ..., "flash_bwd": ...}."""
+def check_flash(fa, device, flush, shape=None, dtypes=None,
+                label="kernel check"):
+    """Phase 3 for flash attention at the train step's [8, 16, 1024, 64]
+    (or `shape`): forward kernel (out, lse) against its plain version,
+    backward through torch.autograd.grad (dq, dk, dv) against the plain
+    backward, two launches of each bit-identical; returns the bf16
+    {"flash_fwd": ..., "flash_bwd": ...}."""
     import torch
     import torch.nn.functional as F
-    B, H, S, D = TRAIN_BATCH, HEADS, TRAIN_SEQ, HIDDEN // HEADS
+    B, H, S, D = shape or (TRAIN_BATCH, HEADS, TRAIN_SEQ, HIDDEN // HEADS)
     scale = 1.0 / D ** 0.5
     records = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         tol = TRAIN_TOL[name]
         g = torch.Generator(device=device).manual_seed(SEED)
@@ -2875,6 +2890,14 @@ def check_flash(fa, device, flush):
         err_b = max(close_or_fail(f"flash_bwd {name} {n}", a, e, tol)
                     for n, a, e in zip(("dq", "dk", "dv"), got, want))
         del got, want, dqs, dk, dv, ref_out, ref_lse
+        again = fa._launch_fwd(qs, k, v, True)
+        grads = fa._launch_bwd(qs, k, v, out, lse, dout, True)
+        if not (all(torch.equal(a, b) for a, b in zip(again, (out, lse)))
+                and all(torch.equal(a, b) for a, b in zip(
+                    grads, fa._launch_bwd(qs, k, v, out, lse, dout,
+                                          True)))):
+            fail(f"flash {name} [{B}, {H}, {S}, {D}]: two launches differ")
+        del again, grads
         fwd_ms = cuda_ms(lambda: fa._launch_fwd(qs, k, v, True), flush=flush)
         bwd_ms = cuda_ms(lambda: fa._launch_bwd(qs, k, v, out, lse, dout,
                                                 True), flush=flush)
@@ -2899,8 +2922,9 @@ def check_flash(fa, device, flush):
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib)
             flops = flash_flops(q, True, bwd)
-            print(f"kernel check: {kname} {name} [{B}, {H}, {S}, {D}] causal"
-                  f" max_abs_err={err:.3g} (tol {tol} (1 + |plain|)) "
+            print(f"{label}: {kname} {name} [{B}, {H}, {S}, {D}] causal"
+                  f" max_abs_err={err:.3g} (tol {tol} (1 + |plain|); two "
+                  f"launches bit-identical) "
                   f"kernel_ms={ms:.4f} plain_ms={plain:.4f} "
                   f"bound_ms={bound_ms:.4f} ({bound_by}), "
                   f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
@@ -2908,11 +2932,13 @@ def check_flash(fa, device, flush):
                   f"scaled_dot_product_attention"
                   f"{' backward' if bwd else ''} {lib:.4f} ms", flush=True)
         del q, k, v, dout, qs, out, lse, args
-    return records["bfloat16"]
+    return records.get("bfloat16")
 
 
-def check_add_ln(ln, device, flush):
-    """Phase 3 for add+LayerNorm at the train step's 8192 rows x 1024:
+def check_add_ln(ln, device, flush, rows=None, dtypes=None,
+                 label="kernel check"):
+    """Phase 3 for add+LayerNorm at the train step's 8192 (or `rows`)
+    rows x 1024:
     forward (out, z, mu, rstd) and backward (dz, and dw and db, the
     backward kernel's fp32 sums over rows) kernels against their plain
     versions, dw and db within 1e-6 of each column's sum of |terms| (as
@@ -2924,9 +2950,9 @@ def check_add_ln(ln, device, flush):
     ..., "add_ln_bwd": ...}."""
     import torch
     import torch.nn.functional as F
-    N, d = TRAIN_BATCH * TRAIN_SEQ, HIDDEN
+    N, d = rows or TRAIN_BATCH * TRAIN_SEQ, HIDDEN
     records = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         tol = TRAIN_TOL[name]
         g = torch.Generator(device=device).manual_seed(SEED)
@@ -2992,7 +3018,7 @@ def check_add_ln(ln, device, flush):
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib)
             bwd = kname.endswith("bwd")
-            print(f"kernel check: {kname} {name} [{N}, {d}] "
+            print(f"{label}: {kname} {name} [{N}, {d}] "
                   f"max_abs_err={err:.3g} (tol {tol} (1 + |plain|)"
                   f"{'; dw, db within 1e-6 of each sum of |terms|' if bwd else ''}"
                   f"), two launches bit-identical; kernel_ms={ms:.4f}"
@@ -3004,76 +3030,88 @@ def check_add_ln(ln, device, flush):
                   f" over the pre-added z {lib:.4f} ms, "
                   f"{lib_tensors * nbytes / (lib * 1e-3) / 1e9:.0f} GB/s over "
                   f"{lib_tensors} tensors", flush=True)
-    return records["bfloat16"]
+    return records.get("bfloat16")
 
 
-def check_qkv_proj(qp, device, flush):
+def check_qkv_proj(qp, device, flush, batch=None, heads=None, dtypes=None,
+                   grads=True, label="kernel check"):
     """Phase 3 for the fused QKV projection (K5) at the train step's x
-    [8, 1024, 1024] x w_qkv [1024, 3072] into 3 x [8, 16, 1024, 64], fp32
-    and bf16: the forward kernel against its plain version, and the
-    gradients through the autograd function (the kernel's forward, the
-    plain-tensor backward) against the plain version differentiated by
-    autograd on fp32 copies and rounded once; returns the bf16
-    {"qkv_proj": ...}."""
+    [8, 1024, 1024] x w_qkv [1024, 3072] into 3 x [8, 16, 1024, 64] (or
+    `batch` rows and an mp rank's `heads`: w_qkv [1024, 3 x heads x
+    64]), fp32 and bf16 (or `dtypes`): the forward kernel against its
+    plain version, and, unless not `grads`, the gradients through the
+    autograd function (the kernel's forward, the plain-tensor backward:
+    no kernel) against the plain version differentiated by autograd on
+    fp32 copies and rounded once; returns the bf16 {"qkv_proj": ...}
+    where bf16 ran."""
     import torch
-    B, S, d, H = TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS
+    B, S, d = batch or TRAIN_BATCH, TRAIN_SEQ, HIDDEN
+    H = heads or HEADS
+    dh = HIDDEN // HEADS
+    width = 3 * H * dh
     records = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         tol = TRAIN_TOL[name]
         g = torch.Generator(device=device).manual_seed(SEED)
         x = torch.randn(B, S, d, generator=g, device=device).to(dtype)
-        w = (torch.randn(d, 3 * d, generator=g, device=device)
+        w = (torch.randn(d, width, generator=g, device=device)
              * d ** -0.5).to(dtype)
-        b = (torch.randn(3 * d, generator=g, device=device) * 0.1).to(dtype)
+        b = (torch.randn(width, generator=g, device=device)
+             * 0.1).to(dtype)
         got = qp.qkv_proj(x, w, b, H)
         torch.cuda.synchronize()
         want = qp.qkv_proj_reference(x, w, b, H)
         err_f = max(close_or_fail(f"qkv_proj {name} {n}", a, e, tol)
                     for n, a, e in zip("qkv", got, want))
         del got, want
-        gq, gk, gv = (torch.randn(B, H, S, d // H, generator=g,
-                                  device=device).to(dtype) for _ in range(3))
-        args = [t.detach().requires_grad_() for t in (x, w, b)]
-        got = torch.autograd.grad(qp.qkv_proj(*args, H), args, (gq, gk, gv))
-        torch.cuda.synchronize()
-        # the plain version differentiated on fp32 copies, each gradient
-        # rounded once to the dtype: JAX's fp32 sums and single cast
-        # (autograd on the bf16 operands would add the three thirds' dx
-        # in bf16)
-        a32 = [t.detach().float().requires_grad_() for t in (x, w, b)]
-        want = [t.to(dtype) for t in torch.autograd.grad(
-            qp.qkv_proj_reference(*a32, H), a32,
-            (gq.float(), gk.float(), gv.float()))]
-        err_b = max(close_or_fail(f"qkv_proj {name} d{n}", a, e, tol)
-                    for n, a, e in zip("xwb", got, want))
-        del got, want, args, a32, gq, gk, gv
+        err_b = None
+        if grads:
+            gq, gk, gv = (torch.randn(B, H, S, dh, generator=g,
+                                      device=device).to(dtype)
+                          for _ in range(3))
+            args = [t.detach().requires_grad_() for t in (x, w, b)]
+            got = torch.autograd.grad(qp.qkv_proj(*args, H), args,
+                                      (gq, gk, gv))
+            torch.cuda.synchronize()
+            # the plain version differentiated on fp32 copies, each
+            # gradient rounded once to the dtype: JAX's fp32 sums and
+            # single cast (autograd on the bf16 operands would add the
+            # three thirds' dx in bf16)
+            a32 = [t.detach().float().requires_grad_() for t in (x, w, b)]
+            want = [t.to(dtype) for t in torch.autograd.grad(
+                qp.qkv_proj_reference(*a32, H), a32,
+                (gq.float(), gk.float(), gv.float()))]
+            err_b = max(close_or_fail(f"qkv_proj {name} d{n}", a, e, tol)
+                        for n, a, e in zip("xwb", got, want))
+            del got, want, args, a32, gq, gk, gv
         ms = cuda_ms(lambda: qp.qkv_proj(x, w, b, H), flush=flush)
         plain = cuda_ms(lambda: qp.qkv_proj_reference(x, w, b, H), iters=5,
                         flush=flush)
         x2 = x.view(-1, d)
         lib = cuda_ms(lambda: torch.addmm(b, x2, w), flush=flush)
-        nbytes = (x.numel() + w.numel() + b.numel() + 3 * x.numel()) \
+        nbytes = (x.numel() + w.numel() + b.numel() + B * S * width) \
             * x.element_size()
         t_bytes = nbytes / PEAK_BYTES
-        t_flops = 2 * B * S * d * 3 * d / PEAK_FLOPS[name]
+        t_flops = 2 * B * S * d * width / PEAK_FLOPS[name]
         bound_ms = max(t_bytes, t_flops) * 1e3
         bound_by = "bytes" if t_bytes >= t_flops else "operations"
-        err = max(err_f, err_b)
+        err = err_f if err_b is None else max(err_f, err_b)
         records[name] = {"qkv_proj": dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=lib)}
-        print(f"kernel check: qkv_proj {name} x [{B}, {S}, {d}] x w_qkv "
-              f"[{d}, {3 * d}] -> 3 x [{B}, {H}, {S}, {d // H}] max_abs_err="
-              f"{err_f:.3g} forward, {err_b:.3g} dx/dw/db (tol {tol} (1 + "
-              f"|plain|)) kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by}), "
-              f"{2 * B * S * d * 3 * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+        print(f"{label}: qkv_proj {name} x [{B}, {S}, {d}] x w_qkv "
+              f"[{d}, {width}] -> 3 x [{B}, {H}, {S}, {dh}] max_abs_err="
+              f"{err_f:.3g} forward"
+              + ("" if err_b is None else f", {err_b:.3g} dx/dw/db")
+              + f" (tol {tol} (1 + |plain|)) kernel_ms={ms:.4f} "
+              f"plain_ms={plain:.4f} bound_ms={bound_ms:.4f} ({bound_by}), "
+              f"{2 * B * S * d * width / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
               f"{bound_ms / ms:.1%} of the bound; yardstick: torch.addmm"
-              f" over [{B * S}, {d}] x [{d}, {3 * d}] (no head layout) "
+              f" over [{B * S}, {d}] x [{d}, {width}] (no head layout) "
               f"{lib:.4f} ms", flush=True)
         del x, w, b, x2
-    return records["bfloat16"]
+    return records.get("bfloat16")
 
 
 def check_flash_bshd(fa, device, flush):
@@ -3419,10 +3457,9 @@ def train(device, counters):
     """Phase 6: GPT-350M trained in each of TRAIN_RUNS from one set of
     parameters (each run continues from the last), every count zeroed
     just before a run's first step and read after its last, and held
-    exactly; bench_gpt's config then gets one profiled step and is timed
-    at its own batch (BENCH_BATCH) as well. Returns the launches of the
-    runs that carry each kernel (bench_gpt's, and the qkv_kernel run's
-    for qkv_proj)."""
+    exactly; bench_gpt's config then gets one profiled step. Returns the
+    launches of the runs that carry each kernel (bench_gpt's, and the
+    qkv_kernel run's for qkv_proj)."""
     import numpy as np
     from paddle_tpu_torch.convert import load_jax_hybrid_gpt
     from paddle_tpu_torch.parallel.hybrid_gpt import (HybridGPT,
@@ -3471,15 +3508,6 @@ def train(device, counters):
             lab = rng.integers(0, VOCAB, (batch, TRAIN_SEQ))
             profile_train(trainer, params, opt, tok, lab, step, label)
             step += 1
-        if label == "bench_gpt":
-            params, opt, losses, wall, peak = timed_steps(
-                trainer, params, opt, BENCH_BATCH, step, SEED + 6)
-            step += steps
-            table.append((label, BENCH_BATCH) + train_line(
-                label, BENCH_BATCH, wall, peak, losses))
-            if not all(np.isfinite(losses)):
-                fail(f"train: non-finite loss at batch {BENCH_BATCH} "
-                     f"{losses}")
         del trainer
     print("train: side by side (ms/step, tokens/s, max_memory_allocated B): "
           + "; ".join(f"{label} batch {batch}: {ms:.1f}, {tps:.0f}, {peak}"
@@ -3645,20 +3673,13 @@ def profile_train(trainer, params, opt, tok, lab, step_num, label,
     return out
 
 
-# ------------------------------------------------ phases 6b, 6c, 7 (MoE)
+# ---------------------------------------------------- phases 6b, 7 (MoE)
 
 # bench_gpt_moe's TPU config (bench.py:1749-1754): MoE-350M, 8 experts,
 # top-2, capacity factor 1.25, full remat (its remat_policy is None)
 MOE_TRAIN = dict(moe_num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
                  remat_policy=None)
 MOE_TRAIN_BATCH, MOE_TIMED_STEPS = 16, 2
-# phase 6c: the dp x ep job's mesh, depth, global batch and steps. A
-# rank's capacity comes from its own tokens (as in JAX), so where choices
-# drop, they drop unlike one rank's over the global batch: the job runs
-# at capacity factor E / top_k = 4, where nothing drops, as JAX's own
-# ep parity test does (tests/test_moe.py)
-DP_EP = dict(dp=2, ep=2, zero_stage=1)
-DP_EP_LAYERS, DP_EP_BATCH, DP_EP_STEPS, DP_EP_CAPACITY = 1, 8, 2, 4.0
 
 
 def moe_stats_line(stats):
@@ -3761,142 +3782,224 @@ def train_moe(device, counters):
     return launches
 
 
-def moe_train_job(rank, world):
-    """Phase 6c on one rank: MoE-350M's widths at DP_EP_LAYERS, fp32,
-    dp 2 x ep 2 with ZeRO-1 (`DP_EP`), DP_EP_STEPS steps on the global
-    batch's rows of this rank; returns the losses, each step's wall time
-    and stats, the parameters and Adam state after step 1, and the
-    job's seconds."""
-    import numpy as np
-    import torch
-    from paddle_tpu_torch.convert import shard_jax_hybrid_gpt
-    from paddle_tpu_torch.parallel.hybrid_gpt import (HybridGPT,
-                                                      init_opt_state)
-    t_job = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dp_ep_config(**DP_EP)
-    trainer = HybridGPT(cfg, device="cuda:0")
-    params = shard_jax_hybrid_gpt(
-        random_hybrid_params(DP_EP_LAYERS, seed=SEED + 10,
-                             experts=MOE_TRAIN["moe_num_experts"]),
-        cfg=cfg, rank=rank, device="cuda:0")
-    opt = init_opt_state(cfg, params, trainer.mesh)
-    res = dict(losses=[], ms=[], stats=[])
-    for step, (tok, lab) in enumerate(dp_ep_batches(), 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, loss = trainer.train_step(
-            params, opt, *trainer.shard_data(tok, lab), step_num=step)
-        res["losses"].append(float(loss))
-        res["ms"].append((time.perf_counter() - t0) * 1e3)
-        res["stats"].append({k: v.cpu() for k, v in
-                             trainer.last_moe_stats.items()})
-        if step == 1:
-            res["params1"], res["opt1"] = _to_cpu(params), _to_cpu(opt)
-    if not np.isfinite(res["losses"]).all():
-        raise RuntimeError(f"rank {rank}: non-finite loss {res['losses']}")
-    res["seconds"] = time.perf_counter() - t_job
-    return res
-
-
 def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
             for k, v in tree.items()}
 
 
-def dp_ep_config(**kw):
-    """Phase 6c's config: MoE-350M's widths at DP_EP_LAYERS, fp32."""
+# phase 6d: 4 rank processes of phase 5n's spawn, global batch 8, 2
+# steps a job. "dp x ep": MoE-350M's experts (bench_gpt_moe) at 1 layer,
+# dp 2 x ep 2 with ZeRO-1; a rank's capacity comes from its own tokens
+# (as in JAX), so where choices drop, they drop unlike one rank's over
+# the global batch: the job runs at capacity factor E / top_k = 4, where
+# nothing drops, as JAX's own ep parity test does (tests/test_moe.py).
+# "mp x pp": `dryrun_multichip(4)`'s mesh
+# (__graft_entry__.py:43-44), mp 2 x pp 2, with sequence parallelism, 2
+# micro-batches and ZeRO-1, at GPT-350M's widths at 2 layers (one a
+# stage). "dp buckets": dense dp 4 at 1 layer with gradient buckets of
+# PyTorch DDP's default 25 MiB. Each fp32, full remat, the fused QKV
+# projection (K5; at the mp rank's 8 heads).
+DP_EP = dict(dp=2, ep=2, zero_stage=1,
+             moe_num_experts=MOE_TRAIN["moe_num_experts"],
+             moe_top_k=MOE_TRAIN["moe_top_k"], moe_capacity_factor=4.0)
+MESH = dict(pp=2, mp=2, sequence_parallel=True, micro_batches=2,
+            zero_stage=1)
+DP_BUCKETS = dict(dp=4, grad_bucket_bytes=25 * 2 ** 20, zero_stage=1)
+#: (label, GPTConfig overrides, layers, seeds of the weights and of the
+#: batches)
+MESH_JOBS = (("dp x ep", DP_EP, 1, SEED + 10, SEED + 11),
+             ("mp x pp", MESH, 2, SEED + 14, SEED + 114),
+             ("dp buckets", DP_BUCKETS, 1, SEED + 15, SEED + 115))
+MESH_BATCH, MESH_STEPS = 8, 2
+
+
+def mesh_config(layers, **kw):
+    """Phase 6d's config: GPT-350M's widths at `layers`, fp32, full
+    remat, the fused QKV projection."""
     import torch
-    return train_config(n_layers=DP_EP_LAYERS, bf16_grads=False,
-                        compute_dtype=torch.float32,
-                        **{**MOE_TRAIN,
-                           "moe_capacity_factor": DP_EP_CAPACITY}, **kw)
+    return train_config(n_layers=layers, bf16_grads=False,
+                        compute_dtype=torch.float32, remat_policy=None,
+                        qkv_kernel=True, **kw)
 
 
-def dp_ep_batches():
+def mesh_params(layers, seed, kw):
+    return random_hybrid_params(layers, seed,
+                                experts=kw.get("moe_num_experts", 0))
+
+
+def mesh_batches(seed):
     import numpy as np
-    rng = np.random.default_rng(SEED + 11)
-    return [(rng.integers(0, VOCAB, (DP_EP_BATCH, TRAIN_SEQ)),
-             rng.integers(0, VOCAB, (DP_EP_BATCH, TRAIN_SEQ)))
-            for _ in range(DP_EP_STEPS)]
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, VOCAB, (MESH_BATCH, TRAIN_SEQ)),
+             rng.integers(0, VOCAB, (MESH_BATCH, TRAIN_SEQ)))
+            for _ in range(MESH_STEPS)]
 
 
-def train_dp_ep(device, ranks):
-    """Phase 6c: `ranks`, the results of `moe_train_job` on 4 rank
-    processes sharing the card over gloo (run in phase 5n's spawn,
-    `tp_moe_and_train_job`); every rank's losses equal rank 0's and a
-    1-rank card trainer's on the same weights and global batch within
-    rtol 1e-4,
-    the routing counts and drops exactly, and each rank's parameters and
-    Adam first moments after step 1 the 1-rank trainer's cut to the
-    rank's shard (`shard_state`), within phase 7's bounds
-    (`compare_steps`: at full width an element whose gradient is near
-    Adam's eps moves by a sizeable part of lr for summation-order noise;
-    the CPU tests' 5e-2 lr holds at their widths). The step time is
-    printed: the ranks share one card and their collectives go through
-    the host, so it is not expert-parallel speed."""
+def mesh_launches(cfg, steps=MESH_STEPS):
+    """K1a, K2 and K5 launches of one rank's steps under full remat: its
+    stage's layers x micro-batches, the forwards twice."""
+    n = steps * cfg.n_layers // cfg.pp * cfg.micro_batches
+    return {"flash_fwd": 2 * n, "flash_bwd": n, "add_ln_fwd": 2 * n,
+            "add_ln_bwd": n, "qkv_proj": 2 * n}
+
+
+def mesh_train_job(rank, world):
+    """Phase 6d on one rank: each of MESH_JOBS, MESH_STEPS steps on the
+    global batch's rows of this rank, every kernel count zeroed just
+    before the first step and read after the last; returns per job the
+    losses, each step's wall ms and MoE stats, the parameters and Adam
+    state after step 1 (on the host), the counts, the bucketed
+    reduction's all-reduces a step, peak memory and the job's
+    seconds."""
     import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import shard_jax_hybrid_gpt
+    from paddle_tpu_torch.parallel.hybrid_gpt import (HybridGPT,
+                                                      init_opt_state)
+    counters = [(m, attr, name) for name, m, attr, _r, _s in kernel_table()]
+    out = {}
+    for label, kw, layers, seed, batch_seed in MESH_JOBS:
+        t_job = time.perf_counter()
+        cfg = mesh_config(layers, **kw)
+        trainer = HybridGPT(cfg, device="cuda:0")
+        params = shard_jax_hybrid_gpt(mesh_params(layers, seed, kw),
+                                      cfg=cfg, rank=rank, device="cuda:0")
+        opt = init_opt_state(cfg, params, trainer.mesh)
+        res = dict(losses=[], ms=[], stats=[])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod, attr, _ in counters:
+            setattr(mod, attr, 0)
+        for step, (tok, lab) in enumerate(mesh_batches(batch_seed), 1):
+            t0 = time.perf_counter()
+            params, opt, loss = trainer.train_step(
+                params, opt, *trainer.shard_data(tok, lab), step_num=step)
+            res["losses"].append(float(loss))
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            if cfg.moe_experts:
+                res["stats"].append(_to_cpu(trainer.last_moe_stats))
+            if step == 1:
+                res["params1"], res["opt1"] = _to_cpu(params), _to_cpu(opt)
+        res["launches"] = {name: getattr(mod, attr)
+                           for mod, attr, name in counters}
+        res["peak"] = torch.cuda.max_memory_allocated()
+        res["buckets"] = trainer.last_grad_buckets
+        if not np.isfinite(res["losses"]).all():
+            raise RuntimeError(f"rank {rank} [{label}]: non-finite loss "
+                               f"{res['losses']}")
+        res["seconds"] = time.perf_counter() - t_job
+        out[label] = res
+        del trainer, params, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh(device, ranks):
+    """Phase 6d: `ranks`, the results of `mesh_train_job` on 4 rank
+    processes sharing the card over gloo (run in phase 5n's spawn). For
+    each job: every rank's losses equal rank 0's and a 1-rank card
+    trainer's (its micro-batches kept) on the same weights and global
+    batch within rtol 1e-4; each rank's parameters and Adam first
+    moments after step 1 the 1-rank trainer's cut to the rank's shard
+    (`shard_state`), within phase 7's bounds; each rank's K1a, K2 and K5
+    launches exactly `mesh_launches`, no other kernel; the MoE job's
+    routing counts and drops exactly the 1-rank trainer's at every step;
+    the bucketed job's all-reduces a step `grad_bucket_count`. At full
+    width an element whose gradient is near Adam's eps moves by a
+    sizeable part of lr for summation-order noise, so the parameters
+    are held to phase 7's bounds (`compare_steps`), not the CPU tests'
+    5e-2 lr. The rank step ms is printed: the ranks share one card and
+    their collectives go through the host, so it is not DP / EP / TP /
+    PP speed."""
     import torch
     from paddle_tpu_torch.convert import load_jax_hybrid_gpt
-    from paddle_tpu_torch.parallel.hybrid_gpt import (HybridGPT,
-                                                      init_opt_state,
-                                                      shard_state)
+    from paddle_tpu_torch.parallel.hybrid_gpt import (
+        AXES, HybridGPT, grad_bucket_count, init_opt_state, shard_state)
     t_phase = time.perf_counter()
-    world = len(ranks)
-    cfg1 = dp_ep_config()
-    one = HybridGPT(cfg1, device=device)
-    params = load_jax_hybrid_gpt(
-        random_hybrid_params(DP_EP_LAYERS, seed=SEED + 10,
-                             experts=MOE_TRAIN["moe_num_experts"]),
-        device=device)
-    opt = init_opt_state(cfg1, params)
-    losses, stats, ms = [], [], []
-    for step, (tok, lab) in enumerate(dp_ep_batches(), 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, loss = one.train_step(params, opt, tok, lab,
-                                           step_num=step)
-        losses.append(float(loss))
-        ms.append((time.perf_counter() - t0) * 1e3)
-        stats.append(one.last_moe_stats)
-        if step == 1:
-            params1, opt1 = _to_cpu(params), _to_cpu(opt)
-    cfg = dp_ep_config(**DP_EP)
-    print(f"train dp x ep: MoE-350M's widths at {DP_EP_LAYERS} of {LAYERS} "
-          f"layers, "
-          f"fp32, capacity factor {DP_EP_CAPACITY}, dp {DP_EP['dp']} x ep "
-          f"{DP_EP['ep']}, zero_stage {DP_EP['zero_stage']}, {world} rank "
-          f"processes on the one card over gloo, global batch "
-          f"{DP_EP_BATCH}: rank 0's losses "
-          + " ".join(f"{x:.6f}" for x in ranks[0]["losses"])
-          + ", the 1-rank trainer's " + " ".join(f"{x:.6f}" for x in losses)
-          + f"; rank 0's step ms " + " ".join(f"{x:.1f}" for x in
-                                             ranks[0]["ms"])
-          + " (host-staged collectives, ranks sharing one card: not EP "
-          f"speed), the 1-rank trainer's " + " ".join(f"{x:.1f}" for x in ms)
-          + f"; the ranks' job took {ranks[0]['seconds']:.1f} s; last step: "
-          + moe_stats_line(ranks[0]["stats"][-1]), flush=True)
-    for r, res in enumerate(ranks):
-        if res["losses"] != ranks[0]["losses"]:
-            fail(f"train dp x ep: rank {r} losses {res['losses']} differ "
-                 f"from rank 0's {ranks[0]['losses']}")
-        if not np.allclose(res["losses"], losses, rtol=1e-4, atol=0):
-            fail(f"train dp x ep: rank {r} losses {res['losses']} vs the "
-                 f"1-rank trainer's {losses} past rtol 1e-4")
-        for i, st in enumerate(res["stats"]):
-            if not (torch.equal(st["counts"], stats[i]["counts"].cpu())
-                    and float(st["dropped"]) == float(stats[i]["dropped"])):
-                fail(f"train dp x ep: rank {r} step {i + 1} routing "
-                     f"{moe_stats_line(st)} vs the 1-rank trainer's "
-                     f"{moe_stats_line(stats[i])}")
-        compare_steps(f"dp x ep rank {r} vs 1 rank, after step 1",
-                      (res["losses"][0], res["params1"], res["opt1"]),
-                      (losses[0], *shard_state(cfg, params1, opt1, r)))
-    print(f"train dp x ep: every rank's losses and routing equal the "
-          f"1-rank trainer's; the phase took "
+    for label, kw, layers, seed, batch_seed in MESH_JOBS:
+        cfg = mesh_config(layers, **kw)
+        cfg1 = mesh_config(layers, **{k: v for k, v in kw.items()
+                                      if k not in AXES + (
+                                          "sequence_parallel",
+                                          "grad_bucket_bytes")})
+        one = HybridGPT(cfg1, device=device)
+        params = load_jax_hybrid_gpt(mesh_params(layers, seed, kw),
+                                     device=device)
+        opt = init_opt_state(cfg1, params)
+        losses, ms, stats = [], [], []
+        for step, (tok, lab) in enumerate(mesh_batches(batch_seed), 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss = one.train_step(params, opt, tok, lab,
+                                               step_num=step)
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if cfg.moe_experts:
+                stats.append(_to_cpu(one.last_moe_stats))
+            if step == 1:
+                params1, opt1 = _to_cpu(params), _to_cpu(opt)
+        jobs = [r[label] for r in ranks]
+        want = mesh_launches(cfg)
+        buckets = grad_bucket_count(params, cfg.grad_bucket_bytes) \
+            if cfg.grad_bucket_bytes else None
+        widths = (f"MoE-350M's widths ({cfg.moe_experts} experts, top-"
+                  f"{cfg.moe_top_k}, capacity factor "
+                  f"{cfg.moe_capacity_factor})" if cfg.moe_experts
+                  else "GPT-350M's widths")
+        print(f"train mesh [{label}]: {widths} at {layers} of "
+              f"{LAYERS} layers, fp32, full remat, qkv_kernel, dp {cfg.dp} "
+              f"x pp {cfg.pp} x mp {cfg.mp} x ep {cfg.ep}, sequence_parallel "
+              f"{cfg.sequence_parallel}, micro_batches {cfg.micro_batches},"
+              f" zero_stage {cfg.zero_stage}, grad_bucket_bytes "
+              f"{cfg.grad_bucket_bytes}, {len(ranks)} rank processes on "
+              f"the one card over gloo, global batch {MESH_BATCH}: rank "
+              f"0's losses " + " ".join(f"{x:.6f}" for x in jobs[0]["losses"])
+              + ", the 1-rank trainer's " + " ".join(f"{x:.6f}"
+                                                     for x in losses)
+              + "; rank step ms " + "; ".join(
+                  f"rank {r}: " + " ".join(f"{x:.1f}" for x in j["ms"])
+                  for r, j in enumerate(jobs))
+              + " (host-staged collectives, ranks sharing one card: not "
+              f"DP / EP / TP / PP speed), the 1-rank trainer's " + " ".join(
+                  f"{x:.1f}" for x in ms)
+              + "; max_memory_allocated a rank " + ", ".join(
+                  str(j["peak"]) for j in jobs) + " B; launches a rank "
+              + ", ".join(f"{n} {jobs[0]['launches'][n]}" for n in want)
+              + (f"; {jobs[0]['buckets']} bucket all-reduces a step "
+                 f"(grad_bucket_count {buckets})" if buckets else "")
+              + f"; the ranks' jobs took {jobs[0]['seconds']:.1f} s"
+              + (f"; last step: {moe_stats_line(jobs[0]['stats'][-1])}"
+                 if cfg.moe_experts else ""), flush=True)
+        for r, res in enumerate(jobs):
+            if res["losses"] != jobs[0]["losses"]:
+                fail(f"train mesh [{label}]: rank {r} losses "
+                     f"{res['losses']} differ from rank 0's "
+                     f"{jobs[0]['losses']}")
+            if not all(abs(a - b) <= 1e-4 * abs(b)
+                       for a, b in zip(res["losses"], losses)):
+                fail(f"train mesh [{label}]: rank {r} losses "
+                     f"{res['losses']} vs the 1-rank trainer's {losses} "
+                     f"past rtol 1e-4")
+            for i, (st, st1) in enumerate(zip(res["stats"], stats)):
+                if not (torch.equal(st["counts"], st1["counts"])
+                        and float(st["dropped"]) == float(st1["dropped"])):
+                    fail(f"train mesh [{label}]: rank {r} step {i + 1} "
+                         f"routing {moe_stats_line(st)} vs the 1-rank "
+                         f"trainer's {moe_stats_line(st1)}")
+            hold_counts(f"train mesh [{label}] rank {r}", res["launches"],
+                        want)
+            if res["buckets"] != buckets:
+                fail(f"train mesh [{label}]: rank {r} issued "
+                     f"{res['buckets']} bucket all-reduces a step, "
+                     f"grad_bucket_count {buckets}")
+            compare_steps(f"mesh [{label}] rank {r} vs 1 rank, after step 1",
+                          (res["losses"][0], res["params1"], res["opt1"]),
+                          (losses[0], *shard_state(cfg, params1, opt1, r)))
+        del one, params, opt
+        torch.cuda.empty_cache()
+    print(f"train mesh: every rank's losses (and routing) equal the 1-rank "
+          f"trainer's, launches as full remat predicts; the phase took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    del one, params, opt
-    torch.cuda.empty_cache()
 
 
 def check_moe_train_step(device):
@@ -4861,6 +4964,34 @@ def check_tp_shapes(pa, gm, device, flush):
                   f" {lib:.4f} ms", flush=True)
 
 
+def check_mp_shapes(fa, ln, qp, device, flush):
+    """Phase 3 at an mp rank's shapes of the train step (phase 6d's
+    GPT-350M at mp = 2 with sequence parallelism), each kernel against
+    its plain version, two launches bit-identical, timed beside its
+    bound, its plain version and its library call (`check_flash`,
+    `check_add_ln`, `check_qkv_proj`): bf16 at a rank's batch of 8, K1a
+    forward and backward over the rank's 8 of 16 heads [8, 8, 1024, 64]
+    and K2 over its S / 2 rows [4096, 1024]; fp32 at what phase 6d's mp
+    x pp job gives the kernels, a micro-batch of 4 rows: K1a [4, 8, 1024,
+    64], K2 [2048, 1024], and K5's forward x [4, 1024, 1024] into the
+    rank's 8 heads. K5's backward is two plain fp32 products, no kernel:
+    held against autograd's at 4096 rows it differs by the rounding of
+    fp32 sums in another order, which reaches the fp32 tolerance."""
+    import torch
+    mp, heads = MESH["mp"], HEADS // MESH["mp"]
+    micro = MESH_BATCH // MESH["micro_batches"]
+    for dtype, rows in ((torch.bfloat16, TRAIN_BATCH),
+                        (torch.float32, micro)):
+        check_flash(fa, device, flush, dtypes=(dtype,),
+                    shape=(rows, heads, TRAIN_SEQ, HIDDEN // HEADS),
+                    label="kernel check mp")
+        check_add_ln(ln, device, flush, dtypes=(dtype,),
+                     rows=rows * TRAIN_SEQ // mp, label="kernel check mp")
+    check_qkv_proj(qp, device, flush, batch=micro, heads=heads,
+                   dtypes=(torch.float32,), grads=False,
+                   label="kernel check mp")
+
+
 def whole_lines():
     """Make this child process's standard output write each line whole:
     it shares one pipe with the parent and its siblings."""
@@ -5160,17 +5291,17 @@ def serve_tp(base, base_prof):
                       f"{ms(res['prof'], 'device_ms')} ms device"
                       for r, res in enumerate(moe))
           + f"; 1-rank engine {one['wall'] / one['steps'] * 1e3:.2f} ms a "
-          f"step host; in {time.perf_counter() - t0:.1f} s, phase 6c's "
+          f"step host; in {time.perf_counter() - t0:.1f} s, phase 6d's "
           f"rank steps included", flush=True)
-    return [res["train"] for res in moe]
+    return [res["mesh"] for res in moe]
 
 
 def tp_moe_and_train_job(rank, world):
-    """Phase 5n's MoE job, then phase 6c's train job (`moe_train_job`),
+    """Phase 5n's MoE job, then phase 6d's train jobs (`mesh_train_job`),
     in one spawn of the 4 ranks: a rank process's start and its first
-    launches take longer than either job's own steps."""
+    launches take longer than any job's own steps."""
     res = tp_moe_job(rank, world)
-    res["train"] = moe_train_job(rank, world)
+    res["mesh"] = mesh_train_job(rank, world)
     return res
 
 
@@ -6407,6 +6538,7 @@ def main():
     check_gmm_backward(gm, device, flush)
     checks.update(check_weight_only_gmm(gm, device, flush))
     check_tp_shapes(pa, gm, device, flush)
+    check_mp_shapes(fa, ln, qp, device, flush)
     checks.update(check_flash(fa, device, flush))
     checks.update(check_add_ln(ln, device, flush))
     checks.update(check_qkv_proj(qp, device, flush))
@@ -6453,7 +6585,7 @@ def main():
     mark("phases 5c, 5d, 5f, 5i, 5l, 5p, 5t")
     serve_launches.update(serve_moe(device, counters))
     mark("phase 5b")
-    dp_ep_ranks = serve_tp(base, base_prof)
+    mesh_ranks = serve_tp(base, base_prof)
     mark("phases 5m, 5n")
 
     launches = train(device, counters)
@@ -6465,8 +6597,8 @@ def main():
     mark("phase 6")
     train_moe(device, counters)
     mark("phase 6b")
-    train_dp_ep(device, dp_ep_ranks)
-    mark("phase 6c")
+    train_mesh(device, mesh_ranks)
+    mark("phase 6d")
     check_train_step(device)
     check_moe_train_step(device)
     torch.cuda.empty_cache()

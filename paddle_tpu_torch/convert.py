@@ -9,7 +9,11 @@
 * `load_jax_hybrid_gpt`: the JAX `HybridGPT` trainer's nested `params`
   (and optionally its `opt_state`, per-parameter or ZeRO-flat), dense
   or MoE, as `jax.device_get` returns them; `shard_jax_hybrid_gpt`
-  cuts them to one rank's shard of a dp x ep mesh.
+  cuts them to one rank's shard of a (dp, pp, mp, ep) mesh. A state
+  trained by JAX at mp = k (`jax_mp=k`) has its fused `w_qkv`, `b_qkv`
+  and their moments put back from JAX's contiguous mp cut into the
+  logical (3, H, Dh) layout, so the port computes what JAX's mp = k
+  trainer computed.
 * `load_jax_bert`: a JAX `BertModel`, `BertForPretraining` or
   `BertForSequenceClassification`, given as its `state_dict()`
   (`{name: np.ndarray}` under the JAX names).
@@ -27,6 +31,7 @@ from .incubate.nn.fused_transformer import _PARAM_ORDER, _SCALE_NAMES
 from .models import bert as _bert
 from .models.gpt import GPTForGeneration
 from .parallel.hybrid_gpt import param_shapes, shard_state
+from .parallel.mp_layers import logical_qkv
 
 _HEAD_NAMES = {"word_embeddings": "word_embeddings.weight",
                "position_embeddings": "position_embeddings.weight",
@@ -164,13 +169,18 @@ def _load_moments(tree, shapes, what, device):
     return out
 
 
-def load_jax_hybrid_gpt(params, opt_state=None, *, device="cuda"):
+def load_jax_hybrid_gpt(params, opt_state=None, *, device="cuda", jax_mp=1,
+                        n_heads=None):
     """The JAX trainer's `params` as the port's fp32 parameter dict on
     `device` (`paddle_tpu_torch.parallel.hybrid_gpt`), dense or MoE, and
     with `opt_state` given, `(params, opt_state)` with fp32 Adam moments
     shaped as their parameters (JAX's ZeRO-flat moments unflattened).
     Widths follow from the arrays; raises on a missing or unknown name
-    or a shape that does not fit them."""
+    or a shape that does not fit them. `jax_mp`: the mp of the JAX
+    trainer the state comes from; above 1 (`n_heads` then needed) the
+    fused qkv leaves and their moments are put back into the logical
+    layout (JAX's trainer cuts them contiguously over mp, so at mp = k
+    its rank r reads chunk r of the fused axis as (3, H / k, Dh))."""
     dev = resolve_device(device)
     try:
         V, d = np.shape(params["tok_emb"])
@@ -182,19 +192,32 @@ def load_jax_hybrid_gpt(params, opt_state=None, *, device="cuda"):
         raise ValueError(f"JAX HybridGPT parameters: cannot read the "
                          f"widths ({e!r})") from None
     shapes = param_shapes(V, S, d, ff, L, E)
-    out = _load_tree(params, shapes, "JAX HybridGPT params", dev)
+    if jax_mp > 1 and not n_heads:
+        raise ValueError("jax_mp > 1 needs n_heads")
+
+    def logical(tree):
+        for name in ("w_qkv", "b_qkv") if jax_mp > 1 else ():
+            leaf = tree["blocks"][name]
+            tree["blocks"][name] = (
+                {k: logical_qkv(t, jax_mp, n_heads, d // n_heads)
+                 for k, t in leaf.items()} if isinstance(leaf, dict)
+                else logical_qkv(leaf, jax_mp, n_heads, d // n_heads))
+        return tree
+    out = logical(_load_tree(params, shapes, "JAX HybridGPT params", dev))
     if opt_state is None:
         return out
-    return out, _load_moments(opt_state, shapes, "JAX HybridGPT opt_state",
-                              dev)
+    return out, logical(_load_moments(opt_state, shapes,
+                                      "JAX HybridGPT opt_state", dev))
 
 
 def shard_jax_hybrid_gpt(params, opt_state=None, *, cfg, rank,
-                         device="cuda"):
-    """`load_jax_hybrid_gpt`, cut to rank `rank`'s shard of `cfg`'s dp x
-    ep mesh in its ZeRO layout (`hybrid_gpt.shard_state`): a JAX
-    trainer's state at zero_stage 0 or 1 starts the port at any mesh."""
-    full = load_jax_hybrid_gpt(params, opt_state, device=device)
+                         device="cuda", jax_mp=1):
+    """`load_jax_hybrid_gpt`, cut to rank `rank`'s shard of `cfg`'s
+    (dp, pp, mp, ep) mesh in its ZeRO layout (`hybrid_gpt.shard_state`):
+    a JAX trainer's state at zero_stage 0 or 1, trained at any mp
+    (`jax_mp`), starts the port at any mesh."""
+    full = load_jax_hybrid_gpt(params, opt_state, device=device,
+                               jax_mp=jax_mp, n_heads=cfg.n_heads)
     if opt_state is None:
         return shard_state(cfg, full, None, rank)
     return shard_state(cfg, *full, rank)

@@ -1,60 +1,106 @@
 """The `HybridGPT` train step of `paddle_tpu/parallel/hybrid_gpt.py`,
-in PyTorch: the dense and the MoE GPT over a dp x ep mesh of
-`torch.distributed` ranks, with ZeRO-1.
+in PyTorch: the dense and the MoE GPT over a (dp, pp, mp, ep) mesh of
+`torch.distributed` ranks, with Megatron tensor parallelism, a GPipe
+micro-batch pipeline, sequence parallelism, the bucketed dense-DP
+reduction and ZeRO-1.
 
 Ported function by function, under the JAX names: `GPTConfig`,
-`init_params`, `_layer_norm`, `_attention`, `_dense_ffn`,
-`_moe_data_axes`, `_zero_moe_stats`, `_moe_ffn`, `_block`,
-`_stage_forward`, `_ce_sum_fused`, `_ce_sum`, `_vocab_parallel_ce`,
-`_loss_fn`, `init_opt_state`, `_adam_update`, `_apply_updates`,
-`collective_bytes_per_step` and `HybridGPT` with its step,
-`loss_and_moe_stats`, `train_many` and the MoE and collective metrics.
-Parameters are the same nested dict of tensors (`tok_emb`, `pos_emb`,
-`ln_f_w`, `ln_f_b`, `head`, and `blocks` stacked on a leading [L] axis;
-a MoE block adds `gate` [L, d, E] and holds its FFN as experts, `w_fc1`
-[L, E, d, ff] ...), so `convert.load_jax_hybrid_gpt` carries a JAX
-trainer's state across.
+`init_params`, `param_specs` (here `_cut_axes`), `_layer_norm`,
+`_attention`, `_dense_ffn`, `_moe_data_axes`, `_zero_moe_stats`,
+`_moe_ffn`, `_block`, `_stage_forward`, `_vocab_parallel_embed`,
+`_ce_sum_fused`, `_ce_sum`, `_vocab_parallel_ce`, `_loss_fn`,
+`grad_bucket_count`, `init_opt_state`, `_adam_update`,
+`_apply_updates`, `collective_bytes_per_step` and `HybridGPT` with its
+step, `loss_and_moe_stats`, `train_many` and the MoE and collective
+metrics. Parameters are the same nested dict of tensors (`tok_emb`,
+`pos_emb`, `ln_f_w`, `ln_f_b`, `head`, and `blocks` stacked on a
+leading [L] axis; a MoE block adds `gate` [L, d, E] and holds its FFN
+as experts, `w_fc1` [L, E, d, ff] ...), so `convert.load_jax_hybrid_gpt`
+carries a JAX trainer's state across.
 
 Attention runs through `ops.flash_attention.splash_mha` and the
 residual-add + LayerNorm between attention and FFN through
 `ops.layer_norm.add_ln`; with `qkv_kernel` (and a shape
 `ops.qkv_proj.qkv_proj_supported` takes) the Q/K/V projection runs
-through `ops.qkv_proj.qkv_proj`: on the card, hand-written kernels. The
-rest is plain tensor code, as it was XLA's in JAX, the MoE expert
-products included (JAX's `_moe_ffn` computes them with XLA einsums).
+through `ops.qkv_proj.qkv_proj`: on the card, hand-written kernels, at
+an mp rank's H / mp heads and, under sequence parallelism, add_ln on
+its S / mp rows. The rest is plain tensor code, as it was XLA's in JAX,
+the MoE expert products included.
 
 `remat_policy` is None (full per-block recompute) or
 "save_splash_residuals" (bench_gpt's: every block still recomputes in
 the backward, but the flash forward's (out, lse) are kept from the
 forward, so attention's forward runs once a step instead of twice).
+A recompute issues its block's collectives again, on every rank of an
+mp group in the same order; the selective checkpoint saves the flash
+forward's outputs only, never a collective's.
 
-**The mesh.** The trainer runs as one process a rank over
-`torch.distributed`: the caller's `init_process_group` picks the
-backend, every rank builds the trainer with the same config and calls
-it with the same arguments, and `dp * ep` must be the world size. One
-process with dp = ep = 1 needs no process group. Rank `dp_i * ep +
-ep_i` is JAX's mesh `(dp, pp, mp, ep)` at pp = mp = 1, and its data
-shard is its rank (JAX's `P(("dp", "ep"))`, `shard_data`). Each rank
-holds its E / ep experts of `w_fc1`, `b_fc1`, `w_fc2` and `b_fc2` and
-every other parameter whole. Each rank differentiates its own loss; a
-whole parameter's gradient is summed over the world, an expert's over
-its dp group (its ep share arrives through the all-to-all's
-backward), each scaled to JAX's mean over the dp x ep ranks. With
-`zero_stage=1` each rank holds 1/n of every parameter's flat padded
-Adam moments, n being the ranks that hold the parameter (the world, or
-the dp group of an expert), updates its slice and all-gathers the
-result; where n is 1 the moments stay shaped as the parameter. (JAX
-shards its flat moments over the whole world: the layout differs, the
-trained parameters do not.)
+**The mesh.** One process a rank over `torch.distributed`: the
+caller's `init_process_group` picks the backend, every rank builds the
+trainer with the same config and calls it with the same arguments, and
+dp x pp x mp x ep must be the world size. Rank ((dp_i * pp + pp_i) * mp
++ mp_i) * ep + ep_i is JAX's `Mesh(devices.reshape(dp, pp, mp, ep))`.
+One process with every axis 1 needs no process group. A rank holds its
+stage's layers (pp cuts the stacked [L] axis), its mp slice of the
+heads, ffn and vocab axes and its E / ep experts; `tok_emb`, `pos_emb`,
+`ln_f_*` and `head` are held by every stage. The fused `w_qkv` and
+`b_qkv` are cut by heads: a rank holds the q, k and v of its H / mp
+heads, `(3, H / mp, Dh)`, so the same parameters define the same model
+at every mp (JAX's trainer cuts them contiguously, which at mp > 1
+gives a rank the q of heads it reads as q and k; ROADMAP, Queue 3).
 
-Not ported: pp, mp, sequence parallelism, micro_batches > 1, the
-bucketed reduction and other named remat policies. They raise
-`NotImplementedError` (ROADMAP, Queue 1).
+Tensor parallelism is Megatron's: the column-parallel input passes
+`_CopyToMP` (identity forward, all-reduce backward) and the row-parallel
+partial sums `_ReduceFromMP` (all-reduce forward, identity backward);
+under sequence parallelism these are an all-gather along S and a
+reduce-scatter along S (`_GatherSeq`, `_ReduceScatterSeq`), and the
+activations between blocks hold a rank's S / mp rows. The MoE router
+runs on every mp rank on the whole token set; its gate values pass
+`_CopyToMP`, as the expert outputs they weight are partial sums.
+
+**The pipeline.** A rank's data rows are cut into `micro_batches`
+micro-batches. Stage 0 embeds each, every stage runs its layers, the
+last runs the final LayerNorm, the head and the CE. The schedule is all
+forwards in micro-batch order, then all backwards in reverse order
+(GPipe): activations go to stage + 1 and their gradients come back by
+point-to-point transfers, each a blocking send matched by a blocking
+receive, so no cycle of waits can form. JAX's M + pp - 1 ticks compute
+the bubbles on zeros and mask them out; here a stage runs only its M
+real micro-batches, with the same loss (the mean of the M micro-batch
+losses, broadcast over pp), MoE statistics and gradients. At pp = 1,
+micro_batches > 1 accumulates the micro-batches' gradients in one
+backward.
+
+**Gradients.** Each rank differentiates its own loss. A gradient is
+summed over the data ranks (dp x ep of its (pp, mp) cell; an expert's
+over dp, its ep share arriving through the all-to-all's backward), over
+pp for the leaves every stage holds, over mp for the leaves replicated
+over mp whose gradient is a rank's share: under sequence parallelism
+the ones applied to a rank's S / mp rows (`ln1_*`, `ln2_*`, `b_o`, the
+dense `b_fc2`, `pos_emb`, `ln_f_*`), and the MoE `b_fc2` (1 / mp of it
+rides each rank's expert buffer, as in JAX), then scaled to JAX's mean
+over the dp x ep ranks. With `grad_bucket_bytes` (dense dp only) the
+data reduction runs in flat per-dtype buckets of at most that many
+bytes, in reversed leaf order, each all-reduce issued from
+post-accumulate gradient hooks as soon as its gradients exist and
+waited on before the update. The clip's global norm counts a cut
+leaf's squares summed over its cut axes and a replicated leaf once.
+With `zero_stage=1` a rank holds 1/n of every parameter's flat padded
+Adam moments, n being the ranks that hold the same slice of it,
+updates its part and all-gathers the result; where n is 1 the moments
+stay shaped as the parameter. (JAX shards its flat moments over the
+whole world: the layout differs, the trained parameters do not.)
+
+Under gloo, a CUDA payload of an all-gather, a point-to-point transfer
+or an all-to-all goes through host memory, and a reduce-scatter is an
+all-reduce and this rank's slice (`moe_utils.host_staged`, chosen by
+the group's backend).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 from typing import Any, Dict
 
@@ -81,6 +127,19 @@ REMAT_POLICIES = (None, "save_splash_residuals")
 EXPERT_LEAVES = ("w_fc1", "b_fc1", "w_fc2", "b_fc2")
 #: the per-block MoE statistics, in `_zero_moe_stats` order
 MOE_STATS = ("balance", "z", "counts", "dropped")
+#: the mesh axes, in rank order (the last varies fastest)
+AXES = ("dp", "pp", "mp", "ep")
+#: the axes the token batch is sharded over
+DATA_AXES = ("dp", "ep")
+#: the leaves replicated over mp that sequence parallelism applies to a
+#: rank's S / mp rows (and the dense `b_fc2`)
+SP_ROW_LEAVES = ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "b_o", "pos_emb",
+                 "ln_f_w", "ln_f_b")
+#: the mp-cut axis of each block leaf (dense; the qkv pair by heads)
+_MP_DIM = {"w_qkv": 2, "b_qkv": 1, "w_o": 1, "w_fc1": 2, "b_fc1": 1,
+           "w_fc2": 1}
+#: the mp-cut axis of each expert leaf (MoE)
+_MP_DIM_EXPERT = {"w_fc1": 3, "b_fc1": 2, "w_fc2": 2}
 
 
 def param_shapes(V, S, d, ff, L, E=0):
@@ -109,14 +168,13 @@ class GPTConfig:
     n_heads: int = 16
     n_layers: int = 24
     d_ff: int = 0            # default 4*d_model
-    # parallelism: dp x ep ranks (pp, mp, sequence parallelism and
-    # micro-batches are not ported)
+    # parallelism: a (dp, pp, mp, ep) mesh of ranks
     dp: int = 1
     pp: int = 1
     mp: int = 1
     ep: int = 1              # experts sharded over ep; tokens over
                              # (dp, ep) jointly
-    micro_batches: int = 1
+    micro_batches: int = 1   # per train step, the pipeline's schedule
     sequence_parallel: bool = False
     # MoE: top-k capacity-factor router. moe_num_experts is a
     # constructor-only alias (an InitVar, not a field), so
@@ -134,12 +192,14 @@ class GPTConfig:
     # flash forward's (out, lse) across it
     remat_policy: Any = None
     ce_seq_chunks: int = 1
-    fused_ce: bool = True
+    fused_ce: bool = True    # mp = 1 only, as in JAX
     qkv_kernel: bool = False
     # AMP-O2-style: differentiate wrt compute_dtype copies of the fp32
     # params; Adam still updates the fp32 masters
     bf16_grads: bool = False
     compute_dtype: Any = torch.bfloat16
+    # bucketed dense-DP gradient reduction: flat per-dtype buckets of at
+    # most this many bytes (0: one all-reduce per dtype); dp only
     grad_bucket_bytes: int = 0
     # optimizer
     learning_rate: float = 1e-4
@@ -154,9 +214,22 @@ class GPTConfig:
     def __post_init__(self, moe_num_experts):
         if self.d_ff == 0:
             self.d_ff = 4 * self.d_model
+        for axis in AXES + ("micro_batches",):
+            if getattr(self, axis) < 1:
+                raise ValueError(f"{axis}={getattr(self, axis)} must be "
+                                 ">= 1")
+        if self.n_layers % self.pp:
+            raise ValueError(f"n_layers {self.n_layers} does not divide "
+                             f"over pp={self.pp} stages")
+        if self.n_heads % self.mp:
+            raise ValueError(f"n_heads {self.n_heads} does not divide "
+                             f"over mp={self.mp}")
         if self.d_model % self.n_heads:
             raise ValueError(f"d_model {self.d_model} is not a multiple of "
                              f"n_heads {self.n_heads}")
+        if self.vocab_size % self.mp:
+            raise ValueError(f"vocab_size {self.vocab_size} does not "
+                             f"divide over mp={self.mp}")
         # the alias: two conflicting non-zero counts are refused
         if (self.moe_experts and moe_num_experts
                 and self.moe_experts != moe_num_experts):
@@ -164,8 +237,6 @@ class GPTConfig:
                              f"with moe_num_experts={moe_num_experts}")
         if moe_num_experts and not self.moe_experts:
             self.moe_experts = moe_num_experts
-        if self.dp < 1 or self.ep < 1:
-            raise ValueError(f"dp={self.dp} and ep={self.ep} must be >= 1")
         if self.moe_experts:
             if self.moe_experts % self.ep:
                 raise ValueError("moe_experts must divide evenly over the "
@@ -176,14 +247,16 @@ class GPTConfig:
         elif self.ep != 1:
             raise ValueError("ep > 1 needs a MoE config (dense models "
                              "scale over dp)")
-        unported = dict(pp=1, mp=1, micro_batches=1,
-                        sequence_parallel=False, grad_bucket_bytes=0)
-        for name, want in unported.items():
-            if getattr(self, name) != want:
-                raise NotImplementedError(
-                    f"GPTConfig.{name}={getattr(self, name)!r}: the port "
-                    f"has the dp x ep mesh only ({name}={want!r}; "
-                    "ROADMAP, Queue 1 item 2(d))")
+        if self.sequence_parallel and self.seq_len % self.mp:
+            raise ValueError(f"sequence parallelism: seq_len "
+                             f"{self.seq_len} does not divide over "
+                             f"mp={self.mp}")
+        if self.grad_bucket_bytes and (self.mp != 1 or self.pp != 1
+                                       or self.moe_experts):
+            raise ValueError("grad_bucket_bytes needs the pure dense-DP "
+                             "config (mp=pp=1, no MoE): only there is "
+                             "every gradient leaf replicated, so a plain "
+                             "dp sum per bucket is its reduction")
         if self.remat_policy not in REMAT_POLICIES:
             raise NotImplementedError(
                 f"GPTConfig.remat_policy={self.remat_policy!r}: the port "
@@ -220,77 +293,164 @@ def init_params(cfg: GPTConfig, generator: torch.Generator,
                               cfg.d_ff, cfg.n_layers, cfg.moe_experts))
 
 
-# ----------------------------------------------------------------- mesh
-
-
-@dataclasses.dataclass
-class Mesh:
-    """One rank's place in the dp x ep mesh and its process groups: the
-    data group (the world: every rank holds a data shard), its ep group
-    (the ranks of its dp index, which exchange tokens) and its dp group
-    (the ranks of its ep index, which hold the same experts). A group of
-    one rank is None."""
-    rank: int = 0
-    world: int = 1
-    dp_rank: int = 0
-    ep_rank: int = 0
-    data_group: Any = None
-    ep_group: Any = None
-    dp_group: Any = None
-
-
-def make_mesh(cfg: GPTConfig) -> Mesh:
-    """The calling rank's `Mesh`. dp = ep = 1 is one rank, whatever
-    process group exists; else the default group must hold dp * ep
-    ranks, and every rank must call this in the same order (it makes
-    the subgroups)."""
-    n = cfg.dp * cfg.ep
-    if n == 1:
-        return Mesh()
-    if not dist.is_initialized() or dist.get_world_size() != n:
-        raise RuntimeError(
-            f"dp={cfg.dp} x ep={cfg.ep} needs torch.distributed "
-            f"initialised over {n} ranks (init_process_group), got "
-            + (f"{dist.get_world_size()}" if dist.is_initialized()
-               else "no process group"))
-    rank = dist.get_rank()
-    dp_rank, ep_rank = divmod(rank, cfg.ep)
-    mesh = Mesh(rank=rank, world=n, dp_rank=dp_rank, ep_rank=ep_rank,
-                data_group=dist.group.WORLD)
-    for i in range(cfg.dp):                       # ep groups, by dp index
-        g = dist.new_group([i * cfg.ep + j for j in range(cfg.ep)])
-        if i == dp_rank and cfg.ep > 1:
-            mesh.ep_group = g
-    for j in range(cfg.ep):                       # dp groups, by ep index
-        g = dist.new_group([i * cfg.ep + j for i in range(cfg.dp)])
-        if j == ep_rank and cfg.dp > 1:
-            mesh.dp_group = g
-    return mesh
-
-
 def _is_expert(cfg: GPTConfig, path):
     return bool(cfg.moe_experts) and path[0] == "blocks" \
         and path[-1] in EXPERT_LEAVES
 
 
-def _holders(cfg: GPTConfig, mesh: Mesh, path):
-    """(group, number of ranks, this rank's index) of the ranks that hold
-    the parameter at `path`: the dp group for an expert leaf, the world
-    for any other."""
+def _cut_axes(cfg: GPTConfig, path):
+    """{mesh axis: dimension of the full tensor it cuts} of the leaf at
+    `path` (JAX's `param_specs`, with the qkv pair cut by heads)."""
+    name = path[-1]
+    if path[0] != "blocks":
+        return {"tok_emb": {"mp": 0}, "head": {"mp": 1}}.get(name, {})
+    cut = {"pp": 0}
     if _is_expert(cfg, path):
-        return mesh.dp_group, cfg.dp, mesh.dp_rank
-    return mesh.data_group, mesh.world, mesh.rank
+        cut["ep"] = 1
+        mp_dim = _MP_DIM_EXPERT.get(name)
+    else:
+        mp_dim = _MP_DIM.get(name)
+    if mp_dim is not None:
+        cut["mp"] = mp_dim
+    return cut
+
+
+def _grad_axes(cfg: GPTConfig, path):
+    """The mesh axes a rank's gradient of the leaf at `path` is summed
+    over (before the 1 / (dp x ep) of the data mean)."""
+    name = path[-1]
+    expert = _is_expert(cfg, path)
+    axes = ["dp"] if expert else list(DATA_AXES)
+    if path[0] != "blocks":                    # every stage holds it
+        axes.append("pp")
+    sp = cfg.sequence_parallel and cfg.mp > 1
+    if expert and name == "b_fc2":
+        axes.append("mp")
+    elif sp and (name in SP_ROW_LEAVES
+                 or (name == "b_fc2" and not cfg.moe_experts)):
+        axes.append("mp")
+    return tuple(axes)
+
+
+# ----------------------------------------------------------------- mesh
+
+
+def _coords(rank, sizes):
+    """A rank's mesh coordinates ({axis: index})."""
+    out = {}
+    for a in reversed(AXES):
+        rank, out[a] = divmod(rank, sizes[a])
+    return out
+
+
+def _rank_of(coords, sizes):
+    r = 0
+    for a in AXES:
+        r = r * sizes[a] + coords[a]
+    return r
+
+
+@dataclasses.dataclass
+class Mesh:
+    """One rank's place in the (dp, pp, mp, ep) mesh and its process
+    groups: for every set of axes longer than one rank, the group of the
+    ranks that share this rank's coordinates on the other axes (e.g.
+    ("mp",) its mp group, ("dp", "ep") its data group). A group of one
+    rank is None."""
+    rank: int = 0
+    sizes: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(AXES, 1))
+    coords: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(AXES, 0))
+    groups: Dict[Any, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def world(self):
+        return math.prod(self.sizes.values())
+
+    def axes(self, axes):
+        """`axes` in mesh order, those of size 1 left out."""
+        return tuple(a for a in AXES if a in axes and self.sizes[a] > 1)
+
+    def size(self, axes):
+        return math.prod(self.sizes[a] for a in self.axes(axes))
+
+    def index(self, axes):
+        """This rank's index in its group over `axes` (rank order)."""
+        i = 0
+        for a in self.axes(axes):
+            i = i * self.sizes[a] + self.coords[a]
+        return i
+
+    def group(self, axes):
+        return self.groups.get(self.axes(axes))
+
+    def neighbour(self, axis, step):
+        """The global rank `step` places along `axis` (cyclic)."""
+        c = dict(self.coords)
+        c[axis] = (c[axis] + step) % self.sizes[axis]
+        return _rank_of(c, self.sizes)
+
+    @property
+    def data_group(self):
+        return self.group(DATA_AXES)
+
+    @property
+    def ep_group(self):
+        return self.group(("ep",))
+
+
+def _mesh_sizes(cfg: GPTConfig):
+    return {a: getattr(cfg, a) for a in AXES}
+
+
+def make_mesh(cfg: GPTConfig) -> Mesh:
+    """The calling rank's `Mesh`. A mesh of one rank is one process,
+    whatever process group exists; else the default group must hold dp
+    x pp x mp x ep ranks, and every rank must call this in the same
+    order (it makes every subgroup)."""
+    sizes = _mesh_sizes(cfg)
+    n = math.prod(sizes.values())
+    if n == 1:
+        return Mesh()
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(
+            f"dp={cfg.dp} x pp={cfg.pp} x mp={cfg.mp} x ep={cfg.ep} needs "
+            f"torch.distributed initialised over {n} ranks "
+            f"(init_process_group), got "
+            + (f"{dist.get_world_size()}" if dist.is_initialized()
+               else "no process group"))
+    rank = dist.get_rank()
+    mesh = Mesh(rank=rank, sizes=sizes, coords=_coords(rank, sizes))
+    live = [a for a in AXES if sizes[a] > 1]
+    for k in range(1, len(live) + 1):
+        for axes in itertools.combinations(live, k):
+            if k == len(live):
+                mesh.groups[axes] = dist.group.WORLD
+                continue
+            fixed = [a for a in AXES if a not in axes]
+            for at in itertools.product(*(range(sizes[a]) for a in fixed)):
+                base = dict(zip(fixed, at))
+                ranks = [_rank_of({**base, **dict(zip(axes, c))}, sizes)
+                         for c in itertools.product(
+                             *(range(sizes[a]) for a in axes))]
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    mesh.groups[axes] = g
+    return mesh
 
 
 def _zero_holders(cfg: GPTConfig, mesh: Mesh, path):
-    """`_holders` where ZeRO shards the parameter's moments, else None:
-    at zero_stage 0, and where one rank holds the parameter (ZeRO-1
-    over one rank is the identity), the moments stay shaped as the
-    parameter."""
+    """(group, number of ranks, this rank's index) of the ranks that
+    hold the same slice of the parameter at `path`, where ZeRO shards
+    its moments; None at zero_stage 0 and where one rank holds the slice
+    (ZeRO-1 over one rank is the identity: the moments stay shaped as
+    the parameter)."""
     if cfg.zero_stage < 1:
         return None
-    group, n, i = _holders(cfg, mesh, path)
-    return (group, n, i) if n > 1 else None
+    free = [a for a in AXES if a not in _cut_axes(cfg, path)]
+    n = mesh.size(free)
+    return (mesh.group(free), n, mesh.index(free)) if n > 1 else None
 
 
 def _zero_pad(n, holders):
@@ -320,23 +480,40 @@ def _get(tree, path):
     return tree
 
 
+def _qkv_heads(t, parts, index):
+    """The heads `index` of `parts` of a fused-QKV last axis laid out
+    (3, H, Dh): that slice of each of q, k and v, (3, H / parts, Dh)."""
+    lead = t.shape[:-1]
+    return t.reshape(*lead, 3, parts, -1)[..., index, :].reshape(*lead, -1)
+
+
+def _cut(cfg: GPTConfig, path, t, mesh: Mesh):
+    """Rank `mesh`'s slice of the full leaf `t` at `path`."""
+    for axis, dim in _cut_axes(cfg, path).items():
+        n, i = mesh.sizes[axis], mesh.coords[axis]
+        if n == 1:
+            continue
+        if t.shape[dim] % n:
+            raise ValueError(f"{'.'.join(path)}: axis {dim} of "
+                             f"{tuple(t.shape)} does not divide over "
+                             f"{axis}={n}")
+        if axis == "mp" and path[-1] in ("w_qkv", "b_qkv"):
+            t = _qkv_heads(t, n, i)
+        else:
+            k = t.shape[dim] // n
+            t = t.narrow(dim, i * k, k)
+    return t.contiguous()
+
+
 def shard_state(cfg: GPTConfig, params, opt_state=None, rank=0):
     """Cut full parameters (and, given, full-shaped Adam moments, one
-    {"m", "v"} per parameter) to rank `rank`'s shard under `cfg`'s mesh:
-    the rank's E / ep experts of each expert leaf, every other leaf
-    whole; moments in `cfg`'s layout (`init_opt_state`). Returns params,
-    or (params, opt_state)."""
-    dp_rank, ep_rank = divmod(int(rank), cfg.ep)
-    E_loc = cfg.moe_experts // cfg.ep if cfg.moe_experts else 0
-    mesh = Mesh(rank=int(rank), world=cfg.dp * cfg.ep, dp_rank=dp_rank,
-                ep_rank=ep_rank)
-
-    def cut(path, t):
-        if _is_expert(cfg, path) and cfg.ep > 1:
-            return t[:, ep_rank * E_loc:(ep_rank + 1) * E_loc].contiguous()
-        return t
-
-    local = _tree_map(cut, params)
+    {"m", "v"} per parameter) to rank `rank`'s shard under `cfg`'s mesh
+    (its stage's layers, its mp slice, its experts); moments in `cfg`'s
+    layout (`init_opt_state`). Returns params, or (params, opt_state)."""
+    sizes = _mesh_sizes(cfg)
+    mesh = Mesh(rank=int(rank), sizes=sizes, coords=_coords(int(rank),
+                                                            sizes))
+    local = _tree_map(lambda path, t: _cut(cfg, path, t, mesh), params)
     if opt_state is None:
         return local
 
@@ -344,7 +521,7 @@ def shard_state(cfg: GPTConfig, params, opt_state=None, rank=0):
         s = _get(opt_state, path)
         out = {}
         for name in ("m", "v"):
-            t = cut(path, s[name]).float()
+            t = _cut(cfg, path, s[name].float(), mesh)
             held = _zero_holders(cfg, mesh, path)
             if held is not None:
                 _, n, i = held
@@ -354,6 +531,141 @@ def shard_state(cfg: GPTConfig, params, opt_state=None, rank=0):
             out[name] = t
         return out
     return local, _tree_map(moments, params)
+
+
+# ------------------------------------------------ collectives over mp
+
+
+def _all_reduce(t, group, op=dist.ReduceOp.SUM):
+    t = t.contiguous().clone()
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def _all_gather(t, group, n, dim=0):
+    """The n ranks' equal-shaped `t`, concatenated in rank order along
+    `dim`. Under gloo a CUDA `t` goes through host memory; the direct
+    path (NCCL) has not run yet: every test and the card's smoke run use
+    gloo."""
+    t = t.contiguous()
+    src = t.cpu() if moe_utils.host_staged(t, group) else t
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
+def _reduce_scatter_seq(t, group, n, i):
+    """The sum of the n ranks' [B, S, ...] `t`, this rank's S / n rows.
+    Gloo has no reduce-scatter: an all-reduce and this rank's slice. The
+    `reduce_scatter_tensor` path (NCCL) has not run yet: every test and
+    the card's smoke run use gloo."""
+    k = t.shape[1] // n
+    if dist.get_backend(group) == "gloo":
+        return _all_reduce(t, group).narrow(1, i * k, k).contiguous()
+    src = t.reshape(t.shape[0], n, k, *t.shape[2:]).transpose(0, 1)
+    out = torch.empty((t.shape[0], k) + tuple(t.shape[2:]), dtype=t.dtype,
+                      device=t.device)
+    dist.reduce_scatter_tensor(out, src.contiguous(), group=group)
+    return out
+
+
+class _CopyToMP(torch.autograd.Function):
+    """Identity forward; the backward sums the mp ranks' partial
+    gradients (Megatron's copy to the tensor-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromMP(torch.autograd.Function):
+    """All-reduce forward (row-parallel partial sums); identity
+    backward: every mp rank already holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along S forward; the backward reduce-scatters the mp
+    ranks' partial gradients along S."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, i):
+        ctx.group, ctx.n, ctx.i = group, n, i
+        return _all_gather(x, group, n, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_seq(g, ctx.group, ctx.n, ctx.i), None, None, \
+            None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    """Reduce-scatter along S forward (row-parallel partial sums onto a
+    rank's rows); the backward all-gathers the rows' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, i):
+        ctx.group, ctx.n = group, n
+        return _reduce_scatter_seq(x, group, n, i)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.n, dim=1), None, None, None
+
+
+class _SeqReplica(torch.autograd.Function):
+    """`gathered` (this rank's rows `local` all-gathered along S) as
+    the input of a computation every mp rank runs alike: the backward
+    hands `local` its rows of that computation's gradient, which every
+    rank holds whole (no sum)."""
+
+    @staticmethod
+    def forward(ctx, local, gathered, n, i):
+        ctx.n, ctx.i = n, i
+        return gathered.view_as(gathered)
+
+    @staticmethod
+    def backward(ctx, g):
+        k = g.shape[1] // ctx.n
+        return g.narrow(1, ctx.i * k, k), None, None, None
+
+
+def _sp(cfg: GPTConfig):
+    return cfg.sequence_parallel and cfg.mp > 1
+
+
+def _enter_mp(t, cfg: GPTConfig, mesh):
+    """The input of a column-parallel product: copied to the mp ranks
+    (sequence parallel: gathered along S)."""
+    if cfg.mp == 1:
+        return t
+    g = mesh.group(("mp",))
+    if _sp(cfg):
+        return _GatherSeq.apply(t, g, cfg.mp, mesh.coords["mp"])
+    return _CopyToMP.apply(t, g)
+
+
+def _exit_mp(t, cfg: GPTConfig, mesh):
+    """A row-parallel product's partial sums, summed over mp (sequence
+    parallel: onto this rank's rows)."""
+    if cfg.mp == 1:
+        return t
+    g = mesh.group(("mp",))
+    if _sp(cfg):
+        return _ReduceScatterSeq.apply(t, g, cfg.mp, mesh.coords["mp"])
+    return _ReduceFromMP.apply(t, g)
 
 
 # ----------------------------------------------------------- model math
@@ -367,11 +679,13 @@ def _layer_norm(x, w, b, eps=1e-5):
 
 
 def _attention(x, w_qkv, b_qkv, w_o, b_o, cfg: GPTConfig):
-    """x [B, S, d]; causal self-attention through the flash kernel.
-    Returns (out without its bias, b_o): the caller adds b_o."""
+    """x [B, S, d] (the whole sequence, this rank's H / mp heads);
+    causal self-attention through the flash kernel. Returns (out without
+    its bias, b_o): out is a row-parallel partial sum over mp, the
+    caller reduces it and adds b_o."""
     B, S, d = x.shape
-    h = cfg.n_heads
-    hd = d // h
+    h = cfg.n_heads // cfg.mp
+    hd = cfg.d_model // cfg.n_heads
     cd = cfg.compute_dtype
     xc = x.to(cd)
     if cfg.qkv_kernel and qkv_proj_supported(h, S, h * hd, d):
@@ -379,8 +693,8 @@ def _attention(x, w_qkv, b_qkv, w_o, b_o, cfg: GPTConfig):
         # straight into [B, H, S, hd]
         q, k, v = qkv_proj(xc, w_qkv.to(cd), b_qkv.to(cd), h)
     else:
-        wq, wk, wv = w_qkv.to(cd).split(d, dim=-1)
-        bq, bk, bv = b_qkv.to(cd).split(d, dim=-1)
+        wq, wk, wv = w_qkv.to(cd).split(h * hd, dim=-1)
+        bq, bk, bv = b_qkv.to(cd).split(h * hd, dim=-1)
 
         def proj(w, b):                               # -> [B, H, S, hd]
             out = torch.einsum("bsd,dhe->bhse", xc, w.reshape(d, h, hd))
@@ -403,7 +717,7 @@ def _dense_ffn(x, w1, b1, w2, b2, cfg: GPTConfig):
 
 def _moe_data_axes(cfg: GPTConfig, mesh: Mesh | None):
     """The process group the token batch is sharded over (None on one
-    rank): the group MoE routing statistics are summed across, for
+    data rank): the group MoE routing statistics are summed across, for
     balance and z losses that do not depend on the dp x ep sharding and
     global expert counts."""
     return None if mesh is None else mesh.data_group
@@ -419,30 +733,42 @@ def _zero_moe_stats(cfg: GPTConfig, device=None):
 
 def _moe_ffn(x, gate_w, w1, b1, w2, b2, cfg: GPTConfig, mesh=None):
     """Top-k capacity-factor MoE with expert parallelism over the ep
-    group.
+    group and the experts' ff axis cut over mp.
 
-    x [B, S, d] local tokens. Experts: E in all, E / ep resident on each
-    ep rank (w1 local [E_loc, d, ff]). The router and the index
-    dispatch / combine come from `moe_utils` (serving's pair, whose
-    backwards run in a fixed order); at ep > 1 the [E, C, d] dispatch
-    buffers ride the all-to-all to the experts' owners and back.
-    Capacity-overflowed (token, choice) pairs contribute 0: the block's
-    residual is the drop path. Returns (out [B, S, d], stats per
-    `_zero_moe_stats`): balance and z over the global token set, counts
-    and dropped summed in fp32 over the data group (exact)."""
+    x [B, S_loc, d] this rank's activations (S_loc = S / mp under
+    sequence parallelism, which gathers the whole sequence first).
+    Experts: E in all, E / ep resident on each ep rank (w1 local [E_loc,
+    d, ff / mp]). Every mp rank routes the whole token set alike; the
+    gate values pass `_CopyToMP`, the expert outputs being partial sums
+    over mp. The router and the index dispatch / combine come from
+    `moe_utils` (serving's pair, whose backwards run in a fixed order);
+    at ep > 1 the [E, C, d] dispatch buffers ride the all-to-all to the
+    experts' owners and back. Capacity-overflowed (token, choice) pairs
+    contribute 0: the block's residual is the drop path. Returns (out
+    [B, S_loc, d] summed over mp, stats per `_zero_moe_stats`): balance
+    and z over the global token set, counts and dropped summed in fp32
+    over the data group (exact)."""
     cd = cfg.compute_dtype
-    B, S, d = x.shape
-    T = B * S
     E = cfg.moe_experts
     ep = cfg.ep
     group = _moe_data_axes(cfg, mesh)
-    xt = x.reshape(T, d)
-    logits = xt.float() @ gate_w.float()
+    xe = _enter_mp(x, cfg, mesh)              # the experts' input
+    xr = x                                    # the router's
+    if _sp(cfg):
+        xr = _SeqReplica.apply(x, xe.detach(), cfg.mp, mesh.coords["mp"])
+    B, S, d = xe.shape
+    T = B * S
+    xt = xe.reshape(T, d)
+    logits = xr.reshape(T, d).float() @ gate_w.float()
     C = moe_utils.expert_capacity(T, E, cfg.moe_top_k,
                                   cfg.moe_capacity_factor)
     r = moe_utils.top_k_routing(logits, cfg.moe_top_k, C, dtype=cd,
                                 group=group)
-    dispatched = moe_utils.dispatch_tokens_indexed(xt.to(cd), r.plan, E, C)
+    plan = r.plan
+    if cfg.mp > 1:
+        plan = dataclasses.replace(plan, gates=_CopyToMP.apply(
+            plan.gates, mesh.group(("mp",))))
+    dispatched = moe_utils.dispatch_tokens_indexed(xt.to(cd), plan, E, C)
     if ep > 1:
         expert_in = moe_utils.all_to_all_dispatch(dispatched,
                                                   mesh.ep_group, ep)
@@ -451,30 +777,30 @@ def _moe_ffn(x, gate_w, w1, b1, w2, b2, cfg: GPTConfig, mesh=None):
     h = torch.bmm(expert_in, w1.to(cd)) + b1[:, None, :].to(cd)
     h = F.gelu(h, approximate="tanh")
     # b2 rides inside the expert buffer (each token's bias share is
-    # gate-weighted per chosen expert), scaled by 1/mp as JAX's
-    # row-parallel partial needs (mp = 1 here)
+    # gate-weighted per chosen expert), scaled by 1/mp: the row-parallel
+    # partial's reduction restores it once
     eout = torch.bmm(h, w2.to(cd)) + (b2[:, None, :] / cfg.mp).to(cd)
     if ep > 1:
         eout = moe_utils.all_to_all_combine(eout, mesh.ep_group, ep)
-    out = moe_utils.combine_tokens_indexed(eout, r.plan)
-    counts, dropped = r.plan.counts, r.plan.dropped
+    out = moe_utils.combine_tokens_indexed(eout, plan)
+    counts, dropped = plan.counts, plan.dropped
     if group is not None:
         counts, dropped = counts.clone(), dropped.clone()
         dist.all_reduce(counts, group=group)
         dist.all_reduce(dropped, group=group)
     stats = {"balance": r.balance_loss, "z": r.z_loss, "counts": counts,
              "dropped": dropped}
-    return out.reshape(B, S, d), stats
+    return _exit_mp(out.reshape(B, S, d), cfg, mesh), stats
 
 
 def _block(x, lp, cfg: GPTConfig, mesh=None):
-    """One transformer block: [B, S, d] -> ([B, S, d], aux), aux the
-    MoE statistics per `_zero_moe_stats` (None for a dense block: JAX's
-    zeros only keep its scan's carry one structure)."""
+    """One transformer block: [B, S_loc, d] -> ([B, S_loc, d], aux), aux
+    the MoE statistics per `_zero_moe_stats` (None for a dense block:
+    JAX's zeros only keep its scan's carry one structure)."""
     h = _layer_norm(x, lp["ln1_w"], lp["ln1_b"])
-    attn, b_o = _attention(h, lp["w_qkv"], lp["b_qkv"], lp["w_o"],
-                           lp["b_o"], cfg)
-    attn = attn + b_o.to(attn.dtype)
+    attn, b_o = _attention(_enter_mp(h, cfg, mesh), lp["w_qkv"],
+                           lp["b_qkv"], lp["w_o"], lp["b_o"], cfg)
+    attn = _exit_mp(attn, cfg, mesh) + b_o.to(attn.dtype)
     if cfg.fused_add_ln:
         h2, x = add_ln(x, attn.to(x.dtype), lp["ln2_w"], lp["ln2_b"])
     else:
@@ -484,15 +810,16 @@ def _block(x, lp, cfg: GPTConfig, mesh=None):
         ff, aux = _moe_ffn(h2, lp["gate"], lp["w_fc1"], lp["b_fc1"],
                            lp["w_fc2"], lp["b_fc2"], cfg, mesh)
         return x + ff.to(x.dtype), aux
-    ff, b2 = _dense_ffn(h2, lp["w_fc1"], lp["b_fc1"], lp["w_fc2"],
-                        lp["b_fc2"], cfg)
+    ff, b2 = _dense_ffn(_enter_mp(h2, cfg, mesh), lp["w_fc1"],
+                        lp["b_fc1"], lp["w_fc2"], lp["b_fc2"], cfg)
+    ff = _exit_mp(ff, cfg, mesh)
     return x + (ff + b2.to(ff.dtype)).to(x.dtype), None
 
 
 def _stage_forward(x, blocks, cfg: GPTConfig, mesh=None):
-    """All layers, a Python loop over the stacked layer axis; returns
-    (x, the MoE statistics summed over layers, or None). With remat
-    every block is recomputed in the backward; under
+    """This stage's layers, a Python loop over the stacked layer axis;
+    returns (x, the MoE statistics summed over layers, or None). With
+    remat every block is recomputed in the backward; under
     "save_splash_residuals" a selective checkpoint keeps what
     `splash_mha` named (the flash forward's out and lse) and recomputes
     the rest. A MoE block's statistics are tensor outputs of its
@@ -525,6 +852,40 @@ def _stage_forward(x, blocks, cfg: GPTConfig, mesh=None):
         x = out[0]
         total = {k: total[k] + a for k, a in zip(MOE_STATS, out[1:])}
     return x, total
+
+
+def _vocab_parallel_embed(tokens, tok_emb, cfg: GPTConfig, mesh=None):
+    """The token embedding, its rows cut over mp: a rank looks up the
+    ids of its shard (F.embedding of the clipped local ids), zeroes the
+    others, and the sum over mp assembles the embedding (sequence
+    parallel: onto this rank's rows).
+
+    F.embedding, not indexing: its backward sums each id's rows in a
+    fixed order on the CPU and the card, where indexing's backward (an
+    accumulating index_put_) sums in another order from run to run on
+    the CPU."""
+    if cfg.mp == 1:
+        return F.embedding(tokens, tok_emb)
+    V_loc = tok_emb.shape[0]
+    local = tokens - mesh.coords["mp"] * V_loc
+    ok = (local >= 0) & (local < V_loc)
+    emb = F.embedding(local.clamp(0, V_loc - 1), tok_emb)
+    emb = torch.where(ok[..., None], emb, torch.zeros((), dtype=emb.dtype,
+                                                      device=emb.device))
+    return _exit_mp(emb, cfg, mesh)
+
+
+def _embed(params, tokens, cfg: GPTConfig, mesh=None):
+    """Stage 0's input: token + position embeddings, in the compute
+    dtype ([B, S / mp, d] under sequence parallelism)."""
+    S = tokens.shape[1]
+    pos = params["pos_emb"][:S]
+    if _sp(cfg):
+        k = S // cfg.mp
+        pos = pos[mesh.coords["mp"] * k:(mesh.coords["mp"] + 1) * k]
+    cd = cfg.compute_dtype
+    e = _vocab_parallel_embed(tokens, params["tok_emb"], cfg, mesh)
+    return e.to(cd) + pos.to(cd)[None]
 
 
 class _FusedCE(torch.autograd.Function):
@@ -561,19 +922,35 @@ def _ce_sum_fused(y, head, labels, cfg: GPTConfig):
     return _FusedCE.apply(y, head, labels, cfg.compute_dtype)
 
 
-def _ce_sum(y, head, labels, cfg: GPTConfig):
-    """Sum (not mean) of token CE over y [B, S', d]."""
-    if cfg.fused_ce:
+def _ce_sum(y, head, labels, cfg: GPTConfig, mesh=None):
+    """Sum (not mean) of token CE over y [B, S', d]; at mp > 1 over the
+    vocab shards (a stable global logsumexp: the max of the local maxima
+    (no gradient), the sum of the shards' sums of exps and of the target
+    logit, as JAX's pmax / psum)."""
+    if cfg.mp == 1 and cfg.fused_ce:
         return _ce_sum_fused(y, head, labels, cfg)
     cd = cfg.compute_dtype
     logits = (y.to(cd) @ head.to(cd)).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, labels[..., None])[..., 0]
+    if cfg.mp == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, labels[..., None])[..., 0]
+        return (lse - tgt).sum()
+    g = mesh.group(("mp",))
+    V_loc = head.shape[1]
+    gmax = _all_reduce(logits.detach().amax(dim=-1), g, dist.ReduceOp.MAX)
+    sumexp = torch.exp(logits - gmax[..., None]).sum(dim=-1)
+    lse = torch.log(_ReduceFromMP.apply(sumexp, g)) + gmax
+    local = labels - mesh.coords["mp"] * V_loc
+    ok = (local >= 0) & (local < V_loc)
+    tgt = logits.gather(-1, local.clamp(0, V_loc - 1)[..., None])[..., 0]
+    tgt = _ReduceFromMP.apply(torch.where(ok, tgt, torch.zeros_like(tgt)),
+                              g)
     return (lse - tgt).sum()
 
 
-def _vocab_parallel_ce(y, head, labels, cfg: GPTConfig):
-    """Mean token CE. ce_seq_chunks > 1 streams the head matmul + CE
+def _vocab_parallel_ce(y, head, labels, cfg: GPTConfig, mesh=None):
+    """Mean token CE; y [B, S, d] the whole sequence on every mp rank,
+    head [d, V / mp]. ce_seq_chunks > 1 streams the head matmul + CE
     over sequence chunks, so the [B, S, V] logits never materialise at
     once; the unfused CE recomputes each chunk in the backward, as the
     JAX package's per-chunk checkpoint does (the fused CE needs no
@@ -581,52 +958,270 @@ def _vocab_parallel_ce(y, head, labels, cfg: GPTConfig):
     B, S, _ = y.shape
     C = max(1, cfg.ce_seq_chunks)
     if C == 1 or S % C != 0:
-        return _ce_sum(y, head, labels, cfg) / (B * S)
+        return _ce_sum(y, head, labels, cfg, mesh) / (B * S)
     Sc = S // C
     sums = []
     for c in range(C):
         yy, ll = y[:, c * Sc:(c + 1) * Sc], labels[:, c * Sc:(c + 1) * Sc]
-        if cfg.fused_ce:
+        if cfg.fused_ce and cfg.mp == 1:
             sums.append(_ce_sum(yy, head, ll, cfg))
         else:
-            sums.append(checkpoint(_ce_sum, yy, head, ll, cfg,
+            sums.append(checkpoint(_ce_sum, yy, head, ll, cfg, mesh,
                                    use_reentrant=False))
     return torch.stack(sums).sum() / (B * S)
+
+
+def _head_loss(params, y, labels, cfg: GPTConfig, mesh=None):
+    """The last stage's final LayerNorm, vocab head and mean CE of one
+    micro-batch (sequence parallel: LN on this rank's rows, then the
+    whole sequence gathered)."""
+    yl = _layer_norm(y, params["ln_f_w"], params["ln_f_b"])
+    return _vocab_parallel_ce(_enter_mp(yl, cfg, mesh), params["head"],
+                              labels, cfg, mesh)
+
+
+def _aux_scale(cfg: GPTConfig):
+    """The per-layer-per-micro-batch mean's divisor of the summed MoE
+    balance and z losses."""
+    return cfg.n_layers * cfg.micro_batches
+
+
+def _finish_stats(cfg: GPTConfig, loss, stats):
+    """The MoE losses' per-layer means, added to the CE loss."""
+    per = _aux_scale(cfg)
+    stats = dict(stats, balance=stats["balance"] / per,
+                 z=stats["z"] / per)
+    return (loss + cfg.moe_aux_weight * stats["balance"]
+            + cfg.moe_z_weight * stats["z"]), stats
+
+
+def _sum_stats(total, stats):
+    return stats if total is None else {k: total[k] + stats[k]
+                                        for k in MOE_STATS}
+
+
+def _micro(tokens, labels, cfg: GPTConfig):
+    """The micro-batches' (tokens, labels) of this rank's rows."""
+    M = cfg.micro_batches
+    if len(tokens) % M:
+        raise ValueError(f"the rank's batch {len(tokens)} does not divide "
+                         f"into micro_batches={M}")
+    return list(zip(tokens.chunk(M), labels.chunk(M)))
+
+
+def _send(t, dst):
+    """Blocking send of `t` to rank `dst`; under gloo a CUDA `t` goes
+    through host memory. The direct path (NCCL, with `_recv`) has not
+    run yet: every test and the card's smoke run use gloo."""
+    t = t.contiguous()
+    dist.send(t.cpu() if moe_utils.host_staged(t, None) else t, dst)
+
+
+def _recv(shape, dtype, device, src):
+    probe = torch.empty(0, device=device)
+    staged = moe_utils.host_staged(probe, None)
+    buf = torch.empty(shape, dtype=dtype,
+                      device="cpu" if staged else device)
+    dist.recv(buf, src)
+    return buf.to(device)
+
+
+def _pipeline(params, tokens, labels, cfg: GPTConfig, mesh: Mesh,
+              leaves=None):
+    """This rank's stage of the GPipe schedule over the micro-batches
+    (pp > 1): every forward in order, then, given the differentiated
+    `leaves`, every backward in reverse order, each micro-batch's
+    activation received from stage - 1 and sent to stage + 1 and its
+    gradient sent back. Returns (the rank's loss, the MoE statistics or
+    None, the leaves' gradients or None): the loss is the mean of the
+    micro-batch losses, broadcast from the last stage; the statistics
+    are summed over the stages."""
+    pp, M = cfg.pp, cfg.micro_batches
+    stage = mesh.coords["pp"]
+    first, last = stage == 0, stage == pp - 1
+    prev, nxt = mesh.neighbour("pp", -1), mesh.neighbour("pp", 1)
+    B, S = tokens.shape
+    shape = (B // M, S // cfg.mp if _sp(cfg) else S, cfg.d_model)
+    cd, dev = cfg.compute_dtype, tokens.device
+    runs, stats = [], None
+    for tok, lab in _micro(tokens, labels, cfg):
+        if first:
+            x = _embed(params, tok, cfg, mesh)
+        else:
+            x = _recv(shape, cd, dev, prev)
+            if leaves is not None:
+                x.requires_grad_()
+        y, st = _stage_forward(x, params["blocks"], cfg, mesh)
+        if last:
+            out = _head_loss(params, y, lab, cfg, mesh)
+        else:
+            _send(y.detach(), nxt)
+            out = y
+        runs.append((x, out, st))
+        if st is not None:
+            stats = _sum_stats(stats, {k: v.detach() for k, v in
+                                       st.items()})
+    ce = sum(out.detach() for _, out, _ in runs) / M if last else \
+        torch.zeros((), device=dev)
+    grads = None
+    if leaves is not None:
+        grads = [None] * len(leaves)
+        per = _aux_scale(cfg)
+        for m in reversed(range(M)):
+            x, out, st = runs[m]
+            runs[m] = None
+            outs = [out]
+            gouts = [torch.full((), 1.0 / M, device=dev) if last else
+                     _recv(shape, out.dtype, dev, nxt)]
+            if st is not None:
+                outs += [st["balance"], st["z"]]
+                gouts += [torch.full((), cfg.moe_aux_weight / per,
+                                     device=dev),
+                          torch.full((), cfg.moe_z_weight / per,
+                                     device=dev)]
+            inputs = list(leaves) + ([] if first else [x])
+            gs = torch.autograd.grad(outs, inputs, gouts, allow_unused=True)
+            if not first:
+                _send(gs[-1], prev)
+            for i, g in enumerate(gs[:len(leaves)]):
+                if g is not None:
+                    grads[i] = g if grads[i] is None else grads[i] + g
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves)]
+    g_pp = mesh.group(("pp",))
+    loss = _all_reduce(ce.float(), g_pp)          # the last stage's
+    if stats is not None:
+        stats = {k: _all_reduce(v, g_pp) for k, v in stats.items()}
+        loss, stats = _finish_stats(cfg, loss, stats)
+    return loss, stats, grads
 
 
 def _loss_fn(params, tokens, labels, cfg: GPTConfig, mesh=None,
              dp_mean=True):
     """Forward loss of one rank's data shard: embed, all blocks, final
-    LN, vocab head and mean CE, plus (MoE) `moe_aux_weight` x the
-    per-layer balance loss and `moe_z_weight` x the per-layer z-loss.
-    With `dp_mean` the loss is the mean over the data ranks (an
-    all-reduce); the trainer differentiates the rank's own loss
-    (`dp_mean=False`) and reduces the gradients itself. MoE configs
-    return (loss, stats): balance and z per-layer means, counts and
-    dropped the global totals of the batch."""
-    S = tokens.shape[1]
-    cd = cfg.compute_dtype
-    pos = params["pos_emb"][:S].to(cd)
-    # F.embedding, not indexing: its backward sums each id's rows in a
-    # fixed order on the CPU and the card, where indexing's backward (an
-    # accumulating index_put_) sums in another order from run to run on
-    # the CPU
-    x = F.embedding(tokens, params["tok_emb"]).to(cd) + pos[None]
-    y, stats = _stage_forward(x, params["blocks"], cfg, mesh)
-    yl = _layer_norm(y, params["ln_f_w"], params["ln_f_b"])
-    loss = _vocab_parallel_ce(yl, params["head"], labels, cfg)
-    if cfg.moe_experts:
-        per = cfg.n_layers                     # layers x micro-batches
-        stats = dict(stats, balance=stats["balance"] / per,
-                     z=stats["z"] / per)
-        loss = loss + cfg.moe_aux_weight * stats["balance"] \
-            + cfg.moe_z_weight * stats["z"]
+    LN, vocab head and mean CE over the micro-batches, plus (MoE)
+    `moe_aux_weight` x the per-layer balance loss and `moe_z_weight` x
+    the per-layer z-loss. At pp > 1 the stages' forwards
+    (`_pipeline`, no gradient). With `dp_mean` the loss is the mean over
+    the data ranks (an all-reduce); the trainer differentiates the
+    rank's own loss (`dp_mean=False`) and reduces the gradients itself.
+    MoE configs return (loss, stats): balance and z per-layer means,
+    counts and dropped the global totals of the batch."""
+    if cfg.pp > 1:
+        loss, stats, _ = _pipeline(params, tokens, labels, cfg, mesh)
+    else:
+        ce, stats = None, None
+        for tok, lab in _micro(tokens, labels, cfg):
+            y, st = _stage_forward(_embed(params, tok, cfg, mesh),
+                                   params["blocks"], cfg, mesh)
+            ce_m = _head_loss(params, y, lab, cfg, mesh)
+            ce = ce_m if ce is None else ce + ce_m
+            if st is not None:
+                stats = _sum_stats(stats, st)
+        loss = ce / cfg.micro_batches
+        if stats is not None:
+            loss, stats = _finish_stats(cfg, loss, stats)
     group = _moe_data_axes(cfg, mesh)
     if group is not None and dp_mean:
-        loss = dist_fn.all_reduce(loss, group=group) / mesh.world
+        loss = dist_fn.all_reduce(loss, group=group) \
+            / mesh.size(DATA_AXES)
     if cfg.moe_experts:
         return loss, stats
     return loss
+
+
+# ------------------------------------------- bucketed DP grad reduction
+
+
+def grad_bucket_count(params, bucket_bytes, grad_dtype=None):
+    """`_GradBuckets`' plan's bucket count (JAX's host-side mirror of
+    its `_bucketed_psum`): per dtype, ceil(total elements / elements a
+    bucket)."""
+    per_dtype = {}
+    for _, leaf in _leaves(params):
+        dt = grad_dtype if grad_dtype is not None else leaf.dtype
+        if not dt.is_floating_point:
+            continue
+        per_dtype[dt] = per_dtype.get(dt, 0) + leaf.numel()
+    n = 0
+    for dt, elems in per_dtype.items():
+        per = max(1, int(bucket_bytes) // torch.empty(
+            (), dtype=dt).element_size())
+        n += -(-elems // per)
+    return n
+
+
+class _GradBuckets:
+    """The bucketed data-parallel reduction of one backward: per dtype,
+    the leaves' gradients in reversed leaf order (about the order the
+    backward finishes them) laid end to end and cut into flat buckets of
+    at most `bucket_bytes`; a bucket's all-reduce is issued
+    (`async_op=True`) from the post-accumulate gradient hook of the last
+    of its leaves to finish, and `finish` waits on every bucket. Every
+    rank runs the same backward, so every rank issues the buckets in
+    the same order."""
+
+    def __init__(self, leaves, bucket_bytes, group):
+        self.leaves, self.group = leaves, group
+        self.buckets, self.works = [], {}
+        self.pending, self.of_leaf = [], {}
+        by_dtype = {}
+        for i, p in enumerate(leaves):
+            by_dtype.setdefault(p.dtype, []).append(i)
+        for dt, idxs in by_dtype.items():
+            per = max(1, int(bucket_bytes) // torch.empty(
+                (), dtype=dt).element_size())
+            cur, room = [], per
+            for i in reversed(idxs):
+                start, n = 0, leaves[i].numel()
+                while n:
+                    take = min(n, room)
+                    cur.append((i, start, take))
+                    start, n, room = start + take, n - take, room - take
+                    if room == 0:
+                        self._add(cur)
+                        cur, room = [], per
+            if cur:
+                self._add(cur)
+        self.hooks = [p.register_post_accumulate_grad_hook(
+            functools.partial(self._ready, i)) for i, p in enumerate(leaves)]
+
+    def _add(self, pieces):
+        b = len(self.buckets)
+        self.buckets.append(pieces)
+        self.pending.append({i for i, _, _ in pieces})
+        for i, _, _ in pieces:
+            self.of_leaf.setdefault(i, []).append(b)
+
+    def _ready(self, i, _leaf):
+        for b in self.of_leaf.get(i, ()):
+            self.pending[b].discard(i)
+            if not self.pending[b]:
+                self._launch(b)
+
+    def _launch(self, b):
+        flat = torch.cat([self.leaves[i].grad.reshape(-1)[s:s + n]
+                          for i, s, n in self.buckets[b]])
+        self.works[b] = (dist.all_reduce(flat, group=self.group,
+                                         async_op=True), flat)
+
+    def finish(self, scale):
+        """The reduced gradients x `scale`, in leaf order (the hooks
+        removed, the leaves' .grad cleared). Every leaf of the dense
+        model has a gradient, so every bucket has been issued."""
+        for h in self.hooks:
+            h.remove()
+        out = [torch.empty_like(p).reshape(-1) for p in self.leaves]
+        for b, pieces in enumerate(self.buckets):
+            work, flat = self.works[b]
+            work.wait()
+            off = 0
+            for i, s, n in pieces:
+                out[i][s:s + n] = flat[off:off + n]
+                off += n
+        for p in self.leaves:
+            p.grad = None
+        return [(g * scale).view_as(p) for g, p in zip(out, self.leaves)]
 
 
 # ------------------------------------------------------------ optimizer
@@ -636,8 +1231,9 @@ def init_opt_state(cfg: GPTConfig, params, mesh=None):
     """fp32 Adam moments, one {"m", "v"} per parameter of this rank's
     `params`: shaped as the parameter at zero_stage 0; at zero_stage >= 1
     this rank's 1/n of the flat moments padded to a multiple of n, the
-    number of ranks that hold the parameter (`Mesh`), where n > 1, and
-    shaped as the parameter where n = 1."""
+    number of ranks that hold the same slice of the parameter
+    (`_zero_holders`), where n > 1, and shaped as the parameter where
+    n = 1."""
     mesh = mesh or Mesh()
 
     def per_leaf(path, p):
@@ -669,26 +1265,15 @@ def _adam_update(cfg: GPTConfig, p, g, m, v, lr, t, wd):
     p.sub_(lr * upd)
 
 
-def _all_gather(t, group, n):
-    """The n ranks' equal-length flat `t`, concatenated in rank order."""
-    if moe_utils.host_staged(t, group):
-        parts = [torch.empty_like(t, device="cpu") for _ in range(n)]
-        dist.all_gather(parts, t.cpu(), group=group)
-        return torch.cat(parts).to(t.device)
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts)
-
-
 def _apply_updates(cfg: GPTConfig, params, grads, opt_state, lr, t,
                    mesh=None):
     """Adam over every parameter, in place; no weight decay on vectors.
     `grads` lists the (reduced) gradients in `_leaves(params)` order.
     ZeRO (zero_stage >= 1): each rank updates its slice of a
     parameter's flat padded vector, and the slices are all-gathered, one
-    all-gather for the whole leaves and one for the expert leaves."""
+    all-gather for each group of holders."""
     mesh = mesh or Mesh()
-    gather = {}                          # group key -> [(p, slice, n, i)]
+    gather = {}                          # holders' axes -> (group, n, [..])
     for (path, p), g in zip(_leaves(params), grads):
         s = _get(opt_state, path)
         wd = 0.0 if p.dim() <= 1 else cfg.weight_decay
@@ -704,8 +1289,8 @@ def _apply_updates(cfg: GPTConfig, params, grads, opt_state, lr, t,
         gf = F.pad(g.reshape(-1), (0, pad))[i * chunk:(i + 1) * chunk]
         pf = pf.clone()
         _adam_update(cfg, pf, gf, s["m"], s["v"], lr, t, wd)
-        gather.setdefault(_is_expert(cfg, path), (group, n, []))[2].append(
-            (p, pf))
+        key = mesh.axes([a for a in AXES if a not in _cut_axes(cfg, path)])
+        gather.setdefault(key, (group, n, []))[2].append((p, pf))
     for group, n, items in gather.values():
         full = _all_gather(torch.cat([pf for _, pf in items]), group, n)
         per_rank = full.view(n, -1)
@@ -718,27 +1303,43 @@ def _apply_updates(cfg: GPTConfig, params, grads, opt_state, lr, t,
 
 
 def _reduce_grads(cfg: GPTConfig, mesh: Mesh, paths, grads):
-    """Sum each gradient over the ranks that hold its parameter (a whole
-    leaf's over the world, an expert leaf's over its dp group), one
-    all-reduce per (group, dtype) over the flattened gradients, then
-    scale by 1 / (dp x ep): JAX's gradient of the mean loss."""
+    """Sum each gradient over `_grad_axes` (one all-reduce per (axes,
+    dtype) over the flattened gradients), then scale by 1 / (dp x ep):
+    JAX's gradient of the mean loss."""
     out = list(grads)
     buckets = {}
     for i, (path, g) in enumerate(zip(paths, grads)):
-        group, n, _ = _holders(cfg, mesh, path)
-        key = (_is_expert(cfg, path), g.dtype)
-        buckets.setdefault(key, (group, n, []))[2].append(i)
-    for (_, _), (group, n, idx) in buckets.items():
+        key = (mesh.axes(_grad_axes(cfg, path)), g.dtype)
+        buckets.setdefault(key, []).append(i)
+    n_data = mesh.size(DATA_AXES)
+    for (axes, _), idx in buckets.items():
         flat = torch.cat([grads[i].reshape(-1) for i in idx])
-        if n > 1:
-            dist.all_reduce(flat, group=group)
-        flat = flat / mesh.world
+        if axes:
+            dist.all_reduce(flat, group=mesh.group(axes))
+        flat = flat / n_data
         off = 0
         for i in idx:
             k = grads[i].numel()
             out[i] = flat[off:off + k].view_as(grads[i])
             off += k
     return out
+
+
+def _grad_norm(cfg: GPTConfig, mesh, paths, grads):
+    """The global norm of the logical gradient: each leaf's squares
+    summed over the axes that cut it, a replicated leaf's counted
+    once."""
+    sums = {}
+    for path, g in zip(paths, grads):
+        axes = () if mesh is None else mesh.axes(_cut_axes(cfg, path))
+        s = (g.float() ** 2).sum()
+        sums[axes] = s if axes not in sums else sums[axes] + s
+    sq = None
+    for axes, s in sums.items():
+        if axes:
+            dist.all_reduce(s, group=mesh.group(axes))
+        sq = s if sq is None else sq + s
+    return torch.sqrt(sq)
 
 
 # -------------------------------------------------------------- trainer
@@ -752,9 +1353,19 @@ def collective_bytes_per_step(cfg: GPTConfig, batch: int):
     act_bytes = torch.empty((), dtype=cfg.compute_dtype).element_size()
     n_params = 12 * L * d * d + V * d + S * d
     out = {}
+    if cfg.mp > 1:
+        # forward: the embedding's sum, 2 a layer (attention out, FFN
+        # out) and the vocab-parallel CE's; the backward mirrors them
+        fwd = (2 * L + 1) * batch * S * d * act_bytes + 3 * batch * S * 4
+        out["mp_psum_est"] = 2 * fwd
     if cfg.dp > 1:
         g_bytes = act_bytes if cfg.bf16_grads else 4
         out["dp_grad_allreduce_est"] = n_params * g_bytes
+    if cfg.pp > 1:
+        # a micro-batch's activation per stage hop, forward + backward
+        Bm = max(batch // max(cfg.micro_batches, 1), 1)
+        out["pp_ppermute_est"] = (2 * cfg.micro_batches * cfg.pp
+                                  * Bm * S * d * act_bytes)
     if cfg.moe_experts and cfg.ep > 1:
         # per layer: dispatch + combine all-to-all of the [E, C, d]
         # capacity tensors, forward + backward (x2 each)
@@ -773,10 +1384,11 @@ def collective_bytes_per_step(cfg: GPTConfig, batch: int):
 
 
 class HybridGPT:
-    """The train step over this rank's part of the dp x ep mesh.
+    """The train step over this rank's part of the (dp, pp, mp, ep)
+    mesh.
 
-    Usage (every rank, with the same arguments; dp x ep > 1 needs
-    `torch.distributed.init_process_group` first):
+    Usage (every rank, with the same arguments; a mesh of more than one
+    rank needs `torch.distributed.init_process_group` first):
         trainer = HybridGPT(cfg)                  # device="cuda"
         params, opt = trainer.init(seed=0)        # this rank's shard
         tok, lab = trainer.shard_data(tokens, labels)   # its rows
@@ -784,8 +1396,9 @@ class HybridGPT:
 
     Parameters and Adam state are updated in place and returned (the
     JAX trainer returned new arrays); `loss` is the mean over the data
-    ranks, a 0-d tensor on the device, not synchronised. MoE configs
-    keep each step's routing statistics in `last_moe_stats`.
+    ranks, the same on every rank, a 0-d tensor on the device, not
+    synchronised. MoE configs keep each step's routing statistics in
+    `last_moe_stats`.
     """
 
     def __init__(self, cfg: GPTConfig, device="cuda"):
@@ -794,6 +1407,9 @@ class HybridGPT:
         self.mesh = make_mesh(cfg)
         # what the model functions take: None on one rank
         self._mesh = self.mesh if self.mesh.world > 1 else None
+        self._use_buckets = cfg.grad_bucket_bytes > 0 and cfg.dp > 1
+        # the all-reduces the last bucketed step issued (None unbucketed)
+        self.last_grad_buckets = None
         self.last_moe_stats = None
         self._moe_stats_pending = None
 
@@ -814,8 +1430,9 @@ class HybridGPT:
 
     def shard_data(self, tokens, labels):
         """This rank's rows of the global batch (tokens, labels [B, S]):
-        rows rank * B / n onwards, n = dp x ep."""
-        n, r = self.mesh.world, self.mesh.rank
+        those of its data index dp_i x ep + ep_i of dp x ep, which every
+        pp and mp rank of that index shares."""
+        n, r = self.mesh.size(DATA_AXES), self.mesh.index(DATA_AXES)
         B = len(tokens)
         if B % n:
             raise ValueError(f"global batch {B} does not divide over "
@@ -845,6 +1462,35 @@ class HybridGPT:
 
     # ----------------------------------------------------------- step
 
+    def _grads(self, target, leaves, tokens, labels):
+        """(the rank's loss, stats or None, gradients reduced to JAX's
+        gradient of the mean loss, in `leaves` order)."""
+        cfg, mesh = self.cfg, self._mesh
+        paths = [p for p, _ in _leaves(target)]
+        if cfg.pp > 1:
+            loss, stats, grads = _pipeline(target, tokens, labels, cfg,
+                                           mesh, leaves)
+        else:
+            buckets = None
+            if self._use_buckets:
+                buckets = _GradBuckets(leaves, cfg.grad_bucket_bytes,
+                                       mesh.data_group)
+            out = _loss_fn(target, tokens, labels, cfg, mesh,
+                           dp_mean=False)
+            loss, stats = out if cfg.moe_experts else (out, None)
+            if buckets is not None:
+                loss.backward(inputs=leaves)
+                grads = buckets.finish(1.0 / mesh.size(DATA_AXES))
+                self.last_grad_buckets = len(buckets.works)
+                return loss.detach(), None, grads
+            grads = torch.autograd.grad(loss, leaves)
+        loss = loss.detach()
+        if stats is not None:
+            stats = {k: v.detach() for k, v in stats.items()}
+        if mesh is not None:
+            grads = _reduce_grads(cfg, mesh, paths, grads)
+        return loss, stats, grads
+
     def _step(self, params, opt_state, tokens, labels, lr, step_num):
         """One step, no metrics: returns (loss, stats or None)."""
         cfg, mesh = self.cfg, self._mesh
@@ -859,29 +1505,15 @@ class HybridGPT:
             target = params
         named = list(_leaves(target))
         leaves = [t.requires_grad_() for _, t in named]
-        out = _loss_fn(target, tokens, labels, cfg, mesh, dp_mean=False)
-        loss, stats = out if cfg.moe_experts else (out, None)
-        grads = torch.autograd.grad(loss, leaves)
-        for p in leaves:
-            p.requires_grad_(False)
-        loss = loss.detach()
-        if stats is not None:
-            stats = {k: v.detach() for k, v in stats.items()}
-        if mesh is not None:
-            grads = _reduce_grads(cfg, mesh, [p for p, _ in named], grads)
-            loss = loss.clone()
-            dist.all_reduce(loss, group=mesh.data_group)
-            loss = loss / mesh.world
+        try:
+            loss, stats, grads = self._grads(target, leaves, tokens, labels)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        if mesh is not None and mesh.data_group is not None:
+            loss = _all_reduce(loss, mesh.data_group) / mesh.size(DATA_AXES)
         if cfg.grad_clip > 0:
-            sq = sum((g.float() ** 2).sum() for (p, _), g in
-                     zip(named, grads) if not _is_expert(cfg, p))
-            if cfg.moe_experts:
-                esq = sum((g.float() ** 2).sum() for (p, _), g in
-                          zip(named, grads) if _is_expert(cfg, p))
-                if mesh is not None and mesh.ep_group is not None:
-                    dist.all_reduce(esq, group=mesh.ep_group)
-                sq = sq + esq
-            gnorm = torch.sqrt(sq)
+            gnorm = _grad_norm(cfg, mesh, [p for p, _ in named], grads)
             scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-6), max=1.0)
             grads = [(g.float() * scale).to(g.dtype) for g in grads]
         with torch.no_grad():
@@ -893,7 +1525,7 @@ class HybridGPT:
                    step_num=1):
         lr = self.cfg.learning_rate if lr is None else float(lr)
         if _metrics._enabled:
-            self._record_collectives(tokens)
+            self._record_collectives(tokens, params=params)
         loss, stats = self._step(params, opt_state, tokens, labels, lr,
                                  step_num)
         if stats is not None:
@@ -917,7 +1549,7 @@ class HybridGPT:
         lr = self.cfg.learning_rate if lr is None else float(lr)
         k = int(k)
         if _metrics._enabled:
-            self._record_collectives(tokens, steps=k)
+            self._record_collectives(tokens, steps=k, params=params)
         losses, per_step = [], []
         for i in range(k):
             loss, stats = self._step(params, opt_state, tokens, labels, lr,
@@ -940,13 +1572,17 @@ class HybridGPT:
     def collective_bytes_per_step(self, batch):
         return collective_bytes_per_step(self.cfg, batch)
 
-    def _record_collectives(self, tokens, steps=1):
+    def _record_collectives(self, tokens, steps=1, params=None):
         # `tokens` is this rank's shard: the estimate takes the global
         # batch
-        batch = int(len(tokens)) * self.mesh.world
+        batch = int(len(tokens)) * self.mesh.size(DATA_AXES)
         for label, nbytes in self.collective_bytes_per_step(batch).items():
             _metrics.COLLECTIVE_CALLS.labels(label).inc(steps)
             _metrics.COLLECTIVE_BYTES.labels(label).inc(nbytes * steps)
+        if self._use_buckets and params is not None:
+            gd = self.cfg.compute_dtype if self.cfg.bf16_grads else None
+            _metrics.GRAD_BUCKETS.labels("compiled").set(
+                grad_bucket_count(params, self.cfg.grad_bucket_bytes, gd))
 
     def _record_moe_stats(self, mstats):
         _metrics.record_moe_stats("train", mstats["counts"].cpu().numpy(),

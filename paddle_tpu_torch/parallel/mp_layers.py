@@ -121,6 +121,20 @@ def shard_major_qkv(t, tp, num_heads, head_dim):
     return x.transpose(-4, -3).reshape(*lead, flat)
 
 
+def logical_qkv(t, tp, num_heads, head_dim):
+    """The inverse of `shard_major_qkv`: a fused-QKV last axis in
+    shard-major `(tp, 3, H/tp, Dh)` order back in `(3, H, Dh)` order,
+    flat shape unchanged."""
+    tp = int(tp)
+    flat = t.shape[-1]
+    if flat != 3 * num_heads * head_dim or num_heads % tp:
+        raise ValueError(f"fused-QKV axis {flat} != 3*{num_heads}*"
+                         f"{head_dim} over tp={tp}")
+    lead = t.shape[:-1]
+    x = t.reshape(*lead, tp, 3, num_heads // tp, head_dim)
+    return x.transpose(-4, -3).reshape(*lead, flat)
+
+
 def _chunk(t, axis, parts, index):
     n = t.shape[axis]
     if n % parts:

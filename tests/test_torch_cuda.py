@@ -3050,3 +3050,80 @@ def test_bundle_boot_runs_no_nvcc(cuda_device, tmp_path):
     boot = boot_engine_from_bundle(bdir, device=cuda_device)
     assert boot.generate_batch(prompts, 8) == want
     assert _build.nvcc_runs == runs and boot.weights_version == "v1"
+
+
+# the mesh card tests' widths: vocab and seq_len divide over mp = 2, one
+# head of 64 a rank at mp = 2
+_MESH_WIDTHS = dict(vocab_size=194, seq_len=200, d_model=128, n_heads=2,
+                    n_layers=2, d_ff=512, learning_rate=1e-3, grad_clip=1.0,
+                    remat=True, ce_seq_chunks=2, zero_stage=0)
+
+
+def _numpy_tree(tree):
+    return {k: _numpy_tree(v) if isinstance(v, dict) else v.numpy()
+            for k, v in tree.items()}
+
+
+def _mesh_ranks(tmp_path, jobs, device, **inputs):
+    """Two `torch_mesh_ranks` ranks over gloo on `device` (both on the
+    one card for "cuda:0") running `jobs`; returns each rank's
+    results."""
+    import torch_mesh_ranks as mr
+    d = tmp_path / device.replace(":", "")
+    d.mkdir()
+    torch.save(dict(jobs={2: jobs}, device=device, **inputs),
+               d / "inputs.pt")
+    return mr.run_ranks(2, str(d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [dict(mp=2, sequence_parallel=True),
+                                  dict(pp=2, micro_batches=2)],
+                         ids=["mp2-sp", "pp2-micro2"])
+def test_mesh_steps_on_card_match_cpu_ranks(mesh, cuda_device, tmp_path):
+    """Two ranks on the one card over gloo (kernels) and two CPU ranks
+    (plain versions) take the same two fp32 steps from the same
+    parameters: every rank's losses equal, the card's within 1e-4
+    relative of the CPU's, parameters after step 1 within 0.25 lr
+    (`chip_smoke.py`'s phase 7 bound), and each card rank's K1a and K2
+    launches as full remat predicts for its layers x micro-batches."""
+    cfg = th.GPTConfig(**_MESH_WIDTHS, compute_dtype=torch.float32)
+    params = th.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    state = (_numpy_tree(params),
+             _numpy_tree(th.init_opt_state(cfg, params)))
+    rng = np.random.RandomState(0)
+    steps = [tuple(rng.randint(0, 194, (4, 200)) for _ in range(2))
+             for _ in range(2)]
+    job = [("job", "train", dict(_MESH_WIDTHS, **mesh))]
+    res = {dev: [r["job"] for r in _mesh_ranks(
+        tmp_path, job, dev, state=state, batches=steps, eval=steps[0])]
+        for dev in ("cpu", "cuda:0")}
+    per = len(steps) * cfg.n_layers // mesh.get("pp", 1) \
+        * mesh.get("micro_batches", 1)
+    for r, (c, g) in enumerate(zip(res["cpu"], res["cuda:0"])):
+        assert g["losses"] == res["cuda:0"][0]["losses"], r
+        np.testing.assert_allclose(g["losses"], c["losses"], rtol=1e-4)
+        for (n, a), (_, b) in zip(th._leaves(g["params1"]),
+                                  th._leaves(c["params1"])):
+            assert float((a - b).abs().max()) <= 0.25 * cfg.learning_rate, n
+        assert g["launches"] == {"flash_fwd": 2 * per, "flash_bwd": per,
+                                 "add_ln_fwd": 2 * per, "add_ln_bwd": per}
+
+
+@pytest.mark.cuda
+def test_ring_attention_on_card_matches_cpu(cuda_device, tmp_path):
+    """`ring_attention` at cp 2 with both ranks on the card (the blocks
+    staged through the host by gloo) equals its CPU run: the output and
+    the gradients of (out * g).sum(), causal and not."""
+    rng = np.random.RandomState(0)
+    ring = {n: rng.randn(2, 256, 4, 64).astype(np.float32)
+            for n in ("q", "k", "v", "g")}
+    jobs = [(f"causal{c}", "ring", dict(causal=c)) for c in (False, True)]
+    res = {dev: _mesh_ranks(tmp_path, jobs, dev, ring=ring)
+           for dev in ("cpu", "cuda:0")}
+    for r, (c, g) in enumerate(zip(res["cpu"], res["cuda:0"])):
+        for name, _, _ in jobs:
+            for k in ("out", "dq", "dk", "dv"):
+                torch.testing.assert_close(g[name][k], c[name][k],
+                                           rtol=1e-5, atol=1e-5,
+                                           msg=f"rank {r} {name} {k}")

@@ -232,19 +232,41 @@ def test_qkv_kernel_gate_keeps_the_einsum_branch(monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(remat_policy="save_splash_residuals"),
                                 dict(qkv_kernel=True), dict(dp=2),
-                                dict(moe_experts=4), dict(zero_stage=1)])
+                                dict(moe_experts=4), dict(zero_stage=1),
+                                dict(pp=2), dict(mp=2),
+                                dict(micro_batches=2),
+                                dict(sequence_parallel=True),
+                                dict(grad_bucket_bytes=1 << 20)])
 def test_config_takes_what_is_ported(kw):
     cfg = th.GPTConfig(**{**WIDTHS, **kw})
     assert all(getattr(cfg, k) == v for k, v in kw.items())
 
 
-@pytest.mark.parametrize("field,value", [
-    ("pp", 2), ("mp", 2), ("micro_batches", 2),
-    ("sequence_parallel", True), ("grad_bucket_bytes", 1 << 20),
-    ("remat_policy", "dots_saveable")])
+@pytest.mark.parametrize("field,value", [("remat_policy", "dots_saveable")])
 def test_config_refuses_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError, match=field):
         th.GPTConfig(**{**WIDTHS, field: value})
+
+
+# JAX's `GPTConfig.__post_init__` asserts; the port raises ValueError
+@pytest.mark.parametrize("kw,match", [
+    (dict(pp=3), "n_layers"), (dict(mp=4), "n_heads"),
+    (dict(n_heads=4, vocab_size=250, mp=4), "vocab_size"),
+    (dict(n_heads=4, seq_len=126, mp=4, sequence_parallel=True),
+     "seq_len"),
+    (dict(dp=2, mp=2, grad_bucket_bytes=4096), "dense-DP"),
+    (dict(dp=2, pp=2, grad_bucket_bytes=4096), "dense-DP"),
+    (dict(dp=2, moe_experts=4, grad_bucket_bytes=4096), "dense-DP")],
+    ids=["layers-over-pp", "heads-over-mp", "vocab-over-mp",
+         "seq-over-mp-sp", "buckets-mp", "buckets-pp", "buckets-moe"])
+def test_config_refuses_what_jax_refuses(kw, match):
+    base = {**WIDTHS, **{k: v for k, v in kw.items()
+                         if k in ("n_heads", "vocab_size", "seq_len")}}
+    rest = {k: v for k, v in kw.items() if k not in base}
+    with pytest.raises(AssertionError):
+        jh.GPTConfig(**base, **rest)
+    with pytest.raises(ValueError, match=match):
+        th.GPTConfig(**base, **rest)
 
 
 def test_load_jax_hybrid_gpt_checks_names_and_shapes():

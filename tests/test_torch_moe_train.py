@@ -7,7 +7,7 @@ The JAX trainer's initial state is carried across with
 then both take the same steps on the same numpy batches at
 tests/test_moe.py's widths (4 experts, top-2, capacity factor 4.0: no
 drops) at 2 layers, fp32. One rank runs in the test process. The
-meshes run in rank processes over gloo (`torch_moe_ranks`: one spawn of
+meshes run in rank processes over gloo (`torch_mesh_ranks`: one spawn of
 two ranks for dp = 2 and ep = 2, one of four for dp = 2 x ep = 2, at
 zero_stage 0 and 1), held against JAX's trainer at the same mesh on the
 conftest's virtual devices and against the port's 1-rank trainer. JAX's
@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-import torch_moe_ranks as mr
+import torch_mesh_ranks as mr
 from paddle_tpu.ops.pallas import grouped_matmul as jgmm
 from paddle_tpu.parallel import hybrid_gpt as jh
 from paddle_tpu.parallel import moe_utils as jmu
@@ -41,16 +41,43 @@ from paddle_tpu_torch.parallel import moe_utils as tmu
 from paddle_tpu_torch.profiler import metrics as tpm
 from test_torch_grouped_matmul import interpret  # noqa: F401 (fixture)
 
-LR = mr.WIDTHS["learning_rate"]
+#: tests/test_moe.py's `_make_cfg` widths at 2 layers (capacity factor
+#: 4.0: nothing is dropped)
+MOE_KW = dict(n_layers=2, **mr.MOE)
+WIDTHS = {**mr.WIDTHS, **MOE_KW}
+STEPS = 3
+#: world -> [(job name, GPTConfig overrides)]
+MESH_JOBS = {
+    2: [("dp2", dict(dp=2, zero_stage=0, remat=False)),
+        ("dp2_zero1", dict(dp=2, zero_stage=1, remat=False)),
+        ("ep2", dict(ep=2, zero_stage=0, remat=False)),
+        ("ep2_zero1", dict(ep=2, zero_stage=1, remat=False))],
+    4: [("dp2_ep2", dict(dp=2, ep=2, zero_stage=0, remat=False)),
+        ("dp2_ep2_zero1", dict(dp=2, ep=2, zero_stage=1, remat=False)),
+        ("dp2_ep2_remat", dict(dp=2, ep=2, zero_stage=1, remat=True,
+                               remat_policy="save_splash_residuals"))],
+}
+#: the job that also records the metrics and runs train_many
+METRICS_JOB = "dp2_ep2_zero1"
+MANY_K = 3
+LR = WIDTHS["learning_rate"]
 P_TOL = 5e-2 * LR
 MESHES = {"dp2": dict(dp=2), "ep2": dict(ep=2), "dp2_ep2": dict(dp=2, ep=2)}
-JOBS = [(world, name, kw) for world, jobs in mr.MESH_JOBS.items()
+JOBS = [(world, name, kw) for world, jobs in MESH_JOBS.items()
         for name, kw in jobs]
+
+
+def _config(**kw):
+    return mr.config(**{**MOE_KW, **kw})
+
+
+def _batches(seed=0, n=STEPS):
+    return mr.batches(seed, n)
 
 
 def _jax_trainer(**kw):
     mesh = {k: kw.pop(k) for k in ("dp", "ep") if k in kw}
-    cfg = jh.GPTConfig(**mr.WIDTHS, **mesh, **kw, compute_dtype=jnp.float32)
+    cfg = jh.GPTConfig(**WIDTHS, **mesh, **kw, compute_dtype=jnp.float32)
     return jh.HybridGPT(cfg, devices=jax.devices()[:cfg.dp * cfg.ep])
 
 
@@ -120,7 +147,7 @@ def jax_init():
 
 
 def _port_one_rank(jax_state, **kw):
-    cfg = mr.config(**kw)
+    cfg = _config(**kw)
     tt = th.HybridGPT(cfg, device="cpu")
     return tt, *shard_jax_hybrid_gpt(*jax_state, cfg=cfg, rank=0,
                                      device="cpu")
@@ -136,7 +163,7 @@ def test_moe_train_steps_match_jax(jax_init, kw):
     jt = _jax_trainer(**{k: v for k, v in kw.items() if k != "zero_stage"})
     jp, jo = jt.init(jax.random.PRNGKey(0))
     tt, tp, to = _port_one_rank(jax_init, **kw)
-    steps = mr.batches()
+    steps = _batches()
     _, _, want = _jax_run(jt, jp, jo, steps)
     _, _, got = mr.train(tt, tp, to, steps)
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
@@ -150,14 +177,14 @@ def test_moe_train_steps_match_jax(jax_init, kw):
 
 def test_moe_bf16_grads_loss_follows_jax():
     kw = dict(remat=True, ce_seq_chunks=2, bf16_grads=True)
-    jcfg = jh.GPTConfig(**mr.WIDTHS, **kw, compute_dtype=jnp.bfloat16)
+    jcfg = jh.GPTConfig(**WIDTHS, **kw, compute_dtype=jnp.bfloat16)
     jt = jh.HybridGPT(jcfg, devices=jax.devices()[:1])
     jp, jo = jt.init(jax.random.PRNGKey(1))
-    tcfg = th.GPTConfig(**mr.WIDTHS, **kw, compute_dtype=torch.bfloat16)
+    tcfg = th.GPTConfig(**WIDTHS, **kw, compute_dtype=torch.bfloat16)
     tt = th.HybridGPT(tcfg, device="cpu")
     tp, to = shard_jax_hybrid_gpt(*_np((jp, jo)), cfg=tcfg, rank=0,
                                   device="cpu")
-    for i, (tok, lab) in enumerate(mr.batches(seed=1), 1):
+    for i, (tok, lab) in enumerate(_batches(seed=1), 1):
         jp, jo, jl = jt.train_step(jp, jo, *jt.shard_data(tok, lab),
                                    step_num=i)
         tp, to, tl = tt.train_step(tp, to, tok, lab, step_num=i)
@@ -169,7 +196,7 @@ def test_train_many_keeps_moe_stats(jax_init):
     """`train_many` (k steps, a loop in the port) keeps the routing
     stats: `last_moe_stats` the final step's, the metrics the k-step
     aggregate, the losses JAX's."""
-    steps = mr.batches(seed=5, n=1)
+    steps = _batches(seed=5, n=1)
     jt = _jax_trainer(remat=False)
     jp, jo = jt.init(jax.random.PRNGKey(0))
     tt, tp, to = _port_one_rank(jax_init, remat=False)
@@ -187,7 +214,7 @@ def test_train_many_keeps_moe_stats(jax_init):
             pm.disable()
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4)
     _assert_stats(tt.last_moe_stats, _np(jt.last_moe_stats))
-    per_step = mr.BATCH * 16 * 2 * mr.WIDTHS["n_layers"]
+    per_step = mr.BATCH * 16 * 2 * WIDTHS["n_layers"]
     st = tt.last_moe_stats
     assert float(st["counts"].sum()) + float(st["dropped"]) == per_step
     assert got.pop("MOE_AUX_LOSS") == pytest.approx(
@@ -200,7 +227,7 @@ def test_loss_and_moe_stats_match_jax(jax_init):
     jt = _jax_trainer(remat=False)
     jp, _ = jt.init(jax.random.PRNGKey(0))
     tt, tp, _ = _port_one_rank(jax_init, remat=False)
-    tok, lab = mr.batches(seed=3, n=1)[0]
+    tok, lab = _batches(seed=3, n=1)[0]
     jl, js = jt.loss_and_moe_stats(jp, *jt.shard_data(tok, lab))
     tl, ts = tt.loss_and_moe_stats(tp, tok, lab)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
@@ -213,9 +240,9 @@ def test_moe_steps_are_reproducible():
     moment: the index dispatch / combine sum in a fixed order."""
     runs = []
     for _ in range(2):
-        tt = th.HybridGPT(mr.config(remat=True), device="cpu")
+        tt = th.HybridGPT(_config(remat=True), device="cpu")
         params, opt = tt.init(seed=3)
-        params, opt, _ = tt.train_step(params, opt, *mr.batches()[0])
+        params, opt, _ = tt.train_step(params, opt, *_batches()[0])
         runs.append((params, opt))
     for a, b in ((runs[0][0], runs[1][0]), (runs[0][1], runs[1][1])):
         for (n, x), (_, y) in zip(_flat(a), _flat(b)):
@@ -228,12 +255,12 @@ def test_aux_losses_reach_the_gate_through_remat():
     and nothing else's first moment is zero."""
     grads = {}
     for w in (0.0, 1.0):
-        tt = th.HybridGPT(mr.config(remat=True, zero_stage=0,
+        tt = th.HybridGPT(_config(remat=True, zero_stage=0,
                                     moe_aux_weight=w, moe_z_weight=w,
                                     remat_policy="save_splash_residuals"),
                           device="cpu")
         params, opt = tt.init(seed=0)
-        tt.train_step(params, opt, *mr.batches()[0])
+        tt.train_step(params, opt, *_batches()[0])
         grads[w] = opt["blocks"]["gate"]["m"].clone()
     assert not torch.allclose(grads[0.0], grads[1.0])
 
@@ -271,7 +298,7 @@ def test_config_alias_is_constructor_only():
 @pytest.mark.parametrize("kw", [dict(dp=2), dict(moe_experts=4, ep=2),
                                 dict(moe_experts=4, dp=2, ep=2)])
 def test_mesh_needs_a_process_group(kw):
-    cfg = mr.config(**{**kw, "moe_num_experts": 0})
+    cfg = _config(**{**kw, "moe_num_experts": 0})
     with pytest.raises(RuntimeError, match="init_process_group"):
         th.HybridGPT(cfg, device="cpu")
 
@@ -282,8 +309,8 @@ def test_mesh_needs_a_process_group(kw):
     dict(ep=2, zero_stage=1), dict(zero_stage=1), dict(zero_stage=0)])
 @pytest.mark.parametrize("batch", [8, 32])
 def test_collective_bytes_match_jax(kw, batch):
-    jcfg = jh.GPTConfig(**mr.WIDTHS, **kw)
-    tcfg = th.GPTConfig(**mr.WIDTHS, **kw)
+    jcfg = jh.GPTConfig(**WIDTHS, **kw)
+    tcfg = th.GPTConfig(**WIDTHS, **kw)
     assert th.collective_bytes_per_step(tcfg, batch) \
         == jh.collective_bytes_per_step(jcfg, batch)
 
@@ -312,7 +339,7 @@ def test_jax_state_cut_to_each_rank(jax_init, jax_init_zero0, jax_zero,
     rng = np.random.RandomState(0)
     opt = jax.tree.map(lambda a: rng.randn(*a.shape).astype(np.float32),
                        opt)
-    cfg = mr.config(dp=dp, ep=ep, zero_stage=zero_stage)
+    cfg = _config(dp=dp, ep=ep, zero_stage=zero_stage)
     full_p, full_o = load_jax_hybrid_gpt(params, opt, device="cpu")
     shards = [shard_jax_hybrid_gpt(params, opt, cfg=cfg, rank=r,
                                    device="cpu") for r in range(dp * ep)]
@@ -352,7 +379,7 @@ def test_jax_zero1_state_steps_a_default_trainer(moe):
     """`load_jax_hybrid_gpt` of a JAX trainer's ZeRO-1 state (JAX's
     default zero_stage) steps the port's trainer at its default
     zero_stage, the documented alternative to `init`, as JAX's step."""
-    widths = {k: v for k, v in mr.WIDTHS.items() if not k.startswith("moe")
+    widths = {k: v for k, v in WIDTHS.items() if not k.startswith("moe")
               or moe}
     jcfg = jh.GPTConfig(**widths, remat=False, compute_dtype=jnp.float32)
     tcfg = th.GPTConfig(**widths, remat=False, compute_dtype=torch.float32)
@@ -361,7 +388,7 @@ def test_jax_zero1_state_steps_a_default_trainer(moe):
     jp, jo = jt.init(jax.random.PRNGKey(2))
     tp, to = load_jax_hybrid_gpt(*_np((jp, jo)), device="cpu")
     tt = th.HybridGPT(tcfg, device="cpu")
-    for i, (tok, lab) in enumerate(mr.batches(seed=2, n=2), 1):
+    for i, (tok, lab) in enumerate(_batches(seed=2, n=2), 1):
         jp, jo, jl = jt.train_step(jp, jo, *jt.shard_data(tok, lab),
                                    step_num=i)
         tp, to, tl = tt.train_step(tp, to, tok, lab, step_num=i)
@@ -529,16 +556,19 @@ def test_grouped_matmul_quantized_refuses_grad():
 
 @pytest.fixture(scope="module")
 def mesh_runs(jax_init, tmp_path_factory):
-    """Each rank's results per job (`torch_moe_ranks`), JAX's trainer at
+    """Each rank's results per job (`torch_mesh_ranks`), JAX's trainer at
     each mesh, and the port's 1-rank trainer, on the same state and
     batches."""
-    steps, ev = mr.batches(), mr.batches(seed=9, n=1)[0]
+    steps, ev = _batches(), _batches(seed=9, n=1)[0]
+    jobs = {world: [(name, "train_many" if name == METRICS_JOB else "train",
+                     {**MOE_KW, **kw}) for name, kw in js]
+            for world, js in MESH_JOBS.items()}
+    d = tmp_path_factory.mktemp("moe_mesh")
+    torch.save(dict(jobs=jobs, moe_state=jax_init, batches=steps, eval=ev,
+                    many_k=MANY_K), d / "inputs.pt")
     ranks = {}
-    for world in mr.MESH_JOBS:
-        d = tmp_path_factory.mktemp(f"moe_world{world}")
-        torch.save(dict(params=jax_init[0], opt=jax_init[1], batches=steps,
-                        eval=ev), d / "inputs.pt")
-        for rank, res in enumerate(mr.run_ranks(world, str(d))):
+    for world in jobs:
+        for res in mr.run_ranks(world, str(d)):
             for name, r in res.items():
                 ranks.setdefault(name, []).append(r)
     jax_runs = {}
@@ -555,8 +585,8 @@ def mesh_runs(jax_init, tmp_path_factory):
             res["metrics_steps"] = mr.metric_samples(jpm)
             jpm.REGISTRY.reset()
             jp, jo, losses = jt.train_many(jp, jo, *jt.shard_data(*steps[0]),
-                                           k=mr.MANY_K,
-                                           start_step=mr.STEPS + 1)
+                                           k=MANY_K,
+                                           start_step=STEPS + 1)
             res["many_losses"] = np.asarray(losses).tolist()
             res["many_last"] = _np(jt.last_moe_stats)
             res["metrics_many"] = mr.metric_samples(jpm)
@@ -580,7 +610,7 @@ def test_mesh_matches_jax_and_one_rank(mesh_runs, world, name, kw):
     want = jax_runs[_mesh_of(name)]
     results = ranks[name]
     assert len(results) == world
-    cfg = mr.config(**kw)
+    cfg = _config(**kw)
     for r, got in enumerate(results):
         assert got["losses"] == results[0]["losses"], f"rank {r}"
         np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
@@ -607,10 +637,11 @@ def test_mesh_metrics_and_train_many_match_jax(mesh_runs):
     and the parameters after it too."""
     ranks, jax_runs, _ = mesh_runs
     want = jax_runs["dp2_ep2"]
-    cfg = mr.config(**dict(mr.MESH_JOBS[4])[mr.METRICS_JOB])
-    for r, got in enumerate(ranks[mr.METRICS_JOB]):
-        for key in ("metrics_steps", "metrics_many"):
-            g, w = dict(got[key]), dict(want[key])
+    cfg = _config(**dict(MESH_JOBS[4])[METRICS_JOB])
+    for r, got in enumerate(ranks[METRICS_JOB]):
+        for key, wkey in (("metrics", "metrics_steps"),
+                          ("metrics_many", "metrics_many")):
+            g, w = dict(got[key]), dict(want[wkey])
             assert g.pop("MOE_AUX_LOSS") == pytest.approx(
                 w.pop("MOE_AUX_LOSS"), rel=1e-5)
             assert g == w, (r, key)

@@ -157,6 +157,7 @@ def test_port_imports_no_jax():
             "    importlib.import_module(m)\n"
             "need = {'paddle_tpu_torch.parallel.mp_layers',"
             " 'paddle_tpu_torch.parallel.hybrid_gpt',"
+            " 'paddle_tpu_torch.parallel.ring_attention',"
             " 'paddle_tpu_torch.parallel.moe_utils',"
             " 'paddle_tpu_torch.convert',"
             " 'paddle_tpu_torch.serving.distributed.tp_engine',"
